@@ -1,0 +1,100 @@
+"""Carries state from the JAX package into the port.
+
+Each function takes the reference's values as numpy arrays (``np.asarray``
+of a JAX array) and returns the port's tensors on a chosen device and dtype,
+so both packages can compute from the same state: HMC states and NUTS infos,
+inverse mass matrices and step sizes, the dc machine's target parameters,
+and the test posteriors by name.
+"""
+import numpy as np
+import torch
+
+from blackjax_tpu_torch.mcmc.hmc import HMCState
+from blackjax_tpu_torch.mcmc.integrators import IntegratorState
+from blackjax_tpu_torch.mcmc.nuts import NUTSInfo
+from blackjax_tpu_torch.models import targets
+from blackjax_tpu_torch.ops import fused_nuts_dc
+
+__all__ = [
+    "to_tensor",
+    "hmc_state",
+    "nuts_info",
+    "inverse_mass_matrix",
+    "step_size",
+    "target_dc",
+    "target",
+]
+
+
+def to_tensor(value, *, device=None, dtype=None) -> torch.Tensor:
+    """A numpy array (or scalar) as a tensor; integer and bool arrays keep
+    their kind, floating arrays take ``dtype`` (their own if None)."""
+    array = np.asarray(value)
+    t = torch.from_numpy(array.copy())
+    if t.is_floating_point() and dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def hmc_state(state, *, device=None, dtype=None) -> HMCState:
+    """An ``HMCState`` of the reference (fields as arrays) as the port's."""
+    return HMCState(*(to_tensor(v, device=device, dtype=dtype) for v in state))
+
+
+def nuts_info(info, *, device=None, dtype=None) -> NUTSInfo:
+    """A ``NUTSInfo`` of the reference as the port's; its trajectory end
+    states become the port's ``IntegratorState``."""
+
+    def convert(value):
+        if isinstance(value, tuple):
+            return IntegratorState(*(to_tensor(v, device=device, dtype=dtype) for v in value))
+        return to_tensor(value, device=device, dtype=dtype)
+
+    return NUTSInfo(*(convert(v) for v in info))
+
+
+def inverse_mass_matrix(value, *, device=None, dtype=None) -> torch.Tensor:
+    """A diagonal ``(d,)`` or dense ``(d, d)`` inverse mass matrix."""
+    t = to_tensor(value, device=device, dtype=dtype)
+    if t.dim() not in (1, 2):
+        raise ValueError(f"inverse mass matrix must be 1-d or 2-d, got {t.dim()}-d")
+    return t
+
+
+def step_size(value) -> float:
+    """A step size (array scalar) as a Python float."""
+    return float(np.asarray(value))
+
+
+def target_dc(name: str, dim: int, params=()) -> fused_nuts_dc.TargetKernelDC:
+    """The dc machine's target of the reference's ``TargetKernelDC.name``;
+    ``params`` are the reference target's ``params`` (the Gaussian's
+    inverse variances)."""
+    if name == "hierarchical_gaussian_dc":
+        return fused_nuts_dc.make_hierarchical_target_dc(dim)
+    if name == "gaussian_dc":
+        if not params:
+            return fused_nuts_dc.make_gaussian_target_dc(dim)
+        inv_var = tuple(float(v) for v in np.asarray(params[0], np.float32))
+        return fused_nuts_dc.gaussian_target_dc_from_params(dim, inv_var)
+    raise NotImplementedError(f"dc target {name!r} is not ported yet")
+
+
+_TARGETS = {
+    "std_normal": targets.standard_normal,
+    "ill_cond_gaussian": targets.ill_conditioned_gaussian,
+    "hierarchical_gaussian": targets.hierarchical_gaussian,
+}
+
+
+def target(name: str, dim: int | None = None) -> targets.Target:
+    """A test posterior by the reference's ``Target.name`` (such as
+    ``"hierarchical_gaussian_100"``) or by its family and ``dim``."""
+    if name == "eight_schools":
+        return targets.eight_schools_noncentered()
+    family, _, suffix = name.rpartition("_")
+    if suffix.isdigit() and family in _TARGETS:
+        return _TARGETS[family](int(suffix))
+    if name in _TARGETS and dim is not None:
+        return _TARGETS[name](dim)
+    raise NotImplementedError(f"target {name!r} is not ported yet")

@@ -1,0 +1,84 @@
+"""Builds the CUDA sources under ``blackjax_tpu_torch/csrc`` with ``nvcc`` into
+a shared library with a plain C interface, and loads it with ``ctypes``.
+
+The build happens at first use, into ``blackjax_tpu_torch/_build/`` (listed
+in ``.gitignore``), under a name keyed on a hash of the sources and flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is. The
+compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
+beside the library and returned by :func:`build_log`.
+"""
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "load", "build_log"]
+
+_PACKAGE = Path(__file__).resolve().parent.parent
+_SRC_DIR = _PACKAGE / "csrc"
+_BUILD_DIR = _PACKAGE / "_build"
+
+# sm_90a: Hopper with its architecture-specific instructions. No fast math
+# and no fused multiply-add contraction: the kernels round like their plain
+# PyTorch versions (see the note at the top of each source).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the CUDA "
+            "kernels are built from source at first use on a machine with the "
+            "CUDA toolkit"
+        )
+    return found
+
+
+def _paths(name: str):
+    src = _SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    stem = f"{name}-{digest.hexdigest()[:16]}"
+    return src, _BUILD_DIR / f"{stem}.so", _BUILD_DIR / f"{stem}.log"
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    src, lib, log = _paths(name)
+    if not lib.exists():
+        _BUILD_DIR.mkdir(exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True,
+            text=True,
+            check=False,
+        )
+        log.write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
+                f"{proc.stderr[-4000:]}"
+            )
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    return ctypes.CDLL(str(lib))
+
+
+def build_log(name: str) -> str:
+    """The compiler's report from the build of ``csrc/<name>.cu``."""
+    _, _, log = _paths(name)
+    return log.read_text() if log.exists() else ""

@@ -1,0 +1,125 @@
+"""Counter-based random numbers of the in-kernel NUTS machine, bit for bit.
+
+Port of the threefry helpers the Pallas kernels share:
+``blackjax_tpu/ops/fused_mclmc.py:50-69`` (``_rotl``, ``_threefry2x32``),
+``blackjax_tpu/ops/fused_nuts.py:118-135`` (``_popcount8``,
+``_counter_uniforms``), ``blackjax_tpu/ops/fused_nuts_dc.py:48-61``
+(``_counter_uniforms2``) and the Box-Muller momentum draw at
+``fused_nuts_dc.py:412-425``. The CUDA kernel
+(``csrc/fused_nuts_dc.cu``) carries the same functions as device code.
+
+PyTorch on the CPU has no add or shift for ``uint32``, so every 32-bit word
+here lives in an ``int64`` tensor holding a value in ``[0, 2**32)`` and is
+masked with ``& 0xFFFFFFFF`` after each add or left shift. Any integer
+tensor (or Python int) is accepted as input and reduced modulo ``2**32``,
+which is what the reference's ``astype(jnp.uint32)`` does to an int32.
+"""
+import torch
+
+__all__ = [
+    "MASK32",
+    "KEY1",
+    "rotl",
+    "threefry2x32",
+    "popcount8",
+    "counter_uniforms",
+    "counter_uniforms2",
+    "momentum_normals",
+]
+
+MASK32 = 0xFFFFFFFF
+# second key word of every counter draw (the golden-ratio constant)
+KEY1 = 0x9E3779B9
+_TF_ROT = (13, 15, 26, 6, 17, 29, 16, 24)
+_TF_PARITY = 0x1BD11BDA
+_TWO_PI = 6.283185307179586
+_U24 = 2.0**-24
+
+
+def _u32(x, like=None) -> torch.Tensor:
+    """A 32-bit word as int64 in [0, 2**32)."""
+    if not torch.is_tensor(x):
+        device = None if like is None else like.device
+        return torch.tensor(int(x) & MASK32, dtype=torch.int64, device=device)
+    return x.to(torch.int64) & MASK32
+
+
+def rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    """32-bit rotate left of int64-held words."""
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(k0, k1, c0, c1):
+    """20-round threefry2x32 of counter ``(c0, c1)`` under key ``(k0, k1)``.
+
+    Returns the two output words as int64 tensors in ``[0, 2**32)``,
+    broadcast over the inputs' shapes."""
+    like = next((t for t in (c0, c1, k0, k1) if torch.is_tensor(t)), None)
+    k0, k1, c0, c1 = (_u32(v, like) for v in (k0, k1, c0, c1))
+    ks2 = k0 ^ k1 ^ _TF_PARITY
+    x0 = (c0 + k0) & MASK32
+    x1 = (c1 + k1) & MASK32
+    keys = (k1, ks2, k0, k1, ks2, k0)
+    for block in range(5):
+        for i in range(4):
+            x0 = (x0 + x1) & MASK32
+            x1 = rotl(x1, _TF_ROT[(block % 2) * 4 + i])
+            x1 = x0 ^ x1
+        x0 = (x0 + keys[block]) & MASK32
+        x1 = (x1 + keys[block + 1] + (block + 1)) & MASK32
+    return x0, x1
+
+
+def popcount8(x: torch.Tensor) -> torch.Tensor:
+    """SWAR population count of small non-negative integers (< 2**30), the
+    reference's ``_popcount8``; the CUDA kernel uses ``__popc``."""
+    x = x.to(torch.int64)
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & MASK32) >> 24
+
+
+def _to_unit(word: torch.Tensor, offset: float = 0.0) -> torch.Tensor:
+    """The top 24 bits as an f32 in [0, 1) (or (0, 1] with offset 1)."""
+    return ((word >> 8).to(torch.float32) + offset) * _U24
+
+
+def _sub_word(tag: int, sub) -> torch.Tensor:
+    """``(tag << 24) | sub``: the second counter word of a tagged draw."""
+    if not torch.is_tensor(sub):
+        return (tag << 24) | (int(sub) & MASK32)
+    return (tag << 24) | _u32(sub)
+
+
+def counter_uniforms(seed, c0, tag: int, sub) -> torch.Tensor:
+    """One U[0,1) f32 per element, keyed by ``(seed, c0, tag|sub)``; the
+    second threefry word is discarded (reference ``_counter_uniforms``)."""
+    b1, _ = threefry2x32(seed, KEY1, c0, _sub_word(tag, sub))
+    return _to_unit(b1)
+
+
+def counter_uniforms2(seed, c0, tag: int, sub):
+    """Two U[0,1) f32 per element from one threefry block (reference
+    ``_counter_uniforms2``)."""
+    b1, b2 = threefry2x32(seed, KEY1, c0, _sub_word(tag, sub))
+    return _to_unit(b1), _to_unit(b2)
+
+
+def momentum_normals(seed, base_row: torch.Tensor, dim: int) -> torch.Tensor:
+    """The dc machine's standard-normal momentum draw, ``(C, dim)`` f32.
+
+    Element ``(c, j)`` is keyed by ``c0 = j`` and ``c1 = (1 << 24) |
+    base_row[c]`` with ``base_row = chain * num_steps + steps``; ``u1``
+    carries the ``+1`` offset that keeps it off zero before the log.
+
+    Port fault kept for parity (reference ``fused_nuts_dc.py:417``): the OR
+    collides with the tag bit once ``base_row >= 2**24``, i.e. when
+    ``chains * num_steps >= 2**24``, and chains ``2**24 / num_steps`` apart
+    then draw the same momenta."""
+    rows = torch.arange(dim, dtype=torch.int64, device=base_row.device)
+    c1 = (1 << 24) | _u32(base_row)
+    b1, b2 = threefry2x32(seed, KEY1, rows[None, :], c1[:, None])
+    u1 = _to_unit(b1, 1.0)
+    u2 = _to_unit(b2)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)

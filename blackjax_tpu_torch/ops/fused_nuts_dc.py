@@ -1,0 +1,621 @@
+"""The continuous NUTS machine: ``num_steps`` transitions per chain in one
+CUDA kernel.
+
+Port of ``blackjax_tpu/ops/fused_nuts_dc.py`` (``fused_nuts_run_dc`` and its
+Pallas kernel ``_nuts_kernel_dc``). The machine is the flattened NUTS engine
+taken one leapfrog leaf per iteration (``mcmc/trajectory.py``), with the
+inline restart of the continuous runner: a chain that closes a transition
+starts its next one on the following iteration. Its randomness is the
+counter-based threefry of :mod:`blackjax_tpu_torch.ops.counter_rng`, keyed
+on (seed, chain, step, depth or leaf, stream) exactly as the Pallas kernel
+keys it, so the port draws the same numbers as the reference and can be held
+against it chain by chain.
+
+Two implementations of the same machine live here:
+
+- the CUDA kernel ``csrc/fused_nuts_dc.cu`` (one warp per chain), launched
+  for CUDA tensors;
+- :func:`fused_nuts_run_dc_plain`, the plain PyTorch version on a ``(C, d)``
+  batch with masks, taken for CPU tensors and used on the card as the
+  kernel's reference.
+
+Ported: the diagonal metric, the hierarchical and Gaussian targets,
+``pack=1`` and ``restart_every=1``. Not ported yet: the dense and low-rank
+metrics, the matrix targets of ``ops/targets_dc.py``, and ``pack`` /
+``restart_every`` other than 1 (both are scheduling knobs of the TPU's
+lockstep lanes; they raise ``NotImplementedError``). ``tile_chains`` is
+accepted and ignored (chains are independent on the GPU), the reference's
+``FNUTS_DISABLE`` attribution switch is left out, and nothing is padded: the
+port works on exact ``d``.
+"""
+import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from blackjax_tpu_torch.ops import _nvcc
+from blackjax_tpu_torch.ops.counter_rng import (
+    MASK32,
+    counter_uniforms,
+    counter_uniforms2,
+    momentum_normals,
+    popcount8,
+    threefry2x32,
+)
+
+__all__ = [
+    "TargetKernelDC",
+    "LAUNCHES",
+    "build",
+    "fused_nuts_run_dc",
+    "fused_nuts_run_dc_plain",
+    "make_gaussian_target_dc",
+    "make_hierarchical_target_dc",
+    "threefry2x32_device",
+]
+
+# kernel launches made by the wrappers below, by kernel name; a run that
+# should go through a kernel resets the count and reads it afterwards
+LAUNCHES = {"fused_nuts_dc": 0, "threefry2x32": 0}
+
+_CUDA_HIERARCHICAL = 0
+_CUDA_GAUSSIAN = 1
+_MAX_CUDA_DIM = 256  # eight registers per lane and vector
+
+
+@dataclass(frozen=True, eq=False)
+class TargetKernelDC:
+    """An analytic target of the machine.
+
+    ``value_and_grad(x) -> (logdensity (C,), grad (C, d))`` is the plain
+    PyTorch version on an f32 ``(C, d)`` batch; ``cuda_target`` names the
+    same target's device function in ``csrc/fused_nuts_dc.cu``; ``params``
+    are its host vectors (the Gaussian's inverse variances), as in the
+    reference's ``TargetKernelDC``.
+    """
+
+    name: str
+    dim: int
+    value_and_grad: Callable
+    logdensity_fn: Callable
+    cuda_target: int
+    params: tuple = ()
+
+
+def make_gaussian_target_dc(dim: int, variances=None) -> TargetKernelDC:
+    """Independent Gaussian ``N(0, diag(variances))``."""
+    if variances is None:
+        inv_var_host = torch.ones(dim, dtype=torch.float32)
+    else:
+        inv_var_host = 1.0 / torch.as_tensor(variances, dtype=torch.float32)
+    return gaussian_target_dc_from_params(dim, tuple(float(v) for v in inv_var_host))
+
+
+def gaussian_target_dc_from_params(dim: int, inv_var_param: tuple) -> TargetKernelDC:
+    """The Gaussian target from its inverse variances, as the reference's
+    ``make_gaussian_target_dc(...).params[0]`` holds them."""
+    if len(inv_var_param) != dim:
+        raise ValueError(f"{len(inv_var_param)} inverse variances for dim {dim}")
+
+    def value_and_grad(x):
+        inv_var = torch.tensor(inv_var_param, dtype=x.dtype, device=x.device)
+        ld = -0.5 * (x * x * inv_var).sum(-1)
+        return ld, -x * inv_var
+
+    def logdensity_fn(x):
+        inv_var = torch.tensor(inv_var_param, dtype=x.dtype, device=x.device)
+        return -0.5 * (x**2 * inv_var).sum(-1)
+
+    return TargetKernelDC(
+        name="gaussian_dc",
+        dim=dim,
+        value_and_grad=value_and_grad,
+        logdensity_fn=logdensity_fn,
+        cuda_target=_CUDA_GAUSSIAN,
+        params=(inv_var_param,),
+    )
+
+
+def make_hierarchical_target_dc(dim: int) -> TargetKernelDC:
+    """The flagship hierarchical Gaussian ``x = (log_tau, theta)``, written in
+    the reference's operation order so both round alike."""
+    n_theta = dim - 1
+
+    def value_and_grad(x):
+        log_tau = x[:, 0]
+        theta = x[:, 1:]
+        theta_sq = (theta * theta).sum(-1)
+        exp_neg = torch.exp(-log_tau)
+        ld = (
+            -0.5 * log_tau**2
+            - 0.5 * theta_sq * exp_neg
+            - 0.5 * n_theta * log_tau
+        )
+        g_tau = -log_tau + 0.5 * theta_sq * exp_neg - 0.5 * n_theta
+        grad = torch.cat([g_tau[:, None], -(theta * exp_neg[:, None])], dim=1)
+        return ld, grad
+
+    def logdensity_fn(x):
+        log_tau = x[..., 0]
+        theta = x[..., 1:]
+        return (
+            -0.5 * log_tau**2
+            - 0.5 * (theta**2).sum(-1) * torch.exp(-log_tau)
+            - 0.5 * n_theta * log_tau
+        )
+
+    return TargetKernelDC(
+        name="hierarchical_gaussian_dc",
+        dim=dim,
+        value_and_grad=value_and_grad,
+        logdensity_fn=logdensity_fn,
+        cuda_target=_CUDA_HIERARCHICAL,
+    )
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _dot(a, b):
+    return (a * b).sum(-1)
+
+
+def _logaddexp(a, b):
+    """JAX's spelling: a NaN difference (equal infinities) gives ``a + b``,
+    so ``logaddexp(-inf, -inf) == -inf`` where the naive form gives NaN."""
+    delta = a - b
+    return torch.where(
+        torch.isnan(delta),
+        a + b,
+        torch.maximum(a, b) + torch.log1p(torch.exp(-delta.abs())),
+    )
+
+
+def _sel(pred, on_true, on_false):
+    if on_true.dim() > pred.dim():
+        pred = pred[:, None]
+    return torch.where(pred, on_true, on_false)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _machine_plain(
+    x0,
+    imm,
+    sigma_m,
+    step_size: float,
+    *,
+    target: TargetKernelDC,
+    num_steps: int,
+    max_depth: int,
+    seed: int,
+    track_rows: tuple,
+    budget: int,
+    chunk: int,
+    divergence_threshold: float,
+):
+    """The machine on a ``(C, d)`` f32 batch in plain PyTorch, with masks.
+
+    Mirrors ``_nuts_kernel_dc`` select for select. The leaf loop stops early
+    once every chain has ``num_steps`` transitions, checked once per
+    ``chunk`` iterations (one host sync per chunk). Returns ``(acc_x (C, d),
+    steps (C,) int32, grads (C,) f32, history (C, S, k))``.
+    """
+    C, d = x0.shape
+    S = num_steps
+    dev = x0.device
+    vg = target.value_and_grad
+    f32 = torch.float32
+    eps = torch.tensor(step_size, dtype=f32, device=dev)
+    chain = torch.arange(C, dtype=torch.int64, device=dev)
+    track = torch.tensor(track_rows, dtype=torch.int64, device=dev)
+
+    acc_x = x0
+    acc_ld, acc_g = vg(acc_x)
+    zero_v = torch.zeros_like(x0)
+    zero_s = torch.zeros(C, dtype=f32, device=dev)
+    zero_i = torch.zeros(C, dtype=torch.int64, device=dev)
+    fbool = torch.zeros(C, dtype=torch.bool, device=dev)
+    neg_inf = torch.full((C,), -torch.inf, dtype=f32, device=dev)
+    s = dict(
+        acc_x=acc_x, acc_g=acc_g, acc_ld=acc_ld,
+        steps=zero_i,
+        done=~fbool,  # iteration 0 starts with done = 1
+        cur_x=x0, cur_m=zero_v, cur_g=acc_g,
+        left_x=x0, left_m=zero_v, left_g=acc_g,
+        right_x=x0, right_m=zero_v, right_g=acc_g,
+        msum=zero_v, sub_msum=zero_v,
+        prop_x=x0, prop_g=acc_g, prop_ld=acc_ld,
+        prop_w=zero_s, prop_slpa=zero_s,
+        sub_x=x0, sub_g=acc_g, sub_ld=acc_ld,
+        sub_w=zero_s, sub_slpa=zero_s,
+        h0=zero_s,
+        direction=zero_s + 1.0,
+        depth=zero_i, leaf=zero_i, nstates=zero_i,
+        div=fbool, turn=fbool,
+        grads=zero_s,
+        ckpt_m=[zero_v] * max_depth,
+        ckpt_s=[zero_v] * max_depth,
+    )
+    hist = torch.zeros(C, S, len(track_rows), dtype=f32, device=dev)
+
+    def leaf_step(s):
+        live = s["steps"] < S
+        base_row = chain * S + s["steps"]  # per-(chain, step) counter key
+
+        # ---- inline restart: chains that closed start the next one ----
+        start = s["done"] & live
+        fresh_m = sigma_m * momentum_normals(seed, base_row, d)
+        w_fresh = imm * fresh_m
+        h0_new = -s["acc_ld"] + 0.5 * _dot(w_fresh, fresh_m)
+        for name, fresh in [
+            ("cur_x", s["acc_x"]), ("cur_m", fresh_m), ("cur_g", s["acc_g"]),
+            ("left_x", s["acc_x"]), ("left_m", fresh_m), ("left_g", s["acc_g"]),
+            ("right_x", s["acc_x"]), ("right_m", fresh_m), ("right_g", s["acc_g"]),
+            ("msum", fresh_m), ("sub_msum", zero_v),
+            ("prop_x", s["acc_x"]), ("prop_g", s["acc_g"]), ("prop_ld", s["acc_ld"]),
+            ("sub_x", s["acc_x"]), ("sub_g", s["acc_g"]), ("sub_ld", s["acc_ld"]),
+            ("prop_w", zero_s), ("prop_slpa", neg_inf),
+            ("sub_w", zero_s), ("sub_slpa", neg_inf),
+            ("h0", h0_new),
+            ("depth", zero_i), ("leaf", zero_i), ("nstates", zero_i),
+        ]:
+            s[name] = _sel(start, fresh, s[name])
+        s["div"] = s["div"] & ~start
+        s["turn"] = s["turn"] & ~start
+        s["done"] = s["done"] & ~start
+        active = ~s["done"] & live
+
+        # ---- subtree start: direction draw ----
+        at_start = (s["leaf"] == 0) & active
+        u_dir, u_prop = counter_uniforms2(seed, base_row, 2, s["depth"])
+        one = torch.ones_like(u_dir)
+        new_dir = torch.where(u_dir < 0.5, -one, one)
+        direction = torch.where(at_start, new_dir, s["direction"])
+        fwd = direction > 0.0
+        cur_x = _sel(at_start, _sel(fwd, s["right_x"], s["left_x"]), s["cur_x"])
+        cur_m = _sel(at_start, _sel(fwd, s["right_m"], s["left_m"]), s["cur_m"])
+        cur_g = _sel(at_start, _sel(fwd, s["right_g"], s["left_g"]), s["cur_g"])
+
+        # ---- one velocity-Verlet leaf ----
+        d_eps = (direction * eps)[:, None]
+        m_half = cur_m + 0.5 * d_eps * cur_g
+        new_x = cur_x + d_eps * (imm * m_half)
+        new_ld, new_g = vg(new_x)
+        new_m = m_half + 0.5 * d_eps * new_g
+        w_new = imm * new_m
+        energy = -new_ld + 0.5 * _dot(w_new, new_m)
+        delta = s["h0"] - energy
+        delta = torch.where(torch.isnan(delta), -torch.inf, delta)
+        leaf_w = delta
+        leaf_slpa = torch.minimum(delta, torch.zeros_like(delta))
+        leaf_div = (-delta > divergence_threshold) & active
+
+        # ---- progressive uniform merge within the subtree ----
+        u_leaf = counter_uniforms(seed, base_row, 3, s["nstates"])
+        p_acc = torch.sigmoid(leaf_w - s["sub_w"])
+        take = (u_leaf < p_acc) & active
+        sub_x = _sel(at_start, new_x, _sel(take, new_x, s["sub_x"]))
+        sub_g = _sel(at_start, new_g, _sel(take, new_g, s["sub_g"]))
+        sub_ld = _sel(at_start, new_ld, _sel(take, new_ld, s["sub_ld"]))
+        sub_w = _sel(at_start, leaf_w, _logaddexp(s["sub_w"], leaf_w))
+        sub_slpa = _sel(at_start, leaf_slpa, _logaddexp(s["sub_slpa"], leaf_slpa))
+        sub_msum = _sel(at_start, new_m, s["sub_msum"] + new_m)
+
+        # ---- checkpointed subtree U-turn ----
+        leaf_i = s["leaf"]
+        idx_max = popcount8(leaf_i >> 1)
+        idx_min = idx_max - popcount8(((~leaf_i) & (leaf_i + 1)) - 1) + 1
+        is_even = (leaf_i % 2) == 0
+        rho_base = sub_msum - 0.5 * new_m
+        subtree_turning = fbool
+        ckpt_m, ckpt_s = [], []
+        for i in range(max_depth):
+            w_i = is_even & (idx_max == i) & active
+            ckm = _sel(w_i, new_m, s["ckpt_m"][i])
+            cks = _sel(w_i, sub_msum, s["ckpt_s"][i])
+            chk = (i >= idx_min) & (i <= idx_max) & ~is_even
+            rho = rho_base - cks + 0.5 * ckm
+            slot_turn = (_dot(imm * ckm, rho) <= 0.0) | (_dot(w_new, rho) <= 0.0)
+            subtree_turning = subtree_turning | (chk & slot_turn)
+            ckpt_m.append(ckm)
+            ckpt_s.append(cks)
+        subtree_turning = subtree_turning & active
+
+        # ---- subtree boundary ----
+        leaf_next = leaf_i + 1
+        subtree_complete = leaf_next >= (torch.ones_like(leaf_i) << s["depth"])
+        aborted = leaf_div | subtree_turning
+        closing = (subtree_complete | aborted) & active
+        msum = _sel(closing, s["msum"] + sub_msum, s["msum"])
+        to_left, to_right = closing & ~fwd, closing & fwd
+        left_x = _sel(to_left, new_x, s["left_x"])
+        left_m = _sel(to_left, new_m, s["left_m"])
+        left_g = _sel(to_left, new_g, s["left_g"])
+        right_x = _sel(to_right, new_x, s["right_x"])
+        right_m = _sel(to_right, new_m, s["right_m"])
+        right_g = _sel(to_right, new_g, s["right_g"])
+
+        # biased merge toward the new subtree; an aborted subtree adds its
+        # acceptance statistics only
+        p_biased = torch.minimum(torch.exp(sub_w - s["prop_w"]), torch.ones_like(sub_w))
+        take_traj = (u_prop < p_biased) & closing & ~aborted
+        prop_x = _sel(take_traj, sub_x, s["prop_x"])
+        prop_g = _sel(take_traj, sub_g, s["prop_g"])
+        prop_ld = _sel(take_traj, sub_ld, s["prop_ld"])
+        merged_pw = _logaddexp(s["prop_w"], sub_w)
+        prop_w = _sel(closing & ~aborted, merged_pw, s["prop_w"])
+        prop_slpa = _sel(closing, _logaddexp(s["prop_slpa"], sub_slpa), s["prop_slpa"])
+
+        rho = msum - 0.5 * (left_m + right_m)
+        full_turn = closing & (
+            (_dot(imm * left_m, rho) <= 0.0) | (_dot(imm * right_m, rho) <= 0.0)
+        )
+        depth = torch.where(closing, s["depth"] + 1, s["depth"])
+        leaf = torch.where(closing, zero_i, leaf_next)
+        div = s["div"] | leaf_div
+        turn = s["turn"] | (closing & (subtree_turning | full_turn))
+        done_new = div | turn | (closing & (depth >= max_depth))
+        nstates = torch.where(active, s["nstates"] + 1, s["nstates"])
+
+        # ---- transition close: accept, count, record ----
+        just_closed = active & done_new
+        grads = s["grads"] + torch.where(just_closed, nstates.to(f32), 0.0)
+        acc_x = _sel(just_closed, prop_x, s["acc_x"])
+        row = s["steps"].clamp(max=S - 1)  # history row of the closing step
+        hist[chain, row] = _sel(just_closed, acc_x[:, track], hist[chain, row])
+        steps = torch.where(just_closed, s["steps"] + 1, s["steps"])
+
+        s.update(
+            cur_x=new_x, cur_m=new_m, cur_g=new_g,
+            left_x=left_x, left_m=left_m, left_g=left_g,
+            right_x=right_x, right_m=right_m, right_g=right_g,
+            msum=msum, sub_msum=sub_msum,
+            prop_x=prop_x, prop_g=prop_g, prop_ld=prop_ld,
+            prop_w=prop_w, prop_slpa=prop_slpa,
+            sub_x=sub_x, sub_g=sub_g, sub_ld=sub_ld,
+            sub_w=sub_w, sub_slpa=sub_slpa,
+            direction=direction, depth=depth, leaf=leaf, nstates=nstates,
+            div=div, turn=turn, done=done_new | s["done"],
+            grads=grads, steps=steps, acc_x=acc_x,
+            acc_g=_sel(just_closed, prop_g, s["acc_g"]),
+            acc_ld=_sel(just_closed, prop_ld, s["acc_ld"]),
+            ckpt_m=ckpt_m, ckpt_s=ckpt_s,
+        )
+
+    for _ in range(budget // chunk):
+        if bool((s["steps"] >= S).all()):
+            break
+        for _ in range(chunk):
+            leaf_step(s)
+    return s["acc_x"], s["steps"].to(torch.int32), s["grads"], hist
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+_VP = ctypes.c_void_p
+_INT = ctypes.c_int
+_FLOAT = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=1)
+def _library():
+    lib = _nvcc.load("fused_nuts_dc")
+    lib.bjt_fused_nuts_dc.argtypes = [_VP] * 9 + [_INT] * 7 + [_FLOAT, _FLOAT, _INT, _VP]
+    lib.bjt_fused_nuts_dc.restype = _INT
+    lib.bjt_threefry2x32.argtypes = [_VP, _VP, ctypes.c_uint32, ctypes.c_uint32, _VP, _VP, _INT, _VP]
+    lib.bjt_threefry2x32.restype = _INT
+    lib.bjt_error_string.argtypes = [_INT]
+    lib.bjt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> str:
+    """Build (or load) the kernel library; returns the compiler's report of
+    registers, shared memory and spills per kernel."""
+    _library()
+    return _nvcc.build_log("fused_nuts_dc")
+
+
+def _check(lib, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"{what} launch failed: {lib.bjt_error_string(code).decode()} ({code})"
+        )
+
+
+def _stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _require_cuda_f32(name, t, device, shape):
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name}: expected float32 {shape} on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_cuda(x, imm, sigma_m, step_size, *, target, num_steps, max_depth,
+                 seed, track_rows, budget, chunk, divergence_threshold):
+    del chunk  # the kernel stops each chain on its own
+    C, d = x.shape
+    if d > _MAX_CUDA_DIM:
+        raise NotImplementedError(
+            f"the CUDA machine holds d <= {_MAX_CUDA_DIM} per warp; got d={d}"
+        )
+    dev = x.device
+    inv_var = None
+    if target.params:
+        inv_var = torch.tensor(target.params[0], dtype=torch.float32, device=dev)
+    _require_cuda_f32("positions", x, dev, (C, d))
+    _require_cuda_f32("inverse_mass_matrix", imm, dev, (d,))
+    _require_cuda_f32("sigma_m", sigma_m, dev, (d,))
+    if inv_var is not None:
+        _require_cuda_f32("inv_var", inv_var, dev, (d,))
+    lib = _library()
+    out_x = torch.empty_like(x)
+    out_steps = torch.empty(C, dtype=torch.int32, device=dev)
+    out_grads = torch.empty(C, dtype=torch.float32, device=dev)
+    hist = torch.zeros(C, num_steps, len(track_rows), dtype=torch.float32, device=dev)
+    rows = torch.tensor(track_rows, dtype=torch.int32, device=dev)
+    code = lib.bjt_fused_nuts_dc(
+        x.data_ptr(), imm.data_ptr(), sigma_m.data_ptr(),
+        None if inv_var is None else inv_var.data_ptr(), rows.data_ptr(),
+        out_x.data_ptr(), out_steps.data_ptr(), out_grads.data_ptr(), hist.data_ptr(),
+        C, d, num_steps, len(track_rows), max_depth, budget, target.cuda_target,
+        float(step_size), float(divergence_threshold), seed, _stream_handle(dev),
+    )
+    _check(lib, code, "fused_nuts_dc")
+    LAUNCHES["fused_nuts_dc"] += 1
+    return out_x, out_steps, out_grads, hist
+
+
+def _prepare(
+    positions, inverse_mass_matrix, *, target, num_steps, max_num_doublings=8,
+    seed=0, num_track=8, track_rows=None, budget=None, chunk=128, pack=1,
+    restart_every=1, divergence_threshold=1000.0,
+):
+    """Validate as the reference does; return the f32 positions, the
+    diagonal ``imm``, the momentum scale and the machine's arguments."""
+    C, d = positions.shape
+    if d != target.dim:
+        raise ValueError(f"positions dim {d} != registered target dim {target.dim}")
+    if num_track > d:
+        raise ValueError(f"num_track={num_track} > dim {d}")
+    if track_rows is not None:
+        track_rows = tuple(int(r) for r in track_rows)
+        if len(track_rows) != num_track:
+            raise ValueError(
+                f"track_rows has {len(track_rows)} entries, expected "
+                f"num_track={num_track}"
+            )
+        if any(r < 0 or r >= d for r in track_rows):
+            raise ValueError(f"track_rows out of range [0, {d}): {track_rows}")
+    else:
+        track_rows = tuple(range(num_track))
+    if pack < 1:
+        raise ValueError(f"pack must be >= 1, got {pack}")
+    if restart_every < 1 or chunk % restart_every != 0:
+        raise ValueError(
+            f"restart_every must be >= 1 and divide chunk, got "
+            f"{restart_every} (chunk={chunk})"
+        )
+    if pack != 1 or restart_every != 1:
+        raise NotImplementedError(
+            "pack and restart_every schedule the TPU's lockstep lanes; the "
+            "port runs chains independently and takes only 1 for both"
+        )
+    if not -(2**31) <= int(seed) < 2**31:
+        raise ValueError(f"seed must fit in int32, got {seed}")
+    imm = torch.as_tensor(inverse_mass_matrix)
+    if imm.dim() > 1:
+        raise NotImplementedError(
+            "dense and low-rank inverse mass matrices are not ported yet"
+        )
+    if budget is None:
+        budget = 32 * num_steps
+    dev = positions.device
+    x = positions.to(torch.float32).contiguous()
+    imm = torch.broadcast_to(imm.to(device=dev, dtype=torch.float32), (d,)).contiguous()
+    # momentum scale sqrt(1 / imm), zero where imm <= 0 (the reference's
+    # masked form, fused_nuts_dc.py:884-891)
+    pos = imm > 0.0
+    sigma_m = torch.sqrt(torch.where(pos, 1.0 / torch.where(pos, imm, 1.0), 0.0))
+    machine = dict(
+        target=target, num_steps=num_steps, max_depth=max_num_doublings,
+        seed=int(seed), track_rows=track_rows, budget=_round_up(budget, chunk),
+        chunk=chunk, divergence_threshold=divergence_threshold,
+    )
+    return x, imm, sigma_m, machine
+
+
+def fused_nuts_run_dc(
+    positions,
+    inverse_mass_matrix,
+    step_size,
+    *,
+    target: TargetKernelDC,
+    num_steps: int,
+    max_num_doublings: int = 8,
+    seed: int = 0,
+    num_track: int = 8,
+    track_rows: tuple = None,
+    tile_chains: int = 128,
+    budget: int = None,
+    chunk: int = 128,
+    pack: int = 1,
+    restart_every: int = 1,
+    divergence_threshold: float = 1000.0,
+):
+    """Run ``num_steps`` NUTS transitions per chain.
+
+    ``positions`` is ``(C, d)``; the inverse mass matrix is diagonal ``(d,)``
+    (or a scalar). Returns ``(final_positions (C, d), history (C, num_steps,
+    num_track), total_grads (), steps (C,) int32)``, as the reference does.
+    ``steps[c] < num_steps`` means the leaf ``budget`` ran out before chain
+    ``c`` finished; ``budget`` is rounded up to a multiple of ``chunk``.
+    History records coordinates ``0..num_track-1``, or ``track_rows``.
+
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+    ``tile_chains`` is accepted and ignored. Chain ids are local to the
+    call: callers that split chains across devices offset ``seed``.
+    """
+    del tile_chains
+    x, imm, sigma_m, machine = _prepare(
+        positions, inverse_mass_matrix, target=target, num_steps=num_steps,
+        max_num_doublings=max_num_doublings, seed=seed, num_track=num_track,
+        track_rows=track_rows, budget=budget, chunk=chunk, pack=pack,
+        restart_every=restart_every, divergence_threshold=divergence_threshold,
+    )
+    if x.device.type == "cuda":
+        acc_x, steps, grads, hist = _launch_cuda(x, imm, sigma_m, float(step_size), **machine)
+    elif x.device.type == "cpu":
+        acc_x, steps, grads, hist = _machine_plain(x, imm, sigma_m, float(step_size), **machine)
+    else:
+        raise NotImplementedError(f"no machine for device type {x.device.type!r}")
+    return acc_x, hist, grads.sum(), steps
+
+
+def fused_nuts_run_dc_plain(positions, inverse_mass_matrix, step_size, **kwargs):
+    """The plain PyTorch version of :func:`fused_nuts_run_dc`, with the same
+    arguments and outputs, on the device of ``positions``: on the card it is
+    the kernel's reference. It launches nothing of ours and counts nothing."""
+    kwargs.pop("tile_chains", None)
+    x, imm, sigma_m, machine = _prepare(positions, inverse_mass_matrix, **kwargs)
+    acc_x, steps, grads, hist = _machine_plain(x, imm, sigma_m, float(step_size), **machine)
+    return acc_x, hist, grads.sum(), steps
+
+
+def threefry2x32_device(k0: int, k1: int, c0, c1):
+    """threefry2x32 of ``(c0, c1)`` through the kernel's own device function
+    (CUDA tensors) or the plain version (CPU tensors). Words are int64
+    tensors in ``[0, 2**32)``; returns the two output words the same way."""
+    if c0.device.type != "cuda":
+        return threefry2x32(k0, k1, c0, c1)
+    c0, c1 = torch.broadcast_tensors(c0.to(torch.int64), c1.to(torch.int64))
+
+    def as_u32_storage(w):  # two's complement int32 holds the uint32 bits
+        w = w & MASK32
+        return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()
+
+    a, b = as_u32_storage(c0), as_u32_storage(c1)
+    o0, o1 = torch.empty_like(a), torch.empty_like(a)
+    lib = _library()
+    code = lib.bjt_threefry2x32(
+        a.data_ptr(), b.data_ptr(), k0 & MASK32, k1 & MASK32,
+        o0.data_ptr(), o1.data_ptr(), a.numel(), _stream_handle(a.device),
+    )
+    _check(lib, code, "threefry2x32")
+    LAUNCHES["threefry2x32"] += 1
+    return o0.to(torch.int64) & MASK32, o1.to(torch.int64) & MASK32

@@ -1,0 +1,90 @@
+"""The CUDA kernel of the port against its plain PyTorch version, on the card.
+
+Needs an NVIDIA GPU and nvcc: every test is marked ``gpu`` and skips
+without a card (decided in the fixture, at run time). This file imports no
+JAX, so it also runs where JAX is absent:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Kernel and plain version draw the same counter-based numbers and round
+alike except for the order of their sums, so they are held chain by chain
+as the CPU test holds the plain version against the Pallas kernel.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from blackjax_tpu_torch.ops import counter_rng  # noqa: E402
+from blackjax_tpu_torch.ops import fused_nuts_dc as dc  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+AGREE_FLOOR = 0.9  # as tests/test_torch_fused_nuts_dc.py
+TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize(
+    "d, C, S, target",
+    [
+        (8, 64, 8, dc.make_hierarchical_target_dc(8)),
+        (4, 64, 8, dc.make_gaussian_target_dc(4, [1.0, 4.0, 0.25, 2.0])),
+        (100, 256, 8, dc.make_hierarchical_target_dc(100)),
+        (200, 64, 4, dc.make_hierarchical_target_dc(200)),
+    ],
+)
+def test_kernel_matches_plain_version(cuda, d, C, S, target):
+    x = torch.from_numpy(
+        (0.5 * np.random.default_rng(d).standard_normal((C, d))).astype(np.float32)
+    ).to(cuda)
+    imm = torch.ones(d, device=cuda)
+    kw = dict(target=target, num_steps=S, max_num_doublings=6, seed=7,
+              num_track=min(d, 8), budget=2**6 * S)
+    before = dc.LAUNCHES["fused_nuts_dc"]
+    kern = dc.fused_nuts_run_dc(x, imm, 0.2, **kw)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES["fused_nuts_dc"] == before + 1
+    plain = dc.fused_nuts_run_dc_plain(x, imm, 0.2, **kw)
+    assert torch.equal(kern[3], plain[3])
+    close = torch.isclose(kern[0], plain[0], rtol=TOL, atol=TOL).all(1)
+    close &= torch.isclose(kern[1], plain[1], rtol=TOL, atol=TOL).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
+
+
+def test_budget_exhaustion_leaves_zero_rows(cuda):
+    d, C, S = 8, 32, 8
+    x = torch.zeros(C, d, device=cuda)
+    fx, hist, _, steps = dc.fused_nuts_run_dc(
+        x, torch.ones(d, device=cuda), 0.2, target=dc.make_hierarchical_target_dc(d),
+        num_steps=S, num_track=4, seed=3, budget=8, chunk=8,
+    )
+    steps = steps.cpu()
+    assert int(steps.max()) < S
+    h = hist.cpu()
+    for c in range(C):
+        assert (h[c, int(steps[c]):] == 0).all()
+
+
+def test_threefry_device_function_bit_for_bit(cuda):
+    rng = np.random.default_rng(0)
+    words = rng.integers(0, 2**32, (2, 10_000), dtype=np.uint64).astype(np.int64)
+    c0, c1 = torch.from_numpy(words[0]), torch.from_numpy(words[1])
+    on_card = dc.threefry2x32_device(5, counter_rng.KEY1, c0.to(cuda), c1.to(cuda))
+    plain = counter_rng.threefry2x32(5, counter_rng.KEY1, c0, c1)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(on_card, plain))
+
+
+def test_wide_targets_are_refused(cuda):
+    d = 300
+    with pytest.raises(NotImplementedError, match="d <= 256"):
+        dc.fused_nuts_run_dc(
+            torch.zeros(4, d, device=cuda), torch.ones(d, device=cuda), 0.2,
+            target=dc.make_hierarchical_target_dc(d), num_steps=2, num_track=2,
+        )

@@ -1,0 +1,161 @@
+"""The port's dc machine (its plain PyTorch version, which the wrapper takes
+for CPU tensors) against the Pallas kernel in interpret mode.
+
+Both draw the same counter-based threefry numbers, so they are held chain by
+chain. Their arithmetic is the same; what differs is the summation order of
+the dot products and the last ulp of exp, log and cos. Such a difference
+changes a chain's path only if it flips an accept or a U-turn decision, so
+the test measures the share of chains whose final position and history
+agree to 1e-5, and asserts a floor under the measured share. Measured on
+this configuration: 16 of 16 chains agree for both targets, the largest
+difference is ~1e-6, and steps and total gradient counts are identical.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from blackjax_tpu.ops import fused_nuts_dc as ref  # noqa: E402
+from blackjax_tpu_torch import interop  # noqa: E402
+from blackjax_tpu_torch.ops import fused_nuts_dc as port  # noqa: E402
+
+C, S = 16, 8
+COMMON = dict(num_steps=S, max_num_doublings=4, seed=7, budget=S * 16, chunk=16)
+# one flip in 16 chains may pass; the measured share is 1.0
+AGREE_FLOOR = 0.9
+TOL = 1e-5
+
+CASES = {
+    "hierarchical": (8, ref.make_hierarchical_target_dc(8), 0.2),
+    "gaussian": (4, ref.make_gaussian_target_dc(4, [1.0, 4.0, 0.25, 2.0]), 0.4),
+}
+
+
+def _x0(d):
+    return (0.5 * np.random.default_rng(0).standard_normal((C, d))).astype(np.float32)
+
+
+def agreeing_chains(ref_out, port_out, tol=TOL):
+    """Per chain: final position and history within ``tol``."""
+    fx_r, h_r = np.asarray(ref_out[0]), np.asarray(ref_out[1])
+    fx_p, h_p = port_out[0].numpy(), port_out[1].numpy()
+    close_x = np.isclose(fx_p, fx_r, rtol=tol, atol=tol).all(axis=1)
+    close_h = np.isclose(h_p, h_r, rtol=tol, atol=tol).all(axis=(1, 2))
+    return close_x & close_h
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def runs(request):
+    d, ref_target, step_size = CASES[request.param]
+    x0 = _x0(d)
+    out_ref = ref.fused_nuts_run_dc(
+        jnp.asarray(x0), jnp.ones(d), step_size, target=ref_target,
+        num_track=d, interpret=True, **COMMON,
+    )
+    target = interop.target_dc(ref_target.name, d, ref_target.params)
+    before = dict(port.LAUNCHES)
+    out_port = port.fused_nuts_run_dc(
+        torch.from_numpy(x0), torch.ones(d), step_size, target=target,
+        num_track=d, **COMMON,
+    )
+    assert port.LAUNCHES == before, "a CPU call must not count a kernel launch"
+    return out_ref, out_port, x0, target, step_size
+
+
+def test_steps_and_grads_identical(runs):
+    out_ref, out_port, *_ = runs
+    np.testing.assert_array_equal(out_port[3].numpy(), np.asarray(out_ref[3]))
+    assert float(out_port[2]) == float(out_ref[2])
+    assert out_port[3].dtype == torch.int32
+
+
+def test_chains_agree_with_the_pallas_kernel(runs):
+    out_ref, out_port, x0, *_ = runs
+    assert out_port[0].shape == x0.shape and out_port[1].shape == (C, S, x0.shape[1])
+    assert agreeing_chains(out_ref, out_port).mean() >= AGREE_FLOOR
+
+
+def test_track_rows_selects_columns(runs):
+    _, out_port, x0, target, step_size = runs
+    rows = (2, 0, 3)
+    _, hist_sub, _, _ = port.fused_nuts_run_dc(
+        torch.from_numpy(x0), torch.ones(x0.shape[1]), step_size, target=target,
+        num_track=len(rows), track_rows=rows, **COMMON,
+    )
+    np.testing.assert_array_equal(hist_sub.numpy(), out_port[1].numpy()[:, :, list(rows)])
+
+
+def test_budget_exhaustion_matches_reference():
+    """A budget too small for every chain: the same chains stop short, with
+    the same zero history rows past their last transition."""
+    d, ref_target, step_size = CASES["hierarchical"]
+    x0 = _x0(d)
+    kw = dict(COMMON, budget=32)
+    out_ref = ref.fused_nuts_run_dc(
+        jnp.asarray(x0), jnp.ones(d), step_size, target=ref_target, num_track=d,
+        interpret=True, **kw,
+    )
+    out_port = port.fused_nuts_run_dc_plain(
+        torch.from_numpy(x0), torch.ones(d), step_size,
+        target=port.make_hierarchical_target_dc(d), num_track=d, **kw,
+    )
+    steps = out_port[3].numpy()
+    np.testing.assert_array_equal(steps, np.asarray(out_ref[3]))
+    assert steps.max() < S
+    for c in range(C):
+        assert (out_port[1][c, steps[c]:] == 0).all()
+    assert agreeing_chains(out_ref, out_port).mean() >= AGREE_FLOOR
+
+
+def _errors(module, target, x0, imm, **kw):
+    try:
+        module.fused_nuts_run_dc(x0, imm, 0.4, target=target, num_steps=4, **kw)
+    except Exception as exc:  # noqa: BLE001 - the type and message are compared
+        return type(exc), str(exc)
+    return None
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(num_track=2, track_rows=(0, 1, 2)),
+        dict(num_track=1, track_rows=(4,)),
+        dict(num_track=5),
+        dict(num_track=2, pack=0),
+        dict(num_track=2, restart_every=3, chunk=8),
+    ],
+)
+def test_validation_errors_match_reference(kw):
+    x0 = np.zeros((8, 4), np.float32)
+    expected = _errors(ref, ref.make_gaussian_target_dc(4), jnp.asarray(x0), jnp.ones(4),
+                       interpret=True, **kw)
+    got = _errors(port, port.make_gaussian_target_dc(4), torch.from_numpy(x0), torch.ones(4), **kw)
+    assert expected is not None and got == expected
+
+
+@pytest.mark.parametrize(
+    "kw, match",
+    [
+        (dict(pack=2), "pack and restart_every"),
+        (dict(restart_every=2), "pack and restart_every"),
+        (dict(imm=np.eye(4, dtype=np.float32)), "dense and low-rank"),
+    ],
+)
+def test_not_ported_options_raise(kw, match):
+    imm = torch.from_numpy(kw.pop("imm", np.ones(4, np.float32)))
+    with pytest.raises(NotImplementedError, match=match):
+        port.fused_nuts_run_dc(
+            torch.zeros(8, 4), imm, 0.4, target=port.make_gaussian_target_dc(4),
+            num_steps=4, num_track=2, **kw,
+        )
+
+
+def test_dim_mismatch_raises():
+    with pytest.raises(ValueError, match="registered target dim"):
+        port.fused_nuts_run_dc(
+            torch.zeros(8, 5), torch.ones(5), 0.4,
+            target=port.make_hierarchical_target_dc(4), num_steps=4, num_track=2,
+        )
