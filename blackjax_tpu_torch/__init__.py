@@ -1,23 +1,37 @@
 """blackjax_tpu_torch: the PyTorch and CUDA port of blackjax_tpu.
 
 The port mirrors the reference's module paths and public names. Every
-module here imports ``torch`` and never JAX; the in-kernel NUTS machine is a
-hand-written CUDA kernel for Hopper (``csrc/fused_nuts_dc.cu``). Kernels
-follow ``(generator, state) -> (state, info)`` with a leading chain axis
-on every state tensor.
+module here imports ``torch`` and never JAX; the kernels that were Pallas
+kernels for the TPU are hand-written CUDA kernels for Hopper
+(``csrc/fused_nuts_dc.cu``, the in-kernel NUTS machine;
+``csrc/fused_leapfrog.cu``, the trajectory of ``fused_hmc``). Kernels follow
+``(generator, state) -> (state, info)`` with a leading chain axis on every
+state tensor.
 
-Registry subset of this slice: ``nuts``, ``fused_nuts_run_dc``,
-``diagnostics`` (with ``ess`` and ``rhat``) and ``util``.
+Registry subset so far: ``hmc``, ``nuts``, ``fused_hmc``,
+``fused_nuts_run_dc``, ``window_adaptation``, ``staged_adaptation``,
+``dual_averaging_adaptation``, ``dual_averaging``, ``diagnostics`` (with
+``ess`` and ``rhat``) and ``util``.
 """
 import dataclasses
+import importlib
 from typing import Callable
 
 from blackjax_tpu_torch import diagnostics, util
-from blackjax_tpu_torch.base import SamplingAlgorithm, build_sampling_algorithm
+from blackjax_tpu_torch.adaptation.staged_adaptation import staged_adaptation
+from blackjax_tpu_torch.adaptation.step_size import dual_averaging_adaptation
+from blackjax_tpu_torch.adaptation.window_adaptation import window_adaptation
+from blackjax_tpu_torch.base import (
+    AdaptationAlgorithm,
+    SamplingAlgorithm,
+    build_sampling_algorithm,
+)
 from blackjax_tpu_torch.diagnostics import effective_sample_size as ess
 from blackjax_tpu_torch.diagnostics import ess_bulk, rhat
+from blackjax_tpu_torch.mcmc import hmc as _hmc
 from blackjax_tpu_torch.mcmc import nuts as _nuts
 from blackjax_tpu_torch.ops.fused_nuts_dc import fused_nuts_run_dc
+from blackjax_tpu_torch.optimizers import dual_averaging
 
 __version__ = "0.1.0"
 
@@ -42,17 +56,31 @@ def generate_top_level_api_from(module) -> GenerateSamplingAPI:
     return GenerateSamplingAPI(module.as_top_level_api, module.init, module.build_kernel)
 
 
+hmc = generate_top_level_api_from(_hmc)
 nuts = generate_top_level_api_from(_nuts)
+
+# the class `ops.fused_hmc` shadows its module's name in `ops`, so the
+# module is resolved through importlib (as in the reference)
+fused_hmc = generate_top_level_api_from(
+    importlib.import_module("blackjax_tpu_torch.ops.fused_hmc")
+)
 
 __all__ = [
     "__version__",
+    "hmc",
     "nuts",
+    "fused_hmc",
     "fused_nuts_run_dc",
+    "window_adaptation",
+    "staged_adaptation",
+    "dual_averaging_adaptation",
+    "dual_averaging",
     "diagnostics",
     "util",
     "ess",
     "ess_bulk",
     "rhat",
+    "AdaptationAlgorithm",
     "SamplingAlgorithm",
     "build_sampling_algorithm",
 ]

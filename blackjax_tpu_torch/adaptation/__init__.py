@@ -1,0 +1,10 @@
+"""Warmup and adaptation engines ported so far."""
+from blackjax_tpu_torch.adaptation import mass_matrix as mass_matrix
+from blackjax_tpu_torch.adaptation import metric_recipes as metric_recipes
+from blackjax_tpu_torch.adaptation import staged_adaptation as staged_adaptation
+from blackjax_tpu_torch.adaptation import step_size as step_size
+from blackjax_tpu_torch.adaptation import window_adaptation as window_adaptation
+from blackjax_tpu_torch.adaptation.base import AdaptationInfo as AdaptationInfo
+from blackjax_tpu_torch.adaptation.base import AdaptationResults as AdaptationResults
+
+__all__ = [name for name in dir() if not name.startswith("_")]

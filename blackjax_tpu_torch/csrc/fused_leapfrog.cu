@@ -1,0 +1,196 @@
+// The fused velocity-Verlet trajectory as one CUDA kernel for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel blackjax_tpu/ops/fused_leapfrog.py:_leapfrog_kernel
+// (launched by fused_leapfrog, pallas_call at fused_leapfrog.py:206), for the
+// hierarchical and Gaussian targets. The Python wrapper and the plain PyTorch
+// version of the same trajectory live in blackjax_tpu_torch/ops/fused_leapfrog.py.
+//
+// What it computes, per chain: num_steps velocity-Verlet steps with an analytic
+// gradient and a diagonal inverse mass matrix,
+//   m += (0.5 eps) g;  x += eps (m imm);  g = grad(x);  m += (0.5 eps) g,
+// starting from g = grad(x0), then the endpoint energy -logp(x) + 0.5 m.(imm m).
+//
+// Design. The TPU kernel holds a tile of chains in VMEM for the whole
+// trajectory. Here one warp runs one chain: lane j holds dims j, j+32, j+64, ...
+// in N registers per vector (N = 4 for d = 100; d <= 256), so x, m and g stay in
+// registers from the first load to the last store. The hierarchical target's
+// sum of theta squares, its log density and the kinetic energy are xor-shuffle
+// warp reductions, whose butterfly leaves the same bits in every lane.
+//
+// Bound. Device memory sees x and m once in and once out (16 bytes per dim and
+// chain); per step a chain does O(d) FP32 multiply-adds, one exp and one warp
+// reduction. The kernel is bound by the latency of that dependent chain of
+// steps and reductions, not by bytes or FLOP: at d = 100 and 4,096 chains the
+// whole grid is resident at once.
+//
+// Numerics. Build without --use_fast_math and with --fmad=false: expf is the
+// accurate library version and no multiply-add is contracted. Every expression
+// keeps the reference's operation order (fused_leapfrog.py:114-129, the tile
+// functions at :247-269 and :303-307), masks included, so the kernel rounds
+// like the plain PyTorch version except for the order of its sums.
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 4;  // chains per block
+
+enum Target { kHierarchical = 0, kGaussian = 1 };
+
+struct Params {
+  const float* x0;       // (C, d) initial positions
+  const float* m0;       // (C, d) initial momenta
+  const float* imm;      // (d,) diagonal inverse mass matrix
+  const float* inv_var;  // (d,) Gaussian target only, else null
+  float* out_x;          // (C, d) end positions
+  float* out_m;          // (C, d) end momenta
+  float* out_energy;     // (C,) -logdensity(x_end) + kinetic(m_end)
+  int C, d, num_steps, target;
+  float eps;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// sum over dims of (x * theta_mask)^2, theta_mask = 1 on dims 1..d-1
+template <int N>
+__device__ __forceinline__ float theta_sq(const Params& p, const float (&x)[N],
+                                          int lane) {
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    const float t = x[k] * ((j >= 1 && j < p.d) ? 1.f : 0.f);
+    s += t * t;
+  }
+  return warp_sum(s);
+}
+
+// The target's gradient, as grad_tile (fused_leapfrog.py:259-269, :306-307).
+template <int N>
+__device__ __forceinline__ void grad(const Params& p, const float (&x)[N],
+                                     const float (&iv)[N], float (&g)[N],
+                                     int lane) {
+  if (p.target == kHierarchical) {
+    const float log_tau = __shfl_sync(kFull, x[0], 0);
+    const float exp_neg = expf(-log_tau);
+    const float ts = theta_sq<N>(p, x, lane);
+    const float half_n_theta = 0.5f * (float)(p.d - 1);
+    const float g_tau = -log_tau + 0.5f * ts * exp_neg - half_n_theta;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int j = k * 32 + lane;
+      const float is_tau = j == 0 ? 1.f : 0.f;
+      const float theta_mask = (j >= 1 && j < p.d) ? 1.f : 0.f;
+      g[k] = is_tau * g_tau + -(x[k] * theta_mask) * exp_neg;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) g[k] = -x[k] * iv[k];
+}
+
+// The target's log density, as logdensity_tile (:247-257, :303-304).
+template <int N>
+__device__ __forceinline__ float logdensity(const Params& p, const float (&x)[N],
+                                            const float (&iv)[N], int lane) {
+  if (p.target == kHierarchical) {
+    const float log_tau = __shfl_sync(kFull, x[0], 0);
+    const float ts = theta_sq<N>(p, x, lane);
+    const float half_n_theta = 0.5f * (float)(p.d - 1);
+    return -0.5f * (log_tau * log_tau) - 0.5f * ts * expf(-log_tau) -
+           half_n_theta * log_tau;
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) s += x[k] * x[k] * iv[k];
+  return -0.5f * warp_sum(s);
+}
+
+template <int N>
+__global__ void __launch_bounds__(kWarps * 32) leapfrog_kernel(const Params p) {
+  const int lane = threadIdx.x & 31;
+  const int chain = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (chain >= p.C) return;  // the whole warp leaves together
+  const size_t row = (size_t)chain * p.d;
+
+  // pad dims (j >= d) hold zeros and a zero inverse mass, so they stay zero
+  float x[N], m[N], g[N], imm[N], iv[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    const bool valid = j < p.d;
+    x[k] = valid ? p.x0[row + j] : 0.f;
+    m[k] = valid ? p.m0[row + j] : 0.f;
+    imm[k] = valid ? p.imm[j] : 0.f;
+    iv[k] = (valid && p.inv_var != nullptr) ? p.inv_var[j] : 0.f;
+  }
+
+  const float half = 0.5f * p.eps;
+  grad<N>(p, x, iv, g, lane);
+  for (int s = 0; s < p.num_steps; ++s) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      m[k] = m[k] + half * g[k];
+      x[k] = x[k] + p.eps * (m[k] * imm[k]);
+    }
+    grad<N>(p, x, iv, g, lane);
+#pragma unroll
+    for (int k = 0; k < N; ++k) m[k] = m[k] + half * g[k];
+  }
+
+  float kin = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) kin += m[k] * m[k] * imm[k];
+  const float energy = -logdensity<N>(p, x, iv, lane) + 0.5f * warp_sum(kin);
+
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    if (j < p.d) {
+      p.out_x[row + j] = x[k];
+      p.out_m[row + j] = m[k];
+    }
+  }
+  if (lane == 0) p.out_energy[chain] = energy;
+}
+
+template <int N>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  const int blocks = (p.C + kWarps - 1) / kWarps;
+  leapfrog_kernel<N><<<blocks, kWarps * 32, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Runs the trajectory; returns cudaGetLastError() of the launch (0 = success).
+int bjt_fused_leapfrog(const float* x0, const float* m0, const float* imm,
+                       const float* inv_var, float* out_x, float* out_m,
+                       float* out_energy, int C, int d, int num_steps,
+                       int target, float eps, void* stream) {
+  Params p{x0, m0, imm, inv_var, out_x, out_m, out_energy,
+           C, d, num_steps, target, eps};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (target != kHierarchical && target != kGaussian) return cudaErrorInvalidValue;
+  if (target == kGaussian && inv_var == nullptr) return cudaErrorInvalidValue;
+  if (C <= 0) return cudaSuccess;
+  const int n = (d + 31) / 32;
+  if (n <= 1) return launch<1>(p, s);
+  if (n <= 2) return launch<2>(p, s);
+  if (n <= 4) return launch<4>(p, s);
+  if (n <= 8) return launch<8>(p, s);
+  return cudaErrorInvalidValue;
+}
+
+const char* bjt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

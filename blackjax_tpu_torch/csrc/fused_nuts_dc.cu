@@ -2,9 +2,9 @@
 //
 // Replaces the Pallas TPU kernel blackjax_tpu/ops/fused_nuts_dc.py:_nuts_kernel_dc
 // (launched by fused_nuts_run_dc, pallas_call at fused_nuts_dc.py:964), for the
-// diagonal metric, the hierarchical and Gaussian targets, pack=1 and
-// restart_every=1. The Python wrapper and the plain PyTorch version of the same
-// machine live in blackjax_tpu_torch/ops/fused_nuts_dc.py.
+// diagonal metric and the hierarchical and Gaussian targets. The Python wrapper
+// and the plain PyTorch version of the same machine live in
+// blackjax_tpu_torch/ops/fused_nuts_dc.py.
 //
 // What it computes, per chain: num_steps NUTS transitions, one velocity-Verlet
 // leaf per loop iteration, with progressive uniform merging inside a subtree,
@@ -13,6 +13,9 @@
 // next momentum at the top of the following iteration), all within a budget of
 // leaf iterations. Randomness is the reference's counter-based threefry2x32,
 // keyed exactly as the Pallas kernel keys it, so both draw the same numbers.
+// The reference's pack and restart_every only move the budget's accounting:
+// each chain gets a budget of its own (the wrapper derives the lane schedule)
+// and restarts only on iterations of its clock that restart_every divides.
 //
 // Design. The TPU kernel runs 128 chains in lockstep on (d_pad, 128) tiles. Here
 // chains are independent: one warp runs one chain. Lane j holds dims j, j+32,
@@ -54,11 +57,13 @@ struct Params {
   const float* sigma_m;  // (d,) momentum scale sqrt(1 / imm), 0 where imm <= 0
   const float* inv_var;  // (d,) Gaussian target only, else null
   const int* track_rows; // (n_track,) coordinates recorded per transition
+  const int* budgets;    // (C,) leaf budget per chain, or null: budget for all
   float* out_x;          // (C, d) final positions
   int* out_steps;        // (C,) transitions completed
   float* out_grads;      // (C,) gradient evaluations of completed transitions
   float* out_hist;       // (C, S, n_track), zeroed by the caller
-  int C, d, S, n_track, max_depth, budget, target;
+  int* out_iters;        // (C,) iterations used up to the last closed transition
+  int C, d, S, n_track, max_depth, budget, restart_every, target;
   float eps, threshold;
   uint32_t seed;
 };
@@ -197,11 +202,15 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
   const int S = p.S;
 
   // One leaf per iteration until num_steps transitions closed or the budget
-  // is spent. With restart_every = 1 a chain below num_steps is always active
-  // after the restart, so the reference's chunk-skip cond (which only skips
-  // tiles whose chains all finished) changes nothing for it: these outputs
-  // are the reference's.
-  for (int it = 0; it < p.budget && steps < S; ++it) {
+  // is spent. A chain below num_steps is active after its restart, so the
+  // reference's chunk-skip cond (which only skips tiles whose chains all
+  // finished) changes nothing for it: these outputs are the reference's.
+  const int budget = p.budgets != nullptr ? p.budgets[chain] : p.budget;
+  int iters = 0;
+  for (int it = 0; it < budget && steps < S; ++it) {
+    // a closed chain restarts on the gated iterations only; until then it is
+    // parked, and a parked leaf changes nothing the restart keeps
+    if (done && it % p.restart_every != 0) continue;
     // counter key of this (chain, step): int32 chain * S + steps in the
     // reference (fused_nuts_dc.py:395), so wrap modulo 2^32 here too
     const uint32_t base_row = (uint32_t)chain * (uint32_t)S + (uint32_t)steps;
@@ -209,10 +218,10 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
     if (done) {
       // ---- inline restart: fresh momentum, trajectory reset ----
       // Momentum key c0 = dim index, c1 = (1 << 24) | base_row, u1 with the
-      // +1 offset (fused_nuts_dc.py:413-425). Reference fault kept for
-      // parity: the OR collides with the tag bit once base_row >= 2^24
-      // (chains * num_steps >= 2^24), so chains 2^24 / S apart then draw the
-      // same momenta.
+      // +1 offset (fused_nuts_dc.py:413-425). Kept for parity, as the JAX
+      // package is frozen this round: the OR collides with the tag bit once
+      // base_row >= 2^24, i.e. at chains * num_steps >= 2^24, and chains
+      // 2^24 / S apart then draw the same momenta.
       const uint32_t c1 = (1u << 24) | base_row;
 #pragma unroll
       for (int k = 0; k < N; ++k) {
@@ -376,6 +385,7 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
       // grads counts nstates only when a transition closes (:581)
       grads = grads + (float)nstates;
       copy<N>(acc_x, prop_x); copy<N>(acc_g, prop_g); acc_ld = prop_ld;
+      iters = it + 1;
       // history row steps - 1 of the closed transition; rows never
       // reached keep the caller's zeros
       float* row = p.out_hist + ((size_t)chain * S + steps) * p.n_track;
@@ -398,6 +408,7 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
   if (lane == 0) {
     p.out_steps[chain] = steps;
     p.out_grads[chain] = grads;
+    p.out_iters[chain] = iters;
   }
 }
 
@@ -427,14 +438,16 @@ extern "C" {
 
 // Runs the machine; returns cudaGetLastError() of the launch (0 = success).
 int bjt_fused_nuts_dc(const float* x0, const float* imm, const float* sigma_m,
-                      const float* inv_var, const int* track_rows, float* out_x,
-                      int* out_steps, float* out_grads, float* out_hist, int C,
+                      const float* inv_var, const int* track_rows,
+                      const int* budgets, float* out_x, int* out_steps,
+                      float* out_grads, float* out_hist, int* out_iters, int C,
                       int d, int S, int n_track, int max_depth, int budget,
-                      int target, float eps, float threshold, int seed,
-                      void* stream) {
-  Params p{x0, imm, sigma_m, inv_var, track_rows, out_x, out_steps, out_grads,
-           out_hist, C, d, S, n_track, max_depth, budget, target, eps,
-           threshold, (uint32_t)seed};
+                      int restart_every, int target, float eps,
+                      float threshold, int seed, void* stream) {
+  Params p{x0, imm, sigma_m, inv_var, track_rows, budgets, out_x, out_steps,
+           out_grads, out_hist, out_iters, C, d, S, n_track, max_depth,
+           budget, restart_every, target, eps, threshold, (uint32_t)seed};
+  if (restart_every < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = (d + 31) / 32;
   if (C <= 0) return cudaSuccess;

@@ -3,8 +3,9 @@
 Each function takes the reference's values as numpy arrays (``np.asarray``
 of a JAX array) and returns the port's tensors on a chosen device and dtype,
 so both packages can compute from the same state: HMC states and NUTS infos,
-inverse mass matrices and step sizes, the dc machine's target parameters,
-and the test posteriors by name.
+inverse mass matrices and step sizes (alone or as a warmup's parameters),
+fused-HMC states, the fused kernels' targets, and the test posteriors by
+name.
 """
 import numpy as np
 import torch
@@ -14,6 +15,13 @@ from blackjax_tpu_torch.mcmc.integrators import IntegratorState
 from blackjax_tpu_torch.mcmc.nuts import NUTSInfo
 from blackjax_tpu_torch.models import targets
 from blackjax_tpu_torch.ops import fused_nuts_dc
+from blackjax_tpu_torch.ops.fused_hmc import FusedHMCState
+from blackjax_tpu_torch.ops.fused_leapfrog import (
+    TargetKernel,
+    gaussian_target_from_params,
+    make_gaussian_target,
+    make_hierarchical_gaussian_target,
+)
 
 __all__ = [
     "to_tensor",
@@ -21,7 +29,10 @@ __all__ = [
     "nuts_info",
     "inverse_mass_matrix",
     "step_size",
+    "adaptation_parameters",
+    "fused_hmc_state",
     "target_dc",
+    "fused_target",
     "target",
 ]
 
@@ -64,6 +75,38 @@ def inverse_mass_matrix(value, *, device=None, dtype=None) -> torch.Tensor:
 def step_size(value) -> float:
     """A step size (array scalar) as a Python float."""
     return float(np.asarray(value))
+
+
+def adaptation_parameters(parameters: dict, *, device=None, dtype=None) -> dict:
+    """A warmup's ``results.parameters`` (reference ``window_adaptation``) as
+    the port's: the step size a number, the inverse mass matrix a tensor;
+    any other entry passes through."""
+    out = dict(parameters)
+    out["step_size"] = step_size(parameters["step_size"])
+    out["inverse_mass_matrix"] = inverse_mass_matrix(
+        parameters["inverse_mass_matrix"], device=device, dtype=dtype
+    )
+    return out
+
+
+def fused_hmc_state(state, *, device=None) -> FusedHMCState:
+    """A ``FusedHMCState`` of the reference (f32 positions and log
+    densities) as the port's."""
+    return FusedHMCState(*(to_tensor(v, device=device, dtype=torch.float32) for v in state))
+
+
+def fused_target(name: str, dim: int, params=()) -> TargetKernel:
+    """The fused leapfrog's target of the reference's ``TargetKernel.name``;
+    ``params`` are the reference target's ``params`` (the Gaussian's
+    inverse variances)."""
+    if name == "hierarchical_gaussian":
+        return make_hierarchical_gaussian_target(dim)
+    if name == "gaussian":
+        if not params:
+            return make_gaussian_target(dim)
+        inv_var = tuple(float(v) for v in np.asarray(params[0], np.float32))
+        return gaussian_target_from_params(dim, inv_var)
+    raise NotImplementedError(f"fused target {name!r} is not ported yet")
 
 
 def target_dc(name: str, dim: int, params=()) -> fused_nuts_dc.TargetKernelDC:

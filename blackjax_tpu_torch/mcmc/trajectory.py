@@ -1,5 +1,6 @@
-"""Trajectory construction for NUTS: the flattened engine (reference
-``blackjax_tpu/mcmc/trajectory.py:542-924``).
+"""Trajectory construction: the fixed-length integration of static HMC and
+the flattened NUTS engine (reference ``blackjax_tpu/mcmc/trajectory.py``,
+``static_integration`` and ``flattened_nuts``).
 
 :func:`flattened_nuts` runs ONE loop over leapfrog leaves with select-based
 bookkeeping for subtree boundaries, progressive sampling, checkpointed
@@ -30,7 +31,25 @@ from blackjax_tpu_torch.mcmc.proposal import (
 )
 from blackjax_tpu_torch.mcmc.termination import _checkpoint_slots
 
-__all__ = ["flattened_nuts", "hmc_energy"]
+__all__ = ["static_integration", "flattened_nuts", "hmc_energy"]
+
+
+def static_integration(integrator: Callable, direction: int = 1) -> Callable:
+    """``integrate(state, step_size, num_integration_steps)``: apply the
+    integrator a fixed number of times in one direction (reference
+    ``trajectory.py:152``). The step size is a number or one per chain
+    ``(C,)``; the step count is one Python int for the whole block. Traced
+    per-chain step counts (the reference's ``max_num_integration_steps``)
+    come with a later slice."""
+
+    def integrate(initial_state: IntegratorState, step_size, num_integration_steps):
+        directed = direction * step_size
+        state = initial_state
+        for _ in range(int(num_integration_steps)):
+            state = integrator(state, directed)
+        return state
+
+    return integrate
 
 
 def hmc_energy(kinetic_energy):

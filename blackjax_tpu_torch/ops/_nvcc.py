@@ -1,5 +1,6 @@
 """Builds the CUDA sources under ``blackjax_tpu_torch/csrc`` with ``nvcc`` into
-a shared library with a plain C interface, and loads it with ``ctypes``.
+a shared library with a plain C interface, loads it with ``ctypes``, and
+holds what every kernel wrapper checks around a launch.
 
 The build happens at first use, into ``blackjax_tpu_torch/_build/`` (listed
 in ``.gitignore``), under a name keyed on a hash of the sources and flags, so
@@ -15,7 +16,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "load", "build_log"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "load", "build_log", "check_launch", "require_cuda_f32", "stream_handle"]
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PACKAGE / "csrc"
@@ -82,3 +85,28 @@ def build_log(name: str) -> str:
     """The compiler's report from the build of ``csrc/<name>.cu``."""
     _, _, log = _paths(name)
     return log.read_text() if log.exists() else ""
+
+
+def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a library's launch function returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(
+            f"{what} launch failed: {lib.bjt_error_string(code).decode()} ({code})"
+        )
+
+
+def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda_f32(name: str, t, device, shape) -> None:
+    """A kernel argument must be a contiguous float32 tensor of ``shape`` on
+    ``device``."""
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name}: expected float32 {shape} on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

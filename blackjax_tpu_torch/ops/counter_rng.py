@@ -113,10 +113,10 @@ def momentum_normals(seed, base_row: torch.Tensor, dim: int) -> torch.Tensor:
     base_row[c]`` with ``base_row = chain * num_steps + steps``; ``u1``
     carries the ``+1`` offset that keeps it off zero before the log.
 
-    Port fault kept for parity (reference ``fused_nuts_dc.py:417``): the OR
-    collides with the tag bit once ``base_row >= 2**24``, i.e. when
-    ``chains * num_steps >= 2**24``, and chains ``2**24 / num_steps`` apart
-    then draw the same momenta."""
+    Reference fault kept for parity, as the JAX package is frozen this round
+    (reference ``fused_nuts_dc.py:417``): the OR collides with the tag bit
+    once ``base_row >= 2**24``, i.e. at ``chains * num_steps >= 2**24``, and
+    chains ``2**24 / num_steps`` apart then draw the same momenta."""
     rows = torch.arange(dim, dtype=torch.int64, device=base_row.device)
     c1 = (1 << 24) | _u32(base_row)
     b1, b2 = threefry2x32(seed, KEY1, rows[None, :], c1[:, None])

@@ -1,0 +1,320 @@
+"""Fused multi-step leapfrog for registered analytic targets: one CUDA kernel
+runs a whole velocity-Verlet trajectory per chain.
+
+Port of ``blackjax_tpu/ops/fused_leapfrog.py`` (``fused_leapfrog`` and its
+Pallas kernel ``_leapfrog_kernel``). Two implementations of the same
+trajectory live here:
+
+- the CUDA kernel ``csrc/fused_leapfrog.cu`` (one warp per chain), launched
+  for CUDA tensors;
+- :func:`fused_leapfrog_plain`, the plain PyTorch version on the ``(C, d)``
+  block, taken for CPU tensors and used on the card as the kernel's
+  reference.
+
+Both keep the Pallas kernel's operation order (``m + (0.5 * eps) * g``,
+``x + eps * (m * imm)`` and the tile functions' own expressions), so they
+round alike except for the order of their sums.
+
+Ported: the hierarchical and Gaussian targets, ``d <= 256`` on the card.
+``make_logistic_regression_target`` computes ``(C, N) x (N, d)`` products
+inside the kernel and waits for the in-kernel GEMM targets (ROADMAP queue 2,
+item 2d). ``tile_chains`` is accepted and ignored: chains are independent on
+the GPU.
+"""
+import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from blackjax_tpu_torch.ops import _nvcc
+
+__all__ = [
+    "LAUNCHES",
+    "TargetKernel",
+    "build",
+    "fused_leapfrog",
+    "fused_leapfrog_plain",
+    "gaussian_target_from_params",
+    "get_registered_target",
+    "make_gaussian_target",
+    "make_hierarchical_gaussian_target",
+    "register_target",
+]
+
+# kernel launches made by fused_leapfrog, by kernel name
+LAUNCHES = {"fused_leapfrog": 0}
+
+_CUDA_HIERARCHICAL = 0
+_CUDA_GAUSSIAN = 1
+_MAX_CUDA_DIM = 256  # eight registers per lane and vector
+
+
+@dataclass(frozen=True, eq=False)
+class TargetKernel:
+    """An analytic target of the fused leapfrog.
+
+    ``logdensity_tile(x) -> (C,)`` and ``grad_tile(x) -> (C, d)`` are the
+    plain PyTorch versions on an f32 ``(C, d)`` block, written as the
+    reference's tile functions are; ``logdensity_fn`` is the plain
+    logdensity of ``(..., d)`` positions; ``cuda_target`` names the same
+    target's device functions in ``csrc/fused_leapfrog.cu``; ``params`` are
+    its host vectors (the Gaussian's inverse variances).
+    """
+
+    name: str
+    dim: int
+    logdensity_tile: Callable
+    grad_tile: Callable
+    logdensity_fn: Callable
+    cuda_target: int
+    params: tuple = ()
+
+
+_REGISTRY: dict = {}
+
+
+def register_target(target: TargetKernel) -> TargetKernel:
+    _REGISTRY[(target.name, target.dim)] = target
+    return target
+
+
+def get_registered_target(name: str, dim: int) -> TargetKernel:
+    try:
+        return _REGISTRY[(name, dim)]
+    except KeyError:
+        raise ValueError(
+            f"No registered target kernel {name!r} at dim={dim}; available: "
+            f"{sorted(_REGISTRY)}"
+        ) from None
+
+
+def make_hierarchical_gaussian_target(dim: int) -> TargetKernel:
+    """The flagship hierarchical Gaussian ``x = (log_tau, theta)``:
+    ``log_tau ~ N(0, 1)``, ``theta_i | log_tau ~ N(0, e^{log_tau})``."""
+    n_theta = dim - 1
+
+    def masks(x):
+        theta_mask = torch.ones(dim, dtype=x.dtype, device=x.device)
+        theta_mask[0] = 0.0
+        return 1.0 - theta_mask, theta_mask
+
+    def logdensity_tile(x):
+        _, theta_mask = masks(x)
+        log_tau = x[:, 0]
+        theta_sq = ((x * theta_mask) ** 2).sum(1)
+        return (
+            -0.5 * log_tau**2
+            - 0.5 * theta_sq * torch.exp(-log_tau)
+            - 0.5 * n_theta * log_tau
+        )
+
+    def grad_tile(x):
+        is_tau, theta_mask = masks(x)
+        log_tau = x[:, 0:1]
+        exp_neg = torch.exp(-log_tau)
+        theta_sq = ((x * theta_mask) ** 2).sum(1, keepdim=True)
+        g_tau = -log_tau + 0.5 * theta_sq * exp_neg - 0.5 * n_theta
+        g_theta = -(x * theta_mask) * exp_neg
+        return is_tau * g_tau + g_theta
+
+    def logdensity_fn(x):
+        log_tau = x[..., 0]
+        theta = x[..., 1:]
+        return (
+            -0.5 * log_tau**2
+            - 0.5 * (theta**2).sum(-1) * torch.exp(-log_tau)
+            - 0.5 * n_theta * log_tau
+        )
+
+    return register_target(
+        TargetKernel(
+            name="hierarchical_gaussian",
+            dim=dim,
+            logdensity_tile=logdensity_tile,
+            grad_tile=grad_tile,
+            logdensity_fn=logdensity_fn,
+            cuda_target=_CUDA_HIERARCHICAL,
+        )
+    )
+
+
+def make_gaussian_target(dim: int, variances=None) -> TargetKernel:
+    """Independent Gaussian ``N(0, diag(variances))``; the variances may be a
+    ladder, as the ill-conditioned Gaussian's."""
+    if variances is None:
+        inv_var_host = torch.ones(dim, dtype=torch.float32)
+    else:
+        inv_var_host = 1.0 / torch.as_tensor(variances, dtype=torch.float32).cpu()
+    return gaussian_target_from_params(dim, tuple(float(v) for v in inv_var_host.reshape(-1)))
+
+
+def gaussian_target_from_params(dim: int, inv_var_param: tuple) -> TargetKernel:
+    """The Gaussian target from its f32 inverse variances, as the
+    reference's ``make_gaussian_target(...).params[0]`` holds them."""
+    if len(inv_var_param) != dim:
+        raise ValueError(f"{len(inv_var_param)} inverse variances for dim {dim}")
+
+    def inv_var(x):
+        return torch.tensor(inv_var_param, dtype=x.dtype, device=x.device)
+
+    def logdensity_tile(x):
+        return -0.5 * (x * x * inv_var(x)).sum(1)
+
+    def grad_tile(x):
+        return -x * inv_var(x)
+
+    def logdensity_fn(x):
+        return -0.5 * (x**2 * inv_var(x)).sum(-1)
+
+    return register_target(
+        TargetKernel(
+            name="gaussian",
+            dim=dim,
+            logdensity_tile=logdensity_tile,
+            grad_tile=grad_tile,
+            logdensity_fn=logdensity_fn,
+            cuda_target=_CUDA_GAUSSIAN,
+            params=(inv_var_param,),
+        )
+    )
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _trajectory_plain(x, m, imm, step_size, *, target, num_steps):
+    """``num_steps`` velocity-Verlet steps on the f32 block, in the Pallas
+    kernel's order, and the endpoint energy ``-logp + 0.5 m^T M^-1 m``."""
+    eps = torch.tensor(step_size, dtype=torch.float32, device=x.device)
+    g = target.grad_tile(x)
+    for _ in range(num_steps):
+        m = m + 0.5 * eps * g
+        x = x + eps * (m * imm)
+        g = target.grad_tile(x)
+        m = m + 0.5 * eps * g
+    kinetic = 0.5 * (m * m * imm).sum(1)
+    return x, m, -target.logdensity_tile(x) + kinetic
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+_VP = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=1)
+def _library():
+    lib = _nvcc.load("fused_leapfrog")
+    lib.bjt_fused_leapfrog.argtypes = [_VP] * 7 + [_INT] * 4 + [ctypes.c_float, _VP]
+    lib.bjt_fused_leapfrog.restype = _INT
+    lib.bjt_error_string.argtypes = [_INT]
+    lib.bjt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> str:
+    """Build (or load) the kernel library; returns the compiler's report of
+    registers, shared memory and spills per kernel."""
+    _library()
+    return _nvcc.build_log("fused_leapfrog")
+
+
+@functools.lru_cache(maxsize=16)
+def _params_on(params: tuple, device: torch.device) -> torch.Tensor:
+    """A target's host vector as a float32 tensor on ``device``, copied once
+    (a copy per launch would cost more than the kernel). Read only."""
+    return torch.tensor(params, dtype=torch.float32, device=device)
+
+
+def _launch_cuda(x, m, imm, step_size, *, target, num_steps):
+    C, d = x.shape
+    if d > _MAX_CUDA_DIM:
+        raise ValueError(
+            f"the CUDA leapfrog holds d <= {_MAX_CUDA_DIM} per warp; got d={d}"
+        )
+    dev = x.device
+    for name, t, shape in [("positions", x, (C, d)), ("momenta", m, (C, d)),
+                           ("inverse_mass_matrix", imm, (d,))]:
+        _nvcc.require_cuda_f32(name, t, dev, shape)
+    inv_var = None
+    if target.params:
+        inv_var = _params_on(target.params[0], dev)
+        _nvcc.require_cuda_f32("inv_var", inv_var, dev, (d,))
+    lib = _library()
+    out_x, out_m = torch.empty_like(x), torch.empty_like(m)
+    energy = torch.empty(C, dtype=torch.float32, device=dev)
+    code = lib.bjt_fused_leapfrog(
+        x.data_ptr(), m.data_ptr(), imm.data_ptr(),
+        None if inv_var is None else inv_var.data_ptr(),
+        out_x.data_ptr(), out_m.data_ptr(), energy.data_ptr(),
+        C, d, num_steps, target.cuda_target, float(step_size), _nvcc.stream_handle(dev),
+    )
+    _nvcc.check_launch(lib, code, "fused_leapfrog")
+    LAUNCHES["fused_leapfrog"] += 1
+    return out_x, out_m, energy
+
+
+def _prepare(positions, momenta, inverse_mass_matrix, target):
+    C, d = positions.shape
+    if d != target.dim:
+        raise ValueError(f"positions dim {d} != registered target dim {target.dim}")
+    if tuple(momenta.shape) != (C, d):
+        raise ValueError(f"momenta {tuple(momenta.shape)} != positions {(C, d)}")
+    dev = positions.device
+    x = positions.to(torch.float32).contiguous()
+    m = momenta.to(device=dev, dtype=torch.float32).contiguous()
+    imm = torch.as_tensor(inverse_mass_matrix).to(device=dev, dtype=torch.float32)
+    return x, m, torch.broadcast_to(imm, (d,)).contiguous()
+
+
+def fused_leapfrog(
+    positions,
+    momenta,
+    inverse_mass_matrix,
+    step_size,
+    *,
+    target: TargetKernel,
+    num_steps: int,
+    tile_chains: int = 256,
+):
+    """Run ``num_steps`` velocity-Verlet steps for every chain.
+
+    ``positions`` and ``momenta`` are ``(C, d)``, ``inverse_mass_matrix`` a
+    ``(d,)`` diagonal (or a scalar). Returns ``(positions, momenta,
+    energy)`` as f32, with ``energy = -logdensity(x_end) + KE(m_end)`` per
+    chain: everything the Metropolis accept needs.
+
+    A CUDA tensor launches the kernel (``d <= 256``, else ``ValueError``); a
+    CPU tensor takes the plain version. ``tile_chains`` is ignored.
+    """
+    del tile_chains
+    x, m, imm = _prepare(positions, momenta, inverse_mass_matrix, target)
+    if x.device.type == "cuda":
+        return _launch_cuda(x, m, imm, step_size, target=target, num_steps=num_steps)
+    if x.device.type == "cpu":
+        return _trajectory_plain(x, m, imm, step_size, target=target, num_steps=num_steps)
+    raise NotImplementedError(f"no leapfrog for device type {x.device.type!r}")
+
+
+def fused_leapfrog_plain(
+    positions,
+    momenta,
+    inverse_mass_matrix,
+    step_size,
+    *,
+    target: TargetKernel,
+    num_steps: int,
+    tile_chains: int = 256,
+):
+    """The plain PyTorch version of :func:`fused_leapfrog`, with the same
+    arguments and outputs, on the device of ``positions``: on the card it is
+    the kernel's reference. It launches nothing of ours and counts nothing."""
+    del tile_chains
+    x, m, imm = _prepare(positions, momenta, inverse_mass_matrix, target)
+    return _trajectory_plain(x, m, imm, step_size, target=target, num_steps=num_steps)

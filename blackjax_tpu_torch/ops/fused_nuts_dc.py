@@ -19,14 +19,20 @@ Two implementations of the same machine live here:
   batch with masks, taken for CPU tensors and used on the card as the
   kernel's reference.
 
-Ported: the diagonal metric, the hierarchical and Gaussian targets,
-``pack=1`` and ``restart_every=1``. Not ported yet: the dense and low-rank
-metrics, the matrix targets of ``ops/targets_dc.py``, and ``pack`` /
-``restart_every`` other than 1 (both are scheduling knobs of the TPU's
-lockstep lanes; they raise ``NotImplementedError``). ``tile_chains`` is
-accepted and ignored (chains are independent on the GPU), the reference's
-``FNUTS_DISABLE`` attribution switch is left out, and nothing is padded: the
-port works on exact ``d``.
+Ported: the diagonal metric and the hierarchical and Gaussian targets. Not
+ported yet: the dense and low-rank metrics and the matrix targets of
+``ops/targets_dc.py``. The reference's ``FNUTS_DISABLE`` attribution switch
+is left out, and nothing is padded: the port works on exact ``d``.
+
+``pack`` and ``restart_every`` schedule the TPU's lockstep lanes. The GPU
+runs every chain on its own warp, so neither changes a chain's draws or
+path; they matter only where the leaf ``budget`` binds, because the
+reference counts the budget per lane of ``pack`` chains run one after the
+other, and a gated restart parks a chain for up to ``restart_every - 1``
+leaves. The port reproduces that accounting exactly (see
+:func:`_lane_budgets`): each chain gets a budget of its own and a local
+clock on which restarts are gated, so ``steps[c] < num_steps`` flags the
+chains the reference flags. ``tile_chains`` enters only that accounting.
 """
 import ctypes
 import functools
@@ -199,13 +205,20 @@ def _machine_plain(
     budget: int,
     chunk: int,
     divergence_threshold: float,
+    restart_every: int = 1,
+    budgets=None,
 ):
     """The machine on a ``(C, d)`` f32 batch in plain PyTorch, with masks.
 
-    Mirrors ``_nuts_kernel_dc`` select for select. The leaf loop stops early
-    once every chain has ``num_steps`` transitions, checked once per
-    ``chunk`` iterations (one host sync per chunk). Returns ``(acc_x (C, d),
-    steps (C,) int32, grads (C,) f32, history (C, S, k))``.
+    Mirrors ``_nuts_kernel_dc`` select for select. Chain ``c`` runs at most
+    ``budgets[c]`` leaf iterations (``budget`` for every chain when
+    ``budgets`` is None); a chain that closed a transition restarts only on
+    iterations that are multiples of ``restart_every`` and is parked until
+    then. The leaf loop stops early once every chain is finished, checked
+    once per ``chunk`` iterations (one host sync per chunk). Returns
+    ``(acc_x (C, d), steps (C,) int32, grads (C,) f32, history (C, S, k),
+    iters (C,) int32)``, where ``iters`` counts the iterations a chain used
+    up to its last closed transition.
     """
     C, d = x0.shape
     S = num_steps
@@ -215,6 +228,9 @@ def _machine_plain(
     eps = torch.tensor(step_size, dtype=f32, device=dev)
     chain = torch.arange(C, dtype=torch.int64, device=dev)
     track = torch.tensor(track_rows, dtype=torch.int64, device=dev)
+    if budgets is None:
+        budgets = torch.full((C,), budget, dtype=torch.int64, device=dev)
+    budgets = budgets.to(device=dev, dtype=torch.int64)
 
     acc_x = x0
     acc_ld, acc_g = vg(acc_x)
@@ -240,17 +256,19 @@ def _machine_plain(
         depth=zero_i, leaf=zero_i, nstates=zero_i,
         div=fbool, turn=fbool,
         grads=zero_s,
+        iters=zero_i,
         ckpt_m=[zero_v] * max_depth,
         ckpt_s=[zero_v] * max_depth,
     )
     hist = torch.zeros(C, S, len(track_rows), dtype=f32, device=dev)
 
-    def leaf_step(s):
-        live = s["steps"] < S
+    def leaf_step(s, it):
+        live = (s["steps"] < S) & (it < budgets)
         base_row = chain * S + s["steps"]  # per-(chain, step) counter key
 
-        # ---- inline restart: chains that closed start the next one ----
-        start = s["done"] & live
+        # ---- inline restart: chains that closed start the next one, on
+        # the gated iterations only (the others leave them parked) ----
+        start = s["done"] & live & (it % restart_every == 0)
         fresh_m = sigma_m * momentum_normals(seed, base_row, d)
         w_fresh = imm * fresh_m
         h0_new = -s["acc_ld"] + 0.5 * _dot(w_fresh, fresh_m)
@@ -371,6 +389,7 @@ def _machine_plain(
         row = s["steps"].clamp(max=S - 1)  # history row of the closing step
         hist[chain, row] = _sel(just_closed, acc_x[:, track], hist[chain, row])
         steps = torch.where(just_closed, s["steps"] + 1, s["steps"])
+        s["iters"] = torch.where(just_closed, it + 1, s["iters"])
 
         s.update(
             cur_x=new_x, cur_m=new_m, cur_g=new_g,
@@ -389,12 +408,13 @@ def _machine_plain(
             ckpt_m=ckpt_m, ckpt_s=ckpt_s,
         )
 
-    for _ in range(budget // chunk):
-        if bool((s["steps"] >= S).all()):
+    for c0 in range(0, int(budgets.max()) if C else 0, chunk):
+        if bool(((s["steps"] >= S) | (budgets <= c0)).all()):
             break
-        for _ in range(chunk):
-            leaf_step(s)
-    return s["acc_x"], s["steps"].to(torch.int32), s["grads"], hist
+        for it in range(c0, c0 + chunk):
+            leaf_step(s, it)
+    i32 = torch.int32
+    return s["acc_x"], s["steps"].to(i32), s["grads"], hist, s["iters"].to(i32)
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +429,7 @@ _FLOAT = ctypes.c_float
 @functools.lru_cache(maxsize=1)
 def _library():
     lib = _nvcc.load("fused_nuts_dc")
-    lib.bjt_fused_nuts_dc.argtypes = [_VP] * 9 + [_INT] * 7 + [_FLOAT, _FLOAT, _INT, _VP]
+    lib.bjt_fused_nuts_dc.argtypes = [_VP] * 11 + [_INT] * 8 + [_FLOAT, _FLOAT, _INT, _VP]
     lib.bjt_fused_nuts_dc.restype = _INT
     lib.bjt_threefry2x32.argtypes = [_VP, _VP, ctypes.c_uint32, ctypes.c_uint32, _VP, _VP, _INT, _VP]
     lib.bjt_threefry2x32.restype = _INT
@@ -425,29 +445,9 @@ def build() -> str:
     return _nvcc.build_log("fused_nuts_dc")
 
 
-def _check(lib, code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(
-            f"{what} launch failed: {lib.bjt_error_string(code).decode()} ({code})"
-        )
-
-
-def _stream_handle(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _require_cuda_f32(name, t, device, shape):
-    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
-        raise ValueError(
-            f"{name}: expected float32 {shape} on {device}, got {t.dtype} "
-            f"{tuple(t.shape)} on {t.device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch_cuda(x, imm, sigma_m, step_size, *, target, num_steps, max_depth,
-                 seed, track_rows, budget, chunk, divergence_threshold):
+                 seed, track_rows, budget, chunk, divergence_threshold,
+                 restart_every=1, budgets=None):
     del chunk  # the kernel stops each chain on its own
     C, d = x.shape
     if d > _MAX_CUDA_DIM:
@@ -458,27 +458,88 @@ def _launch_cuda(x, imm, sigma_m, step_size, *, target, num_steps, max_depth,
     inv_var = None
     if target.params:
         inv_var = torch.tensor(target.params[0], dtype=torch.float32, device=dev)
-    _require_cuda_f32("positions", x, dev, (C, d))
-    _require_cuda_f32("inverse_mass_matrix", imm, dev, (d,))
-    _require_cuda_f32("sigma_m", sigma_m, dev, (d,))
+    _nvcc.require_cuda_f32("positions", x, dev, (C, d))
+    _nvcc.require_cuda_f32("inverse_mass_matrix", imm, dev, (d,))
+    _nvcc.require_cuda_f32("sigma_m", sigma_m, dev, (d,))
     if inv_var is not None:
-        _require_cuda_f32("inv_var", inv_var, dev, (d,))
+        _nvcc.require_cuda_f32("inv_var", inv_var, dev, (d,))
+    if budgets is not None:
+        budgets = budgets.to(device=dev, dtype=torch.int32).contiguous()
     lib = _library()
     out_x = torch.empty_like(x)
     out_steps = torch.empty(C, dtype=torch.int32, device=dev)
     out_grads = torch.empty(C, dtype=torch.float32, device=dev)
+    out_iters = torch.empty(C, dtype=torch.int32, device=dev)
     hist = torch.zeros(C, num_steps, len(track_rows), dtype=torch.float32, device=dev)
     rows = torch.tensor(track_rows, dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     code = lib.bjt_fused_nuts_dc(
-        x.data_ptr(), imm.data_ptr(), sigma_m.data_ptr(),
-        None if inv_var is None else inv_var.data_ptr(), rows.data_ptr(),
-        out_x.data_ptr(), out_steps.data_ptr(), out_grads.data_ptr(), hist.data_ptr(),
-        C, d, num_steps, len(track_rows), max_depth, budget, target.cuda_target,
-        float(step_size), float(divergence_threshold), seed, _stream_handle(dev),
+        x.data_ptr(), imm.data_ptr(), sigma_m.data_ptr(), ptr(inv_var),
+        rows.data_ptr(), ptr(budgets), out_x.data_ptr(), out_steps.data_ptr(),
+        out_grads.data_ptr(), hist.data_ptr(), out_iters.data_ptr(),
+        C, d, num_steps, len(track_rows), max_depth, budget, restart_every,
+        target.cuda_target, float(step_size), float(divergence_threshold), seed,
+        _nvcc.stream_handle(dev),
     )
-    _check(lib, code, "fused_nuts_dc")
+    _nvcc.check_launch(lib, code, "fused_nuts_dc")
     LAUNCHES["fused_nuts_dc"] += 1
-    return out_x, out_steps, out_grads, hist
+    return out_x, out_steps, out_grads, hist, out_iters
+
+
+def _lane_budgets(steps, iters, *, num_steps, budget, chunk, pack, tile_chains):
+    """Per-chain leaf budgets under the reference's lane schedule.
+
+    The Pallas kernel runs ``pack`` chains one after the other on each lane
+    of a ``tile_chains``-wide tile: chain ``i * T * pack + k * T + j`` is the
+    ``k``-th chain of lane ``(i, j)``, and it starts at the first chunk
+    boundary after chain ``k - 1`` of that lane closed its last transition,
+    if that one finished inside the lane's ``budget``. ``steps`` and
+    ``iters`` come from a run in which every chain had the whole ``budget``
+    on its own clock; a chain's path does not depend on when it starts, so
+    they give each chain's start. Returns ``budget - start`` per chain, 0
+    for a chain its lane never reaches (it keeps its initial position and
+    zero history, as in the reference)."""
+    C = steps.shape[0]
+    T = max(128, _round_up(min(tile_chains, max(C, 1)), 128))
+    c_pad = _round_up(C, T * pack)
+    shape = (c_pad // (T * pack), pack, T)
+    finished = torch.zeros(c_pad, dtype=torch.bool)
+    finished[:C] = steps.cpu() == num_steps
+    used = torch.zeros(c_pad, dtype=torch.int64)
+    used[:C] = iters.cpu()
+    finished, used = finished.view(shape), used.view(shape)
+    start = torch.zeros(shape, dtype=torch.int64)
+    reached = torch.zeros(shape, dtype=torch.bool)
+    reached[:, 0] = True
+    for k in range(1, pack):
+        end = start[:, k - 1] + used[:, k - 1]  # one past the closing leaf
+        start[:, k] = (end - 1) // chunk * chunk + chunk
+        reached[:, k] = (
+            reached[:, k - 1] & finished[:, k - 1] & (end <= budget) & (start[:, k] < budget)
+        )
+    return torch.where(reached, budget - start, 0).reshape(-1)[:C]
+
+
+def _run(machine_fn, x, imm, sigma_m, step_size, machine, pack, tile_chains):
+    """One machine run (``machine_fn`` is the kernel launch or the plain
+    version); with ``pack > 1`` a second run with per-chain budgets where
+    the lane schedule cuts some chain short."""
+    out = machine_fn(x, imm, sigma_m, step_size, **machine)
+    if pack > 1:
+        steps, iters = out[1].cpu(), out[4].cpu()
+        budget = machine["budget"]
+        budgets = _lane_budgets(
+            steps, iters, num_steps=machine["num_steps"], budget=budget,
+            chunk=machine["chunk"], pack=pack, tile_chains=tile_chains,
+        )
+        in_time = (steps == machine["num_steps"]) & (iters <= budgets)
+        if not bool((in_time | (budgets == budget)).all()):
+            out = machine_fn(x, imm, sigma_m, step_size, budgets=budgets, **machine)
+    acc_x, steps, grads, hist, _ = out
+    return acc_x, hist, grads.sum(), steps
 
 
 def _prepare(
@@ -511,11 +572,6 @@ def _prepare(
             f"restart_every must be >= 1 and divide chunk, got "
             f"{restart_every} (chunk={chunk})"
         )
-    if pack != 1 or restart_every != 1:
-        raise NotImplementedError(
-            "pack and restart_every schedule the TPU's lockstep lanes; the "
-            "port runs chains independently and takes only 1 for both"
-        )
     if not -(2**31) <= int(seed) < 2**31:
         raise ValueError(f"seed must fit in int32, got {seed}")
     imm = torch.as_tensor(inverse_mass_matrix)
@@ -524,7 +580,7 @@ def _prepare(
             "dense and low-rank inverse mass matrices are not ported yet"
         )
     if budget is None:
-        budget = 32 * num_steps
+        budget = 32 * num_steps * pack
     dev = positions.device
     x = positions.to(torch.float32).contiguous()
     imm = torch.broadcast_to(imm.to(device=dev, dtype=torch.float32), (d,)).contiguous()
@@ -536,6 +592,7 @@ def _prepare(
         target=target, num_steps=num_steps, max_depth=max_num_doublings,
         seed=int(seed), track_rows=track_rows, budget=_round_up(budget, chunk),
         chunk=chunk, divergence_threshold=divergence_threshold,
+        restart_every=restart_every,
     )
     return x, imm, sigma_m, machine
 
@@ -564,37 +621,42 @@ def fused_nuts_run_dc(
     (or a scalar). Returns ``(final_positions (C, d), history (C, num_steps,
     num_track), total_grads (), steps (C,) int32)``, as the reference does.
     ``steps[c] < num_steps`` means the leaf ``budget`` ran out before chain
-    ``c`` finished; ``budget`` is rounded up to a multiple of ``chunk``.
-    History records coordinates ``0..num_track-1``, or ``track_rows``.
+    ``c`` finished; ``budget`` (default ``32 * num_steps * pack``) counts
+    leaf iterations per lane of ``pack`` chains, as in the reference, and is
+    rounded up to a multiple of ``chunk``. ``restart_every`` (a divisor of
+    ``chunk``) gates restarts to every ``restart_every``-th leaf. Both
+    change which chains the budget cuts short and nothing else; with
+    ``pack > 1`` a binding budget costs a second run. History records
+    coordinates ``0..num_track-1``, or ``track_rows``.
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
-    ``tile_chains`` is accepted and ignored. Chain ids are local to the
-    call: callers that split chains across devices offset ``seed``.
+    Chain ids are local to the call: callers that split chains across
+    devices offset ``seed``.
     """
-    del tile_chains
-    x, imm, sigma_m, machine = _prepare(
-        positions, inverse_mass_matrix, target=target, num_steps=num_steps,
-        max_num_doublings=max_num_doublings, seed=seed, num_track=num_track,
-        track_rows=track_rows, budget=budget, chunk=chunk, pack=pack,
-        restart_every=restart_every, divergence_threshold=divergence_threshold,
+    kwargs = dict(
+        target=target, num_steps=num_steps, max_num_doublings=max_num_doublings,
+        seed=seed, num_track=num_track, track_rows=track_rows, budget=budget,
+        chunk=chunk, pack=pack, restart_every=restart_every,
+        divergence_threshold=divergence_threshold,
     )
+    x, imm, sigma_m, machine = _prepare(positions, inverse_mass_matrix, **kwargs)
     if x.device.type == "cuda":
-        acc_x, steps, grads, hist = _launch_cuda(x, imm, sigma_m, float(step_size), **machine)
+        machine_fn = _launch_cuda
     elif x.device.type == "cpu":
-        acc_x, steps, grads, hist = _machine_plain(x, imm, sigma_m, float(step_size), **machine)
+        machine_fn = _machine_plain
     else:
         raise NotImplementedError(f"no machine for device type {x.device.type!r}")
-    return acc_x, hist, grads.sum(), steps
+    return _run(machine_fn, x, imm, sigma_m, float(step_size), machine, pack, tile_chains)
 
 
 def fused_nuts_run_dc_plain(positions, inverse_mass_matrix, step_size, **kwargs):
     """The plain PyTorch version of :func:`fused_nuts_run_dc`, with the same
     arguments and outputs, on the device of ``positions``: on the card it is
     the kernel's reference. It launches nothing of ours and counts nothing."""
-    kwargs.pop("tile_chains", None)
+    tile_chains = kwargs.pop("tile_chains", 128)
+    pack = kwargs.get("pack", 1)
     x, imm, sigma_m, machine = _prepare(positions, inverse_mass_matrix, **kwargs)
-    acc_x, steps, grads, hist = _machine_plain(x, imm, sigma_m, float(step_size), **machine)
-    return acc_x, hist, grads.sum(), steps
+    return _run(_machine_plain, x, imm, sigma_m, float(step_size), machine, pack, tile_chains)
 
 
 def threefry2x32_device(k0: int, k1: int, c0, c1):
@@ -614,8 +676,8 @@ def threefry2x32_device(k0: int, k1: int, c0, c1):
     lib = _library()
     code = lib.bjt_threefry2x32(
         a.data_ptr(), b.data_ptr(), k0 & MASK32, k1 & MASK32,
-        o0.data_ptr(), o1.data_ptr(), a.numel(), _stream_handle(a.device),
+        o0.data_ptr(), o1.data_ptr(), a.numel(), _nvcc.stream_handle(a.device),
     )
-    _check(lib, code, "threefry2x32")
+    _nvcc.check_launch(lib, code, "threefry2x32")
     LAUNCHES["threefry2x32"] += 1
     return o0.to(torch.int64) & MASK32, o1.to(torch.int64) & MASK32

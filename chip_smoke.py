@@ -5,29 +5,43 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's main path once, at the flagship's full width (NUTS on
-the 100-dim hierarchical posterior, 4,096 chains), and checks it in phases,
+It drives the port's two main paths once, at the flagship's full width (the
+100-dim hierarchical posterior, 4,096 chains), and checks them in phases,
 one line each:
 
-1. the card (``nvidia-smi`` name and power limit) and the build of
-   ``csrc/fused_nuts_dc.cu`` with nvcc, with its seconds and its register
-   and spill report;
-2. the kernel's own threefry2x32 device function against the plain version,
-   bit for bit, on 100,000 counters;
-3. the CUDA machine against its plain PyTorch version on the card at
+1. the card (``nvidia-smi`` name and power limit) and the builds of
+   ``csrc/fused_nuts_dc.cu`` and ``csrc/fused_leapfrog.cu`` with nvcc, both
+   started together, with their seconds and register and spill reports;
+2. the dc kernel's own threefry2x32 device function against the plain
+   version, bit for bit, on 100,000 counters;
+3. the dc NUTS machine against its plain PyTorch version on the card at
    d=100, 4,096 chains, 16 transitions: identical step counts, the share of
-   chains that agree to 1e-5 above the CPU test's floor, pooled moments,
-   and both times;
-4. the main path, launch counts reset just before it: the port's NUTS for 5
-   transitions from a numpy-seeded init, then ``fused_nuts_run_dc`` for 256
-   transitions from those positions, then min-ESS with the port's
-   diagnostics; every chain must complete, everything must be finite, the
-   kernel must have been launched, and the pooled moments of ``log_tau``
-   must match its N(0, 1) marginal. Then the plain version from the same
-   positions, for its time and its agreement.
+   chains that agree to 1e-5 above the CPU test's floor, pooled moments, and
+   both times;
+4. the NUTS path, launch counts reset just before it: the port's
+   single-chain ``window_adaptation(nuts)`` (400 steps, as ``bench.py``
+   adapts), then the port's NUTS for 5 transitions from a numpy-seeded init
+   on the adapted step size and metric, then ``fused_nuts_run_dc`` for 256
+   transitions, then min-ESS; every chain must complete, everything must be
+   finite, the kernel must have been launched, and ``log_tau``'s moments
+   over the second half must match its N(0, 1) marginal. Then the plain
+   version on the first 512 chains (chain ids are local to a call, so they
+   draw what the kernel's first 512 drew), for its agreement;
+5. the fused leapfrog kernel against its plain version on the card at
+   d=100, 4,096 chains, 10 steps, for both targets: the share of chains
+   whose positions, momenta and energy agree to 1e-5 (floor 0.99), the
+   largest difference, both times per call by CUDA events, and the
+   kernel's device time per launch by torch.profiler;
+6. the HMC path, launch counts reset just before it: the port's
+   ``window_adaptation(hmc)`` over all 4,096 chains (pooled, 10 leapfrog
+   steps, 400 steps), then ``fused_hmc`` for 1,000 transitions (one kernel
+   launch each), then min-ESS over 8 tracked coordinates; everything must be
+   finite, the kernel launched 1,000 times, the mean acceptance in
+   [0.5, 0.99], and ``log_tau``'s second-half moments near N(0, 1).
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``. Any failed check raises and exits
+The line before the last is the per-kernel JSON record (``ms`` and
+``plain_ms`` are phase 3's and phase 5's like-for-like times); the last line
+is ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 non-zero without that line; so does a machine without CUDA, and a directory
 without the package.
 """
@@ -36,6 +50,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -46,6 +61,11 @@ MAX_DOUBLINGS = 8
 NUM_TRACK = 8
 AGREE_TOL = 1e-5
 AGREE_FLOOR = 0.9  # tests/test_torch_fused_nuts_dc.py::AGREE_FLOOR
+WARMUP_STEPS = 400  # bench.py's WARMUP_STEPS
+PLAIN_CHAINS = 512  # phase 4's plain-version comparison
+LEAPFROG_FLOOR = 0.99
+HMC_STEPS = 10  # leapfrog steps per HMC transition
+HMC_TRANSITIONS = 1000
 
 
 def _require(ok: bool, what: str) -> None:
@@ -65,13 +85,13 @@ def _timed(torch, fn):
 
 def _ptxas_summary(log: str) -> list:
     """'kernel: registers, spill stores/loads' from nvcc's -Xptxas -v report;
-    machine kernels are named by their registers per lane and vector (N)."""
+    kernels are named by their registers per lane and vector (N)."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            n = re.search(r"nuts_dc_kernelILi(\d+)E", entry.group(1))
-            name = f"machine N={n.group(1)}" if n else "threefry export"
+            n = re.search(r"(nuts_dc|leapfrog)_kernelILi(\d+)E", entry.group(1))
+            name = f"{n.group(1)} N={n.group(2)}" if n else "threefry export"
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
             out.append(f"{name}: spills {spill.group(1)}/{spill.group(2)} B")
@@ -91,6 +111,40 @@ def _agreement(torch, a, b):
     return float(close.float().mean()), err
 
 
+def _timed_mean(torch, fn, repeats):
+    """Milliseconds per call over ``repeats`` calls, by CUDA events, after
+    one untimed call."""
+    fn()
+    _, ms = _timed(torch, lambda: [fn() for _ in range(repeats)])
+    return ms / repeats
+
+
+def _device_ms(torch, fn, kernel, repeats=20):
+    """Device time per call of the kernels whose name holds ``kernel``, by
+    torch.profiler (CUPTI), or None where the trace shows no device time."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Warning: Profiler clears events")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / repeats if us > 0 else None
+
+
+def _log_tau_moments(hist):
+    """Mean and variance of log_tau (tracked column 0) over the second half
+    of a (chains, samples, k) history."""
+    log_tau = hist[:, hist.shape[1] // 2:, 0].flatten()
+    return float(log_tau.mean()), float(log_tau.var())
+
+
 def main() -> int:
     import torch
 
@@ -98,11 +152,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; this check needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    import importlib
+
     import blackjax_tpu_torch
+    from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
+    from blackjax_tpu_torch.mcmc import hmc, nuts
     from blackjax_tpu_torch.models import hierarchical_gaussian
     from blackjax_tpu_torch.ops import counter_rng
     from blackjax_tpu_torch.ops import fused_nuts_dc as dc
     from blackjax_tpu_torch.util import run_inference_algorithm
+
+    lf = importlib.import_module("blackjax_tpu_torch.ops.fused_leapfrog")
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -113,11 +173,20 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+
+    def build(module):
+        t = time.perf_counter()
+        log = module.build()
+        return time.perf_counter() - t, log
+
     t0 = time.perf_counter()
-    log = dc.build()
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source
+        builds = [pool.submit(build, module) for module in (dc, lf)]
+        (dc_s, dc_log), (lf_s, lf_log) = (b.result() for b in builds)
     build_s = time.perf_counter() - t0
-    print(f"phase 1: card {kind!r} ({smi}); built csrc/fused_nuts_dc.cu in "
-          f"{build_s:.2f} s; ptxas per kernel: {'; '.join(_ptxas_summary(log))}")
+    print(f"phase 1: card {kind!r} ({smi}); built both kernels in {build_s:.2f} s: "
+          f"csrc/fused_nuts_dc.cu {dc_s:.2f} s, ptxas {'; '.join(_ptxas_summary(dc_log))}; "
+          f"csrc/fused_leapfrog.cu {lf_s:.2f} s, ptxas {'; '.join(_ptxas_summary(lf_log))}")
 
     # ---- phase 2: threefry export, bit for bit ----
     rng = np.random.default_rng(0)
@@ -159,17 +228,31 @@ def main() -> int:
           f"pooled var log_tau kernel {float(kv[0]):.5f} plain {float(pv[0]):.5f}; "
           f"kernel {ms3:.3f} ms, plain {plain_ms3:.1f} ms ({smi})")
 
-    # ---- phase 4: the main path ----
+    # ---- phase 4: the NUTS path ----
     S = 256
     flagship = hierarchical_gaussian(D)
-    algo = blackjax_tpu_torch.nuts(flagship.logdensity_fn, step_size=STEP_SIZE,
-                                   inverse_mass_matrix=imm, max_num_doublings=6)
+    generator = torch.Generator(device=dev).manual_seed(SEED)
     init = torch.from_numpy((0.5 * np.random.default_rng(1).standard_normal((C, D)))
                             .astype(np.float32)).to(dev)
-    generator = torch.Generator(device=dev).manual_seed(SEED)
     for name in dc.LAUNCHES:
         dc.LAUNCHES[name] = 0
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warmup = blackjax_tpu_torch.window_adaptation(
+        nuts, flagship.logdensity_fn, max_num_doublings=MAX_DOUBLINGS,
+        adaptation_info_fn=get_filter_adapt_info_fn(info_keys={"num_integration_steps"}),
+    )
+    (_, params), warm_info = warmup.run(
+        generator, torch.zeros(D, device=dev), WARMUP_STEPS)
+    torch.cuda.synchronize()
+    warm4_s = time.perf_counter() - t0
+    step4, imm4 = params["step_size"], params["inverse_mass_matrix"]
+    _require(np.isfinite(step4) and step4 > 0, f"warmup step size {step4}")
+    _require(bool(torch.isfinite(imm4).all() and (imm4 > 0).all()), "warmup metric")
+    warm_leaves = int(warm_info.info.num_integration_steps.sum())
+
+    algo = blackjax_tpu_torch.nuts(flagship.logdensity_fn, step_size=step4,
+                                   inverse_mass_matrix=imm4, max_num_doublings=6)
     t0 = time.perf_counter()
     state, _ = run_inference_algorithm(generator, algo, 5, initial_position=init)
     torch.cuda.synchronize()
@@ -178,47 +261,146 @@ def main() -> int:
     run_kw = dict(target=target, num_steps=S, max_num_doublings=MAX_DOUBLINGS, seed=SEED,
                   num_track=NUM_TRACK, budget=2**MAX_DOUBLINGS * S)
     (fx, hist, grads, steps), ms4 = _timed(
-        torch, lambda: blackjax_tpu_torch.fused_nuts_run_dc(positions, imm, STEP_SIZE, **run_kw))
+        torch, lambda: blackjax_tpu_torch.fused_nuts_run_dc(positions, imm4, step4, **run_kw))
     ess = blackjax_tpu_torch.ess(hist)  # (chains, samples, tracked)
     min_ess = float(ess.min())
     launches = dict(dc.LAUNCHES)
 
-    _require(launches["fused_nuts_dc"] > 0, "the main path launched no kernel")
+    _require(launches["fused_nuts_dc"] > 0, "the NUTS path launched no kernel")
     _require(bool((steps == S).all()), f"chains short of {S} transitions: {int(steps.min())}")
     for name, t in [("positions", fx), ("history", hist), ("ess", ess)]:
         _require(bool(torch.isfinite(t).all()), f"non-finite {name}")
     _require(fx.shape == (C, D) and hist.shape == (C, S, NUM_TRACK), "output shapes")
-    # log_tau's marginal is N(0, 1). The chains start without warmup from
-    # 0.5 * N(0, I), deep in the funnel's neck, and drift out slowly: the
-    # bound is a coarse sanity check on the second half of the history.
-    log_tau = hist[:, S // 2:, 0].flatten()
-    mean_lt, var_lt = float(log_tau.mean()), float(log_tau.var())
+    # log_tau's marginal is N(0, 1); the chains start from 0.5 * N(0, I), in
+    # the funnel's neck, and the bound is a sanity check on the second half
+    mean_lt, var_lt = _log_tau_moments(hist)
     _require(abs(mean_lt) < 0.3 and abs(var_lt - 1.0) < 0.3,
              f"log_tau moments {mean_lt}, {var_lt} far off its N(0, 1) marginal")
     secs = ms4 / 1e3
-    print(f"phase 4: nuts 5 transitions x {C} chains in {nuts_s:.2f} s; fused_nuts_run_dc "
-          f"d={D} C={C} S={S}: all {C} chains completed {S} transitions, kernel "
-          f"{ms4:.2f} ms, {float(grads):.0f} grads ({float(grads) / secs:.4g} grads/s), "
-          f"min-ESS over {NUM_TRACK} tracked dims {min_ess:.1f} ({min_ess / secs:.4g} ESS/s), "
-          f"log_tau over the second half: mean {mean_lt:.4f} var {var_lt:.4f}; "
-          f"launches {launches} ({smi})")
+    print(f"phase 4: window_adaptation(nuts) single chain, {WARMUP_STEPS} steps, "
+          f"{warm_leaves} leaves in {warm4_s:.2f} s: step size {step4:.5f}, mean imm "
+          f"{float(imm4.mean()):.5f}, imm[log_tau] {float(imm4[0]):.5f}; nuts 5 transitions x "
+          f"{C} chains in {nuts_s:.2f} s; fused_nuts_run_dc d={D} C={C} S={S}: all {C} "
+          f"chains completed {S} transitions, kernel {ms4:.2f} ms, {float(grads):.0f} grads "
+          f"({float(grads) / secs:.4g} grads/s), min-ESS over {NUM_TRACK} tracked dims "
+          f"{min_ess:.1f} ({min_ess / secs:.4g} ESS/s), log_tau over the second half: mean "
+          f"{mean_lt:.4f} var {var_lt:.4f}; launches {launches} ({smi})")
 
-    plain, plain_ms4 = _timed(
-        torch, lambda: dc.fused_nuts_run_dc_plain(positions, imm, STEP_SIZE, **run_kw))
-    share4, err4 = _agreement(torch, (fx, hist), plain[:2])
-    print(f"phase 4 plain version from the same positions: {plain_ms4:.1f} ms, "
+    plain, plain_ms4 = _timed(torch, lambda: dc.fused_nuts_run_dc_plain(
+        positions[:PLAIN_CHAINS], imm4, step4, **run_kw))
+    _require(torch.equal(steps[:PLAIN_CHAINS], plain[3]), "phase 4 steps differ")
+    share4, err4 = _agreement(torch, (fx[:PLAIN_CHAINS], hist[:PLAIN_CHAINS]), plain[:2])
+    _require(share4 >= AGREE_FLOOR, f"only {share4} of chains agree at phase 4")
+    print(f"phase 4 plain version on the first {PLAIN_CHAINS} chains: {plain_ms4:.1f} ms, "
           f"{share4:.4f} of chains agree with the kernel to {AGREE_TOL}, max |diff| {err4:.3g}")
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_nuts_dc",
-        "route": "cuda",
-        "source": "blackjax_tpu_torch/csrc/fused_nuts_dc.cu",
-        "replaces": "blackjax_tpu/ops/fused_nuts_dc.py:964",
-        "launches": launches["fused_nuts_dc"],
-        "max_abs_err": err3,
-        "ms": ms4,
-        "plain_ms": plain_ms4,
-    }]}))
+    # ---- phase 5: the leapfrog kernel against its plain version ----
+    rng5 = np.random.default_rng(5)
+    x5 = torch.from_numpy((0.5 * rng5.standard_normal((C, D))).astype(np.float32)).to(dev)
+    m5 = torch.from_numpy(rng5.standard_normal((C, D)).astype(np.float32)).to(dev)
+    imm5 = torch.from_numpy(rng5.uniform(0.5, 1.5, D).astype(np.float32)).to(dev)
+    lf_targets = {
+        "hierarchical": lf.make_hierarchical_gaussian_target(D),
+        "gaussian": lf.make_gaussian_target(D, np.logspace(-1, 1, D)),
+    }
+    lf_times, err5 = {}, 0.0
+    for name, lf_target in lf_targets.items():
+        lf_kw = dict(target=lf_target, num_steps=HMC_STEPS)
+        kern = lf.fused_leapfrog(x5, m5, imm5, 0.1, **lf_kw)
+        plain = lf.fused_leapfrog_plain(x5, m5, imm5, 0.1, **lf_kw)
+        close = torch.ones(C, dtype=torch.bool, device=dev)
+        for a, b in zip(kern, plain):
+            ok = torch.isclose(a, b, rtol=AGREE_TOL, atol=AGREE_TOL)
+            close &= ok.all(1) if ok.dim() == 2 else ok
+            err5 = max(err5, float((a - b).abs().max()))
+        share5 = float(close.float().mean())
+        _require(share5 >= LEAPFROG_FLOOR, f"only {share5} of leapfrog chains agree ({name})")
+        ms5 = _timed_mean(torch, lambda: lf.fused_leapfrog(x5, m5, imm5, 0.1, **lf_kw), 50)
+        plain_ms5 = _timed_mean(
+            torch, lambda: lf.fused_leapfrog_plain(x5, m5, imm5, 0.1, **lf_kw), 10)
+        dev_ms5 = _device_ms(
+            torch, lambda: lf.fused_leapfrog(x5, m5, imm5, 0.1, **lf_kw), "leapfrog_kernel")
+        lf_times[name] = (ms5, plain_ms5)
+        device_time = "not measured" if dev_ms5 is None else f"{dev_ms5:.4f} ms"
+        print(f"phase 5: fused_leapfrog {name} d={D} C={C} num_steps={HMC_STEPS}: "
+              f"{share5:.4f} of chains agree to {AGREE_TOL} in x, m and energy (floor "
+              f"{LEAPFROG_FLOOR}), max |diff| so far {err5:.3g}; per call by CUDA events: "
+              f"kernel {ms5:.4f} ms, plain {plain_ms5:.4f} ms; the kernel's device time by "
+              f"torch.profiler {device_time} per launch ({smi})")
+
+    # ---- phase 6: the HMC path ----
+    for name in lf.LAUNCHES:
+        lf.LAUNCHES[name] = 0
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warmup = blackjax_tpu_torch.window_adaptation(
+        hmc, flagship.logdensity_fn, n_chains=C, num_integration_steps=HMC_STEPS,
+        adaptation_info_fn=get_filter_adapt_info_fn(info_keys={"acceptance_rate"}),
+    )
+    (warm_state, params), warm_info = warmup.run(generator, init, WARMUP_STEPS)
+    torch.cuda.synchronize()
+    warm6_s = time.perf_counter() - t0
+    step6, imm6 = params["step_size"], params["inverse_mass_matrix"]
+    _require(np.isfinite(step6) and step6 > 0, f"warmup step size {step6}")
+    _require(bool(torch.isfinite(imm6).all() and (imm6 > 0).all()), "warmup metric")
+
+    sampler = blackjax_tpu_torch.fused_hmc(
+        lf.make_hierarchical_gaussian_target(D), step6, imm6, HMC_STEPS)
+    t0 = time.perf_counter()
+    (_, (track, acc)), ms6 = _timed(torch, lambda: run_inference_algorithm(
+        generator, sampler, HMC_TRANSITIONS, initial_position=warm_state.position,
+        transform=lambda s, i: (s.positions[:, :NUM_TRACK], i.acceptance_rate)))
+    host6_s = time.perf_counter() - t0
+    hist6 = track.permute(1, 0, 2)  # (chains, samples, tracked)
+    ess6 = blackjax_tpu_torch.ess(hist6.double())
+    min_ess6 = float(ess6.min())
+    lf_launches = lf.LAUNCHES["fused_leapfrog"]
+    mean_acc = float(acc.mean())
+
+    for name, t in [("history", hist6), ("acceptance", acc), ("ess", ess6)]:
+        _require(bool(torch.isfinite(t).all()), f"non-finite {name} at phase 6")
+    _require(hist6.shape == (C, HMC_TRANSITIONS, NUM_TRACK), "phase 6 history shape")
+    _require(lf_launches == HMC_TRANSITIONS,
+             f"fused_leapfrog launched {lf_launches} times, not {HMC_TRANSITIONS}")
+    _require(0.5 <= mean_acc <= 0.99, f"mean acceptance {mean_acc}")
+    mean_lt6, var_lt6 = _log_tau_moments(hist6)
+    _require(abs(mean_lt6) < 0.3 and abs(var_lt6 - 1.0) < 0.3,
+             f"log_tau moments {mean_lt6}, {var_lt6} far off its N(0, 1) marginal")
+    secs6 = ms6 / 1e3
+    grads6 = C * HMC_TRANSITIONS * HMC_STEPS
+    print(f"phase 6: window_adaptation(hmc) pooled over {C} chains, {WARMUP_STEPS} steps "
+          f"x {HMC_STEPS} leapfrogs, in {warm6_s:.2f} s (warmup acceptance "
+          f"{float(warm_info.info.acceptance_rate.mean()):.4f}): step size {step6:.5f}, mean "
+          f"imm {float(imm6.mean()):.5f}, imm[log_tau] {float(imm6[0]):.5f}; fused_hmc "
+          f"{HMC_TRANSITIONS} transitions x {C} chains: {ms6:.2f} ms by CUDA events "
+          f"({host6_s:.2f} s host clock), {grads6} grads ({grads6 / secs6:.4g} grads/s), "
+          f"min-ESS over {NUM_TRACK} tracked dims {min_ess6:.1f} ({min_ess6 / secs6:.4g} "
+          f"ESS/s), mean acceptance {mean_acc:.4f}, log_tau over the second half: mean "
+          f"{mean_lt6:.4f} var {var_lt6:.4f}; fused_leapfrog launches {lf_launches} ({smi})")
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "fused_nuts_dc",
+            "route": "cuda",
+            "source": "blackjax_tpu_torch/csrc/fused_nuts_dc.cu",
+            "replaces": "blackjax_tpu/ops/fused_nuts_dc.py:964",
+            "launches": launches["fused_nuts_dc"],
+            "max_abs_err": err3,
+            "ms": ms3,
+            "plain_ms": plain_ms3,
+        },
+        {
+            "name": "fused_leapfrog",
+            "route": "cuda",
+            "source": "blackjax_tpu_torch/csrc/fused_leapfrog.cu",
+            "replaces": "blackjax_tpu/ops/fused_leapfrog.py:206",
+            "launches": lf_launches,
+            "max_abs_err": err5,
+            "ms": lf_times["hierarchical"][0],
+            "plain_ms": lf_times["hierarchical"][1],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -10,6 +10,8 @@ Kernel and plain version draw the same counter-based numbers and round
 alike except for the order of their sums, so they are held chain by chain
 as the CPU test holds the plain version against the Pallas kernel.
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -17,6 +19,10 @@ torch = pytest.importorskip("torch")
 
 from blackjax_tpu_torch.ops import counter_rng  # noqa: E402
 from blackjax_tpu_torch.ops import fused_nuts_dc as dc  # noqa: E402
+from blackjax_tpu_torch.ops.fused_hmc import fused_hmc  # noqa: E402
+
+# `ops.fused_leapfrog` is the function; the module comes from importlib
+fl = importlib.import_module("blackjax_tpu_torch.ops.fused_leapfrog")
 
 pytestmark = pytest.mark.gpu
 
@@ -88,3 +94,73 @@ def test_wide_targets_are_refused(cuda):
             torch.zeros(4, d, device=cuda), torch.ones(d, device=cuda), 0.2,
             target=dc.make_hierarchical_target_dc(d), num_steps=2, num_track=2,
         )
+
+
+def test_pack_and_restart_every_budget_matches_plain_version(cuda):
+    """Four chains per lane under a lane budget that cuts some short: the
+    kernel flags exactly the plain version's chains."""
+    d, C = 8, 512
+    x = torch.from_numpy(
+        (0.5 * np.random.default_rng(1).standard_normal((C, d))).astype(np.float32)
+    ).to(cuda)
+    imm = torch.ones(d, device=cuda)
+    kw = dict(target=dc.make_hierarchical_target_dc(d), num_steps=8, max_num_doublings=4,
+              seed=7, num_track=d, chunk=16, pack=4, restart_every=2, budget=256)
+    kern = dc.fused_nuts_run_dc(x, imm, 0.2, **kw)
+    plain = dc.fused_nuts_run_dc_plain(x, imm, 0.2, **kw)
+    assert torch.equal(kern[3], plain[3])
+    assert 0 < int((kern[3] < 8).sum()) < C
+    close = torch.isclose(kern[0], plain[0], rtol=TOL, atol=TOL).all(1)
+    close &= torch.isclose(kern[1], plain[1], rtol=TOL, atol=TOL).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
+
+
+LEAPFROG_FLOOR = 0.99
+
+
+@pytest.mark.parametrize("d", [12, 100, 200])
+@pytest.mark.parametrize("case", ["hierarchical", "gaussian"])
+def test_leapfrog_kernel_matches_plain_version(cuda, case, d):
+    rng = np.random.default_rng(d)
+    if case == "hierarchical":
+        target = fl.make_hierarchical_gaussian_target(d)
+    else:
+        target = fl.make_gaussian_target(d, rng.uniform(0.5, 4.0, d))
+    C = 1024
+    x = torch.from_numpy((0.5 * rng.standard_normal((C, d))).astype(np.float32)).to(cuda)
+    m = torch.from_numpy(rng.standard_normal((C, d)).astype(np.float32)).to(cuda)
+    imm = torch.from_numpy(rng.uniform(0.5, 2.0, d).astype(np.float32)).to(cuda)
+    before = fl.LAUNCHES["fused_leapfrog"]
+    kern = fl.fused_leapfrog(x, m, imm, 0.05, target=target, num_steps=10)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES["fused_leapfrog"] == before + 1
+    plain = fl.fused_leapfrog_plain(x, m, imm, 0.05, target=target, num_steps=10)
+    close = torch.ones(C, dtype=torch.bool, device=cuda)
+    for a, b in zip(kern, plain):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        ok = torch.isclose(a, b, rtol=TOL, atol=TOL)
+        close &= ok.all(1) if ok.dim() == 2 else ok
+    assert float(close.float().mean()) >= LEAPFROG_FLOOR
+
+
+def test_leapfrog_wide_targets_are_refused(cuda):
+    d = 300
+    with pytest.raises(ValueError, match="d <= 256"):
+        fl.fused_leapfrog(
+            torch.zeros(4, d, device=cuda), torch.zeros(4, d, device=cuda),
+            torch.ones(d, device=cuda), 0.1, target=fl.make_hierarchical_gaussian_target(d),
+            num_steps=2,
+        )
+
+
+def test_fused_hmc_launches_once_per_transition(cuda):
+    d, C = 100, 256
+    algo = fused_hmc(fl.make_hierarchical_gaussian_target(d), 0.15, torch.ones(d, device=cuda), 10)
+    state = algo.init(0.5 * torch.randn(C, d, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    before = fl.LAUNCHES["fused_leapfrog"]
+    for _ in range(5):
+        state, info = algo.step(g, state)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES["fused_leapfrog"] == before + 5
+    assert torch.isfinite(state.positions).all() and info.acceptance_rate.shape == (C,)
