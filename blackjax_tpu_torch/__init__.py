@@ -4,12 +4,14 @@ The port mirrors the reference's module paths and public names. Every
 module here imports ``torch`` and never JAX; the kernels that were Pallas
 kernels for the TPU are hand-written CUDA kernels for Hopper
 (``csrc/fused_nuts_dc.cu``, the in-kernel NUTS machine;
-``csrc/fused_leapfrog.cu``, the trajectory of ``fused_hmc``). Kernels follow
+``csrc/fused_leapfrog.cu``, the trajectory of ``fused_hmc``;
+``csrc/fused_mclmc.cu``, the trajectory of ``ops.fused_mclmc``). Kernels follow
 ``(generator, state) -> (state, info)`` with a leading chain axis on every
 state tensor.
 
-Registry subset so far: ``hmc``, ``nuts``, ``fused_hmc``,
+Registry subset so far: ``hmc``, ``nuts``, ``mclmc``, ``fused_hmc``,
 ``fused_nuts_run_dc``, ``window_adaptation``, ``staged_adaptation``,
+``mclmc_find_L_and_step_size``,
 ``dual_averaging_adaptation``, ``dual_averaging``, ``diagnostics`` (with
 ``ess`` and ``rhat``) and ``util``.
 """
@@ -18,6 +20,7 @@ import importlib
 from typing import Callable
 
 from blackjax_tpu_torch import diagnostics, util
+from blackjax_tpu_torch.adaptation.mclmc_adaptation import mclmc_find_L_and_step_size
 from blackjax_tpu_torch.adaptation.staged_adaptation import staged_adaptation
 from blackjax_tpu_torch.adaptation.step_size import dual_averaging_adaptation
 from blackjax_tpu_torch.adaptation.window_adaptation import window_adaptation
@@ -29,6 +32,7 @@ from blackjax_tpu_torch.base import (
 from blackjax_tpu_torch.diagnostics import effective_sample_size as ess
 from blackjax_tpu_torch.diagnostics import ess_bulk, rhat
 from blackjax_tpu_torch.mcmc import hmc as _hmc
+from blackjax_tpu_torch.mcmc import mclmc as _mclmc
 from blackjax_tpu_torch.mcmc import nuts as _nuts
 from blackjax_tpu_torch.ops.fused_nuts_dc import fused_nuts_run_dc
 from blackjax_tpu_torch.optimizers import dual_averaging
@@ -58,6 +62,7 @@ def generate_top_level_api_from(module) -> GenerateSamplingAPI:
 
 hmc = generate_top_level_api_from(_hmc)
 nuts = generate_top_level_api_from(_nuts)
+mclmc = generate_top_level_api_from(_mclmc)
 
 # the class `ops.fused_hmc` shadows its module's name in `ops`, so the
 # module is resolved through importlib (as in the reference)
@@ -69,10 +74,12 @@ __all__ = [
     "__version__",
     "hmc",
     "nuts",
+    "mclmc",
     "fused_hmc",
     "fused_nuts_run_dc",
     "window_adaptation",
     "staged_adaptation",
+    "mclmc_find_L_and_step_size",
     "dual_averaging_adaptation",
     "dual_averaging",
     "diagnostics",

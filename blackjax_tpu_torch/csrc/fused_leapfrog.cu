@@ -13,9 +13,11 @@
 // Design. The TPU kernel holds a tile of chains in VMEM for the whole
 // trajectory. Here one warp runs one chain: lane j holds dims j, j+32, j+64, ...
 // in N registers per vector (N = 4 for d = 100; d <= 256), so x, m and g stay in
-// registers from the first load to the last store. The hierarchical target's
-// sum of theta squares, its log density and the kinetic energy are xor-shuffle
-// warp reductions, whose butterfly leaves the same bits in every lane.
+// registers from the first load to the last store. The targets' device
+// functions are shared with the MCLMC kernel (analytic_targets.cuh). The
+// hierarchical target's sum of theta squares, its log density and the kinetic
+// energy are xor-shuffle warp reductions, whose butterfly leaves the same bits
+// in every lane.
 //
 // Bound. Device memory sees x and m once in and once out (16 bytes per dim and
 // chain); per step a chain does O(d) FP32 multiply-adds, one exp and one warp
@@ -31,12 +33,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "analytic_targets.cuh"  // warp_sum, grad, logdensity of the targets
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;  // chains per block
-
-enum Target { kHierarchical = 0, kGaussian = 1 };
 
 struct Params {
   const float* x0;       // (C, d) initial positions
@@ -49,67 +50,6 @@ struct Params {
   int C, d, num_steps, target;
   float eps;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// sum over dims of (x * theta_mask)^2, theta_mask = 1 on dims 1..d-1
-template <int N>
-__device__ __forceinline__ float theta_sq(const Params& p, const float (&x)[N],
-                                          int lane) {
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int j = k * 32 + lane;
-    const float t = x[k] * ((j >= 1 && j < p.d) ? 1.f : 0.f);
-    s += t * t;
-  }
-  return warp_sum(s);
-}
-
-// The target's gradient, as grad_tile (fused_leapfrog.py:259-269, :306-307).
-template <int N>
-__device__ __forceinline__ void grad(const Params& p, const float (&x)[N],
-                                     const float (&iv)[N], float (&g)[N],
-                                     int lane) {
-  if (p.target == kHierarchical) {
-    const float log_tau = __shfl_sync(kFull, x[0], 0);
-    const float exp_neg = expf(-log_tau);
-    const float ts = theta_sq<N>(p, x, lane);
-    const float half_n_theta = 0.5f * (float)(p.d - 1);
-    const float g_tau = -log_tau + 0.5f * ts * exp_neg - half_n_theta;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const int j = k * 32 + lane;
-      const float is_tau = j == 0 ? 1.f : 0.f;
-      const float theta_mask = (j >= 1 && j < p.d) ? 1.f : 0.f;
-      g[k] = is_tau * g_tau + -(x[k] * theta_mask) * exp_neg;
-    }
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < N; ++k) g[k] = -x[k] * iv[k];
-}
-
-// The target's log density, as logdensity_tile (:247-257, :303-304).
-template <int N>
-__device__ __forceinline__ float logdensity(const Params& p, const float (&x)[N],
-                                            const float (&iv)[N], int lane) {
-  if (p.target == kHierarchical) {
-    const float log_tau = __shfl_sync(kFull, x[0], 0);
-    const float ts = theta_sq<N>(p, x, lane);
-    const float half_n_theta = 0.5f * (float)(p.d - 1);
-    return -0.5f * (log_tau * log_tau) - 0.5f * ts * expf(-log_tau) -
-           half_n_theta * log_tau;
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < N; ++k) s += x[k] * x[k] * iv[k];
-  return -0.5f * warp_sum(s);
-}
 
 template <int N>
 __global__ void __launch_bounds__(kWarps * 32) leapfrog_kernel(const Params p) {

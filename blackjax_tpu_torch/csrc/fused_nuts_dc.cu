@@ -41,12 +41,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "counter_rng.cuh"  // threefry2x32, to_unit, box_muller
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kKey1 = 0x9E3779B9u;
-constexpr float kU24 = 5.9604644775390625e-08f;  // 2^-24
-constexpr float kTwoPi = 6.283185307179586f;
 constexpr int kWarps = 4;  // chains per block
 
 enum Target { kHierarchical = 0, kGaussian = 1 };
@@ -67,39 +66,6 @@ struct Params {
   float eps, threshold;
   uint32_t seed;
 };
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// 20-round threefry2x32, the reference's _threefry2x32
-// (blackjax_tpu/ops/fused_mclmc.py:54) in native uint32 arithmetic.
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t c0, uint32_t c1,
-                                             uint32_t& o0, uint32_t& o1) {
-  constexpr int rot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  const uint32_t ks2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  const uint32_t keys[6] = {k1, ks2, k0, k1, ks2, k0};
-  uint32_t x0 = c0 + k0, x1 = c1 + k1;
-#pragma unroll
-  for (int b = 0; b < 5; ++b) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[(b % 2) * 4 + i]);
-      x1 ^= x0;
-    }
-    x0 += keys[b];
-    x1 += keys[b + 1] + (uint32_t)(b + 1);
-  }
-  o0 = x0;
-  o1 = x1;
-}
-
-// top 24 bits as f32 in [0, 1), as _counter_uniforms builds it
-__device__ __forceinline__ float to_unit(uint32_t w) {
-  return (float)(int)(w >> 8) * kU24;
-}
 
 // JAX's logaddexp: a NaN difference means equal infinities (or a NaN input),
 // and a + b then gives -inf for (-inf, -inf) where max + log1p(exp(-|a-b|))
@@ -230,10 +196,7 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
         if (j < p.d) {
           uint32_t b1, b2;
           threefry2x32(p.seed, kKey1, (uint32_t)j, c1, b1, b2);
-          const float u1 = ((float)(int)(b1 >> 8) + 1.0f) * kU24;
-          const float u2 = to_unit(b2);
-          const float z = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
-          m = p.sigma_m[j] * z;
+          m = p.sigma_m[j] * box_muller(b1, b2);
         }
         cur_m[k] = m;
         w_new[k] = imm[k] * m;  // scratch: w = M^{-1} m of the fresh momentum

@@ -4,12 +4,13 @@ Each function takes the reference's values as numpy arrays (``np.asarray``
 of a JAX array) and returns the port's tensors on a chosen device and dtype,
 so both packages can compute from the same state: HMC states and NUTS infos,
 inverse mass matrices and step sizes (alone or as a warmup's parameters),
-fused-HMC states, the fused kernels' targets, and the test posteriors by
-name.
+MCLMC states and tuned parameters, fused-HMC states, the fused kernels'
+targets, and the test posteriors by name.
 """
 import numpy as np
 import torch
 
+from blackjax_tpu_torch.adaptation.mclmc_adaptation import MCLMCAdaptationState
 from blackjax_tpu_torch.mcmc.hmc import HMCState
 from blackjax_tpu_torch.mcmc.integrators import IntegratorState
 from blackjax_tpu_torch.mcmc.nuts import NUTSInfo
@@ -30,6 +31,8 @@ __all__ = [
     "inverse_mass_matrix",
     "step_size",
     "adaptation_parameters",
+    "mclmc_state",
+    "mclmc_parameters",
     "fused_hmc_state",
     "target_dc",
     "fused_target",
@@ -87,6 +90,22 @@ def adaptation_parameters(parameters: dict, *, device=None, dtype=None) -> dict:
         parameters["inverse_mass_matrix"], device=device, dtype=dtype
     )
     return out
+
+
+def mclmc_state(state, *, device=None, dtype=None) -> IntegratorState:
+    """An MCLMC state of the reference (an ``IntegratorState``, fields as
+    arrays) as the port's."""
+    return IntegratorState(*(to_tensor(v, device=device, dtype=dtype) for v in state))
+
+
+def mclmc_parameters(params, *, device=None, dtype=None) -> MCLMCAdaptationState:
+    """The reference's ``MCLMCAdaptationState`` as the port's: ``L`` and the
+    step size as numbers, the inverse mass matrix as a tensor."""
+    return MCLMCAdaptationState(
+        step_size(params.L),
+        step_size(params.step_size),
+        to_tensor(params.inverse_mass_matrix, device=device, dtype=dtype),
+    )
 
 
 def fused_hmc_state(state, *, device=None) -> FusedHMCState:

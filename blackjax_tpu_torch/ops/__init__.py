@@ -12,6 +12,7 @@ from blackjax_tpu_torch.ops.fused_leapfrog import (
     make_hierarchical_gaussian_target,
     register_target,
 )
+from blackjax_tpu_torch.ops.fused_mclmc import fused_mclmc
 from blackjax_tpu_torch.ops.fused_nuts_dc import (
     TargetKernelDC,
     fused_nuts_run_dc,
@@ -26,6 +27,7 @@ __all__ = [
     "FusedHMCState",
     "fused_hmc",
     "fused_leapfrog",
+    "fused_mclmc",
     "fused_nuts_run_dc",
     "get_registered_target",
     "make_gaussian_target",

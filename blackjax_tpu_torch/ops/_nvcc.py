@@ -3,8 +3,9 @@ a shared library with a plain C interface, loads it with ``ctypes``, and
 holds what every kernel wrapper checks around a launch.
 
 The build happens at first use, into ``blackjax_tpu_torch/_build/`` (listed
-in ``.gitignore``), under a name keyed on a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is. The
+in ``.gitignore``), under a name keyed on a hash of the source, the shared
+headers and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside the library and returned by :func:`build_log`.
 """
@@ -51,8 +52,14 @@ def _nvcc() -> str:
 
 
 def _paths(name: str):
+    """The source, library and log paths of ``csrc/<name>.cu``. The
+    library's name is keyed on the source, every ``csrc/*.cuh`` header (a
+    source may include any of them) and the flags."""
     src = _SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(_SRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = f"{name}-{digest.hexdigest()[:16]}"
     return src, _BUILD_DIR / f"{stem}.so", _BUILD_DIR / f"{stem}.log"

@@ -4,9 +4,11 @@ Port of the threefry helpers the Pallas kernels share:
 ``blackjax_tpu/ops/fused_mclmc.py:50-69`` (``_rotl``, ``_threefry2x32``),
 ``blackjax_tpu/ops/fused_nuts.py:118-135`` (``_popcount8``,
 ``_counter_uniforms``), ``blackjax_tpu/ops/fused_nuts_dc.py:48-61``
-(``_counter_uniforms2``) and the Box-Muller momentum draw at
-``fused_nuts_dc.py:412-425``. The CUDA kernel
-(``csrc/fused_nuts_dc.cu``) carries the same functions as device code.
+(``_counter_uniforms2``), the Box-Muller momentum draw at
+``fused_nuts_dc.py:412-425`` and the MCLMC kernel's refresh normals
+``fused_mclmc.py:72-89`` (``_counter_normals``). The CUDA kernels
+(``csrc/fused_nuts_dc.cu``, ``csrc/fused_mclmc.cu``) carry the same
+functions as device code.
 
 PyTorch on the CPU has no add or shift for ``uint32``, so every 32-bit word
 here lives in an ``int64`` tensor holding a value in ``[0, 2**32)`` and is
@@ -25,6 +27,9 @@ __all__ = [
     "counter_uniforms",
     "counter_uniforms2",
     "momentum_normals",
+    "box_muller",
+    "counter_normal_words",
+    "counter_normals",
 ]
 
 MASK32 = 0xFFFFFFFF
@@ -119,7 +124,33 @@ def momentum_normals(seed, base_row: torch.Tensor, dim: int) -> torch.Tensor:
     chains ``2**24 / num_steps`` apart then draw the same momenta."""
     rows = torch.arange(dim, dtype=torch.int64, device=base_row.device)
     c1 = (1 << 24) | _u32(base_row)
-    b1, b2 = threefry2x32(seed, KEY1, rows[None, :], c1[:, None])
+    return box_muller(*threefry2x32(seed, KEY1, rows[None, :], c1[:, None]))
+
+
+def box_muller(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """One f32 standard normal per threefry block; ``u1`` carries the ``+1``
+    offset that keeps it off zero before the log."""
     u1 = _to_unit(b1, 1.0)
     u2 = _to_unit(b2)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+
+
+def counter_normal_words(seed, chain_base, stream, shape, *, device=None):
+    """The threefry words behind :func:`counter_normals`, two int64 tensors
+    of ``shape`` in ``[0, 2**32)``.
+
+    Element ``(row, lane)`` is keyed by ``c0 = (chain_base + row) *
+    shape[1] + lane`` and ``c1 = stream`` under the key ``(seed,
+    0x9E3779B9)``. The reference calls it on the lane-padded tile, so for
+    a ``(C, d)`` block ``shape[1]`` is ``round_up(d, 128)`` and only the
+    first ``d`` lanes are used."""
+    rows = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None]
+    lanes = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :]
+    c0 = ((_u32(chain_base, rows) + rows) * shape[1] + lanes) & MASK32
+    return threefry2x32(seed, KEY1, c0, _u32(stream, c0))
+
+
+def counter_normals(seed, chain_base, stream, shape, *, device=None) -> torch.Tensor:
+    """One f32 standard normal per element of ``shape`` by Box-Muller on a
+    threefry block (reference ``fused_mclmc.py:_counter_normals``)."""
+    return box_muller(*counter_normal_words(seed, chain_base, stream, shape, device=device))

@@ -226,10 +226,11 @@ def build() -> str:
 
 
 @functools.lru_cache(maxsize=16)
-def _params_on(params: tuple, device: torch.device) -> torch.Tensor:
-    """A target's host vector as a float32 tensor on ``device``, copied once
-    (a copy per launch would cost more than the kernel). Read only."""
-    return torch.tensor(params, dtype=torch.float32, device=device)
+def _params_on(params: tuple, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """A host vector (a target's parameters, tracked dims) as a tensor on
+    ``device``, copied once (a copy per launch would cost more than the
+    kernel). Read only."""
+    return torch.tensor(params, dtype=dtype, device=device)
 
 
 def _launch_cuda(x, m, imm, step_size, *, target, num_steps):

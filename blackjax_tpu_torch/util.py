@@ -15,6 +15,7 @@ from blackjax_tpu_torch.types import Array, ArrayLikeTree, PRNGKey
 __all__ = [
     "linear_map",
     "generate_gaussian_noise",
+    "generate_unit_vector",
     "pytree_size",
     "run_inference_algorithm",
     "tree_map",
@@ -74,6 +75,16 @@ def generate_gaussian_noise(
         position.shape, generator=rng_key, dtype=position.dtype, device=position.device
     )
     return mu + linear_map(sigma, eps)
+
+
+def generate_unit_vector(rng_key: PRNGKey, position: Array) -> Array:
+    """A uniform random unit vector per chain, shaped like ``position``
+    (reference ``util.py:68``): a ``(C, d)`` position gets ``C`` unit rows,
+    normalised over the last axis."""
+    eps = torch.randn(
+        position.shape, generator=rng_key, dtype=position.dtype, device=position.device
+    )
+    return eps / torch.linalg.vector_norm(eps, dim=-1, keepdim=True)
 
 
 def pytree_size(pytree: ArrayLikeTree) -> int:

@@ -5,15 +5,19 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's two main paths once, at the flagship's full width (the
-100-dim hierarchical posterior, 4,096 chains), and checks them in phases,
-one line each:
+It drives the port's three main paths once, at the flagship's full width
+(the 100-dim hierarchical posterior, 4,096 chains), and checks them in
+phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the builds of
-   ``csrc/fused_nuts_dc.cu`` and ``csrc/fused_leapfrog.cu`` with nvcc, both
-   started together, with their seconds and register and spill reports;
+   ``csrc/fused_nuts_dc.cu``, ``csrc/fused_leapfrog.cu`` and
+   ``csrc/fused_mclmc.cu`` with nvcc, all started together, with their
+   seconds and register and spill reports;
 2. the dc kernel's own threefry2x32 device function against the plain
-   version, bit for bit, on 100,000 counters;
+   version, bit for bit, on 100,000 counters; and the MCLMC kernel's
+   counter normals (4,096 chains x 100 dims): the threefry words bit for
+   bit, the normals to 1e-6 (``logf`` and ``cosf`` may differ from torch by
+   an ulp);
 3. the dc NUTS machine against its plain PyTorch version on the card at
    d=100, 4,096 chains, 16 transitions: identical step counts, the share of
    chains that agree to 1e-5 above the CPU test's floor, pooled moments, and
@@ -24,9 +28,11 @@ one line each:
    on the adapted step size and metric, then ``fused_nuts_run_dc`` for 256
    transitions, then min-ESS; every chain must complete, everything must be
    finite, the kernel must have been launched, and ``log_tau``'s moments
-   over the second half must match its N(0, 1) marginal. Then the plain
-   version on the first 512 chains (chain ids are local to a call, so they
-   draw what the kernel's first 512 drew), for its agreement;
+   over the second half must match its N(0, 1) marginal. Then, for the
+   comparison only, the kernel once more and its plain version on the first
+   512 chains for 32 transitions (draws are keyed on the call's
+   ``num_steps``, so the plain version is held against a call of its own
+   length);
 5. the fused leapfrog kernel against its plain version on the card at
    d=100, 4,096 chains, 10 steps, for both targets: the share of chains
    whose positions, momenta and energy agree to 1e-5 (floor 0.99), the
@@ -37,14 +43,28 @@ one line each:
    steps, 400 steps), then ``fused_hmc`` for 1,000 transitions (one kernel
    launch each), then min-ESS over 8 tracked coordinates; everything must be
    finite, the kernel launched 1,000 times, the mean acceptance in
-   [0.5, 0.99], and ``log_tau``'s second-half moments near N(0, 1).
+   [0.5, 0.99], and ``log_tau``'s second-half moments near N(0, 1);
+7. the MCLMC kernel against its plain version on the card at d=100, 4,096
+   chains, 64 steps, for both targets with the refresh off and on: the share
+   of chains whose positions, momenta, log density and history agree to
+   1e-5 (floor 0.9), the largest difference and how it grows with depth (to
+   512 steps), both times per call by CUDA events, and the kernel's device
+   time by torch.profiler;
+8. the MCLMC path, launch counts reset just before it: the port's
+   single-chain ``mclmc_find_L_and_step_size`` (2,000 steps' worth: 200 +
+   266 + 200 tuning steps), then the port's ``mclmc`` for 5 transitions over
+   the numpy-seeded init of phase 4, then ``fused_mclmc`` for 1,000 steps
+   (one launch), then min-ESS over 8 tracked coordinates; everything must be
+   finite, momenta unit-norm to 1e-5, and ``log_tau``'s second-half moments
+   near N(0, 1).
 
 The line before the last is the per-kernel JSON record (``ms`` and
-``plain_ms`` are phase 3's and phase 5's like-for-like times); the last line
+``plain_ms`` are phase 3's, 5's and 7's like-for-like times); the last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 non-zero without that line; so does a machine without CUDA, and a directory
 without the package.
 """
+import itertools
 import json
 import re
 import subprocess
@@ -62,10 +82,16 @@ NUM_TRACK = 8
 AGREE_TOL = 1e-5
 AGREE_FLOOR = 0.9  # tests/test_torch_fused_nuts_dc.py::AGREE_FLOOR
 WARMUP_STEPS = 400  # bench.py's WARMUP_STEPS
-PLAIN_CHAINS = 512  # phase 4's plain-version comparison
+PLAIN_CHAINS = 512  # phase 4's plain-version comparison: chains ...
+PLAIN_TRANSITIONS = 32  # ... and transitions
 LEAPFROG_FLOOR = 0.99
 HMC_STEPS = 10  # leapfrog steps per HMC transition
 HMC_TRANSITIONS = 1000
+MCLMC_CMP_STEPS = 64  # phase 7's comparison depth ...
+MCLMC_DEPTH = 512  # ... and how deep it reports the growth of differences
+MCLMC_FLOOR = 0.9
+MCLMC_TUNE_STEPS = 2000
+MCLMC_STEPS = 1000
 
 
 def _require(ok: bool, what: str) -> None:
@@ -90,11 +116,14 @@ def _ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            n = re.search(r"(nuts_dc|leapfrog)_kernelILi(\d+)E", entry.group(1))
-            name = f"{n.group(1)} N={n.group(2)}" if n else "threefry export"
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            n = re.search(r"(nuts_dc|leapfrog|mclmc)_kernelILi(\d+)E", entry.group(1))
+            export = "threefry" if "threefry" in entry.group(1) else "counter_normals"
+            name = f"{n.group(1)} N={n.group(2)}" if n else f"{export} export"
+        spill = re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
-            out.append(f"{name}: spills {spill.group(1)}/{spill.group(2)} B")
+            out.append(f"{name}: stack {spill.group(1)} B, spills "
+                       f"{spill.group(2)}/{spill.group(3)} B")
         regs = re.search(r"Used (\d+) registers", line)
         if regs and out:
             out[-1] += f", {regs.group(1)} registers"
@@ -156,13 +185,14 @@ def main() -> int:
 
     import blackjax_tpu_torch
     from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
-    from blackjax_tpu_torch.mcmc import hmc, nuts
+    from blackjax_tpu_torch.mcmc import hmc, mclmc, nuts
     from blackjax_tpu_torch.models import hierarchical_gaussian
     from blackjax_tpu_torch.ops import counter_rng
     from blackjax_tpu_torch.ops import fused_nuts_dc as dc
     from blackjax_tpu_torch.util import run_inference_algorithm
 
     lf = importlib.import_module("blackjax_tpu_torch.ops.fused_leapfrog")
+    fm = importlib.import_module("blackjax_tpu_torch.ops.fused_mclmc")
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -180,13 +210,14 @@ def main() -> int:
         return time.perf_counter() - t, log
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source
-        builds = [pool.submit(build, module) for module in (dc, lf)]
-        (dc_s, dc_log), (lf_s, lf_log) = (b.result() for b in builds)
+    with ThreadPoolExecutor(max_workers=3) as pool:  # one nvcc per source
+        builds = [pool.submit(build, module) for module in (dc, lf, fm)]
+        (dc_s, dc_log), (lf_s, lf_log), (fm_s, fm_log) = (b.result() for b in builds)
     build_s = time.perf_counter() - t0
-    print(f"phase 1: card {kind!r} ({smi}); built both kernels in {build_s:.2f} s: "
+    print(f"phase 1: card {kind!r} ({smi}); built the three kernels in {build_s:.2f} s: "
           f"csrc/fused_nuts_dc.cu {dc_s:.2f} s, ptxas {'; '.join(_ptxas_summary(dc_log))}; "
-          f"csrc/fused_leapfrog.cu {lf_s:.2f} s, ptxas {'; '.join(_ptxas_summary(lf_log))}")
+          f"csrc/fused_leapfrog.cu {lf_s:.2f} s, ptxas {'; '.join(_ptxas_summary(lf_log))}; "
+          f"csrc/fused_mclmc.cu {fm_s:.2f} s, ptxas {'; '.join(_ptxas_summary(fm_log))}")
 
     # ---- phase 2: threefry export, bit for bit ----
     rng = np.random.default_rng(0)
@@ -197,8 +228,18 @@ def main() -> int:
     plain = counter_rng.threefry2x32(SEED, counter_rng.KEY1, c0, c1)
     same = all(torch.equal(a.cpu(), b) for a, b in zip(on_card, plain))
     _require(same, "threefry2x32 device function != plain version")
+    # the MCLMC kernel's refresh noise: chains 5.., the refresh after step 17
+    mw1, mw2, mz = fm.counter_normals_device(SEED, 5, 2 * 17 + 1, C, D, dev)
+    pw1, pw2, pz = fm.counter_normals_device(SEED, 5, 2 * 17 + 1, C, D, "cpu")
+    words_same = torch.equal(mw1.cpu(), pw1) and torch.equal(mw2.cpu(), pw2)
+    _require(words_same, "MCLMC counter-normal words != plain version")
+    z_err = float((mz.cpu() - pz).abs().max())
+    z_same = float((mz.cpu() == pz).float().mean())
+    _require(torch.allclose(mz.cpu(), pz, rtol=1e-6, atol=1e-6), "MCLMC normals differ")
     print(f"phase 2: threefry2x32 device function equals the plain version bit for bit "
-          f"on {c0.numel()} counters: {same}")
+          f"on {c0.numel()} counters: {same}; the MCLMC kernel's counter normals on "
+          f"{mz.numel()} elements: threefry words bit for bit {words_same}, normals max |diff| "
+          f"{z_err:.3g} (tolerance 1e-6), {z_same:.4f} of them identical")
 
     # ---- phase 3: kernel against its plain version on the card ----
     target = dc.make_hierarchical_target_dc(D)
@@ -286,13 +327,20 @@ def main() -> int:
           f"{min_ess:.1f} ({min_ess / secs:.4g} ESS/s), log_tau over the second half: mean "
           f"{mean_lt:.4f} var {var_lt:.4f}; launches {launches} ({smi})")
 
-    plain, plain_ms4 = _timed(torch, lambda: dc.fused_nuts_run_dc_plain(
-        positions[:PLAIN_CHAINS], imm4, step4, **run_kw))
-    _require(torch.equal(steps[:PLAIN_CHAINS], plain[3]), "phase 4 steps differ")
-    share4, err4 = _agreement(torch, (fx[:PLAIN_CHAINS], hist[:PLAIN_CHAINS]), plain[:2])
+    # the comparison only: draws are keyed on chain * num_steps + steps, so
+    # the plain version is held against a kernel call of its own length
+    cmp_kw = dict(run_kw, num_steps=PLAIN_TRANSITIONS,
+                  budget=2**MAX_DOUBLINGS * PLAIN_TRANSITIONS)
+    head = positions[:PLAIN_CHAINS]
+    kern, kern_ms4 = _timed(torch, lambda: dc.fused_nuts_run_dc(head, imm4, step4, **cmp_kw))
+    plain, plain_ms4 = _timed(
+        torch, lambda: dc.fused_nuts_run_dc_plain(head, imm4, step4, **cmp_kw))
+    _require(torch.equal(kern[3], plain[3]), "phase 4 steps differ")
+    share4, err4 = _agreement(torch, kern[:2], plain[:2])
     _require(share4 >= AGREE_FLOOR, f"only {share4} of chains agree at phase 4")
-    print(f"phase 4 plain version on the first {PLAIN_CHAINS} chains: {plain_ms4:.1f} ms, "
-          f"{share4:.4f} of chains agree with the kernel to {AGREE_TOL}, max |diff| {err4:.3g}")
+    print(f"phase 4 comparison on the first {PLAIN_CHAINS} chains, {PLAIN_TRANSITIONS} "
+          f"transitions: kernel {kern_ms4:.2f} ms, plain {plain_ms4:.1f} ms, {share4:.4f} of "
+          f"chains agree to {AGREE_TOL}, max |diff| {err4:.3g}")
 
     # ---- phase 5: the leapfrog kernel against its plain version ----
     rng5 = np.random.default_rng(5)
@@ -379,6 +427,107 @@ def main() -> int:
           f"ESS/s), mean acceptance {mean_acc:.4f}, log_tau over the second half: mean "
           f"{mean_lt6:.4f} var {var_lt6:.4f}; fused_leapfrog launches {lf_launches} ({smi})")
 
+    # ---- phase 7: the MCLMC kernel against its plain version ----
+    rng7 = np.random.default_rng(7)
+    x7 = torch.from_numpy((0.5 * rng7.standard_normal((C, D))).astype(np.float32)).to(dev)
+    m7 = torch.from_numpy(rng7.standard_normal((C, D)).astype(np.float32)).to(dev)
+    m7 = m7 / torch.linalg.vector_norm(m7, dim=1, keepdim=True)
+    imm7 = torch.from_numpy(rng7.uniform(0.5, 1.5, D).astype(np.float32)).to(dev)
+    step7, L7 = 0.5, 5.0
+    err7, ms7, plain_ms7 = 0.0, None, None
+    for (name, mclmc_target), refresh in itertools.product(lf_targets.items(), (False, True)):
+        kw7 = dict(target=mclmc_target, num_steps=MCLMC_CMP_STEPS, seed=SEED,
+                   track_dims=range(NUM_TRACK), refresh=refresh)
+        kern = fm.fused_mclmc(x7, m7, imm7, step7, L7, **kw7)
+        plain = fm.fused_mclmc_plain(x7, m7, imm7, step7, L7, **kw7)
+        close = torch.ones(C, dtype=torch.bool, device=dev)
+        errs = []
+        for a, b in zip(kern, plain):
+            ok = torch.isclose(a, b, rtol=AGREE_TOL, atol=AGREE_TOL)
+            close &= ok.flatten(1).all(1) if ok.dim() > 1 else ok
+            errs.append(float((a - b).abs().max()))
+        share7 = float(close.float().mean())
+        _require(share7 >= MCLMC_FLOOR,
+                 f"only {share7} of MCLMC chains agree ({name}, refresh={refresh})")
+        err7 = max(err7, errs[0], errs[1], errs[3])
+        line = (f"phase 7: fused_mclmc {name} refresh={refresh} d={D} C={C} "
+                f"num_steps={MCLMC_CMP_STEPS}: {share7:.4f} of chains agree to {AGREE_TOL} in "
+                f"x, m, log density and history (floor {MCLMC_FLOOR}); max |diff| x {errs[0]:.3g}, "
+                f"m {errs[1]:.3g}, log density {errs[2]:.3g}, history {errs[3]:.3g}")
+        if name == "hierarchical" and refresh:  # the main path's kernel
+            def call():
+                return fm.fused_mclmc(x7, m7, imm7, step7, L7, **kw7)
+
+            ms7 = _timed_mean(torch, call, 20)
+            plain_ms7 = _timed_mean(
+                torch, lambda: fm.fused_mclmc_plain(x7, m7, imm7, step7, L7, **kw7), 2)
+            dev_ms7 = _device_ms(torch, call, "mclmc_kernel", repeats=5)
+            device_time = "not measured" if dev_ms7 is None else f"{dev_ms7:.4f} ms"
+            line += (f"; per call by CUDA events: kernel {ms7:.4f} ms, plain {plain_ms7:.2f} ms; "
+                     f"the kernel's device time by torch.profiler {device_time} per launch")
+        print(f"{line} ({smi})")
+    # how the difference grows with depth, on the main path's target
+    for refresh in (False, True):
+        deep_kw = dict(target=lf_targets["hierarchical"], num_steps=MCLMC_DEPTH, seed=SEED,
+                       track_dims=range(NUM_TRACK), refresh=refresh)
+        kern = fm.fused_mclmc(x7, m7, imm7, step7, L7, **deep_kw)
+        plain = fm.fused_mclmc_plain(x7, m7, imm7, step7, L7, **deep_kw)
+        by_step = (kern[3] - plain[3]).abs().amax(dim=(0, 2))
+        growth = ", ".join(f"{s}: {float(by_step[s - 1]):.3g}" for s in (1, 16, 64, 128, 256, 512))
+        print(f"phase 7: hierarchical refresh={refresh}, largest |kernel - plain| of the tracked "
+              f"history after steps {{{growth}}}")
+
+    # ---- phase 8: the MCLMC path ----
+    for name in fm.LAUNCHES:
+        fm.LAUNCHES[name] = 0
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tune_state = mclmc.init(torch.zeros(D, device=dev), flagship.logdensity_fn, generator)
+    _, tuned, tune_total = blackjax_tpu_torch.mclmc_find_L_and_step_size(
+        mclmc.build_kernel(), MCLMC_TUNE_STEPS, tune_state, generator,
+        logdensity_fn=flagship.logdensity_fn)
+    L8, step8, imm8 = float(tuned.L), float(tuned.step_size), tuned.inverse_mass_matrix
+    tune8_s = time.perf_counter() - t0
+    _require(np.isfinite([L8, step8]).all() and L8 > 0 and step8 > 0,
+             f"tuned L {L8}, step size {step8}")
+    _require(bool(torch.isfinite(imm8).all() and (imm8 > 0).all()), "tuned metric")
+
+    algo = blackjax_tpu_torch.mclmc(flagship.logdensity_fn, L=L8, step_size=step8,
+                                    inverse_mass_matrix=imm8)
+    t0 = time.perf_counter()
+    state, _ = run_inference_algorithm(generator, algo, 5, initial_position=init)
+    torch.cuda.synchronize()
+    mclmc_s = time.perf_counter() - t0
+    (x8, m8, ld8, hist8), ms8 = _timed(torch, lambda: blackjax_tpu_torch.ops.fused_mclmc(
+        state.position, state.momentum, imm8, step8, L8,
+        target=lf.make_hierarchical_gaussian_target(D), num_steps=MCLMC_STEPS, seed=SEED,
+        track_dims=range(NUM_TRACK)))
+    ess8 = blackjax_tpu_torch.ess(hist8.double())
+    min_ess8 = float(ess8.min())
+    fm_launches = fm.LAUNCHES["fused_mclmc"]
+
+    _require(fm_launches == 1, f"fused_mclmc launched {fm_launches} times, not once")
+    for name, t in [("positions", x8), ("momenta", m8), ("log densities", ld8),
+                    ("history", hist8), ("ess", ess8)]:
+        _require(bool(torch.isfinite(t).all()), f"non-finite {name} at phase 8")
+    _require(hist8.shape == (C, MCLMC_STEPS, NUM_TRACK), "phase 8 history shape")
+    norm_err8 = float((torch.linalg.vector_norm(m8, dim=1) - 1.0).abs().max())
+    _require(norm_err8 <= 1e-5, f"momenta off the unit sphere by {norm_err8}")
+    mean_lt8, var_lt8 = _log_tau_moments(hist8)
+    _require(abs(mean_lt8) < 0.3 and abs(var_lt8 - 1.0) < 0.3,
+             f"log_tau moments {mean_lt8}, {var_lt8} far off its N(0, 1) marginal")
+    secs8 = ms8 / 1e3
+    grads8 = C * MCLMC_STEPS * 2  # two gradients per McLachlan step
+    print(f"phase 8: mclmc_find_L_and_step_size single chain, {tune_total} tuning steps in "
+          f"{tune8_s:.2f} s: L {L8:.5f}, step size {step8:.5f}, mean imm "
+          f"{float(imm8.mean()):.5f}, imm[log_tau] {float(imm8[0]):.5f}; mclmc 5 transitions x "
+          f"{C} chains in {mclmc_s:.2f} s; fused_mclmc d={D} C={C} {MCLMC_STEPS} steps: kernel "
+          f"{ms8:.2f} ms, {grads8} grads ({grads8 / secs8:.4g} grads/s), min-ESS over "
+          f"{NUM_TRACK} tracked dims {min_ess8:.1f} ({min_ess8 / secs8:.4g} ESS/s), momenta "
+          f"unit-norm to {norm_err8:.2g}, log_tau over the second half: mean {mean_lt8:.4f} var "
+          f"{var_lt8:.4f}; fused_mclmc launches {fm_launches} ({smi})")
+
     print(json.dumps({"kernels": [
         {
             "name": "fused_nuts_dc",
@@ -399,6 +548,16 @@ def main() -> int:
             "max_abs_err": err5,
             "ms": lf_times["hierarchical"][0],
             "plain_ms": lf_times["hierarchical"][1],
+        },
+        {
+            "name": "fused_mclmc",
+            "route": "cuda",
+            "source": "blackjax_tpu_torch/csrc/fused_mclmc.cu",
+            "replaces": "blackjax_tpu/ops/fused_mclmc.py:301",
+            "launches": fm_launches,
+            "max_abs_err": err7,
+            "ms": ms7,
+            "plain_ms": plain_ms7,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

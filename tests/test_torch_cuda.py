@@ -21,8 +21,10 @@ from blackjax_tpu_torch.ops import counter_rng  # noqa: E402
 from blackjax_tpu_torch.ops import fused_nuts_dc as dc  # noqa: E402
 from blackjax_tpu_torch.ops.fused_hmc import fused_hmc  # noqa: E402
 
-# `ops.fused_leapfrog` is the function; the module comes from importlib
+# `ops.fused_leapfrog` and `ops.fused_mclmc` are functions; the modules come
+# from importlib
 fl = importlib.import_module("blackjax_tpu_torch.ops.fused_leapfrog")
+fm = importlib.import_module("blackjax_tpu_torch.ops.fused_mclmc")
 
 pytestmark = pytest.mark.gpu
 
@@ -164,3 +166,53 @@ def test_fused_hmc_launches_once_per_transition(cuda):
     torch.cuda.synchronize()
     assert fl.LAUNCHES["fused_leapfrog"] == before + 5
     assert torch.isfinite(state.positions).all() and info.acceptance_rate.shape == (C,)
+
+
+MCLMC_TOL = 1e-5
+MCLMC_FLOOR = 0.9
+
+
+@pytest.mark.parametrize("refresh", [False, True])
+@pytest.mark.parametrize("d", [12, 100, 200])
+@pytest.mark.parametrize("case", ["hierarchical", "gaussian"])
+def test_mclmc_kernel_matches_plain_version(cuda, case, d, refresh):
+    rng = np.random.default_rng(d)
+    if case == "hierarchical":
+        target = fl.make_hierarchical_gaussian_target(d)
+    else:
+        target = fl.make_gaussian_target(d, rng.uniform(0.5, 4.0, d))
+    C, S = 1024, 32
+    x = torch.from_numpy((0.5 * rng.standard_normal((C, d))).astype(np.float32)).to(cuda)
+    m = torch.nn.functional.normalize(torch.randn(C, d, device=cuda), dim=1)
+    imm = torch.from_numpy(rng.uniform(0.5, 2.0, d).astype(np.float32)).to(cuda)
+    kw = dict(target=target, num_steps=S, seed=3, track_dims=(0, 1, d - 1), refresh=refresh)
+    before = fm.LAUNCHES["fused_mclmc"]
+    kern = fm.fused_mclmc(x, m, imm, 0.3, 2.0, **kw)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_mclmc"] == before + 1
+    plain = fm.fused_mclmc_plain(x, m, imm, 0.3, 2.0, **kw)
+    close = torch.ones(C, dtype=torch.bool, device=cuda)
+    for a, b in zip(kern, plain):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        ok = torch.isclose(a, b, rtol=MCLMC_TOL, atol=MCLMC_TOL)
+        close &= ok.flatten(1).all(1) if ok.dim() > 1 else ok
+    assert float(close.float().mean()) >= MCLMC_FLOOR
+    norms = torch.linalg.vector_norm(kern[1], dim=1)
+    assert torch.allclose(norms, torch.ones_like(norms), atol=1e-5)
+
+
+def test_mclmc_counter_normals_on_the_card(cuda):
+    w1, w2, z = fm.counter_normals_device(7, 5, 2 * 17 + 1, 512, 100, cuda)
+    p1, p2, pz = fm.counter_normals_device(7, 5, 2 * 17 + 1, 512, 100, "cpu")
+    assert torch.equal(w1.cpu(), p1) and torch.equal(w2.cpu(), p2)
+    assert torch.allclose(z.cpu(), pz, rtol=1e-6, atol=1e-6)
+
+
+def test_mclmc_wide_targets_are_refused(cuda):
+    d = 300
+    with pytest.raises(ValueError, match="d <= 256"):
+        fm.fused_mclmc(
+            torch.zeros(4, d, device=cuda), torch.ones(4, d, device=cuda) / d**0.5,
+            torch.ones(d, device=cuda), 0.1, 1.0,
+            target=fl.make_hierarchical_gaussian_target(d), num_steps=2,
+        )
