@@ -5,7 +5,8 @@ module here imports ``torch`` and never JAX; the kernels that were Pallas
 kernels for the TPU are hand-written CUDA kernels for Hopper
 (``csrc/fused_nuts_dc.cu``, the in-kernel NUTS machine;
 ``csrc/fused_leapfrog.cu``, the trajectory of ``fused_hmc``;
-``csrc/fused_mclmc.cu``, the trajectory of ``ops.fused_mclmc``). Kernels follow
+``csrc/fused_mclmc.cu``, the trajectory of ``ops.fused_mclmc``; the matrix
+targets' device functions they share are in ``csrc/matrix_targets.cuh``). Kernels follow
 ``(generator, state) -> (state, info)`` with a leading chain axis on every
 state tensor.
 

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel blackjax_tpu/ops/fused_mclmc.py:_mclmc_kernel
 // (launched by fused_mclmc, pallas_call at fused_mclmc.py:301), for the
-// hierarchical and Gaussian targets. The Python wrapper and the plain PyTorch
+// hierarchical, Gaussian and logistic-regression targets (the fused
+// leapfrog's, fused_leapfrog.py:237-400). The Python wrapper and the plain PyTorch
 // version of the same trajectory live in blackjax_tpu_torch/ops/fused_mclmc.py.
 //
 // What it computes, per chain: num_steps unadjusted MCLMC steps. Each step is
@@ -23,7 +24,9 @@
 // stay in registers from the first load to the last store. Norms and dot
 // products are xor-shuffle warp reductions (analytic_targets.cuh), whose
 // butterfly leaves the same bits in every lane, so every branch is
-// warp-uniform. The targets' device functions are those of the fused leapfrog.
+// warp-uniform. The targets' device functions are those of the fused leapfrog
+// (analytic_targets.cuh, matrix_targets.cuh); the kernel is a template on N
+// and on the target family, as the leapfrog kernel is.
 // History values come from the lane that holds the dim by shuffles and are
 // stored by lane k for tracked dim k, so a step's K values are one contiguous
 // store per chain.
@@ -33,7 +36,10 @@
 // 2 * N threefry blocks (20 integer rounds each) and as many Box-Muller
 // transforms, and a warp does about 13 dependent reductions (three per kick,
 // one per refresh, one per hierarchical gradient): the kernel is bound by the
-// integer ALU and the latency of those reductions, not by bytes.
+// integer ALU and the latency of those reductions, not by bytes. Logistic
+// regression adds two contractions with X per gradient, two gradients per
+// McLachlan step, read from L2 by every warp on its own: with it the kernel is
+// bound by L2 bandwidth (see matrix_targets.cuh).
 //
 // Numerics. Build without --use_fast_math and with --fmad=false: expf, logf,
 // cosf and sqrtf are the accurate library versions and no multiply-add is
@@ -45,8 +51,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "analytic_targets.cuh"  // warp_sum, grad, logdensity of the targets
-#include "counter_rng.cuh"       // threefry2x32, box_muller
+#include "counter_rng.cuh"     // threefry2x32, box_muller
+#include "matrix_targets.cuh"  // warp_sum, target_grad, target_logdensity
 
 namespace {
 
@@ -67,6 +73,7 @@ struct Params {
   float eps, L;
   uint32_t seed;
   float coef[kMaxStages];  // kicks at even stages, drifts at odd ones
+  MatrixData mat;          // logistic regression's data, else zeros
 };
 
 // NaN-propagating max, as jnp.maximum (fmaxf would drop a NaN)
@@ -132,11 +139,13 @@ __device__ __forceinline__ void ou_refresh(const Params& p, float (&m)[N],
   for (int k = 0; k < N; ++k) m[k] = noisy[k] / norm;
 }
 
-template <int N>
+template <int N, int F>
 __global__ void __launch_bounds__(kWarps * 32) mclmc_kernel(const Params p) {
+  extern __shared__ float smem[];  // logistic regression's per-warp scratch
   const int lane = threadIdx.x & 31;
   const int chain = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (chain >= p.C) return;  // the whole warp leaves together
+  float* scratch = smem + (threadIdx.x >> 5) * scratch_floats<N>();
   const size_t row = (size_t)chain * p.d;
 
   // pad dims (j >= d) hold zeros and a zero inverse mass, so they stay zero
@@ -157,7 +166,7 @@ __global__ void __launch_bounds__(kWarps * 32) mclmc_kernel(const Params p) {
   // the chain's counter row: the reference's c0 = (chain_base + row) * d_pad
   const uint32_t row_base = (uint32_t)chain * (uint32_t)p.d_pad;
 
-  grad<N>(p, x, iv, g, lane);
+  target_grad<N, F>(p, x, iv, g, lane, scratch);
   for (int s = 0; s < p.num_steps; ++s) {
     if (p.refresh) ou_refresh<N>(p, m, row_base, 2u * (uint32_t)s, nu, lane);
     for (int i = 0; i < p.n_coef; ++i) {
@@ -167,7 +176,7 @@ __global__ void __launch_bounds__(kWarps * 32) mclmc_kernel(const Params p) {
       } else {
 #pragma unroll
         for (int k = 0; k < N; ++k) x[k] = x[k] + ce * (m[k] * sqrt_imm[k]);
-        grad<N>(p, x, iv, g, lane);
+        target_grad<N, F>(p, x, iv, g, lane, scratch);
       }
     }
     if (p.refresh) ou_refresh<N>(p, m, row_base, 2u * (uint32_t)s + 1u, nu, lane);
@@ -188,7 +197,7 @@ __global__ void __launch_bounds__(kWarps * 32) mclmc_kernel(const Params p) {
     }
   }
 
-  const float ld = logdensity<N>(p, x, iv, lane);
+  const float ld = target_logdensity<N, F>(p, x, iv, lane, scratch);
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int j = k * 32 + lane;
@@ -203,7 +212,12 @@ __global__ void __launch_bounds__(kWarps * 32) mclmc_kernel(const Params p) {
 template <int N>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int blocks = (p.C + kWarps - 1) / kWarps;
-  mclmc_kernel<N><<<blocks, kWarps * 32, 0, stream>>>(p);
+  if (p.target == kLogisticRegression) {
+    const size_t smem = (size_t)kWarps * scratch_floats<N>() * sizeof(float);
+    mclmc_kernel<N, kLogisticRegression><<<blocks, kWarps * 32, smem, stream>>>(p);
+  } else {
+    mclmc_kernel<N, 0><<<blocks, kWarps * 32, 0, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -231,20 +245,26 @@ int round_up_lanes(int d) { return (d + 127) / 128 * 128; }
 extern "C" {
 
 // Runs the trajectory; returns cudaGetLastError() of the launch (0 = success).
-// coefs is a host array of n_coef palindromic coefficients (odd, <= 16).
+// coefs is a host array of n_coef palindromic coefficients (odd, <= 16). X
+// (rows, d), Xt and y (rows,) are logistic regression's data and k0, k1 its
+// 1 / prior_scale^2 and -0.5 / prior_scale^2 (null and 0 otherwise).
 int bjt_fused_mclmc(const float* x0, const float* m0, const float* imm,
-                    const float* inv_var, const int* track, float* out_x,
+                    const float* inv_var, const float* X, const float* Xt,
+                    const float* y, const int* track, float* out_x,
                     float* out_m, float* out_logdensity, float* out_hist,
                     const float* coefs, int n_coef, int C, int d, int num_steps,
-                    int n_track, int target, int refresh, float eps, float L,
-                    uint32_t seed, void* stream) {
-  if (target != kHierarchical && target != kGaussian) return cudaErrorInvalidValue;
+                    int n_track, int target, int rows, int refresh, float eps,
+                    float L, float k0, float k1, uint32_t seed, void* stream) {
+  if (target != kHierarchical && target != kGaussian && target != kLogisticRegression)
+    return cudaErrorInvalidValue;
   if (target == kGaussian && inv_var == nullptr) return cudaErrorInvalidValue;
+  if (target == kLogisticRegression && (X == nullptr || Xt == nullptr || y == nullptr))
+    return cudaErrorInvalidValue;
   if (n_coef < 1 || n_coef > kMaxStages || n_coef % 2 == 0) return cudaErrorInvalidValue;
   if (n_track > 0 && track == nullptr) return cudaErrorInvalidValue;
   Params p{x0, m0, imm, inv_var, track, out_x, out_m, out_logdensity, out_hist,
            C, d, round_up_lanes(d), num_steps, n_track, target, refresh, n_coef,
-           eps, L, seed, {}};
+           eps, L, seed, {}, {X, Xt, y, nullptr, rows, d, {k0, k1}}};
   for (int i = 0; i < n_coef; ++i) p.coef[i] = coefs[i];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C <= 0) return cudaSuccess;

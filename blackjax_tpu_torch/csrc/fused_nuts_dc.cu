@@ -2,9 +2,11 @@
 //
 // Replaces the Pallas TPU kernel blackjax_tpu/ops/fused_nuts_dc.py:_nuts_kernel_dc
 // (launched by fused_nuts_run_dc, pallas_call at fused_nuts_dc.py:964), for the
-// diagonal metric and the hierarchical and Gaussian targets. The Python wrapper
-// and the plain PyTorch version of the same machine live in
-// blackjax_tpu_torch/ops/fused_nuts_dc.py.
+// diagonal metric and five targets: the hierarchical and Gaussian targets, and
+// the matrix targets of blackjax_tpu/ops/targets_dc.py (logistic regression,
+// the Finnish horseshoe, eight schools), whose device functions are in
+// matrix_targets.cuh. The Python wrapper and the plain PyTorch version of the
+// same machine live in blackjax_tpu_torch/ops/fused_nuts_dc.py.
 //
 // What it computes, per chain: num_steps NUTS transitions, one velocity-Verlet
 // leaf per loop iteration, with progressive uniform merging inside a subtree,
@@ -19,19 +21,28 @@
 //
 // Design. The TPU kernel runs 128 chains in lockstep on (d_pad, 128) tiles. Here
 // chains are independent: one warp runs one chain. Lane j holds dims j, j+32,
-// j+64, ... in N registers per vector (N = 4 for d = 100; d <= 256). Per-chain
-// scalars are replicated in all 32 lanes, so every branch is warp-uniform and
-// the machine's selects become plain branches. Dot products are xor-shuffle
-// reductions, whose butterfly leaves the same bits in every lane.
-// The 17 length-d vectors of the chain state stay in registers; the
+// j+64, ... in N registers per vector (N = 4 for d = 100, 13 for the horseshoe's
+// d = 404; d <= 512). Per-chain scalars are replicated in all 32 lanes, so every
+// branch is warp-uniform and the machine's selects become plain branches. Dot
+// products are xor-shuffle reductions, whose butterfly leaves the same bits in
+// every lane. The 22 length-d vectors of the chain state stay in registers up
+// to N = 4 and spill to local memory beyond (255 registers a thread); the
 // 2 * max_depth checkpoint slots, which are indexed by a data-dependent slot id,
-// live in shared memory (each lane touches only its own dims, so no barrier).
+// live in shared memory (each lane touches only its own dims, so no barrier),
+// and so does a matrix target's per-warp scratch. The kernel is a template on N
+// and on the target family, so the analytic targets' instantiations carry no
+// code of the matrix targets.
 //
-// Bound. Per leaf a chain does O(d) FP32 multiply-adds for the leapfrog, the
-// energy and up to max_depth slot checks, plus exp/log/cos (SFU) and threefry
-// integer rounds. Device memory sees the initial positions, one history row per
-// closed transition and the final state: the kernel is bound by FP32 ALU and SFU
-// throughput and by the latency of its shuffle reductions, not by bytes.
+// Bound. For the analytic targets a leaf is O(d) FP32 multiply-adds for the
+// leapfrog, the energy and up to max_depth slot checks, plus exp/log/cos (SFU)
+// and threefry integer rounds. Device memory sees the initial positions, one
+// history row per closed transition and the final state: the kernel is bound by
+// FP32 ALU and SFU throughput and by the latency of its shuffle reductions, not
+// by bytes. A matrix target adds two contractions with its data per leaf (4 N M
+// FLOP for the horseshoe), read from L2 (see matrix_targets.cuh), and its
+// checkpoint slots at N = 13 and max_depth = 10 take 33 KB of shared memory per
+// warp, so one 4-warp block fits an SM: latency, not arithmetic, still bounds
+// it.
 //
 // Numerics. Build without --use_fast_math and with --fmad=false: expf, logf,
 // cosf, sqrtf and log1pf are the accurate library versions and no multiply-add
@@ -41,14 +52,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "counter_rng.cuh"  // threefry2x32, to_unit, box_muller
+#include "counter_rng.cuh"     // threefry2x32, to_unit, box_muller
+#include "matrix_targets.cuh"  // warp_sum, logaddexp, the matrix targets
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;  // chains per block
-
-enum Target { kHierarchical = 0, kGaussian = 1 };
 
 struct Params {
   const float* x0;       // (C, d) initial positions
@@ -65,22 +74,8 @@ struct Params {
   int C, d, S, n_track, max_depth, budget, restart_every, target;
   float eps, threshold;
   uint32_t seed;
+  MatrixData mat;        // a matrix target's data, else zeros
 };
-
-// JAX's logaddexp: a NaN difference means equal infinities (or a NaN input),
-// and a + b then gives -inf for (-inf, -inf) where max + log1p(exp(-|a-b|))
-// would give NaN.
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float delta = a - b;
-  if (isnan(delta)) return a + b;
-  return fmaxf(a, b) + log1pf(expf(-fabsf(delta)));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
 
 template <int N>
 __device__ __forceinline__ float dot(const float (&a)[N], const float (&b)[N]) {
@@ -98,11 +93,13 @@ __device__ __forceinline__ void copy(float (&dst)[N], const float (&src)[N]) {
 
 // logdensity (returned, replicated) and gradient (per lane) of the target,
 // written in the reference's operation order (make_hierarchical_target_dc,
-// make_gaussian_target_dc). Pad dims (j >= d) get a zero gradient.
+// make_gaussian_target_dc; the matrix targets in matrix_targets.cuh). Pad dims
+// (j >= d) get a zero gradient. F is the target family: 0 for the analytic
+// targets (chosen at run time by p.target), else the matrix target's id.
 template <int N>
-__device__ __forceinline__ float value_and_grad(const Params& p,
-                                                const float (&x)[N],
-                                                float (&g)[N], int lane) {
+__device__ __forceinline__ float analytic_value_and_grad(const Params& p,
+                                                         const float (&x)[N],
+                                                         float (&g)[N], int lane) {
   if (p.target == kHierarchical) {
     const float log_tau = __shfl_sync(kFull, x[0], 0);
     float ts = 0.f;
@@ -135,7 +132,30 @@ __device__ __forceinline__ float value_and_grad(const Params& p,
   return -0.5f * warp_sum(s);
 }
 
-template <int N>
+template <int N, int F>
+__device__ __forceinline__ float value_and_grad(const Params& p,
+                                                const float (&x)[N],
+                                                float (&g)[N], int lane,
+                                                float* scratch) {
+  if constexpr (F == kLogRegDC) {
+    return logreg_dc<N>(p.mat, x, g, lane, scratch);
+  } else if constexpr (F == kHorseshoeDC) {
+    return horseshoe_dc<N>(p.mat, p.d, x, g, lane, scratch);
+  } else if constexpr (F == kEightSchoolsDC) {
+    return eight_schools_dc(p.mat, x, g, lane);
+  } else {
+    return analytic_value_and_grad<N>(p, x, g, lane);
+  }
+}
+
+// shared memory floats per warp: the checkpoint slots and, for a matrix
+// target, its scratch
+template <int N, int F>
+__host__ __device__ int warp_floats(int max_depth) {
+  return 2 * max_depth * N * 32 + (F != 0 ? scratch_floats<N>() : 0);
+}
+
+template <int N, int F>
 __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
@@ -143,8 +163,9 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
   const int chain = blockIdx.x * kWarps + warp;
   if (chain >= p.C) return;  // the whole warp leaves together
   const int slot = N * 32;
-  float* ck_m = smem + (size_t)warp * 2 * p.max_depth * slot;
+  float* ck_m = smem + (size_t)warp * warp_floats<N, F>(p.max_depth);
   float* ck_s = ck_m + p.max_depth * slot;
+  float* scratch = ck_s + p.max_depth * slot;
 
   float imm[N], acc_x[N], acc_g[N], cur_x[N], cur_m[N], cur_g[N];
   float left_x[N], left_m[N], left_g[N], right_x[N], right_m[N], right_g[N];
@@ -157,7 +178,7 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
     acc_x[k] = valid ? p.x0[(size_t)chain * p.d + j] : 0.f;
     imm[k] = valid ? p.imm[j] : 0.f;
   }
-  float acc_ld = value_and_grad<N>(p, acc_x, acc_g, lane);
+  float acc_ld = value_and_grad<N, F>(p, acc_x, acc_g, lane, scratch);
 
   float prop_ld = 0.f, sub_ld = 0.f;
   float prop_w = 0.f, prop_slpa = 0.f, sub_w = 0.f, sub_slpa = 0.f, h0 = 0.f;
@@ -240,7 +261,7 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
       new_m[k] = cur_m[k] + half * cur_g[k];
       new_x[k] = cur_x[k] + d_eps * (imm[k] * new_m[k]);
     }
-    const float new_ld = value_and_grad<N>(p, new_x, new_g, lane);
+    const float new_ld = value_and_grad<N, F>(p, new_x, new_g, lane, scratch);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       new_m[k] = new_m[k] + half * new_g[k];
@@ -375,17 +396,41 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
   }
 }
 
-template <int N>
+// A block asks for more than the 48 KB default of shared memory through the
+// attribute; past the card's 227 KB the attribute or the launch is refused,
+// and the error comes back to the wrapper, which raises.
+template <int N, int F>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = (size_t)kWarps * 2 * p.max_depth * N * 32 * sizeof(float);
+  const size_t smem = (size_t)kWarps * warp_floats<N, F>(p.max_depth) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nuts_dc_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        nuts_dc_kernel<N, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int blocks = (p.C + kWarps - 1) / kWarps;
-  nuts_dc_kernel<N><<<blocks, kWarps * 32, smem, stream>>>(p);
+  nuts_dc_kernel<N, F><<<blocks, kWarps * 32, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// the family's instantiation for the target; eight schools has d = 10
+template <int N>
+cudaError_t launch_target(const Params& p, cudaStream_t stream) {
+  switch (p.target) {
+    case kHierarchical:
+    case kGaussian:
+      return launch<N, 0>(p, stream);
+    case kLogRegDC:
+      return launch<N, kLogRegDC>(p, stream);
+    case kHorseshoeDC:
+      return launch<N, kHorseshoeDC>(p, stream);
+    case kEightSchoolsDC:
+      if constexpr (N == 1) {
+        return launch<1, kEightSchoolsDC>(p, stream);
+      } else {
+        return cudaErrorInvalidValue;
+      }
+  }
+  return cudaErrorInvalidValue;
 }
 
 __global__ void threefry_kernel(const uint32_t* c0, const uint32_t* c1,
@@ -400,24 +445,40 @@ __global__ void threefry_kernel(const uint32_t* c0, const uint32_t* c1,
 extern "C" {
 
 // Runs the machine; returns cudaGetLastError() of the launch (0 = success).
+// X, Xt, u, s, rows, cols and the host array k[8] are a matrix target's data
+// (matrix_targets.cuh), null and 0 for the analytic targets.
 int bjt_fused_nuts_dc(const float* x0, const float* imm, const float* sigma_m,
                       const float* inv_var, const int* track_rows,
                       const int* budgets, float* out_x, int* out_steps,
-                      float* out_grads, float* out_hist, int* out_iters, int C,
-                      int d, int S, int n_track, int max_depth, int budget,
-                      int restart_every, int target, float eps,
-                      float threshold, int seed, void* stream) {
+                      float* out_grads, float* out_hist, int* out_iters,
+                      const float* X, const float* Xt, const float* u,
+                      const float* s_vec, int C, int d, int S, int n_track,
+                      int max_depth, int budget, int restart_every, int target,
+                      int rows, int cols, float eps, float threshold, int seed,
+                      const float* k, void* stream) {
+  MatrixData mat{X, Xt, u, s_vec, rows, cols, {}};
+  for (int i = 0; i < 8; ++i) mat.k[i] = k[i];
   Params p{x0, imm, sigma_m, inv_var, track_rows, budgets, out_x, out_steps,
            out_grads, out_hist, out_iters, C, d, S, n_track, max_depth,
-           budget, restart_every, target, eps, threshold, (uint32_t)seed};
+           budget, restart_every, target, eps, threshold, (uint32_t)seed, mat};
   if (restart_every < 1) return cudaErrorInvalidValue;
+  if (target == kGaussian && inv_var == nullptr) return cudaErrorInvalidValue;
+  if (target == kLogRegDC && (X == nullptr || Xt == nullptr || u == nullptr || cols != d))
+    return cudaErrorInvalidValue;
+  if (target == kHorseshoeDC &&
+      (X == nullptr || Xt == nullptr || u == nullptr || s_vec == nullptr || d != 2 * cols + 4))
+    return cudaErrorInvalidValue;
+  if (target == kEightSchoolsDC && (u == nullptr || s_vec == nullptr || d != 10))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = (d + 31) / 32;
   if (C <= 0) return cudaSuccess;
-  if (n <= 1) return launch<1>(p, s);
-  if (n <= 2) return launch<2>(p, s);
-  if (n <= 4) return launch<4>(p, s);
-  if (n <= 8) return launch<8>(p, s);
+  if (n <= 1) return launch_target<1>(p, s);
+  if (n <= 2) return launch_target<2>(p, s);
+  if (n <= 4) return launch_target<4>(p, s);
+  if (n <= 8) return launch_target<8>(p, s);
+  if (n <= 13) return launch_target<13>(p, s);
+  if (n <= 16) return launch_target<16>(p, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,343 @@
+// Device functions of the matrix targets, shared by the three kernels:
+//
+// - the continuous NUTS machine's logistic regression, Finnish horseshoe and
+//   eight schools (csrc/fused_nuts_dc.cu), which replace the target tiles of
+//   blackjax_tpu/ops/targets_dc.py (make_logreg_target_dc :61-124,
+//   make_finnish_horseshoe_target_dc :144-350, make_eight_schools_target_dc
+//   :365-457) that the Pallas kernel _nuts_kernel_dc traces in;
+// - the fused kernels' logistic regression (csrc/fused_leapfrog.cu,
+//   csrc/fused_mclmc.cu), which replaces make_logistic_regression_target
+//   (blackjax_tpu/ops/fused_leapfrog.py:324-400) inside _leapfrog_kernel and
+//   _mclmc_kernel.
+//
+// Each keeps its own reference's spelling, so that each is held against its
+// own reference: the dc logistic regression sums softplus over the
+// 8-padded data rows and subtracts the padding constant, the fused one masks
+// the padded rows out (here: skips them, which adds the same exact zeros).
+//
+// Layout. One warp holds one chain: lane j holds dims j, j+32, ... in N
+// registers per vector. A gradient is two contractions with the data matrix
+// X (rows x cols, row-major; X^T beside it): q = X v and X^T t(q), with t a
+// function of each row's q. The warp stages v (the weights, or the
+// horseshoe's beta) in a per-warp shared-memory scratch; each lane takes
+// data rows n = lane, lane + 32, ... and reads X^T[:, n], coalesced across
+// lanes, against the broadcast v; then the warp stages the 32 rows' t in
+// shared memory and each lane accumulates the columns it owns from X's rows,
+// again coalesced. __syncwarp() separates each write of the scratch from
+// the reads of other lanes. The horseshoe's log_lam[m] (row m) and
+// beta_t[m] (row M + m) sit in different lanes, so it reads x from the
+// scratch too, and its four tail scalars (rows 2M..2M+3) are read by every
+// lane.
+//
+// Bound. Per gradient and chain the kernel reads X twice (2 rows x cols
+// floats) and does 4 rows x cols FP32 operations. X stays in L2 (80 KB for the
+// horseshoe at 100 x 200, 864 KB for logistic regression at 4,096 x 54), so
+// the contractions are bound by L2, 8 bytes a multiply-add, not by device
+// memory or FP32 throughput: by its latency where few warps share an SM (the
+// dc machine runs one 4-warp block an SM), by its bandwidth where many do (the
+// fused kernels at 4,096 chains). The design keeps both reads coalesced and X
+// out of registers; sharing X's tiles between the chains of a block (or tensor
+// cores, TF32 excluded) is for later work.
+//
+// Numerics. Every expression keeps the reference's operation order (the
+// tiles' _core, _value and _grad, with JAX's NaN rule for logaddexp and its
+// overflow behaviour, e.g. log1p(exp(2 log_tau))); what is left is the order
+// of the sums over data rows and columns.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "analytic_targets.cuh"  // kFull, warp_sum
+
+namespace {
+
+// target ids beyond analytic_targets.cuh's: the fused kernels' logistic
+// regression, and the dc machine's three matrix targets
+constexpr int kLogisticRegression = 2;
+constexpr int kLogRegDC = 2;
+constexpr int kHorseshoeDC = 3;
+constexpr int kEightSchoolsDC = 4;
+
+// What a matrix target reads (MatrixTargetData in ops/fused_nuts_dc.py):
+// - dc logistic regression: X (n_pad8, d), u = X^T y (d,),
+//   k = {1/s^2, -0.5/s^2, padding constant};
+// - fused logistic regression: X (n, d), u = y (n,), k = {1/s^2, -0.5/s^2};
+// - horseshoe: X (N, M), u = X^T y, s = X^T 1 (M,),
+//   k = {tau0, df/2, slab_scale^2, y.y, sum y, N, N/2};
+// - eight schools: u = y, s = 1/sigma^2 (8,).
+struct MatrixData {
+  const float* X;   // (rows, cols), row-major
+  const float* Xt;  // (cols, rows), row-major
+  const float* u;
+  const float* s;
+  int rows, cols;
+  float k[8];
+};
+
+// floats of per-warp scratch a matrix target uses with N registers per
+// vector: x (or v), the gradient, the horseshoe's beta, one chunk of rows
+template <int N>
+__host__ __device__ constexpr int scratch_floats() { return 3 * N * 32 + 32; }
+
+// JAX's logaddexp: a NaN difference means equal infinities (or a NaN input),
+// and a + b then gives -inf for (-inf, -inf) where max + log1p(exp(-|a-b|))
+// would give NaN.
+__device__ __forceinline__ float logaddexp(float a, float b) {
+  const float delta = a - b;
+  if (isnan(delta)) return a + b;
+  return fmaxf(a, b) + log1pf(expf(-fabsf(delta)));
+}
+
+__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+
+// the warp's vector into the scratch, readable by every lane afterwards
+template <int N>
+__device__ __forceinline__ void stage(float* dst, const float (&v)[N], int lane) {
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < N; ++k) dst[k * 32 + lane] = v[k];
+  __syncwarp();
+}
+
+// q_n = sum_j X[n, j] v[j] for every data row n, t_n = row(n, q_n), and (if
+// kBack) acc[k] += sum_n X[n, j] t_n for the columns j = k * 32 + lane.
+template <int N, bool kBack, class Row>
+__device__ __forceinline__ void row_pass(const MatrixData& m, const float* v, float* chunk,
+                                         int lane, float (&acc)[N], Row row) {
+  const int rows = m.rows, cols = m.cols;
+  for (int n0 = 0; n0 < rows; n0 += 32) {
+    const int n = n0 + lane;
+    float t = 0.f;
+    if (n < rows) {
+      float q = 0.f;
+      for (int j = 0; j < cols; ++j) q += m.Xt[(size_t)j * rows + n] * v[j];
+      t = row(n, q);
+    }
+    if constexpr (kBack) {
+      chunk[lane] = t;
+      __syncwarp();
+      const int r_end = min(32, rows - n0);
+      for (int r = 0; r < r_end; ++r) {
+        const float tr = chunk[r];
+        const float* xrow = m.X + (size_t)(n0 + r) * cols;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const int j = k * 32 + lane;
+          if (j < cols) acc[k] += xrow[j] * tr;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---- the dc machine's targets: logdensity (returned, replicated) and
+// gradient (per lane), as vg_tile computes them ----
+
+// targets_dc.py:82-107: ld = v.w - (sum softplus(Xw) - pad) + prior,
+// g = v - X^T sigmoid(Xw) - w / s^2
+template <int N>
+__device__ float logreg_dc(const MatrixData& m, const float (&w)[N], float (&g)[N], int lane,
+                           float* scratch) {
+  stage<N>(scratch, w, lane);
+  float xts[N] = {};
+  float sp = 0.f;
+  row_pass<N, true>(m, scratch, scratch + 3 * N * 32, lane, xts, [&](int, float q) {
+    sp += logaddexp(0.f, q);
+    return sigmoid(q);
+  });
+  float yxw = 0.f, ww = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    if (j < m.cols) {
+      yxw += m.u[j] * w[k];
+      ww += w[k] * w[k];
+    }
+  }
+  const float softplus = warp_sum(sp);
+  const float ld = warp_sum(yxw) - (softplus - m.k[2]) + m.k[1] * warp_sum(ww);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    g[k] = j < m.cols ? (m.u[j] - xts[k]) - m.k[0] * w[k] : 0.f;
+  }
+  return ld;
+}
+
+// targets_dc.py:204-298, the layout [log_lam(M), beta_t(M), alpha,
+// log_sigma, log_tau, log_c2]; d = 2 M + 4
+template <int N>
+__device__ float horseshoe_dc(const MatrixData& m, int d, const float (&x)[N], float (&g)[N],
+                              int lane, float* scratch) {
+  float* xs = scratch;
+  float* gs = scratch + N * 32;
+  float* bs = scratch + 2 * N * 32;
+  const int M = m.cols;
+  stage<N>(xs, x, lane);
+  const float alpha = xs[2 * M], log_sigma = xs[2 * M + 1];
+  const float log_tau = xs[2 * M + 2], log_c2 = xs[2 * M + 3];
+  const float tau0 = m.k[0], half_df = m.k[1], slab2 = m.k[2], yy = m.k[3], sy = m.k[4];
+  const float n_data = m.k[5], half_n = m.k[6];
+
+  // _core: beta, with X beta shared by the value and the gradient
+  const float sigma = expf(log_sigma);
+  const float inv_s2 = expf(-2.f * log_sigma);
+  const float tau = tau0 * sigma * expf(log_tau);
+  const float c2 = slab2 * expf(log_c2);
+  float ub = 0.f, sb = 0.f, lam_terms = 0.f, bt2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int mi = k * 32 + lane;
+    if (mi < M) {
+      const float log_lam = xs[mi], beta_t = xs[M + mi];
+      const float lam2 = expf(2.f * log_lam);
+      const float denom = c2 + tau * tau * lam2;
+      const float lam_reg = sqrtf(c2 * lam2 / denom);
+      const float beta = tau * lam_reg * beta_t;
+      bs[mi] = beta;
+      ub += m.u[mi] * beta;
+      sb += m.s[mi] * beta;
+      lam_terms += -log1pf(lam2) + log_lam;
+      bt2 += beta_t * beta_t;
+    }
+  }
+  __syncwarp();
+  float xtq[N] = {};
+  float sq = 0.f, sq2 = 0.f;
+  row_pass<N, true>(m, bs, scratch + 3 * N * 32, lane, xtq, [&](int, float q) {
+    sq += q;
+    sq2 += q * q;
+    return q;
+  });
+  const float sum_q = warp_sum(sq), sum_q2 = warp_sum(sq2);
+  const float u_beta = warp_sum(ub), s_beta = warp_sum(sb);
+  const float ssr = yy - 2.f * (u_beta + alpha * sy) + sum_q2 + 2.f * alpha * (s_beta + half_n * alpha);
+
+  // _value
+  const float loglik = -n_data * log_sigma - 0.5f * ssr * inv_s2;
+  float lp = -0.125f * (alpha * alpha);
+  lp = lp + (-0.125f * (sigma * sigma) + log_sigma);
+  lp = lp + (-log1pf(expf(2.f * log_tau)) + log_tau);
+  lp = lp + (-half_df * log_c2 - half_df * expf(-log_c2));
+  lp = lp + warp_sum(lam_terms);
+  lp = lp + -0.5f * warp_sum(bt2);
+  const float value = lp + loglik;
+
+  // _grad: g_beta = (u - X^T q - alpha s) / sigma^2 through beta's chain rule
+  float tl = 0.f, tc = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int mi = k * 32 + lane;
+    if (mi < M) {
+      const float log_lam = xs[mi], beta_t = xs[M + mi];
+      const float lam2 = expf(2.f * log_lam);
+      const float denom = c2 + tau * tau * lam2;
+      const float lam_reg = sqrtf(c2 * lam2 / denom);
+      const float beta = bs[mi];
+      const float g_beta = (m.u[mi] - xtq[k] - alpha * m.s[mi]) * inv_s2;
+      const float frac = c2 / denom;
+      const float gbf = g_beta * beta * frac;
+      gs[M + mi] = g_beta * tau * lam_reg - beta_t;
+      gs[mi] = gbf + 1.f - 2.f * lam2 / (1.f + lam2);
+      tl += gbf;
+      tc += g_beta * beta * (tau * tau * lam2) / (2.f * denom);
+    }
+  }
+  const float t_lik = warp_sum(tl), c_sum = warp_sum(tc);
+  if (lane == 0) {
+    gs[2 * M] = (sy - sum_q - n_data * alpha) * inv_s2 - 0.25f * alpha;
+    gs[2 * M + 1] = -n_data + ssr * inv_s2 + t_lik - 0.25f * (sigma * sigma) + 1.f;
+    gs[2 * M + 2] = t_lik + 1.f - 2.f * sigmoid(2.f * log_tau);
+    gs[2 * M + 3] = c_sum - half_df + half_df * expf(-log_c2);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    g[k] = j < d ? gs[j] : 0.f;
+  }
+  return value;
+}
+
+// targets_dc.py:394-432, the layout [z(8), mu, log_tau]: one register per
+// lane (d = 10), z in lanes 0..7, mu and log_tau in lanes 8 and 9
+__device__ float eight_schools_dc(const MatrixData& m, const float (&x)[1], float (&g)[1],
+                                  int lane) {
+  const float mu = __shfl_sync(kFull, x[0], 8), log_tau = __shfl_sync(kFull, x[0], 9);
+  const float tau = expf(log_tau);
+  const bool is_z = lane < 8;
+  const float z = is_z ? x[0] : 0.f;
+  const float resid = is_z ? m.u[lane] - mu - tau * z : 0.f;
+  const float r = is_z ? resid * m.s[lane] : 0.f;  // weighted residual
+  const float zz = warp_sum(z * z), rr = warp_sum(resid * r);
+  const float r_sum = warp_sum(r), rz = warp_sum(r * z);
+  float lp = -0.02f * (mu * mu) - 0.02f * (log_tau * log_tau);
+  lp = lp + -0.5f * zz;
+  lp = lp + -0.5f * rr;
+  g[0] = is_z ? -z + r * tau
+              : lane == 8 ? -0.04f * mu + r_sum
+              : lane == 9 ? -0.04f * log_tau + tau * rz : 0.f;
+  return lp;
+}
+
+// ---- the fused kernels' logistic regression (fused_leapfrog.py:353-382) ----
+
+// grad_tile: X^T (y - sigmoid(X w)) - w / s^2
+template <int N>
+__device__ void logreg_grad(const MatrixData& m, const float (&w)[N], float (&g)[N], int lane,
+                            float* scratch) {
+  stage<N>(scratch, w, lane);
+  float gl[N] = {};
+  row_pass<N, true>(m, scratch, scratch + 3 * N * 32, lane, gl,
+                    [&](int n, float q) { return m.u[n] - sigmoid(q); });
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    g[k] = j < m.cols ? gl[k] - m.k[0] * w[k] : 0.f;
+  }
+}
+
+// logdensity_tile: sum_n (y q - logaddexp(0, q)) - 0.5 |w|^2 / s^2
+template <int N>
+__device__ float logreg_logdensity(const MatrixData& m, const float (&w)[N], int lane,
+                                   float* scratch) {
+  stage<N>(scratch, w, lane);
+  float unused[N] = {};
+  float ll = 0.f;
+  row_pass<N, false>(m, scratch, nullptr, lane, unused, [&](int n, float q) {
+    ll += m.u[n] * q - logaddexp(0.f, q);
+    return 0.f;
+  });
+  float ww = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) ww += w[k] * w[k];
+  return warp_sum(ll) + m.k[1] * warp_sum(ww);
+}
+
+// The fused kernels' target dispatch: F = 0 for the analytic targets
+// (hierarchical or Gaussian, chosen at run time), F = kLogisticRegression.
+template <int N, int F, class P>
+__device__ __forceinline__ void target_grad(const P& p, const float (&x)[N],
+                                            const float (&iv)[N], float (&g)[N], int lane,
+                                            float* scratch) {
+  if constexpr (F == kLogisticRegression) {
+    logreg_grad<N>(p.mat, x, g, lane, scratch);
+  } else {
+    grad<N>(p, x, iv, g, lane);
+  }
+}
+
+template <int N, int F, class P>
+__device__ __forceinline__ float target_logdensity(const P& p, const float (&x)[N],
+                                                   const float (&iv)[N], int lane,
+                                                   float* scratch) {
+  if constexpr (F == kLogisticRegression) {
+    return logreg_logdensity<N>(p.mat, x, lane, scratch);
+  } else {
+    return logdensity<N>(p, x, iv, lane);
+  }
+}
+
+}  // namespace

@@ -15,13 +15,14 @@ from blackjax_tpu_torch.mcmc.hmc import HMCState
 from blackjax_tpu_torch.mcmc.integrators import IntegratorState
 from blackjax_tpu_torch.mcmc.nuts import NUTSInfo
 from blackjax_tpu_torch.models import targets
-from blackjax_tpu_torch.ops import fused_nuts_dc
+from blackjax_tpu_torch.ops import fused_nuts_dc, targets_dc
 from blackjax_tpu_torch.ops.fused_hmc import FusedHMCState
 from blackjax_tpu_torch.ops.fused_leapfrog import (
     TargetKernel,
     gaussian_target_from_params,
     make_gaussian_target,
     make_hierarchical_gaussian_target,
+    make_logistic_regression_target,
 )
 
 __all__ = [
@@ -117,7 +118,13 @@ def fused_hmc_state(state, *, device=None) -> FusedHMCState:
 def fused_target(name: str, dim: int, params=()) -> TargetKernel:
     """The fused leapfrog's target of the reference's ``TargetKernel.name``;
     ``params`` are the reference target's ``params`` (the Gaussian's
-    inverse variances)."""
+    inverse variances; logistic regression's ``(X_full, y_row, row_mask)``,
+    which do not hold the prior scale: the reference's default, 10, is
+    taken)."""
+    if name == "logistic_regression":
+        X_full, y_row, row_mask = (np.asarray(p, np.float32) for p in params)
+        n = int(row_mask.sum())
+        return make_logistic_regression_target(X_full[:n, :dim], y_row[0, :n])
     if name == "hierarchical_gaussian":
         return make_hierarchical_gaussian_target(dim)
     if name == "gaussian":
@@ -128,10 +135,42 @@ def fused_target(name: str, dim: int, params=()) -> TargetKernel:
     raise NotImplementedError(f"fused target {name!r} is not ported yet")
 
 
+def _trailing_zero_rows(X_pad) -> int:
+    nonzero = np.flatnonzero(np.abs(X_pad).sum(axis=1))
+    return X_pad.shape[0] - (int(nonzero[-1]) + 1 if nonzero.size else 0)
+
+
 def target_dc(name: str, dim: int, params=()) -> fused_nuts_dc.TargetKernelDC:
     """The dc machine's target of the reference's ``TargetKernelDC.name``;
-    ``params`` are the reference target's ``params`` (the Gaussian's
-    inverse variances)."""
+    ``params`` are the reference target's ``params``.
+
+    - ``gaussian_dc``: the inverse variances.
+    - ``logreg_dc``: ``(v, X_pad)``. The real data rows are those before
+      ``X_pad``'s trailing zero rows of sublane padding (at most 7); the
+      prior scale is not among the params: the reference's default, 10, is
+      taken.
+    - ``finnish_horseshoe_dc_{N}x{M}``: ``(u, s, X_pad)``. They fold the
+      data but not ``y . y`` and ``sum y``, so the target is rebuilt from the
+      default dataset at ``N``, ``M``, and refused if its params differ.
+    - ``eight_schools_dc``: constants.
+    """
+    if name == "logreg_dc":
+        v, X_pad = (np.asarray(p, np.float32) for p in params)
+        num_points = X_pad.shape[0] - min(_trailing_zero_rows(X_pad), 7)
+        return targets_dc.logreg_target_dc_from_params(dim, v, X_pad, num_points)
+    if name.startswith("finnish_horseshoe_dc_"):
+        N, M = (int(v) for v in name.rpartition("_")[2].split("x"))
+        target = targets_dc.make_finnish_horseshoe_target_dc(num_points=N, num_predictors=M)
+        if target.dim != dim or (params and not all(
+                np.array_equal(np.asarray(a, np.float32), b)
+                for a, b in zip(params, target.params))):
+            raise NotImplementedError(
+                f"{name}: only the default dataset is rebuilt from params; build the "
+                "target with make_finnish_horseshoe_target_dc(X=..., y=...)"
+            )
+        return target
+    if name == "eight_schools_dc":
+        return targets_dc.make_eight_schools_target_dc()
     if name == "hierarchical_gaussian_dc":
         return fused_nuts_dc.make_hierarchical_target_dc(dim)
     if name == "gaussian_dc":
@@ -151,9 +190,14 @@ _TARGETS = {
 
 def target(name: str, dim: int | None = None) -> targets.Target:
     """A test posterior by the reference's ``Target.name`` (such as
-    ``"hierarchical_gaussian_100"``) or by its family and ``dim``."""
+    ``"hierarchical_gaussian_100"`` or ``"finnish_horseshoe_100x200"``) or
+    by its family and ``dim``. The reference's ``logreg_*`` data come from
+    ``jax.random``: hand them to ``targets.logistic_regression(X=, y=)``."""
     if name == "eight_schools":
         return targets.eight_schools_noncentered()
+    if name.startswith("finnish_horseshoe_"):
+        N, M = (int(v) for v in name.rpartition("_")[2].split("x"))
+        return targets.finnish_horseshoe(N, M)
     family, _, suffix = name.rpartition("_")
     if suffix.isdigit() and family in _TARGETS:
         return _TARGETS[family](int(suffix))

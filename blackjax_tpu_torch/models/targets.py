@@ -15,6 +15,9 @@ __all__ = [
     "ill_conditioned_gaussian",
     "hierarchical_gaussian",
     "eight_schools_noncentered",
+    "finnish_horseshoe",
+    "horseshoe_data",
+    "logistic_regression",
 ]
 
 
@@ -89,3 +92,111 @@ def eight_schools_noncentered() -> Target:
         return lp
 
     return Target(logdensity_fn, 10, "eight_schools")
+
+
+def horseshoe_data(num_points: int = 100, num_predictors: int = 200, seed: int = 42):
+    """The horseshoe's synthetic regression data ``(X (N, M), y (N,))`` as
+    f32 numpy arrays, drawn from ``np.random.default_rng(seed)`` exactly as
+    the reference draws them: about 5% of the true coefficients are hot
+    (``N(10, 1)``), the rest zero, and ``y = X truth + N(0, 1)`` is formed in
+    f64 before the cast."""
+    M, N = num_predictors, num_points
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((N, M)).astype(np.float32)
+    truth = np.zeros(M)
+    hot = rng.random(M) < 0.05
+    truth[hot] = rng.standard_normal(int(hot.sum())) + 10.0
+    y = (X @ truth + rng.standard_normal(N)).astype(np.float32)
+    return X, y
+
+
+def finnish_horseshoe(
+    num_points: int = 100,
+    num_predictors: int = 200,
+    expected_nonzero: int = 10,
+    slab_scale: float = 3.0,
+    slab_df: float = 25.0,
+    seed: int = 42,
+) -> Target:
+    """Regularized ("Finnish") horseshoe sparse regression (Piironen and
+    Vehtari, 2017) on :func:`horseshoe_data`.
+
+    Unconstrained layout ``x = (alpha, log_sigma, log_tau, log_c2,
+    log_lambda[M], beta_tilde[M])``, so ``dim = 4 + 2 M``; positive
+    parameters ride in log space with the Jacobian folded into the log
+    density, and normalization constants are dropped.
+    """
+    M, N = num_predictors, num_points
+    X_np, y_np = horseshoe_data(N, M, seed)
+    tau0 = expected_nonzero / ((M - expected_nonzero) * math.sqrt(N))
+    half_df = 0.5 * slab_df
+    slab2 = slab_scale**2
+
+    def logdensity_fn(x):
+        X, y = _const(X_np, x), _const(y_np, x)
+        alpha = x[..., 0]
+        log_sigma = x[..., 1]
+        log_tau = x[..., 2]
+        log_c2 = x[..., 3]
+        log_lam = x[..., 4 : 4 + M]
+        beta_t = x[..., 4 + M :]
+
+        sigma = torch.exp(log_sigma)
+        tau = tau0 * sigma * torch.exp(log_tau)
+        c2 = slab2 * torch.exp(log_c2)[..., None]
+        lam2 = torch.exp(2.0 * log_lam)
+        # slab-regularized local scales: lam_reg^2 = c2 lam^2 / (c2 + tau^2 lam^2)
+        lam_reg = torch.sqrt(c2 * lam2 / (c2 + tau[..., None] ** 2 * lam2))
+        beta = tau[..., None] * lam_reg * beta_t
+
+        resid = y - (beta @ X.T + alpha[..., None])
+        loglik = -N * log_sigma - 0.5 * ((resid / sigma[..., None]) ** 2).sum(-1)
+
+        lp = -0.125 * alpha**2  # alpha ~ N(0, 2)
+        lp = lp + (-0.125 * sigma**2 + log_sigma)  # sigma ~ HalfNormal(2), + Jacobian
+        lp = lp + (-torch.log1p(torch.exp(2.0 * log_tau)) + log_tau)  # HalfCauchy(1)
+        # c2_tilde ~ InvGamma(df/2, df/2), + Jacobian
+        lp = lp + (-half_df * log_c2 - half_df * torch.exp(-log_c2))
+        lp = lp + (-torch.log1p(lam2) + log_lam).sum(-1)  # HalfCauchy(1)
+        lp = lp - 0.5 * (beta_t**2).sum(-1)
+        return lp + loglik
+
+    return Target(logdensity_fn, 4 + 2 * M, f"finnish_horseshoe_{N}x{M}")
+
+
+def logistic_regression(
+    generator: torch.Generator | None = None,
+    num_points: int = 512,
+    dim: int = 25,
+    *,
+    X=None,
+    y=None,
+):
+    """Synthetic logistic regression with a ``N(0, I)`` prior; returns
+    ``(target, X, y)`` so that minibatching samplers can use the same data.
+
+    The data are drawn with ``generator`` (a fresh one seeded 0 if None):
+    ``X ~ N(0, 1)``, true weights ``~ N(0, 1)``, ``y ~ Bernoulli(sigmoid(X
+    w))``. The reference draws them with ``jax.random``, so the same seed
+    gives a different dataset here; pass ``X`` and ``y`` (arrays or tensors)
+    to use given data, such as the reference's.
+    """
+    if X is None or y is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        X = torch.randn(num_points, dim, generator=generator)
+        true_w = torch.randn(dim, generator=generator)
+        y = torch.bernoulli(torch.sigmoid(X @ true_w), generator=generator)
+    X, y = (t if isinstance(t, torch.Tensor) else torch.from_numpy(np.array(t)) for t in (X, y))
+    num_points, dim = X.shape
+
+    def logdensity_fn(w):
+        logits = w @ X.to(dtype=w.dtype, device=w.device).T
+        yy = y.to(dtype=w.dtype, device=w.device)
+        loglik = (
+            yy * torch.nn.functional.logsigmoid(logits)
+            + (1 - yy) * torch.nn.functional.logsigmoid(-logits)
+        ).sum(-1)
+        return loglik - 0.5 * (w**2).sum(-1)
+
+    return Target(logdensity_fn, dim, f"logreg_{num_points}x{dim}"), X, y

@@ -10,6 +10,7 @@ from blackjax_tpu_torch.ops.fused_leapfrog import (
     get_registered_target,
     make_gaussian_target,
     make_hierarchical_gaussian_target,
+    make_logistic_regression_target,
     register_target,
 )
 from blackjax_tpu_torch.ops.fused_mclmc import fused_mclmc
@@ -34,5 +35,6 @@ __all__ = [
     "make_gaussian_target_dc",
     "make_hierarchical_gaussian_target",
     "make_hierarchical_target_dc",
+    "make_logistic_regression_target",
     "register_target",
 ]

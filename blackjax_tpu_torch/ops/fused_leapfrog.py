@@ -15,20 +15,28 @@ Both keep the Pallas kernel's operation order (``m + (0.5 * eps) * g``,
 ``x + eps * (m * imm)`` and the tile functions' own expressions), so they
 round alike except for the order of their sums.
 
-Ported: the hierarchical and Gaussian targets, ``d <= 256`` on the card.
-``make_logistic_regression_target`` computes ``(C, N) x (N, d)`` products
-inside the kernel and waits for the in-kernel GEMM targets (ROADMAP queue 2,
-item 2d). ``tile_chains`` is accepted and ignored: chains are independent on
-the GPU.
+Ported: the hierarchical, Gaussian and logistic-regression targets, ``d <=
+256`` on the card. Logistic regression computes its two ``(C, N) x (N, d)``
+contractions inside the kernel (``csrc/matrix_targets.cuh``); its plain
+version keeps the reference's spelling (data axis padded to 128, a row mask,
+``y * logits - logaddexp(0, logits)``). ``tile_chains`` is accepted and
+ignored: chains are independent on the GPU.
 """
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from blackjax_tpu_torch.ops import _nvcc
+from blackjax_tpu_torch.ops.fused_nuts_dc import (
+    MatrixTargetData,
+    _logaddexp,
+    _matrix_on,
+    _on_device,
+)
 
 __all__ = [
     "LAUNCHES",
@@ -40,14 +48,18 @@ __all__ = [
     "get_registered_target",
     "make_gaussian_target",
     "make_hierarchical_gaussian_target",
+    "make_logistic_regression_target",
     "register_target",
 ]
 
 # kernel launches made by fused_leapfrog, by kernel name
 LAUNCHES = {"fused_leapfrog": 0}
 
+# the target ids of csrc/analytic_targets.cuh and csrc/matrix_targets.cuh
 _CUDA_HIERARCHICAL = 0
 _CUDA_GAUSSIAN = 1
+_CUDA_LOGISTIC_REGRESSION = 2
+_LANE = 128
 _MAX_CUDA_DIM = 256  # eight registers per lane and vector
 
 
@@ -60,7 +72,9 @@ class TargetKernel:
     reference's tile functions are; ``logdensity_fn`` is the plain
     logdensity of ``(..., d)`` positions; ``cuda_target`` names the same
     target's device functions in ``csrc/fused_leapfrog.cu``; ``params`` are
-    its host vectors (the Gaussian's inverse variances).
+    its host values as the reference's (the Gaussian's inverse variances,
+    logistic regression's padded data); ``matrix`` is what a matrix
+    target's device function reads.
     """
 
     name: str
@@ -70,6 +84,7 @@ class TargetKernel:
     logdensity_fn: Callable
     cuda_target: int
     params: tuple = ()
+    matrix: Optional[MatrixTargetData] = None
 
 
 _REGISTRY: dict = {}
@@ -181,6 +196,57 @@ def gaussian_target_from_params(dim: int, inv_var_param: tuple) -> TargetKernel:
     )
 
 
+def make_logistic_regression_target(X, y, prior_scale: float = 10.0) -> TargetKernel:
+    """Bayesian logistic regression ``w ~ N(0, prior_scale^2 I)``, ``y_i ~
+    Bernoulli(sigmoid(x_i . w))``: each gradient is two ``(C, N) x (N, d)``
+    contractions. As in the reference, the data axis is padded to 128 and a
+    row mask removes the padded rows from the likelihood."""
+    X = np.asarray(X, np.float32)
+    y = np.asarray(y, np.float32).reshape(-1)
+    n_data, dim = X.shape
+    inv_prior_var = 1.0 / float(prior_scale) ** 2
+    n_pad = -(-n_data // _LANE) * _LANE
+    X_full = np.zeros((n_pad, dim), np.float32)
+    X_full[:n_data] = X
+    y_row = np.zeros((1, n_pad), np.float32)
+    y_row[0, :n_data] = y
+    row_mask = np.zeros((1, n_pad), np.float32)
+    row_mask[0, :n_data] = 1.0
+    data = _on_device(X_full, y_row, row_mask, X, y)
+
+    def logdensity_tile(w):
+        X_pad, y_pad, valid, _, _ = data(w)
+        logits = w @ X_pad.T  # (C, n_pad)
+        loglik = valid * (y_pad * logits - _logaddexp(torch.zeros_like(logits), logits))
+        prior = -0.5 * inv_prior_var * (w * w).sum(1)
+        return loglik.sum(1) + prior
+
+    def grad_tile(w):
+        X_pad, y_pad, valid, _, _ = data(w)
+        resid = valid * (y_pad - torch.sigmoid(w @ X_pad.T))  # (C, n_pad)
+        return resid @ X_pad - inv_prior_var * w
+
+    def logdensity_fn(w):
+        _, _, _, X_t, y_t = data(w)
+        logits = w @ X_t.T
+        loglik = (y_t * logits - _logaddexp(torch.zeros_like(logits), logits)).sum(-1)
+        return loglik - 0.5 * inv_prior_var * (w**2).sum(-1)
+
+    return register_target(
+        TargetKernel(
+            name="logistic_regression",
+            dim=dim,
+            logdensity_tile=logdensity_tile,
+            grad_tile=grad_tile,
+            logdensity_fn=logdensity_fn,
+            cuda_target=_CUDA_LOGISTIC_REGRESSION,
+            params=(X_full, y_row, row_mask),
+            matrix=MatrixTargetData(
+                X=X, u=y, s=None, scalars=(inv_prior_var, -0.5 * inv_prior_var)),
+        )
+    )
+
+
 # ---------------------------------------------------------------------------
 # the plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -211,7 +277,7 @@ _INT = ctypes.c_int
 @functools.lru_cache(maxsize=1)
 def _library():
     lib = _nvcc.load("fused_leapfrog")
-    lib.bjt_fused_leapfrog.argtypes = [_VP] * 7 + [_INT] * 4 + [ctypes.c_float, _VP]
+    lib.bjt_fused_leapfrog.argtypes = [_VP] * 10 + [_INT] * 5 + [ctypes.c_float] * 3 + [_VP]
     lib.bjt_fused_leapfrog.restype = _INT
     lib.bjt_error_string.argtypes = [_INT]
     lib.bjt_error_string.restype = ctypes.c_char_p
@@ -233,6 +299,26 @@ def _params_on(params: tuple, device: torch.device, dtype=torch.float32) -> torc
     return torch.tensor(params, dtype=dtype, device=device)
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _target_args(target: TargetKernel, dev, d: int):
+    """What a launch passes for ``target``: the Gaussian's inverse
+    variances on ``dev`` (or None), logistic regression's ``(X, X^T, y)``
+    on ``dev`` (or Nones), its number of data rows and its two scalars
+    ``(1 / prior_scale^2, -0.5 / prior_scale^2)``. Shared with the MCLMC
+    kernel, whose targets are these."""
+    if target.matrix is not None:
+        X, Xt, y, _ = _matrix_on(target, dev)
+        return None, (X, Xt, y), X.shape[0], target.matrix.scalars
+    inv_var = None
+    if target.params:
+        inv_var = _params_on(target.params[0], dev)
+        _nvcc.require_cuda_f32("inv_var", inv_var, dev, (d,))
+    return inv_var, (None, None, None), 0, (0.0, 0.0)
+
+
 def _launch_cuda(x, m, imm, step_size, *, target, num_steps):
     C, d = x.shape
     if d > _MAX_CUDA_DIM:
@@ -243,18 +329,15 @@ def _launch_cuda(x, m, imm, step_size, *, target, num_steps):
     for name, t, shape in [("positions", x, (C, d)), ("momenta", m, (C, d)),
                            ("inverse_mass_matrix", imm, (d,))]:
         _nvcc.require_cuda_f32(name, t, dev, shape)
-    inv_var = None
-    if target.params:
-        inv_var = _params_on(target.params[0], dev)
-        _nvcc.require_cuda_f32("inv_var", inv_var, dev, (d,))
+    inv_var, matrix, rows, k = _target_args(target, dev, d)
     lib = _library()
     out_x, out_m = torch.empty_like(x), torch.empty_like(m)
     energy = torch.empty(C, dtype=torch.float32, device=dev)
     code = lib.bjt_fused_leapfrog(
-        x.data_ptr(), m.data_ptr(), imm.data_ptr(),
-        None if inv_var is None else inv_var.data_ptr(),
+        x.data_ptr(), m.data_ptr(), imm.data_ptr(), *map(_ptr, (inv_var, *matrix)),
         out_x.data_ptr(), out_m.data_ptr(), energy.data_ptr(),
-        C, d, num_steps, target.cuda_target, float(step_size), _nvcc.stream_handle(dev),
+        C, d, num_steps, target.cuda_target, rows, float(step_size), *k,
+        _nvcc.stream_handle(dev),
     )
     _nvcc.check_launch(lib, code, "fused_leapfrog")
     LAUNCHES["fused_leapfrog"] += 1

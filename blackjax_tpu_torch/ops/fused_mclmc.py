@@ -19,8 +19,9 @@ so they round alike except for the order of their sums and the last ulp of
 ``log`` and ``cos`` in the noise. ``refresh=False`` (``L = inf``) makes the
 dynamics deterministic.
 
-Ported: the hierarchical and Gaussian targets (those of
-:mod:`~blackjax_tpu_torch.ops.fused_leapfrog`), ``d <= 256`` on the card.
+Ported: the hierarchical, Gaussian and logistic-regression targets (those of
+:mod:`~blackjax_tpu_torch.ops.fused_leapfrog`, through the device functions
+the two kernels share), ``d <= 256`` on the card.
 ``tile_chains`` and ``interpret`` are accepted and ignored: chains are
 independent on the GPU.
 """
@@ -33,7 +34,7 @@ import torch
 
 from blackjax_tpu_torch.mcmc.integrators import mclachlan_coefficients
 from blackjax_tpu_torch.ops import _nvcc, counter_rng
-from blackjax_tpu_torch.ops.fused_leapfrog import TargetKernel, _params_on
+from blackjax_tpu_torch.ops.fused_leapfrog import TargetKernel, _params_on, _ptr, _target_args
 
 __all__ = [
     "LAUNCHES",
@@ -124,7 +125,7 @@ _FLOAT = ctypes.c_float
 def _library():
     lib = _nvcc.load("fused_mclmc")
     lib.bjt_fused_mclmc.argtypes = (
-        [_VP] * 9 + [ctypes.POINTER(_FLOAT)] + [_INT] * 7 + [_FLOAT, _FLOAT, _U32, _VP]
+        [_VP] * 12 + [ctypes.POINTER(_FLOAT)] + [_INT] * 8 + [_FLOAT] * 4 + [_U32, _VP]
     )
     lib.bjt_fused_mclmc.restype = _INT
     lib.bjt_counter_normals.argtypes = [_U32, _U32, _U32, _INT, _INT, _VP, _VP, _VP, _VP]
@@ -150,10 +151,7 @@ def _launch_cuda(x, m, imm, step_size, L, *, target, num_steps, seed, coefficien
     for name, t, shape in [("positions", x, (C, d)), ("momenta", m, (C, d)),
                            ("inverse_mass_matrix", imm, (d,))]:
         _nvcc.require_cuda_f32(name, t, dev, shape)
-    inv_var = None
-    if target.params:
-        inv_var = _params_on(target.params[0], dev)
-        _nvcc.require_cuda_f32("inv_var", inv_var, dev, (d,))
+    inv_var, matrix, rows, k = _target_args(target, dev, d)
     track = _params_on(track_dims, dev, torch.int32) if track_dims else None
     coefs = (_FLOAT * len(coefficients))(*coefficients)
     lib = _library()
@@ -161,14 +159,12 @@ def _launch_cuda(x, m, imm, step_size, L, *, target, num_steps, seed, coefficien
     logdensity = torch.empty(C, dtype=torch.float32, device=dev)
     hist = torch.empty((C, num_steps, len(track_dims)), dtype=torch.float32, device=dev)
     code = lib.bjt_fused_mclmc(
-        x.data_ptr(), m.data_ptr(), imm.data_ptr(),
-        None if inv_var is None else inv_var.data_ptr(),
-        None if track is None else track.data_ptr(),
+        x.data_ptr(), m.data_ptr(), imm.data_ptr(), *map(_ptr, (inv_var, *matrix, track)),
         out_x.data_ptr(), out_m.data_ptr(), logdensity.data_ptr(),
         hist.data_ptr() if hist.numel() else None, coefs,
-        len(coefficients), C, d, num_steps, len(track_dims), target.cuda_target, int(refresh),
-        float(step_size), float(L) if refresh else math.inf, seed & counter_rng.MASK32,
-        _nvcc.stream_handle(dev),
+        len(coefficients), C, d, num_steps, len(track_dims), target.cuda_target, rows,
+        int(refresh), float(step_size), float(L) if refresh else math.inf, *k,
+        seed & counter_rng.MASK32, _nvcc.stream_handle(dev),
     )
     _nvcc.check_launch(lib, code, "fused_mclmc")
     LAUNCHES["fused_mclmc"] += 1

@@ -19,10 +19,12 @@ Two implementations of the same machine live here:
   batch with masks, taken for CPU tensors and used on the card as the
   kernel's reference.
 
-Ported: the diagonal metric and the hierarchical and Gaussian targets. Not
-ported yet: the dense and low-rank metrics and the matrix targets of
-``ops/targets_dc.py``. The reference's ``FNUTS_DISABLE`` attribution switch
-is left out, and nothing is padded: the port works on exact ``d``.
+Ported: the diagonal metric; the hierarchical and Gaussian targets, and the
+matrix targets of :mod:`blackjax_tpu_torch.ops.targets_dc` (logistic
+regression, the Finnish horseshoe, eight schools), ``d <= 512`` on the card.
+Not ported yet: the dense and low-rank metrics. The reference's
+``FNUTS_DISABLE`` attribution switch is left out, and nothing is padded: the
+port works on exact ``d``.
 
 ``pack`` and ``restart_every`` schedule the TPU's lockstep lanes. The GPU
 runs every chain on its own warp, so neither changes a chain's draws or
@@ -37,8 +39,9 @@ chains the reference flags. ``tile_chains`` enters only that accounting.
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from blackjax_tpu_torch.ops import _nvcc
@@ -54,6 +57,7 @@ from blackjax_tpu_torch.ops.counter_rng import (
 __all__ = [
     "TargetKernelDC",
     "LAUNCHES",
+    "MatrixTargetData",
     "build",
     "fused_nuts_run_dc",
     "fused_nuts_run_dc_plain",
@@ -66,20 +70,54 @@ __all__ = [
 # should go through a kernel resets the count and reads it afterwards
 LAUNCHES = {"fused_nuts_dc": 0, "threefry2x32": 0}
 
+# the target ids of csrc/fused_nuts_dc.cu and csrc/matrix_targets.cuh
 _CUDA_HIERARCHICAL = 0
 _CUDA_GAUSSIAN = 1
-_MAX_CUDA_DIM = 256  # eight registers per lane and vector
+_CUDA_LOGREG = 2
+_CUDA_HORSESHOE = 3
+_CUDA_EIGHT_SCHOOLS = 4
+_MAX_CUDA_DIM = 512  # sixteen registers per lane and vector
+_MAX_SCALARS = 8
+
+
+class MatrixTargetData(NamedTuple):
+    """What a matrix target's device function reads: the data matrix ``X``
+    (``(rows, cols)`` f32, row-major; the wrapper uploads it and its
+    transpose), two host vectors and up to eight scalars, each as
+    ``csrc/matrix_targets.cuh`` documents it for the target."""
+
+    X: Optional[np.ndarray]
+    u: np.ndarray
+    s: Optional[np.ndarray]
+    scalars: tuple
+
+
+def _on_device(*arrays):
+    """``get(x)``: the host arrays as tensors in ``x``'s dtype and on its
+    device, copied once per (device, dtype)."""
+    cache = {}
+
+    def get(x):
+        key = (x.device, x.dtype)
+        if key not in cache:
+            cache[key] = tuple(torch.from_numpy(a).to(device=x.device, dtype=x.dtype)
+                               for a in arrays)
+        return cache[key]
+
+    return get
 
 
 @dataclass(frozen=True, eq=False)
 class TargetKernelDC:
-    """An analytic target of the machine.
+    """A target of the machine.
 
     ``value_and_grad(x) -> (logdensity (C,), grad (C, d))`` is the plain
     PyTorch version on an f32 ``(C, d)`` batch; ``cuda_target`` names the
     same target's device function in ``csrc/fused_nuts_dc.cu``; ``params``
-    are its host vectors (the Gaussian's inverse variances), as in the
-    reference's ``TargetKernelDC``.
+    are its host values as in the reference's ``TargetKernelDC`` (the
+    Gaussian's inverse variances, a matrix target's folded vectors and
+    padded data); ``matrix`` is what a matrix target's device function
+    reads.
     """
 
     name: str
@@ -88,6 +126,7 @@ class TargetKernelDC:
     logdensity_fn: Callable
     cuda_target: int
     params: tuple = ()
+    matrix: Optional[MatrixTargetData] = None
 
 
 def make_gaussian_target_dc(dim: int, variances=None) -> TargetKernelDC:
@@ -429,7 +468,9 @@ _FLOAT = ctypes.c_float
 @functools.lru_cache(maxsize=1)
 def _library():
     lib = _nvcc.load("fused_nuts_dc")
-    lib.bjt_fused_nuts_dc.argtypes = [_VP] * 11 + [_INT] * 8 + [_FLOAT, _FLOAT, _INT, _VP]
+    lib.bjt_fused_nuts_dc.argtypes = (
+        [_VP] * 15 + [_INT] * 10 + [_FLOAT, _FLOAT, _INT, ctypes.POINTER(_FLOAT), _VP]
+    )
     lib.bjt_fused_nuts_dc.restype = _INT
     lib.bjt_threefry2x32.argtypes = [_VP, _VP, ctypes.c_uint32, ctypes.c_uint32, _VP, _VP, _INT, _VP]
     lib.bjt_threefry2x32.restype = _INT
@@ -445,6 +486,21 @@ def build() -> str:
     return _nvcc.build_log("fused_nuts_dc")
 
 
+@functools.lru_cache(maxsize=8)
+def _matrix_on(target: TargetKernelDC, device: torch.device):
+    """A matrix target's ``(X, X^T, u, s)`` on ``device`` (None where the
+    target has none), copied once: both orientations of ``X``, so that each
+    of the two contractions reads it coalesced."""
+    m = target.matrix
+
+    def up(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    X = up(m.X)
+    Xt = None if X is None else X.t().contiguous()
+    return X, Xt, up(m.u), up(m.s)
+
+
 def _launch_cuda(x, imm, sigma_m, step_size, *, target, num_steps, max_depth,
                  seed, track_rows, budget, chunk, divergence_threshold,
                  restart_every=1, budgets=None):
@@ -456,7 +512,15 @@ def _launch_cuda(x, imm, sigma_m, step_size, *, target, num_steps, max_depth,
         )
     dev = x.device
     inv_var = None
-    if target.params:
+    matrix = (None,) * 4
+    rows = cols = 0
+    scalars = ()
+    if target.matrix is not None:
+        matrix = _matrix_on(target, dev)
+        if matrix[0] is not None:
+            rows, cols = matrix[0].shape
+        scalars = target.matrix.scalars
+    elif target.params:
         inv_var = torch.tensor(target.params[0], dtype=torch.float32, device=dev)
     _nvcc.require_cuda_f32("positions", x, dev, (C, d))
     _nvcc.require_cuda_f32("inverse_mass_matrix", imm, dev, (d,))
@@ -471,18 +535,19 @@ def _launch_cuda(x, imm, sigma_m, step_size, *, target, num_steps, max_depth,
     out_grads = torch.empty(C, dtype=torch.float32, device=dev)
     out_iters = torch.empty(C, dtype=torch.int32, device=dev)
     hist = torch.zeros(C, num_steps, len(track_rows), dtype=torch.float32, device=dev)
-    rows = torch.tensor(track_rows, dtype=torch.int32, device=dev)
+    track = torch.tensor(track_rows, dtype=torch.int32, device=dev)
+    k = (_FLOAT * _MAX_SCALARS)(*scalars)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     code = lib.bjt_fused_nuts_dc(
         x.data_ptr(), imm.data_ptr(), sigma_m.data_ptr(), ptr(inv_var),
-        rows.data_ptr(), ptr(budgets), out_x.data_ptr(), out_steps.data_ptr(),
-        out_grads.data_ptr(), hist.data_ptr(), out_iters.data_ptr(),
+        track.data_ptr(), ptr(budgets), out_x.data_ptr(), out_steps.data_ptr(),
+        out_grads.data_ptr(), hist.data_ptr(), out_iters.data_ptr(), *map(ptr, matrix),
         C, d, num_steps, len(track_rows), max_depth, budget, restart_every,
-        target.cuda_target, float(step_size), float(divergence_threshold), seed,
-        _nvcc.stream_handle(dev),
+        target.cuda_target, rows, cols, float(step_size), float(divergence_threshold),
+        seed, k, _nvcc.stream_handle(dev),
     )
     _nvcc.check_launch(lib, code, "fused_nuts_dc")
     LAUNCHES["fused_nuts_dc"] += 1

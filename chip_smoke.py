@@ -5,14 +5,17 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's three main paths once, at the flagship's full width
-(the 100-dim hierarchical posterior, 4,096 chains), and checks them in
+It drives the port's four main paths once, three at the flagship's full
+width (the 100-dim hierarchical posterior, 4,096 chains) and one at the
+Finnish horseshoe's (N=100, M=200, d=404, 512 chains), and checks them in
 phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the builds of
    ``csrc/fused_nuts_dc.cu``, ``csrc/fused_leapfrog.cu`` and
-   ``csrc/fused_mclmc.cu`` with nvcc, all started together, with their
-   seconds and register and spill reports;
+   ``csrc/fused_mclmc.cu`` (with the shared headers ``csrc/counter_rng.cuh``,
+   ``csrc/analytic_targets.cuh`` and ``csrc/matrix_targets.cuh``) with nvcc,
+   all started together, with their seconds and the register and spill
+   report of each instantiation (N registers per vector, target family F);
 2. the dc kernel's own threefry2x32 device function against the plain
    version, bit for bit, on 100,000 counters; and the MCLMC kernel's
    counter normals (4,096 chains x 100 dims): the threefry words bit for
@@ -56,13 +59,53 @@ phases, one line each:
    the numpy-seeded init of phase 4, then ``fused_mclmc`` for 1,000 steps
    (one launch), then min-ESS over 8 tracked coordinates; everything must be
    finite, momenta unit-norm to 1e-5, and ``log_tau``'s second-half moments
-   near N(0, 1).
+   near N(0, 1);
+9. each new (kernel, target) pair against its plain version on the card:
+   the dc machine on eight schools (d=10, 512 chains) and on logistic
+   regression at the covertype-class shape (4,096 points x 54, numpy seed,
+   512 chains), the fused leapfrog (4,096 chains, 10 steps) and the fused
+   MCLMC (4,096 chains, 64 steps) on the same logistic regression. The dc
+   machine's steps and gradient totals must be identical and the share of
+   chains agreeing to MATRIX_TOL above the floor: its contractions sum row
+   by row where the plain version's cuBLAS sums in tiles, and the difference
+   grows along a trajectory to ~1.5e-4 in 4 transitions, as it does between
+   the plain version on the card and on the CPU; the fused kernels are held
+   as in phases 5 and 7. Each prints both times by CUDA events, the kernel's
+   device time by torch.profiler and the card. The horseshoe's pair is held
+   after phase 10, on its adapted step size and metric: from an unadapted
+   start every horseshoe tree diverges at its first leaf;
+10. the horseshoe path, launch counts reset just before it: the port's
+   single-chain ``window_adaptation(nuts, finnish_horseshoe())`` from zeros,
+   then ``fused_nuts_run_dc`` on 512 chains from 0.05 N(0, I) (numpy seed)
+   for 128 transitions at the tracked configuration's v6 settings
+   (``max_num_doublings=10``, ``pack=4``, ``restart_every=16``, ``chunk=256``,
+   a budget of 1600 x 128 x 4 leaves), tracking all 404 coordinates, then
+   min-ESS over all of them. The warmup is cut: the tracked configuration
+   warms up for 600 steps at ``max_num_doublings=10``, but the port's generic
+   NUTS step is host-bound (9.6 ms a leaf here), so this runs 100 steps at
+   ``max_num_doublings=6`` (at most 6,300 leaves; on an H100 200 steps took
+   104 s, 100 steps 68 s).
+   Every chain must complete its transitions, everything must be finite, the
+   dc kernel must be launched exactly once, and the second-half means of
+   ``alpha`` and ``log_sigma`` must lie in bands from the JAX package's own
+   NUTS on the CPU (``reference_bands`` in
+   ``tests/test_torch_horseshoe_slice.py``). Then the horseshoe's phase-9
+   pair: 128 chains from the path's final positions, 4 transitions,
+   ``max_num_doublings=6``.
 
-The line before the last is the per-kernel JSON record (``ms`` and
-``plain_ms`` are phase 3's, 5's and 7's like-for-like times); the last line
-is ``{"ok": true, "device": {...}}``. Any failed check raises and exits
-non-zero without that line; so does a machine without CUDA, and a directory
-without the package.
+A line then gives the host-clock seconds of each phase. The line before
+the last is the per-kernel JSON record: one entry per
+kernel of the main paths (``ms`` and ``plain_ms`` are phase 3's, 5's and 7's
+like-for-like times) and one per new (kernel, target) pair (phase 9's and
+10's times). ``launches`` is the count from the main path's run, or, for a
+pair that no main path drives, from the pair's checked call. ``bound_ms`` is
+the larger of the bytes the call must move over 3.35 TB/s and its FP32
+operations over 132 SMs x 128 lanes x 2 x the SM clock ``nvidia-smi``
+reads, from the call's inputs and outputs (gradient counts from the run);
+``library_ms`` is null: no single PyTorch call computes any of these
+functions. The last line is ``{"ok": true, "device": {...}}``. Any failed
+check raises and exits non-zero without that line; so does a machine
+without CUDA, and a directory without the package.
 """
 import itertools
 import json
@@ -92,6 +135,27 @@ MCLMC_DEPTH = 512  # ... and how deep it reports the growth of differences
 MCLMC_FLOOR = 0.9
 MCLMC_TUNE_STEPS = 2000
 MCLMC_STEPS = 1000
+MATRIX_TOL = 1e-3  # the dc machine's matrix targets against their plain version
+LR_N, LR_D = 4096, 54  # the covertype-class logistic regression (benchmarks/tracked.py:495)
+DC_CHAINS = 512  # phase 9's dc comparisons
+HS_N, HS_M = 100, 200  # the Finnish horseshoe at the reference benchmark's size
+HS_CHAINS, HS_TRANSITIONS = 512, 128  # benchmarks/tracked.py:918, v6
+HS_MAX_DOUBLINGS = 10  # benchmarks/tracked.py:329
+HS_PACK, HS_RESTART_EVERY, HS_CHUNK = 4, 16, 256
+HS_BUDGET = 1600 * HS_TRANSITIONS * HS_PACK  # budget_factor 1600 (tracked.py:946)
+HS_WARMUP_STEPS, HS_WARMUP_DOUBLINGS = 100, 6  # cut from 600 at 10: see phase 10
+HS_CMP_CHAINS, HS_CMP_TRANSITIONS, HS_CMP_DOUBLINGS = 128, 4, 6
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+# The horseshoe's posterior by the JAX package's own NUTS on the CPU
+# (tests/test_torch_horseshoe_slice.py:reference_bands: window_adaptation 600
+# steps from zeros, then 64 chains from 0.05 N(0, I) x 256 transitions, seed
+# 31, second half): alpha 0.00138 (sd 0.12253, MCSE 0.00136), log_sigma
+# -0.15748 (sd 0.13073, MCSE 0.00315). Bands of +-0.1 around those means
+# (0.8 and 0.76 posterior sd) leave room for the cut warmup and 64
+# transitions' Monte Carlo error; a sampler stuck at its start (log_sigma
+# near 0) falls outside the log_sigma band.
+ALPHA_BAND = (0.00138 - 0.1, 0.00138 + 0.1)
+LOG_SIGMA_BAND = (-0.15748 - 0.1, -0.15748 + 0.1)
 
 
 def _require(ok: bool, what: str) -> None:
@@ -111,14 +175,16 @@ def _timed(torch, fn):
 
 def _ptxas_summary(log: str) -> list:
     """'kernel: registers, spill stores/loads' from nvcc's -Xptxas -v report;
-    kernels are named by their registers per lane and vector (N)."""
+    kernels are named by their registers per lane and vector (N) and their
+    target family (F: 0 analytic, 2 logistic regression, 3 horseshoe, 4
+    eight schools)."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            n = re.search(r"(nuts_dc|leapfrog|mclmc)_kernelILi(\d+)E", entry.group(1))
+            n = re.search(r"(nuts_dc|leapfrog|mclmc)_kernelILi(\d+)ELi(\d+)E", entry.group(1))
             export = "threefry" if "threefry" in entry.group(1) else "counter_normals"
-            name = f"{n.group(1)} N={n.group(2)}" if n else f"{export} export"
+            name = f"{n.group(1)} N={n.group(2)} F={n.group(3)}" if n else f"{export} export"
         spill = re.search(
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
@@ -130,12 +196,12 @@ def _ptxas_summary(log: str) -> list:
     return out
 
 
-def _agreement(torch, a, b):
-    """Share of chains whose positions and history agree to AGREE_TOL, and
+def _agreement(torch, a, b, tol=AGREE_TOL):
+    """Share of chains whose positions and history agree to ``tol``, and
     the largest absolute difference."""
     (ax, ah), (bx, bh) = a, b
-    close = torch.isclose(ax, bx, rtol=AGREE_TOL, atol=AGREE_TOL).all(1)
-    close &= torch.isclose(ah, bh, rtol=AGREE_TOL, atol=AGREE_TOL).flatten(1).all(1)
+    close = torch.isclose(ax, bx, rtol=tol, atol=tol).all(1)
+    close &= torch.isclose(ah, bh, rtol=tol, atol=tol).flatten(1).all(1)
     err = max(float((ax - bx).abs().max()), float((ah - bh).abs().max()))
     return float(close.float().mean()), err
 
@@ -165,6 +231,46 @@ def _device_ms(torch, fn, kernel, repeats=20):
             torch.cuda.synchronize()
         us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
     return us / 1e3 / repeats if us > 0 else None
+
+
+# FP32 operations per element, counted from the kernels' code: the dc
+# machine's own per leaf and dim (leapfrog 7, energy 4, sums 1, U-turn
+# checks 8 on average); the leapfrog's per step and dim (two kicks, a
+# drift); MCLMC's per McLachlan step and dim (three kicks of 13, two drifts
+# of 3, two refreshes of 5); the analytic gradients per dim. threefry2x32
+# is about 70 integer operations a block (20 rounds and the key schedule).
+DC_LEAF_OPS, LEAPFROG_STEP_OPS, MCLMC_STEP_OPS = 24, 7, 55
+GRAD_OPS = {"hierarchical": 4, "gaussian": 3}
+THREEFRY_OPS = 70
+
+
+def _grad_ops(kind, d, n=0, m=0):
+    """FP32 operations of one gradient (with its log density): the two
+    contractions (4 n d, or 4 N M for the horseshoe) and the elementwise
+    work around them."""
+    if kind == "logreg":
+        return 4 * n * d + 12 * n + 5 * d
+    if kind == "horseshoe":
+        return 4 * n * m + 30 * m + 20 * d
+    if kind == "eight_schools":
+        return 20 * d
+    return GRAD_OPS[kind] * d
+
+
+def _bound(nbytes, fp32_ops, peaks, int_ops=0.0):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rates. Returns
+    ``(ms, "bytes" or "operations")``."""
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = (fp32_ops / peaks["fp32"] + int_ops / peaks["int32"]) * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
+    return {"name": name, "route": "cuda", "source": f"blackjax_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
 
 
 def _log_tau_moments(hist):
@@ -198,11 +304,19 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     # ---- phase 1: card and build ----
+    marks = [(1, time.perf_counter())]  # (phase, host clock at its start)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # FP32 outside the tensor cores: 128 lanes a multiply-add per clock; INT32 64
+    peaks = {"fp32": sms * 128 * 2 * sm_mhz * 1e6, "int32": sms * 64 * sm_mhz * 1e6}
 
     def build(module):
         t = time.perf_counter()
@@ -220,6 +334,7 @@ def main() -> int:
           f"csrc/fused_mclmc.cu {fm_s:.2f} s, ptxas {'; '.join(_ptxas_summary(fm_log))}")
 
     # ---- phase 2: threefry export, bit for bit ----
+    marks.append((2, time.perf_counter()))
     rng = np.random.default_rng(0)
     words = rng.integers(0, 2**32, (2, 100_000), dtype=np.uint64).astype(np.int64)
     words[:, :16] = 2**32 - 1 - np.arange(16)
@@ -242,6 +357,7 @@ def main() -> int:
           f"{z_err:.3g} (tolerance 1e-6), {z_same:.4f} of them identical")
 
     # ---- phase 3: kernel against its plain version on the card ----
+    marks.append((3, time.perf_counter()))
     target = dc.make_hierarchical_target_dc(D)
     imm = torch.ones(D, dtype=torch.float32, device=dev)
     x0 = torch.from_numpy((0.5 * rng.standard_normal((C, D))).astype(np.float32)).to(dev)
@@ -261,6 +377,7 @@ def main() -> int:
     dc.fused_nuts_run_dc(x0[:64], imm, STEP_SIZE, target=target, num_steps=2,
                          num_track=NUM_TRACK, seed=SEED)  # first launch, untimed
     kern, plain, ms3, plain_ms3, share3, err3 = compare(x0, 16)
+    grads3 = float(kern[2])
     kv, pv = kern[1].flatten(0, 1).var(0), plain[1].flatten(0, 1).var(0)
     _require(torch.allclose(kv, pv, rtol=0.05), "pooled variances differ")
     print(f"phase 3: d={D} C={C} S=16 max_doublings={MAX_DOUBLINGS}: steps identical, "
@@ -270,6 +387,7 @@ def main() -> int:
           f"kernel {ms3:.3f} ms, plain {plain_ms3:.1f} ms ({smi})")
 
     # ---- phase 4: the NUTS path ----
+    marks.append((4, time.perf_counter()))
     S = 256
     flagship = hierarchical_gaussian(D)
     generator = torch.Generator(device=dev).manual_seed(SEED)
@@ -343,6 +461,7 @@ def main() -> int:
           f"chains agree to {AGREE_TOL}, max |diff| {err4:.3g}")
 
     # ---- phase 5: the leapfrog kernel against its plain version ----
+    marks.append((5, time.perf_counter()))
     rng5 = np.random.default_rng(5)
     x5 = torch.from_numpy((0.5 * rng5.standard_normal((C, D))).astype(np.float32)).to(dev)
     m5 = torch.from_numpy(rng5.standard_normal((C, D)).astype(np.float32)).to(dev)
@@ -377,6 +496,7 @@ def main() -> int:
               f"torch.profiler {device_time} per launch ({smi})")
 
     # ---- phase 6: the HMC path ----
+    marks.append((6, time.perf_counter()))
     for name in lf.LAUNCHES:
         lf.LAUNCHES[name] = 0
     generator = torch.Generator(device=dev).manual_seed(SEED)
@@ -428,6 +548,7 @@ def main() -> int:
           f"{mean_lt6:.4f} var {var_lt6:.4f}; fused_leapfrog launches {lf_launches} ({smi})")
 
     # ---- phase 7: the MCLMC kernel against its plain version ----
+    marks.append((7, time.perf_counter()))
     rng7 = np.random.default_rng(7)
     x7 = torch.from_numpy((0.5 * rng7.standard_normal((C, D))).astype(np.float32)).to(dev)
     m7 = torch.from_numpy(rng7.standard_normal((C, D)).astype(np.float32)).to(dev)
@@ -478,6 +599,7 @@ def main() -> int:
               f"history after steps {{{growth}}}")
 
     # ---- phase 8: the MCLMC path ----
+    marks.append((8, time.perf_counter()))
     for name in fm.LAUNCHES:
         fm.LAUNCHES[name] = 0
     generator = torch.Generator(device=dev).manual_seed(SEED)
@@ -528,38 +650,218 @@ def main() -> int:
           f"unit-norm to {norm_err8:.2g}, log_tau over the second half: mean {mean_lt8:.4f} var "
           f"{var_lt8:.4f}; fused_mclmc launches {fm_launches} ({smi})")
 
-    print(json.dumps({"kernels": [
-        {
-            "name": "fused_nuts_dc",
-            "route": "cuda",
-            "source": "blackjax_tpu_torch/csrc/fused_nuts_dc.cu",
-            "replaces": "blackjax_tpu/ops/fused_nuts_dc.py:964",
-            "launches": launches["fused_nuts_dc"],
-            "max_abs_err": err3,
-            "ms": ms3,
-            "plain_ms": plain_ms3,
-        },
-        {
-            "name": "fused_leapfrog",
-            "route": "cuda",
-            "source": "blackjax_tpu_torch/csrc/fused_leapfrog.cu",
-            "replaces": "blackjax_tpu/ops/fused_leapfrog.py:206",
-            "launches": lf_launches,
-            "max_abs_err": err5,
-            "ms": lf_times["hierarchical"][0],
-            "plain_ms": lf_times["hierarchical"][1],
-        },
-        {
-            "name": "fused_mclmc",
-            "route": "cuda",
-            "source": "blackjax_tpu_torch/csrc/fused_mclmc.cu",
-            "replaces": "blackjax_tpu/ops/fused_mclmc.py:301",
-            "launches": fm_launches,
-            "max_abs_err": err7,
-            "ms": ms7,
-            "plain_ms": plain_ms7,
-        },
-    ]}))
+    # ---- phase 9: the new (kernel, target) pairs against their plain versions ----
+    marks.append((9, time.perf_counter()))
+    from blackjax_tpu_torch.models import finnish_horseshoe
+    from blackjax_tpu_torch.ops import targets_dc
+
+    rng9 = np.random.default_rng(9)
+    X9 = rng9.standard_normal((LR_N, LR_D)).astype(np.float32)
+    y9 = (rng9.random(LR_N) < 1.0 / (1.0 + np.exp(-X9 @ rng9.standard_normal(LR_D))))
+    y9 = y9.astype(np.float32)
+    pairs = {}
+
+    def dc_pair(name, target, x, imm, step, num_steps, max_doublings, kind, n=0, m=0):
+        """The dc kernel on ``target`` against its plain version; returns the
+        pair's JSON fields."""
+        kw = dict(target=target, num_steps=num_steps, max_num_doublings=max_doublings,
+                  seed=SEED, num_track=target.dim, budget=2**max_doublings * num_steps)
+        dc.fused_nuts_run_dc(x[:8], imm, step, **dict(kw, num_steps=1))  # first launch
+        dc.LAUNCHES["fused_nuts_dc"] = 0
+        kern, ms = _timed(torch, lambda: dc.fused_nuts_run_dc(x, imm, step, **kw))
+        launches = dc.LAUNCHES["fused_nuts_dc"]
+        plain, plain_ms = _timed(torch, lambda: dc.fused_nuts_run_dc_plain(x, imm, step, **kw))
+        _require(torch.equal(kern[3], plain[3]) and bool((kern[3] == num_steps).all()),
+                 f"{name}: steps differ or fall short")
+        _require(float(kern[2]) == float(plain[2]), f"{name}: gradient totals differ")
+        _require(bool(torch.isfinite(kern[0]).all() and torch.isfinite(kern[1]).all()),
+                 f"{name}: non-finite output")
+        share, err = _agreement(torch, kern[:2], plain[:2], MATRIX_TOL)
+        share5, _ = _agreement(torch, kern[:2], plain[:2])
+        _require(share >= AGREE_FLOOR, f"{name}: only {share} of chains agree to {MATRIX_TOL}")
+        dev_ms = _device_ms(torch, lambda: dc.fused_nuts_run_dc(x, imm, step, **kw),
+                            "nuts_dc_kernel", repeats=3)
+        chains, d = x.shape
+        grads = float(kern[2])
+        data_bytes = 0 if target.matrix.X is None else target.matrix.X.nbytes
+        nbytes = 2 * chains * d * 4 + chains * num_steps * d * 4 + 3 * chains * 4 + data_bytes
+        ops = grads * (DC_LEAF_OPS * d + _grad_ops(kind, d, n, m))
+        bound = _bound(nbytes, ops, peaks, (grads + chains * num_steps * d) * THREEFRY_OPS)
+        device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"phase 9: fused_nuts_run_dc {name} d={d} C={chains} S={num_steps} "
+              f"max_doublings={max_doublings}: steps and gradient totals identical ({grads:.0f} "
+              f"grads), {share:.4f} of chains agree to {MATRIX_TOL} (floor {AGREE_FLOOR}; "
+              f"{share5:.4f} to {AGREE_TOL}), max |diff| {err:.3g}; kernel {ms:.3f} ms (device "
+              f"{device_time}), plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+              f"({smi})")
+        return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+
+    es_target = targets_dc.make_eight_schools_target_dc()
+    x9 = torch.from_numpy((0.5 * rng9.standard_normal((DC_CHAINS, 10))).astype(np.float32))
+    pairs["eight_schools"] = dc_pair("eight_schools", es_target, x9.to(dev),
+                                     torch.ones(10, device=dev), 0.2, 8, MAX_DOUBLINGS,
+                                     "eight_schools")
+    lr_dc = targets_dc.make_logreg_target_dc(X9, y9)
+    x9 = torch.from_numpy((0.05 * rng9.standard_normal((DC_CHAINS, LR_D))).astype(np.float32))
+    pairs["logreg_dc"] = dc_pair("logreg_dc", lr_dc, x9.to(dev), torch.ones(LR_D, device=dev),
+                                 0.01, 8, 6, "logreg", n=lr_dc.matrix.X.shape[0])
+
+    lr = lf.make_logistic_regression_target(X9, y9)
+    x9 = torch.from_numpy((0.05 * rng9.standard_normal((C, LR_D))).astype(np.float32)).to(dev)
+    m9 = torch.from_numpy(rng9.standard_normal((C, LR_D)).astype(np.float32)).to(dev)
+    imm9 = torch.from_numpy(rng9.uniform(0.5, 1.5, LR_D).astype(np.float32)).to(dev)
+
+    def fused_pair(name, run, run_plain, floor, kernel, repeats, nbytes, ops, int_ops=0.0):
+        lf.LAUNCHES["fused_leapfrog"] = fm.LAUNCHES["fused_mclmc"] = 0
+        kern = run()
+        launches = lf.LAUNCHES["fused_leapfrog"] + fm.LAUNCHES["fused_mclmc"]
+        plain = run_plain()
+        close = torch.ones(C, dtype=torch.bool, device=dev)
+        err = 0.0
+        for a, b in zip(kern, plain):
+            _require(bool(torch.isfinite(a).all()), f"{name}: non-finite output")
+            ok = torch.isclose(a, b, rtol=AGREE_TOL, atol=AGREE_TOL)
+            close &= ok.flatten(1).all(1) if ok.dim() > 1 else ok
+            err = max(err, float((a - b).abs().max()))
+        share = float(close.float().mean())
+        _require(share >= floor, f"only {share} of {name} chains agree")
+        ms = _timed_mean(torch, run, repeats)
+        plain_ms = _timed_mean(torch, run_plain, repeats)
+        dev_ms = _device_ms(torch, run, kernel, repeats=repeats)
+        bound = _bound(nbytes, ops, peaks, int_ops)
+        device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"phase 9: {name} logistic regression {LR_N} x {LR_D}, C={C}: {share:.4f} of "
+              f"chains agree to {AGREE_TOL} (floor {floor}), max |diff| {err:.3g}; per call by "
+              f"CUDA events: kernel {ms:.3f} ms (device {device_time}), plain {plain_ms:.3f} ms; "
+              f"bound {bound[0]:.4f} ms by {bound[1]} ({smi})")
+        return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+
+    lf_kw = dict(target=lr, num_steps=HMC_STEPS)
+    lr_grad = _grad_ops("logreg", LR_D, LR_N)
+    pairs["leapfrog_logreg"] = fused_pair(
+        "fused_leapfrog", lambda: lf.fused_leapfrog(x9, m9, imm9, 0.005, **lf_kw),
+        lambda: lf.fused_leapfrog_plain(x9, m9, imm9, 0.005, **lf_kw), LEAPFROG_FLOOR,
+        "leapfrog_kernel", 5, 4 * C * LR_D * 4 + C * 4 + X9.nbytes + y9.nbytes,
+        C * ((HMC_STEPS + 1) * lr_grad + HMC_STEPS * LEAPFROG_STEP_OPS * LR_D))
+    m9 = m9 / torch.linalg.vector_norm(m9, dim=1, keepdim=True)
+    fm_kw = dict(target=lr, num_steps=MCLMC_CMP_STEPS, seed=SEED, track_dims=range(NUM_TRACK))
+    pairs["mclmc_logreg"] = fused_pair(
+        "fused_mclmc", lambda: fm.fused_mclmc(x9, m9, imm9, 0.01, 0.3, **fm_kw),
+        lambda: fm.fused_mclmc_plain(x9, m9, imm9, 0.01, 0.3, **fm_kw), MCLMC_FLOOR,
+        "mclmc_kernel", 2,
+        4 * C * LR_D * 4 + C * 4 + C * MCLMC_CMP_STEPS * NUM_TRACK * 4 + X9.nbytes + y9.nbytes,
+        C * MCLMC_CMP_STEPS * (2 * lr_grad + MCLMC_STEP_OPS * LR_D),
+        C * MCLMC_CMP_STEPS * 2 * LR_D * THREEFRY_OPS)
+
+    # ---- phase 10: the horseshoe path ----
+    marks.append((10, time.perf_counter()))
+    hs_model = finnish_horseshoe(HS_N, HS_M)
+    hs_target = targets_dc.make_finnish_horseshoe_target_dc(HS_N, HS_M)
+    hs_d = hs_model.dim
+    to_dc, from_dc = (torch.from_numpy(p) for p in targets_dc.horseshoe_dc_perm(HS_M))
+    hs_init = np.random.default_rng(10).standard_normal((HS_CHAINS, hs_d))
+    hs_init = torch.from_numpy((0.05 * hs_init).astype(np.float32)).to(dev)[:, to_dc.to(dev)]
+    for name in dc.LAUNCHES:
+        dc.LAUNCHES[name] = 0
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warmup = blackjax_tpu_torch.window_adaptation(
+        nuts, hs_model.logdensity_fn, max_num_doublings=HS_WARMUP_DOUBLINGS,
+        adaptation_info_fn=get_filter_adapt_info_fn(info_keys={"num_integration_steps"}),
+    )
+    (_, params), warm_info = warmup.run(
+        generator, torch.zeros(hs_d, device=dev), HS_WARMUP_STEPS)
+    torch.cuda.synchronize()
+    warm10_s = time.perf_counter() - t0
+    step10, imm10 = params["step_size"], params["inverse_mass_matrix"]
+    _require(np.isfinite(step10) and step10 > 0, f"horseshoe warmup step size {step10}")
+    _require(bool(torch.isfinite(imm10).all() and (imm10 > 0).all()), "horseshoe warmup metric")
+    warm10_leaves = int(warm_info.info.num_integration_steps.sum())
+    imm10_dc = imm10[to_dc.to(dev)].contiguous()
+    hs_kw = dict(target=hs_target, num_steps=HS_TRANSITIONS, max_num_doublings=HS_MAX_DOUBLINGS,
+                 seed=SEED, num_track=hs_d, pack=HS_PACK, restart_every=HS_RESTART_EVERY,
+                 chunk=HS_CHUNK, budget=HS_BUDGET)
+    (fx10, hist10, grads10, steps10), ms10 = _timed(
+        torch, lambda: blackjax_tpu_torch.fused_nuts_run_dc(hs_init, imm10_dc, step10, **hs_kw))
+    hs_launches = dc.LAUNCHES["fused_nuts_dc"]
+    ess10 = blackjax_tpu_torch.ess(hist10)
+    min_ess10 = float(ess10.min())
+
+    _require(hs_launches == 1, f"the horseshoe path launched the dc kernel {hs_launches} times")
+    _require(bool((steps10 == HS_TRANSITIONS).all()),
+             f"horseshoe chains short of {HS_TRANSITIONS} transitions: {int(steps10.min())}")
+    for name, t in [("positions", fx10), ("history", hist10), ("ess", ess10)]:
+        _require(bool(torch.isfinite(t).all()), f"non-finite horseshoe {name}")
+    _require(hist10.shape == (HS_CHAINS, HS_TRANSITIONS, hs_d), "horseshoe history shape")
+    second = hist10[:, HS_TRANSITIONS // 2:]
+    alpha_mean = float(second[..., 2 * HS_M].mean())
+    log_sigma_mean = float(second[..., 2 * HS_M + 1].mean())
+    _require(ALPHA_BAND[0] <= alpha_mean <= ALPHA_BAND[1],
+             f"alpha's second-half mean {alpha_mean} outside {ALPHA_BAND}")
+    _require(LOG_SIGMA_BAND[0] <= log_sigma_mean <= LOG_SIGMA_BAND[1],
+             f"log_sigma's second-half mean {log_sigma_mean} outside {LOG_SIGMA_BAND}")
+    secs10 = ms10 / 1e3
+    worst10 = int(torch.argmin(ess10))
+    hs_ops = float(grads10) * (DC_LEAF_OPS * hs_d + _grad_ops("horseshoe", hs_d, HS_N, HS_M))
+    bound10 = _bound(2 * HS_CHAINS * hs_d * 4 + hist10.numel() * 4 + 3 * HS_CHAINS * 4
+                     + hs_target.matrix.X.nbytes, hs_ops, peaks,
+                     (float(grads10) + HS_CHAINS * HS_TRANSITIONS * hs_d) * THREEFRY_OPS)
+    print(f"phase 10: window_adaptation(nuts, finnish_horseshoe) single chain, "
+          f"{HS_WARMUP_STEPS} steps at max_doublings={HS_WARMUP_DOUBLINGS}, {warm10_leaves} "
+          f"leaves in {warm10_s:.2f} s: step size {step10:.6f}, mean imm "
+          f"{float(imm10.mean()):.5f}; fused_nuts_run_dc d={hs_d} C={HS_CHAINS} "
+          f"S={HS_TRANSITIONS} max_doublings={HS_MAX_DOUBLINGS} pack={HS_PACK} "
+          f"restart_every={HS_RESTART_EVERY}: all chains completed, kernel {ms10:.2f} ms "
+          f"(bound {bound10[0]:.3f} ms by {bound10[1]}), "
+          f"{float(grads10):.0f} grads ({float(grads10) / secs10:.4g} grads/s, "
+          f"{float(grads10) / (HS_CHAINS * HS_TRANSITIONS):.1f} leaves per transition), "
+          f"min-ESS over all {hs_d} coordinates {min_ess10:.1f} (dc row {worst10}) "
+          f"({min_ess10 / secs10:.4g} ESS/s), second-half means alpha {alpha_mean:.5f} "
+          f"(band {ALPHA_BAND}) log_sigma {log_sigma_mean:.5f} (band {LOG_SIGMA_BAND}); "
+          f"launches {dict(dc.LAUNCHES)} ({smi})")
+    pairs["horseshoe"] = dc_pair(
+        "finnish_horseshoe", hs_target, fx10[:HS_CMP_CHAINS].contiguous(), imm10_dc, step10,
+        HS_CMP_TRANSITIONS, HS_CMP_DOUBLINGS, "horseshoe", n=HS_N, m=HS_M)
+    pairs["horseshoe"]["launches"] = hs_launches
+
+    marks.append((None, time.perf_counter()))
+    print("wall seconds per phase (host clock): " + ", ".join(
+        f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
+
+    lf_ops = C * ((HMC_STEPS + 1) * GRAD_OPS["hierarchical"] * D
+                  + HMC_STEPS * LEAPFROG_STEP_OPS * D)
+    fm_ops = C * MCLMC_CMP_STEPS * (2 * GRAD_OPS["hierarchical"] * D + MCLMC_STEP_OPS * D)
+    kernels = [
+        _entry("fused_nuts_dc", "fused_nuts_dc.cu", "blackjax_tpu/ops/fused_nuts_dc.py:964",
+               launches["fused_nuts_dc"], err3, ms3, plain_ms3,
+               _bound(2 * C * D * 4 + C * 16 * NUM_TRACK * 4 + 3 * C * 4,
+                      grads3 * (DC_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
+                      (grads3 + C * 16 * D) * THREEFRY_OPS)),
+        _entry("fused_leapfrog", "fused_leapfrog.cu", "blackjax_tpu/ops/fused_leapfrog.py:206",
+               lf_launches, err5, *lf_times["hierarchical"],
+               _bound(4 * C * D * 4 + C * 4, lf_ops, peaks)),
+        _entry("fused_mclmc", "fused_mclmc.cu", "blackjax_tpu/ops/fused_mclmc.py:301",
+               fm_launches, err7, ms7, plain_ms7,
+               _bound(4 * C * D * 4 + C * 4 + C * MCLMC_CMP_STEPS * NUM_TRACK * 4, fm_ops, peaks,
+                      C * MCLMC_CMP_STEPS * 2 * D * THREEFRY_OPS)),
+    ]
+    for key, name, source, replaces in [
+        ("horseshoe", "fused_nuts_dc:finnish_horseshoe", "matrix_targets.cuh",
+         "blackjax_tpu/ops/targets_dc.py:144"),
+        ("logreg_dc", "fused_nuts_dc:logreg", "matrix_targets.cuh",
+         "blackjax_tpu/ops/targets_dc.py:61"),
+        ("eight_schools", "fused_nuts_dc:eight_schools", "matrix_targets.cuh",
+         "blackjax_tpu/ops/targets_dc.py:365"),
+        ("leapfrog_logreg", "fused_leapfrog:logistic_regression", "matrix_targets.cuh",
+         "blackjax_tpu/ops/fused_leapfrog.py:324"),
+        ("mclmc_logreg", "fused_mclmc:logistic_regression", "matrix_targets.cuh",
+         "blackjax_tpu/ops/fused_leapfrog.py:324"),
+    ]:
+        f = pairs[key]
+        kernels.append(_entry(name, source, replaces, f["launches"], f["err"], f["ms"],
+                              f["plain_ms"], f["bound"]))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

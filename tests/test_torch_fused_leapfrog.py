@@ -8,7 +8,9 @@ agreement to rtol = atol = 1e-5, tighter than the 2e-4 at which
 ``tests/ops/test_fused_leapfrog.py`` holds the Pallas kernel against the
 XLA integrator, and prints the largest difference seen. ``fused_hmc``'s
 draw-free step, fed the reference's own draws, takes the same accept
-decisions and agrees to 1e-5.
+decisions and agrees to 1e-5. Logistic regression (``n = 150`` data rows,
+``d = 13``: neither a multiple of 8 nor of 128) is held the same way, at
+1e-5 in its value and gradient and in its trajectories.
 """
 import importlib
 
@@ -25,6 +27,7 @@ from blackjax_tpu.ops import fused_hmc as jfused_hmc  # noqa: E402  (the class)
 from blackjax_tpu.ops.fused_leapfrog import fused_leapfrog as jfused_leapfrog  # noqa: E402
 from blackjax_tpu.ops import make_gaussian_target as jmake_gaussian  # noqa: E402
 from blackjax_tpu.ops import make_hierarchical_gaussian_target as jmake_hierarchical  # noqa: E402
+from blackjax_tpu.ops import make_logistic_regression_target as jmake_logreg  # noqa: E402
 import blackjax_tpu_torch  # noqa: E402
 from blackjax_tpu_torch import interop  # noqa: E402
 from blackjax_tpu_torch.ops.fused_hmc import fused_hmc  # noqa: E402
@@ -105,7 +108,58 @@ def test_registry_and_validation():
     with pytest.raises(ValueError, match="inverse variances"):
         fl.gaussian_target_from_params(D, (1.0,) * (D - 1))
     with pytest.raises(NotImplementedError, match="not ported"):
-        interop.fused_target("logistic_regression", D)
+        interop.fused_target("banana", D)
+
+
+LR_N, LR_D = 150, 13
+
+
+def _logreg_data():
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((LR_N, LR_D)).astype(np.float32)
+    w = rng.standard_normal(LR_D)
+    y = (rng.random(LR_N) < 1.0 / (1.0 + np.exp(-X @ w))).astype(np.float32)
+    return X, y
+
+
+def test_logistic_regression_target_matches_reference():
+    """Tiles, plain log density and params against the reference's, and the
+    gradient against autodiff of its plain log density."""
+    ref_target = jmake_logreg(*_logreg_data())
+    target = interop.fused_target(ref_target.name, LR_D, ref_target.params)
+    assert target.cuda_target == fl._CUDA_LOGISTIC_REGRESSION
+    for a, b in zip(target.params, ref_target.params):
+        np.testing.assert_array_equal(a, b)
+    x = (0.3 * np.random.default_rng(1).standard_normal((9, LR_D))).astype(np.float32)
+    t = torch.from_numpy(x)
+    ld = jax.vmap(ref_target.logdensity_fn)(jnp.asarray(x))
+    g = jax.vmap(jax.grad(ref_target.logdensity_fn))(jnp.asarray(x))
+    for got in (target.logdensity_tile(t), target.logdensity_fn(t)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ld), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(target.grad_tile(t).numpy(), np.asarray(g), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("num_steps", [1, 7])
+def test_logistic_regression_plain_version_matches_pallas_kernel(num_steps):
+    ref_target = jmake_logreg(*_logreg_data())
+    target = interop.fused_target(ref_target.name, LR_D, ref_target.params)
+    rng = np.random.default_rng(3)
+    x0 = (0.2 * rng.standard_normal((C, LR_D))).astype(np.float32)
+    m0 = rng.standard_normal((C, LR_D)).astype(np.float32)
+    imm = rng.uniform(0.5, 1.5, LR_D).astype(np.float32)
+    ref = jfused_leapfrog(
+        jnp.asarray(x0), jnp.asarray(m0), jnp.asarray(imm), 0.02, target=ref_target,
+        num_steps=num_steps, tile_chains=8, interpret=True,
+    )
+    before = dict(fl.LAUNCHES)
+    got = fl.fused_leapfrog(torch.from_numpy(x0), torch.from_numpy(m0), torch.from_numpy(imm),
+                            0.02, target=target, num_steps=num_steps)
+    assert fl.LAUNCHES == before, "a CPU call must not count a kernel launch"
+    worst = 0.0
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL, atol=TOL)
+        worst = max(worst, float(np.abs(a.numpy() - np.asarray(b)).max()))
+    print(f"logistic regression, {num_steps} steps: largest |plain - pallas| = {worst:.3g}")
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

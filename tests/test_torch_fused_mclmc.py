@@ -10,6 +10,8 @@ deterministic mode (``refresh=False``) is held at the reference test's atol
 of 3e-6 (``tests/ops/test_fused_mclmc.py:43-45``), and so is the stochastic
 mode, whose largest difference measured 1.2e-7 in x and m over 5 steps at
 d=100. Log densities, some hundreds in size, are held at rtol 1e-5.
+Logistic regression (``n = 150`` data rows, ``d = 13``: neither a multiple
+of 8 nor of 128) is held at 1e-5 in x, m and the history.
 """
 import importlib
 import shutil
@@ -24,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from blackjax_tpu.ops import make_gaussian_target as jmake_gaussian  # noqa: E402
 from blackjax_tpu.ops import make_hierarchical_gaussian_target as jmake_hierarchical  # noqa: E402
+from blackjax_tpu.ops import make_logistic_regression_target as jmake_logreg  # noqa: E402
 from blackjax_tpu.ops.fused_mclmc import _counter_normals, _threefry2x32  # noqa: E402
 from blackjax_tpu.ops.fused_mclmc import fused_mclmc as jfused_mclmc  # noqa: E402
 from blackjax_tpu_torch import interop  # noqa: E402
@@ -104,6 +107,31 @@ def test_plain_version_matches_pallas_kernel(case, refresh):
                              0.05, 1.5, target=target, **{**kw, "refresh": False})
         assert float((det[1] - m).abs().max()) > 1e-2
     print(f"{case}, refresh={refresh}: largest |plain - pallas| = {worst:.3g}")
+
+
+@pytest.mark.parametrize("refresh", [False, True])
+def test_logistic_regression_plain_version_matches_pallas_kernel(refresh):
+    rng = np.random.default_rng(11)
+    n, d = 150, 13
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-X @ rng.standard_normal(d)))).astype(np.float32)
+    ref_target = jmake_logreg(X, y)
+    target = interop.fused_target(ref_target.name, d, ref_target.params)
+    x0 = (0.2 * rng.standard_normal((C, d))).astype(np.float32)
+    m0 = rng.standard_normal((C, d))
+    m0 = (m0 / np.linalg.norm(m0, axis=1, keepdims=True)).astype(np.float32)
+    imm = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    kw = dict(num_steps=S, seed=3, track_dims=(0, 5, d - 1), refresh=refresh)
+    ref = jfused_mclmc(jnp.asarray(x0), jnp.asarray(m0), jnp.asarray(imm), 0.05, 0.5,
+                       target=ref_target, interpret=True, **kw)
+    got = fm.fused_mclmc(torch.from_numpy(x0), torch.from_numpy(m0), torch.from_numpy(imm),
+                         0.05, 0.5, target=target, **kw)
+    worst = 0.0
+    for a, b in [(got[0], ref[0]), (got[1], ref[1]), (got[3], ref[3])]:
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
+        worst = max(worst, float(np.abs(a.numpy() - np.asarray(b)).max()))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), rtol=1e-5)
+    print(f"logistic regression, refresh={refresh}: largest |plain - pallas| = {worst:.3g}")
 
 
 def test_deterministic_mode_matches_the_generic_integrator():

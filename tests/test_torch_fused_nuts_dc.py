@@ -7,8 +7,10 @@ the dot products and the last ulp of exp, log and cos. Such a difference
 changes a chain's path only if it flips an accept or a U-turn decision, so
 the test measures the share of chains whose final position and history
 agree to 1e-5, and asserts a floor under the measured share. Measured on
-this configuration: 16 of 16 chains agree for both targets, the largest
-difference is ~1e-6, and steps and total gradient counts are identical.
+this configuration: 16 of 16 chains agree for every target (the analytic
+ones and the matrix targets of ``ops/targets_dc.py``: logistic regression at
+23 x 12, the horseshoe at N=12, M=16, eight schools), the largest difference
+is 1e-6 to 4e-6, and steps and total gradient counts are identical.
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from blackjax_tpu.ops import fused_nuts_dc as ref  # noqa: E402
+from blackjax_tpu.ops import targets_dc as ref_dc  # noqa: E402
 from blackjax_tpu_torch import interop  # noqa: E402
 from blackjax_tpu_torch.ops import fused_nuts_dc as port  # noqa: E402
 
@@ -28,14 +31,25 @@ COMMON = dict(num_steps=S, max_num_doublings=4, seed=7, budget=S * 16, chunk=16)
 AGREE_FLOOR = 0.9
 TOL = 1e-5
 
+def _logreg_data(n, d):
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-X @ rng.standard_normal(d)))).astype(np.float32)
+    return X, y
+
+
+# name: (d, reference target, step size, scale of the initial positions)
 CASES = {
-    "hierarchical": (8, ref.make_hierarchical_target_dc(8), 0.2),
-    "gaussian": (4, ref.make_gaussian_target_dc(4, [1.0, 4.0, 0.25, 2.0]), 0.4),
+    "hierarchical": (8, ref.make_hierarchical_target_dc(8), 0.2, 0.5),
+    "gaussian": (4, ref.make_gaussian_target_dc(4, [1.0, 4.0, 0.25, 2.0]), 0.4, 0.5),
+    "logreg": (12, ref_dc.make_logreg_target_dc(*_logreg_data(23, 12)), 0.3, 0.5),
+    "horseshoe": (36, ref_dc.make_finnish_horseshoe_target_dc(12, 16), 0.05, 0.1),
+    "eight_schools": (10, ref_dc.make_eight_schools_target_dc(), 0.2, 0.5),
 }
 
 
-def _x0(d):
-    return (0.5 * np.random.default_rng(0).standard_normal((C, d))).astype(np.float32)
+def _x0(d, scale=0.5):
+    return (scale * np.random.default_rng(0).standard_normal((C, d))).astype(np.float32)
 
 
 def agreeing_chains(ref_out, port_out, tol=TOL):
@@ -49,8 +63,8 @@ def agreeing_chains(ref_out, port_out, tol=TOL):
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def runs(request):
-    d, ref_target, step_size = CASES[request.param]
-    x0 = _x0(d)
+    d, ref_target, step_size, scale = CASES[request.param]
+    x0 = _x0(d, scale)
     out_ref = ref.fused_nuts_run_dc(
         jnp.asarray(x0), jnp.ones(d), step_size, target=ref_target,
         num_track=d, interpret=True, **COMMON,
@@ -91,7 +105,7 @@ def test_track_rows_selects_columns(runs):
 def test_budget_exhaustion_matches_reference():
     """A budget too small for every chain: the same chains stop short, with
     the same zero history rows past their last transition."""
-    d, ref_target, step_size = CASES["hierarchical"]
+    d, ref_target, step_size, _ = CASES["hierarchical"]
     x0 = _x0(d)
     kw = dict(COMMON, budget=32)
     out_ref = ref.fused_nuts_run_dc(
@@ -119,7 +133,7 @@ def packed_runs():
     four real chains one after the other, under a lane budget that lets the
     first two finish, cuts the third short or never reaches it, and almost
     never reaches the fourth."""
-    d, ref_target, step_size = CASES["hierarchical"]
+    d, ref_target, step_size, _ = CASES["hierarchical"]
     x0 = (0.5 * np.random.default_rng(1).standard_normal((512, d))).astype(np.float32)
     kw = dict(PACKED, budget=256, num_track=d)
     out_ref = ref.fused_nuts_run_dc(
