@@ -11,8 +11,8 @@ targets' device functions they share are in ``csrc/matrix_targets.cuh``). Kernel
 state tensor.
 
 Registry subset so far: ``hmc``, ``nuts``, ``mclmc``, ``fused_hmc``,
-``fused_nuts_run_dc``, ``window_adaptation``, ``staged_adaptation``,
-``mclmc_find_L_and_step_size``,
+``fused_nuts_run_dc``, ``window_adaptation``, ``window_adaptation_low_rank``,
+``staged_adaptation``, ``mclmc_find_L_and_step_size``,
 ``dual_averaging_adaptation``, ``dual_averaging``, ``diagnostics`` (with
 ``ess`` and ``rhat``) and ``util``.
 """
@@ -21,6 +21,7 @@ import importlib
 from typing import Callable
 
 from blackjax_tpu_torch import diagnostics, util
+from blackjax_tpu_torch.adaptation.low_rank_adaptation import window_adaptation_low_rank
 from blackjax_tpu_torch.adaptation.mclmc_adaptation import mclmc_find_L_and_step_size
 from blackjax_tpu_torch.adaptation.staged_adaptation import staged_adaptation
 from blackjax_tpu_torch.adaptation.step_size import dual_averaging_adaptation
@@ -79,6 +80,7 @@ __all__ = [
     "fused_hmc",
     "fused_nuts_run_dc",
     "window_adaptation",
+    "window_adaptation_low_rank",
     "staged_adaptation",
     "mclmc_find_L_and_step_size",
     "dual_averaging_adaptation",

@@ -1,6 +1,8 @@
 """Warmup and adaptation engines ported so far."""
+from blackjax_tpu_torch.adaptation import low_rank_adaptation as low_rank_adaptation
 from blackjax_tpu_torch.adaptation import mass_matrix as mass_matrix
 from blackjax_tpu_torch.adaptation import mclmc_adaptation as mclmc_adaptation
+from blackjax_tpu_torch.adaptation import metric_estimators as metric_estimators
 from blackjax_tpu_torch.adaptation import metric_recipes as metric_recipes
 from blackjax_tpu_torch.adaptation import staged_adaptation as staged_adaptation
 from blackjax_tpu_torch.adaptation import step_size as step_size

@@ -10,8 +10,9 @@ update per step on the mean acceptance rate (``n_chains`` probes of the
 same step size are one observation), and feeds its ``(n_chains, d)``
 positions to the metric core in one batched call.
 
-Ported: ``welford_diag`` and ``welford_dense`` cores (and any
-``MetricCore``). ``metric="auto"`` (the meta-adaptation controller, ROADMAP
+Ported: the Welford and low-rank cores of ``metric_recipes`` (and any
+``MetricCore``); a core's state may hold ``None`` where an
+``adaptation_info_fn`` dropped a field, and the stacked info keeps it. ``metric="auto"`` (the meta-adaptation controller, ROADMAP
 queue 1, item 6) and ``axis_name`` (a warmup sharded over devices, queue 1,
 item 12) raise ``NotImplementedError``.
 """

@@ -1,0 +1,673 @@
+// The continuous NUTS machine as one CUDA kernel for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel blackjax_tpu/ops/fused_nuts_dc.py:_nuts_kernel_dc
+// (launched by fused_nuts_run_dc, pallas_call at fused_nuts_dc.py:964), for the
+// diagonal, dense and low-rank metrics (fused_nuts_dc.py:253-284, operands at
+// :837-893) and five targets: the hierarchical and Gaussian targets, and the
+// matrix targets of blackjax_tpu/ops/targets_dc.py (logistic regression, the
+// Finnish horseshoe, eight schools), whose device functions are in
+// matrix_targets.cuh. The Python wrapper and the plain PyTorch version of the
+// same machine live in blackjax_tpu_torch/ops/fused_nuts_dc.py.
+//
+// This header holds the machine, a template on the metric; each metric's
+// instantiations are built from a source of their own, which defines
+// BJT_DC_METRIC and includes this header: fused_nuts_dc.cu (kDiag, with the
+// threefry export), fused_nuts_dc_dense.cu (kDense), fused_nuts_dc_low_rank.cu
+// (kLowRank). The three builds run side by side.
+//
+// What it computes, per chain: num_steps NUTS transitions, one velocity-Verlet
+// leaf per loop iteration, with progressive uniform merging inside a subtree,
+// the biased merge across subtrees, checkpointed U-turn slots, the divergence
+// threshold, and the inline restart (a chain that closes a transition draws its
+// next momentum at the top of the following iteration), all within a budget of
+// leaf iterations. Randomness is the reference's counter-based threefry2x32,
+// keyed exactly as the Pallas kernel keys it, so both draw the same numbers.
+// The reference's pack and restart_every only move the budget's accounting:
+// each chain gets a budget of its own (the wrapper derives the lane schedule)
+// and restarts only on iterations of its clock that restart_every divides.
+//
+// Design. The TPU kernel runs 128 chains in lockstep on (d_pad, 128) tiles. Here
+// chains are independent: one warp runs one chain. Lane j holds dims j, j+32,
+// j+64, ... in N registers per vector (N = 4 for d = 100, 13 for the horseshoe's
+// d = 404; d <= 512). Per-chain scalars are replicated in all 32 lanes, so every
+// branch is warp-uniform and the machine's selects become plain branches. Dot
+// products are xor-shuffle reductions, whose butterfly leaves the same bits in
+// every lane. The 22 length-d vectors of the chain state stay in registers up
+// to N = 4 and spill to local memory beyond (255 registers a thread); the
+// 2 * max_depth checkpoint slots, which are indexed by a data-dependent slot id,
+// live in shared memory (each lane touches only its own dims, so no barrier),
+// and so does a matrix target's per-warp scratch. The kernel is a template on N,
+// on the target family and on the metric, so the analytic targets'
+// instantiations carry no code of the matrix targets, and the diagonal
+// metric's none of the others.
+//
+// Metrics. The diagonal metric keeps M^{-1} (and, at a restart, the momentum
+// scale) per lane in registers and recomputes w = M^{-1} m where a U-turn check
+// needs it. The dense and low-rank metrics carry w, as the reference does: the
+// endpoints' left_w and right_w in registers, one w per checkpoint slot in
+// shared memory beside the slot's m and msum, so that the checks and the
+// energy 0.5 w.m stay dot products. A leaf applies M^{-1} twice (to m_half and
+// to the new momentum) and a restart applies M^{1/2} once. Dense: the warp
+// stages the vector in shared memory and each lane forms its own rows of A v,
+// reading A^T (the wrapper uploads M^{-1} and C = L^{-T} transposed) coalesced
+// from global memory, where it stays in L2 (11.7 KB at d = 54): d^2 FMAs per
+// product. Low-rank: M^{-1} = D (I + U (Lam - 1) U^T) D, with t = U^T y as k
+// warp reductions and y + U (s t) lane-local over each lane's rows: about 2 d k
+// FMAs per product; sigma stays in registers as the diagonal's M^{-1} does. d
+// <= 256 (N <= 8) for both. Staging M^{-1} or U in shared memory once per block
+// for all its chains is left for later work.
+//
+// Bound. For the analytic targets a leaf is O(d) FP32 multiply-adds for the
+// leapfrog, the energy and up to max_depth slot checks, plus exp/log/cos (SFU)
+// and threefry integer rounds. Device memory sees the initial positions, one
+// history row per closed transition and the final state: the kernel is bound by
+// FP32 ALU and SFU throughput and by the latency of its shuffle reductions, not
+// by bytes. A matrix target adds two contractions with its data per leaf (4 N M
+// FLOP for the horseshoe), read from L2 (see matrix_targets.cuh), and its
+// checkpoint slots at N = 13 and max_depth = 10 take 33 KB of shared memory per
+// warp, so one 4-warp block fits an SM: latency, not arithmetic, still bounds
+// it. A dense metric adds 2 d^2 FMAs per leaf read from L2, a low-rank one about
+// 4 d k.
+//
+// Numerics. Build without --use_fast_math and with --fmad=false: expf, logf,
+// cosf, sqrtf and log1pf are the accurate library versions and no multiply-add
+// is contracted, so the kernel rounds like the plain PyTorch version except for
+// the order of its sums and the last ulp of the transcendentals.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "counter_rng.cuh"     // threefry2x32, to_unit, box_muller
+#include "matrix_targets.cuh"  // warp_sum, logaddexp, the matrix targets
+
+namespace {
+
+constexpr int kWarps = 4;  // chains per block
+
+// the metrics; each source instantiates one (BJT_DC_METRIC)
+constexpr int kDiag = 0;
+constexpr int kDense = 1;
+constexpr int kLowRank = 2;
+
+struct Params {
+  const float* x0;       // (C, d) initial positions
+  const float* imm;      // diag: (d,) inverse mass matrix; low-rank: sigma (d,)
+  const float* sigma_m;  // diag: (d,) sqrt(1 / imm), 0 where imm <= 0; low-rank: 1 / sigma
+  const float* imm_t;    // dense: (d, d) M^{-1}, transposed (row i holds column i)
+  const float* chol_t;   // dense: (d, d) C^T, with C C^T = M
+  const float* U;        // low-rank: (d, k), row-major
+  const float* lam_m1;   // low-rank: (k,) lam - 1
+  const float* isl_m1;   // low-rank: (k,) 1 / sqrt(lam) - 1
+  const float* inv_var;  // (d,) Gaussian target only, else null
+  const int* track_rows; // (n_track,) coordinates recorded per transition
+  const int* budgets;    // (C,) leaf budget per chain, or null: budget for all
+  float* out_x;          // (C, d) final positions
+  int* out_steps;        // (C,) transitions completed
+  float* out_grads;      // (C,) gradient evaluations of completed transitions
+  float* out_hist;       // (C, S, n_track), zeroed by the caller
+  int* out_iters;        // (C,) iterations used up to the last closed transition
+  int C, d, S, n_track, max_depth, budget, restart_every, target, rank;
+  float eps, threshold;
+  uint32_t seed;
+  MatrixData mat;        // a matrix target's data, else zeros
+};
+
+template <int N>
+__device__ __forceinline__ float dot(const float (&a)[N], const float (&b)[N]) {
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) s += a[k] * b[k];
+  return warp_sum(s);
+}
+
+template <int N>
+__device__ __forceinline__ void copy(float (&dst)[N], const float (&src)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) dst[k] = src[k];
+}
+
+// logdensity (returned, replicated) and gradient (per lane) of the target,
+// written in the reference's operation order (make_hierarchical_target_dc,
+// make_gaussian_target_dc; the matrix targets in matrix_targets.cuh). Pad dims
+// (j >= d) get a zero gradient. F is the target family: 0 for the analytic
+// targets (chosen at run time by p.target), else the matrix target's id.
+template <int N>
+__device__ __forceinline__ float analytic_value_and_grad(const Params& p,
+                                                         const float (&x)[N],
+                                                         float (&g)[N], int lane) {
+  if (p.target == kHierarchical) {
+    const float log_tau = __shfl_sync(kFull, x[0], 0);
+    float ts = 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int j = k * 32 + lane;
+      const float t = (j >= 1 && j < p.d) ? x[k] : 0.f;
+      ts += t * t;
+    }
+    const float theta_sq = warp_sum(ts);
+    const float exp_neg = expf(-log_tau);
+    const float half_n_theta = 0.5f * (float)(p.d - 1);
+    const float g_tau = -log_tau + 0.5f * theta_sq * exp_neg - half_n_theta;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int j = k * 32 + lane;
+      g[k] = (j == 0) ? g_tau : (j < p.d ? -(x[k] * exp_neg) : 0.f);
+    }
+    return -0.5f * (log_tau * log_tau) - 0.5f * theta_sq * exp_neg -
+           half_n_theta * log_tau;
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    const float iv = j < p.d ? __ldg(p.inv_var + j) : 0.f;
+    s += x[k] * x[k] * iv;
+    g[k] = -x[k] * iv;
+  }
+  return -0.5f * warp_sum(s);
+}
+
+template <int N, int F>
+__device__ __forceinline__ float value_and_grad(const Params& p,
+                                                const float (&x)[N],
+                                                float (&g)[N], int lane,
+                                                float* scratch) {
+  if constexpr (F == kLogRegDC) {
+    return logreg_dc<N>(p.mat, x, g, lane, scratch);
+  } else if constexpr (F == kHorseshoeDC) {
+    return horseshoe_dc<N>(p.mat, p.d, x, g, lane, scratch);
+  } else if constexpr (F == kEightSchoolsDC) {
+    return eight_schools_dc(p.mat, x, g, lane);
+  } else {
+    return analytic_value_and_grad<N>(p, x, g, lane);
+  }
+}
+
+// out = A v for the warp's vector v, given A^T row-major (d, d): the warp
+// stages v in shared memory and each lane sums its own rows over i in order,
+// reading row i of A^T coalesced across lanes
+template <int N>
+__device__ __forceinline__ void dense_mv(const float* at, int d, const float (&v)[N],
+                                         float (&out)[N], int lane, float* vbuf) {
+  stage<N>(vbuf, v, lane);
+  float acc[N] = {};
+  for (int i = 0; i < d; ++i) {
+    const float vi = vbuf[i];
+    const float* row = at + (size_t)i * d;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int r = k * 32 + lane;
+      if (r < d) acc[k] += __ldg(row + r) * vi;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) out[k] = acc[k];
+}
+
+// out = y + U (s_m1 * (U^T y)): t_j = U[:, j] . y by a warp reduction, then
+// each lane adds U[r, j] (s_m1[j] t_j) to its own rows r, over j in order
+template <int N>
+__device__ __forceinline__ void low_rank_mv(const Params& p, const float (&y)[N],
+                                            const float* s_m1, float (&out)[N], int lane) {
+  float acc[N] = {};
+  for (int j = 0; j < p.rank; ++j) {
+    float part = 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int r = k * 32 + lane;
+      if (r < p.d) part += y[k] * __ldg(p.U + (size_t)r * p.rank + j);
+    }
+    const float st = __ldg(s_m1 + j) * warp_sum(part);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int r = k * 32 + lane;
+      if (r < p.d) acc[k] += st * __ldg(p.U + (size_t)r * p.rank + j);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) out[k] = y[k] + acc[k];
+}
+
+// out = M^{-1} v (dense or low-rank; sig holds sigma for the low-rank metric)
+template <int N, int M>
+__device__ __forceinline__ void imm_mv(const Params& p, const float (&v)[N], float (&out)[N],
+                                       const float (&sig)[N], int lane, float* vbuf) {
+  if constexpr (M == kDense) {
+    dense_mv<N>(p.imm_t, p.d, v, out, lane, vbuf);
+  } else {
+    float y[N], r[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) y[k] = sig[k] * v[k];
+    low_rank_mv<N>(p, y, p.lam_m1, r, lane);
+#pragma unroll
+    for (int k = 0; k < N; ++k) out[k] = sig[k] * r[k];
+  }
+}
+
+// out = M^{1/2} z, the momentum from standard normals z: C z (dense), or
+// D^{-1} (I + U (Lam^{-1/2} - 1) U^T) z (low-rank)
+template <int N, int M>
+__device__ __forceinline__ void sample_m(const Params& p, const float (&z)[N], float (&out)[N],
+                                         int lane, float* vbuf) {
+  if constexpr (M == kDense) {
+    dense_mv<N>(p.chol_t, p.d, z, out, lane, vbuf);
+  } else {
+    float r[N];
+    low_rank_mv<N>(p, z, p.isl_m1, r, lane);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int j = k * 32 + lane;
+      out[k] = j < p.d ? p.sigma_m[j] * r[k] : 0.f;
+    }
+  }
+}
+
+// shared memory floats per warp: the checkpoint slots' m and msum (and w and
+// a staging vector for the dense and low-rank metrics) and, for a matrix
+// target, its scratch
+template <int N, int F, int M>
+__host__ __device__ int warp_floats(int max_depth) {
+  return (M == kDiag ? 2 * max_depth * N * 32 : (3 * max_depth + 1) * N * 32) +
+         (F != 0 ? scratch_floats<N>() : 0);
+}
+
+template <int N, int F, int M>
+__global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int chain = blockIdx.x * kWarps + warp;
+  if (chain >= p.C) return;  // the whole warp leaves together
+  const int slot = N * 32;
+  float* ck_m = smem + (size_t)warp * warp_floats<N, F, M>(p.max_depth);
+  float* ck_s = ck_m + p.max_depth * slot;
+  float* ck_w = ck_s + p.max_depth * slot;   // dense and low-rank only
+  float* vbuf = ck_w + p.max_depth * slot;   // dense and low-rank only
+  float* scratch = M == kDiag ? ck_w : vbuf + slot;
+
+  // imm: the diagonal's M^{-1}, or the low-rank metric's sigma
+  float imm[N], acc_x[N], acc_g[N], cur_x[N], cur_m[N], cur_g[N];
+  float left_x[N], left_m[N], left_g[N], right_x[N], right_m[N], right_g[N];
+  float msum[N], sub_msum[N], prop_x[N], prop_g[N], sub_x[N], sub_g[N];
+  float new_x[N], new_m[N], new_g[N], w_new[N];
+  float left_w[N], right_w[N];  // dense and low-rank: M^{-1} of left_m, right_m
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    const bool valid = j < p.d;
+    acc_x[k] = valid ? p.x0[(size_t)chain * p.d + j] : 0.f;
+    if constexpr (M == kDense) {
+      imm[k] = 0.f;
+    } else {
+      imm[k] = valid ? p.imm[j] : 0.f;
+    }
+  }
+  float acc_ld = value_and_grad<N, F>(p, acc_x, acc_g, lane, scratch);
+
+  float prop_ld = 0.f, sub_ld = 0.f;
+  float prop_w = 0.f, prop_slpa = 0.f, sub_w = 0.f, sub_slpa = 0.f, h0 = 0.f;
+  float direction = 1.f, grads = 0.f;
+  int depth = 0, leaf = 0, nstates = 0, steps = 0;
+  // iteration 0 starts with done = 1, so it opens the first transition
+  bool done = true, div = false, turn = false;
+  const int S = p.S;
+
+  // One leaf per iteration until num_steps transitions closed or the budget
+  // is spent. A chain below num_steps is active after its restart, so the
+  // reference's chunk-skip cond (which only skips tiles whose chains all
+  // finished) changes nothing for it: these outputs are the reference's.
+  const int budget = p.budgets != nullptr ? p.budgets[chain] : p.budget;
+  int iters = 0;
+  for (int it = 0; it < budget && steps < S; ++it) {
+    // a closed chain restarts on the gated iterations only; until then it is
+    // parked, and a parked leaf changes nothing the restart keeps
+    if (done && it % p.restart_every != 0) continue;
+    // counter key of this (chain, step): int32 chain * S + steps in the
+    // reference (fused_nuts_dc.py:395), so wrap modulo 2^32 here too
+    const uint32_t base_row = (uint32_t)chain * (uint32_t)S + (uint32_t)steps;
+
+    if (done) {
+      // ---- inline restart: fresh momentum, trajectory reset ----
+      // Momentum key c0 = dim index, c1 = (1 << 24) | base_row, u1 with the
+      // +1 offset (fused_nuts_dc.py:413-425). Kept for parity, as the JAX
+      // package is frozen this round: the OR collides with the tag bit once
+      // base_row >= 2^24, i.e. at chains * num_steps >= 2^24, and chains
+      // 2^24 / S apart then draw the same momenta.
+      const uint32_t c1 = (1u << 24) | base_row;
+      if constexpr (M == kDiag) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const int j = k * 32 + lane;
+          float m = 0.f;
+          if (j < p.d) {
+            uint32_t b1, b2;
+            threefry2x32(p.seed, kKey1, (uint32_t)j, c1, b1, b2);
+            m = p.sigma_m[j] * box_muller(b1, b2);
+          }
+          cur_m[k] = m;
+          w_new[k] = imm[k] * m;  // scratch: w = M^{-1} m of the fresh momentum
+        }
+      } else {
+        float z[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const int j = k * 32 + lane;
+          z[k] = 0.f;
+          if (j < p.d) {
+            uint32_t b1, b2;
+            threefry2x32(p.seed, kKey1, (uint32_t)j, c1, b1, b2);
+            z[k] = box_muller(b1, b2);
+          }
+        }
+        sample_m<N, M>(p, z, cur_m, lane, vbuf);
+        imm_mv<N, M>(p, cur_m, w_new, imm, lane, vbuf);
+        copy<N>(left_w, w_new); copy<N>(right_w, w_new);
+      }
+      h0 = -acc_ld + 0.5f * dot<N>(w_new, cur_m);
+      copy<N>(cur_x, acc_x);  copy<N>(cur_g, acc_g);
+      copy<N>(left_x, acc_x); copy<N>(left_m, cur_m); copy<N>(left_g, acc_g);
+      copy<N>(right_x, acc_x); copy<N>(right_m, cur_m); copy<N>(right_g, acc_g);
+      copy<N>(prop_x, acc_x); copy<N>(prop_g, acc_g);
+      copy<N>(sub_x, acc_x);  copy<N>(sub_g, acc_g);
+      copy<N>(msum, cur_m);
+#pragma unroll
+      for (int k = 0; k < N; ++k) sub_msum[k] = 0.f;
+      prop_ld = sub_ld = acc_ld;
+      prop_w = 0.f; prop_slpa = -INFINITY; sub_w = 0.f; sub_slpa = -INFINITY;
+      depth = leaf = nstates = 0;
+      div = turn = done = false;
+    }
+
+    // ---- subtree start: direction draw, continue from that end ----
+    // u_dir and u_prop are one _counter_uniforms2(seed, base_row, 2, depth)
+    // block (fused_nuts_dc.py:463); each is drawn where it is used.
+    const bool at_start = leaf == 0;
+    if (at_start) {
+      uint32_t b1, b2;
+      threefry2x32(p.seed, kKey1, base_row, (2u << 24) | (uint32_t)depth, b1, b2);
+      direction = to_unit(b1) < 0.5f ? -1.f : 1.f;
+      if (direction > 0.f) {
+        copy<N>(cur_x, right_x); copy<N>(cur_m, right_m); copy<N>(cur_g, right_g);
+      } else {
+        copy<N>(cur_x, left_x); copy<N>(cur_m, left_m); copy<N>(cur_g, left_g);
+      }
+    }
+    const bool fwd = direction > 0.f;
+
+    // ---- one velocity-Verlet leaf ----
+    const float d_eps = direction * p.eps;
+    const float half = 0.5f * d_eps;
+    if constexpr (M == kDiag) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        new_m[k] = cur_m[k] + half * cur_g[k];
+        new_x[k] = cur_x[k] + d_eps * (imm[k] * new_m[k]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; ++k) new_m[k] = cur_m[k] + half * cur_g[k];
+      imm_mv<N, M>(p, new_m, w_new, imm, lane, vbuf);  // scratch: M^{-1} m_half
+#pragma unroll
+      for (int k = 0; k < N; ++k) new_x[k] = cur_x[k] + d_eps * w_new[k];
+    }
+    const float new_ld = value_and_grad<N, F>(p, new_x, new_g, lane, scratch);
+    if constexpr (M == kDiag) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        new_m[k] = new_m[k] + half * new_g[k];
+        w_new[k] = imm[k] * new_m[k];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; ++k) new_m[k] = new_m[k] + half * new_g[k];
+      imm_mv<N, M>(p, new_m, w_new, imm, lane, vbuf);
+    }
+    const float energy = -new_ld + 0.5f * dot<N>(w_new, new_m);
+    float delta = h0 - energy;
+    if (isnan(delta)) delta = -INFINITY;  // fused_nuts_dc.py:484
+    const float leaf_w = delta;
+    const float leaf_slpa = delta < 0.f ? delta : 0.f;
+    const bool leaf_div = -delta > p.threshold;
+
+    // ---- progressive uniform merge within the subtree ----
+    if (at_start) {
+      copy<N>(sub_x, new_x); copy<N>(sub_g, new_g); sub_ld = new_ld;
+      sub_w = leaf_w;
+      sub_slpa = leaf_slpa;
+      copy<N>(sub_msum, new_m);
+    } else {
+      // leaf uniform: _counter_uniforms(seed, base_row, 3, nstates) (:490)
+      uint32_t b1, b2;
+      threefry2x32(p.seed, kKey1, base_row, (3u << 24) | (uint32_t)nstates, b1, b2);
+      // sigmoid(NaN) is NaN and the comparison is false: no take
+      const float p_acc = 1.f / (1.f + expf(-(leaf_w - sub_w)));
+      if (to_unit(b1) < p_acc) {
+        copy<N>(sub_x, new_x); copy<N>(sub_g, new_g); sub_ld = new_ld;
+      }
+      sub_w = logaddexp(sub_w, leaf_w);
+      sub_slpa = logaddexp(sub_slpa, leaf_slpa);
+#pragma unroll
+      for (int k = 0; k < N; ++k) sub_msum[k] = sub_msum[k] + new_m[k];
+    }
+
+    // ---- checkpointed subtree U-turn (termination.py:37-43) ----
+    // even leaves store (m, sub_msum) at slot idx_max; odd leaves check the
+    // slots idx_min..idx_max of the subtrees that end at this leaf
+    const int idx_max = __popc(leaf >> 1);
+    bool subtree_turning = false;
+    if ((leaf & 1) == 0) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        ck_m[idx_max * slot + k * 32 + lane] = new_m[k];
+        ck_s[idx_max * slot + k * 32 + lane] = sub_msum[k];
+        if constexpr (M != kDiag) ck_w[idx_max * slot + k * 32 + lane] = w_new[k];
+      }
+    } else {
+      const int idx_min = idx_max - __popc(((~leaf) & (leaf + 1)) - 1) + 1;
+      for (int i = idx_min; i <= idx_max && !subtree_turning; ++i) {
+        float a = 0.f, b = 0.f;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float ckm = ck_m[i * slot + k * 32 + lane];
+          const float cks = ck_s[i * slot + k * 32 + lane];
+          const float rho = sub_msum[k] - 0.5f * new_m[k] - cks + 0.5f * ckm;
+          if constexpr (M == kDiag) {
+            a += imm[k] * ckm * rho;
+          } else {
+            a += ck_w[i * slot + k * 32 + lane] * rho;
+          }
+          b += w_new[k] * rho;
+        }
+        subtree_turning = warp_sum(a) <= 0.f || warp_sum(b) <= 0.f;
+      }
+    }
+
+    // ---- subtree boundary: merge into the trajectory ----
+    const bool aborted = leaf_div || subtree_turning;
+    const bool closing = leaf + 1 >= (1 << depth) || aborted;
+    bool full_turn = false;
+    if (closing) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) msum[k] = msum[k] + sub_msum[k];
+      if (fwd) {
+        copy<N>(right_x, new_x); copy<N>(right_m, new_m); copy<N>(right_g, new_g);
+        if constexpr (M != kDiag) copy<N>(right_w, w_new);
+      } else {
+        copy<N>(left_x, new_x); copy<N>(left_m, new_m); copy<N>(left_g, new_g);
+        if constexpr (M != kDiag) copy<N>(left_w, w_new);
+      }
+      // biased merge toward the new subtree; an aborted subtree adds its
+      // acceptance statistics only. min(NaN, 1) stays NaN, as jnp.minimum.
+      uint32_t b1, b2;
+      threefry2x32(p.seed, kKey1, base_row, (2u << 24) | (uint32_t)depth, b1, b2);
+      const float ratio = expf(sub_w - prop_w);
+      const float p_biased = ratio > 1.f ? 1.f : ratio;
+      if (to_unit(b2) < p_biased && !aborted) {
+        copy<N>(prop_x, sub_x); copy<N>(prop_g, sub_g); prop_ld = sub_ld;
+      }
+      if (!aborted) prop_w = logaddexp(prop_w, sub_w);
+      prop_slpa = logaddexp(prop_slpa, sub_slpa);
+
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float rho = msum[k] - 0.5f * (left_m[k] + right_m[k]);
+        if constexpr (M == kDiag) {
+          a += imm[k] * left_m[k] * rho;
+          b += imm[k] * right_m[k] * rho;
+        } else {
+          a += left_w[k] * rho;
+          b += right_w[k] * rho;
+        }
+      }
+      full_turn = warp_sum(a) <= 0.f || warp_sum(b) <= 0.f;
+      depth += 1;
+      leaf = 0;
+    } else {
+      leaf += 1;
+    }
+
+    // ---- transition close ----
+    div = div || leaf_div;  // the divergence test is -delta > threshold
+    turn = turn || (closing && (subtree_turning || full_turn));
+    done = div || turn || (closing && depth >= p.max_depth);
+    nstates += 1;
+    if (done) {
+      // grads counts nstates only when a transition closes (:581)
+      grads = grads + (float)nstates;
+      copy<N>(acc_x, prop_x); copy<N>(acc_g, prop_g); acc_ld = prop_ld;
+      iters = it + 1;
+      // history row steps - 1 of the closed transition; rows never
+      // reached keep the caller's zeros
+      float* row = p.out_hist + ((size_t)chain * S + steps) * p.n_track;
+      for (int t = 0; t < p.n_track; ++t) {
+        const int r = p.track_rows[t];
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          if (r == k * 32 + lane) row[t] = acc_x[k];
+      }
+      steps += 1;
+    }
+    copy<N>(cur_x, new_x); copy<N>(cur_m, new_m); copy<N>(cur_g, new_g);
+  }
+
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    if (j < p.d) p.out_x[(size_t)chain * p.d + j] = acc_x[k];
+  }
+  if (lane == 0) {
+    p.out_steps[chain] = steps;
+    p.out_grads[chain] = grads;
+    p.out_iters[chain] = iters;
+  }
+}
+
+// A block asks for more than the 48 KB default of shared memory through the
+// attribute; past the card's 227 KB the attribute or the launch is refused,
+// and the error comes back to the wrapper, which raises.
+template <int N, int F, int M>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  const size_t smem = (size_t)kWarps * warp_floats<N, F, M>(p.max_depth) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        nuts_dc_kernel<N, F, M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (p.C + kWarps - 1) / kWarps;
+  nuts_dc_kernel<N, F, M><<<blocks, kWarps * 32, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the family's instantiation for the target; eight schools has d = 10
+template <int N, int M>
+cudaError_t launch_target(const Params& p, cudaStream_t stream) {
+  switch (p.target) {
+    case kHierarchical:
+    case kGaussian:
+      return launch<N, 0, M>(p, stream);
+    case kLogRegDC:
+      return launch<N, kLogRegDC, M>(p, stream);
+    case kHorseshoeDC:
+      return launch<N, kHorseshoeDC, M>(p, stream);
+    case kEightSchoolsDC:
+      if constexpr (N == 1) {
+        return launch<1, kEightSchoolsDC, M>(p, stream);
+      } else {
+        return cudaErrorInvalidValue;
+      }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// checks the metric's operands and launches the instantiation for d: N = 1,
+// 2, 4, 8 for every metric, and 13, 16 for the diagonal one
+template <int M>
+cudaError_t run_machine(const Params& p, cudaStream_t s) {
+  if constexpr (M == kDiag) {
+    if (p.imm == nullptr || p.sigma_m == nullptr) return cudaErrorInvalidValue;
+  } else if constexpr (M == kDense) {
+    if (p.imm_t == nullptr || p.chol_t == nullptr) return cudaErrorInvalidValue;
+  } else {
+    if (p.imm == nullptr || p.sigma_m == nullptr || p.rank < 0 ||
+        (p.rank > 0 && (p.U == nullptr || p.lam_m1 == nullptr || p.isl_m1 == nullptr)))
+      return cudaErrorInvalidValue;
+  }
+  const int n = (p.d + 31) / 32;
+  if (p.C <= 0) return cudaSuccess;
+  if (n <= 1) return launch_target<1, M>(p, s);
+  if (n <= 2) return launch_target<2, M>(p, s);
+  if (n <= 4) return launch_target<4, M>(p, s);
+  if (n <= 8) return launch_target<8, M>(p, s);
+  if constexpr (M == kDiag) {
+    if (n <= 13) return launch_target<13, M>(p, s);
+    if (n <= 16) return launch_target<16, M>(p, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Runs the machine of this source's metric (BJT_DC_METRIC); returns
+// cudaGetLastError() of the launch (0 = success). imm, sigma_m, imm_t, chol_t,
+// U, lam_m1, isl_m1 and rank are the metric's operands (Params; null and 0
+// where unused); X, Xt, u, s, rows, cols and the host array k[8] are a matrix
+// target's data (matrix_targets.cuh), null and 0 for the analytic targets.
+int bjt_fused_nuts_dc(const float* x0, const float* imm, const float* sigma_m,
+                      const float* imm_t, const float* chol_t, const float* U,
+                      const float* lam_m1, const float* isl_m1,
+                      const float* inv_var, const int* track_rows,
+                      const int* budgets, float* out_x, int* out_steps,
+                      float* out_grads, float* out_hist, int* out_iters,
+                      const float* X, const float* Xt, const float* u,
+                      const float* s_vec, int C, int d, int S, int n_track,
+                      int max_depth, int budget, int restart_every, int target,
+                      int rows, int cols, int rank, float eps, float threshold,
+                      int seed, const float* k, void* stream) {
+  MatrixData mat{X, Xt, u, s_vec, rows, cols, {}};
+  for (int i = 0; i < 8; ++i) mat.k[i] = k[i];
+  Params p{x0, imm, sigma_m, imm_t, chol_t, U, lam_m1, isl_m1, inv_var, track_rows,
+           budgets, out_x, out_steps, out_grads, out_hist, out_iters, C, d, S, n_track,
+           max_depth, budget, restart_every, target, rank, eps, threshold,
+           (uint32_t)seed, mat};
+  if (restart_every < 1) return cudaErrorInvalidValue;
+  if (target == kGaussian && inv_var == nullptr) return cudaErrorInvalidValue;
+  if (target == kLogRegDC && (X == nullptr || Xt == nullptr || u == nullptr || cols != d))
+    return cudaErrorInvalidValue;
+  if (target == kHorseshoeDC &&
+      (X == nullptr || Xt == nullptr || u == nullptr || s_vec == nullptr || d != 2 * cols + 4))
+    return cudaErrorInvalidValue;
+  if (target == kEightSchoolsDC && (u == nullptr || s_vec == nullptr || d != 10))
+    return cudaErrorInvalidValue;
+  return run_machine<BJT_DC_METRIC>(p, static_cast<cudaStream_t>(stream));
+}
+
+const char* bjt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

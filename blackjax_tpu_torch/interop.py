@@ -3,7 +3,8 @@
 Each function takes the reference's values as numpy arrays (``np.asarray``
 of a JAX array) and returns the port's tensors on a chosen device and dtype,
 so both packages can compute from the same state: HMC states and NUTS infos,
-inverse mass matrices and step sizes (alone or as a warmup's parameters),
+inverse mass matrices (diagonal, dense or low-rank payloads) and step sizes
+(alone or as a warmup's parameters), low-rank metric cores' states,
 MCLMC states and tuned parameters, fused-HMC states, the fused kernels'
 targets, and the test posteriors by name.
 """
@@ -11,8 +12,10 @@ import numpy as np
 import torch
 
 from blackjax_tpu_torch.adaptation.mclmc_adaptation import MCLMCAdaptationState
+from blackjax_tpu_torch.adaptation.metric_recipes import LowRankMetricCoreState
 from blackjax_tpu_torch.mcmc.hmc import HMCState
 from blackjax_tpu_torch.mcmc.integrators import IntegratorState
+from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix
 from blackjax_tpu_torch.mcmc.nuts import NUTSInfo
 from blackjax_tpu_torch.models import targets
 from blackjax_tpu_torch.ops import fused_nuts_dc, targets_dc
@@ -30,6 +33,8 @@ __all__ = [
     "hmc_state",
     "nuts_info",
     "inverse_mass_matrix",
+    "low_rank_inverse_mass_matrix",
+    "low_rank_core_state",
     "step_size",
     "adaptation_parameters",
     "mclmc_state",
@@ -68,12 +73,43 @@ def nuts_info(info, *, device=None, dtype=None) -> NUTSInfo:
     return NUTSInfo(*(convert(v) for v in info))
 
 
-def inverse_mass_matrix(value, *, device=None, dtype=None) -> torch.Tensor:
-    """A diagonal ``(d,)`` or dense ``(d, d)`` inverse mass matrix."""
+def inverse_mass_matrix(value, *, device=None, dtype=None):
+    """A diagonal ``(d,)`` or dense ``(d, d)`` inverse mass matrix as a
+    tensor, or a low-rank payload (any ``(sigma, U, lam)`` tuple) as the
+    port's :class:`LowRankInverseMassMatrix`."""
+    if isinstance(value, tuple):
+        return low_rank_inverse_mass_matrix(value, device=device, dtype=dtype)
     t = to_tensor(value, device=device, dtype=dtype)
     if t.dim() not in (1, 2):
         raise ValueError(f"inverse mass matrix must be 1-d or 2-d, got {t.dim()}-d")
     return t
+
+
+def low_rank_inverse_mass_matrix(payload, *, device=None, dtype=None) -> LowRankInverseMassMatrix:
+    """The reference's ``LowRankInverseMassMatrix(sigma, U, lam)`` as the
+    port's."""
+    sigma, U, lam = (to_tensor(v, device=device, dtype=dtype) for v in payload)
+    if sigma.dim() != 1 or U.shape != (sigma.shape[0], lam.shape[0]) or lam.dim() != 1:
+        raise ValueError(
+            f"low-rank payload shapes sigma {tuple(sigma.shape)}, U {tuple(U.shape)}, "
+            f"lam {tuple(lam.shape)} do not fit (d,), (d, k), (k,)"
+        )
+    return LowRankInverseMassMatrix(sigma, U, lam)
+
+
+def low_rank_core_state(state, *, device=None, dtype=None) -> LowRankMetricCoreState:
+    """A low-rank metric core's state of the reference (payload, ``mu*``,
+    buffers and counters) as the port's: tensors, with the counters as
+    Python integers."""
+    return LowRankMetricCoreState(
+        low_rank_inverse_mass_matrix(state.inverse_mass_matrix, device=device, dtype=dtype),
+        to_tensor(state.mu_star, device=device, dtype=dtype),
+        to_tensor(state.draws_buffer, device=device, dtype=dtype),
+        to_tensor(state.grads_buffer, device=device, dtype=dtype),
+        int(np.asarray(state.buffer_idx)),
+        int(np.asarray(state.background_split)),
+        int(np.asarray(state.recompute_counter)),
+    )
 
 
 def step_size(value) -> float:
@@ -82,9 +118,10 @@ def step_size(value) -> float:
 
 
 def adaptation_parameters(parameters: dict, *, device=None, dtype=None) -> dict:
-    """A warmup's ``results.parameters`` (reference ``window_adaptation``) as
-    the port's: the step size a number, the inverse mass matrix a tensor;
-    any other entry passes through."""
+    """A warmup's ``results.parameters`` (reference ``window_adaptation`` or
+    ``window_adaptation_low_rank``) as the port's: the step size a number,
+    the inverse mass matrix a tensor or a low-rank payload; any other entry
+    passes through."""
     out = dict(parameters)
     out["step_size"] = step_size(parameters["step_size"])
     out["inverse_mass_matrix"] = inverse_mass_matrix(

@@ -2,8 +2,8 @@
 and mass-matrix scaling (reference ``blackjax_tpu/mcmc/metrics.py``).
 
 Every function takes one chain ``(d,)`` or a batch ``(..., d)`` and reduces
-over the last axis. Diagonal and dense inverse mass matrices are ported; the
-low-rank and Riemannian metrics come with later slices.
+over the last axis. Diagonal, dense and low-rank-plus-diagonal inverse mass
+matrices are ported; the Riemannian metric comes with a later slice.
 """
 from typing import Callable, NamedTuple, Optional
 
@@ -12,7 +12,13 @@ import torch
 from blackjax_tpu_torch.types import Array, ArrayLikeTree, ArrayTree, Numeric, PRNGKey
 from blackjax_tpu_torch.util import generate_gaussian_noise, linear_map
 
-__all__ = ["Metric", "default_metric", "gaussian_euclidean"]
+__all__ = [
+    "Metric",
+    "LowRankInverseMassMatrix",
+    "default_metric",
+    "gaussian_euclidean",
+    "gaussian_euclidean_low_rank",
+]
 
 
 class Metric(NamedTuple):
@@ -60,15 +66,33 @@ def _batched_turning_from_apply(inverse_mass_times_row: Callable) -> Callable:
     return check
 
 
+class LowRankInverseMassMatrix(NamedTuple):
+    """The inverse mass matrix ``M^{-1} = diag(sigma) (I + U (Lam - I) U^T)
+    diag(sigma)`` with orthonormal-column ``U`` ``(d, k)`` and positive
+    ``lam`` ``(k,)`` (reference ``metrics.py:93``)."""
+
+    sigma: Array
+    U: Array
+    lam: Array
+
+
+def _low_rank_matvec(y: Array, U: Array, eigenvalue_scales: Array) -> Array:
+    """``(I + U (diag(s) - I) U^T) y`` over the last axis of ``y``, in O(dk)
+    (reference ``metrics.py:111``): ``s = lam`` gives the inverse-mass core,
+    ``sqrt(lam)`` its square root, ``1 / sqrt(lam)`` its inverse square root."""
+    return y + ((eigenvalue_scales - 1.0) * (y @ U)) @ U.T
+
+
 def default_metric(metric) -> Metric:
-    """A :class:`Metric` passes through; a 1-d or 2-d inverse mass matrix
-    becomes :func:`gaussian_euclidean` (reference ``metrics.py:121``)."""
+    """A :class:`Metric` passes through, a :class:`LowRankInverseMassMatrix`
+    becomes :func:`gaussian_euclidean_low_rank`, a 1-d or 2-d inverse mass
+    matrix :func:`gaussian_euclidean` (reference ``metrics.py:121``)."""
+    if isinstance(metric, LowRankInverseMassMatrix):
+        return gaussian_euclidean_low_rank(metric.sigma, metric.U, metric.lam)
     if isinstance(metric, Metric):
         return metric
     if callable(metric):
         raise NotImplementedError("Riemannian metrics are not ported yet")
-    if isinstance(metric, tuple):
-        raise NotImplementedError("low-rank inverse mass matrices are not ported yet")
     return gaussian_euclidean(torch.as_tensor(metric))
 
 
@@ -128,6 +152,66 @@ def gaussian_euclidean(inverse_mass_matrix: Array) -> Metric:
         apply_row = lambda x: inverse_mass_matrix.to(x) * x  # noqa: E731
     else:
         apply_row = lambda x: x @ inverse_mass_matrix.to(x)  # noqa: E731 (symmetric)
+
+    return Metric(
+        sample_momentum,
+        kinetic_energy,
+        check_turning,
+        scale,
+        _batched_turning_from_apply(apply_row),
+    )
+
+
+def gaussian_euclidean_low_rank(sigma: Array, U: Array, lam: Array) -> Metric:
+    """Euclidean metric whose inverse mass matrix is the low-rank-plus-
+    diagonal ``M^{-1} = D (I + U (Lam - I) U^T) D``, ``D = diag(sigma)``
+    (reference ``metrics.py:220``); every operation is O(dk) per chain.
+
+    With ``A* = I + U (sqrt(Lam) - I) U^T`` and ``B = I + U (Lam^{-1/2} - I)
+    U^T``: ``M^{-1/2} = D A*`` and ``M^{1/2} = D^{-1} B``."""
+    sigma, U, lam = (torch.as_tensor(a) for a in (sigma, U, lam))
+    inv_sigma = 1.0 / sigma
+    sqrt_lam = torch.sqrt(lam)
+    inv_sqrt_lam = 1.0 / sqrt_lam
+
+    def inverse_mass_times(p):
+        return sigma * _low_rank_matvec(sigma * p, U, lam)
+
+    def sample_momentum(rng_key: PRNGKey, position: ArrayLikeTree) -> ArrayTree:
+        # p = M^{1/2} eps = D^{-1} B eps, so E[p p^T] = D^{-1} B^2 D^{-1} = M
+        eps = generate_gaussian_noise(rng_key, position)
+        return inv_sigma * _low_rank_matvec(eps, U, inv_sqrt_lam)
+
+    def kinetic_energy(momentum, position=None) -> Numeric:
+        del position
+        q = sigma * momentum
+        return 0.5 * _dot(q, _low_rank_matvec(q, U, lam))
+
+    def check_turning(
+        momentum_left, momentum_right, momentum_sum, position_left=None, position_right=None
+    ):
+        del position_left, position_right
+        rho = momentum_sum - 0.5 * (momentum_left + momentum_right)
+        v_left = inverse_mass_times(momentum_left)
+        v_right = inverse_mass_times(momentum_right)
+        return (_dot(v_left, rho) <= 0) | (_dot(v_right, rho) <= 0)
+
+    def scale(position, element, *, inv: bool, trans: bool):
+        """``element`` times ``M^{-1/2} = D A*`` (``inv=True``) or ``M^{1/2} =
+        D^{-1} B``; transposing swaps the order of the two factors."""
+        del position
+        if inv:
+            if trans:
+                return _low_rank_matvec(sigma * element, U, sqrt_lam)
+            return sigma * _low_rank_matvec(element, U, sqrt_lam)
+        if trans:
+            return _low_rank_matvec(inv_sigma * element, U, inv_sqrt_lam)
+        return inv_sigma * _low_rank_matvec(element, U, inv_sqrt_lam)
+
+    def apply_row(x):
+        # M^{-1} x over the rows of a (..., k, d) or (..., d) batch
+        z = sigma * x
+        return sigma * (z + ((z @ U) * (lam - 1.0)) @ U.T)
 
     return Metric(
         sample_momentum,

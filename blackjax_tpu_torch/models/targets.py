@@ -32,8 +32,10 @@ class Target(NamedTuple):
 
     def sample_init(self, generator: torch.Generator, num_chains=None, *,
                     dtype=torch.float32, device=None):
-        """``2 * N(0, I)`` initial positions, ``(dim,)`` or ``(num_chains, dim)``."""
+        """``2 * N(0, I)`` initial positions, ``(dim,)`` or ``(num_chains, dim)``,
+        on ``device``, by default the generator's."""
         shape = (self.dim,) if num_chains is None else (num_chains, self.dim)
+        device = generator.device if device is None else device
         return 2.0 * torch.randn(shape, generator=generator, dtype=dtype, device=device)
 
 

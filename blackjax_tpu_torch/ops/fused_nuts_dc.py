@@ -19,12 +19,17 @@ Two implementations of the same machine live here:
   batch with masks, taken for CPU tensors and used on the card as the
   kernel's reference.
 
-Ported: the diagonal metric; the hierarchical and Gaussian targets, and the
-matrix targets of :mod:`blackjax_tpu_torch.ops.targets_dc` (logistic
-regression, the Finnish horseshoe, eight schools), ``d <= 512`` on the card.
-Not ported yet: the dense and low-rank metrics. The reference's
+Ported: the diagonal, dense ``(d, d)`` and low-rank
+(:class:`~blackjax_tpu_torch.mcmc.metrics.LowRankInverseMassMatrix`)
+metrics; the hierarchical and Gaussian targets, and the matrix targets of
+:mod:`blackjax_tpu_torch.ops.targets_dc` (logistic regression, the Finnish
+horseshoe, eight schools). On the card the diagonal metric takes ``d <=
+512``, the dense and low-rank metrics ``d <= 256``. The dense and low-rank
+machines carry the ``w = M^{-1} m`` companion of the trajectory's two
+endpoints and of every checkpoint slot, as the reference does, so that the
+U-turn checks and the energy stay dot products. The reference's
 ``FNUTS_DISABLE`` attribution switch is left out, and nothing is padded: the
-port works on exact ``d``.
+port works on exact ``d`` and exact rank ``k``.
 
 ``pack`` and ``restart_every`` schedule the TPU's lockstep lanes. The GPU
 runs every chain on its own warp, so neither changes a chain's draws or
@@ -38,12 +43,14 @@ chains the reference flags. ``tile_chains`` enters only that accounting.
 """
 import ctypes
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix
 from blackjax_tpu_torch.ops import _nvcc
 from blackjax_tpu_torch.ops.counter_rng import (
     MASK32,
@@ -56,6 +63,7 @@ from blackjax_tpu_torch.ops.counter_rng import (
 
 __all__ = [
     "TargetKernelDC",
+    "DCMetric",
     "LAUNCHES",
     "MatrixTargetData",
     "build",
@@ -77,7 +85,77 @@ _CUDA_LOGREG = 2
 _CUDA_HORSESHOE = 3
 _CUDA_EIGHT_SCHOOLS = 4
 _MAX_CUDA_DIM = 512  # sixteen registers per lane and vector
+_MAX_CUDA_DIM_METRIC = 256  # dense and low-rank: eight (ROADMAP queue 2, item 2f)
 _MAX_SCALARS = 8
+# the library of each metric's instantiations of csrc/fused_nuts_dc.cuh
+_LIBRARIES = {"diag": "fused_nuts_dc", "dense": "fused_nuts_dc_dense",
+              "low_rank": "fused_nuts_dc_low_rank"}
+
+
+class DCMetric(NamedTuple):
+    """The machine's metric operands, as the reference builds them
+    (``fused_nuts_dc.py:837-893``), all f32 on the positions' device:
+
+    - ``"diag"``: ``(imm (d,), sigma_m (d,))``, ``sigma_m = sqrt(1 / imm)``
+      and 0 where ``imm <= 0``;
+    - ``"dense"``: ``(imm (d, d), chol_mass (d, d))`` with ``chol_mass
+      chol_mass^T = M``;
+    - ``"low_rank"``: ``(sigma (d,), 1 / sigma, U (d, k), lam - 1,
+      1 / sqrt(lam) - 1)``.
+    """
+
+    kind: str
+    ops: tuple
+
+
+_XOR_LANES = {o: [lane ^ o for lane in range(32)] for o in (16, 8, 4, 2, 1)}
+
+
+def _warp_sum(a):
+    """The sum over the last axis in the kernel's order: lane ``j`` adds dims
+    ``j, j + 32, ...`` one after the other, then an xor butterfly over the
+    32 lanes (``warp_sum``), so that both round alike."""
+    d = a.shape[-1]
+    n = -(-d // 32)
+    a = torch.nn.functional.pad(a, (0, n * 32 - d)).reshape(*a.shape[:-1], n, 32)
+    s = a[..., 0, :]
+    for k in range(1, n):
+        s = s + a[..., k, :]
+    for lanes in _XOR_LANES.values():
+        s = s + s[..., lanes]
+    return s[..., 0]
+
+
+def _metric_fns(metric: DCMetric):
+    """``(imm_mv, sample_m)`` on a ``(C, d)`` batch: ``M^{-1} m`` and the
+    momentum ``M^{1/2} z`` from standard normals, in the reference's
+    operation order. The dense and low-rank products also sum in the CUDA
+    kernel's order (``csrc/fused_nuts_dc.cuh``: ``dense_mv``, ``low_rank_mv``),
+    so that on the card the plain version rounds as the kernel does."""
+    if metric.kind == "diag":
+        imm, sigma_m = metric.ops
+        return (lambda m: imm * m), (lambda z: sigma_m * z)
+    if metric.kind == "dense":
+        imm_t, chol_t = (a.T.contiguous() for a in metric.ops)
+
+        def dense_mv(a_t, v):  # A v = sum_i A^T[i] v_i, over i in order
+            acc = torch.zeros_like(v)
+            for i in range(v.shape[-1]):
+                acc = acc + a_t[i] * v[:, i, None]
+            return acc
+
+        return (lambda m: dense_mv(imm_t, m)), (lambda z: dense_mv(chol_t, z))
+    sigma, inv_sigma, U, lam_m1, isl_m1 = metric.ops
+
+    def lrmv(y, s_m1):  # (I + U diag(s_m1) U^T) y, over the rank in order
+        st = s_m1 * _warp_sum(y[:, None, :] * U.T)
+        acc = torch.zeros_like(y)
+        for j in range(U.shape[1]):
+            acc = acc + st[:, j, None] * U[:, j]
+        return y + acc
+
+    # M^{-1} = D (I + U (Lam - 1) U^T) D; M^{1/2} = D^{-1} (I + U (Lam^{-1/2} - 1) U^T)
+    return (lambda m: sigma * lrmv(sigma * m, lam_m1)), (lambda z: inv_sigma * lrmv(z, isl_m1))
 
 
 class MatrixTargetData(NamedTuple):
@@ -232,8 +310,7 @@ def _round_up(x: int, m: int) -> int:
 
 def _machine_plain(
     x0,
-    imm,
-    sigma_m,
+    metric: DCMetric,
     step_size: float,
     *,
     target: TargetKernelDC,
@@ -249,7 +326,10 @@ def _machine_plain(
 ):
     """The machine on a ``(C, d)`` f32 batch in plain PyTorch, with masks.
 
-    Mirrors ``_nuts_kernel_dc`` select for select. Chain ``c`` runs at most
+    Mirrors ``_nuts_kernel_dc`` select for select, carrying the ``w = M^{-1}
+    m`` companions of the endpoints and checkpoint slots for every metric
+    (for the diagonal one they equal the reference's ``imm * m``, which it
+    recomputes instead, bit for bit). Chain ``c`` runs at most
     ``budgets[c]`` leaf iterations (``budget`` for every chain when
     ``budgets`` is None); a chain that closed a transition restarts only on
     iterations that are multiples of ``restart_every`` and is parked until
@@ -263,6 +343,7 @@ def _machine_plain(
     S = num_steps
     dev = x0.device
     vg = target.value_and_grad
+    imm_mv, sample_m = _metric_fns(metric)
     f32 = torch.float32
     eps = torch.tensor(step_size, dtype=f32, device=dev)
     chain = torch.arange(C, dtype=torch.int64, device=dev)
@@ -283,8 +364,8 @@ def _machine_plain(
         steps=zero_i,
         done=~fbool,  # iteration 0 starts with done = 1
         cur_x=x0, cur_m=zero_v, cur_g=acc_g,
-        left_x=x0, left_m=zero_v, left_g=acc_g,
-        right_x=x0, right_m=zero_v, right_g=acc_g,
+        left_x=x0, left_m=zero_v, left_g=acc_g, left_w=zero_v,
+        right_x=x0, right_m=zero_v, right_g=acc_g, right_w=zero_v,
         msum=zero_v, sub_msum=zero_v,
         prop_x=x0, prop_g=acc_g, prop_ld=acc_ld,
         prop_w=zero_s, prop_slpa=zero_s,
@@ -298,6 +379,7 @@ def _machine_plain(
         iters=zero_i,
         ckpt_m=[zero_v] * max_depth,
         ckpt_s=[zero_v] * max_depth,
+        ckpt_w=[zero_v] * max_depth,
     )
     hist = torch.zeros(C, S, len(track_rows), dtype=f32, device=dev)
 
@@ -308,13 +390,15 @@ def _machine_plain(
         # ---- inline restart: chains that closed start the next one, on
         # the gated iterations only (the others leave them parked) ----
         start = s["done"] & live & (it % restart_every == 0)
-        fresh_m = sigma_m * momentum_normals(seed, base_row, d)
-        w_fresh = imm * fresh_m
+        fresh_m = sample_m(momentum_normals(seed, base_row, d))
+        w_fresh = imm_mv(fresh_m)
         h0_new = -s["acc_ld"] + 0.5 * _dot(w_fresh, fresh_m)
         for name, fresh in [
             ("cur_x", s["acc_x"]), ("cur_m", fresh_m), ("cur_g", s["acc_g"]),
             ("left_x", s["acc_x"]), ("left_m", fresh_m), ("left_g", s["acc_g"]),
+            ("left_w", w_fresh),
             ("right_x", s["acc_x"]), ("right_m", fresh_m), ("right_g", s["acc_g"]),
+            ("right_w", w_fresh),
             ("msum", fresh_m), ("sub_msum", zero_v),
             ("prop_x", s["acc_x"]), ("prop_g", s["acc_g"]), ("prop_ld", s["acc_ld"]),
             ("sub_x", s["acc_x"]), ("sub_g", s["acc_g"]), ("sub_ld", s["acc_ld"]),
@@ -343,10 +427,10 @@ def _machine_plain(
         # ---- one velocity-Verlet leaf ----
         d_eps = (direction * eps)[:, None]
         m_half = cur_m + 0.5 * d_eps * cur_g
-        new_x = cur_x + d_eps * (imm * m_half)
+        new_x = cur_x + d_eps * imm_mv(m_half)
         new_ld, new_g = vg(new_x)
         new_m = m_half + 0.5 * d_eps * new_g
-        w_new = imm * new_m
+        w_new = imm_mv(new_m)
         energy = -new_ld + 0.5 * _dot(w_new, new_m)
         delta = s["h0"] - energy
         delta = torch.where(torch.isnan(delta), -torch.inf, delta)
@@ -372,17 +456,19 @@ def _machine_plain(
         is_even = (leaf_i % 2) == 0
         rho_base = sub_msum - 0.5 * new_m
         subtree_turning = fbool
-        ckpt_m, ckpt_s = [], []
+        ckpt_m, ckpt_s, ckpt_w = [], [], []
         for i in range(max_depth):
             w_i = is_even & (idx_max == i) & active
             ckm = _sel(w_i, new_m, s["ckpt_m"][i])
             cks = _sel(w_i, sub_msum, s["ckpt_s"][i])
+            ckw = _sel(w_i, w_new, s["ckpt_w"][i])  # the slot's M^{-1} m
             chk = (i >= idx_min) & (i <= idx_max) & ~is_even
             rho = rho_base - cks + 0.5 * ckm
-            slot_turn = (_dot(imm * ckm, rho) <= 0.0) | (_dot(w_new, rho) <= 0.0)
+            slot_turn = (_dot(ckw, rho) <= 0.0) | (_dot(w_new, rho) <= 0.0)
             subtree_turning = subtree_turning | (chk & slot_turn)
             ckpt_m.append(ckm)
             ckpt_s.append(cks)
+            ckpt_w.append(ckw)
         subtree_turning = subtree_turning & active
 
         # ---- subtree boundary ----
@@ -395,9 +481,11 @@ def _machine_plain(
         left_x = _sel(to_left, new_x, s["left_x"])
         left_m = _sel(to_left, new_m, s["left_m"])
         left_g = _sel(to_left, new_g, s["left_g"])
+        left_w = _sel(to_left, w_new, s["left_w"])
         right_x = _sel(to_right, new_x, s["right_x"])
         right_m = _sel(to_right, new_m, s["right_m"])
         right_g = _sel(to_right, new_g, s["right_g"])
+        right_w = _sel(to_right, w_new, s["right_w"])
 
         # biased merge toward the new subtree; an aborted subtree adds its
         # acceptance statistics only
@@ -411,9 +499,7 @@ def _machine_plain(
         prop_slpa = _sel(closing, _logaddexp(s["prop_slpa"], sub_slpa), s["prop_slpa"])
 
         rho = msum - 0.5 * (left_m + right_m)
-        full_turn = closing & (
-            (_dot(imm * left_m, rho) <= 0.0) | (_dot(imm * right_m, rho) <= 0.0)
-        )
+        full_turn = closing & ((_dot(left_w, rho) <= 0.0) | (_dot(right_w, rho) <= 0.0))
         depth = torch.where(closing, s["depth"] + 1, s["depth"])
         leaf = torch.where(closing, zero_i, leaf_next)
         div = s["div"] | leaf_div
@@ -432,8 +518,8 @@ def _machine_plain(
 
         s.update(
             cur_x=new_x, cur_m=new_m, cur_g=new_g,
-            left_x=left_x, left_m=left_m, left_g=left_g,
-            right_x=right_x, right_m=right_m, right_g=right_g,
+            left_x=left_x, left_m=left_m, left_g=left_g, left_w=left_w,
+            right_x=right_x, right_m=right_m, right_g=right_g, right_w=right_w,
             msum=msum, sub_msum=sub_msum,
             prop_x=prop_x, prop_g=prop_g, prop_ld=prop_ld,
             prop_w=prop_w, prop_slpa=prop_slpa,
@@ -444,7 +530,7 @@ def _machine_plain(
             grads=grads, steps=steps, acc_x=acc_x,
             acc_g=_sel(just_closed, prop_g, s["acc_g"]),
             acc_ld=_sel(just_closed, prop_ld, s["acc_ld"]),
-            ckpt_m=ckpt_m, ckpt_s=ckpt_s,
+            ckpt_m=ckpt_m, ckpt_s=ckpt_s, ckpt_w=ckpt_w,
         )
 
     for c0 in range(0, int(budgets.max()) if C else 0, chunk):
@@ -465,25 +551,34 @@ _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
 
 
-@functools.lru_cache(maxsize=1)
-def _library():
-    lib = _nvcc.load("fused_nuts_dc")
+@functools.lru_cache(maxsize=None)
+def _library(kind: str = "diag"):
+    """The library of the machine for metric ``kind``: each metric's
+    instantiations are a source of their own (``csrc/fused_nuts_dc.cu``,
+    ``fused_nuts_dc_dense.cu``, ``fused_nuts_dc_low_rank.cu``, over the
+    shared ``csrc/fused_nuts_dc.cuh``), so that their builds run side by
+    side."""
+    lib = _nvcc.load(_LIBRARIES[kind])
     lib.bjt_fused_nuts_dc.argtypes = (
-        [_VP] * 15 + [_INT] * 10 + [_FLOAT, _FLOAT, _INT, ctypes.POINTER(_FLOAT), _VP]
+        [_VP] * 20 + [_INT] * 11 + [_FLOAT, _FLOAT, _INT, ctypes.POINTER(_FLOAT), _VP]
     )
     lib.bjt_fused_nuts_dc.restype = _INT
-    lib.bjt_threefry2x32.argtypes = [_VP, _VP, ctypes.c_uint32, ctypes.c_uint32, _VP, _VP, _INT, _VP]
-    lib.bjt_threefry2x32.restype = _INT
     lib.bjt_error_string.argtypes = [_INT]
     lib.bjt_error_string.restype = ctypes.c_char_p
+    if kind == "diag":
+        lib.bjt_threefry2x32.argtypes = [_VP, _VP, ctypes.c_uint32, ctypes.c_uint32, _VP, _VP,
+                                         _INT, _VP]
+        lib.bjt_threefry2x32.restype = _INT
     return lib
 
 
 def build() -> str:
-    """Build (or load) the kernel library; returns the compiler's report of
-    registers, shared memory and spills per kernel."""
-    _library()
-    return _nvcc.build_log("fused_nuts_dc")
+    """Build (or load) the three kernel libraries, one ``nvcc`` each, all
+    started together; returns the compiler's report of registers, shared
+    memory and spills per kernel."""
+    with ThreadPoolExecutor(max_workers=len(_LIBRARIES)) as pool:
+        list(pool.map(_library, _LIBRARIES))
+    return "".join(_nvcc.build_log(name) for name in _LIBRARIES.values())
 
 
 @functools.lru_cache(maxsize=8)
@@ -501,7 +596,34 @@ def _matrix_on(target: TargetKernelDC, device: torch.device):
     return X, Xt, up(m.u), up(m.s)
 
 
-def _launch_cuda(x, imm, sigma_m, step_size, *, target, num_steps, max_depth,
+def _metric_operands(metric: DCMetric, d: int, dev):
+    """The kernel's metric pointers ``(imm, sigma_m, imm_t, chol_t, U,
+    lam_m1, isl_m1)`` (None where unused) and the rank. A dense matrix goes
+    transposed, so that the lanes, each forming its own rows of ``A v``,
+    read it coalesced."""
+    ops = metric.ops
+    if metric.kind == "diag":
+        shapes = [(d,), (d,)]
+        names = ("inverse_mass_matrix", "sigma_m")
+    elif metric.kind == "dense":
+        shapes = [(d, d), (d, d)]
+        names = ("inverse_mass_matrix", "chol_mass")
+    else:
+        k = ops[2].shape[1]
+        shapes = [(d,), (d,), (d, k), (k,), (k,)]
+        names = ("sigma", "inv_sigma", "U", "lam_m1", "isl_m1")
+    for name, t, shape in zip(names, ops, shapes):
+        _nvcc.require_cuda_f32(name, t, dev, shape)
+    if metric.kind == "diag":
+        return (*ops, None, None, None, None, None), 0
+    if metric.kind == "dense":
+        imm, chol_mass = ops
+        return (None, None, imm.T.contiguous(), chol_mass.T.contiguous(), None, None, None), 0
+    sigma, inv_sigma, U, lam_m1, isl_m1 = ops
+    return (sigma, inv_sigma, None, None, U, lam_m1, isl_m1), U.shape[1]
+
+
+def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
                  seed, track_rows, budget, chunk, divergence_threshold,
                  restart_every=1, budgets=None):
     del chunk  # the kernel stops each chain on its own
@@ -509,6 +631,11 @@ def _launch_cuda(x, imm, sigma_m, step_size, *, target, num_steps, max_depth,
     if d > _MAX_CUDA_DIM:
         raise NotImplementedError(
             f"the CUDA machine holds d <= {_MAX_CUDA_DIM} per warp; got d={d}"
+        )
+    if metric.kind != "diag" and d > _MAX_CUDA_DIM_METRIC:
+        raise NotImplementedError(
+            f"the CUDA machine's {metric.kind} metric holds d <= {_MAX_CUDA_DIM_METRIC} "
+            f"per warp; got d={d} (ROADMAP queue 2, item 2f)"
         )
     dev = x.device
     inv_var = None
@@ -523,13 +650,12 @@ def _launch_cuda(x, imm, sigma_m, step_size, *, target, num_steps, max_depth,
     elif target.params:
         inv_var = torch.tensor(target.params[0], dtype=torch.float32, device=dev)
     _nvcc.require_cuda_f32("positions", x, dev, (C, d))
-    _nvcc.require_cuda_f32("inverse_mass_matrix", imm, dev, (d,))
-    _nvcc.require_cuda_f32("sigma_m", sigma_m, dev, (d,))
+    metric_ptrs, rank = _metric_operands(metric, d, dev)
     if inv_var is not None:
         _nvcc.require_cuda_f32("inv_var", inv_var, dev, (d,))
     if budgets is not None:
         budgets = budgets.to(device=dev, dtype=torch.int32).contiguous()
-    lib = _library()
+    lib = _library(metric.kind)
     out_x = torch.empty_like(x)
     out_steps = torch.empty(C, dtype=torch.int32, device=dev)
     out_grads = torch.empty(C, dtype=torch.float32, device=dev)
@@ -542,11 +668,11 @@ def _launch_cuda(x, imm, sigma_m, step_size, *, target, num_steps, max_depth,
         return None if t is None else t.data_ptr()
 
     code = lib.bjt_fused_nuts_dc(
-        x.data_ptr(), imm.data_ptr(), sigma_m.data_ptr(), ptr(inv_var),
+        x.data_ptr(), *map(ptr, metric_ptrs), ptr(inv_var),
         track.data_ptr(), ptr(budgets), out_x.data_ptr(), out_steps.data_ptr(),
         out_grads.data_ptr(), hist.data_ptr(), out_iters.data_ptr(), *map(ptr, matrix),
         C, d, num_steps, len(track_rows), max_depth, budget, restart_every,
-        target.cuda_target, rows, cols, float(step_size), float(divergence_threshold),
+        target.cuda_target, rows, cols, rank, float(step_size), float(divergence_threshold),
         seed, k, _nvcc.stream_handle(dev),
     )
     _nvcc.check_launch(lib, code, "fused_nuts_dc")
@@ -588,11 +714,11 @@ def _lane_budgets(steps, iters, *, num_steps, budget, chunk, pack, tile_chains):
     return torch.where(reached, budget - start, 0).reshape(-1)[:C]
 
 
-def _run(machine_fn, x, imm, sigma_m, step_size, machine, pack, tile_chains):
+def _run(machine_fn, x, metric, step_size, machine, pack, tile_chains):
     """One machine run (``machine_fn`` is the kernel launch or the plain
     version); with ``pack > 1`` a second run with per-chain budgets where
     the lane schedule cuts some chain short."""
-    out = machine_fn(x, imm, sigma_m, step_size, **machine)
+    out = machine_fn(x, metric, step_size, **machine)
     if pack > 1:
         steps, iters = out[1].cpu(), out[4].cpu()
         budget = machine["budget"]
@@ -602,9 +728,45 @@ def _run(machine_fn, x, imm, sigma_m, step_size, machine, pack, tile_chains):
         )
         in_time = (steps == machine["num_steps"]) & (iters <= budgets)
         if not bool((in_time | (budgets == budget)).all()):
-            out = machine_fn(x, imm, sigma_m, step_size, budgets=budgets, **machine)
+            out = machine_fn(x, metric, step_size, budgets=budgets, **machine)
     acc_x, steps, grads, hist, _ = out
     return acc_x, hist, grads.sum(), steps
+
+
+def _dc_metric(inverse_mass_matrix, d: int, dev) -> DCMetric:
+    """The metric operands of a ``(d,)`` (or scalar), ``(d, d)`` or
+    low-rank inverse mass matrix, in f32 on ``dev``, built as the reference
+    builds them (``fused_nuts_dc.py:837-893``)."""
+    f32 = torch.float32
+    if isinstance(inverse_mass_matrix, LowRankInverseMassMatrix):
+        sigma, U, lam = (torch.as_tensor(a).to(device=dev, dtype=f32)
+                         for a in inverse_mass_matrix)
+        if sigma.shape != (d,) or U.dim() != 2 or U.shape[0] != d or lam.shape != U.shape[1:]:
+            raise ValueError(
+                f"low-rank metric shapes sigma {tuple(sigma.shape)}, U {tuple(U.shape)}, lam "
+                f"{tuple(lam.shape)} do not fit d={d}"
+            )
+        ops = (sigma, 1.0 / sigma, U, lam - 1.0, 1.0 / torch.sqrt(lam) - 1.0)
+        return DCMetric("low_rank", tuple(t.contiguous() for t in ops))
+    if callable(inverse_mass_matrix):
+        raise NotImplementedError(
+            "a position-dependent (Riemannian) metric is not ported to the machine: it takes "
+            "diagonal, dense and low-rank inverse mass matrices"
+        )
+    imm = torch.as_tensor(inverse_mass_matrix).to(device=dev, dtype=f32)
+    if imm.dim() == 2:
+        # C with C C^T = M: M^{-1} = L L^T gives C = L^{-T}, an f32 Cholesky
+        # and a triangular solve with the transpose, as the reference
+        L = torch.linalg.cholesky(imm)
+        eye = torch.eye(d, dtype=f32, device=dev)
+        chol_mass = torch.linalg.solve_triangular(L.T, eye, upper=True)
+        return DCMetric("dense", (imm.contiguous(), chol_mass.contiguous()))
+    imm = torch.broadcast_to(imm, (d,)).contiguous()
+    # momentum scale sqrt(1 / imm), zero where imm <= 0 (the reference's
+    # masked form, fused_nuts_dc.py:884-891)
+    pos = imm > 0.0
+    sigma_m = torch.sqrt(torch.where(pos, 1.0 / torch.where(pos, imm, 1.0), 0.0))
+    return DCMetric("diag", (imm, sigma_m))
 
 
 def _prepare(
@@ -613,7 +775,7 @@ def _prepare(
     restart_every=1, divergence_threshold=1000.0,
 ):
     """Validate as the reference does; return the f32 positions, the
-    diagonal ``imm``, the momentum scale and the machine's arguments."""
+    metric's operands and the machine's arguments."""
     C, d = positions.shape
     if d != target.dim:
         raise ValueError(f"positions dim {d} != registered target dim {target.dim}")
@@ -639,27 +801,17 @@ def _prepare(
         )
     if not -(2**31) <= int(seed) < 2**31:
         raise ValueError(f"seed must fit in int32, got {seed}")
-    imm = torch.as_tensor(inverse_mass_matrix)
-    if imm.dim() > 1:
-        raise NotImplementedError(
-            "dense and low-rank inverse mass matrices are not ported yet"
-        )
     if budget is None:
         budget = 32 * num_steps * pack
-    dev = positions.device
     x = positions.to(torch.float32).contiguous()
-    imm = torch.broadcast_to(imm.to(device=dev, dtype=torch.float32), (d,)).contiguous()
-    # momentum scale sqrt(1 / imm), zero where imm <= 0 (the reference's
-    # masked form, fused_nuts_dc.py:884-891)
-    pos = imm > 0.0
-    sigma_m = torch.sqrt(torch.where(pos, 1.0 / torch.where(pos, imm, 1.0), 0.0))
+    metric = _dc_metric(inverse_mass_matrix, d, x.device)
     machine = dict(
         target=target, num_steps=num_steps, max_depth=max_num_doublings,
         seed=int(seed), track_rows=track_rows, budget=_round_up(budget, chunk),
         chunk=chunk, divergence_threshold=divergence_threshold,
         restart_every=restart_every,
     )
-    return x, imm, sigma_m, machine
+    return x, metric, machine
 
 
 def fused_nuts_run_dc(
@@ -683,20 +835,23 @@ def fused_nuts_run_dc(
     """Run ``num_steps`` NUTS transitions per chain.
 
     ``positions`` is ``(C, d)``; the inverse mass matrix is diagonal ``(d,)``
-    (or a scalar). Returns ``(final_positions (C, d), history (C, num_steps,
-    num_track), total_grads (), steps (C,) int32)``, as the reference does.
-    ``steps[c] < num_steps`` means the leaf ``budget`` ran out before chain
-    ``c`` finished; ``budget`` (default ``32 * num_steps * pack``) counts
-    leaf iterations per lane of ``pack`` chains, as in the reference, and is
-    rounded up to a multiple of ``chunk``. ``restart_every`` (a divisor of
-    ``chunk``) gates restarts to every ``restart_every``-th leaf. Both
-    change which chains the budget cuts short and nothing else; with
-    ``pack > 1`` a binding budget costs a second run. History records
-    coordinates ``0..num_track-1``, or ``track_rows``.
+    (or a scalar), dense ``(d, d)``, or a
+    :class:`~blackjax_tpu_torch.mcmc.metrics.LowRankInverseMassMatrix`, as
+    the reference accepts. Returns ``(final_positions (C, d), history (C,
+    num_steps, num_track), total_grads (), steps (C,) int32)``, as the
+    reference does. ``steps[c] < num_steps`` means the leaf ``budget`` ran
+    out before chain ``c`` finished; ``budget`` (default ``32 * num_steps *
+    pack``) counts leaf iterations per lane of ``pack`` chains, as in the
+    reference, and is rounded up to a multiple of ``chunk``.
+    ``restart_every`` (a divisor of ``chunk``) gates restarts to every
+    ``restart_every``-th leaf. Both change which chains the budget cuts
+    short and nothing else; with ``pack > 1`` a binding budget costs a
+    second run. History records coordinates ``0..num_track-1``, or
+    ``track_rows``.
 
-    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
-    Chain ids are local to the call: callers that split chains across
-    devices offset ``seed``.
+    A CUDA tensor launches the kernel of its metric; a CPU tensor runs the
+    plain version. Chain ids are local to the call: callers that split
+    chains across devices offset ``seed``.
     """
     kwargs = dict(
         target=target, num_steps=num_steps, max_num_doublings=max_num_doublings,
@@ -704,14 +859,14 @@ def fused_nuts_run_dc(
         chunk=chunk, pack=pack, restart_every=restart_every,
         divergence_threshold=divergence_threshold,
     )
-    x, imm, sigma_m, machine = _prepare(positions, inverse_mass_matrix, **kwargs)
+    x, metric, machine = _prepare(positions, inverse_mass_matrix, **kwargs)
     if x.device.type == "cuda":
         machine_fn = _launch_cuda
     elif x.device.type == "cpu":
         machine_fn = _machine_plain
     else:
         raise NotImplementedError(f"no machine for device type {x.device.type!r}")
-    return _run(machine_fn, x, imm, sigma_m, float(step_size), machine, pack, tile_chains)
+    return _run(machine_fn, x, metric, float(step_size), machine, pack, tile_chains)
 
 
 def fused_nuts_run_dc_plain(positions, inverse_mass_matrix, step_size, **kwargs):
@@ -720,8 +875,8 @@ def fused_nuts_run_dc_plain(positions, inverse_mass_matrix, step_size, **kwargs)
     the kernel's reference. It launches nothing of ours and counts nothing."""
     tile_chains = kwargs.pop("tile_chains", 128)
     pack = kwargs.get("pack", 1)
-    x, imm, sigma_m, machine = _prepare(positions, inverse_mass_matrix, **kwargs)
-    return _run(_machine_plain, x, imm, sigma_m, float(step_size), machine, pack, tile_chains)
+    x, metric, machine = _prepare(positions, inverse_mass_matrix, **kwargs)
+    return _run(_machine_plain, x, metric, float(step_size), machine, pack, tile_chains)
 
 
 def threefry2x32_device(k0: int, k1: int, c0, c1):
@@ -738,7 +893,7 @@ def threefry2x32_device(k0: int, k1: int, c0, c1):
 
     a, b = as_u32_storage(c0), as_u32_storage(c1)
     o0, o1 = torch.empty_like(a), torch.empty_like(a)
-    lib = _library()
+    lib = _library("diag")
     code = lib.bjt_threefry2x32(
         a.data_ptr(), b.data_ptr(), k0 & MASK32, k1 & MASK32,
         o0.data_ptr(), o1.data_ptr(), a.numel(), _nvcc.stream_handle(a.device),

@@ -5,17 +5,21 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's four main paths once, three at the flagship's full
-width (the 100-dim hierarchical posterior, 4,096 chains) and one at the
-Finnish horseshoe's (N=100, M=200, d=404, 512 chains), and checks them in
-phases, one line each:
+It drives the port's six main paths once, three at the flagship's full
+width (the 100-dim hierarchical posterior, 4,096 chains), one at the
+Finnish horseshoe's (N=100, M=200, d=404, 512 chains) and two at the
+covertype-class logistic regression's (4,096 x 54, 1,024 chains), and checks
+them in phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the builds of
-   ``csrc/fused_nuts_dc.cu``, ``csrc/fused_leapfrog.cu`` and
-   ``csrc/fused_mclmc.cu`` (with the shared headers ``csrc/counter_rng.cuh``,
-   ``csrc/analytic_targets.cuh`` and ``csrc/matrix_targets.cuh``) with nvcc,
-   all started together, with their seconds and the register and spill
-   report of each instantiation (N registers per vector, target family F);
+   ``csrc/fused_nuts_dc.cu``, ``csrc/fused_nuts_dc_dense.cu``,
+   ``csrc/fused_nuts_dc_low_rank.cu`` (the dc machine of
+   ``csrc/fused_nuts_dc.cuh`` for each metric), ``csrc/fused_leapfrog.cu``
+   and ``csrc/fused_mclmc.cu`` (with the shared headers
+   ``csrc/counter_rng.cuh``, ``csrc/analytic_targets.cuh`` and
+   ``csrc/matrix_targets.cuh``) with nvcc, one process each, all started
+   together, with their seconds and the register and spill report of each
+   instantiation (N registers per vector, target family F, metric M);
 2. the dc kernel's own threefry2x32 device function against the plain
    version, bit for bit, on 100,000 counters; and the MCLMC kernel's
    counter normals (4,096 chains x 100 dims): the threefry words bit for
@@ -33,7 +37,7 @@ phases, one line each:
    finite, the kernel must have been launched, and ``log_tau``'s moments
    over the second half must match its N(0, 1) marginal. Then, for the
    comparison only, the kernel once more and its plain version on the first
-   512 chains for 32 transitions (draws are keyed on the call's
+   512 chains for 16 transitions (draws are keyed on the call's
    ``num_steps``, so the plain version is held against a call of its own
    length);
 5. the fused leapfrog kernel against its plain version on the card at
@@ -91,13 +95,35 @@ phases, one line each:
    NUTS on the CPU (``reference_bands`` in
    ``tests/test_torch_horseshoe_slice.py``). Then the horseshoe's phase-9
    pair: 128 chains from the path's final positions, 4 transitions,
-   ``max_num_doublings=6``.
+   ``max_num_doublings=6``;
+11. the dense and the low-rank path on phase 9's logistic regression, launch
+   counts reset just before each: the port's single-chain
+   ``window_adaptation(nuts, is_mass_matrix_diagonal=False)``, or
+   ``window_adaptation_low_rank(nuts, max_rank=10)`` (which restarts at its
+   ``mu*``), 400 steps from zeros at ``max_num_doublings=6`` (cut from 8 for
+   time), then ``fused_nuts_run_dc`` with the adapted
+   ``(54, 54)`` or low-rank metric on 1,024 chains from the warmup's position
+   plus 0.01 N(0, I) (numpy seed) for 256 transitions, tracking all 54
+   coordinates, in one launch, then min-ESS over the second half. Every chain
+   must complete, everything must be finite, and each coordinate's
+   second-half mean must lie within 0.15 posterior sd, and its variance
+   within [0.8, 1.25], of the JAX package's NUTS posterior on the CPU
+   (``reference_moments`` in ``tests/test_torch_metric_slice.py``). Then each
+   metric's kernel against its plain version on the path's step size and
+   metric (512 chains x 8 transitions from the path's final positions: steps
+   and gradient totals identical, share at MATRIX_TOL above the floor) and on
+   a Gaussian at phase 3's width (d=100, 4,096 chains x 16 transitions, share
+   at 1e-5), and the consistency pins of
+   ``tests/ops/test_fused_nuts_dc_metrics.py`` on the card: ``diag(v)`` as a
+   dense matrix and a low-rank payload with ``lam = 1``, each against the
+   diagonal kernel.
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
 kernel of the main paths (``ms`` and ``plain_ms`` are phase 3's, 5's and 7's
-like-for-like times) and one per new (kernel, target) pair (phase 9's and
-10's times). ``launches`` is the count from the main path's run, or, for a
+like-for-like times), one per new (kernel, target) pair (phase 9's and
+10's times) and one per metric of the dc machine (phase 11's logistic
+regression comparison). ``launches`` is the count from the main path's run, or, for a
 pair that no main path drives, from the pair's checked call. ``bound_ms`` is
 the larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations over 132 SMs x 128 lanes x 2 x the SM clock ``nvidia-smi``
@@ -126,7 +152,7 @@ AGREE_TOL = 1e-5
 AGREE_FLOOR = 0.9  # tests/test_torch_fused_nuts_dc.py::AGREE_FLOOR
 WARMUP_STEPS = 400  # bench.py's WARMUP_STEPS
 PLAIN_CHAINS = 512  # phase 4's plain-version comparison: chains ...
-PLAIN_TRANSITIONS = 32  # ... and transitions
+PLAIN_TRANSITIONS = 16  # ... and transitions (cut from 32: its plain version took 38-46 s)
 LEAPFROG_FLOOR = 0.99
 HMC_STEPS = 10  # leapfrog steps per HMC transition
 HMC_TRANSITIONS = 1000
@@ -156,6 +182,40 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # near 0) falls outside the log_sigma band.
 ALPHA_BAND = (0.00138 - 0.1, 0.00138 + 0.1)
 LOG_SIGMA_BAND = (-0.15748 - 0.1, -0.15748 + 0.1)
+# phase 11's warmups, cut to max_num_doublings=6: the dense one's early
+# windows (25 and 50 draws in 54 dims) give a rank-deficient metric, and at 8
+# its 400 steps ran 17,389 leaves in 156 s on an H100
+MET_WARMUP_STEPS, MET_WARMUP_DOUBLINGS = 400, 6
+MET_CHAINS, MET_TRANSITIONS, MET_DOUBLINGS = 1024, 256, 8  # phase 11's dc runs
+MET_MAX_RANK = 10  # window_adaptation_low_rank's max_rank
+MET_CMP_CHAINS, MET_CMP_TRANSITIONS = 512, 8  # phase 11's pairs on logistic regression
+MET_MEAN_SD, MET_VAR_RATIO = 0.15, (0.8, 1.25)  # phase 11's gates against the reference
+# The posterior of phase 9's logistic regression (4,096 x 54, numpy seed 9,
+# prior scale 10) by the JAX package's own NUTS on the CPU
+# (tests/test_torch_metric_slice.py:reference_moments: dense window_adaptation
+# 1,000 steps from zeros, then 64 chains from its position + 0.01 N(0, I) x 512
+# transitions, key 51, second half; min ESS over the 54 coordinates 15,213.5,
+# MCSE at most 0.0081 sd): each coordinate's mean and sd.
+LR_POSTERIOR_MEAN = np.array([
+    1.475994, -0.776927, -1.741585, -0.154613, -1.245173, 0.621612,
+    -0.508942, -0.003998, -2.353193, -0.529176, -0.203734, 0.197036,
+    -0.550997, -1.111968, -0.888287, -0.863221, -1.042868, -0.111472,
+    0.069723, 0.265807, 0.124341, 0.146252, -1.538106, 0.373150,
+    0.628189, -1.090270, -0.100414, -0.553694, -1.030760, -0.275952,
+    -0.469394, -0.698872, -0.372698, -1.297230, 0.561292, 0.353565,
+    1.791416, -0.000556, -0.551947, -0.530247, -0.547802, -0.705782,
+    -1.183671, -0.503766, -0.390398, 1.351005, 0.454338, 0.035359,
+    -0.245321, 0.959065, -1.435195, -0.294008, 0.100524, -0.789602,
+])
+LR_POSTERIOR_SD = np.array([
+    0.082390, 0.068197, 0.088860, 0.063060, 0.075502, 0.069488, 0.066286, 0.063135,
+    0.102497, 0.066806, 0.065135, 0.066487, 0.065815, 0.073659, 0.070368, 0.070192,
+    0.074094, 0.064200, 0.062868, 0.062604, 0.064386, 0.060513, 0.083175, 0.065237,
+    0.068702, 0.074363, 0.063669, 0.066334, 0.072495, 0.061268, 0.063937, 0.067332,
+    0.063466, 0.081018, 0.067080, 0.065838, 0.090285, 0.061030, 0.064787, 0.067699,
+    0.067507, 0.067818, 0.074880, 0.067105, 0.063916, 0.078338, 0.066084, 0.062257,
+    0.065265, 0.071953, 0.080941, 0.064688, 0.063923, 0.069900,
+])
 
 
 def _require(ok: bool, what: str) -> None:
@@ -175,16 +235,19 @@ def _timed(torch, fn):
 
 def _ptxas_summary(log: str) -> list:
     """'kernel: registers, spill stores/loads' from nvcc's -Xptxas -v report;
-    kernels are named by their registers per lane and vector (N) and their
+    kernels are named by their registers per lane and vector (N), their
     target family (F: 0 analytic, 2 logistic regression, 3 horseshoe, 4
-    eight schools)."""
+    eight schools) and, for the dc machine, their metric (M: 0 diagonal, 1
+    dense, 2 low-rank)."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            n = re.search(r"(nuts_dc|leapfrog|mclmc)_kernelILi(\d+)ELi(\d+)E", entry.group(1))
+            n = re.search(r"(nuts_dc|leapfrog|mclmc)_kernelILi(\d+)ELi(\d+)E(?:Li(\d+)E)?",
+                          entry.group(1))
             export = "threefry" if "threefry" in entry.group(1) else "counter_normals"
-            name = f"{n.group(1)} N={n.group(2)} F={n.group(3)}" if n else f"{export} export"
+            metric = f" M={n.group(4)}" if n and n.group(4) else ""
+            name = f"{n.group(1)} N={n.group(2)} F={n.group(3)}{metric}" if n else f"{export} export"
         spill = re.search(
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
@@ -324,12 +387,14 @@ def main() -> int:
         return time.perf_counter() - t, log
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:  # one nvcc per source
+    # one nvcc per source: dc.build() starts its three (one per metric) itself
+    with ThreadPoolExecutor(max_workers=3) as pool:
         builds = [pool.submit(build, module) for module in (dc, lf, fm)]
         (dc_s, dc_log), (lf_s, lf_log), (fm_s, fm_log) = (b.result() for b in builds)
     build_s = time.perf_counter() - t0
-    print(f"phase 1: card {kind!r} ({smi}); built the three kernels in {build_s:.2f} s: "
-          f"csrc/fused_nuts_dc.cu {dc_s:.2f} s, ptxas {'; '.join(_ptxas_summary(dc_log))}; "
+    print(f"phase 1: card {kind!r} ({smi}); built the five sources in {build_s:.2f} s: "
+          f"csrc/fused_nuts_dc.cu, fused_nuts_dc_dense.cu and fused_nuts_dc_low_rank.cu "
+          f"{dc_s:.2f} s, ptxas {'; '.join(_ptxas_summary(dc_log))}; "
           f"csrc/fused_leapfrog.cu {lf_s:.2f} s, ptxas {'; '.join(_ptxas_summary(lf_log))}; "
           f"csrc/fused_mclmc.cu {fm_s:.2f} s, ptxas {'; '.join(_ptxas_summary(fm_log))}")
 
@@ -825,6 +890,189 @@ def main() -> int:
         HS_CMP_TRANSITIONS, HS_CMP_DOUBLINGS, "horseshoe", n=HS_N, m=HS_M)
     pairs["horseshoe"]["launches"] = hs_launches
 
+    # ---- phase 11: the dense and low-rank path ----
+    marks.append((11, time.perf_counter()))
+    from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix
+
+    def metric_ops(imm, d):
+        """(bytes, FP32 operations of one M^{-1} product) of a metric: 2 d^2
+        (dense) or 4 d k (low-rank: U^T y, then U times k scales)."""
+        if isinstance(imm, LowRankInverseMassMatrix):
+            k = imm.U.shape[1]
+            return (2 * d + d * k + 2 * k) * 4, 4 * d * k
+        return 2 * d * d * 4, 2 * d * d
+
+    def metric_bound(imm, chains, d, num_steps, grads, n=0, family="logreg"):
+        """The dc machine's bound with a metric: two M^{-1} products a leaf,
+        one M^{1/2} and one M^{-1} product a transition."""
+        mbytes, mops = metric_ops(imm, d)
+        data_bytes = lr_dc.matrix.X.nbytes if family == "logreg" else 0
+        nbytes = (2 * chains * d * 4 + chains * num_steps * d * 4 + 3 * chains * 4 + data_bytes
+                  + mbytes)
+        ops = (grads * (DC_LEAF_OPS * d + _grad_ops(family, d, n) + 2 * mops)
+               + chains * num_steps * 2 * mops)
+        return _bound(nbytes, ops, peaks, (grads + chains * num_steps * d) * THREEFRY_OPS)
+
+    rng11 = np.random.default_rng(11)
+    jitter11 = torch.from_numpy(
+        (0.01 * rng11.standard_normal((MET_CHAINS, LR_D))).astype(np.float32)).to(dev)
+    ref_mean = torch.from_numpy(LR_POSTERIOR_MEAN).to(dev)
+    ref_sd = torch.from_numpy(LR_POSTERIOR_SD).to(dev)
+    n_lr = lr_dc.matrix.X.shape[0]
+    met = {}
+    for metric_kind in ("dense", "low_rank"):
+        for name in dc.LAUNCHES:
+            dc.LAUNCHES[name] = 0
+        generator = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if metric_kind == "dense":
+            warmup = blackjax_tpu_torch.window_adaptation(
+                nuts, lr_dc.logdensity_fn, is_mass_matrix_diagonal=False,
+                max_num_doublings=MET_WARMUP_DOUBLINGS,
+                adaptation_info_fn=get_filter_adapt_info_fn(info_keys={"num_integration_steps"}),
+            )
+        else:
+            warmup = blackjax_tpu_torch.window_adaptation_low_rank(
+                nuts, lr_dc.logdensity_fn, max_rank=MET_MAX_RANK,
+                max_num_doublings=MET_WARMUP_DOUBLINGS)
+        (w_state, params), w_info = warmup.run(
+            generator, torch.zeros(LR_D, device=dev), MET_WARMUP_STEPS)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        step11, imm11 = params["step_size"], params["inverse_mass_matrix"]
+        _require(np.isfinite(step11) and step11 > 0, f"{metric_kind} warmup step size {step11}")
+        if metric_kind == "dense":
+            _require(imm11.shape == (LR_D, LR_D) and bool(torch.isfinite(imm11).all()),
+                     "dense warmup metric")
+            extra = f"mean diagonal of M^-1 {float(imm11.diagonal().mean()):.6f}"
+        else:
+            _require(isinstance(imm11, LowRankInverseMassMatrix)
+                     and all(bool(torch.isfinite(a).all()) for a in imm11)
+                     and bool((imm11.lam > 0).all()), "low-rank warmup metric")
+            extra = (f"lam {[round(float(v), 4) for v in imm11.lam]}, mean sigma "
+                     f"{float(imm11.sigma.mean()):.6f}")
+        warm_leaves = int(w_info.info.num_integration_steps.sum())
+        start = w_state.position.reshape(-1, LR_D)[0] + jitter11
+        run_kw = dict(target=lr_dc, num_steps=MET_TRANSITIONS, max_num_doublings=MET_DOUBLINGS,
+                      seed=SEED, num_track=LR_D, budget=2**MET_DOUBLINGS * MET_TRANSITIONS)
+        (fx11, hist11, grads11, steps11), ms11 = _timed(
+            torch, lambda: blackjax_tpu_torch.fused_nuts_run_dc(start, imm11, step11, **run_kw))
+        launches11 = dc.LAUNCHES["fused_nuts_dc"]
+        second = hist11[:, MET_TRANSITIONS // 2:]
+        ess11 = blackjax_tpu_torch.ess(second)
+        min_ess11 = float(ess11.min())
+
+        _require(launches11 == 1, f"the {metric_kind} path launched the dc kernel {launches11} times")
+        _require(bool((steps11 == MET_TRANSITIONS).all()),
+                 f"{metric_kind}: chains short of {MET_TRANSITIONS} transitions: {int(steps11.min())}")
+        for name, t in [("positions", fx11), ("history", hist11), ("ess", ess11)]:
+            _require(bool(torch.isfinite(t).all()), f"non-finite {metric_kind} {name}")
+        _require(hist11.shape == (MET_CHAINS, MET_TRANSITIONS, LR_D), f"{metric_kind} history shape")
+        pooled = second.reshape(-1, LR_D).double()
+        z = (pooled.mean(0) - ref_mean) / ref_sd
+        ratio = pooled.var(0) / ref_sd**2
+        worst_z, lo, hi = float(z.abs().max()), float(ratio.min()), float(ratio.max())
+        _require(worst_z <= MET_MEAN_SD,
+                 f"{metric_kind}: a mean {worst_z:.3f} posterior sd off the reference")
+        _require(MET_VAR_RATIO[0] <= lo and hi <= MET_VAR_RATIO[1],
+                 f"{metric_kind}: variance ratios [{lo:.3f}, {hi:.3f}] outside {MET_VAR_RATIO}")
+        secs11 = ms11 / 1e3
+        leaves11 = float(grads11) / (MET_CHAINS * MET_TRANSITIONS)
+        bound11 = metric_bound(imm11, MET_CHAINS, LR_D, MET_TRANSITIONS, float(grads11), n_lr)
+        label = ("window_adaptation(nuts, is_mass_matrix_diagonal=False)" if metric_kind == "dense"
+                 else f"window_adaptation_low_rank(nuts, max_rank={MET_MAX_RANK})")
+        print(f"phase 11 ({metric_kind}): {label} single chain, {MET_WARMUP_STEPS} steps at max_doublings={MET_WARMUP_DOUBLINGS}, "
+              f"{warm_leaves} leaves in {warm_s:.2f} s: step size {step11:.6f}, {extra}; "
+              f"fused_nuts_run_dc logistic regression {n_lr} x {LR_D} C={MET_CHAINS} "
+              f"S={MET_TRANSITIONS} max_doublings={MET_DOUBLINGS}: all chains completed, kernel "
+              f"{ms11:.2f} ms by CUDA events (bound {bound11[0]:.4f} ms by {bound11[1]}), "
+              f"{float(grads11):.0f} grads ({float(grads11) / secs11:.4g} grads/s, {leaves11:.2f} "
+              f"leaves per transition), min-ESS over the second half {min_ess11:.1f} "
+              f"({min_ess11 / secs11:.4g} ESS/s); against the JAX package's posterior: worst "
+              f"mean offset {worst_z:.4f} sd (gate {MET_MEAN_SD}), variance ratios "
+              f"[{lo:.4f}, {hi:.4f}] (gate {MET_VAR_RATIO}); launches {dict(dc.LAUNCHES)} ({smi})")
+
+        # the kernel against its plain version, on the path's metric and step
+        # size, from the path's final positions
+        cmp_x = fx11[:MET_CMP_CHAINS].contiguous()
+        cmp_kw = dict(target=lr_dc, num_steps=MET_CMP_TRANSITIONS, max_num_doublings=MET_DOUBLINGS,
+                      seed=SEED, num_track=LR_D, budget=2**MET_DOUBLINGS * MET_CMP_TRANSITIONS)
+        kern, kms = _timed(torch, lambda: dc.fused_nuts_run_dc(cmp_x, imm11, step11, **cmp_kw))
+        plain, pms = _timed(torch, lambda: dc.fused_nuts_run_dc_plain(cmp_x, imm11, step11, **cmp_kw))
+        _require(torch.equal(kern[3], plain[3]) and bool((kern[3] == MET_CMP_TRANSITIONS).all()),
+                 f"{metric_kind} logistic regression: steps differ or fall short")
+        _require(float(kern[2]) == float(plain[2]),
+                 f"{metric_kind} logistic regression: gradient totals differ")
+        share, err = _agreement(torch, kern[:2], plain[:2], MATRIX_TOL)
+        share5, _ = _agreement(torch, kern[:2], plain[:2])
+        _require(share >= AGREE_FLOOR, f"{metric_kind}: only {share} of chains agree to {MATRIX_TOL}")
+        dev_ms = _device_ms(torch, lambda: dc.fused_nuts_run_dc(cmp_x, imm11, step11, **cmp_kw),
+                            "nuts_dc_kernel", repeats=3)
+        device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        cmp_bound = metric_bound(imm11, MET_CMP_CHAINS, LR_D, MET_CMP_TRANSITIONS,
+                                 float(kern[2]), n_lr)
+        print(f"phase 11 ({metric_kind}) comparison: logistic regression {MET_CMP_CHAINS} chains x "
+              f"{MET_CMP_TRANSITIONS} transitions: steps and gradient totals identical "
+              f"({float(kern[2]):.0f} grads), {share:.4f} of chains agree to {MATRIX_TOL} (floor "
+              f"{AGREE_FLOOR}; {share5:.4f} to {AGREE_TOL}), max |diff| {err:.3g}; kernel "
+              f"{kms:.3f} ms (device {device_time}), plain {pms:.1f} ms, bound "
+              f"{cmp_bound[0]:.4f} ms by {cmp_bound[1]} ({smi})")
+        met[metric_kind] = dict(launches=launches11, err=err, ms=kms, plain_ms=pms, bound=cmp_bound)
+
+    # the same pairs on phase 3's width: a Gaussian at d=100, 4,096 chains x
+    # 16 transitions, a correlated dense metric and a rank-10 payload
+    rng11 = np.random.default_rng(12)
+    g_var = np.linspace(0.5, 2.0, D)
+    g_target = dc.make_gaussian_target_dc(D, g_var)
+    a11 = rng11.standard_normal((D, D))
+    g_dense = torch.from_numpy(
+        (0.5 * a11 @ a11.T / D + np.diag(rng11.uniform(0.5, 1.5, D))).astype(np.float32)).to(dev)
+    u11, _ = np.linalg.qr(rng11.standard_normal((D, MET_MAX_RANK)))
+    g_low_rank = LowRankInverseMassMatrix(*(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng11.uniform(0.6, 1.4, D), u11,
+        np.concatenate([rng11.uniform(2.5, 6.0, 5), rng11.uniform(0.1, 0.4, 5)]))))
+    g_x = torch.from_numpy((0.5 * rng11.standard_normal((C, D))).astype(np.float32)).to(dev)
+    for metric_kind, imm in (("dense", g_dense), ("low_rank", g_low_rank)):
+        kw = dict(target=g_target, num_steps=16, max_num_doublings=MAX_DOUBLINGS, seed=SEED,
+                  num_track=NUM_TRACK, budget=2**MAX_DOUBLINGS * 16)
+        kern, kms = _timed(torch, lambda: dc.fused_nuts_run_dc(g_x, imm, 0.3, **kw))
+        plain, pms = _timed(torch, lambda: dc.fused_nuts_run_dc_plain(g_x, imm, 0.3, **kw))
+        _require(torch.equal(kern[3], plain[3]), f"{metric_kind} Gaussian: steps differ")
+        share, err = _agreement(torch, kern[:2], plain[:2])
+        _require(share >= AGREE_FLOOR, f"{metric_kind} Gaussian: only {share} of chains agree")
+        bound = metric_bound(imm, C, D, 16, float(kern[2]), family="gaussian")
+        print(f"phase 11 ({metric_kind}) comparison: Gaussian d={D} C={C} S=16: steps identical, "
+              f"{share:.4f} of chains agree to {AGREE_TOL} (floor {AGREE_FLOOR}), max |diff| "
+              f"{err:.3g}, grads kernel {float(kern[2]):.0f} plain {float(plain[2]):.0f}; kernel "
+              f"{kms:.3f} ms, plain {pms:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]} ({smi})")
+        met[metric_kind]["err"] = max(met[metric_kind]["err"], err)
+
+    # the consistency pins (tests/ops/test_fused_nuts_dc_metrics.py:46-71) on
+    # the card: diag(v) as a dense matrix and lam = 1 in a low-rank payload
+    # give the diagonal kernel's samples
+    pin_target = dc.make_gaussian_target_dc(4, [1.0, 4.0, 0.25, 2.0])
+    pin_x = torch.from_numpy((0.2 * np.random.default_rng(0).standard_normal((16, 4)))
+                             .astype(np.float32)).to(dev)
+    pin_kw = dict(target=pin_target, num_steps=10, max_num_doublings=5, seed=3, num_track=4,
+                  budget=400, chunk=16)
+    v = torch.tensor([1.0, 2.0, 0.5, 1.5], device=dev)
+    pin_sigma = torch.tensor([1.0, 1.5, 0.7, 1.2], device=dev)
+    pin_u, _ = torch.linalg.qr(torch.from_numpy(
+        np.random.default_rng(5).standard_normal((4, 2)).astype(np.float32)).to(dev))
+    pins = []
+    for name, rich, diag in (
+            ("dense diag(v)", torch.diag(v), v),
+            ("low-rank lam=1", LowRankInverseMassMatrix(pin_sigma, pin_u,
+                                                        torch.ones(2, device=dev)), pin_sigma**2)):
+        a = dc.fused_nuts_run_dc(pin_x, rich, 0.4, **pin_kw)
+        b = dc.fused_nuts_run_dc(pin_x, diag, 0.4, **pin_kw)
+        same = torch.equal(a[3], b[3]) and torch.allclose(a[1], b[1], rtol=2e-5, atol=1e-5)
+        _require(same, f"consistency pin {name} against the diagonal kernel")
+        pins.append(f"{name}: max |diff| {float((a[1] - b[1]).abs().max()):.3g}")
+    print(f"phase 11: consistency pins on the card, each against the diagonal kernel "
+          f"(rtol 2e-5, atol 1e-5, steps identical): {'; '.join(pins)}")
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
@@ -861,6 +1109,11 @@ def main() -> int:
         f = pairs[key]
         kernels.append(_entry(name, source, replaces, f["launches"], f["err"], f["ms"],
                               f["plain_ms"], f["bound"]))
+    for metric_kind, line in (("dense", 262), ("low_rank", 267)):
+        f = met[metric_kind]
+        kernels.append(_entry(f"fused_nuts_dc/{metric_kind}", f"fused_nuts_dc_{metric_kind}.cu",
+                              f"blackjax_tpu/ops/fused_nuts_dc.py:{line}", f["launches"],
+                              f["err"], f["ms"], f["plain_ms"], f["bound"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

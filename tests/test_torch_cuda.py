@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix  # noqa: E402
 from blackjax_tpu_torch.ops import counter_rng  # noqa: E402
 from blackjax_tpu_torch.ops import fused_nuts_dc as dc  # noqa: E402
 from blackjax_tpu_torch.ops import targets_dc  # noqa: E402
@@ -177,6 +178,101 @@ def test_pack_and_restart_every_budget_matches_plain_version(cuda):
     close = torch.isclose(kern[0], plain[0], rtol=TOL, atol=TOL).all(1)
     close &= torch.isclose(kern[1], plain[1], rtol=TOL, atol=TOL).flatten(1).all(1)
     assert float(close.float().mean()) >= AGREE_FLOOR
+
+
+def _rich_metric(kind, d, device, seed=3):
+    """A correlated dense ``(d, d)`` metric, or a rank-``min(4, d - 1)``
+    low-rank payload with informative ``lam``, f32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    if kind == "dense":
+        a = rng.standard_normal((d, d))
+        m = 0.5 * a @ a.T / d + np.diag(rng.uniform(0.5, 1.5, d))
+        return torch.from_numpy(m.astype(np.float32)).to(device)
+    k = min(4, d - 1)
+    U, _ = np.linalg.qr(rng.standard_normal((d, k)))
+    lam = np.concatenate([rng.uniform(2.5, 6.0, k - k // 2), rng.uniform(0.1, 0.4, k // 2)])
+    sigma = rng.uniform(0.6, 1.4, d)
+    return LowRankInverseMassMatrix(
+        *(torch.from_numpy(a.astype(np.float32)).to(device) for a in (sigma, U, lam)))
+
+
+RICH_CASES = {
+    "gaussian_4": (lambda: dc.make_gaussian_target_dc(4, [1.0, 4.0, 0.25, 2.0]), 0.3, 0.5, TOL),
+    "hierarchical_100": (lambda: dc.make_hierarchical_target_dc(100), 0.15, 0.5, TOL),
+    "gaussian_200": (lambda: dc.make_gaussian_target_dc(200, np.linspace(0.5, 2.0, 200)),
+                     0.3, 0.5, TOL),
+    "logreg_4096x54": (lambda: targets_dc.make_logreg_target_dc(*_logreg_data(4096, 54)),
+                       0.01, 0.05, MATRIX_TOL),
+    "horseshoe_12x16": (lambda: targets_dc.make_finnish_horseshoe_target_dc(12, 16), 0.03, 0.1,
+                        MATRIX_TOL),
+    "eight_schools": (targets_dc.make_eight_schools_target_dc, 0.2, 0.5, MATRIX_TOL),
+}
+
+
+@pytest.mark.parametrize("kind", ["dense", "low_rank"])
+@pytest.mark.parametrize("case", sorted(RICH_CASES))
+def test_dense_and_low_rank_kernels_match_plain_version(cuda, case, kind):
+    make, step_size, scale, tol = RICH_CASES[case]
+    target = make()
+    d, C, S = target.dim, 64, 4
+    x = torch.from_numpy(
+        (scale * np.random.default_rng(d).standard_normal((C, d))).astype(np.float32)
+    ).to(cuda)
+    imm = _rich_metric(kind, d, cuda)
+    kw = dict(target=target, num_steps=S, max_num_doublings=6, seed=7, num_track=d,
+              budget=2**6 * S)
+    before = dc.LAUNCHES["fused_nuts_dc"]
+    kern = dc.fused_nuts_run_dc(x, imm, step_size, **kw)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES["fused_nuts_dc"] == before + 1
+    plain = dc.fused_nuts_run_dc_plain(x, imm, step_size, **kw)
+    assert torch.equal(kern[3], plain[3]) and bool((kern[3] == S).all())
+    assert float(kern[2]) == float(plain[2]) > C * S
+    assert torch.isfinite(kern[0]).all() and torch.isfinite(kern[1]).all()
+    close = torch.isclose(kern[0], plain[0], rtol=tol, atol=tol).all(1)
+    close &= torch.isclose(kern[1], plain[1], rtol=tol, atol=tol).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
+
+
+@pytest.mark.parametrize("kind", ["dense", "low_rank"])
+def test_rich_metric_consistency_pins_on_the_card(cuda, kind):
+    """``diag(v)`` dense and ``lam = 1`` low-rank give the diagonal kernel's
+    samples (tests/ops/test_fused_nuts_dc_metrics.py:46-71)."""
+    d = 4
+    if kind == "dense":
+        v = torch.tensor([1.0, 2.0, 0.5, 1.5], device=cuda)
+        imm, diag = torch.diag(v), v
+    else:
+        sigma = torch.tensor([1.0, 1.5, 0.7, 1.2], device=cuda)
+        U, _ = torch.linalg.qr(torch.from_numpy(
+            np.random.default_rng(5).standard_normal((d, 2)).astype(np.float32)).to(cuda))
+        imm, diag = LowRankInverseMassMatrix(sigma, U, torch.ones(2, device=cuda)), sigma**2
+    x = torch.from_numpy(
+        (0.2 * np.random.default_rng(0).standard_normal((64, d))).astype(np.float32)).to(cuda)
+    kw = dict(target=dc.make_gaussian_target_dc(d, [1.0, 4.0, 0.25, 2.0]), num_steps=10,
+              max_num_doublings=5, seed=3, num_track=d, budget=400, chunk=16)
+    rich = dc.fused_nuts_run_dc(x, imm, 0.4, **kw)
+    diagonal = dc.fused_nuts_run_dc(x, diag, 0.4, **kw)
+    assert torch.equal(rich[3], diagonal[3]) and bool((rich[3] == 10).all())
+    torch.testing.assert_close(rich[1], diagonal[1], rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["dense", "low_rank"])
+def test_rich_metrics_above_d256_are_refused(cuda, kind):
+    d = 257
+    with pytest.raises(NotImplementedError, match="d <= 256"):
+        dc.fused_nuts_run_dc(
+            torch.zeros(4, d, device=cuda), _rich_metric(kind, d, cuda), 0.2,
+            target=dc.make_hierarchical_target_dc(d), num_steps=2, num_track=2,
+        )
+
+
+def test_sample_init_follows_a_cuda_generator(cuda):
+    from blackjax_tpu_torch.models import hierarchical_gaussian
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = hierarchical_gaussian(6).sample_init(g, 3)
+    assert x.device.type == "cuda" and x.shape == (3, 6)
 
 
 LEAPFROG_FLOOR = 0.99

@@ -206,12 +206,14 @@ def test_validation_errors_match_reference(kw):
 @pytest.mark.parametrize(
     "kw, match",
     [
-        pytest.param(dict(imm=np.eye(4, dtype=np.float32)), "dense and low-rank",
+        # the machine takes the diagonal, dense and low-rank metrics; a
+        # position-dependent one is refused by name
+        pytest.param(dict(imm=lambda x: torch.ones_like(x)), "dense and low-rank",
                      id="kw2-dense and low-rank"),
     ],
 )
 def test_not_ported_options_raise(kw, match):
-    imm = torch.from_numpy(kw.pop("imm", np.ones(4, np.float32)))
+    imm = kw.pop("imm", torch.ones(4))
     with pytest.raises(NotImplementedError, match=match):
         port.fused_nuts_run_dc(
             torch.zeros(8, 4), imm, 0.4, target=port.make_gaussian_target_dc(4),
