@@ -3,18 +3,23 @@
 The port mirrors the reference's module paths and public names. Every
 module here imports ``torch`` and never JAX; the kernels that were Pallas
 kernels for the TPU are hand-written CUDA kernels for Hopper
-(``csrc/fused_nuts_dc.cu``, the in-kernel NUTS machine;
+(``csrc/fused_nuts_dc.cu``, the in-kernel NUTS machine of
+``ops.fused_nuts_dc.fused_nuts_run_dc``, with the threefry export that
+:mod:`blackjax_tpu_torch.prng` draws through; ``csrc/fused_nuts.cu``, the
+older machine of ``ops.fused_nuts.fused_nuts_run``;
 ``csrc/fused_leapfrog.cu``, the trajectory of ``fused_hmc``;
-``csrc/fused_mclmc.cu``, the trajectory of ``ops.fused_mclmc``; the matrix
-targets' device functions they share are in ``csrc/matrix_targets.cuh``). Kernels follow
-``(generator, state) -> (state, info)`` with a leading chain axis on every
-state tensor.
+``csrc/fused_mclmc.cu``, the trajectory of ``ops.fused_mclmc.fused_mclmc``;
+the matrix targets' device functions they share are in
+``csrc/matrix_targets.cuh``). Kernels follow ``(key, state) -> (state,
+info)`` with a leading chain axis on every state tensor; the key is key
+words (one ``jax.random`` key per chain) or a ``torch.Generator``.
 
-Registry subset so far: ``hmc``, ``nuts``, ``mclmc``, ``fused_hmc``,
-``fused_nuts_run_dc``, ``window_adaptation``, ``window_adaptation_low_rank``,
-``staged_adaptation``, ``mclmc_find_L_and_step_size``,
-``dual_averaging_adaptation``, ``dual_averaging``, ``diagnostics`` (with
-``ess`` and ``rhat``) and ``util``.
+Registry subset so far (every name is the reference's): ``hmc``, ``nuts``,
+``mclmc``, ``fused_hmc``, ``window_adaptation``,
+``window_adaptation_low_rank``, ``staged_adaptation``,
+``mclmc_find_L_and_step_size``, ``dual_averaging_adaptation``,
+``dual_averaging``, ``diagnostics`` (with ``ess``, ``ess_bulk`` and
+``rhat``) and ``util``.
 """
 import dataclasses
 import importlib
@@ -36,7 +41,6 @@ from blackjax_tpu_torch.diagnostics import ess_bulk, rhat
 from blackjax_tpu_torch.mcmc import hmc as _hmc
 from blackjax_tpu_torch.mcmc import mclmc as _mclmc
 from blackjax_tpu_torch.mcmc import nuts as _nuts
-from blackjax_tpu_torch.ops.fused_nuts_dc import fused_nuts_run_dc
 from blackjax_tpu_torch.optimizers import dual_averaging
 
 __version__ = "0.1.0"
@@ -78,7 +82,6 @@ __all__ = [
     "nuts",
     "mclmc",
     "fused_hmc",
-    "fused_nuts_run_dc",
     "window_adaptation",
     "window_adaptation_low_rank",
     "staged_adaptation",

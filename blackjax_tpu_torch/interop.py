@@ -6,7 +6,8 @@ so both packages can compute from the same state: HMC states and NUTS infos,
 inverse mass matrices (diagonal, dense or low-rank payloads) and step sizes
 (alone or as a warmup's parameters), low-rank metric cores' states,
 MCLMC states and tuned parameters, fused-HMC states, the fused kernels'
-targets, and the test posteriors by name.
+targets, the test posteriors by name, and PRNG keys (as key words, with
+which the port draws what the reference draws).
 """
 import numpy as np
 import torch
@@ -20,6 +21,7 @@ from blackjax_tpu_torch.mcmc.nuts import NUTSInfo
 from blackjax_tpu_torch.models import targets
 from blackjax_tpu_torch.ops import fused_nuts_dc, targets_dc
 from blackjax_tpu_torch.ops.fused_hmc import FusedHMCState
+from blackjax_tpu_torch.ops.fused_nuts import make_mxu_safe_hierarchical_target
 from blackjax_tpu_torch.ops.fused_leapfrog import (
     TargetKernel,
     gaussian_target_from_params,
@@ -30,6 +32,7 @@ from blackjax_tpu_torch.ops.fused_leapfrog import (
 
 __all__ = [
     "to_tensor",
+    "prng_key",
     "hmc_state",
     "nuts_info",
     "inverse_mass_matrix",
@@ -54,6 +57,18 @@ def to_tensor(value, *, device=None, dtype=None) -> torch.Tensor:
     if t.is_floating_point() and dtype is not None:
         t = t.to(dtype)
     return t.to(device)
+
+
+def prng_key(key_data, *, device=None) -> torch.Tensor:
+    """The reference's keys as the port's key words: ``key_data`` is
+    ``jax.random.key_data(keys)`` (or a raw ``uint32`` key array), words
+    ``(..., 2)``; returns them as an int64 tensor in ``[0, 2**32)``."""
+    words = np.asarray(key_data)
+    if words.shape[-1:] != (2,) or words.dtype != np.uint32:
+        raise ValueError(
+            f"expected uint32 key words (..., 2), got {words.dtype} {words.shape}"
+        )
+    return torch.from_numpy(words.astype(np.int64)).to(device)
 
 
 def hmc_state(state, *, device=None, dtype=None) -> HMCState:
@@ -153,7 +168,7 @@ def fused_hmc_state(state, *, device=None) -> FusedHMCState:
 
 
 def fused_target(name: str, dim: int, params=()) -> TargetKernel:
-    """The fused leapfrog's target of the reference's ``TargetKernel.name``;
+    """The fused kernels' target of the reference's ``TargetKernel.name``;
     ``params`` are the reference target's ``params`` (the Gaussian's
     inverse variances; logistic regression's ``(X_full, y_row, row_mask)``,
     which do not hold the prior scale: the reference's default, 10, is
@@ -164,6 +179,8 @@ def fused_target(name: str, dim: int, params=()) -> TargetKernel:
         return make_logistic_regression_target(X_full[:n, :dim], y_row[0, :n])
     if name == "hierarchical_gaussian":
         return make_hierarchical_gaussian_target(dim)
+    if name == "hierarchical_gaussian_mxu_safe":
+        return make_mxu_safe_hierarchical_target(dim)
     if name == "gaussian":
         if not params:
             return make_gaussian_target(dim)

@@ -28,7 +28,8 @@ __all__ = [
 
 
 def _where(pred, on_true, on_false):
-    pred = torch.as_tensor(pred, device=on_true.device)
+    if not torch.is_tensor(pred):
+        pred = torch.as_tensor(pred, device=on_true.device)
     if 0 < pred.dim() < on_true.dim():
         pred = pred.reshape(pred.shape + (1,) * (on_true.dim() - pred.dim()))
     return torch.where(pred, on_true, on_false)

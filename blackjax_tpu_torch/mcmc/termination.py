@@ -33,6 +33,20 @@ def _checkpoint_slots(leaf_idx: Array):
     return idx_max - trailing_ones + 1, idx_max
 
 
+def _slot_turning(is_turning, ckpt_r, ckpt_s, momentum_sum, momentum, idx_min, idx_max):
+    """Whether any subtree ending at the current leaf turns: every slot
+    ``i`` in ``idx_min .. idx_max`` tests the subtree of momentum sum
+    ``momentum_sum - ckpt_s[i] + ckpt_r[i]`` between ``ckpt_r[i]`` and
+    ``momentum``. All slots go through ``is_turning`` at once over a slot axis
+    ``(..., K, d)``: per element the arithmetic of the reference's per-slot
+    loop, and one call in place of K (both NUTS engines use this, so they
+    round alike)."""
+    row = torch.arange(ckpt_r.shape[-2], device=momentum.device)
+    active = (row >= idx_min[..., None]) & (row <= idx_max[..., None])
+    subtree_sum = momentum_sum[..., None, :] - ckpt_s + ckpt_r
+    return (active & is_turning(ckpt_r, momentum[..., None, :], subtree_sum)).any(-1)
+
+
 def iterative_uturn(is_turning):
     """``(new_state, update, is_criterion_met)`` of the checkpointing U-turn
     criterion for a metric's ``is_turning``."""
@@ -58,12 +72,8 @@ def iterative_uturn(is_turning):
 
     def is_criterion_met(state: IterativeUTurnState, momentum_sum, momentum):
         ckpt_r, ckpt_s, idx_min, idx_max = state
-        turning = torch.zeros(momentum.shape[:-1], dtype=torch.bool, device=momentum.device)
-        for i in range(ckpt_r.shape[-2]):
-            active = (i >= idx_min) & (i <= idx_max)
-            subtree_sum = momentum_sum - ckpt_s[..., i, :] + ckpt_r[..., i, :]
-            turning = turning | (active & is_turning(ckpt_r[..., i, :], momentum, subtree_sum))
-        return turning
+        return _slot_turning(is_turning, ckpt_r, ckpt_s, momentum_sum, momentum, idx_min,
+                             idx_max)
 
     return new_state, update, is_criterion_met
 

@@ -15,7 +15,12 @@ here lives in an ``int64`` tensor holding a value in ``[0, 2**32)`` and is
 masked with ``& 0xFFFFFFFF`` after each add or left shift. Any integer
 tensor (or Python int) is accepted as input and reduced modulo ``2**32``,
 which is what the reference's ``astype(jnp.uint32)`` does to an int32.
+On the CPU, :func:`threefry2x32` runs its rounds on Python ints (a few
+words, as a sampler's key derivation draws them) or in numpy's wrapping
+``uint32`` arithmetic (larger batches) instead: the same words, for a
+fraction of the int64 tensor ops' time.
 """
+import numpy as np
 import torch
 
 __all__ = [
@@ -54,12 +59,70 @@ def rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) & MASK32) | (x >> (32 - r))
 
 
+def _threefry_words(k0, k1, c0, c1):
+    """:func:`threefry2x32` on lists of Python ints, one block per entry."""
+    out0, out1 = [], []
+    for a, b, x0, x1 in zip(k0, k1, c0, c1):
+        a, b, x0, x1 = a & MASK32, b & MASK32, x0 & MASK32, x1 & MASK32
+        keys = (b, a ^ b ^ _TF_PARITY, a, b, a ^ b ^ _TF_PARITY, a)
+        x0, x1 = (x0 + a) & MASK32, (x1 + b) & MASK32
+        for block in range(5):
+            for r in _TF_ROT[(block % 2) * 4:(block % 2) * 4 + 4]:
+                x0 = (x0 + x1) & MASK32
+                x1 = x0 ^ (((x1 << r) & MASK32) | (x1 >> (32 - r)))
+            x0 = (x0 + keys[block]) & MASK32
+            x1 = (x1 + keys[block + 1] + block + 1) & MASK32
+        out0.append(x0)
+        out1.append(x1)
+    return out0, out1
+
+
+def _threefry_numpy(k0, k1, c0, c1):
+    """:func:`threefry2x32` in numpy's wrapping ``uint32`` arithmetic."""
+    k0, k1, c0, c1 = (v.astype(np.uint32) for v in (k0, k1, c0, c1))
+    ks2 = k0 ^ k1 ^ np.uint32(_TF_PARITY)
+    x0, x1 = c0 + k0, c1 + k1
+    keys = (k1, ks2, k0, k1, ks2, k0)
+    for block in range(5):
+        for i in range(4):
+            r = np.uint32(_TF_ROT[(block % 2) * 4 + i])
+            x0 = x0 + x1
+            x1 = x0 ^ ((x1 << r) | (x1 >> (np.uint32(32) - r)))
+        x0 = x0 + keys[block]
+        x1 = x1 + keys[block + 1] + np.uint32(block + 1)
+    return x0.astype(np.int64), x1.astype(np.int64)
+
+
+# The largest batch that runs on Python ints. numpy pays its ~120 ufunc
+# calls a batch whatever the batch's size, Python ints pay per element; the
+# two cross between 8 and 16 elements (:func:`time_cpu_paths` prints both
+# times; PERF.md). A single chain's key derivation draws one to three words.
+PYTHON_INT_MAX = 8
+
+
+def _threefry_cpu(k0, k1, c0, c1):
+    """:func:`threefry2x32` for CPU inputs: Python ints up to
+    ``PYTHON_INT_MAX`` words, numpy ``uint32`` above; both far cheaper than
+    int64 tensor ops on the CPU, and the words are the same."""
+    words = torch.broadcast_tensors(*(torch.as_tensor(v) for v in (k0, k1, c0, c1)))
+    shape = words[0].shape
+    if words[0].numel() <= PYTHON_INT_MAX:
+        x0, x1 = _threefry_words(*(w.reshape(-1).tolist() for w in words))
+        return (torch.tensor(x0, dtype=torch.int64).reshape(shape),
+                torch.tensor(x1, dtype=torch.int64).reshape(shape))
+    # the cast to uint32 in _threefry_numpy reduces modulo 2**32
+    x0, x1 = _threefry_numpy(*(np.atleast_1d(w.numpy()) for w in words))
+    return torch.from_numpy(x0).reshape(shape), torch.from_numpy(x1).reshape(shape)
+
+
 def threefry2x32(k0, k1, c0, c1):
     """20-round threefry2x32 of counter ``(c0, c1)`` under key ``(k0, k1)``.
 
     Returns the two output words as int64 tensors in ``[0, 2**32)``,
-    broadcast over the inputs' shapes."""
+    broadcast over the inputs' shapes, on the inputs' device."""
     like = next((t for t in (c0, c1, k0, k1) if torch.is_tensor(t)), None)
+    if like is None or like.device.type == "cpu":
+        return _threefry_cpu(k0, k1, c0, c1)
     k0, k1, c0, c1 = (_u32(v, like) for v in (k0, k1, c0, c1))
     ks2 = k0 ^ k1 ^ _TF_PARITY
     x0 = (c0 + k0) & MASK32
@@ -154,3 +217,23 @@ def counter_normals(seed, chain_base, stream, shape, *, device=None) -> torch.Te
     """One f32 standard normal per element of ``shape`` by Box-Muller on a
     threefry block (reference ``fused_mclmc.py:_counter_normals``)."""
     return box_muller(*counter_normal_words(seed, chain_base, stream, shape, device=device))
+
+
+def time_cpu_paths(sizes=(1, 2, 4, 8, 16, 32, 64, 1024)):
+    """Print the microseconds a call of the two CPU paths takes against the
+    batch size, the measurement behind ``PYTHON_INT_MAX``."""
+    import time
+
+    for size in sizes:
+        words = np.random.default_rng(0).integers(0, 2**32, (4, size), dtype=np.uint64)
+        words = words.astype(np.int64)
+        times = {}
+        for name, fn, args in (("python ints", _threefry_words, [w.tolist() for w in words]),
+                               ("numpy", _threefry_numpy, list(words))):
+            repeats = max(20, 20_000 // size)
+            fn(*args)
+            start = time.perf_counter()
+            for _ in range(repeats):
+                fn(*args)
+            times[name] = (time.perf_counter() - start) / repeats * 1e6
+        print(f"{size:5d} words: " + ", ".join(f"{k} {v:.1f} us" for k, v in times.items()))

@@ -40,6 +40,10 @@ leaves. The port reproduces that accounting exactly (see
 :func:`_lane_budgets`): each chain gets a budget of its own and a local
 clock on which restarts are gated, so ``steps[c] < num_steps`` flags the
 chains the reference flags. ``tile_chains`` enters only that accounting.
+
+The same source exports the kernel's threefry2x32 with a key per element
+(:func:`threefry2x32_device`, through which :mod:`blackjax_tpu_torch.prng`
+draws on the card), beside its plain version.
 """
 import ctypes
 import functools
@@ -53,7 +57,6 @@ import torch
 from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix
 from blackjax_tpu_torch.ops import _nvcc
 from blackjax_tpu_torch.ops.counter_rng import (
-    MASK32,
     counter_uniforms,
     counter_uniforms2,
     momentum_normals,
@@ -566,8 +569,7 @@ def _library(kind: str = "diag"):
     lib.bjt_error_string.argtypes = [_INT]
     lib.bjt_error_string.restype = ctypes.c_char_p
     if kind == "diag":
-        lib.bjt_threefry2x32.argtypes = [_VP, _VP, ctypes.c_uint32, ctypes.c_uint32, _VP, _VP,
-                                         _INT, _VP]
+        lib.bjt_threefry2x32.argtypes = [_VP] * 6 + [_INT, _VP]
         lib.bjt_threefry2x32.restype = _INT
     return lib
 
@@ -879,25 +881,26 @@ def fused_nuts_run_dc_plain(positions, inverse_mass_matrix, step_size, **kwargs)
     return _run(_machine_plain, x, metric, float(step_size), machine, pack, tile_chains)
 
 
-def threefry2x32_device(k0: int, k1: int, c0, c1):
-    """threefry2x32 of ``(c0, c1)`` through the kernel's own device function
-    (CUDA tensors) or the plain version (CPU tensors). Words are int64
-    tensors in ``[0, 2**32)``; returns the two output words the same way."""
-    if c0.device.type != "cuda":
+def threefry2x32_device(k0, k1, c0, c1):
+    """threefry2x32 of ``(c0, c1)`` under the key ``(k0, k1)`` through the
+    kernel's own device function (CUDA tensors) or the plain version (CPU
+    tensors). Keys and counters are ints or int64 tensors in ``[0, 2**32)``,
+    broadcast against each other (a key per element); returns the two output
+    words the same way. One launch per call."""
+    tensors = [t for t in (k0, k1, c0, c1) if torch.is_tensor(t)]
+    if not tensors or tensors[0].device.type != "cuda":
         return threefry2x32(k0, k1, c0, c1)
-    c0, c1 = torch.broadcast_tensors(c0.to(torch.int64), c1.to(torch.int64))
-
-    def as_u32_storage(w):  # two's complement int32 holds the uint32 bits
-        w = w & MASK32
-        return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()
-
-    a, b = as_u32_storage(c0), as_u32_storage(c1)
-    o0, o1 = torch.empty_like(a), torch.empty_like(a)
+    dev = tensors[0].device
+    words = torch.broadcast_tensors(
+        *(torch.as_tensor(w, dtype=torch.int64, device=dev) for w in (k0, k1, c0, c1)))
+    words = [w.contiguous() for w in words]  # the kernel reads the low 32 bits
+    o0, o1 = torch.empty_like(words[0]), torch.empty_like(words[0])
     lib = _library("diag")
     code = lib.bjt_threefry2x32(
-        a.data_ptr(), b.data_ptr(), k0 & MASK32, k1 & MASK32,
-        o0.data_ptr(), o1.data_ptr(), a.numel(), _nvcc.stream_handle(a.device),
+        *(w.data_ptr() for w in words), o0.data_ptr(), o1.data_ptr(), o0.numel(),
+        _nvcc.stream_handle(dev),
     )
     _nvcc.check_launch(lib, code, "threefry2x32")
     LAUNCHES["threefry2x32"] += 1
-    return o0.to(torch.int64) & MASK32, o1.to(torch.int64) & MASK32
+    return o0, o1
+

@@ -1,7 +1,10 @@
 """Type aliases shared across the port (reference ``blackjax_tpu/types.py``).
 
-Positions are flat ``(chains, d)`` tensors in this slice; randomness comes
-from a ``torch.Generator`` where the reference takes a JAX PRNG key.
+Positions are flat ``(chains, d)`` tensors in this slice. Randomness comes
+from a ``torch.Generator``, or from key words: an int64 tensor ``(..., 2)``
+holding ``jax.random.key_data`` of the reference's keys, one key per chain
+(:mod:`blackjax_tpu_torch.prng`), with which the port draws what the
+reference draws.
 """
 from typing import Any, Union
 
@@ -16,5 +19,5 @@ ArrayLike = Union[torch.Tensor, Any]
 ArrayTree = Any
 ArrayLikeTree = Any
 
-PRNGKey = torch.Generator
+PRNGKey = Union[torch.Generator, torch.Tensor]
 Numeric = Union[torch.Tensor, float, int]

@@ -9,6 +9,7 @@ from typing import Callable
 
 import torch
 
+from blackjax_tpu_torch import prng
 from blackjax_tpu_torch.base import SamplingAlgorithm
 from blackjax_tpu_torch.types import Array, ArrayLikeTree, PRNGKey
 
@@ -62,6 +63,19 @@ def linear_map(diag_or_dense_a: Array, b: Array) -> Array:
     return b @ a.T
 
 
+def _standard_normal(rng_key: PRNGKey, position: Array) -> Array:
+    """Standard normals shaped like ``position``: from a generator, or from
+    key words ``(..., 2)``, each key drawing ``jax.random.normal`` over the
+    trailing axes of ``position`` that its batch axes leave (a ``(C, 2)``
+    key batch and a ``(C, d)`` position: a ``(d,)`` draw per chain)."""
+    if isinstance(rng_key, torch.Generator):
+        return torch.randn(
+            position.shape, generator=rng_key, dtype=position.dtype, device=position.device
+        )
+    keys = rng_key.to(position.device)
+    return prng.normal(keys, position.shape[keys.dim() - 1:], position.dtype)
+
+
 def generate_gaussian_noise(
     rng_key: PRNGKey,
     position: Array,
@@ -70,20 +84,16 @@ def generate_gaussian_noise(
 ) -> Array:
     """``mu + sigma eps`` with ``eps ~ N(0, I)`` shaped like ``position``
     (reference ``util.py:54``); ``sigma`` is a scalar, a diagonal or a dense
-    scale applied through :func:`linear_map`."""
-    eps = torch.randn(
-        position.shape, generator=rng_key, dtype=position.dtype, device=position.device
-    )
-    return mu + linear_map(sigma, eps)
+    scale applied through :func:`linear_map`. ``rng_key`` is a generator or
+    key words (see :func:`_standard_normal`)."""
+    return mu + linear_map(sigma, _standard_normal(rng_key, position))
 
 
 def generate_unit_vector(rng_key: PRNGKey, position: Array) -> Array:
     """A uniform random unit vector per chain, shaped like ``position``
     (reference ``util.py:68``): a ``(C, d)`` position gets ``C`` unit rows,
     normalised over the last axis."""
-    eps = torch.randn(
-        position.shape, generator=rng_key, dtype=position.dtype, device=position.device
-    )
+    eps = _standard_normal(rng_key, position)
     return eps / torch.linalg.vector_norm(eps, dim=-1, keepdim=True)
 
 

@@ -5,7 +5,7 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's six main paths once, three at the flagship's full
+It drives the port's eight main paths once, five at the flagship's full
 width (the 100-dim hierarchical posterior, 4,096 chains), one at the
 Finnish horseshoe's (N=100, M=200, d=404, 512 chains) and two at the
 covertype-class logistic regression's (4,096 x 54, 1,024 chains), and checks
@@ -14,24 +14,27 @@ them in phases, one line each:
 1. the card (``nvidia-smi`` name and power limit) and the builds of
    ``csrc/fused_nuts_dc.cu``, ``csrc/fused_nuts_dc_dense.cu``,
    ``csrc/fused_nuts_dc_low_rank.cu`` (the dc machine of
-   ``csrc/fused_nuts_dc.cuh`` for each metric), ``csrc/fused_leapfrog.cu``
-   and ``csrc/fused_mclmc.cu`` (with the shared headers
-   ``csrc/counter_rng.cuh``, ``csrc/analytic_targets.cuh`` and
+   ``csrc/fused_nuts_dc.cuh`` for each metric), ``csrc/fused_leapfrog.cu``,
+   ``csrc/fused_mclmc.cu`` and ``csrc/fused_nuts.cu`` (with the shared
+   headers ``csrc/counter_rng.cuh``, ``csrc/analytic_targets.cuh`` and
    ``csrc/matrix_targets.cuh``) with nvcc, one process each, all started
    together, with their seconds and the register and spill report of each
-   instantiation (N registers per vector, target family F, metric M);
+   instantiation (N registers per vector, target family F, metric M, trace
+   flag);
 2. the dc kernel's own threefry2x32 device function against the plain
-   version, bit for bit, on 100,000 counters; and the MCLMC kernel's
-   counter normals (4,096 chains x 100 dims): the threefry words bit for
-   bit, the normals to 1e-6 (``logf`` and ``cosf`` may differ from torch by
-   an ulp);
+   version, bit for bit, on 100,000 counters, and with a key per element
+   (the draws of ``blackjax_tpu_torch.prng``) on 1,048,576 keys, with both
+   times; and the MCLMC kernel's counter normals (4,096 chains x 100 dims):
+   the threefry words bit for bit, the normals to 1e-6 (``logf`` and
+   ``cosf`` may differ from torch by an ulp);
 3. the dc NUTS machine against its plain PyTorch version on the card at
    d=100, 4,096 chains, 16 transitions: identical step counts, the share of
    chains that agree to 1e-5 above the CPU test's floor, pooled moments, and
    both times;
 4. the NUTS path, launch counts reset just before it: the port's
    single-chain ``window_adaptation(nuts)`` (400 steps, as ``bench.py``
-   adapts), then the port's NUTS for 5 transitions from a numpy-seeded init
+   adapts; its ms per leaf beside the figure before the keyed draws), then
+   the port's NUTS for 5 transitions from a numpy-seeded init
    on the adapted step size and metric, then ``fused_nuts_run_dc`` for 256
    transitions, then min-ESS; every chain must complete, everything must be
    finite, the kernel must have been launched, and ``log_tau``'s moments
@@ -69,9 +72,12 @@ them in phases, one line each:
    regression at the covertype-class shape (4,096 points x 54, numpy seed,
    512 chains), the fused leapfrog (4,096 chains, 10 steps) and the fused
    MCLMC (4,096 chains, 64 steps) on the same logistic regression. The dc
-   machine's steps and gradient totals must be identical and the share of
-   chains agreeing to MATRIX_TOL above the floor: its contractions sum row
-   by row where the plain version's cuBLAS sums in tiles, and the difference
+   machine's steps must be identical, the share of chains agreeing to
+   MATRIX_TOL above the floor, and every chain that agrees must take the same
+   gradient count (so the totals are identical wherever every chain agrees;
+   a chain that parts beyond MATRIX_TOL may turn at another leaf): its
+   contractions sum row by row where the plain version's cuBLAS sums in
+   tiles, and the difference
    grows along a trajectory to ~1.5e-4 in 4 transitions, as it does between
    the plain version on the card and on the CPU; the fused kernels are held
    as in phases 5 and 7. Each prints both times by CUDA events, the kernel's
@@ -111,20 +117,49 @@ them in phases, one line each:
    (``reference_moments`` in ``tests/test_torch_metric_slice.py``). Then each
    metric's kernel against its plain version on the path's step size and
    metric (512 chains x 8 transitions from the path's final positions: steps
-   and gradient totals identical, share at MATRIX_TOL above the floor) and on
+   identical, gradient counts identical on every chain that agrees to
+   MATRIX_TOL, share at MATRIX_TOL above the floor) and on
    a Gaussian at phase 3's width (d=100, 4,096 chains x 16 transitions, share
    at 1e-5), and the consistency pins of
    ``tests/ops/test_fused_nuts_dc_metrics.py`` on the card: ``diag(v)`` as a
    dense matrix and a low-rank payload with ``lam = 1``, each against the
-   diagonal kernel.
+   diagonal kernel;
+12. the continuous-runner path, launch counts reset just before it:
+   ``mcmc.nuts.build_fused_many_steps`` on phase 4's step size and metric,
+   4,096 chains from phase 4's final positions, 64 transitions (cut from the
+   bench's 256: the runner reads its loop condition on the host once per
+   block) at ``unroll=4``, 8 tracked coordinates, keys ``(64, 4096, 2)``
+   split as ``bench.py:230-232`` splits them; seconds, loop iterations (one
+   leaf each), ms per iteration (and at ``unroll=1`` over 8 transitions),
+   leaves per transition, grads/s, min-ESS and ESS/s. Every chain must
+   complete, everything be finite, the threefry kernel launched,
+   ``log_tau``'s second-half moments near N(0, 1), and the leaves per
+   transition within 10% of the dc machine's from the same positions. Then,
+   on 256 chains x 8 transitions, the runner (m=1, unroll=1) and the runner
+   (m=4, unroll=4, restart_every=2) against a loop over ``nuts.build_kernel``
+   with the same keys: gradient totals identical, history and finals
+   reported bit for bit and held to the reference's f32 tolerance, 1e-4;
+13. the older machine's path, launch counts reset just before it: one launch
+   of ``ops.fused_nuts.fused_nuts_run`` (``csrc/fused_nuts.cu``) for 4,096
+   chains x 256 transitions from phase 4's positions on its step size and
+   metric (``budget=112 x 256``, ``chunk=256``); every chain must complete,
+   everything be finite, ``log_tau``'s moments near N(0, 1), and the leaves
+   per transition within 10% of phase 4's dc run. Then the kernel against its
+   plain version: 512 x 16 on the flagship (identical steps and gradient
+   totals, share at 1e-5 above the floor, both times, the bound),
+   ``trace=64`` on 64 x 4 (every column identical on the floor's share of
+   chains), and phase 9's logistic regression on 512 x 8 (share at 1e-3).
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
 kernel of the main paths (``ms`` and ``plain_ms`` are phase 3's, 5's and 7's
 like-for-like times), one per new (kernel, target) pair (phase 9's and
 10's times) and one per metric of the dc machine (phase 11's logistic
-regression comparison). ``launches`` is the count from the main path's run, or, for a
-pair that no main path drives, from the pair's checked call. ``bound_ms`` is
+regression comparison), one for the older machine (phase 13's 512 x 16 times)
+and one for the threefry kernel with a key per element (phase 2's times on
+1,048,576 keys; its launches are phase 12's). ``launches`` is the count from the
+main path's run, or, for a pair that no main path drives, from the pair's checked
+call. ``bound_ms`` is
 the larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations over 132 SMs x 128 lanes x 2 x the SM clock ``nvidia-smi``
 reads, from the call's inputs and outputs (gradient counts from the run);
@@ -172,6 +207,19 @@ HS_BUDGET = 1600 * HS_TRANSITIONS * HS_PACK  # budget_factor 1600 (tracked.py:94
 HS_WARMUP_STEPS, HS_WARMUP_DOUBLINGS = 100, 6  # cut from 600 at 10: see phase 10
 HS_CMP_CHAINS, HS_CMP_TRANSITIONS, HS_CMP_DOUBLINGS = 128, 4, 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+TF_KEYS = 1 << 20  # phase 2's per-element-key threefry check
+# phase 12: the continuous runner, cut from the bench's 256 transitions
+# because it reads its loop condition on the host once per block of leaves
+RUNNER_TRANSITIONS, RUNNER_UNROLL = 64, 4
+RUNNER_CMP_CHAINS, RUNNER_CMP_TRANSITIONS = 256, 8  # its bit-identity check
+RUNNER_TOL = 1e-4  # tests/mcmc/test_nuts.py:327, the reference's f32 tolerance
+LEAVES_REL = 0.1  # leaves per transition against the dc machine's
+# phase 13: the older machine, one launch at the bench's depth
+LEGACY_TRANSITIONS, LEGACY_CHUNK = 256, 256
+LEGACY_BUDGET = 112 * LEGACY_TRANSITIONS
+LEGACY_CMP_CHAINS, LEGACY_CMP_TRANSITIONS = 512, 16
+LEGACY_TRACE_CHAINS, LEGACY_TRACE_TRANSITIONS, LEGACY_TRACE = 64, 4, 64
+UNKEYED_WARMUP_MS_PER_LEAF = 48.44e3 / 9151  # phase 4's warmup before the keyed draws
 # The horseshoe's posterior by the JAX package's own NUTS on the CPU
 # (tests/test_torch_horseshoe_slice.py:reference_bands: window_adaptation 600
 # steps from zeros, then 64 chains from 0.05 N(0, I) x 256 transitions, seed
@@ -238,16 +286,18 @@ def _ptxas_summary(log: str) -> list:
     kernels are named by their registers per lane and vector (N), their
     target family (F: 0 analytic, 2 logistic regression, 3 horseshoe, 4
     eight schools) and, for the dc machine, their metric (M: 0 diagonal, 1
-    dense, 2 low-rank)."""
+    dense, 2 low-rank); the older NUTS machine by its trace flag."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            n = re.search(r"(nuts_dc|leapfrog|mclmc)_kernelILi(\d+)ELi(\d+)E(?:Li(\d+)E)?",
-                          entry.group(1))
+            n = re.search(r"(nuts_dc|nuts|leapfrog|mclmc)_kernelILi(\d+)ELi(\d+)E"
+                          r"(?:Li(\d+)E|Lb(\d)E)?", entry.group(1))
             export = "threefry" if "threefry" in entry.group(1) else "counter_normals"
             metric = f" M={n.group(4)}" if n and n.group(4) else ""
-            name = f"{n.group(1)} N={n.group(2)} F={n.group(3)}{metric}" if n else f"{export} export"
+            traced = f" trace={n.group(5)}" if n and n.group(5) else ""
+            name = (f"{n.group(1)} N={n.group(2)} F={n.group(3)}{metric}{traced}" if n
+                    else f"{export} export")
         spill = re.search(
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
@@ -267,6 +317,43 @@ def _agreement(torch, a, b, tol=AGREE_TOL):
     close &= torch.isclose(ah, bh, rtol=tol, atol=tol).flatten(1).all(1)
     err = max(float((ax - bx).abs().max()), float((ah - bh).abs().max()))
     return float(close.float().mean()), err
+
+
+def _per_chain(torch, module, launch, x, imm, step, kw):
+    """One machine run through ``module``'s kernel launch (``launch=True``,
+    counted in its ``LAUNCHES``) or its plain version, with the per-chain
+    outputs the public wrappers sum away: ``(final positions, steps,
+    gradients, history)`` per chain, and the milliseconds by CUDA events."""
+    x32, operands, machine = module._prepare(x, imm, **kw)
+    fn = module._launch_cuda if launch else module._machine_plain
+    out, ms = _timed(torch, lambda: fn(x32, operands, float(step), **machine))
+    return out[:4], ms
+
+
+def _matrix_pair(torch, name, kern, plain, num_steps):
+    """The gates of a kernel against its plain version on a matrix target,
+    chain by chain: identical steps; the share of chains whose positions and
+    history agree to MATRIX_TOL at least the floor; identical gradient counts
+    on every chain that agrees. Their contractions with the data sum in
+    other orders (kernel: row by row; plain: cuBLAS tiles), the difference
+    grows along a trajectory, and a chain whose path parts beyond MATRIX_TOL
+    may take a U-turn at another leaf (PERF.md §6). Returns the share at
+    MATRIX_TOL and at AGREE_TOL, the largest difference, the gradient totals
+    and the number of chains with other gradient counts."""
+    (kx, ks, kg, kh), (px, ps, pg, ph) = kern, plain
+    _require(torch.equal(ks, ps) and bool((ks == num_steps).all()),
+             f"{name}: steps differ or fall short")
+    _require(bool(torch.isfinite(kx).all() and torch.isfinite(kh).all()),
+             f"{name}: non-finite output")
+    share, err = _agreement(torch, (kx, kh), (px, ph), MATRIX_TOL)
+    share5, _ = _agreement(torch, (kx, kh), (px, ph))
+    close = torch.isclose(kx, px, rtol=MATRIX_TOL, atol=MATRIX_TOL).all(1)
+    close &= torch.isclose(kh, ph, rtol=MATRIX_TOL, atol=MATRIX_TOL).flatten(1).all(1)
+    other = kg != pg
+    _require(not bool((other & close).any()),
+             f"{name}: a chain that agrees to {MATRIX_TOL} has other gradient counts")
+    _require(share >= AGREE_FLOOR, f"{name}: only {share} of chains agree to {MATRIX_TOL}")
+    return share, share5, err, float(kg.sum()), float(pg.sum()), int(other.sum())
 
 
 def _timed_mean(torch, fn, repeats):
@@ -304,6 +391,8 @@ def _device_ms(torch, fn, kernel, repeats=20):
 # is about 70 integer operations a block (20 rounds and the key schedule).
 DC_LEAF_OPS, LEAPFROG_STEP_OPS, MCLMC_STEP_OPS = 24, 7, 55
 GRAD_OPS = {"hierarchical": 4, "gaussian": 3}
+# the older machine's leaf: the dc leaf and a separate log density (2 a dim)
+LEGACY_LEAF_OPS = DC_LEAF_OPS + 2
 THREEFRY_OPS = 70
 
 
@@ -356,7 +445,10 @@ def main() -> int:
     from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
     from blackjax_tpu_torch.mcmc import hmc, mclmc, nuts
     from blackjax_tpu_torch.models import hierarchical_gaussian
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.mcmc import integrators
     from blackjax_tpu_torch.ops import counter_rng
+    from blackjax_tpu_torch.ops import fused_nuts as fn
     from blackjax_tpu_torch.ops import fused_nuts_dc as dc
     from blackjax_tpu_torch.util import run_inference_algorithm
 
@@ -388,15 +480,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # one nvcc per source: dc.build() starts its three (one per metric) itself
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        builds = [pool.submit(build, module) for module in (dc, lf, fm)]
-        (dc_s, dc_log), (lf_s, lf_log), (fm_s, fm_log) = (b.result() for b in builds)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        builds = [pool.submit(build, module) for module in (dc, lf, fm, fn)]
+        (dc_s, dc_log), (lf_s, lf_log), (fm_s, fm_log), (fn_s, fn_log) = (
+            b.result() for b in builds)
     build_s = time.perf_counter() - t0
-    print(f"phase 1: card {kind!r} ({smi}); built the five sources in {build_s:.2f} s: "
+    print(f"phase 1: card {kind!r} ({smi}); built the six sources in {build_s:.2f} s: "
           f"csrc/fused_nuts_dc.cu, fused_nuts_dc_dense.cu and fused_nuts_dc_low_rank.cu "
           f"{dc_s:.2f} s, ptxas {'; '.join(_ptxas_summary(dc_log))}; "
           f"csrc/fused_leapfrog.cu {lf_s:.2f} s, ptxas {'; '.join(_ptxas_summary(lf_log))}; "
-          f"csrc/fused_mclmc.cu {fm_s:.2f} s, ptxas {'; '.join(_ptxas_summary(fm_log))}")
+          f"csrc/fused_mclmc.cu {fm_s:.2f} s, ptxas {'; '.join(_ptxas_summary(fm_log))}; "
+          f"csrc/fused_nuts.cu {fn_s:.2f} s, ptxas {'; '.join(_ptxas_summary(fn_log))}")
 
     # ---- phase 2: threefry export, bit for bit ----
     marks.append((2, time.perf_counter()))
@@ -416,10 +510,25 @@ def main() -> int:
     z_err = float((mz.cpu() - pz).abs().max())
     z_same = float((mz.cpu() == pz).float().mean())
     _require(torch.allclose(mz.cpu(), pz, rtol=1e-6, atol=1e-6), "MCLMC normals differ")
+    # the same device function with a key per element, as prng draws through it
+    keyed = torch.from_numpy(rng.integers(0, 2**32, (4, TF_KEYS), dtype=np.uint64)
+                             .astype(np.int64))
+    keyed_dev = [w.to(dev) for w in keyed]
+    tf_card, tf_ms = _timed(torch, lambda: prng.threefry2x32(*keyed_dev))
+    tf_ms = _timed_mean(torch, lambda: prng.threefry2x32(*keyed_dev), 20)
+    tf_plain_ms = _timed_mean(torch, lambda: counter_rng.threefry2x32(*keyed_dev), 5)
+    tf_plain = prng.threefry2x32(*keyed)
+    keyed_same = all(torch.equal(a.cpu(), b) for a, b in zip(tf_card, tf_plain))
+    tf_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(tf_card, tf_plain))
+    _require(keyed_same, "per-element-key threefry2x32 kernel != prng's plain version")
+    tf_bound = _bound(TF_KEYS * 6 * 8, 0.0, peaks, TF_KEYS * THREEFRY_OPS)
     print(f"phase 2: threefry2x32 device function equals the plain version bit for bit "
-          f"on {c0.numel()} counters: {same}; the MCLMC kernel's counter normals on "
+          f"on {c0.numel()} counters: {same}; with a key per element on {TF_KEYS} keys "
+          f"(prng's draws): bit for bit {keyed_same}, kernel {tf_ms:.4f} ms, plain (int64 torch "
+          f"ops on the card) {tf_plain_ms:.4f} ms, bound {tf_bound[0]:.4f} ms by {tf_bound[1]}; "
+          f"the MCLMC kernel's counter normals on "
           f"{mz.numel()} elements: threefry words bit for bit {words_same}, normals max |diff| "
-          f"{z_err:.3g} (tolerance 1e-6), {z_same:.4f} of them identical")
+          f"{z_err:.3g} (tolerance 1e-6), {z_same:.4f} of them identical ({smi})")
 
     # ---- phase 3: kernel against its plain version on the card ----
     marks.append((3, time.perf_counter()))
@@ -485,10 +594,12 @@ def main() -> int:
     run_kw = dict(target=target, num_steps=S, max_num_doublings=MAX_DOUBLINGS, seed=SEED,
                   num_track=NUM_TRACK, budget=2**MAX_DOUBLINGS * S)
     (fx, hist, grads, steps), ms4 = _timed(
-        torch, lambda: blackjax_tpu_torch.fused_nuts_run_dc(positions, imm4, step4, **run_kw))
+        torch, lambda: dc.fused_nuts_run_dc(positions, imm4, step4, **run_kw))
     ess = blackjax_tpu_torch.ess(hist)  # (chains, samples, tracked)
     min_ess = float(ess.min())
     launches = dict(dc.LAUNCHES)
+    fx4, grads4 = fx, float(grads)
+    warm4_ms_per_leaf = warm4_s / warm_leaves * 1e3
 
     _require(launches["fused_nuts_dc"] > 0, "the NUTS path launched no kernel")
     _require(bool((steps == S).all()), f"chains short of {S} transitions: {int(steps.min())}")
@@ -502,7 +613,9 @@ def main() -> int:
              f"log_tau moments {mean_lt}, {var_lt} far off its N(0, 1) marginal")
     secs = ms4 / 1e3
     print(f"phase 4: window_adaptation(nuts) single chain, {WARMUP_STEPS} steps, "
-          f"{warm_leaves} leaves in {warm4_s:.2f} s: step size {step4:.5f}, mean imm "
+          f"{warm_leaves} leaves in {warm4_s:.2f} s ({warm4_ms_per_leaf:.2f} ms a leaf with the "
+          f"keyed draws; {UNKEYED_WARMUP_MS_PER_LEAF:.2f} ms before them, 48.44 s / 9,151 leaves): "
+          f"step size {step4:.5f}, mean imm "
           f"{float(imm4.mean()):.5f}, imm[log_tau] {float(imm4[0]):.5f}; nuts 5 transitions x "
           f"{C} chains in {nuts_s:.2f} s; fused_nuts_run_dc d={D} C={C} S={S}: all {C} "
           f"chains completed {S} transitions, kernel {ms4:.2f} ms, {float(grads):.0f} grads "
@@ -686,7 +799,7 @@ def main() -> int:
     state, _ = run_inference_algorithm(generator, algo, 5, initial_position=init)
     torch.cuda.synchronize()
     mclmc_s = time.perf_counter() - t0
-    (x8, m8, ld8, hist8), ms8 = _timed(torch, lambda: blackjax_tpu_torch.ops.fused_mclmc(
+    (x8, m8, ld8, hist8), ms8 = _timed(torch, lambda: fm.fused_mclmc(
         state.position, state.momentum, imm8, step8, L8,
         target=lf.make_hierarchical_gaussian_target(D), num_steps=MCLMC_STEPS, seed=SEED,
         track_dims=range(NUM_TRACK)))
@@ -733,29 +846,23 @@ def main() -> int:
                   seed=SEED, num_track=target.dim, budget=2**max_doublings * num_steps)
         dc.fused_nuts_run_dc(x[:8], imm, step, **dict(kw, num_steps=1))  # first launch
         dc.LAUNCHES["fused_nuts_dc"] = 0
-        kern, ms = _timed(torch, lambda: dc.fused_nuts_run_dc(x, imm, step, **kw))
+        kern, ms = _per_chain(torch, dc, True, x, imm, step, kw)
         launches = dc.LAUNCHES["fused_nuts_dc"]
-        plain, plain_ms = _timed(torch, lambda: dc.fused_nuts_run_dc_plain(x, imm, step, **kw))
-        _require(torch.equal(kern[3], plain[3]) and bool((kern[3] == num_steps).all()),
-                 f"{name}: steps differ or fall short")
-        _require(float(kern[2]) == float(plain[2]), f"{name}: gradient totals differ")
-        _require(bool(torch.isfinite(kern[0]).all() and torch.isfinite(kern[1]).all()),
-                 f"{name}: non-finite output")
-        share, err = _agreement(torch, kern[:2], plain[:2], MATRIX_TOL)
-        share5, _ = _agreement(torch, kern[:2], plain[:2])
-        _require(share >= AGREE_FLOOR, f"{name}: only {share} of chains agree to {MATRIX_TOL}")
+        plain, plain_ms = _per_chain(torch, dc, False, x, imm, step, kw)
+        share, share5, err, grads, plain_grads, other = _matrix_pair(
+            torch, name, kern, plain, num_steps)
         dev_ms = _device_ms(torch, lambda: dc.fused_nuts_run_dc(x, imm, step, **kw),
                             "nuts_dc_kernel", repeats=3)
         chains, d = x.shape
-        grads = float(kern[2])
         data_bytes = 0 if target.matrix.X is None else target.matrix.X.nbytes
         nbytes = 2 * chains * d * 4 + chains * num_steps * d * 4 + 3 * chains * 4 + data_bytes
         ops = grads * (DC_LEAF_OPS * d + _grad_ops(kind, d, n, m))
         bound = _bound(nbytes, ops, peaks, (grads + chains * num_steps * d) * THREEFRY_OPS)
         device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         print(f"phase 9: fused_nuts_run_dc {name} d={d} C={chains} S={num_steps} "
-              f"max_doublings={max_doublings}: steps and gradient totals identical ({grads:.0f} "
-              f"grads), {share:.4f} of chains agree to {MATRIX_TOL} (floor {AGREE_FLOOR}; "
+              f"max_doublings={max_doublings}: steps identical, grads kernel {grads:.0f} plain "
+              f"{plain_grads:.0f} ({other} chains with other counts, all among those that part), "
+              f"{share:.4f} of chains agree to {MATRIX_TOL} (floor {AGREE_FLOOR}; "
               f"{share5:.4f} to {AGREE_TOL}), max |diff| {err:.3g}; kernel {ms:.3f} ms (device "
               f"{device_time}), plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
               f"({smi})")
@@ -848,7 +955,7 @@ def main() -> int:
                  seed=SEED, num_track=hs_d, pack=HS_PACK, restart_every=HS_RESTART_EVERY,
                  chunk=HS_CHUNK, budget=HS_BUDGET)
     (fx10, hist10, grads10, steps10), ms10 = _timed(
-        torch, lambda: blackjax_tpu_torch.fused_nuts_run_dc(hs_init, imm10_dc, step10, **hs_kw))
+        torch, lambda: dc.fused_nuts_run_dc(hs_init, imm10_dc, step10, **hs_kw))
     hs_launches = dc.LAUNCHES["fused_nuts_dc"]
     ess10 = blackjax_tpu_torch.ess(hist10)
     min_ess10 = float(ess10.min())
@@ -957,7 +1064,7 @@ def main() -> int:
         run_kw = dict(target=lr_dc, num_steps=MET_TRANSITIONS, max_num_doublings=MET_DOUBLINGS,
                       seed=SEED, num_track=LR_D, budget=2**MET_DOUBLINGS * MET_TRANSITIONS)
         (fx11, hist11, grads11, steps11), ms11 = _timed(
-            torch, lambda: blackjax_tpu_torch.fused_nuts_run_dc(start, imm11, step11, **run_kw))
+            torch, lambda: dc.fused_nuts_run_dc(start, imm11, step11, **run_kw))
         launches11 = dc.LAUNCHES["fused_nuts_dc"]
         second = hist11[:, MET_TRANSITIONS // 2:]
         ess11 = blackjax_tpu_torch.ess(second)
@@ -998,23 +1105,19 @@ def main() -> int:
         cmp_x = fx11[:MET_CMP_CHAINS].contiguous()
         cmp_kw = dict(target=lr_dc, num_steps=MET_CMP_TRANSITIONS, max_num_doublings=MET_DOUBLINGS,
                       seed=SEED, num_track=LR_D, budget=2**MET_DOUBLINGS * MET_CMP_TRANSITIONS)
-        kern, kms = _timed(torch, lambda: dc.fused_nuts_run_dc(cmp_x, imm11, step11, **cmp_kw))
-        plain, pms = _timed(torch, lambda: dc.fused_nuts_run_dc_plain(cmp_x, imm11, step11, **cmp_kw))
-        _require(torch.equal(kern[3], plain[3]) and bool((kern[3] == MET_CMP_TRANSITIONS).all()),
-                 f"{metric_kind} logistic regression: steps differ or fall short")
-        _require(float(kern[2]) == float(plain[2]),
-                 f"{metric_kind} logistic regression: gradient totals differ")
-        share, err = _agreement(torch, kern[:2], plain[:2], MATRIX_TOL)
-        share5, _ = _agreement(torch, kern[:2], plain[:2])
-        _require(share >= AGREE_FLOOR, f"{metric_kind}: only {share} of chains agree to {MATRIX_TOL}")
+        kern, kms = _per_chain(torch, dc, True, cmp_x, imm11, step11, cmp_kw)
+        plain, pms = _per_chain(torch, dc, False, cmp_x, imm11, step11, cmp_kw)
+        share, share5, err, cmp_grads, plain_grads, other = _matrix_pair(
+            torch, f"{metric_kind} logistic regression", kern, plain, MET_CMP_TRANSITIONS)
         dev_ms = _device_ms(torch, lambda: dc.fused_nuts_run_dc(cmp_x, imm11, step11, **cmp_kw),
                             "nuts_dc_kernel", repeats=3)
         device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        cmp_bound = metric_bound(imm11, MET_CMP_CHAINS, LR_D, MET_CMP_TRANSITIONS,
-                                 float(kern[2]), n_lr)
+        cmp_bound = metric_bound(imm11, MET_CMP_CHAINS, LR_D, MET_CMP_TRANSITIONS, cmp_grads,
+                                 n_lr)
         print(f"phase 11 ({metric_kind}) comparison: logistic regression {MET_CMP_CHAINS} chains x "
-              f"{MET_CMP_TRANSITIONS} transitions: steps and gradient totals identical "
-              f"({float(kern[2]):.0f} grads), {share:.4f} of chains agree to {MATRIX_TOL} (floor "
+              f"{MET_CMP_TRANSITIONS} transitions: steps identical, grads kernel {cmp_grads:.0f} "
+              f"plain {plain_grads:.0f} ({other} chains with other counts, all among those that "
+              f"part), {share:.4f} of chains agree to {MATRIX_TOL} (floor "
               f"{AGREE_FLOOR}; {share5:.4f} to {AGREE_TOL}), max |diff| {err:.3g}; kernel "
               f"{kms:.3f} ms (device {device_time}), plain {pms:.1f} ms, bound "
               f"{cmp_bound[0]:.4f} ms by {cmp_bound[1]} ({smi})")
@@ -1073,6 +1176,203 @@ def main() -> int:
     print(f"phase 11: consistency pins on the card, each against the diagonal kernel "
           f"(rtol 2e-5, atol 1e-5, steps identical): {'; '.join(pins)}")
 
+    # ---- phase 12: the continuous-runner path ----
+    marks.append((12, time.perf_counter()))
+    runner_leaves = [0]
+
+    def counted_verlet(logdensity_fn, kinetic_energy):
+        """Velocity Verlet counting its calls: one per leaf of the runner's
+        loop (a restart integrates nothing)."""
+        step = integrators.velocity_verlet(logdensity_fn, kinetic_energy)
+
+        def counted(state, step_size):
+            runner_leaves[0] += 1
+            return step(state, step_size)
+
+        return counted
+
+    def runner(num_steps, **kw):
+        return nuts.build_fused_many_steps(
+            flagship.logdensity_fn, step4, imm4, num_steps=num_steps,
+            max_num_doublings=MAX_DOUBLINGS, integrator=counted_verlet,
+            track_fn=lambda state: state.position[:, :NUM_TRACK], **kw)
+
+    def timed_run(run, keys, states):
+        runner_leaves[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(keys, states)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, runner_leaves[0]
+
+    # the runner starts where phase 4's dc run ended, at stationarity: from
+    # phase 4's initial positions 64 transitions leave log_tau's second half
+    # far from its marginal (see PERF.md). The dc machine from the same
+    # positions gives the leaves-per-transition yardstick.
+    start12 = fx4
+    states12 = nuts.init(start12, flagship.logdensity_fn)
+    dc_kw = dict(target=dc.make_hierarchical_target_dc(D), num_steps=RUNNER_TRANSITIONS,
+                 max_num_doublings=MAX_DOUBLINGS, seed=SEED, num_track=NUM_TRACK,
+                 budget=2**MAX_DOUBLINGS * RUNNER_TRANSITIONS)
+    dc_leaves12 = float(dc.fused_nuts_run_dc(start12, imm4, step4, **dc_kw)[2]) / (
+        C * RUNNER_TRANSITIONS)
+    # the keys of bench.py:230-232: per step, per chain
+    keys12 = prng.split(prng.split(prng.key(SEED, dev), RUNNER_TRANSITIONS), C)
+    for name in dc.LAUNCHES:
+        dc.LAUNCHES[name] = 0
+    (final12, hist12, grads12), run12_s, iters12 = timed_run(
+        runner(RUNNER_TRANSITIONS, unroll=RUNNER_UNROLL, restart_every=1), keys12, states12)
+    launches12 = dict(dc.LAUNCHES)
+    ess12 = blackjax_tpu_torch.ess(hist12)
+    min_ess12 = float(ess12.min())
+    grads12 = int(grads12)
+    leaves12 = grads12 / (C * RUNNER_TRANSITIONS)
+
+    _require(launches12["threefry2x32"] > 0, "the runner path launched no threefry kernel")
+    _require(hist12.shape == (C, RUNNER_TRANSITIONS, NUM_TRACK), "phase 12 history shape")
+    _require(bool((hist12 != 0).any(-1).all()), "a chain of the runner left a transition open")
+    for name, t in [("positions", final12.position), ("history", hist12), ("ess", ess12)]:
+        _require(bool(torch.isfinite(t).all()), f"non-finite runner {name}")
+    mean_lt12, var_lt12 = _log_tau_moments(hist12)
+    _require(abs(mean_lt12) < 0.3 and abs(var_lt12 - 1.0) < 0.3,
+             f"runner log_tau moments {mean_lt12}, {var_lt12} far off its N(0, 1) marginal")
+    _require(abs(leaves12 / dc_leaves12 - 1.0) <= LEAVES_REL,
+             f"runner {leaves12:.3f} leaves a transition against the dc machine's "
+             f"{dc_leaves12:.3f}")
+    # ms per loop iteration without the block unrolling, 8 transitions
+    (_, _, grads_u1), u1_s, iters_u1 = timed_run(
+        runner(RUNNER_CMP_TRANSITIONS, unroll=1), keys12[:RUNNER_CMP_TRANSITIONS], states12)
+    print(f"phase 12: build_fused_many_steps d={D} C={C} S={RUNNER_TRANSITIONS} max_doublings="
+          f"{MAX_DOUBLINGS} unroll={RUNNER_UNROLL} restart_every=1 oversubscription=1 from phase "
+          f"4's final positions: {run12_s:.2f} s, {iters12} loop iterations "
+          f"({run12_s / iters12 * 1e3:.3f} ms each; unroll=1 over {RUNNER_CMP_TRANSITIONS} "
+          f"transitions: {iters_u1} iterations in {u1_s:.2f} s, {u1_s / iters_u1 * 1e3:.3f} ms "
+          f"each), {grads12} grads ({grads12 / run12_s:.4g} grads/s, {leaves12:.3f} leaves per "
+          f"transition; the dc machine from the same positions {dc_leaves12:.3f}), min-ESS over "
+          f"{NUM_TRACK} tracked dims {min_ess12:.1f} ({min_ess12 / run12_s:.4g} ESS/s), log_tau "
+          f"over the second half: mean {mean_lt12:.4f} var {var_lt12:.4f}; launches "
+          f"{launches12} ({smi})")
+
+    # bit identity: runner (m=1, unroll=1) == runner (m=4, unroll=4,
+    # restart_every=2) == a loop over the kernel, with the same keys
+    head12 = type(states12)(*(a[:RUNNER_CMP_CHAINS] for a in states12))
+    keys_cmp = keys12[:RUNNER_CMP_TRANSITIONS, :RUNNER_CMP_CHAINS].contiguous()
+    kernel12, state, scan_hist, scan_grads = nuts.build_kernel(), head12, [], 0
+    for t in range(RUNNER_CMP_TRANSITIONS):
+        state, info = kernel12(keys_cmp[t], state, flagship.logdensity_fn, step4, imm4,
+                               MAX_DOUBLINGS)
+        scan_hist.append(state.position[:, :NUM_TRACK])
+        scan_grads += int(info.num_integration_steps.sum())
+    scan_hist = torch.stack(scan_hist, 1)
+    identity = []
+    for label, kw in [("m=1 unroll=1", dict()),
+                      ("m=4 unroll=4 restart_every=2",
+                       dict(oversubscription=4, unroll=4, restart_every=2))]:
+        (final, h, g), _, _ = timed_run(runner(RUNNER_CMP_TRANSITIONS, **kw), keys_cmp, head12)
+        _require(int(g) == scan_grads, f"runner {label}: {int(g)} grads, the kernel's loop "
+                 f"{scan_grads}")
+        _require(torch.allclose(h, scan_hist, rtol=RUNNER_TOL, atol=RUNNER_TOL)
+                 and torch.allclose(final.position, state.position, rtol=RUNNER_TOL,
+                                    atol=RUNNER_TOL), f"runner {label} != the kernel's loop")
+        identity.append(
+            f"{label}: grads identical, history bit for bit {torch.equal(h, scan_hist)} (max "
+            f"|diff| {float((h - scan_hist).abs().max()):.3g}), finals bit for bit "
+            f"{torch.equal(final.position, state.position)}")
+    print(f"phase 12 bit identity on {RUNNER_CMP_CHAINS} chains x {RUNNER_CMP_TRANSITIONS} "
+          f"transitions against a loop over nuts.build_kernel with the same keys ({scan_grads} "
+          f"grads; tolerance {RUNNER_TOL} where not bitwise): {'; '.join(identity)}")
+
+    # ---- phase 13: the older NUTS machine's path ----
+    marks.append((13, time.perf_counter()))
+    fn_kw = dict(target=fn.make_mxu_safe_hierarchical_target(D), num_steps=LEGACY_TRANSITIONS,
+                 max_num_doublings=MAX_DOUBLINGS, seed=SEED, num_track=NUM_TRACK,
+                 budget=LEGACY_BUDGET, chunk=LEGACY_CHUNK)
+    fn.fused_nuts_run(positions[:8], imm4, step4, **dict(fn_kw, num_steps=1))  # first launch
+    fn.LAUNCHES["fused_nuts"] = 0
+    (fx13, hist13, grads13, steps13), ms13 = _timed(
+        torch, lambda: fn.fused_nuts_run(positions, imm4, step4, **fn_kw))
+    launches13 = fn.LAUNCHES["fused_nuts"]
+    ess13 = blackjax_tpu_torch.ess(hist13)
+    min_ess13 = float(ess13.min())
+    leaves13, leaves4 = float(grads13) / (C * LEGACY_TRANSITIONS), grads4 / (C * S)
+
+    _require(launches13 == 1, f"fused_nuts_run launched {launches13} times, not once")
+    _require(bool((steps13 == LEGACY_TRANSITIONS).all()),
+             f"chains short of {LEGACY_TRANSITIONS} transitions: {int(steps13.min())}")
+    for name, t in [("positions", fx13), ("history", hist13), ("ess", ess13)]:
+        _require(bool(torch.isfinite(t).all()), f"non-finite phase 13 {name}")
+    mean_lt13, var_lt13 = _log_tau_moments(hist13)
+    _require(abs(mean_lt13) < 0.3 and abs(var_lt13 - 1.0) < 0.3,
+             f"phase 13 log_tau moments {mean_lt13}, {var_lt13} far off its N(0, 1) marginal")
+    _require(abs(leaves13 / leaves4 - 1.0) <= LEAVES_REL,
+             f"fused_nuts_run {leaves13:.3f} leaves a transition, phase 4's dc run {leaves4:.3f}")
+    secs13 = ms13 / 1e3
+    print(f"phase 13: fused_nuts_run (the older machine, csrc/fused_nuts.cu) d={D} C={C} "
+          f"S={LEGACY_TRANSITIONS} max_doublings={MAX_DOUBLINGS} budget={LEGACY_BUDGET} from phase "
+          f"4's positions on its step size and metric: all chains completed, one launch, kernel "
+          f"{ms13:.2f} ms, {float(grads13):.0f} grads ({float(grads13) / secs13:.4g} grads/s, "
+          f"{leaves13:.3f} leaves per transition; phase 4's dc run {leaves4:.3f}), min-ESS over "
+          f"{NUM_TRACK} tracked dims {min_ess13:.1f} ({min_ess13 / secs13:.4g} ESS/s), log_tau "
+          f"over the second half: mean {mean_lt13:.4f} var {var_lt13:.4f}; ptxas "
+          f"{'; '.join(_ptxas_summary(fn_log))} ({smi})")
+
+    # the kernel against its plain version: the flagship, the trace, logistic regression
+    cmp13 = dict(fn_kw, num_steps=LEGACY_CMP_TRANSITIONS,
+                 budget=2**MAX_DOUBLINGS * LEGACY_CMP_TRANSITIONS, chunk=2**MAX_DOUBLINGS)
+    head13 = positions[:LEGACY_CMP_CHAINS].contiguous()
+
+    def legacy_call():
+        return fn.fused_nuts_run(head13, imm4, step4, **cmp13)
+
+    kern, _ = _timed(torch, legacy_call)
+    plain, fn_plain_ms = _timed(
+        torch, lambda: fn.fused_nuts_run_plain(head13, imm4, step4, **cmp13))
+    _require(torch.equal(kern[3], plain[3]) and float(kern[2]) == float(plain[2]),
+             "phase 13: steps or gradient totals differ from the plain version")
+    share13, err13 = _agreement(torch, kern[:2], plain[:2])
+    _require(share13 >= AGREE_FLOOR, f"phase 13: only {share13} of chains agree")
+    fn_ms = _timed_mean(torch, legacy_call, 5)
+    fn_dev_ms = _device_ms(torch, legacy_call, "nuts_kernel", repeats=5)
+    cmp_grads = float(kern[2])
+    fn_bound = _bound(2 * LEGACY_CMP_CHAINS * D * 4
+                      + LEGACY_CMP_CHAINS * LEGACY_CMP_TRANSITIONS * NUM_TRACK * 4
+                      + 2 * LEGACY_CMP_CHAINS * 4,
+                      cmp_grads * (LEGACY_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
+                      (3 * cmp_grads + LEGACY_CMP_CHAINS * LEGACY_CMP_TRANSITIONS * D)
+                      * THREEFRY_OPS)
+    device_time = "not measured" if fn_dev_ms is None else f"{fn_dev_ms:.4f} ms"
+    trace_kw = dict(fn_kw, num_steps=LEGACY_TRACE_TRANSITIONS, budget=LEGACY_TRACE,
+                    chunk=LEGACY_TRACE, trace=LEGACY_TRACE)
+    head_t = positions[:LEGACY_TRACE_CHAINS].contiguous()
+    kern_t = fn.fused_nuts_run(head_t, imm4, step4, **trace_kw)
+    plain_t = fn.fused_nuts_run_plain(head_t, imm4, step4, **trace_kw)
+    trace_share = {}
+    for col in fn.TRACE_COLS:
+        same = torch.isclose(kern_t[4][col], plain_t[4][col], rtol=AGREE_TOL, atol=AGREE_TOL,
+                             equal_nan=True).all(0)
+        trace_share[col] = float(same.float().mean())
+    _require(min(trace_share.values()) >= AGREE_FLOOR, f"phase 13 trace columns {trace_share}")
+    x13 = torch.from_numpy((0.05 * np.random.default_rng(13).standard_normal(
+        (DC_CHAINS, LR_D))).astype(np.float32)).to(dev)
+    lr_kw = dict(target=lr, num_steps=8, max_num_doublings=6, seed=SEED, num_track=NUM_TRACK,
+                 budget=2**6 * 8, chunk=2**6)
+    lr_ones = torch.ones(LR_D, device=dev)
+    kern_l, lr_ms = _per_chain(torch, fn, True, x13, lr_ones, 0.01, lr_kw)
+    plain_l, _ = _per_chain(torch, fn, False, x13, lr_ones, 0.01, lr_kw)
+    share_l, _, err_l, lr_grads, lr_plain_grads, lr_other = _matrix_pair(
+        torch, "phase 13 logistic regression", kern_l, plain_l, 8)
+    print(f"phase 13 comparisons: flagship {LEGACY_CMP_CHAINS} x {LEGACY_CMP_TRANSITIONS}: steps "
+          f"and gradient totals identical ({cmp_grads:.0f} grads), {share13:.4f} of chains agree "
+          f"to {AGREE_TOL} (floor {AGREE_FLOOR}), max |diff| {err13:.3g}, kernel {fn_ms:.3f} ms "
+          f"(device {device_time}), plain {fn_plain_ms:.1f} ms, bound {fn_bound[0]:.4f} ms by "
+          f"{fn_bound[1]}; trace={LEGACY_TRACE} on {LEGACY_TRACE_CHAINS} x "
+          f"{LEGACY_TRACE_TRANSITIONS}: smallest share of chains with a column identical to "
+          f"{AGREE_TOL}: {min(trace_share.values()):.4f}; logistic regression {LR_N} x {LR_D}, "
+          f"{DC_CHAINS} x 8: steps identical, grads kernel {lr_grads:.0f} plain "
+          f"{lr_plain_grads:.0f} ({lr_other} chains with other counts, all among those that "
+          f"part), {share_l:.4f} of chains agree to {MATRIX_TOL}, max |diff| {err_l:.3g}, kernel "
+          f"{lr_ms:.3f} ms ({smi})")
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
@@ -1114,6 +1414,11 @@ def main() -> int:
         kernels.append(_entry(f"fused_nuts_dc/{metric_kind}", f"fused_nuts_dc_{metric_kind}.cu",
                               f"blackjax_tpu/ops/fused_nuts_dc.py:{line}", f["launches"],
                               f["err"], f["ms"], f["plain_ms"], f["bound"]))
+    kernels.append(_entry("fused_nuts", "fused_nuts.cu", "blackjax_tpu/ops/fused_nuts.py:711",
+                          launches13, err13, fn_ms, fn_plain_ms, fn_bound))
+    kernels.append(_entry("threefry2x32 (a key per element)", "fused_nuts_dc.cu",
+                          "blackjax_tpu/mcmc/trajectory.py:764", launches12["threefry2x32"], tf_err,
+                          tf_ms, tf_plain_ms, tf_bound))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -420,3 +420,101 @@ def test_mclmc_wide_targets_are_refused(cuda):
             torch.ones(d, device=cuda), 0.1, 1.0,
             target=fl.make_hierarchical_gaussian_target(d), num_steps=2,
         )
+
+
+# ---- the per-element-key threefry, the older NUTS machine, the runner ----
+
+
+def test_threefry_per_element_keys_bit_for_bit(cuda):
+    from blackjax_tpu_torch import prng
+
+    rng = np.random.default_rng(1)
+    words = torch.from_numpy(rng.integers(0, 2**32, (4, 100_000), dtype=np.uint64)
+                             .astype(np.int64))
+    before = dc.LAUNCHES["threefry2x32"]
+    on_card = prng.threefry2x32(*(w.to(cuda) for w in words))
+    assert dc.LAUNCHES["threefry2x32"] == before + 1
+    plain = counter_rng.threefry2x32(*words)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(on_card, plain))
+    keys = words[:2].T.contiguous()
+    for dtype in (torch.float32, torch.float64):
+        assert torch.equal(prng.uniform(keys.to(cuda), (3,), dtype).cpu(),
+                           prng.uniform(keys, (3,), dtype))
+    z_card, z_cpu = prng.normal(keys.to(cuda), (3,), torch.float64).cpu(), prng.normal(
+        keys, (3,), torch.float64)
+    assert torch.allclose(z_card, z_cpu, rtol=1e-12, atol=1e-12)
+
+
+def _fused_nuts_case(case, device):
+    fn = importlib.import_module("blackjax_tpu_torch.ops.fused_nuts")
+    rng = np.random.default_rng(7)
+    if case == "logreg":
+        X, y = _logreg_data(300, 54)
+        target, C, d, step, doublings = fl.make_logistic_regression_target(X, y), 64, 54, 0.02, 6
+    elif case == "gaussian":
+        target, C, d, step, doublings = fl.make_gaussian_target(4, [1.0, 4.0, 0.25, 2.0]), 64, 4, \
+            0.4, 6
+    else:
+        d = 100 if case in ("hierarchical", "trace") else 8
+        target, C, step, doublings = fn.make_mxu_safe_hierarchical_target(d), 256, 0.2, 8
+    x = torch.from_numpy((0.5 * rng.standard_normal((C, d))).astype(np.float32)).to(device)
+    kw = dict(target=target, num_steps=8, max_num_doublings=doublings, seed=7,
+              num_track=min(d, 8), budget=2**doublings * 8, chunk=2**doublings)
+    if case == "trace":
+        x = x[:64]
+        kw.update(num_steps=4, budget=64, chunk=64, trace=64)
+    if case == "budget":
+        kw.update(budget=32, chunk=8)
+    return fn, x, torch.ones(d, device=device), step, kw
+
+
+@pytest.mark.parametrize("case", ["hierarchical", "hierarchical8", "gaussian", "logreg", "trace",
+                                  "budget"])
+def test_fused_nuts_kernel_matches_plain_version(cuda, case):
+    fn, x, imm, step, kw = _fused_nuts_case(case, cuda)
+    before = fn.LAUNCHES["fused_nuts"]
+    kern = fn.fused_nuts_run(x, imm, step, **kw)
+    torch.cuda.synchronize()
+    assert fn.LAUNCHES["fused_nuts"] == before + 1
+    plain = fn.fused_nuts_run_plain(x, imm, step, **kw)
+    assert torch.equal(kern[3], plain[3]) and float(kern[2]) == float(plain[2])
+    tol = 1e-3 if case == "logreg" else TOL
+    close = torch.isclose(kern[0], plain[0], rtol=tol, atol=tol).all(1)
+    close &= torch.isclose(kern[1], plain[1], rtol=tol, atol=tol).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
+    if case == "budget":
+        assert int(kern[3].min()) < kw["num_steps"]
+    if case == "trace":
+        for name in fn.TRACE_COLS:
+            same = torch.isclose(kern[4][name], plain[4][name], rtol=TOL, atol=TOL,
+                                 equal_nan=True).all(0)
+            assert float(same.float().mean()) >= AGREE_FLOOR, name
+
+
+def test_runner_bit_identity_across_oversubscription_and_unroll(cuda):
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.mcmc import nuts
+    from blackjax_tpu_torch.models import hierarchical_gaussian
+
+    d, C, S = 8, 64, 6
+    target = hierarchical_gaussian(d)
+    x = torch.from_numpy((0.5 * np.random.default_rng(8).standard_normal((C, d)))
+                         .astype(np.float32)).to(cuda)
+    states = nuts.init(x, target.logdensity_fn)
+    imm = torch.ones(d, device=cuda)
+    keys = prng.split(prng.split(prng.key(9, cuda), S), C)
+    kernel, state, hist, grads = nuts.build_kernel(), states, [], 0
+    for t in range(S):
+        state, info = kernel(keys[t], state, target.logdensity_fn, 0.2, imm, 6)
+        hist.append(state.position)
+        grads += int(info.num_integration_steps.sum())
+    hist = torch.stack(hist, 1)
+    for kw in (dict(), dict(oversubscription=4, unroll=4, restart_every=2)):
+        run = nuts.build_fused_many_steps(target.logdensity_fn, 0.2, imm, num_steps=S,
+                                          max_num_doublings=6, **kw)
+        final, h, g = run(keys, states)
+        assert int(g) == grads, kw
+        # the reference's f32 tolerance (tests/mcmc/test_nuts.py:327)
+        assert torch.allclose(h, hist, rtol=1e-4, atol=1e-4), kw
+        assert torch.allclose(final.position, state.position, rtol=1e-4, atol=1e-4), kw
+

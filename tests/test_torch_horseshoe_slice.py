@@ -25,6 +25,7 @@ import blackjax_tpu_torch  # noqa: E402
 from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn  # noqa: E402
 from blackjax_tpu_torch.mcmc import nuts  # noqa: E402
 from blackjax_tpu_torch.models import finnish_horseshoe  # noqa: E402
+from blackjax_tpu_torch.ops.fused_nuts_dc import fused_nuts_run_dc  # noqa: E402
 from blackjax_tpu_torch.ops.targets_dc import (  # noqa: E402
     horseshoe_dc_perm,
     make_finnish_horseshoe_target_dc,
@@ -49,7 +50,7 @@ def slice_run():
     imm_dc = imm[torch.from_numpy(to_dc)]
     x0_model = 0.05 * np.random.default_rng(1).standard_normal((C, d))
     x0 = torch.from_numpy(x0_model[:, to_dc]).float()
-    fx, hist, grads, steps = blackjax_tpu_torch.fused_nuts_run_dc(
+    fx, hist, grads, steps = fused_nuts_run_dc(
         x0, imm_dc, step, target=make_finnish_horseshoe_target_dc(N, M), num_steps=S,
         max_num_doublings=MAX_DOUBLINGS, seed=3, num_track=d, budget=S * 40, chunk=16,
     )

@@ -30,6 +30,7 @@ from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn  # noqa:
 from blackjax_tpu_torch.mcmc import nuts  # noqa: E402
 from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix  # noqa: E402
 from blackjax_tpu_torch.ops import targets_dc as port_dc  # noqa: E402
+from blackjax_tpu_torch.ops.fused_nuts_dc import fused_nuts_run_dc  # noqa: E402
 
 
 def logreg_data(n, d, seed):
@@ -77,7 +78,7 @@ def slice_run(request):
     imm = params["inverse_mass_matrix"]
     start = state.position.reshape(-1, DIM).float()
     jitter = 0.01 * np.random.default_rng(1).standard_normal((C, DIM)).astype(np.float32)
-    fx, hist, grads, steps = blackjax_tpu_torch.fused_nuts_run_dc(
+    fx, hist, grads, steps = fused_nuts_run_dc(
         start + torch.from_numpy(jitter), imm, params["step_size"], target=target, num_steps=S,
         max_num_doublings=6, seed=3, num_track=DIM, budget=S * 64, chunk=16)
     return dict(kind=request.param, imm=imm, step=params["step_size"], fx=fx, hist=hist,

@@ -109,16 +109,23 @@ def test_info_fields_are_per_chain():
         inverse_mass_matrix=torch.ones(DIM, dtype=torch.float64),
         max_num_doublings=3,
     )
-    state = algo.init(torch.from_numpy(_x0()))
-    state, info = algo.step(torch.Generator().manual_seed(1), state)
+    initial = algo.init(torch.from_numpy(_x0()))
+    state, info = algo.step(torch.Generator().manual_seed(1), initial)
     assert state.position.shape == (C, DIM)
     assert info.num_integration_steps.shape == (C,)
     assert int(info.num_integration_steps.max()) <= 2**3 - 1
     assert ((info.acceptance_rate >= 0) & (info.acceptance_rate <= 1)).all()
-    with pytest.raises(NotImplementedError, match="nested"):
-        blackjax_tpu_torch.nuts(
-            lambda x: -0.5 * (x**2).sum(-1), 0.1, torch.ones(DIM), engine="nested"
-        ).step(torch.Generator(), state)
+    # the nested engine takes the same transition from the same generator
+    nested = blackjax_tpu_torch.nuts(
+        lambda x: -0.5 * (x**2 / var).sum(-1),
+        step_size=STEP_SIZE,
+        inverse_mass_matrix=torch.ones(DIM, dtype=torch.float64),
+        max_num_doublings=3,
+        engine="nested",
+    )
+    nested_state, nested_info = nested.step(torch.Generator().manual_seed(1), initial)
+    assert torch.equal(nested_state.position, state.position)
+    assert torch.equal(nested_info.num_integration_steps, info.num_integration_steps)
 
 
 def test_interop_carries_the_reference_info(reference_run):

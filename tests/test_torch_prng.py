@@ -1,0 +1,113 @@
+"""The port's ``jax.random`` (``blackjax_tpu_torch.prng``) against
+``jax.random`` itself, on 1,000 random keys and data words.
+
+``key``, ``fold_in``, ``split``, ``bits`` (32 and 64), ``uniform`` (f32 and
+f64) and ``bernoulli`` agree bit for bit; ``normal`` to 1e-12 relative in
+f64, where ``torch.special.erfinv`` and XLA's differ in the last bits. The
+constructions hold under ``jax_threefry_partitionable``, JAX's default,
+which the test asserts.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from blackjax_tpu_torch import interop, prng  # noqa: E402
+from blackjax_tpu_torch.ops import counter_rng  # noqa: E402
+
+N = 1000
+DTYPES = {"f32": (jnp.float32, torch.float32), "f64": (jnp.float64, torch.float64)}
+
+
+@pytest.fixture(scope="module")
+def keys():
+    assert jax.config.jax_threefry_partitionable
+    words = np.random.default_rng(0).integers(0, 2**32, (N, 2), dtype=np.uint64)
+    words = words.astype(np.uint32)
+    return jax.random.wrap_key_data(jnp.asarray(words)), interop.prng_key(words)
+
+
+def test_key_words_of_a_seed():
+    for seed in [0, 1, 42, 2**31 - 1, 2**32 + 5, 123456789012]:
+        expected = np.asarray(jax.random.key_data(jax.random.key(seed)))
+        np.testing.assert_array_equal(prng.key(seed).numpy(), expected)
+
+
+def test_fold_in_bit_for_bit(keys):
+    jk, tk = keys
+    data = np.random.default_rng(1).integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
+    expected = jax.random.key_data(jax.vmap(jax.random.fold_in)(jk, jnp.asarray(data)))
+    got = prng.fold_in(tk, torch.from_numpy(data.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(expected))
+
+
+@pytest.mark.parametrize("num", [2, 3, 5])
+def test_split_bit_for_bit(keys, num):
+    jk, tk = keys
+    expected = jax.random.key_data(jax.vmap(lambda k: jax.random.split(k, num))(jk))
+    np.testing.assert_array_equal(prng.split(tk, num).numpy(), np.asarray(expected))
+
+
+@pytest.mark.parametrize("width, shape", [(32, ()), (32, (7,)), (64, ()), (64, (3, 2))])
+def test_bits_bit_for_bit(keys, width, shape):
+    jk, tk = keys
+    dtype = jnp.uint32 if width == 32 else jnp.uint64
+    expected = np.asarray(jax.vmap(lambda k: jax.random.bits(k, shape, dtype))(jk))
+    got = prng.bits(tk, shape, width).numpy()
+    if width == 64:
+        got = got.view(np.uint64)
+    np.testing.assert_array_equal(got, expected)
+
+
+@pytest.mark.parametrize("shape", [(), (9,)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_uniform_bit_for_bit(keys, dtype, shape):
+    jk, tk = keys
+    jdt, tdt = DTYPES[dtype]
+    expected = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, shape, jdt))(jk))
+    got = prng.uniform(tk, shape, tdt)
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.numpy(), expected)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_bernoulli_bit_for_bit(keys, dtype):
+    jk, tk = keys
+    jdt, tdt = DTYPES[dtype]
+    p = np.random.default_rng(2).random(N).astype(np.dtype(jdt))
+    expected = np.asarray(jax.vmap(jax.random.bernoulli)(jk, jnp.asarray(p)))
+    np.testing.assert_array_equal(prng.bernoulli(tk, torch.from_numpy(p)).numpy(), expected)
+    # a Python float in the default float dtype (f64 under the tests' x64)
+    expected_half = np.asarray(jax.vmap(jax.random.bernoulli)(jk))
+    np.testing.assert_array_equal(prng.bernoulli(tk, dtype=torch.float64).numpy(), expected_half)
+
+
+def test_normal_f64_to_1e12(keys):
+    jk, tk = keys
+    expected = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (5,), jnp.float64))(jk))
+    got = prng.normal(tk, (5,), torch.float64).numpy()
+    np.testing.assert_allclose(got, expected, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("size", [1, counter_rng.PYTHON_INT_MAX, counter_rng.PYTHON_INT_MAX + 1])
+def test_threefry_cpu_paths_agree(size):
+    """The Python-int and numpy threefry give the same words on either side
+    of the size switch, inputs reduced modulo 2**32 (negative or wide)."""
+    words = np.random.default_rng(size).integers(-2**40, 2**40, (4, size))
+    py = counter_rng._threefry_words(*(w.tolist() for w in words))
+    npy = counter_rng._threefry_numpy(*words)
+    np.testing.assert_array_equal(np.asarray(py), np.stack(npy))
+    got = counter_rng.threefry2x32(*(torch.from_numpy(w) for w in words))
+    np.testing.assert_array_equal(np.stack([g.numpy() for g in got]), np.stack(npy))
+
+
+def test_draws_from_a_generator_are_key_words():
+    words = prng.from_generator(torch.Generator().manual_seed(0), (4, 3))
+    assert words.shape == (4, 3, 2) and words.dtype == torch.int64
+    assert bool(((words >= 0) & (words < 2**32)).all())
+    with pytest.raises(ValueError, match="uint32 key words"):
+        interop.prng_key(np.zeros((3,), np.int32))

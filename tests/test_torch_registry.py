@@ -1,0 +1,74 @@
+"""The port's public names against the reference's, and its packaging.
+
+- The top-level ``__all__`` and ``ops.__all__`` are subsets of the
+  reference's (``blackjax_tpu/__init__.py``, ``blackjax_tpu/ops/__init__.py``);
+  the kernels' other entry points stay in their modules, where the reference
+  keeps them.
+- ``nuts.build_kernel`` reaches both engines, and ``build_fused_many_steps``
+  is in ``mcmc.nuts``.
+- ``pyproject.toml``'s package data names every CUDA source under ``csrc/``,
+  so that an installed copy can build its kernels.
+"""
+import fnmatch
+import importlib
+import tomllib
+import types
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import blackjax_tpu  # noqa: E402
+import blackjax_tpu.ops  # noqa: E402
+import blackjax_tpu_torch  # noqa: E402
+import blackjax_tpu_torch.ops  # noqa: E402
+from blackjax_tpu_torch.mcmc import nuts  # noqa: E402
+
+ROOT = Path(blackjax_tpu_torch.__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("name", ["top level", "ops"])
+def test_public_names_are_the_reference_s(name):
+    port, ref = {
+        "top level": (blackjax_tpu_torch, blackjax_tpu),
+        "ops": (blackjax_tpu_torch.ops, blackjax_tpu.ops),
+    }[name]
+    extra = set(port.__all__) - set(ref.__all__)
+    assert not extra, f"names the reference does not export: {sorted(extra)}"
+    for public in port.__all__:
+        assert hasattr(port, public), public
+
+
+@pytest.mark.parametrize("module, function", [
+    ("fused_mclmc", "fused_mclmc"),
+    ("fused_nuts", "fused_nuts_run"),
+    ("fused_nuts_dc", "fused_nuts_run_dc"),
+])
+def test_kernel_modules_are_reachable(module, function):
+    mod = importlib.import_module(f"blackjax_tpu_torch.ops.{module}")
+    assert isinstance(mod, types.ModuleType) and callable(getattr(mod, function))
+    # the package attribute is the module, as in the reference
+    assert getattr(blackjax_tpu_torch.ops, module) is mod
+
+
+@pytest.mark.parametrize("engine", ["flattened", "nested"])
+def test_nuts_registry_reaches_both_engines(engine):
+    kernel = blackjax_tpu_torch.nuts.build_kernel(engine=engine)
+    state = blackjax_tpu_torch.nuts.init(torch.zeros(3, 2, dtype=torch.float64),
+                                         lambda x: -0.5 * (x**2).sum(-1))
+    new, info = kernel(torch.Generator().manual_seed(0), state,
+                       lambda x: -0.5 * (x**2).sum(-1), 0.5, torch.ones(2, dtype=torch.float64), 4)
+    assert new.position.shape == (3, 2) and info.num_integration_steps.shape == (3,)
+    assert callable(nuts.build_fused_many_steps)
+    assert "build_fused_many_steps" in nuts.__all__
+
+
+def test_package_data_names_every_cuda_source():
+    config = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    patterns = config["tool"]["setuptools"]["package-data"]["blackjax_tpu_torch"]
+    sources = sorted((ROOT / "blackjax_tpu_torch" / "csrc").iterdir())
+    assert sources
+    for path in sources:
+        rel = path.relative_to(ROOT / "blackjax_tpu_torch").as_posix()
+        assert any(fnmatch.fnmatch(rel, pattern) for pattern in patterns), rel

@@ -41,7 +41,7 @@ def slice_run():
     )
     positions = state.position
     dc_target = port_dc.make_hierarchical_target_dc(D)
-    out = blackjax_tpu_torch.fused_nuts_run_dc(
+    out = port_dc.fused_nuts_run_dc(
         positions, torch.ones(D), 0.2, target=dc_target, **DC
     )
     out_ref = ref_dc.fused_nuts_run_dc(
@@ -87,8 +87,8 @@ def test_port_imports_no_jax():
     root = Path(blackjax_tpu_torch.__file__).parent
     files = sorted(root.rglob("*.py"))
     assert len(files) > 10
-    chip_smoke = root.parent / "chip_smoke.py"
-    for path in files + [chip_smoke]:
+    scripts = [root.parent / "chip_smoke.py", root.parent / "warmup_ms_per_leaf.py"]
+    for path in files + scripts:
         for name in _imported_modules(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "blackjax_tpu"), f"{path} imports {name}"
