@@ -32,11 +32,15 @@
 // d = 404; d <= 512). Per-chain scalars are replicated in all 32 lanes, so every
 // branch is warp-uniform and the machine's selects become plain branches. Dot
 // products are xor-shuffle reductions, whose butterfly leaves the same bits in
-// every lane. The 22 length-d vectors of the chain state stay in registers up
-// to N = 4 and spill to local memory beyond (255 registers a thread); the
-// 2 * max_depth checkpoint slots, which are indexed by a data-dependent slot id,
-// live in shared memory (each lane touches only its own dims, so no barrier),
-// and so does a matrix target's per-warp scratch. The kernel is a template on N,
+// every lane. The 20 length-d vectors of the chain state (22 with the dense
+// and low-rank metrics' w) stay in registers up to N = 8; from N = 13 the
+// eight that a transition touches only at its subtree boundaries (the
+// trajectory's two ends and the proposal, StateVec) live in a per-chain
+// scratch in device memory, which leaves the leaf's hot vectors and the
+// target's gradient the registers (255 a thread). The 2 * max_depth
+// checkpoint slots, which are indexed by a data-dependent slot id, live in
+// shared memory (each lane touches only its own dims, so no barrier), and so
+// does a matrix target's per-warp scratch. The kernel is a template on N,
 // on the target family and on the metric, so the analytic targets'
 // instantiations carry no code of the matrix targets, and the diagonal
 // metric's none of the others.
@@ -63,11 +67,14 @@
 // history row per closed transition and the final state: the kernel is bound by
 // FP32 ALU and SFU throughput and by the latency of its shuffle reductions, not
 // by bytes. A matrix target adds two contractions with its data per leaf (4 N M
-// FLOP for the horseshoe), read from L2 (see matrix_targets.cuh), and its
+// FLOP for the horseshoe), read from L2 or, for the horseshoe where it fits,
+// from the block's copy of X in shared memory (see matrix_targets.cuh). Its
 // checkpoint slots at N = 13 and max_depth = 10 take 33 KB of shared memory per
-// warp, so one 4-warp block fits an SM: latency, not arithmetic, still bounds
-// it. A dense metric adds 2 d^2 FMAs per leaf read from L2, a low-rank one about
-// 4 d k.
+// warp; with the horseshoe's X (81.6 KB at 100 x 200) the block takes 231,360
+// of the 232,448 bytes a block may have, so one 4-warp block runs an SM, one
+// warp a scheduler: the latency of each warp's dependent loads and
+// transcendentals, not arithmetic or bandwidth, bounds it. A dense metric adds
+// 2 d^2 FMAs per leaf read from L2, a low-rank one about 4 d k.
 //
 // Numerics. Build without --use_fast_math and with --fmad=false: expf, logf,
 // cosf, sqrtf and log1pf are the accurate library versions and no multiply-add
@@ -78,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "counter_rng.cuh"     // threefry2x32, to_unit, box_muller
 #include "matrix_targets.cuh"  // warp_sum, logaddexp, the matrix targets
@@ -108,6 +117,7 @@ struct Params {
   float* out_grads;      // (C,) gradient evaluations of completed transitions
   float* out_hist;       // (C, S, n_track), zeroed by the caller
   int* out_iters;        // (C,) iterations used up to the last closed transition
+  float* cold;           // N >= 13: (C, kColdVectors, N, 32) scratch for the cold vectors
   int C, d, S, n_track, max_depth, budget, restart_every, target, rank;
   float eps, threshold;
   uint32_t seed;
@@ -122,11 +132,37 @@ __device__ __forceinline__ float dot(const float (&a)[N], const float (&b)[N]) {
   return warp_sum(s);
 }
 
-template <int N>
-__device__ __forceinline__ void copy(float (&dst)[N], const float (&src)[N]) {
+template <int N, class A, class B>
+__device__ __forceinline__ void copy(A& dst, const B& src) {
 #pragma unroll
   for (int k = 0; k < N; ++k) dst[k] = src[k];
 }
+
+// The N >= 13 instantiations keep the ten state vectors that a transition
+// touches only at its restart and subtree boundaries (the accepted state,
+// the trajectory's two ends, the proposal) in a per-chain scratch in device
+// memory, so that the leaf's hot vectors and the target's gradient have the
+// registers; below N = 13 they are register arrays, as the others are.
+// ColdVec<N> reads and writes element k of the lane at p[k * 32]
+// (coalesced). ops/fused_nuts_dc.py:_cold_floats mirrors the scratch's size.
+template <int N>
+constexpr bool kColdState = N >= 13;
+constexpr int kColdVectors = 10;
+
+template <int N>
+struct ColdVec {
+  float* p;
+  __device__ __forceinline__ float& operator[](int k) { return p[k * 32]; }
+  __device__ __forceinline__ float operator[](int k) const { return p[k * 32]; }
+};
+
+template <int N, bool kCold>
+using StateVec = std::conditional_t<kCold, ColdVec<N>, float[N]>;
+
+template <int N>
+__device__ __forceinline__ void bind(ColdVec<N>& v, float* base) { v.p = base; }
+template <int N>
+__device__ __forceinline__ void bind(float (&)[N], float*) {}
 
 // logdensity (returned, replicated) and gradient (per lane) of the target,
 // written in the reference's operation order (make_hierarchical_target_dc,
@@ -169,15 +205,15 @@ __device__ __forceinline__ float analytic_value_and_grad(const Params& p,
   return -0.5f * warp_sum(s);
 }
 
-template <int N, int F>
+template <int N, int F, bool kSharedX>
 __device__ __forceinline__ float value_and_grad(const Params& p,
                                                 const float (&x)[N],
                                                 float (&g)[N], int lane,
-                                                float* scratch) {
+                                                float* scratch, const float* x_sh) {
   if constexpr (F == kLogRegDC) {
     return logreg_dc<N>(p.mat, x, g, lane, scratch);
   } else if constexpr (F == kHorseshoeDC) {
-    return horseshoe_dc<N>(p.mat, p.d, x, g, lane, scratch);
+    return horseshoe_dc<N, kSharedX>(p.mat, p.d, x, g, lane, scratch, x_sh);
   } else if constexpr (F == kEightSchoolsDC) {
     return eight_schools_dc(p.mat, x, g, lane);
   } else {
@@ -264,47 +300,88 @@ __device__ __forceinline__ void sample_m(const Params& p, const float (&z)[N], f
   }
 }
 
-// shared memory floats per warp: the checkpoint slots' m and msum (and w and
-// a staging vector for the dense and low-rank metrics) and, for a matrix
-// target, its scratch
-template <int N, int F, int M>
-__host__ __device__ int warp_floats(int max_depth) {
-  return (M == kDiag ? 2 * max_depth * N * 32 : (3 * max_depth + 1) * N * 32) +
-         (F != 0 ? scratch_floats<N>() : 0);
+// floats of a chain's checkpoint slots: m and msum (and w for the dense and
+// low-rank metrics) at each of max_depth levels
+template <int N, int M>
+__host__ __device__ constexpr int slot_floats(int max_depth) {
+  return (M == kDiag ? 2 : 3) * max_depth * N * 32;
 }
 
+// shared memory floats per warp besides the slots: a staging vector for the
+// dense and low-rank metrics and, for a matrix target, its scratch
 template <int N, int F, int M>
+__host__ __device__ constexpr int own_floats() {
+  return (M == kDiag ? 0 : N * 32) + (F == kHorseshoeDC ? horseshoe_scratch_floats<N>()
+                                      : F != 0          ? scratch_floats<N>()
+                                                        : 0);
+}
+
+// a block's dynamic shared memory: X's copy in the shared-memory form, then
+// each warp's slots and own floats. ops/fused_nuts_dc.py:shared_memory_plan
+// mirrors it.
+template <int N, int F, int M, bool kSharedX>
+__host__ __device__ size_t block_bytes(int max_depth, int rows, int cols) {
+  const size_t warp = slot_floats<N, M>(max_depth) + own_floats<N, F, M>();
+  return ((kSharedX ? (size_t)shared_x_floats(rows, cols) : 0) + kWarps * warp) * sizeof(float);
+}
+
+template <int N, int F, int M, bool kSharedX>
 __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int chain = blockIdx.x * kWarps + warp;
+  // the shared-memory form: the block copies X once, zero padded to the row
+  // stride, and only reads it afterwards; the barrier comes before any warp
+  // of a partial last block leaves
+  float* x_sh = smem;
+  if constexpr (kSharedX) {
+    const int rows = p.mat.rows, cols = p.mat.cols, stride = shared_x_stride(cols);
+    for (int i = threadIdx.x; i < rows * stride; i += kWarps * 32) {
+      const int r = i / stride, c = i - r * stride;
+      x_sh[i] = c < cols ? p.mat.X[(size_t)r * cols + c] : 0.f;
+    }
+    __syncthreads();
+  }
   if (chain >= p.C) return;  // the whole warp leaves together
   const int slot = N * 32;
-  float* ck_m = smem + (size_t)warp * warp_floats<N, F, M>(p.max_depth);
+  // the warp's shared memory: [slots] [staging vector] [target scratch]
+  float* ck_m = smem + (kSharedX ? shared_x_floats(p.mat.rows, p.mat.cols) : 0) +
+                (size_t)warp * (slot_floats<N, M>(p.max_depth) + own_floats<N, F, M>());
   float* ck_s = ck_m + p.max_depth * slot;
   float* ck_w = ck_s + p.max_depth * slot;   // dense and low-rank only
-  float* vbuf = ck_w + p.max_depth * slot;   // dense and low-rank only
-  float* scratch = M == kDiag ? ck_w : vbuf + slot;
+  float* vbuf = ck_m + slot_floats<N, M>(p.max_depth);  // dense and low-rank only
+  float* scratch = M == kDiag ? vbuf : vbuf + slot;
 
   // imm: the diagonal's M^{-1}, or the low-rank metric's sigma
-  float imm[N], acc_x[N], acc_g[N], cur_x[N], cur_m[N], cur_g[N];
-  float left_x[N], left_m[N], left_g[N], right_x[N], right_m[N], right_g[N];
-  float msum[N], sub_msum[N], prop_x[N], prop_g[N], sub_x[N], sub_g[N];
+  float imm[N], cur_x[N], cur_m[N], cur_g[N];
+  float msum[N], sub_msum[N], sub_x[N], sub_g[N];
   float new_x[N], new_m[N], new_g[N], w_new[N];
   float left_w[N], right_w[N];  // dense and low-rank: M^{-1} of left_m, right_m
+  constexpr bool kCold = kColdState<N>;
+  StateVec<N, kCold> acc_x, acc_g, left_x, left_m, left_g, right_x, right_m, right_g;
+  StateVec<N, kCold> prop_x, prop_g;
+  if constexpr (kCold) {
+    float* cold = p.cold + (size_t)chain * kColdVectors * slot + lane;
+    bind<N>(acc_x, cold);            bind<N>(acc_g, cold + slot);
+    bind<N>(left_x, cold + 2 * slot); bind<N>(left_m, cold + 3 * slot);
+    bind<N>(left_g, cold + 4 * slot); bind<N>(right_x, cold + 5 * slot);
+    bind<N>(right_m, cold + 6 * slot); bind<N>(right_g, cold + 7 * slot);
+    bind<N>(prop_x, cold + 8 * slot); bind<N>(prop_g, cold + 9 * slot);
+  }
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int j = k * 32 + lane;
     const bool valid = j < p.d;
-    acc_x[k] = valid ? p.x0[(size_t)chain * p.d + j] : 0.f;
+    cur_x[k] = valid ? p.x0[(size_t)chain * p.d + j] : 0.f;
     if constexpr (M == kDense) {
       imm[k] = 0.f;
     } else {
       imm[k] = valid ? p.imm[j] : 0.f;
     }
   }
-  float acc_ld = value_and_grad<N, F>(p, acc_x, acc_g, lane, scratch);
+  float acc_ld = value_and_grad<N, F, kSharedX>(p, cur_x, cur_g, lane, scratch, x_sh);
+  copy<N>(acc_x, cur_x); copy<N>(acc_g, cur_g);
 
   float prop_ld = 0.f, sub_ld = 0.f;
   float prop_w = 0.f, prop_slpa = 0.f, sub_w = 0.f, sub_slpa = 0.f, h0 = 0.f;
@@ -412,7 +489,7 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
 #pragma unroll
       for (int k = 0; k < N; ++k) new_x[k] = cur_x[k] + d_eps * w_new[k];
     }
-    const float new_ld = value_and_grad<N, F>(p, new_x, new_g, lane, scratch);
+    const float new_ld = value_and_grad<N, F, kSharedX>(p, new_x, new_g, lane, scratch, x_sh);
     if constexpr (M == kDiag) {
 #pragma unroll
       for (int k = 0; k < N; ++k) {
@@ -568,22 +645,25 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
 // A block asks for more than the 48 KB default of shared memory through the
 // attribute; past the card's 227 KB the attribute or the launch is refused,
 // and the error comes back to the wrapper, which raises.
-template <int N, int F, int M>
+template <int N, int F, int M, bool kSharedX = false>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = (size_t)kWarps * warp_floats<N, F, M>(p.max_depth) * sizeof(float);
+  const size_t smem = block_bytes<N, F, M, kSharedX>(p.max_depth, p.mat.rows, p.mat.cols);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nuts_dc_kernel<N, F, M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        nuts_dc_kernel<N, F, M, kSharedX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int blocks = (p.C + kWarps - 1) / kWarps;
-  nuts_dc_kernel<N, F, M><<<blocks, kWarps * 32, smem, stream>>>(p);
+  nuts_dc_kernel<N, F, M, kSharedX><<<blocks, kWarps * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// the family's instantiation for the target; eight schools has d = 10
+// the family's instantiation for the target (and, for the horseshoe, the
+// form the wrapper chose: X in shared memory or read from L2); eight
+// schools has d = 10
 template <int N, int M>
-cudaError_t launch_target(const Params& p, cudaStream_t stream) {
+cudaError_t launch_target(const Params& p, bool shared_x, cudaStream_t stream) {
   switch (p.target) {
     case kHierarchical:
     case kGaussian:
@@ -591,7 +671,8 @@ cudaError_t launch_target(const Params& p, cudaStream_t stream) {
     case kLogRegDC:
       return launch<N, kLogRegDC, M>(p, stream);
     case kHorseshoeDC:
-      return launch<N, kHorseshoeDC, M>(p, stream);
+      return shared_x ? launch<N, kHorseshoeDC, M, true>(p, stream)
+                      : launch<N, kHorseshoeDC, M>(p, stream);
     case kEightSchoolsDC:
       if constexpr (N == 1) {
         return launch<1, kEightSchoolsDC, M>(p, stream);
@@ -605,7 +686,7 @@ cudaError_t launch_target(const Params& p, cudaStream_t stream) {
 // checks the metric's operands and launches the instantiation for d: N = 1,
 // 2, 4, 8 for every metric, and 13, 16 for the diagonal one
 template <int M>
-cudaError_t run_machine(const Params& p, cudaStream_t s) {
+cudaError_t run_machine(const Params& p, bool shared_x, cudaStream_t s) {
   if constexpr (M == kDiag) {
     if (p.imm == nullptr || p.sigma_m == nullptr) return cudaErrorInvalidValue;
   } else if constexpr (M == kDense) {
@@ -617,15 +698,32 @@ cudaError_t run_machine(const Params& p, cudaStream_t s) {
   }
   const int n = (p.d + 31) / 32;
   if (p.C <= 0) return cudaSuccess;
-  if (n <= 1) return launch_target<1, M>(p, s);
-  if (n <= 2) return launch_target<2, M>(p, s);
-  if (n <= 4) return launch_target<4, M>(p, s);
-  if (n <= 8) return launch_target<8, M>(p, s);
+  if (n <= 1) return launch_target<1, M>(p, shared_x, s);
+  if (n <= 2) return launch_target<2, M>(p, shared_x, s);
+  if (n <= 4) return launch_target<4, M>(p, shared_x, s);
+  if (n <= 8) return launch_target<8, M>(p, shared_x, s);
   if constexpr (M == kDiag) {
-    if (n <= 13) return launch_target<13, M>(p, s);
-    if (n <= 16) return launch_target<16, M>(p, s);
+    if (p.cold == nullptr) return cudaErrorInvalidValue;  // N >= 13 from here
+    if (n <= 13) return launch_target<13, M>(p, shared_x, s);
+    if (n <= 16) return launch_target<16, M>(p, shared_x, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// block_bytes of the instantiation for d with N registers per vector
+template <int M, int N>
+size_t block_bytes_for(int target, bool shared_x, int max_depth, int rows, int cols) {
+  switch (target) {
+    case kLogRegDC:
+      return block_bytes<N, kLogRegDC, M, false>(max_depth, rows, cols);
+    case kHorseshoeDC:
+      return shared_x ? block_bytes<N, kHorseshoeDC, M, true>(max_depth, rows, cols)
+                      : block_bytes<N, kHorseshoeDC, M, false>(max_depth, rows, cols);
+    case kEightSchoolsDC:
+      return block_bytes<N, kEightSchoolsDC, M, false>(max_depth, rows, cols);
+    default:
+      return block_bytes<N, 0, M, false>(max_depth, rows, cols);
+  }
 }
 
 }  // namespace
@@ -637,33 +735,55 @@ extern "C" {
 // U, lam_m1, isl_m1 and rank are the metric's operands (Params; null and 0
 // where unused); X, Xt, u, s, rows, cols and the host array k[8] are a matrix
 // target's data (matrix_targets.cuh), null and 0 for the analytic targets.
+// shared_x (the horseshoe only) launches the form that copies X into shared
+// memory; Xt may then be null. cold is the (C, kColdVectors, N, 32) scratch of
+// the N >= 13 instantiations, null below.
 int bjt_fused_nuts_dc(const float* x0, const float* imm, const float* sigma_m,
                       const float* imm_t, const float* chol_t, const float* U,
                       const float* lam_m1, const float* isl_m1,
                       const float* inv_var, const int* track_rows,
                       const int* budgets, float* out_x, int* out_steps,
-                      float* out_grads, float* out_hist, int* out_iters,
+                      float* out_grads, float* out_hist, int* out_iters, float* cold,
                       const float* X, const float* Xt, const float* u,
                       const float* s_vec, int C, int d, int S, int n_track,
                       int max_depth, int budget, int restart_every, int target,
-                      int rows, int cols, int rank, float eps, float threshold,
-                      int seed, const float* k, void* stream) {
+                      int rows, int cols, int shared_x, int rank, float eps,
+                      float threshold, int seed, const float* k, void* stream) {
   MatrixData mat{X, Xt, u, s_vec, rows, cols, {}};
   for (int i = 0; i < 8; ++i) mat.k[i] = k[i];
   Params p{x0, imm, sigma_m, imm_t, chol_t, U, lam_m1, isl_m1, inv_var, track_rows,
-           budgets, out_x, out_steps, out_grads, out_hist, out_iters, C, d, S, n_track,
+           budgets, out_x, out_steps, out_grads, out_hist, out_iters, cold, C, d, S, n_track,
            max_depth, budget, restart_every, target, rank, eps, threshold,
            (uint32_t)seed, mat};
   if (restart_every < 1) return cudaErrorInvalidValue;
   if (target == kGaussian && inv_var == nullptr) return cudaErrorInvalidValue;
   if (target == kLogRegDC && (X == nullptr || Xt == nullptr || u == nullptr || cols != d))
     return cudaErrorInvalidValue;
-  if (target == kHorseshoeDC &&
-      (X == nullptr || Xt == nullptr || u == nullptr || s_vec == nullptr || d != 2 * cols + 4))
+  if (target == kHorseshoeDC && (X == nullptr || (Xt == nullptr && !shared_x) || u == nullptr ||
+                                 s_vec == nullptr || d != 2 * cols + 4))
     return cudaErrorInvalidValue;
+  if (shared_x && target != kHorseshoeDC) return cudaErrorInvalidValue;
   if (target == kEightSchoolsDC && (u == nullptr || s_vec == nullptr || d != 10))
     return cudaErrorInvalidValue;
-  return run_machine<BJT_DC_METRIC>(p, static_cast<cudaStream_t>(stream));
+  return run_machine<BJT_DC_METRIC>(p, shared_x != 0, static_cast<cudaStream_t>(stream));
+}
+
+// the dynamic shared memory a launch of bjt_fused_nuts_dc with these
+// arguments asks for (block_bytes), or -1 where no instantiation takes d
+long long bjt_dc_block_bytes(int d, int target, int shared_x, int max_depth, int rows,
+                             int cols) {
+  const int n = (d + 31) / 32;
+  const bool sx = shared_x != 0;
+  constexpr int M = BJT_DC_METRIC;
+  if (n <= 1) return (long long)block_bytes_for<M, 1>(target, sx, max_depth, rows, cols);
+  if (n <= 2) return (long long)block_bytes_for<M, 2>(target, sx, max_depth, rows, cols);
+  if (n <= 4) return (long long)block_bytes_for<M, 4>(target, sx, max_depth, rows, cols);
+  if (n <= 8) return (long long)block_bytes_for<M, 8>(target, sx, max_depth, rows, cols);
+  if (M == kDiag && n <= 13)
+    return (long long)block_bytes_for<M, 13>(target, sx, max_depth, rows, cols);
+  if (M == kDiag && n <= 16)
+    return (long long)block_bytes_for<M, 16>(target, sx, max_depth, rows, cols);
+  return -1;
 }
 
 const char* bjt_error_string(int code) {

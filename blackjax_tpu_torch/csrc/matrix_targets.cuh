@@ -20,24 +20,42 @@
 // X (rows x cols, row-major; X^T beside it): q = X v and X^T t(q), with t a
 // function of each row's q. The warp stages v (the weights, or the
 // horseshoe's beta) in a per-warp shared-memory scratch; each lane takes
-// data rows n = lane, lane + 32, ... and reads X^T[:, n], coalesced across
-// lanes, against the broadcast v; then the warp stages the 32 rows' t in
-// shared memory and each lane accumulates the columns it owns from X's rows,
-// again coalesced. __syncwarp() separates each write of the scratch from
-// the reads of other lanes. The horseshoe's log_lam[m] (row m) and
-// beta_t[m] (row M + m) sit in different lanes, so it reads x from the
-// scratch too, and its four tail scalars (rows 2M..2M+3) are read by every
-// lane.
+// data rows n = lane, lane + 32, ... and forms q_n against the broadcast v;
+// then the warp stages the 32 rows' t in shared memory and each lane
+// accumulates the columns it owns from X's rows, coalesced. __syncwarp()
+// separates each write of the scratch from the reads of other lanes. The
+// horseshoe's log_lam[m] (row m) and beta_t[m] (row M + m) sit in different
+// lanes, so it reads x from the scratch too, and its four tail scalars (rows
+// 2M..2M+3) are read by every lane.
+//
+// Where X is read from: in the L2 form (row_pass) from device memory, X^T[:,
+// n] and X's rows, coalesced across lanes; it stays in L2. In the
+// shared-memory form (row_pass_shared, the horseshoe only) the dc machine's
+// block has copied X once, at the top of the kernel, into shared memory,
+// zero padded to a row stride of 4 mod 8 floats (204 for 200 columns), and
+// only reads it afterwards, as float4: lane n reads its row n in the forward
+// pass, and consecutive column groups of each row in the backward pass,
+// neither with bank conflicts. The backward pass leaves X^T t in the
+// scratch rather than in registers. The wrapper picks the form before the
+// launch from the block's bytes (shared_memory_plan in ops/fused_nuts_dc.py):
+// shared memory where X and the block's four warps fit in 227 KB, L2 where
+// they do not.
 //
 // Bound. Per gradient and chain the kernel reads X twice (2 rows x cols
-// floats) and does 4 rows x cols FP32 operations. X stays in L2 (80 KB for the
-// horseshoe at 100 x 200, 864 KB for logistic regression at 4,096 x 54), so
-// the contractions are bound by L2, 8 bytes a multiply-add, not by device
-// memory or FP32 throughput: by its latency where few warps share an SM (the
-// dc machine runs one 4-warp block an SM), by its bandwidth where many do (the
-// fused kernels at 4,096 chains). The design keeps both reads coalesced and X
-// out of registers; sharing X's tiles between the chains of a block (or tensor
-// cores, TF32 excluded) is for later work.
+// floats) and does 4 rows x cols FP32 operations. In the L2 form X (80 KB
+// for the horseshoe at 100 x 200, 864 KB for logistic regression at 4,096 x
+// 54) is read from L2, 8 bytes a multiply-add: by its latency where few warps
+// share an SM (the dc machine runs one 4-warp block an SM), by its bandwidth
+// where many do (the fused kernels at 4,096 chains). In the shared-memory
+// form the two reads of X are 2 x 80 KB of shared-memory traffic per
+// gradient at 100 x 200, against 128 bytes a clock per SM; with one warp
+// per scheduler, what bounds it in practice is the latency of the loads that
+// the few registers left by the N = 13 machine keep in flight. Tensor cores
+// do not apply: each warp's product is a matrix times one vector, the warps
+// of a block sit at different leaves of different trees, and TF32 would lose
+// the agreement with the plain version. Logistic regression's X does not fit
+// a block; sharing its tiles needs the chains of a block in lockstep, which
+// is later work.
 //
 // Numerics. Every expression keeps the reference's operation order (the
 // tiles' _core, _value and _grad, with JAX's NaN rule for logaddexp and its
@@ -80,6 +98,20 @@ struct MatrixData {
 template <int N>
 __host__ __device__ constexpr int scratch_floats() { return 3 * N * 32 + 32; }
 
+// the horseshoe's: x, the gradient and beta (M <= 16 N - 2 floats, 16-byte
+// aligned for the float4 reads); the chunk of rows aliases the gradient,
+// which is written only after both contractions
+template <int N>
+__host__ __device__ constexpr int horseshoe_scratch_floats() { return 2 * N * 32 + 16 * N; }
+
+// X's row stride in shared memory: cols rounded up to a multiple of 4 that is
+// 4 mod 8 (204 floats for 200 columns), for float4 reads without bank
+// conflicts by row and by column; and its floats
+__host__ __device__ constexpr int shared_x_stride(int cols) { return ((cols + 3) & ~3) | 4; }
+__host__ __device__ constexpr int shared_x_floats(int rows, int cols) {
+  return rows * shared_x_stride(cols);
+}
+
 // JAX's logaddexp: a NaN difference means equal infinities (or a NaN input),
 // and a + b then gives -inf for (-inf, -inf) where max + log1p(exp(-|a-b|))
 // would give NaN.
@@ -101,10 +133,10 @@ __device__ __forceinline__ void stage(float* dst, const float (&v)[N], int lane)
 }
 
 // q_n = sum_j X[n, j] v[j] for every data row n, t_n = row(n, q_n), and (if
-// kBack) acc[k] += sum_n X[n, j] t_n for the columns j = k * 32 + lane.
-template <int N, bool kBack, class Row>
+// kBack) acc[k] += sum_n X[n, j] t_n for the columns j = k * 32 + lane, k < K.
+template <bool kBack, int K, class Row>
 __device__ __forceinline__ void row_pass(const MatrixData& m, const float* v, float* chunk,
-                                         int lane, float (&acc)[N], Row row) {
+                                         int lane, float (&acc)[K], Row row) {
   const int rows = m.rows, cols = m.cols;
   for (int n0 = 0; n0 < rows; n0 += 32) {
     const int n = n0 + lane;
@@ -122,7 +154,7 @@ __device__ __forceinline__ void row_pass(const MatrixData& m, const float* v, fl
         const float tr = chunk[r];
         const float* xrow = m.X + (size_t)(n0 + r) * cols;
 #pragma unroll
-        for (int k = 0; k < N; ++k) {
+        for (int k = 0; k < K; ++k) {
           const int j = k * 32 + lane;
           if (j < cols) acc[k] += xrow[j] * tr;
         }
@@ -130,6 +162,86 @@ __device__ __forceinline__ void row_pass(const MatrixData& m, const float* v, fl
       __syncwarp();
     }
   }
+}
+
+// row_pass on X in shared memory (xs, rows x shared_x_stride(cols), zero
+// padded), always with the backward pass, which it writes to shared memory:
+// xt[j] = sum_n X[n, j] t_n for j < cols (xt may alias chunk: it is written
+// after the chunk's last read; chunk holds 32 R floats). Both passes read X
+// as float4, so that each load brings four columns. Forward: lane l sums
+// the R rows l, l + 32, ..., l + 32 (R - 1) of a group of 32 R rows at once,
+// each in four partial sums (columns j mod 4), against v read as float4
+// broadcasts (v 16-byte aligned); the row stride is 4 mod 8 floats, so a
+// quarter-warp's eight rows fall in eight different 16-byte bank groups.
+// Backward: lane l accumulates the column groups 4 (l + 32 h), h < H, of
+// each row of the group in order, read consecutively; lanes past the last
+// group read it again (a broadcast), and their sums are never written.
+// H * 128 >= cols.
+template <int H, int R, class Row>
+__device__ __forceinline__ void row_pass_shared(const float* xs, int rows, int cols,
+                                                const float* v, float* chunk, float* xt,
+                                                int lane, Row row) {
+  const int stride = shared_x_stride(cols);
+  const int groups = stride / 4;
+  const int cols4 = cols & ~3;
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  float4 acc[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) acc[h] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int n0 = 0; n0 < rows; n0 += 32 * R) {
+    // rows past the last read it again, and are dropped
+    const float4* x4[R];
+    float4 q[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      x4[i] = reinterpret_cast<const float4*>(xs + min(n0 + 32 * i + lane, rows - 1) * stride);
+      q[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll 2
+    for (int j4 = 0; j4 < cols4 / 4; ++j4) {
+      const float4 b = v4[j4];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float4 x = x4[i][j4];
+        q[i].x += x.x * b.x;
+        q[i].y += x.y * b.y;
+        q[i].z += x.z * b.z;
+        q[i].w += x.w * b.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float* xrow = reinterpret_cast<const float*>(x4[i]);
+      for (int j = cols4; j < cols; ++j) q[i].x += xrow[j] * v[j];
+      const int n = n0 + 32 * i + lane;
+      chunk[32 * i + lane] = n < rows ? row(n, (q[i].x + q[i].y) + (q[i].z + q[i].w)) : 0.f;
+    }
+    __syncwarp();
+    const int r_end = min(32 * R, rows - n0);
+    const float4* xr = reinterpret_cast<const float4*>(xs + n0 * stride);
+#pragma unroll 4
+    for (int r = 0; r < r_end; ++r, xr += groups) {
+      const float tr = chunk[r];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const float4 x = xr[min(lane + 32 * h, groups - 1)];
+        acc[h].x += x.x * tr;
+        acc[h].y += x.y * tr;
+        acc[h].z += x.z * tr;
+        acc[h].w += x.w * tr;
+      }
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int c = 4 * (lane + 32 * h);
+    const float a[4] = {acc[h].x, acc[h].y, acc[h].z, acc[h].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c + i < cols) xt[c + i] = a[i];
+  }
+  __syncwarp();
 }
 
 // ---- the dc machine's targets: logdensity (returned, replicated) and
@@ -143,7 +255,7 @@ __device__ float logreg_dc(const MatrixData& m, const float (&w)[N], float (&g)[
   stage<N>(scratch, w, lane);
   float xts[N] = {};
   float sp = 0.f;
-  row_pass<N, true>(m, scratch, scratch + 3 * N * 32, lane, xts, [&](int, float q) {
+  row_pass<true>(m, scratch, scratch + 3 * N * 32, lane, xts, [&](int, float q) {
     sp += logaddexp(0.f, q);
     return sigmoid(q);
   });
@@ -167,14 +279,21 @@ __device__ float logreg_dc(const MatrixData& m, const float (&w)[N], float (&g)[
 }
 
 // targets_dc.py:204-298, the layout [log_lam(M), beta_t(M), alpha,
-// log_sigma, log_tau, log_c2]; d = 2 M + 4
-template <int N>
+// log_sigma, log_tau, log_c2]; d = 2 M + 4. kSharedX: X is read from the
+// block's copy in shared memory (x_sh), else from device memory (L2).
+template <int N, bool kSharedX>
 __device__ float horseshoe_dc(const MatrixData& m, int d, const float (&x)[N], float (&g)[N],
-                              int lane, float* scratch) {
+                              int lane, float* scratch, const float* x_sh) {
   float* xs = scratch;
   float* gs = scratch + N * 32;
-  float* bs = scratch + 2 * N * 32;
+  float* bs = scratch + 2 * N * 32;  // horseshoe_scratch_floats<N>()
   const int M = m.cols;
+  // M <= 16 N - 2 (d = 2 M + 4 <= 32 N): the predictors sit in k < KH, and
+  // in H column groups of 128 in the shared-memory form, whose forward pass
+  // takes R rows a lane (its chunk of 32 R floats fits the gradient's N x 32)
+  constexpr int KH = (N + 1) / 2;
+  constexpr int H = (16 * N + 125) / 128;
+  constexpr int R = N < 4 ? N : 4;
   stage<N>(xs, x, lane);
   const float alpha = xs[2 * M], log_sigma = xs[2 * M + 1];
   const float log_tau = xs[2 * M + 2], log_c2 = xs[2 * M + 3];
@@ -187,14 +306,15 @@ __device__ float horseshoe_dc(const MatrixData& m, int d, const float (&x)[N], f
   const float tau = tau0 * sigma * expf(log_tau);
   const float c2 = slab2 * expf(log_c2);
   float ub = 0.f, sb = 0.f, lam_terms = 0.f, bt2 = 0.f;
+  float lam2_k[KH], denom_k[KH], lam_reg_k[KH];  // kept for _grad
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
+  for (int k = 0; k < KH; ++k) {
     const int mi = k * 32 + lane;
     if (mi < M) {
       const float log_lam = xs[mi], beta_t = xs[M + mi];
-      const float lam2 = expf(2.f * log_lam);
-      const float denom = c2 + tau * tau * lam2;
-      const float lam_reg = sqrtf(c2 * lam2 / denom);
+      const float lam2 = lam2_k[k] = expf(2.f * log_lam);
+      const float denom = denom_k[k] = c2 + tau * tau * lam2;
+      const float lam_reg = lam_reg_k[k] = sqrtf(c2 * lam2 / denom);
       const float beta = tau * lam_reg * beta_t;
       bs[mi] = beta;
       ub += m.u[mi] * beta;
@@ -204,13 +324,18 @@ __device__ float horseshoe_dc(const MatrixData& m, int d, const float (&x)[N], f
     }
   }
   __syncwarp();
-  float xtq[N] = {};
+  float xtq[KH] = {};
   float sq = 0.f, sq2 = 0.f;
-  row_pass<N, true>(m, bs, scratch + 3 * N * 32, lane, xtq, [&](int, float q) {
+  const auto row = [&](int, float q) {
     sq += q;
     sq2 += q * q;
     return q;
-  });
+  };
+  if constexpr (kSharedX) {
+    row_pass_shared<H, R>(x_sh, m.rows, m.cols, bs, gs, gs, lane, row);  // X^T q in gs
+  } else {
+    row_pass<true>(m, bs, gs, lane, xtq, row);
+  }
   const float sum_q = warp_sum(sq), sum_q2 = warp_sum(sq2);
   const float u_beta = warp_sum(ub), s_beta = warp_sum(sb);
   const float ssr = yy - 2.f * (u_beta + alpha * sy) + sum_q2 + 2.f * alpha * (s_beta + half_n * alpha);
@@ -228,15 +353,14 @@ __device__ float horseshoe_dc(const MatrixData& m, int d, const float (&x)[N], f
   // _grad: g_beta = (u - X^T q - alpha s) / sigma^2 through beta's chain rule
   float tl = 0.f, tc = 0.f;
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
+  for (int k = 0; k < KH; ++k) {
     const int mi = k * 32 + lane;
     if (mi < M) {
-      const float log_lam = xs[mi], beta_t = xs[M + mi];
-      const float lam2 = expf(2.f * log_lam);
-      const float denom = c2 + tau * tau * lam2;
-      const float lam_reg = sqrtf(c2 * lam2 / denom);
+      const float beta_t = xs[M + mi];
+      const float lam2 = lam2_k[k], denom = denom_k[k], lam_reg = lam_reg_k[k];
       const float beta = bs[mi];
-      const float g_beta = (m.u[mi] - xtq[k] - alpha * m.s[mi]) * inv_s2;
+      const float xt_q = kSharedX ? gs[mi] : xtq[k];  // read before gs[mi] is written
+      const float g_beta = (m.u[mi] - xt_q - alpha * m.s[mi]) * inv_s2;
       const float frac = c2 / denom;
       const float gbf = g_beta * beta * frac;
       gs[M + mi] = g_beta * tau * lam_reg - beta_t;
@@ -290,7 +414,7 @@ __device__ void logreg_grad(const MatrixData& m, const float (&w)[N], float (&g)
                             float* scratch) {
   stage<N>(scratch, w, lane);
   float gl[N] = {};
-  row_pass<N, true>(m, scratch, scratch + 3 * N * 32, lane, gl,
+  row_pass<true>(m, scratch, scratch + 3 * N * 32, lane, gl,
                     [&](int n, float q) { return m.u[n] - sigmoid(q); });
 #pragma unroll
   for (int k = 0; k < N; ++k) {
@@ -306,7 +430,7 @@ __device__ float logreg_logdensity(const MatrixData& m, const float (&w)[N], int
   stage<N>(scratch, w, lane);
   float unused[N] = {};
   float ll = 0.f;
-  row_pass<N, false>(m, scratch, nullptr, lane, unused, [&](int n, float q) {
+  row_pass<false>(m, scratch, nullptr, lane, unused, [&](int n, float q) {
     ll += m.u[n] * q - logaddexp(0.f, q);
     return 0.f;
   });

@@ -2,12 +2,15 @@
 a shared library with a plain C interface, loads it with ``ctypes``, and
 holds what every kernel wrapper checks around a launch.
 
-The build happens at first use, into ``blackjax_tpu_torch/_build/`` (listed
-in ``.gitignore``), under a name keyed on a hash of the source, the shared
-headers and the flags, so an edited source or header is rebuilt and an
-unchanged one is loaded as it is. The
-compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
-beside the library and returned by :func:`build_log`.
+The build happens at first use, into the directory that the environment
+variable ``BLACKJAX_TPU_TORCH_BUILD_DIR`` names, or by default into
+``blackjax_tpu_torch/_build/`` (listed in ``.gitignore``); an installed
+copy of the package whose directory is read-only sets the variable. Each
+library's name is keyed on a hash of the source, the shared headers and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. The compiler's ``-Xptxas -v`` report (registers, shared
+memory, spills) is kept beside the library and returned by
+:func:`build_log`.
 """
 import ctypes
 import functools
@@ -19,11 +22,14 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "load", "build_log", "check_launch", "require_cuda_f32", "stream_handle"]
+__all__ = [
+    "BUILD_DIR_ENV", "NVCC_FLAGS", "build_dir", "load", "build_log", "check_launch",
+    "require_cuda_f32", "stream_handle",
+]
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PACKAGE / "csrc"
-_BUILD_DIR = _PACKAGE / "_build"
+BUILD_DIR_ENV = "BLACKJAX_TPU_TORCH_BUILD_DIR"
 
 # sm_90a: Hopper with its architecture-specific instructions. No fast math
 # and no fused multiply-add contraction: the kernels round like their plain
@@ -51,6 +57,12 @@ def _nvcc() -> str:
     return found
 
 
+def build_dir() -> Path:
+    """Where the libraries are built: ``$BLACKJAX_TPU_TORCH_BUILD_DIR``, or
+    ``blackjax_tpu_torch/_build/`` where the variable is unset or empty."""
+    return Path(os.environ.get(BUILD_DIR_ENV) or _PACKAGE / "_build")
+
+
 def _paths(name: str):
     """The source, library and log paths of ``csrc/<name>.cu``. The
     library's name is keyed on the source, every ``csrc/*.cuh`` header (a
@@ -62,7 +74,8 @@ def _paths(name: str):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = f"{name}-{digest.hexdigest()[:16]}"
-    return src, _BUILD_DIR / f"{stem}.so", _BUILD_DIR / f"{stem}.log"
+    out = build_dir()
+    return src, out / f"{stem}.so", out / f"{stem}.log"
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,7 +83,7 @@ def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
     src, lib, log = _paths(name)
     if not lib.exists():
-        _BUILD_DIR.mkdir(exist_ok=True)
+        lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],

@@ -41,6 +41,11 @@ leaves. The port reproduces that accounting exactly (see
 clock on which restarts are gated, so ``steps[c] < num_steps`` flags the
 chains the reference flags. ``tile_chains`` enters only that accounting.
 
+On the card the Finnish horseshoe's data matrix is copied into shared
+memory once per block where it fits beside the block's four chains, and read
+from L2 where it does not: :func:`shared_memory_plan` counts the bytes and
+picks the form before the launch, and :data:`LAUNCHES` counts each form.
+
 The same source exports the kernel's threefry2x32 with a key per element
 (:func:`threefry2x32_device`, through which :mod:`blackjax_tpu_torch.prng`
 draws on the card), beside its plain version.
@@ -69,17 +74,22 @@ __all__ = [
     "DCMetric",
     "LAUNCHES",
     "MatrixTargetData",
+    "SharedMemoryPlan",
     "build",
     "fused_nuts_run_dc",
     "fused_nuts_run_dc_plain",
     "make_gaussian_target_dc",
     "make_hierarchical_target_dc",
+    "shared_memory_plan",
     "threefry2x32_device",
 ]
 
 # kernel launches made by the wrappers below, by kernel name; a run that
-# should go through a kernel resets the count and reads it afterwards
-LAUNCHES = {"fused_nuts_dc": 0, "threefry2x32": 0}
+# should go through a kernel resets the count and reads it afterwards. A
+# launch of the dc machine on a target with a data matrix X also counts under
+# the form it took: X copied into shared memory, or read from L2.
+LAUNCHES = {"fused_nuts_dc": 0, "fused_nuts_dc:x_shared": 0, "fused_nuts_dc:x_l2": 0,
+            "threefry2x32": 0}
 
 # the target ids of csrc/fused_nuts_dc.cu and csrc/matrix_targets.cuh
 _CUDA_HIERARCHICAL = 0
@@ -90,6 +100,9 @@ _CUDA_EIGHT_SCHOOLS = 4
 _MAX_CUDA_DIM = 512  # sixteen registers per lane and vector
 _MAX_CUDA_DIM_METRIC = 256  # dense and low-rank: eight (ROADMAP queue 2, item 2f)
 _MAX_SCALARS = 8
+_REGISTER_WIDTHS = (1, 2, 4, 8, 13, 16)  # the instantiations' N
+_WARPS = 4  # chains per block (kWarps)
+SHARED_MEMORY_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 # the library of each metric's instantiations of csrc/fused_nuts_dc.cuh
 _LIBRARIES = {"diag": "fused_nuts_dc", "dense": "fused_nuts_dc_dense",
               "low_rank": "fused_nuts_dc_low_rank"}
@@ -563,9 +576,11 @@ def _library(kind: str = "diag"):
     side."""
     lib = _nvcc.load(_LIBRARIES[kind])
     lib.bjt_fused_nuts_dc.argtypes = (
-        [_VP] * 20 + [_INT] * 11 + [_FLOAT, _FLOAT, _INT, ctypes.POINTER(_FLOAT), _VP]
+        [_VP] * 21 + [_INT] * 12 + [_FLOAT, _FLOAT, _INT, ctypes.POINTER(_FLOAT), _VP]
     )
     lib.bjt_fused_nuts_dc.restype = _INT
+    lib.bjt_dc_block_bytes.argtypes = [_INT] * 6
+    lib.bjt_dc_block_bytes.restype = ctypes.c_longlong
     lib.bjt_error_string.argtypes = [_INT]
     lib.bjt_error_string.restype = ctypes.c_char_p
     if kind == "diag":
@@ -625,6 +640,59 @@ def _metric_operands(metric: DCMetric, d: int, dev):
     return (sigma, inv_sigma, None, None, U, lam_m1, isl_m1), U.shape[1]
 
 
+class SharedMemoryPlan(NamedTuple):
+    """A launch's shared-memory layout: where the kernel reads the data
+    matrix X from (``"shared"``, ``"l2"``, or None for a target without one)
+    and the block's bytes of dynamic shared memory."""
+
+    x_form: Optional[str]
+    nbytes: int
+
+
+def _register_width(d: int) -> int:
+    """N, the registers per lane and vector of the instantiation for ``d``."""
+    n = -(-d // 32)
+    return next(w for w in _REGISTER_WIDTHS if w >= n)
+
+
+def _cold_floats(n: int) -> int:
+    """Floats of a chain's scratch in device memory for the state vectors
+    that the instantiation with ``n`` registers per vector keeps out of
+    registers (``kColdState`` in ``csrc/fused_nuts_dc.cuh``: ten from
+    ``n = 13`` up)."""
+    return 10 * n * 32 if n >= 13 else 0
+
+
+def shared_memory_plan(n: int, family: int, metric: str, max_depth: int, rows: int = 0,
+                       cols: int = 0) -> SharedMemoryPlan:
+    """The block's layout for the instantiation with ``n`` registers per
+    vector, target family ``family`` (a ``cuda_target`` id), metric kind
+    ``metric``, ``max_depth`` checkpoint slots and a ``(rows, cols)`` data
+    matrix; it mirrors ``block_bytes`` in ``csrc/fused_nuts_dc.cuh``.
+
+    Each of the four warps holds its checkpoint slots (m and msum; w and a
+    staging vector besides for the dense and low-rank metrics) and a matrix
+    target's scratch. The horseshoe takes the form that copies X into shared
+    memory (``rows`` rows of ``cols`` rounded up to a multiple of 4 that is 4
+    mod 8 floats: 204 for 200 columns) where that and the warps fit in
+    :data:`SHARED_MEMORY_LIMIT`, and reads X from L2 where they do not; the
+    choice is made here, before the launch, and never on a failed one."""
+    vec = n * 32
+    slots = 2 * max_depth * vec if metric == "diag" else (3 * max_depth + 1) * vec
+    if family == _CUDA_HORSESHOE:
+        scratch = 2 * vec + 16 * n  # x, the gradient, beta
+    elif family in (_CUDA_HIERARCHICAL, _CUDA_GAUSSIAN):
+        scratch = 0
+    else:
+        scratch = 3 * vec + 32
+    warps = 4 * _WARPS * (slots + scratch)
+    if family == _CUDA_HORSESHOE:
+        shared = warps + 4 * rows * (_round_up(cols, 4) | 4)
+        if shared <= SHARED_MEMORY_LIMIT:
+            return SharedMemoryPlan("shared", shared)
+    return SharedMemoryPlan("l2" if family in (_CUDA_LOGREG, _CUDA_HORSESHOE) else None, warps)
+
+
 def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
                  seed, track_rows, budget, chunk, divergence_threshold,
                  restart_every=1, budgets=None):
@@ -657,12 +725,16 @@ def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
         _nvcc.require_cuda_f32("inv_var", inv_var, dev, (d,))
     if budgets is not None:
         budgets = budgets.to(device=dev, dtype=torch.int32).contiguous()
+    n = _register_width(d)
+    plan = shared_memory_plan(n, target.cuda_target, metric.kind, max_depth, rows, cols)
     lib = _library(metric.kind)
     out_x = torch.empty_like(x)
     out_steps = torch.empty(C, dtype=torch.int32, device=dev)
     out_grads = torch.empty(C, dtype=torch.float32, device=dev)
     out_iters = torch.empty(C, dtype=torch.int32, device=dev)
     hist = torch.zeros(C, num_steps, len(track_rows), dtype=torch.float32, device=dev)
+    cold_floats = _cold_floats(n)
+    cold = torch.empty(C * cold_floats, dtype=torch.float32, device=dev) if cold_floats else None
     track = torch.tensor(track_rows, dtype=torch.int32, device=dev)
     k = (_FLOAT * _MAX_SCALARS)(*scalars)
 
@@ -672,13 +744,16 @@ def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
     code = lib.bjt_fused_nuts_dc(
         x.data_ptr(), *map(ptr, metric_ptrs), ptr(inv_var),
         track.data_ptr(), ptr(budgets), out_x.data_ptr(), out_steps.data_ptr(),
-        out_grads.data_ptr(), hist.data_ptr(), out_iters.data_ptr(), *map(ptr, matrix),
+        out_grads.data_ptr(), hist.data_ptr(), out_iters.data_ptr(), ptr(cold),
+        *map(ptr, matrix),
         C, d, num_steps, len(track_rows), max_depth, budget, restart_every,
-        target.cuda_target, rows, cols, rank, float(step_size), float(divergence_threshold),
-        seed, k, _nvcc.stream_handle(dev),
+        target.cuda_target, rows, cols, int(plan.x_form == "shared"), rank, float(step_size),
+        float(divergence_threshold), seed, k, _nvcc.stream_handle(dev),
     )
     _nvcc.check_launch(lib, code, "fused_nuts_dc")
     LAUNCHES["fused_nuts_dc"] += 1
+    if plan.x_form is not None:
+        LAUNCHES[f"fused_nuts_dc:x_{plan.x_form}"] += 1
     return out_x, out_steps, out_grads, hist, out_iters
 
 

@@ -96,12 +96,17 @@ them in phases, one line each:
    ``max_num_doublings=6`` (at most 6,300 leaves; on an H100 200 steps took
    104 s, 100 steps 68 s).
    Every chain must complete its transitions, everything must be finite, the
-   dc kernel must be launched exactly once, and the second-half means of
+   dc kernel must be launched exactly once, in the form that copies X into
+   shared memory once per block, and the second-half means of
    ``alpha`` and ``log_sigma`` must lie in bands from the JAX package's own
    NUTS on the CPU (``reference_bands`` in
-   ``tests/test_torch_horseshoe_slice.py``). Then the horseshoe's phase-9
-   pair: 128 chains from the path's final positions, 4 transitions,
-   ``max_num_doublings=6``;
+   ``tests/test_torch_horseshoe_slice.py``). The line gives the block's
+   bytes of shared memory, the instantiation's registers and spills from
+   ``-Xptxas -v``, and a shared-memory bound beside the FP32 one: X read
+   twice a gradient (2 x 100 x 200 x 4 bytes) at 128 bytes a clock on each
+   SM that holds a block, at the SM clock of phase 1. Then the horseshoe's
+   phase-9 pair: 128 chains from the path's final positions, 4 transitions,
+   ``max_num_doublings=6``, with the form it launched;
 11. the dense and the low-rank path on phase 9's logistic regression, launch
    counts reset just before each: the port's single-chain
    ``window_adaptation(nuts, is_mass_matrix_diagonal=False)``, or
@@ -286,17 +291,20 @@ def _ptxas_summary(log: str) -> list:
     kernels are named by their registers per lane and vector (N), their
     target family (F: 0 analytic, 2 logistic regression, 3 horseshoe, 4
     eight schools) and, for the dc machine, their metric (M: 0 diagonal, 1
-    dense, 2 low-rank); the older NUTS machine by its trace flag."""
+    dense, 2 low-rank) and where the horseshoe reads X (shared=1: a copy in
+    shared memory); the older NUTS machine by its trace flag."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             n = re.search(r"(nuts_dc|nuts|leapfrog|mclmc)_kernelILi(\d+)ELi(\d+)E"
-                          r"(?:Li(\d+)E|Lb(\d)E)?", entry.group(1))
+                          r"(?:Li(\d+)E)?(?:Lb(\d)E)?", entry.group(1))
             export = "threefry" if "threefry" in entry.group(1) else "counter_normals"
             metric = f" M={n.group(4)}" if n and n.group(4) else ""
-            traced = f" trace={n.group(5)}" if n and n.group(5) else ""
-            name = (f"{n.group(1)} N={n.group(2)} F={n.group(3)}{metric}{traced}" if n
+            flag = ""
+            if n and n.group(5):
+                flag = f" {'shared' if n.group(1) == 'nuts_dc' else 'trace'}={n.group(5)}"
+            name = (f"{n.group(1)} N={n.group(2)} F={n.group(3)}{metric}{flag}" if n
                     else f"{export} export")
         spill = re.search(
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -306,6 +314,9 @@ def _ptxas_summary(log: str) -> list:
         regs = re.search(r"Used (\d+) registers", line)
         if regs and out:
             out[-1] += f", {regs.group(1)} registers"
+            smem = re.search(r"(\d+) bytes smem", line)
+            if smem:
+                out[-1] += f", {smem.group(1)} B static smem"
     return out
 
 
@@ -845,9 +856,11 @@ def main() -> int:
         kw = dict(target=target, num_steps=num_steps, max_num_doublings=max_doublings,
                   seed=SEED, num_track=target.dim, budget=2**max_doublings * num_steps)
         dc.fused_nuts_run_dc(x[:8], imm, step, **dict(kw, num_steps=1))  # first launch
-        dc.LAUNCHES["fused_nuts_dc"] = 0
+        for key in dc.LAUNCHES:
+            dc.LAUNCHES[key] = 0
         kern, ms = _per_chain(torch, dc, True, x, imm, step, kw)
         launches = dc.LAUNCHES["fused_nuts_dc"]
+        forms = [key.split(":x_")[1] for key, v in dc.LAUNCHES.items() if ":x_" in key and v]
         plain, plain_ms = _per_chain(torch, dc, False, x, imm, step, kw)
         share, share5, err, grads, plain_grads, other = _matrix_pair(
             torch, name, kern, plain, num_steps)
@@ -859,8 +872,13 @@ def main() -> int:
         ops = grads * (DC_LEAF_OPS * d + _grad_ops(kind, d, n, m))
         bound = _bound(nbytes, ops, peaks, (grads + chains * num_steps * d) * THREEFRY_OPS)
         device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        form = ""
+        if forms:
+            plan = dc.shared_memory_plan(dc._register_width(d), target.cuda_target, "diag",
+                                         max_doublings, *target.matrix.X.shape)
+            form = f", X read from {'/'.join(forms)} ({plan.nbytes} B of shared memory a block)"
         print(f"phase 9: fused_nuts_run_dc {name} d={d} C={chains} S={num_steps} "
-              f"max_doublings={max_doublings}: steps identical, grads kernel {grads:.0f} plain "
+              f"max_doublings={max_doublings}{form}: steps identical, grads kernel {grads:.0f} plain "
               f"{plain_grads:.0f} ({other} chains with other counts, all among those that part), "
               f"{share:.4f} of chains agree to {MATRIX_TOL} (floor {AGREE_FLOOR}; "
               f"{share5:.4f} to {AGREE_TOL}), max |diff| {err:.3g}; kernel {ms:.3f} ms (device "
@@ -957,10 +975,13 @@ def main() -> int:
     (fx10, hist10, grads10, steps10), ms10 = _timed(
         torch, lambda: dc.fused_nuts_run_dc(hs_init, imm10_dc, step10, **hs_kw))
     hs_launches = dc.LAUNCHES["fused_nuts_dc"]
+    hs_shared = dc.LAUNCHES["fused_nuts_dc:x_shared"]
     ess10 = blackjax_tpu_torch.ess(hist10)
     min_ess10 = float(ess10.min())
 
     _require(hs_launches == 1, f"the horseshoe path launched the dc kernel {hs_launches} times")
+    _require(hs_shared == 1, "the horseshoe path did not launch the dc kernel's shared-memory "
+             f"form: {dict(dc.LAUNCHES)}")
     _require(bool((steps10 == HS_TRANSITIONS).all()),
              f"horseshoe chains short of {HS_TRANSITIONS} transitions: {int(steps10.min())}")
     for name, t in [("positions", fx10), ("history", hist10), ("ess", ess10)]:
@@ -979,13 +1000,23 @@ def main() -> int:
     bound10 = _bound(2 * HS_CHAINS * hs_d * 4 + hist10.numel() * 4 + 3 * HS_CHAINS * 4
                      + hs_target.matrix.X.nbytes, hs_ops, peaks,
                      (float(grads10) + HS_CHAINS * HS_TRANSITIONS * hs_d) * THREEFRY_OPS)
+    # the shared-memory bound: X read twice a gradient, at 128 bytes a clock
+    # on each SM that holds a block (one block of four chains an SM)
+    hs_sms = min(sms, -(-HS_CHAINS // dc._WARPS))
+    smem_bound10 = float(grads10) * 2 * HS_N * HS_M * 4 / (128 * hs_sms * sm_mhz * 1e6) * 1e3
+    plan10 = dc.shared_memory_plan(dc._register_width(hs_d), hs_target.cuda_target, "diag",
+                                   HS_MAX_DOUBLINGS, HS_N, HS_M)
+    ptxas10 = [line for line in _ptxas_summary(dc_log)
+               if line.startswith(f"nuts_dc N={dc._register_width(hs_d)} F=3 M=0 shared=1:")]
     print(f"phase 10: window_adaptation(nuts, finnish_horseshoe) single chain, "
           f"{HS_WARMUP_STEPS} steps at max_doublings={HS_WARMUP_DOUBLINGS}, {warm10_leaves} "
           f"leaves in {warm10_s:.2f} s: step size {step10:.6f}, mean imm "
           f"{float(imm10.mean()):.5f}; fused_nuts_run_dc d={hs_d} C={HS_CHAINS} "
           f"S={HS_TRANSITIONS} max_doublings={HS_MAX_DOUBLINGS} pack={HS_PACK} "
-          f"restart_every={HS_RESTART_EVERY}: all chains completed, kernel {ms10:.2f} ms "
-          f"(bound {bound10[0]:.3f} ms by {bound10[1]}), "
+          f"restart_every={HS_RESTART_EVERY}: all chains completed, X read from shared memory "
+          f"({plan10.nbytes} B of shared memory a block; ptxas {'; '.join(ptxas10)}), kernel "
+          f"{ms10:.2f} ms (bound {bound10[0]:.3f} ms by {bound10[1]}; shared-memory bound "
+          f"{smem_bound10:.3f} ms on {hs_sms} SMs at {sm_mhz:.0f} MHz), "
           f"{float(grads10):.0f} grads ({float(grads10) / secs10:.4g} grads/s, "
           f"{float(grads10) / (HS_CHAINS * HS_TRANSITIONS):.1f} leaves per transition), "
           f"min-ESS over all {hs_d} coordinates {min_ess10:.1f} (dc row {worst10}) "

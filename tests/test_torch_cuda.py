@@ -48,6 +48,8 @@ def cuda():
         (4, 64, 8, dc.make_gaussian_target_dc(4, [1.0, 4.0, 0.25, 2.0])),
         (100, 256, 8, dc.make_hierarchical_target_dc(100)),
         (200, 64, 4, dc.make_hierarchical_target_dc(200)),
+        # N = 13: the trajectory's ends and the proposal in device memory
+        (404, 64, 4, dc.make_hierarchical_target_dc(404)),
     ],
 )
 def test_kernel_matches_plain_version(cuda, d, C, S, target):
@@ -140,6 +142,59 @@ def test_matrix_target_kernel_matches_plain_version(cuda, case):
     close = torch.isclose(kern[0], plain[0], rtol=MATRIX_TOL, atol=MATRIX_TOL).all(1)
     close &= torch.isclose(kern[1], plain[1], rtol=MATRIX_TOL, atol=MATRIX_TOL).flatten(1).all(1)
     assert float(close.float().mean()) >= AGREE_FLOOR
+
+
+# the horseshoe's two forms, each where the byte count picks it: X copied
+# into shared memory (100 x 200; 37 x 48, whose rows leave a partial chunk of
+# 32 and whose stride is 49), or read from L2 where it cannot fit (400 x 200)
+HORSESHOE_FORMS = {"100x200": (100, 200, "shared"), "37x48": (37, 48, "shared"),
+                   "400x200": (400, 200, "l2")}
+
+
+@pytest.mark.parametrize("case", sorted(HORSESHOE_FORMS))
+def test_horseshoe_forms_match_plain_version(cuda, case):
+    """Each form against the plain version chain by chain: identical steps,
+    the floor's share at MATRIX_TOL, and identical gradient counts on every
+    chain that agrees; the launch counts under the form it took."""
+    rows, cols, form = HORSESHOE_FORMS[case]
+    target = targets_dc.make_finnish_horseshoe_target_dc(rows, cols)
+    d, C, S = target.dim, 64, 4
+    x = torch.from_numpy(
+        (0.05 * np.random.default_rng(d).standard_normal((C, d))).astype(np.float32)
+    ).to(cuda)
+    kw = dict(target=target, num_steps=S, max_num_doublings=6, seed=7, num_track=d,
+              budget=2**6 * S)
+    x32, metric, machine = dc._prepare(x, torch.ones(d, device=cuda), **kw)
+    before = dict(dc.LAUNCHES)
+    kx, ks, kg, kh, _ = dc._launch_cuda(x32, metric, 1e-3, **machine)
+    torch.cuda.synchronize()
+    other = "l2" if form == "shared" else "shared"
+    assert dc.LAUNCHES[f"fused_nuts_dc:x_{form}"] == before[f"fused_nuts_dc:x_{form}"] + 1
+    assert dc.LAUNCHES[f"fused_nuts_dc:x_{other}"] == before[f"fused_nuts_dc:x_{other}"]
+    px, ps, pg, ph, _ = dc._machine_plain(x32, metric, 1e-3, **machine)
+    assert torch.equal(ks, ps) and bool((ks == S).all())
+    assert torch.isfinite(kx).all() and torch.isfinite(kh).all()
+    assert float(kg.sum()) > C * S  # trees of more than one leaf
+    close = torch.isclose(kx, px, rtol=MATRIX_TOL, atol=MATRIX_TOL).all(1)
+    close &= torch.isclose(kh, ph, rtol=MATRIX_TOL, atol=MATRIX_TOL).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
+    assert torch.equal(kg[close], pg[close])
+
+
+@pytest.mark.parametrize("kind", ["diag", "dense", "low_rank"])
+def test_block_bytes_match_the_plan(cuda, kind):
+    """The kernel asks for the shared memory that shared_memory_plan counts."""
+    lib = dc._library(kind)
+    shapes = [(404, dc._CUDA_HORSESHOE, 10, 100, 200), (404, dc._CUDA_HORSESHOE, 10, 400, 200),
+              (100, dc._CUDA_HORSESHOE, 6, 37, 48), (36, dc._CUDA_HORSESHOE, 6, 12, 16),
+              (54, dc._CUDA_LOGREG, 8, 4096, 54), (10, dc._CUDA_EIGHT_SCHOOLS, 8, 0, 0),
+              (100, dc._CUDA_HIERARCHICAL, 8, 0, 0)]
+    for d, family, max_depth, rows, cols in shapes:
+        if kind != "diag" and d > 256:
+            continue
+        plan = dc.shared_memory_plan(dc._register_width(d), family, kind, max_depth, rows, cols)
+        shared = int(plan.x_form == "shared")
+        assert lib.bjt_dc_block_bytes(d, family, shared, max_depth, rows, cols) == plan.nbytes
 
 
 def test_dc_kernel_accepts_d404(cuda):
