@@ -58,8 +58,26 @@
 // product. Low-rank: M^{-1} = D (I + U (Lam - 1) U^T) D, with t = U^T y as k
 // warp reductions and y + U (s t) lane-local over each lane's rows: about 2 d k
 // FMAs per product; sigma stays in registers as the diagonal's M^{-1} does. d
-// <= 256 (N <= 8) for both. Staging M^{-1} or U in shared memory once per block
-// for all its chains is left for later work.
+// <= 256 (N <= 8) for both. In the tiles form below, the block copies M^{-1}
+// and C^T, or U, lam - 1 and 1 / sqrt(lam) - 1, into shared memory once, where
+// they fit (the wrapper's plan), and the products read them there.
+//
+// The tiles form (logistic regression, whose X of 4,096 x 54, 864 KB, fits no
+// block). The kChainsLR warps of a block run their leaves in lockstep: every
+// loop iteration is one leaf of every live chain, so the warps meet at one
+// gradient per iteration (and one before the loop), which the whole block
+// computes at once (logreg_tiles in matrix_targets.cuh): X streams through a
+// double-buffered ring in shared memory (cp.async), one tile of rows at a
+// time, and each tile serves the forward and the backward contraction of all
+// the block's chains, so X crosses L2 once per block and leaf instead of twice
+// per chain and leaf. The loop runs until no warp of the block is live
+// (__syncthreads_or); a parked, finished or out-of-budget warp, and a warp
+// past the last chain of a partial last block, joins each gradient with w = 0
+// and ignores its result, so per chain it, budget, steps and iters keep their
+// meaning. The checkpoint slots live in device memory (a per-chain scratch,
+// cached in L1), which leaves shared memory to the tiles. Lockstep's cost: a
+// block runs to its slowest chain; the wrapper's lockstep_idle_share gives the
+// share of warp-iterations spent waiting.
 //
 // Bound. For the analytic targets a leaf is O(d) FP32 multiply-adds for the
 // leapfrog, the energy and up to max_depth slot checks, plus exp/log/cos (SFU)
@@ -76,10 +94,30 @@
 // transcendentals, not arithmetic or bandwidth, bounds it. A dense metric adds
 // 2 d^2 FMAs per leaf read from L2, a low-rank one about 4 d k.
 //
+// The tiles form's bound, per block and leaf at 4,096 x 54 and eight chains:
+// 4,096 x 54 x 8 x 4 FLOP (7.1 MFLOP, two FMAs a product) and 32,768 sigmoids
+// and softplus terms, against one read of X from L2 (983 KB at the tile
+// stride of 60 floats). At one block an SM the arithmetic is about 14 us of
+// the SM's FP32 peak; the copy of tile t + 1 overlaps the arithmetic on tile
+// t. Each forward step reads one float4 of X and eight broadcast floats of
+// the positions for 32 FMAs, each backward row two floats of X and eight of
+// the sigmoids for 16: shared memory, at 128 bytes a clock, and the FP32
+// pipes are near balance. Measured (PERF.md §6), the forward products, the
+// exact sigmoid and softplus terms and the backward products take about a
+// third of a gradient each, 5.6-5.8 times the bound.
+// Tensor cores are not used: TF32 keeps 10 mantissa bits and would lose the
+// 1e-3 per-chain agreement with the plain version. A 3xTF32 product (split
+// each operand into a TF32 high and low part, three mma a product, ~fp32
+// accuracy) or wgmma on the (R x cols) tile against (cols x kChainsLR) would
+// need N = kChainsLR >= 8 columns (mma.m16n8k8) and a layout of W and the
+// sigmoids in the fragments' order; that is later work.
+//
 // Numerics. Build without --use_fast_math and with --fmad=false: expf, logf,
 // cosf, sqrtf and log1pf are the accurate library versions and no multiply-add
 // is contracted, so the kernel rounds like the plain PyTorch version except for
-// the order of its sums and the last ulp of the transcendentals.
+// the order of its sums and the last ulp of the transcendentals. The tiles
+// form's two contractions use explicit fused multiply-adds (__fmaf_rn), as
+// the plain version's matrix products on the card do.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -93,7 +131,14 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // chains per block
+constexpr int kWarps = 4;  // chains per block (the tiles form: kChainsLR)
+// chains per block of the tiles form (logistic regression), which run their
+// leaves in lockstep; picked by measurement (logreg_dc_tiles.py times 4, 8
+// and 16: PERF.md §6). ops/fused_nuts_dc.py:_CHAINS_LR mirrors it.
+constexpr int kChainsLR = 8;
+
+template <int F>
+__host__ __device__ constexpr int block_warps() { return F == kLogRegDC ? kChainsLR : kWarps; }
 
 // the metrics; each source instantiates one (BJT_DC_METRIC)
 constexpr int kDiag = 0;
@@ -118,7 +163,9 @@ struct Params {
   float* out_hist;       // (C, S, n_track), zeroed by the caller
   int* out_iters;        // (C,) iterations used up to the last closed transition
   float* cold;           // N >= 13: (C, kColdVectors, N, 32) scratch for the cold vectors
+  float* slots;          // tiles form: (C, slot_floats) checkpoint slots in device memory
   int C, d, S, n_track, max_depth, budget, restart_every, target, rank;
+  int metric_shared;     // tiles form: copy the metric's matrices into shared memory
   float eps, threshold;
   uint32_t seed;
   MatrixData mat;        // a matrix target's data, else zeros
@@ -209,9 +256,9 @@ template <int N, int F, bool kSharedX>
 __device__ __forceinline__ float value_and_grad(const Params& p,
                                                 const float (&x)[N],
                                                 float (&g)[N], int lane,
-                                                float* scratch, const float* x_sh) {
+                                                float* scratch, float* x_sh) {
   if constexpr (F == kLogRegDC) {
-    return logreg_dc<N>(p.mat, x, g, lane, scratch);
+    return logreg_tiles<N, kChainsLR>(p.mat, x, g, lane, x_sh);  // x_sh: the block's tiles
   } else if constexpr (F == kHorseshoeDC) {
     return horseshoe_dc<N, kSharedX>(p.mat, p.d, x, g, lane, scratch, x_sh);
   } else if constexpr (F == kEightSchoolsDC) {
@@ -221,10 +268,30 @@ __device__ __forceinline__ float value_and_grad(const Params& p,
   }
 }
 
+// Where the dense and low-rank metrics' matrices are read from: device
+// memory through the read-only cache (kLdg), or, in the tiles form, the
+// block's copy in shared memory or device memory, through generic loads.
+struct MetricView {
+  const float* imm_t;   // dense: (d, d) M^{-1}, transposed
+  const float* chol_t;  // dense: (d, d) C^T
+  const float* U;       // low-rank: (d, k), row-major
+  const float* lam_m1;  // low-rank: (k,)
+  const float* isl_m1;  // low-rank: (k,)
+};
+
+template <bool kLdg>
+__device__ __forceinline__ float load_metric(const float* a) {
+  if constexpr (kLdg) {
+    return __ldg(a);
+  } else {
+    return *a;
+  }
+}
+
 // out = A v for the warp's vector v, given A^T row-major (d, d): the warp
 // stages v in shared memory and each lane sums its own rows over i in order,
 // reading row i of A^T coalesced across lanes
-template <int N>
+template <int N, bool kLdg>
 __device__ __forceinline__ void dense_mv(const float* at, int d, const float (&v)[N],
                                          float (&out)[N], int lane, float* vbuf) {
   stage<N>(vbuf, v, lane);
@@ -235,7 +302,7 @@ __device__ __forceinline__ void dense_mv(const float* at, int d, const float (&v
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const int r = k * 32 + lane;
-      if (r < d) acc[k] += __ldg(row + r) * vi;
+      if (r < d) acc[k] += load_metric<kLdg>(row + r) * vi;
     }
   }
 #pragma unroll
@@ -244,8 +311,8 @@ __device__ __forceinline__ void dense_mv(const float* at, int d, const float (&v
 
 // out = y + U (s_m1 * (U^T y)): t_j = U[:, j] . y by a warp reduction, then
 // each lane adds U[r, j] (s_m1[j] t_j) to its own rows r, over j in order
-template <int N>
-__device__ __forceinline__ void low_rank_mv(const Params& p, const float (&y)[N],
+template <int N, bool kLdg>
+__device__ __forceinline__ void low_rank_mv(const Params& p, const float* U, const float (&y)[N],
                                             const float* s_m1, float (&out)[N], int lane) {
   float acc[N] = {};
   for (int j = 0; j < p.rank; ++j) {
@@ -253,13 +320,13 @@ __device__ __forceinline__ void low_rank_mv(const Params& p, const float (&y)[N]
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const int r = k * 32 + lane;
-      if (r < p.d) part += y[k] * __ldg(p.U + (size_t)r * p.rank + j);
+      if (r < p.d) part += y[k] * load_metric<kLdg>(U + (size_t)r * p.rank + j);
     }
-    const float st = __ldg(s_m1 + j) * warp_sum(part);
+    const float st = load_metric<kLdg>(s_m1 + j) * warp_sum(part);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const int r = k * 32 + lane;
-      if (r < p.d) acc[k] += st * __ldg(p.U + (size_t)r * p.rank + j);
+      if (r < p.d) acc[k] += st * load_metric<kLdg>(U + (size_t)r * p.rank + j);
     }
   }
 #pragma unroll
@@ -267,16 +334,17 @@ __device__ __forceinline__ void low_rank_mv(const Params& p, const float (&y)[N]
 }
 
 // out = M^{-1} v (dense or low-rank; sig holds sigma for the low-rank metric)
-template <int N, int M>
-__device__ __forceinline__ void imm_mv(const Params& p, const float (&v)[N], float (&out)[N],
-                                       const float (&sig)[N], int lane, float* vbuf) {
+template <int N, int M, bool kLdg>
+__device__ __forceinline__ void imm_mv(const Params& p, const MetricView& mv, const float (&v)[N],
+                                       float (&out)[N], const float (&sig)[N], int lane,
+                                       float* vbuf) {
   if constexpr (M == kDense) {
-    dense_mv<N>(p.imm_t, p.d, v, out, lane, vbuf);
+    dense_mv<N, kLdg>(mv.imm_t, p.d, v, out, lane, vbuf);
   } else {
     float y[N], r[N];
 #pragma unroll
     for (int k = 0; k < N; ++k) y[k] = sig[k] * v[k];
-    low_rank_mv<N>(p, y, p.lam_m1, r, lane);
+    low_rank_mv<N, kLdg>(p, mv.U, y, mv.lam_m1, r, lane);
 #pragma unroll
     for (int k = 0; k < N; ++k) out[k] = sig[k] * r[k];
   }
@@ -284,14 +352,15 @@ __device__ __forceinline__ void imm_mv(const Params& p, const float (&v)[N], flo
 
 // out = M^{1/2} z, the momentum from standard normals z: C z (dense), or
 // D^{-1} (I + U (Lam^{-1/2} - 1) U^T) z (low-rank)
-template <int N, int M>
-__device__ __forceinline__ void sample_m(const Params& p, const float (&z)[N], float (&out)[N],
-                                         int lane, float* vbuf) {
+template <int N, int M, bool kLdg>
+__device__ __forceinline__ void sample_m(const Params& p, const MetricView& mv,
+                                         const float (&z)[N], float (&out)[N], int lane,
+                                         float* vbuf) {
   if constexpr (M == kDense) {
-    dense_mv<N>(p.chol_t, p.d, z, out, lane, vbuf);
+    dense_mv<N, kLdg>(mv.chol_t, p.d, z, out, lane, vbuf);
   } else {
     float r[N];
-    low_rank_mv<N>(p, z, p.isl_m1, r, lane);
+    low_rank_mv<N, kLdg>(p, mv.U, z, mv.isl_m1, r, lane);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const int j = k * 32 + lane;
@@ -308,49 +377,105 @@ __host__ __device__ constexpr int slot_floats(int max_depth) {
 }
 
 // shared memory floats per warp besides the slots: a staging vector for the
-// dense and low-rank metrics and, for a matrix target, its scratch
+// dense and low-rank metrics and, for the horseshoe and eight schools, the
+// target's scratch (logistic regression's gradient uses the block's tiles)
 template <int N, int F, int M>
 __host__ __device__ constexpr int own_floats() {
-  return (M == kDiag ? 0 : N * 32) + (F == kHorseshoeDC ? horseshoe_scratch_floats<N>()
-                                      : F != 0          ? scratch_floats<N>()
-                                                        : 0);
+  return (M == kDiag ? 0 : N * 32) + (F == kHorseshoeDC     ? horseshoe_scratch_floats<N>()
+                                      : F == kEightSchoolsDC ? scratch_floats<N>()
+                                                             : 0);
 }
 
-// a block's dynamic shared memory: X's copy in the shared-memory form, then
-// each warp's slots and own floats. ops/fused_nuts_dc.py:shared_memory_plan
-// mirrors it.
+// floats of a dense or low-rank metric's matrices in the tiles form's copy:
+// M^{-1} and C^T (d x d each), or U (d x k), lam - 1 and 1 / sqrt(lam) - 1
+template <int M>
+__host__ __device__ constexpr int metric_floats(int d, int rank) {
+  return M == kDense ? 2 * d * d : M == kLowRank ? d * rank + 2 * rank : 0;
+}
+
+// a block's dynamic shared memory. The L2 and shared-memory forms: X's copy
+// in the shared-memory form, then each of the kWarps warps' slots and own
+// floats. The tiles form (logistic regression): the gradient's tiles
+// (lr_tiles_floats), each of the kChainsLR warps' own floats, and the
+// metric's matrices where metric_shared; its slots live in device memory.
+// ops/fused_nuts_dc.py:shared_memory_plan mirrors it.
 template <int N, int F, int M, bool kSharedX>
-__host__ __device__ size_t block_bytes(int max_depth, int rows, int cols) {
+__host__ __device__ size_t block_bytes(int max_depth, int rows, int cols, int rank,
+                                       bool metric_shared) {
+  if constexpr (F == kLogRegDC) {
+    return ((size_t)lr_tiles_floats<N, kChainsLR>(cols) + kChainsLR * own_floats<N, F, M>() +
+            (metric_shared ? metric_floats<M>(cols, rank) : 0)) *
+           sizeof(float);
+  }
   const size_t warp = slot_floats<N, M>(max_depth) + own_floats<N, F, M>();
   return ((kSharedX ? (size_t)shared_x_floats(rows, cols) : 0) + kWarps * warp) * sizeof(float);
 }
 
 template <int N, int F, int M, bool kSharedX>
-__global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
+__global__ void __launch_bounds__(block_warps<F>() * 32) nuts_dc_kernel(const Params p) {
+  // the tiles form: the block's chains run their leaves in lockstep and
+  // share one gradient a leaf (logreg_tiles)
+  constexpr bool kTiles = F == kLogRegDC;
+  constexpr int kBlock = block_warps<F>();
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int chain = blockIdx.x * kWarps + warp;
+  const int chain = blockIdx.x * kBlock + warp;
   // the shared-memory form: the block copies X once, zero padded to the row
   // stride, and only reads it afterwards; the barrier comes before any warp
   // of a partial last block leaves
   float* x_sh = smem;
   if constexpr (kSharedX) {
     const int rows = p.mat.rows, cols = p.mat.cols, stride = shared_x_stride(cols);
-    for (int i = threadIdx.x; i < rows * stride; i += kWarps * 32) {
+    for (int i = threadIdx.x; i < rows * stride; i += kBlock * 32) {
       const int r = i / stride, c = i - r * stride;
       x_sh[i] = c < cols ? p.mat.X[(size_t)r * cols + c] : 0.f;
     }
     __syncthreads();
   }
-  if (chain >= p.C) return;  // the whole warp leaves together
   const int slot = N * 32;
-  // the warp's shared memory: [slots] [staging vector] [target scratch]
-  float* ck_m = smem + (kSharedX ? shared_x_floats(p.mat.rows, p.mat.cols) : 0) +
-                (size_t)warp * (slot_floats<N, M>(p.max_depth) + own_floats<N, F, M>());
+  // the tiles form: the metric's matrices copied into shared memory where
+  // the plan made room (metric_shared), after the warps' own floats
+  MetricView mv{p.imm_t, p.chol_t, p.U, p.lam_m1, p.isl_m1};
+  float* ck_m;  // the warp's slots: [m] [msum] [w]
+  float* vbuf;  // dense and low-rank: the staging vector
+  if constexpr (kTiles) {
+    float* own = smem + lr_tiles_floats<N, kChainsLR>(p.mat.cols);
+    if (M != kDiag && p.metric_shared) {
+      float* copy_to = own + kBlock * own_floats<N, F, M>();
+      const int d = p.d, n_a = M == kDense ? d * d : d * p.rank;
+      const float* a = M == kDense ? p.imm_t : p.U;
+      const float* b = M == kDense ? p.chol_t : p.lam_m1;
+      const int n_b = M == kDense ? d * d : p.rank;
+      for (int i = threadIdx.x; i < n_a; i += kBlock * 32) copy_to[i] = a[i];
+      for (int i = threadIdx.x; i < n_b; i += kBlock * 32) copy_to[n_a + i] = b[i];
+      if (M == kLowRank)
+        for (int i = threadIdx.x; i < p.rank; i += kBlock * 32)
+          copy_to[n_a + n_b + i] = p.isl_m1[i];
+      if constexpr (M == kDense) {
+        mv.imm_t = copy_to;
+        mv.chol_t = copy_to + n_a;
+      } else {
+        mv.U = copy_to;
+        mv.lam_m1 = copy_to + n_a;
+        mv.isl_m1 = copy_to + n_a + n_b;
+      }
+      __syncthreads();
+    }
+    ck_m = p.slots + (size_t)chain * slot_floats<N, M>(p.max_depth);
+    vbuf = own + warp * own_floats<N, F, M>();
+  } else {
+    if (chain >= p.C) return;  // the whole warp leaves together
+    // the warp's shared memory: [slots] [staging vector] [target scratch]
+    ck_m = smem + (kSharedX ? shared_x_floats(p.mat.rows, p.mat.cols) : 0) +
+           (size_t)warp * (slot_floats<N, M>(p.max_depth) + own_floats<N, F, M>());
+    vbuf = ck_m + slot_floats<N, M>(p.max_depth);
+  }
+  // a warp past the last chain of a partial last block (tiles form) runs
+  // the loop with no budget: it joins each gradient and writes nothing
+  const bool present = kTiles ? chain < p.C : true;
   float* ck_s = ck_m + p.max_depth * slot;
   float* ck_w = ck_s + p.max_depth * slot;   // dense and low-rank only
-  float* vbuf = ck_m + slot_floats<N, M>(p.max_depth);  // dense and low-rank only
   float* scratch = M == kDiag ? vbuf : vbuf + slot;
 
   // imm: the diagonal's M^{-1}, or the low-rank metric's sigma
@@ -373,7 +498,7 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
   for (int k = 0; k < N; ++k) {
     const int j = k * 32 + lane;
     const bool valid = j < p.d;
-    cur_x[k] = valid ? p.x0[(size_t)chain * p.d + j] : 0.f;
+    cur_x[k] = valid && present ? p.x0[(size_t)chain * p.d + j] : 0.f;
     if constexpr (M == kDense) {
       imm[k] = 0.f;
     } else {
@@ -395,17 +520,32 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
   // is spent. A chain below num_steps is active after its restart, so the
   // reference's chunk-skip cond (which only skips tiles whose chains all
   // finished) changes nothing for it: these outputs are the reference's.
-  const int budget = p.budgets != nullptr ? p.budgets[chain] : p.budget;
+  //
+  // The tiles form runs the loop until no warp of the block is live; a warp
+  // that is not live, or parked, reaches the block's gradient all the same,
+  // with w = 0, and skips the rest of the iteration. Per chain, it, budget,
+  // steps and iters keep their meaning.
+  const int budget = !present ? 0 : p.budgets != nullptr ? p.budgets[chain] : p.budget;
   int iters = 0;
-  for (int it = 0; it < budget && steps < S; ++it) {
+  for (int it = 0;; ++it) {
+    const bool live = it < budget && steps < S;
+    if constexpr (kTiles) {
+      if (!__syncthreads_or(live)) break;
+    } else if (!live) {
+      break;
+    }
     // a closed chain restarts on the gated iterations only; until then it is
     // parked, and a parked leaf changes nothing the restart keeps
-    if (done && it % p.restart_every != 0) continue;
+    const bool parked = done && it % p.restart_every != 0;
+    if constexpr (!kTiles) {
+      if (parked) continue;
+    }
+    const bool active = kTiles ? live && !parked : true;
     // counter key of this (chain, step): int32 chain * S + steps in the
     // reference (fused_nuts_dc.py:395), so wrap modulo 2^32 here too
     const uint32_t base_row = (uint32_t)chain * (uint32_t)S + (uint32_t)steps;
 
-    if (done) {
+    if (done && active) {
       // ---- inline restart: fresh momentum, trajectory reset ----
       // Momentum key c0 = dim index, c1 = (1 << 24) | base_row, u1 with the
       // +1 offset (fused_nuts_dc.py:413-425). Kept for parity, as the JAX
@@ -438,8 +578,8 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
             z[k] = box_muller(b1, b2);
           }
         }
-        sample_m<N, M>(p, z, cur_m, lane, vbuf);
-        imm_mv<N, M>(p, cur_m, w_new, imm, lane, vbuf);
+        sample_m<N, M, !kTiles>(p, mv, z, cur_m, lane, vbuf);
+        imm_mv<N, M, !kTiles>(p, mv, cur_m, w_new, imm, lane, vbuf);
         copy<N>(left_w, w_new); copy<N>(right_w, w_new);
       }
       h0 = -acc_ld + 0.5f * dot<N>(w_new, cur_m);
@@ -461,7 +601,7 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
     // u_dir and u_prop are one _counter_uniforms2(seed, base_row, 2, depth)
     // block (fused_nuts_dc.py:463); each is drawn where it is used.
     const bool at_start = leaf == 0;
-    if (at_start) {
+    if (at_start && active) {
       uint32_t b1, b2;
       threefry2x32(p.seed, kKey1, base_row, (2u << 24) | (uint32_t)depth, b1, b2);
       direction = to_unit(b1) < 0.5f ? -1.f : 1.f;
@@ -476,7 +616,10 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
     // ---- one velocity-Verlet leaf ----
     const float d_eps = direction * p.eps;
     const float half = 0.5f * d_eps;
-    if constexpr (M == kDiag) {
+    if (!active) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) new_x[k] = 0.f;
+    } else if constexpr (M == kDiag) {
 #pragma unroll
       for (int k = 0; k < N; ++k) {
         new_m[k] = cur_m[k] + half * cur_g[k];
@@ -485,11 +628,12 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
     } else {
 #pragma unroll
       for (int k = 0; k < N; ++k) new_m[k] = cur_m[k] + half * cur_g[k];
-      imm_mv<N, M>(p, new_m, w_new, imm, lane, vbuf);  // scratch: M^{-1} m_half
+      imm_mv<N, M, !kTiles>(p, mv, new_m, w_new, imm, lane, vbuf);  // scratch: M^{-1} m_half
 #pragma unroll
       for (int k = 0; k < N; ++k) new_x[k] = cur_x[k] + d_eps * w_new[k];
     }
     const float new_ld = value_and_grad<N, F, kSharedX>(p, new_x, new_g, lane, scratch, x_sh);
+    if (!active) continue;
     if constexpr (M == kDiag) {
 #pragma unroll
       for (int k = 0; k < N; ++k) {
@@ -499,7 +643,7 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
     } else {
 #pragma unroll
       for (int k = 0; k < N; ++k) new_m[k] = new_m[k] + half * new_g[k];
-      imm_mv<N, M>(p, new_m, w_new, imm, lane, vbuf);
+      imm_mv<N, M, !kTiles>(p, mv, new_m, w_new, imm, lane, vbuf);
     }
     const float energy = -new_ld + 0.5f * dot<N>(w_new, new_m);
     float delta = h0 - energy;
@@ -630,6 +774,7 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
     copy<N>(cur_x, new_x); copy<N>(cur_m, new_m); copy<N>(cur_g, new_g);
   }
 
+  if (!present) return;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int j = k * 32 + lane;
@@ -647,15 +792,17 @@ __global__ void __launch_bounds__(kWarps * 32) nuts_dc_kernel(const Params p) {
 // and the error comes back to the wrapper, which raises.
 template <int N, int F, int M, bool kSharedX = false>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = block_bytes<N, F, M, kSharedX>(p.max_depth, p.mat.rows, p.mat.cols);
+  const size_t smem = block_bytes<N, F, M, kSharedX>(p.max_depth, p.mat.rows, p.mat.cols,
+                                                      p.rank, p.metric_shared != 0);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         nuts_dc_kernel<N, F, M, kSharedX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int blocks = (p.C + kWarps - 1) / kWarps;
-  nuts_dc_kernel<N, F, M, kSharedX><<<blocks, kWarps * 32, smem, stream>>>(p);
+  constexpr int kBlock = block_warps<F>();
+  const int blocks = (p.C + kBlock - 1) / kBlock;
+  nuts_dc_kernel<N, F, M, kSharedX><<<blocks, kBlock * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -712,17 +859,18 @@ cudaError_t run_machine(const Params& p, bool shared_x, cudaStream_t s) {
 
 // block_bytes of the instantiation for d with N registers per vector
 template <int M, int N>
-size_t block_bytes_for(int target, bool shared_x, int max_depth, int rows, int cols) {
+size_t block_bytes_for(int target, bool shared_x, int max_depth, int rows, int cols, int rank,
+                       bool metric_shared) {
   switch (target) {
     case kLogRegDC:
-      return block_bytes<N, kLogRegDC, M, false>(max_depth, rows, cols);
+      return block_bytes<N, kLogRegDC, M, false>(max_depth, rows, cols, rank, metric_shared);
     case kHorseshoeDC:
-      return shared_x ? block_bytes<N, kHorseshoeDC, M, true>(max_depth, rows, cols)
-                      : block_bytes<N, kHorseshoeDC, M, false>(max_depth, rows, cols);
+      return shared_x ? block_bytes<N, kHorseshoeDC, M, true>(max_depth, rows, cols, rank, false)
+                      : block_bytes<N, kHorseshoeDC, M, false>(max_depth, rows, cols, rank, false);
     case kEightSchoolsDC:
-      return block_bytes<N, kEightSchoolsDC, M, false>(max_depth, rows, cols);
+      return block_bytes<N, kEightSchoolsDC, M, false>(max_depth, rows, cols, rank, false);
     default:
-      return block_bytes<N, 0, M, false>(max_depth, rows, cols);
+      return block_bytes<N, 0, M, false>(max_depth, rows, cols, rank, false);
   }
 }
 
@@ -736,29 +884,33 @@ extern "C" {
 // where unused); X, Xt, u, s, rows, cols and the host array k[8] are a matrix
 // target's data (matrix_targets.cuh), null and 0 for the analytic targets.
 // shared_x (the horseshoe only) launches the form that copies X into shared
-// memory; Xt may then be null. cold is the (C, kColdVectors, N, 32) scratch of
-// the N >= 13 instantiations, null below.
+// memory; Xt may then be null. Logistic regression always takes the tiles
+// form: X is its tiles (logreg_tiles), Xt is not read, slots is the (C,
+// slot_floats) scratch of its checkpoint slots, and metric_shared copies a
+// dense or low-rank metric's matrices into shared memory. cold is the (C,
+// kColdVectors, N, 32) scratch of the N >= 13 instantiations, null below.
 int bjt_fused_nuts_dc(const float* x0, const float* imm, const float* sigma_m,
                       const float* imm_t, const float* chol_t, const float* U,
                       const float* lam_m1, const float* isl_m1,
                       const float* inv_var, const int* track_rows,
                       const int* budgets, float* out_x, int* out_steps,
                       float* out_grads, float* out_hist, int* out_iters, float* cold,
-                      const float* X, const float* Xt, const float* u,
+                      float* slots, const float* X, const float* Xt, const float* u,
                       const float* s_vec, int C, int d, int S, int n_track,
                       int max_depth, int budget, int restart_every, int target,
-                      int rows, int cols, int shared_x, int rank, float eps,
+                      int rows, int cols, int shared_x, int rank, int metric_shared, float eps,
                       float threshold, int seed, const float* k, void* stream) {
   MatrixData mat{X, Xt, u, s_vec, rows, cols, {}};
   for (int i = 0; i < 8; ++i) mat.k[i] = k[i];
   Params p{x0, imm, sigma_m, imm_t, chol_t, U, lam_m1, isl_m1, inv_var, track_rows,
-           budgets, out_x, out_steps, out_grads, out_hist, out_iters, cold, C, d, S, n_track,
-           max_depth, budget, restart_every, target, rank, eps, threshold,
-           (uint32_t)seed, mat};
+           budgets, out_x, out_steps, out_grads, out_hist, out_iters, cold, slots, C, d, S,
+           n_track, max_depth, budget, restart_every, target, rank, metric_shared, eps,
+           threshold, (uint32_t)seed, mat};
   if (restart_every < 1) return cudaErrorInvalidValue;
   if (target == kGaussian && inv_var == nullptr) return cudaErrorInvalidValue;
-  if (target == kLogRegDC && (X == nullptr || Xt == nullptr || u == nullptr || cols != d))
+  if (target == kLogRegDC && (X == nullptr || u == nullptr || slots == nullptr || cols != d))
     return cudaErrorInvalidValue;
+  if (metric_shared && target != kLogRegDC) return cudaErrorInvalidValue;
   if (target == kHorseshoeDC && (X == nullptr || (Xt == nullptr && !shared_x) || u == nullptr ||
                                  s_vec == nullptr || d != 2 * cols + 4))
     return cudaErrorInvalidValue;
@@ -771,18 +923,20 @@ int bjt_fused_nuts_dc(const float* x0, const float* imm, const float* sigma_m,
 // the dynamic shared memory a launch of bjt_fused_nuts_dc with these
 // arguments asks for (block_bytes), or -1 where no instantiation takes d
 long long bjt_dc_block_bytes(int d, int target, int shared_x, int max_depth, int rows,
-                             int cols) {
+                             int cols, int rank, int metric_shared) {
   const int n = (d + 31) / 32;
-  const bool sx = shared_x != 0;
+  const bool sx = shared_x != 0, ms = metric_shared != 0;
   constexpr int M = BJT_DC_METRIC;
-  if (n <= 1) return (long long)block_bytes_for<M, 1>(target, sx, max_depth, rows, cols);
-  if (n <= 2) return (long long)block_bytes_for<M, 2>(target, sx, max_depth, rows, cols);
-  if (n <= 4) return (long long)block_bytes_for<M, 4>(target, sx, max_depth, rows, cols);
-  if (n <= 8) return (long long)block_bytes_for<M, 8>(target, sx, max_depth, rows, cols);
-  if (M == kDiag && n <= 13)
-    return (long long)block_bytes_for<M, 13>(target, sx, max_depth, rows, cols);
-  if (M == kDiag && n <= 16)
-    return (long long)block_bytes_for<M, 16>(target, sx, max_depth, rows, cols);
+  const auto bytes = [&](auto width) {
+    return (long long)block_bytes_for<M, decltype(width)::value>(target, sx, max_depth, rows,
+                                                                  cols, rank, ms);
+  };
+  if (n <= 1) return bytes(std::integral_constant<int, 1>{});
+  if (n <= 2) return bytes(std::integral_constant<int, 2>{});
+  if (n <= 4) return bytes(std::integral_constant<int, 4>{});
+  if (n <= 8) return bytes(std::integral_constant<int, 8>{});
+  if (M == kDiag && n <= 13) return bytes(std::integral_constant<int, 13>{});
+  if (M == kDiag && n <= 16) return bytes(std::integral_constant<int, 16>{});
   return -1;
 }
 

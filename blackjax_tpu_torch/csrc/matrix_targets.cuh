@@ -45,17 +45,22 @@
 // floats) and does 4 rows x cols FP32 operations. In the L2 form X (80 KB
 // for the horseshoe at 100 x 200, 864 KB for logistic regression at 4,096 x
 // 54) is read from L2, 8 bytes a multiply-add: by its latency where few warps
-// share an SM (the dc machine runs one 4-warp block an SM), by its bandwidth
-// where many do (the fused kernels at 4,096 chains). In the shared-memory
-// form the two reads of X are 2 x 80 KB of shared-memory traffic per
-// gradient at 100 x 200, against 128 bytes a clock per SM; with one warp
+// share an SM, by its bandwidth where many do (the fused kernels at 4,096
+// chains). In the shared-memory form the two reads of X are 2 x 80 KB of
+// shared-memory traffic per gradient at 100 x 200, against 128 bytes a
+// clock per SM; with one warp
 // per scheduler, what bounds it in practice is the latency of the loads that
 // the few registers left by the N = 13 machine keep in flight. Tensor cores
 // do not apply: each warp's product is a matrix times one vector, the warps
 // of a block sit at different leaves of different trees, and TF32 would lose
-// the agreement with the plain version. Logistic regression's X does not fit
-// a block; sharing its tiles needs the chains of a block in lockstep, which
-// is later work.
+// the agreement with the plain version.
+//
+// The dc machine's logistic regression does not take the per-warp layout:
+// its X (864 KB at 4,096 x 54) fits no block, so the machine runs the chains
+// of a block in lockstep and logreg_tiles computes one gradient for all of
+// them, streaming X through shared memory in tiles (see there and the header
+// of fused_nuts_dc.cuh). The fused kernels' logistic regression keeps the L2
+// form.
 //
 // Numerics. Every expression keeps the reference's operation order (the
 // tiles' _core, _value and _grad, with JAX's NaN rule for logaddexp and its
@@ -78,8 +83,8 @@ constexpr int kHorseshoeDC = 3;
 constexpr int kEightSchoolsDC = 4;
 
 // What a matrix target reads (MatrixTargetData in ops/fused_nuts_dc.py):
-// - dc logistic regression: X (n_pad8, d), u = X^T y (d,),
-//   k = {1/s^2, -0.5/s^2, padding constant};
+// - dc logistic regression: X as tiles (logreg_tiles), rows = n_pad8,
+//   u = X^T y (d,), k = {1/s^2, -0.5/s^2, padding constant};
 // - fused logistic regression: X (n, d), u = y (n,), k = {1/s^2, -0.5/s^2};
 // - horseshoe: X (N, M), u = X^T y, s = X^T 1 (M,),
 //   k = {tau0, df/2, slab_scale^2, y.y, sum y, N, N/2};
@@ -247,28 +252,212 @@ __device__ __forceinline__ void row_pass_shared(const float* xs, int rows, int c
 // ---- the dc machine's targets: logdensity (returned, replicated) and
 // gradient (per lane), as vg_tile computes them ----
 
-// targets_dc.py:82-107: ld = v.w - (sum softplus(Xw) - pad) + prior,
-// g = v - X^T sigmoid(Xw) - w / s^2
+// ---- the dc machine's logistic regression: the tiles form ----
+
+// Rows of X a tile holds, with N registers per vector and K chains a block:
+// the forward pass gives each thread one row of the tile (R <= 32 K), and
+// the cap keeps the ring of two tiles near 128 KB up to cols = 32 N.
 template <int N>
-__device__ float logreg_dc(const MatrixData& m, const float (&w)[N], float (&g)[N], int lane,
-                           float* scratch) {
-  stage<N>(scratch, w, lane);
-  float xts[N] = {};
-  float sp = 0.f;
-  row_pass<true>(m, scratch, scratch + 3 * N * 32, lane, xts, [&](int, float q) {
-    sp += logaddexp(0.f, q);
-    return sigmoid(q);
-  });
+__host__ __device__ constexpr int lr_tile_cap() {
+  return N <= 2 ? 256 : N <= 4 ? 128 : N <= 8 ? 64 : 32;
+}
+template <int N, int K>
+__host__ __device__ constexpr int lr_tile_rows() {
+  return lr_tile_cap<N>() < 32 * K ? lr_tile_cap<N>() : 32 * K;
+}
+
+// chains a warp accumulates in the backward pass, N columns each (16
+// accumulators a lane, N of them from N = 13); the block's K warps split
+// each tile's rows into as many groups
+template <int N, int K>
+__host__ __device__ constexpr int lr_back_chains() {
+  return N > 8 ? 1 : 16 / N < K ? 16 / N : K;
+}
+
+// floats of the block's shared memory for the gradient: the ring of two
+// tiles (which the backward pass's partial sums reuse once the last tile is
+// done), the positions wt (round_up(cols, 4) x K) and the sigmoids st (R x K,
+// whose floats the softplus partial sums reuse)
+template <int N, int K>
+__host__ __device__ constexpr int lr_region_floats(int cols) {
+  return 2 * lr_tile_rows<N, K>() * shared_x_stride(cols) > lr_back_chains<N, K>() * K * 32 * N
+             ? 2 * lr_tile_rows<N, K>() * shared_x_stride(cols)
+             : lr_back_chains<N, K>() * K * 32 * N;
+}
+template <int N, int K>
+__host__ __device__ constexpr int lr_tiles_floats(int cols) {
+  return lr_region_floats<N, K>(cols) + ((cols + 3) & ~3) * K + lr_tile_rows<N, K>() * K;
+}
+
+// 16 bytes from device memory into shared memory, asynchronously, through
+// L2 only (cp.async.cg), in the calling thread's current commit group
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `pending` of this thread's commit groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// B consecutive floats from shared memory, 16 (or 8, or 4) bytes a load
+template <int B>
+__device__ __forceinline__ void load_run(const float* src, float (&out)[B]) {
+  if constexpr (B % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < B / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(src)[i];
+      out[4 * i] = v.x; out[4 * i + 1] = v.y; out[4 * i + 2] = v.z; out[4 * i + 3] = v.w;
+    }
+  } else if constexpr (B == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(src);
+    out[0] = v.x; out[1] = v.y;
+  } else {
+    static_assert(B == 1, "runs of 1, 2 or a multiple of 4 floats");
+    out[0] = *src;
+  }
+}
+
+// targets_dc.py:82-107 for the block's K chains at once: ld = v.w - (sum
+// softplus(Xw) - pad) + prior, g = v - X^T sigmoid(Xw) - w / s^2, each
+// warp's for its own chain. Every warp of the block calls it at the same
+// point (it holds __syncthreads), a warp without a leaf with w = 0, whose
+// result it ignores.
+//
+// X comes as tiles of R rows at the row stride shared_x_stride(cols), zero
+// padded in device memory to whole tiles (m.X, ops/fused_nuts_dc.py); m.rows
+// counts the rows that enter the softplus sum (the reference's rows padded
+// to 8). Tile t + 1 is copied (cp.async) into the ring's other half while
+// tile t is used. On each tile the forward pass gives thread (row r, chains
+// c0..c0+B-1) its B logits q = X[r] . w_c, summed over the columns in order
+// from X read as float4 (the stride is 4 mod 8: no bank conflicts) and the
+// positions as broadcasts; it adds softplus(q) to its own partial sums and
+// writes sigmoid(q) to st. The backward pass reads the same tile: warp
+// (rho, gamma) adds X[r, j] st[r, c] for its rows r = rho, rho + BC, ... and
+// its BC chains to 16 accumulators a lane (columns j = lane + 32 k). After
+// the last tile the block writes the partial sums to shared memory and each
+// warp adds its chain's, in a fixed order.
+template <int N, int K>
+__device__ float logreg_tiles(const MatrixData& m, const float (&w)[N], float (&g)[N], int lane,
+                              float* sh) {
+  static_assert(K >= 4 && (K & (K - 1)) == 0, "float4 rows of positions and sigmoids");
+  constexpr int R = lr_tile_rows<N, K>();
+  constexpr int B = R / 32;                 // chains of a thread's forward pass
+  constexpr int BC = lr_back_chains<N, K>();  // chains of a warp's backward pass
+  constexpr int T = 32 * K;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int rows = m.rows, cols = m.cols;
+  const int sx = shared_x_stride(cols), cols4 = (cols + 3) & ~3;
+  float* ring = sh;
+  float* wt = sh + lr_region_floats<N, K>(cols);
+  float* st = wt + cols4 * K;
+  const int tile_floats = R * sx;
+  const int n_tiles = (rows + R - 1) / R;
+  const auto issue = [&](int t) {  // tile t into its half of the ring
+    const float* src = m.X + (size_t)t * tile_floats;
+    float* dst = ring + (t & 1) * tile_floats;
+    for (int i = 4 * tid; i < tile_floats; i += 4 * T) cp_async16(dst + i, src + i);
+    cp_async_commit();
+  };
+
   float yxw = 0.f, ww = 0.f;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int j = k * 32 + lane;
-    if (j < m.cols) {
+    if (j < cols4) wt[j * K + warp] = j < cols ? w[k] : 0.f;
+    if (j < cols) {
       yxw += m.u[j] * w[k];
       ww += w[k] * w[k];
     }
   }
-  const float softplus = warp_sum(sp);
+  // the positions are staged, and every warp has read the last call's sums
+  __syncthreads();
+  issue(0);
+
+  const int r_f = tid % R, c0 = (tid / R) * B;   // forward: a row, B chains
+  const int rho = warp % BC, gamma = warp / BC;  // backward: rows rho + BC i, BC chains
+  int jc[N];                                     // backward columns, clamped into the row
+#pragma unroll
+  for (int k = 0; k < N; ++k) jc[k] = min(k * 32 + lane, sx - 1);
+  float sp[B] = {};
+  float acc[N][BC] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      issue(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t has landed for every thread
+    const float* xt = ring + (t & 1) * tile_floats;
+    {
+      const float4* x4 = reinterpret_cast<const float4*>(xt + r_f * sx);
+      float q[B] = {};
+      for (int j4 = 0; j4 < cols4 / 4; ++j4) {
+        const float4 x = x4[j4];
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float wr[B];
+          load_run<B>(wt + (4 * j4 + i) * K + c0, wr);
+#pragma unroll
+          for (int b = 0; b < B; ++b) q[b] = __fmaf_rn(xs[i], wr[b], q[b]);
+        }
+      }
+      const bool real = t * R + r_f < rows;
+      float s[B];
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        s[b] = 0.f;
+        if (real) {
+          sp[b] += logaddexp(0.f, q[b]);
+          s[b] = sigmoid(q[b]);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < B; ++b) st[r_f * K + c0 + b] = s[b];
+    }
+    __syncthreads();  // the sigmoids are in st
+    const int r_end = min(R, rows - t * R);  // rows past it add exact zeros
+    for (int r = rho; r < r_end; r += BC) {
+      const float* xr = xt + r * sx;
+      float s[BC];
+      load_run<BC>(st + r * K + gamma * BC, s);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float x = xr[jc[k]];
+#pragma unroll
+        for (int b = 0; b < BC; ++b) acc[k][b] = __fmaf_rn(x, s[b], acc[k][b]);
+      }
+    }
+    __syncthreads();  // this half of the ring and st may be written again
+  }
+
+  // the partial sums: X^T sigmoid by (row group, chain, column) over the
+  // ring, softplus by (row, chain) over st; then each warp adds its chain's
+  float* part = ring;
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int b = 0; b < BC; ++b)
+      part[(rho * K + gamma * BC + b) * (32 * N) + k * 32 + lane] = acc[k][b];
+#pragma unroll
+  for (int b = 0; b < B; ++b) st[r_f * K + c0 + b] = sp[b];
+  __syncthreads();
+  float spl = 0.f;
+  for (int r = lane; r < R; r += 32) spl += st[r * K + warp];
+  float xts[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float a = 0.f;
+    for (int i = 0; i < BC; ++i) a += part[(i * K + warp) * (32 * N) + k * 32 + lane];
+    xts[k] = a;
+  }
+  const float softplus = warp_sum(spl);
   const float ld = warp_sum(yxw) - (softplus - m.k[2]) + m.k[1] * warp_sum(ww);
 #pragma unroll
   for (int k = 0; k < N; ++k) {

@@ -43,8 +43,15 @@ chains the reference flags. ``tile_chains`` enters only that accounting.
 
 On the card the Finnish horseshoe's data matrix is copied into shared
 memory once per block where it fits beside the block's four chains, and read
-from L2 where it does not: :func:`shared_memory_plan` counts the bytes and
-picks the form before the launch, and :data:`LAUNCHES` counts each form.
+from L2 where it does not. Logistic regression always takes the tiles form:
+the chains of a block run their leaves in lockstep and share one gradient,
+which streams X through shared memory in tiles, once per leaf for the whole
+block (``csrc/matrix_targets.cuh``: ``logreg_tiles``); a dense or low-rank
+metric's matrices are copied into shared memory where they fit beside it.
+:func:`shared_memory_plan` counts the bytes and picks the form before the
+launch, and :data:`LAUNCHES` counts each form. A block runs to its slowest
+chain: :func:`lockstep_idle_share` says how many of its warps' iterations
+were spent waiting.
 
 The same source exports the kernel's threefry2x32 with a key per element
 (:func:`threefry2x32_device`, through which :mod:`blackjax_tpu_torch.prng`
@@ -77,6 +84,7 @@ __all__ = [
     "SharedMemoryPlan",
     "build",
     "fused_nuts_run_dc",
+    "lockstep_idle_share",
     "fused_nuts_run_dc_plain",
     "make_gaussian_target_dc",
     "make_hierarchical_target_dc",
@@ -87,9 +95,10 @@ __all__ = [
 # kernel launches made by the wrappers below, by kernel name; a run that
 # should go through a kernel resets the count and reads it afterwards. A
 # launch of the dc machine on a target with a data matrix X also counts under
-# the form it took: X copied into shared memory, or read from L2.
+# the form it took: X copied into shared memory, read from L2, or streamed in
+# tiles by chains in lockstep (logistic regression).
 LAUNCHES = {"fused_nuts_dc": 0, "fused_nuts_dc:x_shared": 0, "fused_nuts_dc:x_l2": 0,
-            "threefry2x32": 0}
+            "fused_nuts_dc:x_tiles": 0, "threefry2x32": 0}
 
 # the target ids of csrc/fused_nuts_dc.cu and csrc/matrix_targets.cuh
 _CUDA_HIERARCHICAL = 0
@@ -102,6 +111,7 @@ _MAX_CUDA_DIM_METRIC = 256  # dense and low-rank: eight (ROADMAP queue 2, item 2
 _MAX_SCALARS = 8
 _REGISTER_WIDTHS = (1, 2, 4, 8, 13, 16)  # the instantiations' N
 _WARPS = 4  # chains per block (kWarps)
+_CHAINS_LR = 8  # chains per block of the tiles form (kChainsLR)
 SHARED_MEMORY_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 # the library of each metric's instantiations of csrc/fused_nuts_dc.cuh
 _LIBRARIES = {"diag": "fused_nuts_dc", "dense": "fused_nuts_dc_dense",
@@ -574,12 +584,18 @@ def _library(kind: str = "diag"):
     ``fused_nuts_dc_dense.cu``, ``fused_nuts_dc_low_rank.cu``, over the
     shared ``csrc/fused_nuts_dc.cuh``), so that their builds run side by
     side."""
-    lib = _nvcc.load(_LIBRARIES[kind])
+    return _bind(_nvcc.load(_LIBRARIES[kind]), kind)
+
+
+def _bind(lib, kind: str):
+    """Declare the C interface of a library of the machine for metric
+    ``kind`` (also for a copy built with other constants, as
+    ``logreg_dc_tiles.py`` builds them)."""
     lib.bjt_fused_nuts_dc.argtypes = (
-        [_VP] * 21 + [_INT] * 12 + [_FLOAT, _FLOAT, _INT, ctypes.POINTER(_FLOAT), _VP]
+        [_VP] * 22 + [_INT] * 13 + [_FLOAT, _FLOAT, _INT, ctypes.POINTER(_FLOAT), _VP]
     )
     lib.bjt_fused_nuts_dc.restype = _INT
-    lib.bjt_dc_block_bytes.argtypes = [_INT] * 6
+    lib.bjt_dc_block_bytes.argtypes = [_INT] * 8
     lib.bjt_dc_block_bytes.restype = ctypes.c_longlong
     lib.bjt_error_string.argtypes = [_INT]
     lib.bjt_error_string.restype = ctypes.c_char_p
@@ -642,11 +658,14 @@ def _metric_operands(metric: DCMetric, d: int, dev):
 
 class SharedMemoryPlan(NamedTuple):
     """A launch's shared-memory layout: where the kernel reads the data
-    matrix X from (``"shared"``, ``"l2"``, or None for a target without one)
-    and the block's bytes of dynamic shared memory."""
+    matrix X from (``"shared"``, ``"l2"``, ``"tiles"``, or None for a target
+    without one), the block's bytes of dynamic shared memory, and whether
+    the tiles form copies a dense or low-rank metric's matrices into shared
+    memory (else it reads them from device memory)."""
 
     x_form: Optional[str]
     nbytes: int
+    metric_shared: bool = False
 
 
 def _register_width(d: int) -> int:
@@ -663,12 +682,65 @@ def _cold_floats(n: int) -> int:
     return 10 * n * 32 if n >= 13 else 0
 
 
+def _shared_x_stride(cols: int) -> int:
+    """X's row stride in shared memory (``shared_x_stride``): ``cols``
+    rounded up to a multiple of 4 that is 4 mod 8."""
+    return _round_up(cols, 4) | 4
+
+
+def _lr_tile_rows(n: int) -> int:
+    """Rows of X a tile of the tiles form holds (``lr_tile_rows``)."""
+    cap = 256 if n <= 2 else 128 if n <= 4 else 64 if n <= 8 else 32
+    return min(cap, 32 * _CHAINS_LR)
+
+
+def _lr_tiles(X, tile_rows: int) -> np.ndarray:
+    """Logistic regression's ``X`` as the tiles form reads it: rows at the
+    stride :func:`_shared_x_stride`, zero padded to whole tiles of
+    ``tile_rows`` rows, so that every tile is one contiguous run of 16-byte
+    words."""
+    rows, cols = X.shape
+    tiles = np.zeros((_round_up(rows, tile_rows), _shared_x_stride(cols)), np.float32)
+    tiles[:rows, :cols] = X
+    return tiles
+
+
+@functools.lru_cache(maxsize=8)
+def _lr_tiles_on(target: TargetKernelDC, device: torch.device, tile_rows: int):
+    """The tiles form's ``(X as tiles, None, u, None)`` on ``device``,
+    copied once."""
+    m = target.matrix
+    tiles = torch.from_numpy(_lr_tiles(m.X, tile_rows)).to(device)
+    return tiles, None, torch.from_numpy(np.ascontiguousarray(m.u, np.float32)).to(device), None
+
+
+def _lr_tiles_floats(n: int, cols: int) -> int:
+    """Floats of the tiles form's gradient in shared memory
+    (``lr_tiles_floats``): the ring of two tiles (or the backward pass's
+    partial sums, which reuse it, if larger), the positions and the
+    sigmoids."""
+    R = _lr_tile_rows(n)
+    back_chains = 1 if n > 8 else min(16 // n, _CHAINS_LR)
+    region = max(2 * R * _shared_x_stride(cols), back_chains * _CHAINS_LR * 32 * n)
+    return region + _round_up(cols, 4) * _CHAINS_LR + R * _CHAINS_LR
+
+
 def shared_memory_plan(n: int, family: int, metric: str, max_depth: int, rows: int = 0,
-                       cols: int = 0) -> SharedMemoryPlan:
+                       cols: int = 0, rank: int = 0) -> SharedMemoryPlan:
     """The block's layout for the instantiation with ``n`` registers per
     vector, target family ``family`` (a ``cuda_target`` id), metric kind
-    ``metric``, ``max_depth`` checkpoint slots and a ``(rows, cols)`` data
-    matrix; it mirrors ``block_bytes`` in ``csrc/fused_nuts_dc.cuh``.
+    ``metric`` (of rank ``rank`` if low-rank), ``max_depth`` checkpoint
+    slots and a ``(rows, cols)`` data matrix; it mirrors ``block_bytes`` in
+    ``csrc/fused_nuts_dc.cuh``.
+
+    Logistic regression takes the tiles form: its :data:`_CHAINS_LR`
+    warps share the gradient's tiles (:func:`_lr_tiles_floats`), each holds
+    a staging vector for the dense and low-rank metrics, and the checkpoint
+    slots live in device memory (at ``d = 256`` and ``max_depth`` 10 eight
+    warps' slots alone would take 164 KB for the diagonal metric, 254 KB for
+    the dense one); a dense metric's ``M^{-1}`` and ``C^T``, or a low-rank
+    one's ``U``, ``lam - 1`` and ``1 / sqrt(lam) - 1``, are copied into
+    shared memory where they fit beside the rest.
 
     Each of the four warps holds its checkpoint slots (m and msum; w and a
     staging vector besides for the dense and low-rank metrics) and a matrix
@@ -678,6 +750,13 @@ def shared_memory_plan(n: int, family: int, metric: str, max_depth: int, rows: i
     :data:`SHARED_MEMORY_LIMIT`, and reads X from L2 where they do not; the
     choice is made here, before the launch, and never on a failed one."""
     vec = n * 32
+    if family == _CUDA_LOGREG:
+        tiles = 4 * (_lr_tiles_floats(n, cols) + (0 if metric == "diag" else _CHAINS_LR * vec))
+        matrices = 4 * {"diag": 0, "dense": 2 * cols * cols,
+                        "low_rank": cols * rank + 2 * rank}[metric]
+        if matrices and tiles + matrices <= SHARED_MEMORY_LIMIT:
+            return SharedMemoryPlan("tiles", tiles + matrices, True)
+        return SharedMemoryPlan("tiles", tiles)
     slots = 2 * max_depth * vec if metric == "diag" else (3 * max_depth + 1) * vec
     if family == _CUDA_HORSESHOE:
         scratch = 2 * vec + 16 * n  # x, the gradient, beta
@@ -713,9 +792,8 @@ def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
     rows = cols = 0
     scalars = ()
     if target.matrix is not None:
-        matrix = _matrix_on(target, dev)
-        if matrix[0] is not None:
-            rows, cols = matrix[0].shape
+        if target.matrix.X is not None:
+            rows, cols = target.matrix.X.shape
         scalars = target.matrix.scalars
     elif target.params:
         inv_var = torch.tensor(target.params[0], dtype=torch.float32, device=dev)
@@ -726,7 +804,11 @@ def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
     if budgets is not None:
         budgets = budgets.to(device=dev, dtype=torch.int32).contiguous()
     n = _register_width(d)
-    plan = shared_memory_plan(n, target.cuda_target, metric.kind, max_depth, rows, cols)
+    plan = shared_memory_plan(n, target.cuda_target, metric.kind, max_depth, rows, cols, rank)
+    if plan.x_form == "tiles":
+        matrix = _lr_tiles_on(target, dev, _lr_tile_rows(n))
+    elif target.matrix is not None:
+        matrix = _matrix_on(target, dev)
     lib = _library(metric.kind)
     out_x = torch.empty_like(x)
     out_steps = torch.empty(C, dtype=torch.int32, device=dev)
@@ -734,7 +816,14 @@ def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
     out_iters = torch.empty(C, dtype=torch.int32, device=dev)
     hist = torch.zeros(C, num_steps, len(track_rows), dtype=torch.float32, device=dev)
     cold_floats = _cold_floats(n)
-    cold = torch.empty(C * cold_floats, dtype=torch.float32, device=dev) if cold_floats else None
+    # the tiles form's warps past the last chain write their cold vectors too
+    cold_chains = _round_up(C, _CHAINS_LR) if plan.x_form == "tiles" else C
+    cold = (torch.empty(cold_chains * cold_floats, dtype=torch.float32, device=dev)
+            if cold_floats else None)
+    slots = None
+    if plan.x_form == "tiles":  # the checkpoint slots: m, msum (and w), max_depth each
+        slot_floats = (2 if metric.kind == "diag" else 3) * max_depth * n * 32
+        slots = torch.empty(C * slot_floats, dtype=torch.float32, device=dev)
     track = torch.tensor(track_rows, dtype=torch.int32, device=dev)
     k = (_FLOAT * _MAX_SCALARS)(*scalars)
 
@@ -744,17 +833,35 @@ def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
     code = lib.bjt_fused_nuts_dc(
         x.data_ptr(), *map(ptr, metric_ptrs), ptr(inv_var),
         track.data_ptr(), ptr(budgets), out_x.data_ptr(), out_steps.data_ptr(),
-        out_grads.data_ptr(), hist.data_ptr(), out_iters.data_ptr(), ptr(cold),
+        out_grads.data_ptr(), hist.data_ptr(), out_iters.data_ptr(), ptr(cold), ptr(slots),
         *map(ptr, matrix),
         C, d, num_steps, len(track_rows), max_depth, budget, restart_every,
-        target.cuda_target, rows, cols, int(plan.x_form == "shared"), rank, float(step_size),
-        float(divergence_threshold), seed, k, _nvcc.stream_handle(dev),
+        target.cuda_target, rows, cols, int(plan.x_form == "shared"), rank,
+        int(plan.metric_shared), float(step_size), float(divergence_threshold), seed, k,
+        _nvcc.stream_handle(dev),
     )
     _nvcc.check_launch(lib, code, "fused_nuts_dc")
     LAUNCHES["fused_nuts_dc"] += 1
     if plan.x_form is not None:
         LAUNCHES[f"fused_nuts_dc:x_{plan.x_form}"] += 1
     return out_x, out_steps, out_grads, hist, out_iters
+
+
+def lockstep_idle_share(steps, iters, num_steps: int, budget):
+    """The share of warp-iterations of the tiles form in which a warp was
+    not live, from one launch's per-chain ``steps`` and ``iters`` (the
+    outputs of the kernel launch) and its ``budget`` (an int, or per-chain
+    budgets): a chain is live until it closes its last transition (``iters``
+    iterations) or, short of ``num_steps``, until its budget runs out, and
+    its block runs the loop until its last chain is done. Warps past the
+    last chain of a partial last block count as idle throughout."""
+    k = _CHAINS_LR
+    steps, iters = steps.cpu().long(), iters.cpu().long()
+    budgets = torch.as_tensor(budget).cpu().long().expand_as(steps)
+    live = torch.where(steps >= num_steps, iters, budgets)
+    blocks = torch.nn.functional.pad(live, (0, _round_up(live.numel(), k) - live.numel()))
+    held = int(blocks.view(-1, k).max(1).values.sum()) * k
+    return 1.0 - int(live.sum()) / held if held else 0.0
 
 
 def _lane_budgets(steps, iters, *, num_steps, budget, chunk, pack, tile_chains):

@@ -81,7 +81,12 @@ them in phases, one line each:
    grows along a trajectory to ~1.5e-4 in 4 transitions, as it does between
    the plain version on the card and on the CPU; the fused kernels are held
    as in phases 5 and 7. Each prints both times by CUDA events, the kernel's
-   device time by torch.profiler and the card. The horseshoe's pair is held
+   device time by torch.profiler and the card. The dc machine's logistic
+   regression must launch in the tiles form (the block's eight chains in
+   lockstep, sharing tiles of X streamed through shared memory); its line
+   gives the kernel's time against its bound and their ratio, the share of
+   warp-iterations in which a warp of the lockstep was not live, and the
+   leaves per transition. The horseshoe's pair is held
    after phase 10, on its adapted step size and metric: from an unadapted
    start every horseshoe tree diverges at its first leaf;
 10. the horseshoe path, launch counts reset just before it: the port's
@@ -115,7 +120,11 @@ them in phases, one line each:
    time), then ``fused_nuts_run_dc`` with the adapted
    ``(54, 54)`` or low-rank metric on 1,024 chains from the warmup's position
    plus 0.01 N(0, I) (numpy seed) for 256 transitions, tracking all 54
-   coordinates, in one launch, then min-ESS over the second half. Every chain
+   coordinates, in one launch in the tiles form (required), then min-ESS over
+   the second half; the line gives the kernel's time, its bound and their
+   ratio, the lockstep's idle warp-iteration share (from a second launch on
+   the same inputs, which gives the same outputs) and the leaves per
+   transition. Every chain
    must complete, everything must be finite, and each coordinate's
    second-half mean must lie within 0.15 posterior sd, and its variance
    within [0.8, 1.25], of the JAX package's NUTS posterior on the CPU
@@ -365,6 +374,18 @@ def _matrix_pair(torch, name, kern, plain, num_steps):
              f"{name}: a chain that agrees to {MATRIX_TOL} has other gradient counts")
     _require(share >= AGREE_FLOOR, f"{name}: only {share} of chains agree to {MATRIX_TOL}")
     return share, share5, err, float(kg.sum()), float(pg.sum()), int(other.sum())
+
+
+def _tiles_idle_share(torch, dc, x, imm, step, kw):
+    """The share of warp-iterations in which a warp of the tiles form's
+    lockstep was not live, in one more launch of the dc kernel on the same
+    inputs (it gives the same per-chain outputs), and the forms it took."""
+    x32, operands, machine = dc._prepare(x, imm, **kw)
+    before = dict(dc.LAUNCHES)
+    out = dc._launch_cuda(x32, operands, float(step), **machine)
+    forms = [key.split(":x_")[1] for key, v in dc.LAUNCHES.items()
+             if ":x_" in key and v > before[key]]
+    return dc.lockstep_idle_share(out[1], out[4], machine["num_steps"], machine["budget"]), forms
 
 
 def _timed_mean(torch, fn, repeats):
@@ -873,17 +894,23 @@ def main() -> int:
         bound = _bound(nbytes, ops, peaks, (grads + chains * num_steps * d) * THREEFRY_OPS)
         device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         form = ""
+        if kind == "logreg":
+            _require(forms == ["tiles"], f"{name}: the dc kernel took the forms {forms}, not tiles")
+            idle, _ = _tiles_idle_share(torch, dc, x, imm, step, kw)
+            form = f", lockstep idle warp-iterations {idle:.4f}"
         if forms:
             plan = dc.shared_memory_plan(dc._register_width(d), target.cuda_target, "diag",
                                          max_doublings, *target.matrix.X.shape)
-            form = f", X read from {'/'.join(forms)} ({plan.nbytes} B of shared memory a block)"
+            form = (f", X read from {'/'.join(forms)} ({plan.nbytes} B of shared memory a "
+                    f"block){form}")
         print(f"phase 9: fused_nuts_run_dc {name} d={d} C={chains} S={num_steps} "
               f"max_doublings={max_doublings}{form}: steps identical, grads kernel {grads:.0f} plain "
-              f"{plain_grads:.0f} ({other} chains with other counts, all among those that part), "
+              f"{plain_grads:.0f} ({other} chains with other counts, all among those that part; "
+              f"{grads / (chains * num_steps):.3f} leaves per transition), "
               f"{share:.4f} of chains agree to {MATRIX_TOL} (floor {AGREE_FLOOR}; "
               f"{share5:.4f} to {AGREE_TOL}), max |diff| {err:.3g}; kernel {ms:.3f} ms (device "
               f"{device_time}), plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
-              f"({smi})")
+              f"(kernel / bound {ms / bound[0]:.1f}) ({smi})")
         return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms, bound=bound)
 
     es_target = targets_dc.make_eight_schools_target_dc()
@@ -1097,11 +1124,16 @@ def main() -> int:
         (fx11, hist11, grads11, steps11), ms11 = _timed(
             torch, lambda: dc.fused_nuts_run_dc(start, imm11, step11, **run_kw))
         launches11 = dc.LAUNCHES["fused_nuts_dc"]
+        tiles11 = dc.LAUNCHES["fused_nuts_dc:x_tiles"]
+        launch_counts11 = dict(dc.LAUNCHES)
         second = hist11[:, MET_TRANSITIONS // 2:]
         ess11 = blackjax_tpu_torch.ess(second)
         min_ess11 = float(ess11.min())
 
         _require(launches11 == 1, f"the {metric_kind} path launched the dc kernel {launches11} times")
+        _require(tiles11 == 1, f"the {metric_kind} path's dc launch did not take the tiles form")
+        idle11, forms11 = _tiles_idle_share(torch, dc, start, imm11, step11, run_kw)
+        _require(forms11 == ["tiles"], f"{metric_kind}: the idle-share launch took {forms11}")
         _require(bool((steps11 == MET_TRANSITIONS).all()),
                  f"{metric_kind}: chains short of {MET_TRANSITIONS} transitions: {int(steps11.min())}")
         for name, t in [("positions", fx11), ("history", hist11), ("ess", ess11)]:
@@ -1123,20 +1155,24 @@ def main() -> int:
         print(f"phase 11 ({metric_kind}): {label} single chain, {MET_WARMUP_STEPS} steps at max_doublings={MET_WARMUP_DOUBLINGS}, "
               f"{warm_leaves} leaves in {warm_s:.2f} s: step size {step11:.6f}, {extra}; "
               f"fused_nuts_run_dc logistic regression {n_lr} x {LR_D} C={MET_CHAINS} "
-              f"S={MET_TRANSITIONS} max_doublings={MET_DOUBLINGS}: all chains completed, kernel "
-              f"{ms11:.2f} ms by CUDA events (bound {bound11[0]:.4f} ms by {bound11[1]}), "
-              f"{float(grads11):.0f} grads ({float(grads11) / secs11:.4g} grads/s, {leaves11:.2f} "
-              f"leaves per transition), min-ESS over the second half {min_ess11:.1f} "
+              f"S={MET_TRANSITIONS} max_doublings={MET_DOUBLINGS}, tiles form: all chains completed, "
+              f"kernel {ms11:.2f} ms by CUDA events (bound {bound11[0]:.4f} ms by {bound11[1]}, "
+              f"kernel / bound {ms11 / bound11[0]:.1f}; lockstep idle warp-iterations "
+              f"{idle11:.4f}), {float(grads11):.0f} grads ({float(grads11) / secs11:.4g} grads/s, "
+              f"{leaves11:.3f} leaves per transition), min-ESS over the second half {min_ess11:.1f} "
               f"({min_ess11 / secs11:.4g} ESS/s); against the JAX package's posterior: worst "
               f"mean offset {worst_z:.4f} sd (gate {MET_MEAN_SD}), variance ratios "
-              f"[{lo:.4f}, {hi:.4f}] (gate {MET_VAR_RATIO}); launches {dict(dc.LAUNCHES)} ({smi})")
+              f"[{lo:.4f}, {hi:.4f}] (gate {MET_VAR_RATIO}); launches {launch_counts11} ({smi})")
 
         # the kernel against its plain version, on the path's metric and step
         # size, from the path's final positions
         cmp_x = fx11[:MET_CMP_CHAINS].contiguous()
         cmp_kw = dict(target=lr_dc, num_steps=MET_CMP_TRANSITIONS, max_num_doublings=MET_DOUBLINGS,
                       seed=SEED, num_track=LR_D, budget=2**MET_DOUBLINGS * MET_CMP_TRANSITIONS)
+        before_cmp = dc.LAUNCHES["fused_nuts_dc:x_tiles"]
         kern, kms = _per_chain(torch, dc, True, cmp_x, imm11, step11, cmp_kw)
+        _require(dc.LAUNCHES["fused_nuts_dc:x_tiles"] == before_cmp + 1,
+                 f"{metric_kind} comparison: the dc launch did not take the tiles form")
         plain, pms = _per_chain(torch, dc, False, cmp_x, imm11, step11, cmp_kw)
         share, share5, err, cmp_grads, plain_grads, other = _matrix_pair(
             torch, f"{metric_kind} logistic regression", kern, plain, MET_CMP_TRANSITIONS)
@@ -1145,13 +1181,17 @@ def main() -> int:
         device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         cmp_bound = metric_bound(imm11, MET_CMP_CHAINS, LR_D, MET_CMP_TRANSITIONS, cmp_grads,
                                  n_lr)
+        cmp_idle, _ = _tiles_idle_share(torch, dc, cmp_x, imm11, step11, cmp_kw)
         print(f"phase 11 ({metric_kind}) comparison: logistic regression {MET_CMP_CHAINS} chains x "
               f"{MET_CMP_TRANSITIONS} transitions: steps identical, grads kernel {cmp_grads:.0f} "
               f"plain {plain_grads:.0f} ({other} chains with other counts, all among those that "
               f"part), {share:.4f} of chains agree to {MATRIX_TOL} (floor "
               f"{AGREE_FLOOR}; {share5:.4f} to {AGREE_TOL}), max |diff| {err:.3g}; kernel "
               f"{kms:.3f} ms (device {device_time}), plain {pms:.1f} ms, bound "
-              f"{cmp_bound[0]:.4f} ms by {cmp_bound[1]} ({smi})")
+              f"{cmp_bound[0]:.4f} ms by {cmp_bound[1]} (kernel / bound "
+              f"{kms / cmp_bound[0]:.1f}), tiles form, lockstep idle warp-iterations "
+              f"{cmp_idle:.4f}, {cmp_grads / (MET_CMP_CHAINS * MET_CMP_TRANSITIONS):.3f} leaves "
+              f"per transition ({smi})")
         met[metric_kind] = dict(launches=launches11, err=err, ms=kms, plain_ms=pms, bound=cmp_bound)
 
     # the same pairs on phase 3's width: a Gaussian at d=100, 4,096 chains x

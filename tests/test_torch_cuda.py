@@ -189,12 +189,112 @@ def test_block_bytes_match_the_plan(cuda, kind):
               (100, dc._CUDA_HORSESHOE, 6, 37, 48), (36, dc._CUDA_HORSESHOE, 6, 12, 16),
               (54, dc._CUDA_LOGREG, 8, 4096, 54), (10, dc._CUDA_EIGHT_SCHOOLS, 8, 0, 0),
               (100, dc._CUDA_HIERARCHICAL, 8, 0, 0)]
+    rank = 4 if kind == "low_rank" else 0
     for d, family, max_depth, rows, cols in shapes:
         if kind != "diag" and d > 256:
             continue
-        plan = dc.shared_memory_plan(dc._register_width(d), family, kind, max_depth, rows, cols)
+        plan = dc.shared_memory_plan(dc._register_width(d), family, kind, max_depth, rows, cols,
+                                     rank)
         shared = int(plan.x_form == "shared")
-        assert lib.bjt_dc_block_bytes(d, family, shared, max_depth, rows, cols) == plan.nbytes
+        assert lib.bjt_dc_block_bytes(d, family, shared, max_depth, rows, cols, rank,
+                                      int(plan.metric_shared)) == plan.nbytes
+
+
+@pytest.mark.parametrize("max_depth", [6, 8, 10])
+@pytest.mark.parametrize("kind", ["diag", "dense", "low_rank"])
+def test_tiles_block_bytes_match_the_plan(cuda, kind, max_depth):
+    """Logistic regression's tiles form asks for the bytes the plan counts,
+    with the metric's matrices in shared memory or not, at d = 12, 54, 256."""
+    lib = dc._library(kind)
+    rank = 10 if kind == "low_rank" else 0
+    for d, rows in ((12, 24), (54, 4096), (256, 300)):
+        plan = dc.shared_memory_plan(dc._register_width(d), dc._CUDA_LOGREG, kind, max_depth,
+                                     rows, d, rank)
+        assert plan.x_form == "tiles"
+        assert lib.bjt_dc_block_bytes(d, dc._CUDA_LOGREG, 0, max_depth, rows, d, rank,
+                                      int(plan.metric_shared)) == plan.nbytes
+
+
+def _tiles_gate(kern, plain, S, full=True):
+    """The matrix-target gate, chain by chain: identical steps (all S where
+    ``full``), finite outputs, the floor's share at MATRIX_TOL, and identical
+    gradient counts and iterations on every chain that agrees."""
+    (kx, ks, kg, kh, ki), (px, ps, pg, ph, pi) = kern, plain
+    assert torch.equal(ks, ps)
+    if full:
+        assert bool((ks == S).all())
+    assert torch.isfinite(kx).all() and torch.isfinite(kh).all()
+    close = torch.isclose(kx, px, rtol=MATRIX_TOL, atol=MATRIX_TOL).all(1)
+    close &= torch.isclose(kh, ph, rtol=MATRIX_TOL, atol=MATRIX_TOL).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
+    assert torch.equal(kg[close], pg[close]) and torch.equal(ki[close], pi[close])
+
+
+def _tiles_run(cuda, case, kind, C, S, budgets=None, **kw):
+    make, step_size, scale = MATRIX_CASES[case]
+    target = make()
+    d = target.dim
+    x = torch.from_numpy(
+        (scale * np.random.default_rng(d).standard_normal((C, d))).astype(np.float32)
+    ).to(cuda)
+    imm = torch.ones(d, device=cuda) if kind == "diag" else _rich_metric(kind, d, cuda)
+    kw = dict(dict(target=target, num_steps=S, max_num_doublings=6, seed=7, num_track=d,
+                   budget=2**6 * S), **kw)
+    x32, metric, machine = dc._prepare(x, imm, **kw)
+    before = dict(dc.LAUNCHES)
+    kern = dc._launch_cuda(x32, metric, step_size, budgets=budgets, **machine)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in dc.LAUNCHES.items() if v != before[k]}
+    assert launched == {"fused_nuts_dc": 1, "fused_nuts_dc:x_tiles": 1}
+    plain = dc._machine_plain(x32, metric, step_size, budgets=budgets, **machine)
+    return kern, plain
+
+
+@pytest.mark.parametrize("kind", ["diag", "dense", "low_rank"])
+@pytest.mark.parametrize("case", ["logreg_23x12", "logreg_4096x54"])
+def test_logreg_tiles_match_plain_version(cuda, case, kind):
+    """The tiles form against the plain version at C = 13: a block of eight
+    chains and a partial block whose three absent warps join every gradient;
+    one launch, counted under its form."""
+    kern, plain = _tiles_run(cuda, case, kind, 13, 4)
+    _tiles_gate(kern, plain, 4)
+    assert float(kern[2].sum()) > 13 * 4  # trees of more than one leaf
+
+
+@pytest.mark.parametrize("kind", ["diag", "dense", "low_rank"])
+@pytest.mark.parametrize("case", ["logreg_23x12", "logreg_4096x54"])
+def test_logreg_tiles_budgets_and_parked_warps_match_plain_version(cuda, case, kind):
+    """Budgets that differ chain by chain inside a block (as pack > 1 gives
+    them), some too small to finish, and restarts gated to every fourth
+    leaf, so that warps park, run out and idle while others take leaves."""
+    budgets = torch.from_numpy(np.random.default_rng(4).integers(8, 160, 20))
+    kern, plain = _tiles_run(cuda, case, kind, 20, 6, budgets=budgets, restart_every=4,
+                             chunk=16, budget=160)
+    _tiles_gate(kern, plain, 6, full=False)
+    assert 0 < int((kern[1] < 6).sum()) < 20
+
+
+def test_logreg_tiles_pack_matches_plain_version(cuda):
+    """Four chains a lane under a lane budget that cuts some short, with
+    gated restarts, through the public entry point: the kernel flags the
+    plain version's chains."""
+    target = MATRIX_CASES["logreg_23x12"][0]()
+    d, C = target.dim, 512
+    x = torch.from_numpy(
+        (0.5 * np.random.default_rng(1).standard_normal((C, d))).astype(np.float32)
+    ).to(cuda)
+    imm = torch.ones(d, device=cuda)
+    kw = dict(target=target, num_steps=8, max_num_doublings=4, seed=7, num_track=d, chunk=16,
+              pack=4, restart_every=2, budget=256)
+    before = dc.LAUNCHES["fused_nuts_dc:x_tiles"]
+    kern = dc.fused_nuts_run_dc(x, imm, 0.3, **kw)
+    assert dc.LAUNCHES["fused_nuts_dc:x_tiles"] > before
+    plain = dc.fused_nuts_run_dc_plain(x, imm, 0.3, **kw)
+    assert torch.equal(kern[3], plain[3])
+    assert 0 < int((kern[3] < 8).sum()) < C
+    close = torch.isclose(kern[0], plain[0], rtol=MATRIX_TOL, atol=MATRIX_TOL).all(1)
+    close &= torch.isclose(kern[1], plain[1], rtol=MATRIX_TOL, atol=MATRIX_TOL).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
 
 
 def test_dc_kernel_accepts_d404(cuda):

@@ -63,10 +63,8 @@ def test_rich_metric_horseshoe_stages_x(metric):
     assert plan == dc.SharedMemoryPlan("shared", 4 * 4 * (19 * 64 + 160) + 4 * 12 * 20)
 
 
+# logistic regression takes the tiles form (tests/test_torch_dc_tiles.py)
 @pytest.mark.parametrize("family, d, metric, max_depth, rows, cols, x_form", [
-    (dc._CUDA_LOGREG, 54, "diag", 8, 4096, 54, "l2"),
-    (dc._CUDA_LOGREG, 54, "dense", 8, 4096, 54, "l2"),
-    (dc._CUDA_LOGREG, 54, "low_rank", 6, 4096, 54, "l2"),
     (dc._CUDA_EIGHT_SCHOOLS, 10, "diag", 8, 0, 0, None),
     (dc._CUDA_HIERARCHICAL, 100, "diag", 8, 0, 0, None),
     (dc._CUDA_GAUSSIAN, 512, "diag", 10, 0, 0, None),

@@ -6,8 +6,9 @@ tensors) on the adapted step size and permuted metric, then ESS.
 The machine is held as ``tests/ops/test_targets_dc.py:143-207`` holds the
 Pallas machine: every chain completes within the budget, everything is
 finite, and the mean number of leaves per transition lies within rel 0.5 of
-the reference's XLA NUTS at the same step size and metric (measured: 28.9
-against 29.2 leaves per transition).
+the reference's XLA NUTS at the same step size and metric (measured: 26.65
+against 25.67 leaves per transition after a 60-step warmup; 28.9 against
+29.2 after 150 steps).
 """
 import numpy as np
 import pytest
@@ -34,6 +35,10 @@ from blackjax_tpu_torch.ops.targets_dc import (  # noqa: E402
 N, M = 12, 16
 C, S = 16, 12
 MAX_DOUBLINGS = 5
+# the warmup's steps: its tests are structural (a usable step size and a
+# positive metric; the machine and the reference NUTS are compared at
+# whatever parameters it gives)
+WARMUP = 60
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +49,7 @@ def slice_run():
         nuts, model.logdensity_fn, max_num_doublings=MAX_DOUBLINGS,
         adaptation_info_fn=get_filter_adapt_info_fn(info_keys={"num_integration_steps"}),
     )
-    (_, params), _ = warmup.run(torch.Generator().manual_seed(0), torch.zeros(d), 150)
+    (_, params), _ = warmup.run(torch.Generator().manual_seed(0), torch.zeros(d), WARMUP)
     step, imm = params["step_size"], params["inverse_mass_matrix"]
     to_dc, _ = horseshoe_dc_perm(M)
     imm_dc = imm[torch.from_numpy(to_dc)]
@@ -71,7 +76,8 @@ def test_every_chain_completes_and_is_finite(slice_run):
     for name in ("fx", "hist", "ess"):
         assert bool(torch.isfinite(slice_run[name]).all()), name
     # min-ESS over all coordinates equals the JAX package's on this history
-    expected = np.asarray(jdiag.effective_sample_size(jnp.asarray(slice_run["hist"].double().numpy())))
+    expected = np.asarray(jax.jit(jdiag.effective_sample_size)(
+        jnp.asarray(slice_run["hist"].double().numpy())))
     np.testing.assert_allclose(slice_run["ess"].numpy(), expected, rtol=1e-10)
 
 
@@ -86,14 +92,20 @@ def test_trajectory_length_matches_reference_nuts(slice_run):
         inverse_mass_matrix=jnp.asarray(slice_run["imm"].numpy()),
         max_num_doublings=MAX_DOUBLINGS,
     )
-    states = jax.vmap(algo.init)(jnp.asarray(slice_run["x0_model"], jnp.float32))
 
-    def one(states, key):
-        states, infos = jax.vmap(algo.step)(jax.random.split(key, C), states)
-        return states, jnp.sum(infos.num_integration_steps)
+    @jax.jit  # one compile; run eagerly, the init and the scan compile apart
+    def total_leaves(x0, key):
+        states = jax.vmap(algo.init)(x0)
 
-    _, leaves = jax.lax.scan(one, states, jax.random.split(jax.random.key(7), S))
-    reference_len = float(jnp.sum(leaves)) / (C * S)
+        def one(states, key):
+            states, infos = jax.vmap(algo.step)(jax.random.split(key, C), states)
+            return states, jnp.sum(infos.num_integration_steps)
+
+        _, leaves = jax.lax.scan(one, states, jax.random.split(key, S))
+        return jnp.sum(leaves)
+
+    leaves = total_leaves(jnp.asarray(slice_run["x0_model"], jnp.float32), jax.random.key(7))
+    reference_len = float(leaves) / (C * S)
     print(f"leaves per transition: machine {machine_len:.2f}, reference NUTS {reference_len:.2f}")
     assert machine_len == pytest.approx(reference_len, rel=0.5)
     assert d == target.dim

@@ -299,8 +299,11 @@ def test_find_L_and_step_size_statistically():
     num_steps = 1500
     key_init, key_tune = jax.random.split(jax.random.key(12))
     ref_state = jmclmc.init(jnp.asarray(x0), jld, key_init)
-    _, ref_params, ref_total = jada.mclmc_find_L_and_step_size(
-        jmclmc.build_kernel(), num_steps, ref_state, key_tune, logdensity_fn=jld)
+    # one compiled call of the reference's tuner: run eagerly, it compiles
+    # each of its ~150 small steps on its own (same results, measured)
+    ref_params, ref_total = jax.jit(lambda s, k: jada.mclmc_find_L_and_step_size(
+        jmclmc.build_kernel(), num_steps, s, k, logdensity_fn=jld)[1:])(ref_state, key_tune)
+    ref_total = int(ref_total)
     gen = torch.Generator().manual_seed(12)
     state = mclmc.init(_t(x0), tld, gen)
     tuned_state, params, total = blackjax_tpu_torch.mclmc_find_L_and_step_size(

@@ -138,25 +138,26 @@ def reference_moments(n=4096, d=54, seed=9, num_warmup=1000, num_chains=64,
     X, y = logreg_data(n, d, seed)
     target = ref_dc.make_logreg_target_dc(X, y)
     warm_key, pos_key, sample_key = jax.random.split(jax.random.key(key), 3)
-    results, _ = window_adaptation(
+    # each stage is one compiled call: run eagerly, the warmup, the chains'
+    # init and the ESS compile each of their small steps on their own
+    results = jax.jit(lambda k: window_adaptation(
         jnuts, target.logdensity_fn, is_mass_matrix_diagonal=False
-    ).run(warm_key, jnp.zeros(d), num_warmup)
+    ).run(k, jnp.zeros(d), num_warmup)[0])(warm_key)
     params = results.parameters
     algo = blackjax_tpu.nuts(target.logdensity_fn, **params)
     start = results.state.position + 0.01 * jax.random.normal(pos_key, (num_chains, d))
-    states = jax.vmap(algo.init)(start)
 
     @jax.jit
-    def run(states, keys):
+    def run(start, keys):
         def one(states, ks):
             states, infos = jax.vmap(algo.step)(ks, states)
             return states, (states.position, infos.num_integration_steps)
 
-        return jax.lax.scan(one, states, keys)
+        return jax.lax.scan(one, jax.vmap(algo.init)(start), keys)
 
-    _, (hist, leaves) = run(states, jax.random.split(sample_key, (num_samples, num_chains)))
+    _, (hist, leaves) = run(start, jax.random.split(sample_key, (num_samples, num_chains)))
     half = np.asarray(hist[num_samples // 2:])  # (samples, chains, d)
-    ess = np.asarray(jdiag.effective_sample_size(jnp.asarray(half.swapaxes(0, 1))))
+    ess = np.asarray(jax.jit(jdiag.effective_sample_size)(jnp.asarray(half.swapaxes(0, 1))))
     mean, sd = half.mean(axis=(0, 1)), half.std(axis=(0, 1))
     fmt = dict(separator=", ", precision=6, floatmode="fixed", max_line_width=100)
     print(f"MEAN = {np.array2string(mean, **fmt)}")

@@ -40,13 +40,16 @@ def reference_run():
         inverse_mass_matrix=jnp.ones(DIM),
         max_num_doublings=MAX_DOUBLINGS,
     )
-    states = jax.vmap(algo.init)(jnp.asarray(_x0()))
 
-    def one(states, key):
-        states, infos = jax.vmap(algo.step)(jax.random.split(key, C), states)
-        return states, (states.position, infos)
+    @jax.jit  # one compile; run eagerly, the init and the scan compile apart
+    def run(x0, key):
+        def one(states, key):
+            states, infos = jax.vmap(algo.step)(jax.random.split(key, C), states)
+            return states, (states.position, infos)
 
-    _, (xs, infos) = jax.lax.scan(one, states, jax.random.split(jax.random.key(6), S))
+        return jax.lax.scan(one, jax.vmap(algo.init)(x0), jax.random.split(key, S))
+
+    _, (xs, infos) = run(jnp.asarray(_x0()), jax.random.key(6))
     last_info = jax.tree.map(lambda a: np.asarray(a[-1]), infos)
     return np.asarray(xs), np.asarray(infos.num_integration_steps), last_info
 

@@ -79,7 +79,9 @@ def reference_proposal(request):
     jstate = jax.vmap(lambda x: jnuts.init(x, jlogdensity))(jnp.asarray(x))
     jpropose, _ = _parts("flattened", 6, threshold)
     jis = jintegrators.IntegratorState(jstate.position, jnp.asarray(m), *jstate[1:])
-    jout, jinfo = jax.vmap(jpropose, (0, 0, None))(keys, jis, step_size)
+    # one compiled call: run eagerly, each step of the proposal's loop
+    # compiles on its own
+    jout, jinfo = jax.jit(jax.vmap(jpropose, (0, 0, None)))(keys, jis, step_size)
     return x, m, keys, step_size, threshold, jout, jinfo
 
 

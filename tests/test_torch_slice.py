@@ -87,7 +87,9 @@ def test_port_imports_no_jax():
     root = Path(blackjax_tpu_torch.__file__).parent
     files = sorted(root.rglob("*.py"))
     assert len(files) > 10
-    scripts = [root.parent / "chip_smoke.py", root.parent / "warmup_ms_per_leaf.py"]
+    scripts = [root.parent / name for name in (
+        "chip_smoke.py", "warmup_ms_per_leaf.py", "dc_kernel_ms.py", "horseshoe_dc_sections.py",
+        "logreg_dc_tiles.py")]
     for path in files + scripts:
         for name in _imported_modules(path):
             top = name.split(".")[0]

@@ -43,8 +43,9 @@ def _value_and_grad_f64(port_fn, x):
 
 
 def _check_model(ref, port, x):
-    ld_ref = np.asarray(jax.vmap(ref.logdensity_fn)(jnp.asarray(x)))
-    g_ref = np.asarray(jax.vmap(jax.grad(ref.logdensity_fn))(jnp.asarray(x)))
+    # one compiled call each: run eagerly, every primitive compiles on its own
+    ld_ref = np.asarray(jax.jit(jax.vmap(ref.logdensity_fn))(jnp.asarray(x)))
+    g_ref = np.asarray(jax.jit(jax.vmap(jax.grad(ref.logdensity_fn)))(jnp.asarray(x)))
     ld, g = _value_and_grad_f64(port.logdensity_fn, x)
     np.testing.assert_allclose(ld, ld_ref, rtol=RTOL_F64)
     np.testing.assert_allclose(g, g_ref, rtol=RTOL_F64, atol=RTOL_F64 * np.abs(g_ref).max())
@@ -119,7 +120,7 @@ def test_dc_value_and_grad_matches_reference_tiles(case):
     assert (port.name, port.dim) == (ref.name, ref.dim)
     positions = (scale * np.random.default_rng(4).standard_normal((T, ref.dim))).astype(np.float32)
     x, mask, params = _tile_harness(ref, positions)
-    ld_ref, g_ref = ref.vg_tile(x, mask, *params)
+    ld_ref, g_ref = jax.jit(ref.vg_tile)(x, mask, *params)
     ld_ref = np.asarray(ld_ref).ravel()
     g_ref = np.asarray(g_ref)[: ref.dim].T
     ld, g = port.value_and_grad(torch.from_numpy(positions))
@@ -128,7 +129,7 @@ def test_dc_value_and_grad_matches_reference_tiles(case):
     np.testing.assert_allclose(g.numpy(), g_ref, rtol=RTOL_F32,
                                atol=RTOL_F32 * np.abs(g_ref).max())
     # the plain log density in the machine's layout agrees with the tiles
-    lp = np.asarray(jax.vmap(ref.logdensity_fn)(jnp.asarray(positions)))
+    lp = np.asarray(jax.jit(jax.vmap(ref.logdensity_fn))(jnp.asarray(positions)))
     np.testing.assert_allclose(port.logdensity_fn(torch.from_numpy(positions)).numpy(), lp,
                                rtol=RTOL_F32)
     for a, b in zip(port.params, ref.params):
