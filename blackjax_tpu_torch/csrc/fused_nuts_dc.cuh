@@ -32,18 +32,39 @@
 // d = 404; d <= 512). Per-chain scalars are replicated in all 32 lanes, so every
 // branch is warp-uniform and the machine's selects become plain branches. Dot
 // products are xor-shuffle reductions, whose butterfly leaves the same bits in
-// every lane. The 20 length-d vectors of the chain state (22 with the dense
-// and low-rank metrics' w) stay in registers up to N = 8; from N = 13 the
-// eight that a transition touches only at its subtree boundaries (the
-// trajectory's two ends and the proposal, StateVec) live in a per-chain
-// scratch in device memory, which leaves the leaf's hot vectors and the
-// target's gradient the registers (255 a thread). The 2 * max_depth
-// checkpoint slots, which are indexed by a data-dependent slot id, live in
-// shared memory (each lane touches only its own dims, so no barrier), and so
-// does a matrix target's per-warp scratch. The kernel is a template on N,
-// on the target family and on the metric, so the analytic targets'
-// instantiations carry no code of the matrix targets, and the diagonal
-// metric's none of the others.
+// every lane. The kernel is a template on N, on the target family and on the
+// metric, so the analytic targets' instantiations carry no code of the matrix
+// targets, and the diagonal metric's none of the others.
+//
+// Two forms run the analytic targets (the hierarchical and Gaussian ones).
+// The resident form (nuts_dc_resident, a template on the target too), which
+// the wrapper launches up to N = 8 for the diagonal and low-rank metrics (at
+// N = 8 for the dense one), is built for as many warps an SM as
+// resident_warps says (20 at N = 4: the flagship's 4,096 chains on 2,640 warp
+// slots), and for a
+// short dependent chain per leaf, since the launch ends with its slowest chain
+// (2.3 times the mean's leaves on the flagship) running nearly alone. It keeps
+// in registers only the leaf's x, m, g and w (updated in place), the
+// subtree's momentum sum and M^{-1}; the accepted state, the proposal, the
+// trajectory's two ends and its momentum sum, which a transition touches only
+// at restarts and subtree boundaries, live in a per-chain scratch in device
+// memory (ColdVec, 6.5 KB a chain at N = 4, which stays in L2); the checkpoint
+// slots and the subtree's sample live in shared memory where the SM's blocks
+// fit them (resident_slots_shared), else beside the rest. A leaf draws one
+// threefry block before its gradient, so that its rounds overlap it (the
+// merge's uniform, or on a subtree's first leaf the next subtree's block, so
+// that no subtree waits for its draw); the energy's sum and every U-turn
+// check's sums run their butterflies side by side (the reference ORs every
+// slot's check); a subtree that continues in the last one's direction starts
+// from the registers. The registers form (nuts_dc_kernel, F = 0: the only one
+// from N = 13, and the dense metric's below N = 8) keeps the 20 length-d
+// vectors of the chain state (22 with the dense and low-rank metrics' w) in
+// registers up to N = 8; from N = 13 the ten that a transition touches only
+// at its restarts and subtree boundaries (StateVec) live in device memory,
+// which leaves the leaf's hot vectors and the target's gradient the registers
+// (255 a thread). Its 2 * max_depth checkpoint slots, indexed by a
+// data-dependent slot id, live in shared memory (each lane touches only its
+// own dims, so no barrier), and so does a matrix target's per-warp scratch.
 //
 // Metrics. The diagonal metric keeps M^{-1} (and, at a restart, the momentum
 // scale) per lane in registers and recomputes w = M^{-1} m where a U-turn check
@@ -80,11 +101,16 @@
 // share of warp-iterations spent waiting.
 //
 // Bound. For the analytic targets a leaf is O(d) FP32 multiply-adds for the
-// leapfrog, the energy and up to max_depth slot checks, plus exp/log/cos (SFU)
-// and threefry integer rounds. Device memory sees the initial positions, one
-// history row per closed transition and the final state: the kernel is bound by
-// FP32 ALU and SFU throughput and by the latency of its shuffle reductions, not
-// by bytes. A matrix target adds two contractions with its data per leaf (4 N M
+// leapfrog, the energy and its slot checks, plus a few accurate
+// transcendentals and a threefry block (about 70 integer operations). Device
+// memory sees the initial positions, one history row per closed transition and
+// the final state, so by bytes and operations the card could run the
+// flagship's 4,096 x 256 (2.5e7 leaves) in about 1.3 ms (chip_smoke.py's
+// bound). What sets its time is the slowest chain: its leaves run one after
+// the other, at a dependent latency of about 1,700 cycles a leaf when it is
+// alone on the card and about twice that while its SM is full, so the launch
+// ends with the SMs half empty (PERF.md §6). A matrix target adds two
+// contractions with its data per leaf (4 N M
 // FLOP for the horseshoe), read from L2 or, for the horseshoe where it fits,
 // from the block's copy of X in shared memory (see matrix_targets.cuh). Its
 // checkpoint slots at N = 13 and max_depth = 10 take 33 KB of shared memory per
@@ -215,12 +241,13 @@ __device__ __forceinline__ void bind(float (&)[N], float*) {}
 // written in the reference's operation order (make_hierarchical_target_dc,
 // make_gaussian_target_dc; the matrix targets in matrix_targets.cuh). Pad dims
 // (j >= d) get a zero gradient. F is the target family: 0 for the analytic
-// targets (chosen at run time by p.target), else the matrix target's id.
-template <int N>
+// targets, else the matrix target's id. T is the analytic target where it is
+// known at compile time (the resident form), -1 where p.target picks it.
+template <int N, int T = -1>
 __device__ __forceinline__ float analytic_value_and_grad(const Params& p,
                                                          const float (&x)[N],
                                                          float (&g)[N], int lane) {
-  if (p.target == kHierarchical) {
+  if (T == kHierarchical || (T < 0 && p.target == kHierarchical)) {
     const float log_tau = __shfl_sync(kFull, x[0], 0);
     float ts = 0.f;
 #pragma unroll
@@ -787,6 +814,479 @@ __global__ void __launch_bounds__(block_warps<F>() * 32) nuts_dc_kernel(const Pa
   }
 }
 
+// ---------------------------------------------------------------------------
+// The resident form: the analytic targets at N <= 8 (see the head of this file)
+// ---------------------------------------------------------------------------
+
+// warps a block of the resident form; a block holds its SM's resources
+// until its last warp ends, so that with one warp a finished chain's slot
+// takes the next chain at once. Picked by measurement (dc_kernel_ms.py
+// --block-warps: PERF.md §6); ops/fused_nuts_dc.py mirrors it.
+constexpr int kResidentBlockWarps = 1;
+
+// warps an SM that the resident form's instantiations are built to hold:
+// their __launch_bounds__ ask for resident_warps / kResidentBlockWarps blocks an SM,
+// which caps a thread at 65,536 / (32 resident_warps) registers (64 at 32
+// warps, which would hold 4,096 chains on 132 SMs at once, but spill at N =
+// 4). Picked by measurement (dc_kernel_ms.py --warps: PERF.md §6);
+// ops/fused_nuts_dc.py mirrors it.
+template <int N>
+__host__ __device__ constexpr int resident_warps() { return N <= 2 ? 24 : N == 4 ? 20 : 16; }
+
+// the chain's state vectors that the resident form keeps in device memory
+// (ColdVec), by index: the accepted state, the proposal, the trajectory's
+// two ends, the subtree's sample, the trajectory's momentum sum, and the
+// ends' w for the dense and low-rank metrics
+enum ResidentVec {
+  kAccX, kAccG, kPropX, kPropG, kLeftX, kLeftM, kLeftG, kRightX, kRightM, kRightG,
+  kSubX, kSubG, kMsum, kLeftW, kRightW
+};
+template <int M>
+__host__ __device__ constexpr int resident_vectors() {
+  return M == kDiag ? kMsum + 1 : kRightW + 1;
+}
+
+// floats of a chain's scratch in device memory for the resident form's
+// vectors; ops/fused_nuts_dc.py:_cold_floats mirrors it
+template <int N, int M>
+__host__ __device__ constexpr int resident_cold_floats() { return resident_vectors<M>() * N * 32; }
+
+// the shared memory an SM shares among its blocks (228 KB), and what each
+// block of them reserves for the system
+constexpr int kSmemPerSM = 233472;
+constexpr int kSmemReserved = 1024;
+
+// floats of a resident warp's shared memory when its checkpoint slots live
+// there: the dense and low-rank metrics' staging vector, the subtree's
+// sample (x and g) and the slots, level by level
+template <int N, int M>
+__host__ __device__ constexpr int resident_shared_floats(int max_depth) {
+  return own_floats<N, 0, M>() + 2 * N * 32 + slot_floats<N, M>(max_depth);
+}
+
+// whether the resident form keeps the warps' slots (and the subtrees'
+// samples) in shared memory: where the resident_warps of an SM fit them;
+// else they live in device memory, beside the other cold vectors
+template <int N, int M>
+__host__ __device__ constexpr bool resident_slots_shared(int max_depth) {
+  return resident_warps<N>() / kResidentBlockWarps *
+             (kResidentBlockWarps * resident_shared_floats<N, M>(max_depth) * (int)sizeof(float) +
+              kSmemReserved) <= kSmemPerSM;
+}
+
+// a resident block's dynamic shared memory: for each of its warps
+// the staging vector of the dense and low-rank metrics, and the slots and
+// the subtree's sample where they live there
+template <int N, int M>
+__host__ __device__ constexpr size_t resident_block_bytes(int max_depth) {
+  return (size_t)kResidentBlockWarps * sizeof(float) *
+         (resident_slots_shared<N, M>(max_depth) ? resident_shared_floats<N, M>(max_depth)
+                                                 : own_floats<N, 0, M>());
+}
+
+// the xor butterfly of warp_sum on K values at once: each value is summed in
+// warp_sum's order (so every lane holds the same bits), and the K chains of
+// shuffles overlap
+template <int K>
+__device__ __forceinline__ void warp_sums(float (&v)[K]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) v[i] += __shfl_xor_sync(kFull, v[i], o);
+  }
+}
+
+// the resident form's checkpoint slot i: its m, msum and (dense and
+// low-rank) w, one vector after the other
+template <int N, int M>
+__device__ __forceinline__ float* slot_at(float* slots, int i) {
+  return slots + i * (M == kDiag ? 2 : 3) * N * 32;
+}
+
+// the lane's parts of the U-turn check against checkpoint slot i
+// (termination.py:37-43), before their butterflies: a against the slot's
+// w (the diagonal metric: M^{-1} ckm), b against the leaf's w
+template <int N, int M>
+__device__ __forceinline__ void slot_parts(float* slots, int i, const float (&imm)[N],
+                                           const float (&sub_msum)[N], const float (&m)[N],
+                                           const float (&w)[N], float& a, float& b) {
+  const float* ck = slot_at<N, M>(slots, i);
+  a = 0.f;
+  b = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float ckm = ck[k * 32];
+    const float cks = ck[(N + k) * 32];
+    const float rho = sub_msum[k] - 0.5f * m[k] - cks + 0.5f * ckm;
+    if constexpr (M == kDiag) {
+      a += imm[k] * ckm * rho;
+    } else {
+      a += ck[(2 * N + k) * 32] * rho;
+    }
+    b += w[k] * rho;
+  }
+}
+
+// The machine of nuts_dc_kernel for the analytic target T, in the resident
+// form: the same transitions, draws and sums, in the order that shortens a
+// leaf's dependent chains (see the head of this file).
+template <int N, int T, int M>
+__global__ void __launch_bounds__(kResidentBlockWarps * 32,
+                                  resident_warps<N>() / kResidentBlockWarps)
+    nuts_dc_resident(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int chain = blockIdx.x * kResidentBlockWarps + warp;
+  if (chain >= p.C) return;  // resident
+  constexpr int V = N * 32;  // floats of a vector
+  // the warp's shared memory: [staging vector] and, where they fit,
+  // [subtree's x] [subtree's g] [slots]
+  const bool shared = resident_slots_shared<N, M>(p.max_depth);
+  float* vbuf = smem + warp * (shared ? resident_shared_floats<N, M>(p.max_depth)
+                                      : own_floats<N, 0, M>());
+  const MetricView mv{p.imm_t, p.chol_t, p.U, p.lam_m1, p.isl_m1};
+  float* const cold = p.cold + (size_t)chain * resident_cold_floats<N, M>() + lane;
+  const auto vec = [&](int i) { return ColdVec<N>{cold + i * V}; };
+  ColdVec<N> acc_x = vec(kAccX), acc_g = vec(kAccG), prop_x = vec(kPropX), prop_g = vec(kPropG);
+  ColdVec<N> left_x = vec(kLeftX), left_m = vec(kLeftM), left_g = vec(kLeftG);
+  ColdVec<N> right_x = vec(kRightX), right_m = vec(kRightM), right_g = vec(kRightG);
+  ColdVec<N> msum = vec(kMsum);
+  ColdVec<N> left_w = vec(kLeftW), right_w = vec(kRightW);  // dense and low-rank only
+  float* const own = vbuf + own_floats<N, 0, M>() + lane;
+  ColdVec<N> sub_x{shared ? own : cold + kSubX * V};
+  ColdVec<N> sub_g{shared ? own + V : cold + kSubG * V};
+  // the checkpoint slots, level by level (slot_at)
+  float* const slots =
+      shared ? own + 2 * V : p.slots + (size_t)chain * slot_floats<N, M>(p.max_depth) + lane;
+
+  // one set of the leaf's vectors, updated in place: the leaf starts from
+  // x, m, g and leaves its new state there. imm: the diagonal's M^{-1}, or
+  // the low-rank metric's sigma; w: M^{-1} m
+  float imm[N], x[N], m[N], g[N], w[N], sub_msum[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    const bool valid = j < p.d;
+    x[k] = valid ? p.x0[(size_t)chain * p.d + j] : 0.f;
+    imm[k] = M != kDense && valid ? p.imm[j] : 0.f;
+  }
+  float acc_ld = analytic_value_and_grad<N, T>(p, x, g, lane);
+  copy<N>(acc_x, x); copy<N>(acc_g, g);
+
+  float prop_ld = 0.f, sub_ld = 0.f, prop_w = 0.f, sub_w = 0.f, h0 = 0.f;
+  float direction = 1.f, grads = 0.f;
+  // the subtree's second uniform word, for its biased merge, and the next
+  // subtree's two words (its direction's and its merge's)
+  uint32_t u_prop = 0u, u_next_dir = 0u, u_next_prop = 0u;
+  int depth = 0, leaf = 0, nstates = 0, steps = 0;
+  // iteration 0 starts with done = 1, so it opens the first transition;
+  // prop_new: the proposal has moved off the accepted state this transition
+  bool done = true, div = false, turn = false, prop_new = false;
+  const int S = p.S;
+  const int budget = p.budgets != nullptr ? p.budgets[chain] : p.budget;
+  int iters = 0;  // resident
+  for (int it = 0;; ++it) {
+    if (it >= budget || steps >= S) break;
+    // a closed chain restarts on the gated iterations only; until then it is
+    // parked, and a parked leaf changes nothing the restart keeps
+    if (done && it % p.restart_every != 0) continue;
+    // counter key of this (chain, step), wrapping modulo 2^32 as the int32
+    // of the reference (fused_nuts_dc.py:395)
+    const uint32_t base_row = (uint32_t)chain * (uint32_t)S + (uint32_t)steps;
+
+    if (done) {
+      // ---- inline restart: fresh momentum, trajectory reset ----
+      // Momentum key c0 = dim index, c1 = (1 << 24) | base_row, u1 with the
+      // +1 offset (fused_nuts_dc.py:413-425), kept for parity with its key
+      // collision at chains * num_steps >= 2^24 (see nuts_dc_kernel). The
+      // subtree's sample is set at its first leaf, and the proposal stays
+      // the accepted state until a subtree is taken, so neither is copied.
+      const uint32_t c1 = (1u << 24) | base_row;
+      if constexpr (M == kDiag) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const int j = k * 32 + lane;
+          float mk = 0.f;
+          if (j < p.d) {
+            uint32_t b1, b2;
+            threefry2x32(p.seed, kKey1, (uint32_t)j, c1, b1, b2);
+            mk = p.sigma_m[j] * box_muller(b1, b2);
+          }
+          m[k] = mk;
+          w[k] = imm[k] * mk;
+        }
+      } else {
+        float z[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const int j = k * 32 + lane;
+          z[k] = 0.f;
+          if (j < p.d) {
+            uint32_t b1, b2;
+            threefry2x32(p.seed, kKey1, (uint32_t)j, c1, b1, b2);
+            z[k] = box_muller(b1, b2);
+          }
+        }
+        sample_m<N, M, true>(p, mv, z, m, lane, vbuf);
+        imm_mv<N, M, true>(p, mv, m, w, imm, lane, vbuf);
+        copy<N>(left_w, w); copy<N>(right_w, w);
+      }
+      h0 = -acc_ld + 0.5f * dot<N>(w, m);
+      copy<N>(x, acc_x); copy<N>(g, acc_g);
+      copy<N>(left_x, x); copy<N>(left_m, m); copy<N>(left_g, g);
+      copy<N>(right_x, x); copy<N>(right_m, m); copy<N>(right_g, g);
+      copy<N>(msum, m);
+      prop_ld = acc_ld;
+      prop_w = 0.f;
+      prop_new = false;
+      depth = leaf = nstates = 0;
+      div = turn = done = false;
+      threefry2x32(p.seed, kKey1, base_row, 2u << 24, u_next_dir, u_next_prop);  // depth 0's
+    }
+
+    // ---- subtree start: direction draw, continue from that end ----
+    // u_dir and u_prop are one _counter_uniforms2(seed, base_row, 2, depth)
+    // block (fused_nuts_dc.py:463), drawn ahead: by the restart for depth 0,
+    // by the previous subtree's first leaf for the others; u_prop waits for
+    // the subtree's close. x, m, g hold the end that the last subtree closed
+    // on (at depth 0 both ends hold what the restart left there), so only a
+    // turn of direction reads the other end.
+    const bool at_start = leaf == 0;
+    if (at_start) {
+      u_prop = u_next_prop;
+      const float last = direction;
+      direction = to_unit(u_next_dir) < 0.5f ? -1.f : 1.f;
+      if (depth > 0 && direction != last) {
+        if (direction > 0.f) {
+          copy<N>(x, right_x); copy<N>(m, right_m); copy<N>(g, right_g);
+        } else {
+          copy<N>(x, left_x); copy<N>(m, left_m); copy<N>(g, left_g);
+        }
+      }
+    }
+    const bool fwd = direction > 0.f;
+
+    // ---- one velocity-Verlet leaf (resident) ----
+    // one threefry block, drawn before the gradient so that its rounds
+    // overlap it: the merge's uniform, _counter_uniforms(seed, base_row, 3,
+    // nstates) (:490), or, on a subtree's first leaf, which merges nothing,
+    // the next subtree's block
+    uint32_t u_leaf, u_second;
+    threefry2x32(p.seed, kKey1, base_row,
+                 at_start ? (2u << 24) | (uint32_t)(depth + 1) : (3u << 24) | (uint32_t)nstates,
+                 u_leaf, u_second);
+    if (at_start) {
+      u_next_dir = u_leaf;
+      u_next_prop = u_second;
+    }
+    const float d_eps = direction * p.eps;
+    const float half = 0.5f * d_eps;
+    if constexpr (M == kDiag) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        m[k] = m[k] + half * g[k];
+        x[k] = x[k] + d_eps * (imm[k] * m[k]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; ++k) m[k] = m[k] + half * g[k];
+      imm_mv<N, M, true>(p, mv, m, w, imm, lane, vbuf);  // M^{-1} m_half
+#pragma unroll
+      for (int k = 0; k < N; ++k) x[k] = x[k] + d_eps * w[k];
+    }
+    const float new_ld = analytic_value_and_grad<N, T>(p, x, g, lane);
+    if constexpr (M == kDiag) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        m[k] = m[k] + half * g[k];
+        w[k] = imm[k] * m[k];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; ++k) m[k] = m[k] + half * g[k];
+      imm_mv<N, M, true>(p, mv, m, w, imm, lane, vbuf);
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) sub_msum[k] = at_start ? m[k] : sub_msum[k] + m[k];
+
+    // ---- the energy and the U-turn checks' sums (resident) ----
+    // Even leaves store (m, sub_msum, w) at slot idx_max; odd leaves check
+    // the slots idx_min..idx_max of the subtrees that end at this leaf, all
+    // of them (the reference ORs every slot's check, fused_nuts_dc.py:
+    // 506-534). The energy's sum and the two newest slots' four sums run
+    // their butterflies together; older slots follow two at a time.
+    const int idx_max = __popc(leaf >> 1);
+    float e = 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) e += w[k] * m[k];
+    bool subtree_turning = false;
+    float energy;
+    if ((leaf & 1) == 0) {
+      float* ck = slot_at<N, M>(slots, idx_max);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        ck[k * 32] = m[k];
+        ck[(N + k) * 32] = sub_msum[k];
+        if constexpr (M != kDiag) ck[(2 * N + k) * 32] = w[k];
+      }
+      energy = -new_ld + 0.5f * warp_sum(e);
+    } else {
+      const int idx_min = idx_max - __popc(((~leaf) & (leaf + 1)) - 1) + 1;
+      const bool two = idx_max > idx_min;
+      float s[5] = {e, 0.f, 0.f, 0.f, 0.f};
+      slot_parts<N, M>(slots, idx_max, imm, sub_msum, m, w, s[1], s[2]);
+      if (two) slot_parts<N, M>(slots, idx_max - 1, imm, sub_msum, m, w, s[3], s[4]);
+      warp_sums<5>(s);
+      energy = -new_ld + 0.5f * s[0];
+      subtree_turning = s[1] <= 0.f || s[2] <= 0.f || (two && (s[3] <= 0.f || s[4] <= 0.f));
+      for (int i = idx_max - 2; i >= idx_min; i -= 2) {
+        const bool pair = i > idx_min;
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+        slot_parts<N, M>(slots, i, imm, sub_msum, m, w, t[0], t[1]);
+        if (pair) slot_parts<N, M>(slots, i - 1, imm, sub_msum, m, w, t[2], t[3]);
+        warp_sums<4>(t);
+        subtree_turning = subtree_turning || t[0] <= 0.f || t[1] <= 0.f ||
+                          (pair && (t[2] <= 0.f || t[3] <= 0.f));
+      }
+    }
+    float delta = h0 - energy;
+    if (isnan(delta)) delta = -INFINITY;  // fused_nuts_dc.py:484
+    const float leaf_w = delta;
+    const bool leaf_div = -delta > p.threshold;
+
+    // ---- progressive uniform merge within the subtree (resident) ----
+    // the subtree's first leaf is its sample; sigmoid(NaN) is NaN and the
+    // comparison is false: no take
+    {
+      const float p_acc = 1.f / (1.f + expf(-(leaf_w - sub_w)));
+      const float merged_w = logaddexp(sub_w, leaf_w);
+      if (at_start || to_unit(u_leaf) < p_acc) {
+        copy<N>(sub_x, x); copy<N>(sub_g, g);
+        sub_ld = new_ld;
+      }
+      sub_w = at_start ? leaf_w : merged_w;
+    }
+
+    // ---- subtree boundary: merge into the trajectory (resident) ----
+    const bool aborted = leaf_div || subtree_turning;
+    const bool closing = leaf + 1 >= (1 << depth) || aborted;
+    bool full_turn = false;
+    if (closing) {
+      // the leaf becomes the end on its side; the full tree's check reads
+      // the other end from device memory
+      float ab[2] = {0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float ms = msum[k] + sub_msum[k];
+        msum[k] = ms;
+        float lm, rm, lw, rw;
+        if (fwd) {
+          right_x[k] = x[k]; right_m[k] = m[k]; right_g[k] = g[k];
+          lm = left_m[k];
+          rm = m[k];
+        } else {
+          left_x[k] = x[k]; left_m[k] = m[k]; left_g[k] = g[k];
+          lm = m[k];
+          rm = right_m[k];
+        }
+        if constexpr (M == kDiag) {
+          lw = imm[k] * lm;
+          rw = imm[k] * rm;
+        } else if (fwd) {
+          right_w[k] = w[k];
+          lw = left_w[k];
+          rw = w[k];
+        } else {
+          left_w[k] = w[k];
+          lw = w[k];
+          rw = right_w[k];
+        }
+        const float rho = ms - 0.5f * (lm + rm);
+        ab[0] += lw * rho;
+        ab[1] += rw * rho;
+      }
+      // biased merge toward the new subtree; an aborted subtree adds nothing.
+      // min(NaN, 1) stays NaN, as jnp.minimum.
+      const float ratio = expf(sub_w - prop_w);
+      const float p_biased = ratio > 1.f ? 1.f : ratio;
+      if (to_unit(u_prop) < p_biased && !aborted) {
+        copy<N>(prop_x, sub_x); copy<N>(prop_g, sub_g);
+        prop_ld = sub_ld;
+        prop_new = true;
+      }
+      if (!aborted) prop_w = logaddexp(prop_w, sub_w);
+      warp_sums<2>(ab);
+      full_turn = ab[0] <= 0.f || ab[1] <= 0.f;
+      depth += 1;
+      leaf = 0;
+    } else {
+      leaf += 1;
+    }
+
+    // ---- transition close (resident) ----
+    div = div || leaf_div;  // the divergence test is -delta > threshold
+    turn = turn || (closing && (subtree_turning || full_turn));
+    done = div || turn || (closing && depth >= p.max_depth);
+    nstates += 1;
+    if (done) {
+      // grads counts nstates only when a transition closes (:581)
+      grads = grads + (float)nstates;
+      if (prop_new) {
+        copy<N>(acc_x, prop_x); copy<N>(acc_g, prop_g);
+      }
+      acc_ld = prop_ld;
+      iters = it + 1;
+      // history row steps - 1 of the closed transition, from the lane that
+      // holds each tracked coordinate; rows never reached keep the zeros
+      float* row = p.out_hist + ((size_t)chain * S + steps) * p.n_track;
+      for (int t = 0; t < p.n_track; ++t) {
+        const int r = p.track_rows[t];
+        if ((r & 31) == lane) row[t] = acc_x[r >> 5];
+      }
+      steps += 1;
+    }
+  }
+
+  // ---- final state (resident) ----
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    if (j < p.d) p.out_x[(size_t)chain * p.d + j] = acc_x[k];
+  }
+  if (lane == 0) {
+    p.out_steps[chain] = steps;
+    p.out_grads[chain] = grads;
+    p.out_iters[chain] = iters;
+  }
+}
+
+// the carveout of the SM's shared memory that the resident form asks for:
+// the most shared memory where its slots live there, else the driver's
+// choice (a carveout for the most L1 leaves room for the 1 KB that each
+// block reserves for 8 blocks only, 8 warps an SM at one warp a block)
+template <int N, int M>
+int resident_carveout(int max_depth) {
+  return resident_slots_shared<N, M>(max_depth) ? (int)cudaSharedmemCarveoutMaxShared
+                                                : (int)cudaSharedmemCarveoutDefault;
+}
+
+template <int N, int T, int M>
+cudaError_t launch_resident(const Params& p, cudaStream_t stream) {
+  const bool shared = resident_slots_shared<N, M>(p.max_depth);
+  if (p.cold == nullptr || (!shared && p.slots == nullptr)) return cudaErrorInvalidValue;
+  const size_t smem = resident_block_bytes<N, M>(p.max_depth);
+  const auto kernel = nuts_dc_resident<N, T, M>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       resident_carveout<N, M>(p.max_depth));
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (p.C + kResidentBlockWarps - 1) / kResidentBlockWarps;
+  kernel<<<blocks, kResidentBlockWarps * 32, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // A block asks for more than the 48 KB default of shared memory through the
 // attribute; past the card's 227 KB the attribute or the launch is refused,
 // and the error comes back to the wrapper, which raises.
@@ -806,20 +1306,27 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the family's instantiation for the target (and, for the horseshoe, the
-// form the wrapper chose: X in shared memory or read from L2); eight
-// schools has d = 10
+// the family's instantiation for the target and the form the wrapper chose
+// (form = 1: for the horseshoe X in shared memory, else X from L2; for the
+// analytic targets the resident form, N <= 8, else one warp's state in
+// registers); eight schools has d = 10
 template <int N, int M>
-cudaError_t launch_target(const Params& p, bool shared_x, cudaStream_t stream) {
+cudaError_t launch_target(const Params& p, bool form, cudaStream_t stream) {
   switch (p.target) {
     case kHierarchical:
     case kGaussian:
-      return launch<N, 0, M>(p, stream);
+      if (!form) return launch<N, 0, M>(p, stream);
+      if constexpr (N <= 8) {
+        return p.target == kHierarchical ? launch_resident<N, kHierarchical, M>(p, stream)
+                                         : launch_resident<N, kGaussian, M>(p, stream);
+      } else {
+        return cudaErrorInvalidValue;
+      }
     case kLogRegDC:
       return launch<N, kLogRegDC, M>(p, stream);
     case kHorseshoeDC:
-      return shared_x ? launch<N, kHorseshoeDC, M, true>(p, stream)
-                      : launch<N, kHorseshoeDC, M>(p, stream);
+      return form ? launch<N, kHorseshoeDC, M, true>(p, stream)
+                  : launch<N, kHorseshoeDC, M>(p, stream);
     case kEightSchoolsDC:
       if constexpr (N == 1) {
         return launch<1, kEightSchoolsDC, M>(p, stream);
@@ -833,7 +1340,7 @@ cudaError_t launch_target(const Params& p, bool shared_x, cudaStream_t stream) {
 // checks the metric's operands and launches the instantiation for d: N = 1,
 // 2, 4, 8 for every metric, and 13, 16 for the diagonal one
 template <int M>
-cudaError_t run_machine(const Params& p, bool shared_x, cudaStream_t s) {
+cudaError_t run_machine(const Params& p, bool form, cudaStream_t s) {
   if constexpr (M == kDiag) {
     if (p.imm == nullptr || p.sigma_m == nullptr) return cudaErrorInvalidValue;
   } else if constexpr (M == kDense) {
@@ -845,33 +1352,106 @@ cudaError_t run_machine(const Params& p, bool shared_x, cudaStream_t s) {
   }
   const int n = (p.d + 31) / 32;
   if (p.C <= 0) return cudaSuccess;
-  if (n <= 1) return launch_target<1, M>(p, shared_x, s);
-  if (n <= 2) return launch_target<2, M>(p, shared_x, s);
-  if (n <= 4) return launch_target<4, M>(p, shared_x, s);
-  if (n <= 8) return launch_target<8, M>(p, shared_x, s);
+  if (n <= 1) return launch_target<1, M>(p, form, s);
+  if (n <= 2) return launch_target<2, M>(p, form, s);
+  if (n <= 4) return launch_target<4, M>(p, form, s);
+  if (n <= 8) return launch_target<8, M>(p, form, s);
   if constexpr (M == kDiag) {
     if (p.cold == nullptr) return cudaErrorInvalidValue;  // N >= 13 from here
-    if (n <= 13) return launch_target<13, M>(p, shared_x, s);
-    if (n <= 16) return launch_target<16, M>(p, shared_x, s);
+    if (n <= 13) return launch_target<13, M>(p, form, s);
+    if (n <= 16) return launch_target<16, M>(p, form, s);
   }
   return cudaErrorInvalidValue;
 }
 
 // block_bytes of the instantiation for d with N registers per vector
 template <int M, int N>
-size_t block_bytes_for(int target, bool shared_x, int max_depth, int rows, int cols, int rank,
+size_t block_bytes_for(int target, bool form, int max_depth, int rows, int cols, int rank,
                        bool metric_shared) {
   switch (target) {
     case kLogRegDC:
       return block_bytes<N, kLogRegDC, M, false>(max_depth, rows, cols, rank, metric_shared);
     case kHorseshoeDC:
-      return shared_x ? block_bytes<N, kHorseshoeDC, M, true>(max_depth, rows, cols, rank, false)
-                      : block_bytes<N, kHorseshoeDC, M, false>(max_depth, rows, cols, rank, false);
+      return form ? block_bytes<N, kHorseshoeDC, M, true>(max_depth, rows, cols, rank, false)
+                  : block_bytes<N, kHorseshoeDC, M, false>(max_depth, rows, cols, rank, false);
     case kEightSchoolsDC:
       return block_bytes<N, kEightSchoolsDC, M, false>(max_depth, rows, cols, rank, false);
     default:
+      if constexpr (N <= 8) {
+        if (form) return resident_block_bytes<N, M>(max_depth);
+      }
       return block_bytes<N, 0, M, false>(max_depth, rows, cols, rank, false);
   }
+}
+
+// a chain's floats of scratch in device memory, {cold vectors, checkpoint
+// slots}, of the instantiation for d with N registers per vector
+template <int M, int N>
+void scratch_floats_for(int target, bool form, int max_depth, long long* out) {
+  const bool resident = N <= 8 && form && (target == kHierarchical || target == kGaussian);
+  if constexpr (N <= 8) {
+    if (resident) {
+      out[0] = resident_cold_floats<N, M>();
+      out[1] = resident_slots_shared<N, M>(max_depth) ? 0 : slot_floats<N, M>(max_depth);
+      return;
+    }
+  }
+  out[0] = kColdState<N> ? kColdVectors * N * 32 : 0;
+  out[1] = target == kLogRegDC ? slot_floats<N, M>(max_depth) : 0;
+}
+
+// registers, local memory and resident warps an SM of a kernel launched
+// with block_warps warps a block and smem bytes of dynamic shared memory
+template <class K>
+cudaError_t occupancy_of(K kernel, int block_warps, size_t smem, int* out, int carveout = -1) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e == cudaSuccess && carveout >= 0)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, block_warps * 32, smem);
+  out[0] *= block_warps;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  return e;
+}
+
+// the analytic target's instantiation for d, in the form
+template <int M, int N>
+cudaError_t analytic_occupancy(int target, bool form, int max_depth, int* out) {
+  if constexpr (N <= 8) {
+    if (form) {
+      const size_t smem = resident_block_bytes<N, M>(max_depth);
+      const int carveout = resident_carveout<N, M>(max_depth);
+      return target == kHierarchical
+                 ? occupancy_of(nuts_dc_resident<N, kHierarchical, M>, kResidentBlockWarps,
+                                smem, out, carveout)
+                 : occupancy_of(nuts_dc_resident<N, kGaussian, M>, kResidentBlockWarps, smem,
+                                out, carveout);
+    }
+  } else if (form) {
+    return cudaErrorInvalidValue;
+  }
+  return occupancy_of(nuts_dc_kernel<N, 0, M, false>, kWarps,
+                      block_bytes<N, 0, M, false>(max_depth, 0, 0, 0, false), out);
+}
+
+// calls fn with the instantiation's N for d as a std::integral_constant,
+// or returns fail where no instantiation takes d
+template <int M, class Fn, class R>
+R for_width(int d, Fn fn, R fail) {
+  const int n = (d + 31) / 32;
+  if (n <= 1) return fn(std::integral_constant<int, 1>{});
+  if (n <= 2) return fn(std::integral_constant<int, 2>{});
+  if (n <= 4) return fn(std::integral_constant<int, 4>{});
+  if (n <= 8) return fn(std::integral_constant<int, 8>{});
+  if constexpr (M == kDiag) {
+    if (n <= 13) return fn(std::integral_constant<int, 13>{});
+    if (n <= 16) return fn(std::integral_constant<int, 16>{});
+  }
+  return fail;
 }
 
 }  // namespace
@@ -883,12 +1463,15 @@ extern "C" {
 // U, lam_m1, isl_m1 and rank are the metric's operands (Params; null and 0
 // where unused); X, Xt, u, s, rows, cols and the host array k[8] are a matrix
 // target's data (matrix_targets.cuh), null and 0 for the analytic targets.
-// shared_x (the horseshoe only) launches the form that copies X into shared
-// memory; Xt may then be null. Logistic regression always takes the tiles
-// form: X is its tiles (logreg_tiles), Xt is not read, slots is the (C,
-// slot_floats) scratch of its checkpoint slots, and metric_shared copies a
-// dense or low-rank metric's matrices into shared memory. cold is the (C,
-// kColdVectors, N, 32) scratch of the N >= 13 instantiations, null below.
+// form is the form the wrapper chose: for the horseshoe, 1 launches the form
+// that copies X into shared memory (Xt may then be null); for the analytic
+// targets, 1 launches the resident form (d <= 256). Logistic regression
+// always takes the tiles form: X is its tiles (logreg_tiles), Xt is not
+// read, and metric_shared copies a dense or low-rank metric's matrices into
+// shared memory. cold and slots are each chain's scratch in device memory
+// (bjt_dc_scratch_floats a chain; null where it is 0): cold the vectors that
+// the resident form and the N >= 13 instantiations keep out of registers,
+// slots the checkpoint slots of the resident and the tiles forms.
 int bjt_fused_nuts_dc(const float* x0, const float* imm, const float* sigma_m,
                       const float* imm_t, const float* chol_t, const float* U,
                       const float* lam_m1, const float* isl_m1,
@@ -898,7 +1481,7 @@ int bjt_fused_nuts_dc(const float* x0, const float* imm, const float* sigma_m,
                       float* slots, const float* X, const float* Xt, const float* u,
                       const float* s_vec, int C, int d, int S, int n_track,
                       int max_depth, int budget, int restart_every, int target,
-                      int rows, int cols, int shared_x, int rank, int metric_shared, float eps,
+                      int rows, int cols, int form, int rank, int metric_shared, float eps,
                       float threshold, int seed, const float* k, void* stream) {
   MatrixData mat{X, Xt, u, s_vec, rows, cols, {}};
   for (int i = 0; i < 8; ++i) mat.k[i] = k[i];
@@ -906,38 +1489,52 @@ int bjt_fused_nuts_dc(const float* x0, const float* imm, const float* sigma_m,
            budgets, out_x, out_steps, out_grads, out_hist, out_iters, cold, slots, C, d, S,
            n_track, max_depth, budget, restart_every, target, rank, metric_shared, eps,
            threshold, (uint32_t)seed, mat};
+  const bool analytic = target == kHierarchical || target == kGaussian;
   if (restart_every < 1) return cudaErrorInvalidValue;
   if (target == kGaussian && inv_var == nullptr) return cudaErrorInvalidValue;
   if (target == kLogRegDC && (X == nullptr || u == nullptr || slots == nullptr || cols != d))
     return cudaErrorInvalidValue;
   if (metric_shared && target != kLogRegDC) return cudaErrorInvalidValue;
-  if (target == kHorseshoeDC && (X == nullptr || (Xt == nullptr && !shared_x) || u == nullptr ||
+  if (target == kHorseshoeDC && (X == nullptr || (Xt == nullptr && !form) || u == nullptr ||
                                  s_vec == nullptr || d != 2 * cols + 4))
     return cudaErrorInvalidValue;
-  if (shared_x && target != kHorseshoeDC) return cudaErrorInvalidValue;
+  if (form && target != kHorseshoeDC && !analytic) return cudaErrorInvalidValue;
   if (target == kEightSchoolsDC && (u == nullptr || s_vec == nullptr || d != 10))
     return cudaErrorInvalidValue;
-  return run_machine<BJT_DC_METRIC>(p, shared_x != 0, static_cast<cudaStream_t>(stream));
+  return run_machine<BJT_DC_METRIC>(p, form != 0, static_cast<cudaStream_t>(stream));
 }
 
 // the dynamic shared memory a launch of bjt_fused_nuts_dc with these
 // arguments asks for (block_bytes), or -1 where no instantiation takes d
-long long bjt_dc_block_bytes(int d, int target, int shared_x, int max_depth, int rows,
+long long bjt_dc_block_bytes(int d, int target, int form, int max_depth, int rows,
                              int cols, int rank, int metric_shared) {
-  const int n = (d + 31) / 32;
-  const bool sx = shared_x != 0, ms = metric_shared != 0;
-  constexpr int M = BJT_DC_METRIC;
-  const auto bytes = [&](auto width) {
-    return (long long)block_bytes_for<M, decltype(width)::value>(target, sx, max_depth, rows,
-                                                                  cols, rank, ms);
-  };
-  if (n <= 1) return bytes(std::integral_constant<int, 1>{});
-  if (n <= 2) return bytes(std::integral_constant<int, 2>{});
-  if (n <= 4) return bytes(std::integral_constant<int, 4>{});
-  if (n <= 8) return bytes(std::integral_constant<int, 8>{});
-  if (M == kDiag && n <= 13) return bytes(std::integral_constant<int, 13>{});
-  if (M == kDiag && n <= 16) return bytes(std::integral_constant<int, 16>{});
-  return -1;
+  return for_width<BJT_DC_METRIC>(d, [&](auto width) {
+    return (long long)block_bytes_for<BJT_DC_METRIC, decltype(width)::value>(
+        target, form != 0, max_depth, rows, cols, rank, metric_shared != 0);
+  }, -1LL);
+}
+
+// a chain's floats of scratch in device memory that a launch with these
+// arguments reads and writes: out[0] the cold vectors, out[1] the checkpoint
+// slots; returns -1 where no instantiation takes d
+int bjt_dc_scratch_floats(int d, int target, int form, int max_depth, long long* out) {
+  return for_width<BJT_DC_METRIC>(d, [&](auto width) {
+    scratch_floats_for<BJT_DC_METRIC, decltype(width)::value>(target, form != 0, max_depth, out);
+    return 0;
+  }, -1);
+}
+
+// the analytic target's instantiation for d in the form (1: resident) at
+// max_depth: out[0] its resident warps an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times its warps a block), out[1] its
+// registers a thread, out[2] its local memory a thread in bytes (spills);
+// returns the CUDA error code
+int bjt_dc_occupancy(int d, int target, int form, int max_depth, int* out) {
+  if (target != kHierarchical && target != kGaussian) return cudaErrorInvalidValue;
+  return for_width<BJT_DC_METRIC>(d, [&](auto width) {
+    return (int)analytic_occupancy<BJT_DC_METRIC, decltype(width)::value>(target, form != 0,
+                                                                          max_depth, out);
+  }, (int)cudaErrorInvalidValue);
 }
 
 const char* bjt_error_string(int code) {

@@ -13,7 +13,7 @@ against it chain by chain.
 
 Two implementations of the same machine live here:
 
-- the CUDA kernel ``csrc/fused_nuts_dc.cu`` (one warp per chain), launched
+- the CUDA kernel ``csrc/fused_nuts_dc.cuh`` (one warp per chain), launched
   for CUDA tensors;
 - :func:`fused_nuts_run_dc_plain`, the plain PyTorch version on a ``(C, d)``
   batch with masks, taken for CPU tensors and used on the card as the
@@ -41,7 +41,13 @@ leaves. The port reproduces that accounting exactly (see
 clock on which restarts are gated, so ``steps[c] < num_steps`` flags the
 chains the reference flags. ``tile_chains`` enters only that accounting.
 
-On the card the Finnish horseshoe's data matrix is copied into shared
+On the card the analytic targets take the resident form up to ``d = 256``
+(the dense metric from ``d = 225``): one warp a chain, as many warps an SM
+as :func:`resident_warps` says, the leaf's vectors in registers and the rest
+of the chain's state in device memory, its checkpoint slots in shared memory
+where they fit; the dense metric below ``d = 225`` and every ``d > 256``
+keep the whole state in registers (``csrc/fused_nuts_dc.cuh``).
+The Finnish horseshoe's data matrix is copied into shared
 memory once per block where it fits beside the block's four chains, and read
 from L2 where it does not. Logistic regression always takes the tiles form:
 the chains of a block run their leaves in lockstep and share one gradient,
@@ -86,19 +92,26 @@ __all__ = [
     "fused_nuts_run_dc",
     "lockstep_idle_share",
     "fused_nuts_run_dc_plain",
+    "occupancy",
+    "resident_warps",
+    "scratch_floats",
     "make_gaussian_target_dc",
     "make_hierarchical_target_dc",
     "shared_memory_plan",
     "threefry2x32_device",
+    "RESIDENT_WIDTHS",
 ]
 
 # kernel launches made by the wrappers below, by kernel name; a run that
 # should go through a kernel resets the count and reads it afterwards. A
 # launch of the dc machine on a target with a data matrix X also counts under
 # the form it took: X copied into shared memory, read from L2, or streamed in
-# tiles by chains in lockstep (logistic regression).
+# tiles by chains in lockstep (logistic regression); one on an analytic
+# target under its form: resident (the chain's state and slots in device
+# memory, all chains of a launch resident at once) or registers.
 LAUNCHES = {"fused_nuts_dc": 0, "fused_nuts_dc:x_shared": 0, "fused_nuts_dc:x_l2": 0,
-            "fused_nuts_dc:x_tiles": 0, "threefry2x32": 0}
+            "fused_nuts_dc:x_tiles": 0, "fused_nuts_dc:analytic_resident": 0,
+            "fused_nuts_dc:analytic_registers": 0, "threefry2x32": 0}
 
 # the target ids of csrc/fused_nuts_dc.cu and csrc/matrix_targets.cuh
 _CUDA_HIERARCHICAL = 0
@@ -111,8 +124,15 @@ _MAX_CUDA_DIM_METRIC = 256  # dense and low-rank: eight (ROADMAP queue 2, item 2
 _MAX_SCALARS = 8
 _REGISTER_WIDTHS = (1, 2, 4, 8, 13, 16)  # the instantiations' N
 _WARPS = 4  # chains per block (kWarps)
+_RESIDENT_BLOCK_WARPS = 1  # chains per block of the resident form (kResidentBlockWarps)
 _CHAINS_LR = 8  # chains per block of the tiles form (kChainsLR)
+# the analytic targets' resident form, by metric: the widths (N) that take
+# it, where it measured faster (dc_kernel_ms.py: PERF.md §6); the others keep
+# one warp's state in registers
+RESIDENT_WIDTHS = {"diag": (1, 2, 4, 8), "dense": (8,), "low_rank": (1, 2, 4, 8)}
 SHARED_MEMORY_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
+_SMEM_PER_SM = 233_472  # bytes of shared memory an SM shares among its blocks (kSmemPerSM)
+_SMEM_RESERVED = 1_024  # bytes each block of them reserves (kSmemReserved)
 # the library of each metric's instantiations of csrc/fused_nuts_dc.cuh
 _LIBRARIES = {"diag": "fused_nuts_dc", "dense": "fused_nuts_dc_dense",
               "low_rank": "fused_nuts_dc_low_rank"}
@@ -597,6 +617,10 @@ def _bind(lib, kind: str):
     lib.bjt_fused_nuts_dc.restype = _INT
     lib.bjt_dc_block_bytes.argtypes = [_INT] * 8
     lib.bjt_dc_block_bytes.restype = ctypes.c_longlong
+    lib.bjt_dc_scratch_floats.argtypes = [_INT] * 4 + [_VP]
+    lib.bjt_dc_scratch_floats.restype = _INT
+    lib.bjt_dc_occupancy.argtypes = [_INT] * 4 + [_VP]
+    lib.bjt_dc_occupancy.restype = _INT
     lib.bjt_error_string.argtypes = [_INT]
     lib.bjt_error_string.restype = ctypes.c_char_p
     if kind == "diag":
@@ -659,13 +683,21 @@ def _metric_operands(metric: DCMetric, d: int, dev):
 class SharedMemoryPlan(NamedTuple):
     """A launch's shared-memory layout: where the kernel reads the data
     matrix X from (``"shared"``, ``"l2"``, ``"tiles"``, or None for a target
-    without one), the block's bytes of dynamic shared memory, and whether
-    the tiles form copies a dense or low-rank metric's matrices into shared
-    memory (else it reads them from device memory)."""
+    without one), the block's bytes of dynamic shared memory, whether the
+    tiles form copies a dense or low-rank metric's matrices into shared
+    memory (else it reads them from device memory), and whether an analytic
+    target takes the resident form."""
 
     x_form: Optional[str]
     nbytes: int
     metric_shared: bool = False
+    resident: bool = False
+
+    @property
+    def form(self) -> int:
+        """The kernel's form argument: 1 for the horseshoe's X in shared
+        memory and for the resident form, else 0."""
+        return int(self.x_form == "shared" or self.resident)
 
 
 def _register_width(d: int) -> int:
@@ -674,12 +706,60 @@ def _register_width(d: int) -> int:
     return next(w for w in _REGISTER_WIDTHS if w >= n)
 
 
-def _cold_floats(n: int) -> int:
+def _cold_floats(n: int, resident: bool = False, metric: str = "diag") -> int:
     """Floats of a chain's scratch in device memory for the state vectors
     that the instantiation with ``n`` registers per vector keeps out of
-    registers (``kColdState`` in ``csrc/fused_nuts_dc.cuh``: ten from
-    ``n = 13`` up)."""
+    registers: in the resident form thirteen (the accepted state, the
+    proposal, both ends, the subtree's sample, the momentum sum), fifteen
+    with the ends' w of the dense and low-rank metrics
+    (``resident_cold_floats`` in ``csrc/fused_nuts_dc.cuh``); in the others
+    ten from ``n = 13`` up (``kColdState``)."""
+    if resident:
+        return (13 if metric == "diag" else 15) * n * 32
     return 10 * n * 32 if n >= 13 else 0
+
+
+def _slot_floats(n: int, metric: str, max_depth: int) -> int:
+    """Floats of a chain's checkpoint slots (``slot_floats``): m and msum,
+    and w for the dense and low-rank metrics, at each of ``max_depth``
+    levels."""
+    return (2 if metric == "diag" else 3) * max_depth * n * 32
+
+
+def scratch_floats(plan: "SharedMemoryPlan", n: int, metric: str, max_depth: int) -> tuple:
+    """Floats of a chain's scratch in device memory that a launch under
+    ``plan`` reads and writes: ``(cold vectors, checkpoint slots)``, as
+    ``bjt_dc_scratch_floats`` counts them; the slots live there in the tiles
+    form, and in the resident form where they do not fit in shared memory."""
+    slots = _slot_floats(n, metric, max_depth)
+    if plan.resident:
+        shared = _resident_slots_shared(n, metric, max_depth)
+        return _cold_floats(n, True, metric), 0 if shared else slots
+    return _cold_floats(n), slots if plan.x_form == "tiles" else 0
+
+
+def resident_warps(n: int) -> int:
+    """The warps an SM that the resident form's instantiation with ``n``
+    registers per vector is built to hold (``resident_warps``): 24 up to
+    ``n = 2``, 20 at ``n = 4``, 16 at ``n = 8``; its registers a thread are
+    at most 65,536 over 32 of them."""
+    return 24 if n <= 2 else 20 if n == 4 else 16
+
+
+def _resident_shared_floats(n: int, metric: str, max_depth: int) -> int:
+    """Floats of a resident warp's shared memory when its slots live there
+    (``resident_shared_floats``): the dense and low-rank metrics' staging
+    vector, the subtree's sample (x and g) and the checkpoint slots."""
+    return (0 if metric == "diag" else n * 32) + 2 * n * 32 + _slot_floats(n, metric, max_depth)
+
+
+def _resident_slots_shared(n: int, metric: str, max_depth: int) -> bool:
+    """Whether the resident form keeps the slots and the subtree's sample in
+    shared memory (``resident_slots_shared``): where the blocks of
+    :func:`resident_warps` warps fit them on an SM."""
+    blocks = resident_warps(n) // _RESIDENT_BLOCK_WARPS
+    floats = _resident_shared_floats(n, metric, max_depth)
+    return blocks * (_RESIDENT_BLOCK_WARPS * floats * 4 + _SMEM_RESERVED) <= _SMEM_PER_SM
 
 
 def _shared_x_stride(cols: int) -> int:
@@ -742,7 +822,13 @@ def shared_memory_plan(n: int, family: int, metric: str, max_depth: int, rows: i
     one's ``U``, ``lam - 1`` and ``1 / sqrt(lam) - 1``, are copied into
     shared memory where they fit beside the rest.
 
-    Each of the four warps holds its checkpoint slots (m and msum; w and a
+    The analytic targets take the resident form at the widths of
+    :data:`RESIDENT_WIDTHS`: its warps (one a block) keep most of their state
+    in device memory, and hold in shared memory the dense and low-rank
+    metrics' staging vector and, where the SM's blocks fit them
+    (:func:`_resident_slots_shared`), the subtree's sample and the
+    checkpoint slots. Elsewhere each of the
+    four warps holds its checkpoint slots (m and msum; w and a
     staging vector besides for the dense and low-rank metrics) and a matrix
     target's scratch. The horseshoe takes the form that copies X into shared
     memory (``rows`` rows of ``cols`` rounded up to a multiple of 4 that is 4
@@ -750,6 +836,12 @@ def shared_memory_plan(n: int, family: int, metric: str, max_depth: int, rows: i
     :data:`SHARED_MEMORY_LIMIT`, and reads X from L2 where they do not; the
     choice is made here, before the launch, and never on a failed one."""
     vec = n * 32
+    analytic = family in (_CUDA_HIERARCHICAL, _CUDA_GAUSSIAN)
+    if analytic and n in RESIDENT_WIDTHS[metric]:
+        floats = (_resident_shared_floats(n, metric, max_depth)
+                  if _resident_slots_shared(n, metric, max_depth)
+                  else 0 if metric == "diag" else vec)
+        return SharedMemoryPlan(None, 4 * _RESIDENT_BLOCK_WARPS * floats, resident=True)
     if family == _CUDA_LOGREG:
         tiles = 4 * (_lr_tiles_floats(n, cols) + (0 if metric == "diag" else _CHAINS_LR * vec))
         matrices = 4 * {"diag": 0, "dense": 2 * cols * cols,
@@ -760,7 +852,7 @@ def shared_memory_plan(n: int, family: int, metric: str, max_depth: int, rows: i
     slots = 2 * max_depth * vec if metric == "diag" else (3 * max_depth + 1) * vec
     if family == _CUDA_HORSESHOE:
         scratch = 2 * vec + 16 * n  # x, the gradient, beta
-    elif family in (_CUDA_HIERARCHICAL, _CUDA_GAUSSIAN):
+    elif analytic:
         scratch = 0
     else:
         scratch = 3 * vec + 32
@@ -815,15 +907,13 @@ def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
     out_grads = torch.empty(C, dtype=torch.float32, device=dev)
     out_iters = torch.empty(C, dtype=torch.int32, device=dev)
     hist = torch.zeros(C, num_steps, len(track_rows), dtype=torch.float32, device=dev)
-    cold_floats = _cold_floats(n)
+    cold_floats, slot_floats = scratch_floats(plan, n, metric.kind, max_depth)
     # the tiles form's warps past the last chain write their cold vectors too
     cold_chains = _round_up(C, _CHAINS_LR) if plan.x_form == "tiles" else C
     cold = (torch.empty(cold_chains * cold_floats, dtype=torch.float32, device=dev)
             if cold_floats else None)
-    slots = None
-    if plan.x_form == "tiles":  # the checkpoint slots: m, msum (and w), max_depth each
-        slot_floats = (2 if metric.kind == "diag" else 3) * max_depth * n * 32
-        slots = torch.empty(C * slot_floats, dtype=torch.float32, device=dev)
+    slots = (torch.empty(C * slot_floats, dtype=torch.float32, device=dev)
+             if slot_floats else None)
     track = torch.tensor(track_rows, dtype=torch.int32, device=dev)
     k = (_FLOAT * _MAX_SCALARS)(*scalars)
 
@@ -836,7 +926,7 @@ def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
         out_grads.data_ptr(), hist.data_ptr(), out_iters.data_ptr(), ptr(cold), ptr(slots),
         *map(ptr, matrix),
         C, d, num_steps, len(track_rows), max_depth, budget, restart_every,
-        target.cuda_target, rows, cols, int(plan.x_form == "shared"), rank,
+        target.cuda_target, rows, cols, plan.form, rank,
         int(plan.metric_shared), float(step_size), float(divergence_threshold), seed, k,
         _nvcc.stream_handle(dev),
     )
@@ -844,7 +934,22 @@ def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
     LAUNCHES["fused_nuts_dc"] += 1
     if plan.x_form is not None:
         LAUNCHES[f"fused_nuts_dc:x_{plan.x_form}"] += 1
+    elif target.matrix is None:
+        LAUNCHES[f"fused_nuts_dc:analytic_{'resident' if plan.resident else 'registers'}"] += 1
     return out_x, out_steps, out_grads, hist, out_iters
+
+
+def occupancy(d: int, metric: str = "diag", resident: bool = True,
+              target: int = _CUDA_HIERARCHICAL, max_depth: int = 8) -> dict:
+    """What the card reports for the analytic target's instantiation for
+    ``d`` in the resident form or the registers form: its resident warps an
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), its registers
+    and its local memory a thread in bytes (its stack frame and any spills).
+    Needs the card."""
+    out = (_INT * 3)()
+    code = _library(metric).bjt_dc_occupancy(d, target, int(resident), max_depth, out)
+    _nvcc.check_launch(_library(metric), code, "bjt_dc_occupancy")
+    return {"warps_per_sm": out[0], "registers": out[1], "local_bytes": out[2]}
 
 
 def lockstep_idle_share(steps, iters, num_steps: int, budget):

@@ -37,8 +37,14 @@ them in phases, one line each:
    the port's NUTS for 5 transitions from a numpy-seeded init
    on the adapted step size and metric, then ``fused_nuts_run_dc`` for 256
    transitions, then min-ESS; every chain must complete, everything must be
-   finite, the kernel must have been launched, and ``log_tau``'s moments
-   over the second half must match its N(0, 1) marginal. Then, for the
+   finite, the kernel must have been launched in the resident form (all
+   chains' state and slots out of registers, the SM's warps at the
+   instantiation's launch bound), and ``log_tau``'s moments over the second
+   half must match its N(0, 1) marginal. The line gives the launch's bound
+   (as phase 3's) and kernel / bound, the per-chain iterations (max, p99,
+   mean, from a second launch on the same inputs), the instantiation's
+   resident warps an SM, registers and local memory
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the form. Then, for the
    comparison only, the kernel once more and its plain version on the first
    512 chains for 16 transitions (draws are keyed on the call's
    ``num_steps``, so the plain version is held against a call of its own
@@ -301,20 +307,25 @@ def _ptxas_summary(log: str) -> list:
     target family (F: 0 analytic, 2 logistic regression, 3 horseshoe, 4
     eight schools) and, for the dc machine, their metric (M: 0 diagonal, 1
     dense, 2 low-rank) and where the horseshoe reads X (shared=1: a copy in
-    shared memory); the older NUTS machine by its trace flag."""
+    shared memory); the dc machine's resident form by N, its analytic target
+    (T: 0 hierarchical, 1 Gaussian) and M; the older NUTS machine by its
+    trace flag."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            n = re.search(r"(nuts_dc|nuts|leapfrog|mclmc)_kernelILi(\d+)ELi(\d+)E"
+            n = re.search(r"(nuts_dc|nuts|leapfrog|mclmc)_(kernel|resident)ILi(\d+)ELi(\d+)E"
                           r"(?:Li(\d+)E)?(?:Lb(\d)E)?", entry.group(1))
             export = "threefry" if "threefry" in entry.group(1) else "counter_normals"
-            metric = f" M={n.group(4)}" if n and n.group(4) else ""
+            metric = f" M={n.group(5)}" if n and n.group(5) else ""
             flag = ""
-            if n and n.group(5):
-                flag = f" {'shared' if n.group(1) == 'nuts_dc' else 'trace'}={n.group(5)}"
-            name = (f"{n.group(1)} N={n.group(2)} F={n.group(3)}{metric}{flag}" if n
-                    else f"{export} export")
+            if n and n.group(6):
+                flag = f" {'shared' if n.group(1) == 'nuts_dc' else 'trace'}={n.group(6)}"
+            if n and n.group(2) == "resident":  # the analytic target T in the resident form
+                name = f"nuts_dc resident N={n.group(3)} T={n.group(4)}{metric}"
+            else:
+                name = (f"{n.group(1)} N={n.group(3)} F={n.group(4)}{metric}{flag}" if n
+                        else f"{export} export")
         spill = re.search(
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
@@ -634,6 +645,8 @@ def main() -> int:
     warm4_ms_per_leaf = warm4_s / warm_leaves * 1e3
 
     _require(launches["fused_nuts_dc"] > 0, "the NUTS path launched no kernel")
+    _require(launches["fused_nuts_dc:analytic_resident"] > 0,
+             "the NUTS path's dc run did not launch the resident form")
     _require(bool((steps == S).all()), f"chains short of {S} transitions: {int(steps.min())}")
     for name, t in [("positions", fx), ("history", hist), ("ess", ess)]:
         _require(bool(torch.isfinite(t).all()), f"non-finite {name}")
@@ -644,6 +657,16 @@ def main() -> int:
     _require(abs(mean_lt) < 0.3 and abs(var_lt - 1.0) < 0.3,
              f"log_tau moments {mean_lt}, {var_lt} far off its N(0, 1) marginal")
     secs = ms4 / 1e3
+    # the launch's bound, as phase 3's, and its per-chain iterations from a
+    # second launch on the same inputs (it gives the same outputs)
+    bound4 = _bound(2 * C * D * 4 + C * S * NUM_TRACK * 4 + 3 * C * 4,
+                    grads4 * (DC_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
+                    (grads4 + C * S * D) * THREEFRY_OPS)
+    x4, operands4, machine4 = dc._prepare(positions, imm4, **run_kw)
+    iters4 = dc._launch_cuda(x4, operands4, float(step4), **machine4)[4].double().cpu()
+    occ4 = dc.occupancy(D)
+    form4 = [key.split(":analytic_")[1] for key, v in launches.items()
+             if ":analytic_" in key and v > 0]
     print(f"phase 4: window_adaptation(nuts) single chain, {WARMUP_STEPS} steps, "
           f"{warm_leaves} leaves in {warm4_s:.2f} s ({warm4_ms_per_leaf:.2f} ms a leaf with the "
           f"keyed draws; {UNKEYED_WARMUP_MS_PER_LEAF:.2f} ms before them, 48.44 s / 9,151 leaves): "
@@ -653,7 +676,12 @@ def main() -> int:
           f"chains completed {S} transitions, kernel {ms4:.2f} ms, {float(grads):.0f} grads "
           f"({float(grads) / secs:.4g} grads/s), min-ESS over {NUM_TRACK} tracked dims "
           f"{min_ess:.1f} ({min_ess / secs:.4g} ESS/s), log_tau over the second half: mean "
-          f"{mean_lt:.4f} var {var_lt:.4f}; launches {launches} ({smi})")
+          f"{mean_lt:.4f} var {var_lt:.4f}; launches {launches}; the dc launch in the "
+          f"{'/'.join(form4)} form: bound {bound4[0]:.4f} ms by {bound4[1]}, kernel / bound "
+          f"{ms4 / bound4[0]:.1f}; iterations a chain max {float(iters4.max()):.0f}, p99 "
+          f"{float(iters4.quantile(0.99)):.0f}, mean {float(iters4.mean()):.1f}; "
+          f"{occ4['warps_per_sm']} warps an SM resident, {occ4['registers']} registers, "
+          f"{occ4['local_bytes']} B local a thread ({smi})")
 
     # the comparison only: draws are keyed on chain * num_steps + steps, so
     # the plain version is held against a kernel call of its own length

@@ -183,21 +183,29 @@ def test_horseshoe_forms_match_plain_version(cuda, case):
 
 @pytest.mark.parametrize("kind", ["diag", "dense", "low_rank"])
 def test_block_bytes_match_the_plan(cuda, kind):
-    """The kernel asks for the shared memory that shared_memory_plan counts."""
+    """The kernel asks for the shared memory that shared_memory_plan counts,
+    and reads and writes the scratch in device memory that the wrapper
+    allocates (scratch_floats: the cold vectors and checkpoint slots of the
+    resident, the tiles and the N >= 13 forms)."""
+    import ctypes
+
     lib = dc._library(kind)
     shapes = [(404, dc._CUDA_HORSESHOE, 10, 100, 200), (404, dc._CUDA_HORSESHOE, 10, 400, 200),
               (100, dc._CUDA_HORSESHOE, 6, 37, 48), (36, dc._CUDA_HORSESHOE, 6, 12, 16),
               (54, dc._CUDA_LOGREG, 8, 4096, 54), (10, dc._CUDA_EIGHT_SCHOOLS, 8, 0, 0),
-              (100, dc._CUDA_HIERARCHICAL, 8, 0, 0)]
+              (100, dc._CUDA_HIERARCHICAL, 8, 0, 0), (8, dc._CUDA_HIERARCHICAL, 10, 0, 0),
+              (200, dc._CUDA_GAUSSIAN, 6, 0, 0), (404, dc._CUDA_HIERARCHICAL, 8, 0, 0)]
     rank = 4 if kind == "low_rank" else 0
     for d, family, max_depth, rows, cols in shapes:
         if kind != "diag" and d > 256:
             continue
-        plan = dc.shared_memory_plan(dc._register_width(d), family, kind, max_depth, rows, cols,
-                                     rank)
-        shared = int(plan.x_form == "shared")
-        assert lib.bjt_dc_block_bytes(d, family, shared, max_depth, rows, cols, rank,
+        n = dc._register_width(d)
+        plan = dc.shared_memory_plan(n, family, kind, max_depth, rows, cols, rank)
+        assert lib.bjt_dc_block_bytes(d, family, plan.form, max_depth, rows, cols, rank,
                                       int(plan.metric_shared)) == plan.nbytes
+        floats = (ctypes.c_longlong * 2)()
+        assert lib.bjt_dc_scratch_floats(d, family, plan.form, max_depth, floats) == 0
+        assert tuple(floats) == dc.scratch_floats(plan, n, kind, max_depth)
 
 
 @pytest.mark.parametrize("max_depth", [6, 8, 10])
@@ -673,3 +681,131 @@ def test_runner_bit_identity_across_oversubscription_and_unroll(cuda):
         assert torch.allclose(h, hist, rtol=1e-4, atol=1e-4), kw
         assert torch.allclose(final.position, state.position, rtol=1e-4, atol=1e-4), kw
 
+
+
+# ---- the analytic targets' resident form (nuts_dc_resident) ----
+
+RESIDENT_TARGETS = {
+    "hierarchical": dc.make_hierarchical_target_dc,
+    "gaussian": lambda d: dc.make_gaussian_target_dc(d, np.linspace(0.5, 2.0, d)),
+}
+
+
+def _resident_run(cuda, target, C, S, imm=None, budgets=None, **kw):
+    """One launch of the kernel, which must take the resident form, and the
+    plain version on the same inputs, with the per-chain outputs."""
+    d = target.dim
+    x = torch.from_numpy(
+        (0.5 * np.random.default_rng(d).standard_normal((C, d))).astype(np.float32)
+    ).to(cuda)
+    imm = torch.ones(d, device=cuda) if imm is None else imm
+    kw = dict(dict(target=target, num_steps=S, max_num_doublings=6, seed=7,
+                   num_track=min(d, 8), budget=2**6 * S), **kw)
+    x32, metric, machine = dc._prepare(x, imm, **kw)
+    before = dict(dc.LAUNCHES)
+    kern = dc._launch_cuda(x32, metric, 0.2, budgets=budgets, **machine)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in dc.LAUNCHES.items() if v != before[k]}
+    assert launched == {"fused_nuts_dc": 1, "fused_nuts_dc:analytic_resident": 1}
+    plain = dc._machine_plain(x32, metric, 0.2, budgets=budgets, **machine)
+    return kern, plain
+
+
+def _resident_gate(kern, plain, S, full=True):
+    """The analytic targets' gate: identical steps (all S where ``full``),
+    the floor's share of chains at TOL, identical gradient totals, and
+    identical iterations on every chain that agrees."""
+    (kx, ks, kg, kh, ki), (px, ps, pg, ph, pi) = kern, plain
+    assert torch.equal(ks, ps)
+    if full:
+        assert bool((ks == S).all())
+    assert torch.isfinite(kx).all() and torch.isfinite(kh).all()
+    close = torch.isclose(kx, px, rtol=TOL, atol=TOL).all(1)
+    close &= torch.isclose(kh, ph, rtol=TOL, atol=TOL).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
+    assert float(kg.sum()) == float(pg.sum())
+    assert torch.equal(ki[close], pi[close])
+
+
+@pytest.mark.parametrize("d", [8, 100, 200])
+@pytest.mark.parametrize("case", sorted(RESIDENT_TARGETS))
+def test_resident_form_matches_plain_version(cuda, case, d):
+    """The resident form at N = 1, 4 and 8 for both analytic targets, at
+    test_kernel_matches_plain_version's depth (the plain version's sums run
+    in torch's order, and on the funnel a chain that parts by an ulp parts
+    for good)."""
+    kern, plain = _resident_run(cuda, RESIDENT_TARGETS[case](d), 64, 4)
+    _resident_gate(kern, plain, 4)
+    assert float(kern[2].sum()) > 64 * 4  # trees of more than one leaf
+
+
+@pytest.mark.parametrize("d", [8, 100, 200])
+@pytest.mark.parametrize("case", sorted(RESIDENT_TARGETS))
+def test_resident_form_is_the_registers_form_bit_for_bit(cuda, case, d, monkeypatch):
+    """Both forms compute the same sums in the same order: every output of
+    256 chains x 8 transitions is the same bits."""
+    target = RESIDENT_TARGETS[case](d)
+    x = torch.from_numpy(
+        (0.5 * np.random.default_rng(d).standard_normal((256, d))).astype(np.float32)
+    ).to(cuda)
+    kw = dict(target=target, num_steps=8, max_num_doublings=6, seed=7, num_track=min(d, 8),
+              budget=2**6 * 8)
+    x32, metric, machine = dc._prepare(x, torch.ones(d, device=cuda), **kw)
+    resident = dc._launch_cuda(x32, metric, 0.2, **machine)
+    monkeypatch.setattr(dc, "RESIDENT_WIDTHS", {kind: () for kind in dc.RESIDENT_WIDTHS})
+    before = dc.LAUNCHES["fused_nuts_dc:analytic_registers"]
+    registers = dc._launch_cuda(x32, metric, 0.2, **machine)
+    assert dc.LAUNCHES["fused_nuts_dc:analytic_registers"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(resident, registers))
+
+
+def test_resident_form_holds_4096_chains(cuda):
+    """The flagship's 4,096 chains at d = 100 and max_depth 8, all resident
+    at once (32 warps an SM on 132 SMs)."""
+    kern, plain = _resident_run(cuda, dc.make_hierarchical_target_dc(100), 4096, 4,
+                                max_num_doublings=8, budget=2**8 * 4)
+    _resident_gate(kern, plain, 4)
+
+
+@pytest.mark.parametrize("d", [8, 100])
+def test_resident_form_budgets_and_gated_restarts_match_plain_version(cuda, d):
+    """Budgets that differ chain by chain, some too small to finish, and
+    restarts gated to every fourth leaf, so that chains park and run out."""
+    budgets = torch.from_numpy(np.random.default_rng(4).integers(8, 160, 64))
+    kern, plain = _resident_run(cuda, dc.make_hierarchical_target_dc(d), 64, 6,
+                                budgets=budgets, restart_every=4, chunk=16, budget=160)
+    _resident_gate(kern, plain, 6, full=False)
+    assert 0 < int((kern[1] < 6).sum()) < 64
+
+
+def test_resident_form_pack_matches_plain_version(cuda):
+    """Four chains a lane under a lane budget that cuts some short, with
+    gated restarts, through the public entry point at d = 100."""
+    d, C = 100, 512
+    x = torch.from_numpy(
+        (0.5 * np.random.default_rng(1).standard_normal((C, d))).astype(np.float32)
+    ).to(cuda)
+    imm = torch.ones(d, device=cuda)
+    kw = dict(target=dc.make_hierarchical_target_dc(d), num_steps=8, max_num_doublings=4,
+              seed=7, num_track=8, chunk=16, pack=4, restart_every=2, budget=256)
+    before = dc.LAUNCHES["fused_nuts_dc:analytic_resident"]
+    kern = dc.fused_nuts_run_dc(x, imm, 0.2, **kw)
+    assert dc.LAUNCHES["fused_nuts_dc:analytic_resident"] > before
+    plain = dc.fused_nuts_run_dc_plain(x, imm, 0.2, **kw)
+    assert torch.equal(kern[3], plain[3])
+    assert 0 < int((kern[3] < 8).sum()) < C
+    assert float(kern[2]) == float(plain[2])
+    close = torch.isclose(kern[0], plain[0], rtol=TOL, atol=TOL).all(1)
+    close &= torch.isclose(kern[1], plain[1], rtol=TOL, atol=TOL).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
+
+
+def test_resident_occupancy_is_the_recorded_one(cuda):
+    """The flagship's instantiation (d = 100, the diagonal metric, max_depth
+    8) holds 20 warps an SM in the resident form, the warps it is built for
+    (resident_warps), with its slots in shared memory, and 16 in the
+    registers form, as PERF.md §6 records."""
+    resident = dc.occupancy(100)
+    assert resident["warps_per_sm"] == dc.resident_warps(4) == 20
+    assert resident["registers"] <= 65_536 // (32 * 20)
+    assert dc.occupancy(100, resident=False)["warps_per_sm"] == 16

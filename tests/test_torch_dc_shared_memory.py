@@ -63,10 +63,12 @@ def test_rich_metric_horseshoe_stages_x(metric):
     assert plan == dc.SharedMemoryPlan("shared", 4 * 4 * (19 * 64 + 160) + 4 * 12 * 20)
 
 
-# logistic regression takes the tiles form (tests/test_torch_dc_tiles.py)
+# logistic regression takes the tiles form (tests/test_torch_dc_tiles.py),
+# the analytic targets up to d = 256 the resident form
+# (tests/test_torch_dc_resident.py)
 @pytest.mark.parametrize("family, d, metric, max_depth, rows, cols, x_form", [
     (dc._CUDA_EIGHT_SCHOOLS, 10, "diag", 8, 0, 0, None),
-    (dc._CUDA_HIERARCHICAL, 100, "diag", 8, 0, 0, None),
+    (dc._CUDA_HIERARCHICAL, 404, "diag", 8, 0, 0, None),
     (dc._CUDA_GAUSSIAN, 512, "diag", 10, 0, 0, None),
 ])
 def test_other_targets_keep_their_layout(family, d, metric, max_depth, rows, cols, x_form):

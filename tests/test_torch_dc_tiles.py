@@ -71,7 +71,7 @@ def test_phase_11_block_holds_the_dense_metric():
     (dc._CUDA_HORSESHOE, 36, "dense", 6, 12, 16, "shared"),
     (dc._CUDA_HORSESHOE, 36, "low_rank", 6, 12, 16, "shared"),
     (dc._CUDA_EIGHT_SCHOOLS, 10, "dense", 8, 0, 0, None),
-    (dc._CUDA_HIERARCHICAL, 100, "low_rank", 8, 0, 0, None),
+    (dc._CUDA_HIERARCHICAL, 100, "dense", 8, 0, 0, None),  # low-rank: the resident form
     (dc._CUDA_GAUSSIAN, 4, "dense", 5, 0, 0, None),
 ])
 def test_other_targets_keep_their_form_and_bytes(family, d, metric, max_depth, rows, cols,
