@@ -20,18 +20,25 @@
 // density and the kinetic energy are xor-shuffle warp reductions, whose
 // butterfly leaves the same bits in every lane. The kernel is a template on N
 // and on the target family (F = 0 analytic, F = 2 logistic regression), so the
-// analytic instantiations carry no code of the matrix target; logistic
-// regression stages w and each chunk of 32 rows in a per-warp scratch of
-// shared memory.
+// analytic instantiations carry no code of the matrix target.
+//
+// The tiles form (logistic regression). Every chain runs the same steps in
+// the same order, so the kFusedChainsLR warps of a block meet at every
+// gradient without waiting, and the block computes it for all of them at
+// once (logreg_tiles in matrix_targets.cuh, as in the MCLMC kernel): X
+// streams through a double-buffered ring of tiles in shared memory, and each
+// tile serves both contractions of every chain of the block. A warp past the
+// last chain of a partial last block stays in with x = 0 (its zero inverse
+// mass keeps it there), reaches each gradient with the block, and stores
+// nothing.
 //
 // Bound. Device memory sees x and m once in and once out (16 bytes per dim and
 // chain); per step a chain does O(d) FP32 multiply-adds, one exp and one warp
 // reduction. The kernel is bound by the latency of that dependent chain of
 // steps and reductions, not by bytes or FLOP: at d = 100 and 4,096 chains the
 // whole grid is resident at once. Logistic regression adds two contractions
-// with X per step (4 N d FLOP, 8 N d bytes from L2 per chain): with every warp
-// reading X on its own, the kernel is bound by L2 bandwidth (see
-// matrix_targets.cuh).
+// with X per step (4 N d FLOP a chain), which bound it; read by every warp on
+// its own (the L2 form), X would cross L2 8 N d bytes per chain and step.
 //
 // Numerics. Build without --use_fast_math and with --fmad=false: expf is the
 // accurate library version and no multiply-add is contracted. Every expression
@@ -45,8 +52,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // chains per block
-
 struct Params {
   const float* x0;       // (C, d) initial positions
   const float* m0;       // (C, d) initial momenta
@@ -57,24 +62,26 @@ struct Params {
   float* out_energy;     // (C,) -logdensity(x_end) + kinetic(m_end)
   int C, d, num_steps, target;
   float eps;
-  MatrixData mat;        // logistic regression's data, else zeros
+  MatrixData mat;        // logistic regression's tiles of X, y, else zeros
 };
 
 template <int N, int F>
-__global__ void __launch_bounds__(kWarps * 32) leapfrog_kernel(const Params p) {
-  extern __shared__ float smem[];  // logistic regression's per-warp scratch
+__global__ void __launch_bounds__(fused_block_warps<F>() * 32) leapfrog_kernel(const Params p) {
+  constexpr bool kTiles = F == kLogisticRegression;
+  extern __shared__ __align__(16) float smem[];  // the tiles form's ring of tiles
   const int lane = threadIdx.x & 31;
-  const int chain = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (chain >= p.C) return;  // the whole warp leaves together
-  float* scratch = smem + (threadIdx.x >> 5) * scratch_floats<N>();
+  const int chain = blockIdx.x * fused_block_warps<F>() + (threadIdx.x >> 5);
+  const bool present = chain < p.C;
+  if (!kTiles && !present) return;  // the whole warp leaves together
   const size_t row = (size_t)chain * p.d;
 
-  // pad dims (j >= d) hold zeros and a zero inverse mass, so they stay zero
+  // pad dims (j >= d), and every dim of a warp past the last chain, hold
+  // zeros and a zero inverse mass, so they stay zero
   float x[N], m[N], g[N], imm[N], iv[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int j = k * 32 + lane;
-    const bool valid = j < p.d;
+    const bool valid = present && j < p.d;
     x[k] = valid ? p.x0[row + j] : 0.f;
     m[k] = valid ? p.m0[row + j] : 0.f;
     imm[k] = valid ? p.imm[j] : 0.f;
@@ -82,14 +89,14 @@ __global__ void __launch_bounds__(kWarps * 32) leapfrog_kernel(const Params p) {
   }
 
   const float half = 0.5f * p.eps;
-  target_grad<N, F>(p, x, iv, g, lane, scratch);
+  target_grad<N, F, kTiles>(p, x, iv, g, lane, smem);
   for (int s = 0; s < p.num_steps; ++s) {
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       m[k] = m[k] + half * g[k];
       x[k] = x[k] + p.eps * (m[k] * imm[k]);
     }
-    target_grad<N, F>(p, x, iv, g, lane, scratch);
+    target_grad<N, F, kTiles>(p, x, iv, g, lane, smem);
 #pragma unroll
     for (int k = 0; k < N; ++k) m[k] = m[k] + half * g[k];
   }
@@ -97,7 +104,9 @@ __global__ void __launch_bounds__(kWarps * 32) leapfrog_kernel(const Params p) {
   float kin = 0.f;
 #pragma unroll
   for (int k = 0; k < N; ++k) kin += m[k] * m[k] * imm[k];
-  const float energy = -target_logdensity<N, F>(p, x, iv, lane, scratch) + 0.5f * warp_sum(kin);
+  const float energy =
+      -target_logdensity<N, F, kTiles>(p, x, iv, lane, smem) + 0.5f * warp_sum(kin);
+  if (!present) return;
 
 #pragma unroll
   for (int k = 0; k < N; ++k) {
@@ -110,14 +119,24 @@ __global__ void __launch_bounds__(kWarps * 32) leapfrog_kernel(const Params p) {
   if (lane == 0) p.out_energy[chain] = energy;
 }
 
+// A block of the tiles form asks for more than the 48 KB default of shared
+// memory through the attribute; a refusal comes back to the wrapper, which
+// raises.
 template <int N>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int blocks = (p.C + kWarps - 1) / kWarps;
   if (p.target == kLogisticRegression) {
-    const size_t smem = (size_t)kWarps * scratch_floats<N>() * sizeof(float);
-    leapfrog_kernel<N, kLogisticRegression><<<blocks, kWarps * 32, smem, stream>>>(p);
+    const size_t smem = fused_lr_block_bytes<N>(p.mat.cols);
+    const auto kernel = leapfrog_kernel<N, kLogisticRegression>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    constexpr int kBlock = fused_block_warps<kLogisticRegression>();
+    kernel<<<(p.C + kBlock - 1) / kBlock, kBlock * 32, smem, stream>>>(p);
   } else {
-    leapfrog_kernel<N, 0><<<blocks, kWarps * 32, 0, stream>>>(p);
+    leapfrog_kernel<N, 0>
+        <<<(p.C + kFusedWarps - 1) / kFusedWarps, kFusedWarps * 32, 0, stream>>>(p);
   }
   return cudaGetLastError();
 }
@@ -127,21 +146,23 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // Runs the trajectory; returns cudaGetLastError() of the launch (0 = success).
-// X (rows, d), Xt and y (rows,) are logistic regression's data and k0, k1 its
-// 1 / prior_scale^2 and -0.5 / prior_scale^2 (null and 0 otherwise).
+// X is logistic regression's data matrix as tiles
+// (bjt_fused_tiles_layout: rows at the stride shared_x_stride(d),
+// zero padded to whole tiles), y its rows labels (rows,), and k0, k1 its 1 /
+// prior_scale^2 and -0.5 / prior_scale^2 (null and 0 otherwise).
 int bjt_fused_leapfrog(const float* x0, const float* m0, const float* imm,
-                       const float* inv_var, const float* X, const float* Xt,
+                       const float* inv_var, const float* X,
                        const float* y, float* out_x, float* out_m,
                        float* out_energy, int C, int d, int num_steps,
                        int target, int rows, float eps, float k0, float k1,
                        void* stream) {
   Params p{x0, m0, imm, inv_var, out_x, out_m, out_energy,
-           C, d, num_steps, target, eps, {X, Xt, y, nullptr, rows, d, {k0, k1}}};
+           C, d, num_steps, target, eps, {X, nullptr, y, nullptr, rows, d, {k0, k1}}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (target != kHierarchical && target != kGaussian && target != kLogisticRegression)
     return cudaErrorInvalidValue;
   if (target == kGaussian && inv_var == nullptr) return cudaErrorInvalidValue;
-  if (target == kLogisticRegression && (X == nullptr || Xt == nullptr || y == nullptr))
+  if (target == kLogisticRegression && (X == nullptr || y == nullptr))
     return cudaErrorInvalidValue;
   if (C <= 0) return cudaSuccess;
   const int n = (d + 31) / 32;
@@ -151,6 +172,10 @@ int bjt_fused_leapfrog(const float* x0, const float* m0, const float* imm,
   if (n <= 8) return launch<8>(p, s);
   return cudaErrorInvalidValue;
 }
+
+// The tiles form's layout for width d (fused_lr_layout), which both fused
+// kernels' wrappers read.
+int bjt_fused_tiles_layout(int d, long long* out) { return fused_lr_layout(d, out); }
 
 const char* bjt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

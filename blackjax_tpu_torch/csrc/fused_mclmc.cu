@@ -38,8 +38,22 @@
 // one per refresh, one per hierarchical gradient): the kernel is bound by the
 // integer ALU and the latency of those reductions, not by bytes. Logistic
 // regression adds two contractions with X per gradient, two gradients per
-// McLachlan step, read from L2 by every warp on its own: with it the kernel is
-// bound by L2 bandwidth (see matrix_targets.cuh).
+// McLachlan step: 4 rows x cols FP32 operations a chain and gradient, 7.5 ms
+// for 4,096 chains x 64 steps at 4,096 x 54, which bound it. Read by every
+// warp on its own, X would cross L2 twice per chain and gradient (935 GB in
+// that run): the L2 form spent 150 ms on it.
+//
+// The tiles form (logistic regression). MCLMC has no tree, no accept step and
+// no early exit: every chain runs the same stages in the same order, so the
+// kFusedChainsLR warps of a block meet at every gradient without waiting,
+// and the block computes it for all of them at once (logreg_tiles in
+// matrix_targets.cuh): X streams through a double-buffered ring of tiles in
+// shared memory, and each tile serves both contractions of every chain of
+// the block, so X crosses L2 once per block and gradient. The kicks, the
+// refreshes, the drifts and the history stay one warp's, in registers, with
+// the bits of the L2 form. A warp past the last chain of a partial last
+// block stays in with x = 0 (its zero inverse mass keeps it there), reaches
+// each gradient with the block, and stores nothing.
 //
 // Numerics. Build without --use_fast_math and with --fmad=false: expf, logf,
 // cosf and sqrtf are the accurate library versions and no multiply-add is
@@ -56,7 +70,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;       // chains per block
 constexpr int kMaxStages = 16;  // palindromic coefficients (Omelyan has 11)
 
 struct Params {
@@ -73,7 +86,7 @@ struct Params {
   float eps, L;
   uint32_t seed;
   float coef[kMaxStages];  // kicks at even stages, drifts at odd ones
-  MatrixData mat;          // logistic regression's data, else zeros
+  MatrixData mat;          // logistic regression's tiles of X, y, else zeros
 };
 
 // NaN-propagating max, as jnp.maximum (fmaxf would drop a NaN)
@@ -140,20 +153,22 @@ __device__ __forceinline__ void ou_refresh(const Params& p, float (&m)[N],
 }
 
 template <int N, int F>
-__global__ void __launch_bounds__(kWarps * 32) mclmc_kernel(const Params p) {
-  extern __shared__ float smem[];  // logistic regression's per-warp scratch
+__global__ void __launch_bounds__(fused_block_warps<F>() * 32) mclmc_kernel(const Params p) {
+  constexpr bool kTiles = F == kLogisticRegression;
+  extern __shared__ __align__(16) float smem[];  // the tiles form's ring of tiles
   const int lane = threadIdx.x & 31;
-  const int chain = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (chain >= p.C) return;  // the whole warp leaves together
-  float* scratch = smem + (threadIdx.x >> 5) * scratch_floats<N>();
+  const int chain = blockIdx.x * fused_block_warps<F>() + (threadIdx.x >> 5);
+  const bool present = chain < p.C;
+  if (!kTiles && !present) return;  // the whole warp leaves together
   const size_t row = (size_t)chain * p.d;
 
-  // pad dims (j >= d) hold zeros and a zero inverse mass, so they stay zero
+  // pad dims (j >= d), and every dim of a warp past the last chain, hold
+  // zeros and a zero inverse mass, so they stay zero
   float x[N], m[N], g[N], sqrt_imm[N], iv[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int j = k * 32 + lane;
-    const bool valid = j < p.d;
+    const bool valid = present && j < p.d;
     x[k] = valid ? p.x0[row + j] : 0.f;
     m[k] = valid ? p.m0[row + j] : 0.f;
     sqrt_imm[k] = sqrtf(valid ? p.imm[j] : 0.f);
@@ -166,7 +181,7 @@ __global__ void __launch_bounds__(kWarps * 32) mclmc_kernel(const Params p) {
   // the chain's counter row: the reference's c0 = (chain_base + row) * d_pad
   const uint32_t row_base = (uint32_t)chain * (uint32_t)p.d_pad;
 
-  target_grad<N, F>(p, x, iv, g, lane, scratch);
+  target_grad<N, F, kTiles>(p, x, iv, g, lane, smem);
   for (int s = 0; s < p.num_steps; ++s) {
     if (p.refresh) ou_refresh<N>(p, m, row_base, 2u * (uint32_t)s, nu, lane);
     for (int i = 0; i < p.n_coef; ++i) {
@@ -176,7 +191,7 @@ __global__ void __launch_bounds__(kWarps * 32) mclmc_kernel(const Params p) {
       } else {
 #pragma unroll
         for (int k = 0; k < N; ++k) x[k] = x[k] + ce * (m[k] * sqrt_imm[k]);
-        target_grad<N, F>(p, x, iv, g, lane, scratch);
+        target_grad<N, F, kTiles>(p, x, iv, g, lane, smem);
       }
     }
     if (p.refresh) ou_refresh<N>(p, m, row_base, 2u * (uint32_t)s + 1u, nu, lane);
@@ -193,11 +208,12 @@ __global__ void __launch_bounds__(kWarps * 32) mclmc_kernel(const Params p) {
         const float held = __shfl_sync(kFull, x[k], dim & 31);
         if ((dim >> 5) == k) v = held;
       }
-      if (t < p.n_track) hist[t] = v;
+      if (present && t < p.n_track) hist[t] = v;
     }
   }
 
-  const float ld = target_logdensity<N, F>(p, x, iv, lane, scratch);
+  const float ld = target_logdensity<N, F, kTiles>(p, x, iv, lane, smem);
+  if (!present) return;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int j = k * 32 + lane;
@@ -209,14 +225,24 @@ __global__ void __launch_bounds__(kWarps * 32) mclmc_kernel(const Params p) {
   if (lane == 0) p.out_logdensity[chain] = ld;
 }
 
+// A block of the tiles form asks for more than the 48 KB default of shared
+// memory through the attribute; a refusal comes back to the wrapper, which
+// raises.
 template <int N>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int blocks = (p.C + kWarps - 1) / kWarps;
   if (p.target == kLogisticRegression) {
-    const size_t smem = (size_t)kWarps * scratch_floats<N>() * sizeof(float);
-    mclmc_kernel<N, kLogisticRegression><<<blocks, kWarps * 32, smem, stream>>>(p);
+    const size_t smem = fused_lr_block_bytes<N>(p.mat.cols);
+    const auto kernel = mclmc_kernel<N, kLogisticRegression>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    constexpr int kBlock = fused_block_warps<kLogisticRegression>();
+    kernel<<<(p.C + kBlock - 1) / kBlock, kBlock * 32, smem, stream>>>(p);
   } else {
-    mclmc_kernel<N, 0><<<blocks, kWarps * 32, 0, stream>>>(p);
+    mclmc_kernel<N, 0>
+        <<<(p.C + kFusedWarps - 1) / kFusedWarps, kFusedWarps * 32, 0, stream>>>(p);
   }
   return cudaGetLastError();
 }
@@ -246,10 +272,12 @@ extern "C" {
 
 // Runs the trajectory; returns cudaGetLastError() of the launch (0 = success).
 // coefs is a host array of n_coef palindromic coefficients (odd, <= 16). X
-// (rows, d), Xt and y (rows,) are logistic regression's data and k0, k1 its
-// 1 / prior_scale^2 and -0.5 / prior_scale^2 (null and 0 otherwise).
+// is logistic regression's data matrix as tiles (bjt_fused_tiles_layout in
+// the leapfrog's library: rows at the stride shared_x_stride(d), zero padded
+// to whole tiles), y its rows labels (rows,), and k0, k1 its 1 /
+// prior_scale^2 and -0.5 / prior_scale^2 (null and 0 otherwise).
 int bjt_fused_mclmc(const float* x0, const float* m0, const float* imm,
-                    const float* inv_var, const float* X, const float* Xt,
+                    const float* inv_var, const float* X,
                     const float* y, const int* track, float* out_x,
                     float* out_m, float* out_logdensity, float* out_hist,
                     const float* coefs, int n_coef, int C, int d, int num_steps,
@@ -258,13 +286,13 @@ int bjt_fused_mclmc(const float* x0, const float* m0, const float* imm,
   if (target != kHierarchical && target != kGaussian && target != kLogisticRegression)
     return cudaErrorInvalidValue;
   if (target == kGaussian && inv_var == nullptr) return cudaErrorInvalidValue;
-  if (target == kLogisticRegression && (X == nullptr || Xt == nullptr || y == nullptr))
+  if (target == kLogisticRegression && (X == nullptr || y == nullptr))
     return cudaErrorInvalidValue;
   if (n_coef < 1 || n_coef > kMaxStages || n_coef % 2 == 0) return cudaErrorInvalidValue;
   if (n_track > 0 && track == nullptr) return cudaErrorInvalidValue;
   Params p{x0, m0, imm, inv_var, track, out_x, out_m, out_logdensity, out_hist,
            C, d, round_up_lanes(d), num_steps, n_track, target, refresh, n_coef,
-           eps, L, seed, {}, {X, Xt, y, nullptr, rows, d, {k0, k1}}};
+           eps, L, seed, {}, {X, nullptr, y, nullptr, rows, d, {k0, k1}}};
   for (int i = 0; i < n_coef; ++i) p.coef[i] = coefs[i];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C <= 0) return cudaSuccess;

@@ -1,4 +1,4 @@
-// Device functions of the matrix targets, shared by the three kernels:
+// Device functions of the matrix targets, shared by the four kernels:
 //
 // - the continuous NUTS machine's logistic regression, Finnish horseshoe and
 //   eight schools (csrc/fused_nuts_dc.cu), which replace the target tiles of
@@ -6,9 +6,10 @@
 //   make_finnish_horseshoe_target_dc :144-350, make_eight_schools_target_dc
 //   :365-457) that the Pallas kernel _nuts_kernel_dc traces in;
 // - the fused kernels' logistic regression (csrc/fused_leapfrog.cu,
-//   csrc/fused_mclmc.cu), which replaces make_logistic_regression_target
-//   (blackjax_tpu/ops/fused_leapfrog.py:324-400) inside _leapfrog_kernel and
-//   _mclmc_kernel.
+//   csrc/fused_mclmc.cu, and the older NUTS machine csrc/fused_nuts.cu), which
+//   replaces make_logistic_regression_target
+//   (blackjax_tpu/ops/fused_leapfrog.py:324-400) inside _leapfrog_kernel,
+//   _mclmc_kernel and _nuts_kernel.
 //
 // Each keeps its own reference's spelling, so that each is held against its
 // own reference: the dc logistic regression sums softplus over the
@@ -55,12 +56,15 @@
 // of a block sit at different leaves of different trees, and TF32 would lose
 // the agreement with the plain version.
 //
-// The dc machine's logistic regression does not take the per-warp layout:
-// its X (864 KB at 4,096 x 54) fits no block, so the machine runs the chains
-// of a block in lockstep and logreg_tiles computes one gradient for all of
-// them, streaming X through shared memory in tiles (see there and the header
-// of fused_nuts_dc.cuh). The fused kernels' logistic regression keeps the L2
-// form.
+// Logistic regression's tiles form. Its X (864 KB at 4,096 x 54) fits no
+// block, so the kernels whose chains can meet at every gradient run the
+// chains of a block together and logreg_tiles computes one gradient for all
+// of them, streaming X through shared memory in tiles, each read from L2
+// once a block and gradient: the dc machine runs its block's leaves in
+// lockstep (see the header of fused_nuts_dc.cuh), and the fused leapfrog and
+// MCLMC kernels' chains run the same stages in the same order anyway. Only
+// the older NUTS machine, whose chains sit at different leaves, keeps the
+// per-warp L2 form (logreg_grad, logreg_logdensity).
 //
 // Numerics. Every expression keeps the reference's operation order (the
 // tiles' _core, _value and _grad, with JAX's NaN rule for logaddexp and its
@@ -252,7 +256,8 @@ __device__ __forceinline__ void row_pass_shared(const float* xs, int rows, int c
 // ---- the dc machine's targets: logdensity (returned, replicated) and
 // gradient (per lane), as vg_tile computes them ----
 
-// ---- the dc machine's logistic regression: the tiles form ----
+// ---- logistic regression's tiles form: the dc machine's and the fused
+// kernels' ----
 
 // Rows of X a tile holds, with N registers per vector and K chains a block:
 // the forward pass gives each thread one row of the tile (R <= 32 K), and
@@ -274,19 +279,19 @@ __host__ __device__ constexpr int lr_back_chains() {
   return N > 8 ? 1 : 16 / N < K ? 16 / N : K;
 }
 
-// floats of the block's shared memory for the gradient: the ring of two
-// tiles (which the backward pass's partial sums reuse once the last tile is
-// done), the positions wt (round_up(cols, 4) x K) and the sigmoids st (R x K,
-// whose floats the softplus partial sums reuse)
-template <int N, int K>
+// floats of the block's shared memory for the gradient with tiles of R
+// rows: the ring of two tiles (which the backward pass's partial sums reuse
+// once the last tile is done), the positions wt (round_up(cols, 4) x K) and
+// the sigmoids st (R x K, whose floats the softplus partial sums reuse)
+template <int N, int K, int R = lr_tile_rows<N, K>()>
 __host__ __device__ constexpr int lr_region_floats(int cols) {
-  return 2 * lr_tile_rows<N, K>() * shared_x_stride(cols) > lr_back_chains<N, K>() * K * 32 * N
-             ? 2 * lr_tile_rows<N, K>() * shared_x_stride(cols)
+  return 2 * R * shared_x_stride(cols) > lr_back_chains<N, K>() * K * 32 * N
+             ? 2 * R * shared_x_stride(cols)
              : lr_back_chains<N, K>() * K * 32 * N;
 }
-template <int N, int K>
+template <int N, int K, int R = lr_tile_rows<N, K>()>
 __host__ __device__ constexpr int lr_tiles_floats(int cols) {
-  return lr_region_floats<N, K>(cols) + ((cols + 3) & ~3) * K + lr_tile_rows<N, K>() * K;
+  return lr_region_floats<N, K, R>(cols) + ((cols + 3) & ~3) * K + R * K;
 }
 
 // 16 bytes from device memory into shared memory, asynchronously, through
@@ -322,30 +327,45 @@ __device__ __forceinline__ void load_run(const float* src, float (&out)[B]) {
   }
 }
 
-// targets_dc.py:82-107 for the block's K chains at once: ld = v.w - (sum
-// softplus(Xw) - pad) + prior, g = v - X^T sigmoid(Xw) - w / s^2, each
-// warp's for its own chain. Every warp of the block calls it at the same
-// point (it holds __syncthreads), a warp without a leaf with w = 0, whose
-// result it ignores.
+// What a call of logreg_tiles computes, in whose spelling: the dc machine's
+// log density and gradient (targets_dc.py:82-107), or the fused kernels'
+// gradient or log density (fused_leapfrog.py:353-382).
+constexpr int kTilesDC = 0;
+constexpr int kTilesGrad = 1;
+constexpr int kTilesValue = 2;
+
+// Logistic regression for the block's K chains at once, each warp's for its
+// own chain, in the spelling kSpell:
+// - kTilesDC: ld = v.w - (sum softplus(Xw) - pad) + prior, g = v - X^T
+//   sigmoid(Xw) - w / s^2 (m.u = v = X^T y; m.rows counts the rows that
+//   enter the softplus sum, the reference's rows padded to 8);
+// - kTilesGrad: g = X^T (y - sigmoid(Xw)) - w / s^2, returns 0;
+// - kTilesValue: ld = sum_n (y_n q_n - logaddexp(0, q_n)) - 0.5 |w|^2 / s^2,
+//   g untouched (m.u = y; m.rows = the data rows: the rows past it are the
+//   reference's masked padding, which adds exact zeros, so they are skipped).
+// Every warp of the block calls it at the same point (it holds
+// __syncthreads), a warp without a chain with w = 0, whose result it
+// ignores.
 //
 // X comes as tiles of R rows at the row stride shared_x_stride(cols), zero
-// padded in device memory to whole tiles (m.X, ops/fused_nuts_dc.py); m.rows
-// counts the rows that enter the softplus sum (the reference's rows padded
-// to 8). Tile t + 1 is copied (cp.async) into the ring's other half while
-// tile t is used. On each tile the forward pass gives thread (row r, chains
+// padded in device memory to whole tiles (m.X, ops/fused_nuts_dc.py:_lr_tiles).
+// Tile t + 1 is copied (cp.async) into the ring's other half while tile t
+// is used. On each tile the forward pass gives thread (row r, chains
 // c0..c0+B-1) its B logits q = X[r] . w_c, summed over the columns in order
 // from X read as float4 (the stride is 4 mod 8: no bank conflicts) and the
-// positions as broadcasts; it adds softplus(q) to its own partial sums and
-// writes sigmoid(q) to st. The backward pass reads the same tile: warp
-// (rho, gamma) adds X[r, j] st[r, c] for its rows r = rho, rho + BC, ... and
-// its BC chains to 16 accumulators a lane (columns j = lane + 32 k). After
-// the last tile the block writes the partial sums to shared memory and each
-// warp adds its chain's, in a fixed order.
-template <int N, int K>
+// positions as broadcasts; it adds its row's term of the log density to its
+// own partial sums and writes the backward pass's weight (sigmoid(q), or y -
+// sigmoid(q)) to st. The backward pass reads the same tile: warp (rho,
+// gamma) adds X[r, j] st[r, c] for its rows r = rho, rho + BC, ... and its BC
+// chains to 16 accumulators a lane (columns j = lane + 32 k). After the last
+// tile the block writes the partial sums to shared memory and each warp adds
+// its chain's, in a fixed order, so a chain's result does not depend on
+// which warp of which block ran it.
+template <int N, int K, int kSpell = kTilesDC, int R = lr_tile_rows<N, K>()>
 __device__ float logreg_tiles(const MatrixData& m, const float (&w)[N], float (&g)[N], int lane,
                               float* sh) {
   static_assert(K >= 4 && (K & (K - 1)) == 0, "float4 rows of positions and sigmoids");
-  constexpr int R = lr_tile_rows<N, K>();
+  static_assert(R % 32 == 0 && R <= 32 * K, "a row of the tile for every thread");
   constexpr int B = R / 32;                 // chains of a thread's forward pass
   constexpr int BC = lr_back_chains<N, K>();  // chains of a warp's backward pass
   constexpr int T = 32 * K;
@@ -353,7 +373,7 @@ __device__ float logreg_tiles(const MatrixData& m, const float (&w)[N], float (&
   const int rows = m.rows, cols = m.cols;
   const int sx = shared_x_stride(cols), cols4 = (cols + 3) & ~3;
   float* ring = sh;
-  float* wt = sh + lr_region_floats<N, K>(cols);
+  float* wt = sh + lr_region_floats<N, K, R>(cols);
   float* st = wt + cols4 * K;
   const int tile_floats = R * sx;
   const int n_tiles = (rows + R - 1) / R;
@@ -370,7 +390,7 @@ __device__ float logreg_tiles(const MatrixData& m, const float (&w)[N], float (&
     const int j = k * 32 + lane;
     if (j < cols4) wt[j * K + warp] = j < cols ? w[k] : 0.f;
     if (j < cols) {
-      yxw += m.u[j] * w[k];
+      if constexpr (kSpell == kTilesDC) yxw += m.u[j] * w[k];
       ww += w[k] * w[k];
     }
   }
@@ -409,20 +429,28 @@ __device__ float logreg_tiles(const MatrixData& m, const float (&w)[N], float (&
         }
       }
       const bool real = t * R + r_f < rows;
+      const float y = kSpell != kTilesDC && real ? m.u[t * R + r_f] : 0.f;
       float s[B];
 #pragma unroll
       for (int b = 0; b < B; ++b) {
         s[b] = 0.f;
         if (real) {
-          sp[b] += logaddexp(0.f, q[b]);
-          s[b] = sigmoid(q[b]);
+          if constexpr (kSpell == kTilesDC) {
+            sp[b] += logaddexp(0.f, q[b]);
+            s[b] = sigmoid(q[b]);
+          } else if constexpr (kSpell == kTilesGrad) {
+            s[b] = y - sigmoid(q[b]);
+          } else {
+            sp[b] += y * q[b] - logaddexp(0.f, q[b]);
+          }
         }
       }
 #pragma unroll
       for (int b = 0; b < B; ++b) st[r_f * K + c0 + b] = s[b];
     }
     __syncthreads();  // the sigmoids are in st
-    const int r_end = min(R, rows - t * R);  // rows past it add exact zeros
+    // rows past r_end add exact zeros; the log density needs no backward pass
+    const int r_end = kSpell == kTilesValue ? 0 : min(R, rows - t * R);
     for (int r = rho; r < r_end; r += BC) {
       const float* xr = xt + r * sx;
       float s[BC];
@@ -437,8 +465,9 @@ __device__ float logreg_tiles(const MatrixData& m, const float (&w)[N], float (&
     __syncthreads();  // this half of the ring and st may be written again
   }
 
-  // the partial sums: X^T sigmoid by (row group, chain, column) over the
-  // ring, softplus by (row, chain) over st; then each warp adds its chain's
+  // the partial sums: X^T st by (row group, chain, column) over the ring,
+  // the log density's terms by (row, chain) over st; then each warp adds
+  // its chain's
   float* part = ring;
 #pragma unroll
   for (int k = 0; k < N; ++k)
@@ -456,6 +485,15 @@ __device__ float logreg_tiles(const MatrixData& m, const float (&w)[N], float (&
     float a = 0.f;
     for (int i = 0; i < BC; ++i) a += part[(i * K + warp) * (32 * N) + k * 32 + lane];
     xts[k] = a;
+  }
+  if constexpr (kSpell == kTilesValue) return warp_sum(spl) + m.k[1] * warp_sum(ww);
+  if constexpr (kSpell == kTilesGrad) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int j = k * 32 + lane;
+      g[k] = j < m.cols ? xts[k] - m.k[0] * w[k] : 0.f;
+    }
+    return 0.f;
   }
   const float softplus = warp_sum(spl);
   const float ld = warp_sum(yxw) - (softplus - m.k[2]) + m.k[1] * warp_sum(ww);
@@ -597,6 +635,9 @@ __device__ float eight_schools_dc(const MatrixData& m, const float (&x)[1], floa
 
 // ---- the fused kernels' logistic regression (fused_leapfrog.py:353-382) ----
 
+// The per-warp form, which the older NUTS machine (csrc/fused_nuts.cu) takes:
+// its chains sit at different leaves of different trees.
+
 // grad_tile: X^T (y - sigmoid(X w)) - w / s^2
 template <int N>
 __device__ void logreg_grad(const MatrixData& m, const float (&w)[N], float (&g)[N], int lane,
@@ -629,24 +670,85 @@ __device__ float logreg_logdensity(const MatrixData& m, const float (&w)[N], int
   return warp_sum(ll) + m.k[1] * warp_sum(ww);
 }
 
+// The tiles form, which the fused leapfrog and MCLMC kernels take: their
+// chains all run the same stages in the same order (no tree, no accept
+// step, no early exit), so the kFusedChainsLR warps of a block meet at every
+// gradient at no cost, and logreg_tiles computes it for all of them, each
+// tile of X read from L2 once a gradient for the block instead of twice for
+// each chain. Chains a block and rows a tile at most, picked by measurement
+// (fused_logreg_tiles.py: PERF.md §6); the wrappers read the layout from
+// the leapfrog's library (bjt_fused_tiles_layout).
+constexpr int kFusedChainsLR = 16;
+constexpr int kFusedTileRowsLR = 256;
+
+// chains a block of the fused kernels, one warp each: kFusedWarps for the
+// analytic targets, kFusedChainsLR in the tiles form
+constexpr int kFusedWarps = 4;
+template <int F>
+__host__ __device__ constexpr int fused_block_warps() {
+  return F == kLogisticRegression ? kFusedChainsLR : kFusedWarps;
+}
+
+template <int N>
+__host__ __device__ constexpr int fused_lr_tile_rows() {
+  return kFusedTileRowsLR < lr_tile_rows<N, kFusedChainsLR>() ? kFusedTileRowsLR
+                                                               : lr_tile_rows<N, kFusedChainsLR>();
+}
+
+// bytes of a block's dynamic shared memory in the tiles form
+template <int N>
+__host__ __device__ constexpr size_t fused_lr_block_bytes(int cols) {
+  return (size_t)lr_tiles_floats<N, kFusedChainsLR, fused_lr_tile_rows<N>()>(cols) *
+         sizeof(float);
+}
+
+// the tiles form's layout for a d-column X, for the wrapper's checks:
+// out[0] chains a block, out[1] rows a tile, out[2] bytes of shared memory a
+// block; returns -1 where no instantiation takes d
+template <int N>
+void fused_lr_layout_n(int d, long long* out) {
+  out[0] = kFusedChainsLR;
+  out[1] = fused_lr_tile_rows<N>();
+  out[2] = (long long)fused_lr_block_bytes<N>(d);
+}
+inline int fused_lr_layout(int d, long long* out) {
+  const int n = (d + 31) / 32;
+  if (d < 1 || n > 8) return -1;
+  if (n <= 1) fused_lr_layout_n<1>(d, out);
+  else if (n <= 2) fused_lr_layout_n<2>(d, out);
+  else if (n <= 4) fused_lr_layout_n<4>(d, out);
+  else fused_lr_layout_n<8>(d, out);
+  return 0;
+}
+
 // The fused kernels' target dispatch: F = 0 for the analytic targets
-// (hierarchical or Gaussian, chosen at run time), F = kLogisticRegression.
-template <int N, int F, class P>
+// (hierarchical or Gaussian, chosen at run time), F = kLogisticRegression in
+// the per-warp form (scratch: the warp's) or, kTiles, in the tiles form
+// (scratch: the block's shared memory; every warp of the block calls it at
+// the same point).
+template <int N, int F, bool kTiles = false, class P>
 __device__ __forceinline__ void target_grad(const P& p, const float (&x)[N],
                                             const float (&iv)[N], float (&g)[N], int lane,
                                             float* scratch) {
-  if constexpr (F == kLogisticRegression) {
+  if constexpr (F == kLogisticRegression && kTiles) {
+    logreg_tiles<N, kFusedChainsLR, kTilesGrad, fused_lr_tile_rows<N>()>(p.mat, x, g, lane,
+                                                                          scratch);
+  } else if constexpr (F == kLogisticRegression) {
     logreg_grad<N>(p.mat, x, g, lane, scratch);
   } else {
     grad<N>(p, x, iv, g, lane);
   }
 }
 
-template <int N, int F, class P>
+template <int N, int F, bool kTiles = false, class P>
 __device__ __forceinline__ float target_logdensity(const P& p, const float (&x)[N],
                                                    const float (&iv)[N], int lane,
                                                    float* scratch) {
-  if constexpr (F == kLogisticRegression) {
+  if constexpr (F == kLogisticRegression && kTiles) {
+    float unused[N];
+    return logreg_tiles<N, kFusedChainsLR, kTilesValue, fused_lr_tile_rows<N>()>(
+        p.mat, x, unused, lane, scratch);
+  } else if constexpr (F == kLogisticRegression) {
     return logreg_logdensity<N>(p.mat, x, lane, scratch);
   } else {
     return logdensity<N>(p, x, iv, lane);

@@ -17,15 +17,18 @@ round alike except for the order of their sums.
 
 Ported: the hierarchical, Gaussian and logistic-regression targets, ``d <=
 256`` on the card. Logistic regression computes its two ``(C, N) x (N, d)``
-contractions inside the kernel (``csrc/matrix_targets.cuh``); its plain
-version keeps the reference's spelling (data axis padded to 128, a row mask,
-``y * logits - logaddexp(0, logits)``). ``tile_chains`` is accepted and
-ignored: chains are independent on the GPU.
+contractions inside the kernel in the tiles form (``csrc/matrix_targets.cuh``:
+``logreg_tiles``): the chains of a block share each gradient, and X streams
+through shared memory in tiles of rows, read from L2 once a gradient for the
+whole block; :func:`tiles_plan` gives the layout and :data:`LAUNCHES` counts
+the form. Its plain version keeps the reference's spelling (data axis padded
+to 128, a row mask, ``y * logits - logaddexp(0, logits)``). ``tile_chains``
+is accepted and ignored: chains are independent on the GPU.
 """
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +37,7 @@ from blackjax_tpu_torch.ops import _nvcc
 from blackjax_tpu_torch.ops.fused_nuts_dc import (
     MatrixTargetData,
     _logaddexp,
+    _lr_tiles,
     _matrix_on,
     _on_device,
 )
@@ -41,6 +45,7 @@ from blackjax_tpu_torch.ops.fused_nuts_dc import (
 __all__ = [
     "LAUNCHES",
     "TargetKernel",
+    "TilesPlan",
     "build",
     "fused_leapfrog",
     "fused_leapfrog_plain",
@@ -50,10 +55,12 @@ __all__ = [
     "make_hierarchical_gaussian_target",
     "make_logistic_regression_target",
     "register_target",
+    "tiles_plan",
 ]
 
-# kernel launches made by fused_leapfrog, by kernel name
-LAUNCHES = {"fused_leapfrog": 0}
+# kernel launches made by fused_leapfrog, by kernel name; a launch on
+# logistic regression also counts under its form, the tiles form
+LAUNCHES = {"fused_leapfrog": 0, "fused_leapfrog:logreg_tiles": 0}
 
 # the target ids of csrc/analytic_targets.cuh and csrc/matrix_targets.cuh
 _CUDA_HIERARCHICAL = 0
@@ -277,8 +284,10 @@ _INT = ctypes.c_int
 @functools.lru_cache(maxsize=1)
 def _library():
     lib = _nvcc.load("fused_leapfrog")
-    lib.bjt_fused_leapfrog.argtypes = [_VP] * 10 + [_INT] * 5 + [ctypes.c_float] * 3 + [_VP]
+    lib.bjt_fused_leapfrog.argtypes = [_VP] * 9 + [_INT] * 5 + [ctypes.c_float] * 3 + [_VP]
     lib.bjt_fused_leapfrog.restype = _INT
+    lib.bjt_fused_tiles_layout.argtypes = [_INT, _VP]
+    lib.bjt_fused_tiles_layout.restype = _INT
     lib.bjt_error_string.argtypes = [_INT]
     lib.bjt_error_string.restype = ctypes.c_char_p
     return lib
@@ -303,20 +312,68 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+class TilesPlan(NamedTuple):
+    """The tiles form's layout at a width (``fused_lr_layout`` in
+    ``csrc/matrix_targets.cuh``): chains a block, rows of X a tile, and the
+    bytes of a block's dynamic shared memory."""
+
+    chains: int
+    tile_rows: int
+    nbytes: int
+
+
+@functools.lru_cache(maxsize=16)
+def tiles_plan(d: int) -> TilesPlan:
+    """The layout of the fused kernels' tiles form for a ``d``-column X, as
+    the kernels count it: read from the leapfrog's library
+    (``bjt_fused_tiles_layout``), which both kernels' launches consult, so
+    it builds that library first."""
+    out = (ctypes.c_longlong * 3)()
+    if _library().bjt_fused_tiles_layout(d, out) != 0:
+        raise ValueError(f"the tiles form takes 1 <= d <= {_MAX_CUDA_DIM}; got d={d}")
+    return TilesPlan(*out)
+
+
+@functools.lru_cache(maxsize=8)
+def _tiles_on(target: TargetKernel, device: torch.device, tile_rows: int):
+    """Logistic regression's X as tiles of ``tile_rows`` rows (zero padded
+    to whole tiles, rows at the tiles form's stride) and y, on ``device``,
+    copied once."""
+    m = target.matrix
+    tiles = torch.from_numpy(_lr_tiles(m.X, tile_rows)).to(device)
+    return tiles, torch.from_numpy(np.ascontiguousarray(m.u, np.float32)).to(device)
+
+
+def _inv_var(target: TargetKernel, dev, d: int):
+    """The Gaussian's inverse variances on ``dev``, or None."""
+    if not target.params:
+        return None
+    inv_var = _params_on(target.params[0], dev)
+    _nvcc.require_cuda_f32("inv_var", inv_var, dev, (d,))
+    return inv_var
+
+
 def _target_args(target: TargetKernel, dev, d: int):
-    """What a launch passes for ``target``: the Gaussian's inverse
-    variances on ``dev`` (or None), logistic regression's ``(X, X^T, y)``
-    on ``dev`` (or Nones), its number of data rows and its two scalars
-    ``(1 / prior_scale^2, -0.5 / prior_scale^2)``. Shared with the MCLMC
-    kernel, whose targets are these."""
+    """What a launch of the per-warp form passes for ``target`` (the older
+    NUTS machine's): the Gaussian's inverse variances on ``dev`` (or None),
+    logistic regression's ``(X, X^T, y)`` on ``dev`` (or Nones), its number
+    of data rows and its two scalars ``(1 / prior_scale^2, -0.5 /
+    prior_scale^2)``."""
     if target.matrix is not None:
         X, Xt, y, _ = _matrix_on(target, dev)
         return None, (X, Xt, y), X.shape[0], target.matrix.scalars
-    inv_var = None
-    if target.params:
-        inv_var = _params_on(target.params[0], dev)
-        _nvcc.require_cuda_f32("inv_var", inv_var, dev, (d,))
-    return inv_var, (None, None, None), 0, (0.0, 0.0)
+    return _inv_var(target, dev, d), (None, None, None), 0, (0.0, 0.0)
+
+
+def _tiles_target_args(target: TargetKernel, dev, d: int):
+    """What a launch of the leapfrog or the MCLMC kernel passes for
+    ``target``: as :func:`_target_args`, but logistic regression's X as the
+    tiles form reads it (tiles of :func:`tiles_plan`'s rows) and y,
+    ``(tiles, y)``."""
+    if target.matrix is not None:
+        tiles, y = _tiles_on(target, dev, tiles_plan(d).tile_rows)
+        return None, (tiles, y), target.matrix.X.shape[0], target.matrix.scalars
+    return _inv_var(target, dev, d), (None, None), 0, (0.0, 0.0)
 
 
 def _launch_cuda(x, m, imm, step_size, *, target, num_steps):
@@ -329,7 +386,7 @@ def _launch_cuda(x, m, imm, step_size, *, target, num_steps):
     for name, t, shape in [("positions", x, (C, d)), ("momenta", m, (C, d)),
                            ("inverse_mass_matrix", imm, (d,))]:
         _nvcc.require_cuda_f32(name, t, dev, shape)
-    inv_var, matrix, rows, k = _target_args(target, dev, d)
+    inv_var, matrix, rows, k = _tiles_target_args(target, dev, d)
     lib = _library()
     out_x, out_m = torch.empty_like(x), torch.empty_like(m)
     energy = torch.empty(C, dtype=torch.float32, device=dev)
@@ -341,6 +398,8 @@ def _launch_cuda(x, m, imm, step_size, *, target, num_steps):
     )
     _nvcc.check_launch(lib, code, "fused_leapfrog")
     LAUNCHES["fused_leapfrog"] += 1
+    if target.matrix is not None:
+        LAUNCHES["fused_leapfrog:logreg_tiles"] += 1
     return out_x, out_m, energy
 
 

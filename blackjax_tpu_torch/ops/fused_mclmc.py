@@ -5,8 +5,9 @@ Port of ``blackjax_tpu/ops/fused_mclmc.py`` (``fused_mclmc`` and its Pallas
 kernel ``_mclmc_kernel``). Two implementations of the same trajectory live
 here:
 
-- the CUDA kernel ``csrc/fused_mclmc.cu`` (one warp per chain), launched for
-  CUDA tensors;
+- the CUDA kernel ``csrc/fused_mclmc.cu`` (one warp per chain; on logistic
+  regression the chains of a block share each gradient in the tiles form of
+  :mod:`~blackjax_tpu_torch.ops.fused_leapfrog`), launched for CUDA tensors;
 - :func:`fused_mclmc_plain`, the plain PyTorch version on the ``(C, d)``
   block, taken for CPU tensors and used on the card as the kernel's
   reference.
@@ -34,7 +35,12 @@ import torch
 
 from blackjax_tpu_torch.mcmc.integrators import mclachlan_coefficients
 from blackjax_tpu_torch.ops import _nvcc, counter_rng
-from blackjax_tpu_torch.ops.fused_leapfrog import TargetKernel, _params_on, _ptr, _target_args
+from blackjax_tpu_torch.ops.fused_leapfrog import (
+    TargetKernel,
+    _params_on,
+    _ptr,
+    _tiles_target_args,
+)
 
 __all__ = [
     "LAUNCHES",
@@ -44,8 +50,9 @@ __all__ = [
     "fused_mclmc_plain",
 ]
 
-# kernel launches made by this module, by kernel name
-LAUNCHES = {"fused_mclmc": 0, "counter_normals": 0}
+# kernel launches made by this module, by kernel name; a launch on logistic
+# regression also counts under its form, the tiles form
+LAUNCHES = {"fused_mclmc": 0, "fused_mclmc:logreg_tiles": 0, "counter_normals": 0}
 
 _LANE = 128  # the reference's lane padding, which the noise counters count
 _MAX_CUDA_DIM = 256  # eight registers per lane and vector
@@ -125,7 +132,7 @@ _FLOAT = ctypes.c_float
 def _library():
     lib = _nvcc.load("fused_mclmc")
     lib.bjt_fused_mclmc.argtypes = (
-        [_VP] * 12 + [ctypes.POINTER(_FLOAT)] + [_INT] * 8 + [_FLOAT] * 4 + [_U32, _VP]
+        [_VP] * 11 + [ctypes.POINTER(_FLOAT)] + [_INT] * 8 + [_FLOAT] * 4 + [_U32, _VP]
     )
     lib.bjt_fused_mclmc.restype = _INT
     lib.bjt_counter_normals.argtypes = [_U32, _U32, _U32, _INT, _INT, _VP, _VP, _VP, _VP]
@@ -151,7 +158,7 @@ def _launch_cuda(x, m, imm, step_size, L, *, target, num_steps, seed, coefficien
     for name, t, shape in [("positions", x, (C, d)), ("momenta", m, (C, d)),
                            ("inverse_mass_matrix", imm, (d,))]:
         _nvcc.require_cuda_f32(name, t, dev, shape)
-    inv_var, matrix, rows, k = _target_args(target, dev, d)
+    inv_var, matrix, rows, k = _tiles_target_args(target, dev, d)
     track = _params_on(track_dims, dev, torch.int32) if track_dims else None
     coefs = (_FLOAT * len(coefficients))(*coefficients)
     lib = _library()
@@ -168,6 +175,8 @@ def _launch_cuda(x, m, imm, step_size, L, *, target, num_steps, seed, coefficien
     )
     _nvcc.check_launch(lib, code, "fused_mclmc")
     LAUNCHES["fused_mclmc"] += 1
+    if target.matrix is not None:
+        LAUNCHES["fused_mclmc:logreg_tiles"] += 1
     return out_x, out_m, logdensity, hist
 
 

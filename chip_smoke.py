@@ -5,11 +5,11 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's eight main paths once, five at the flagship's full
+It drives the port's nine main paths once, five at the flagship's full
 width (the 100-dim hierarchical posterior, 4,096 chains), one at the
-Finnish horseshoe's (N=100, M=200, d=404, 512 chains) and two at the
-covertype-class logistic regression's (4,096 x 54, 1,024 chains), and checks
-them in phases, one line each:
+Finnish horseshoe's (N=100, M=200, d=404, 512 chains) and three at the
+covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
+4,096 under MCLMC), and checks them in phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the builds of
    ``csrc/fused_nuts_dc.cu``, ``csrc/fused_nuts_dc_dense.cu``,
@@ -72,12 +72,13 @@ them in phases, one line each:
    the numpy-seeded init of phase 4, then ``fused_mclmc`` for 1,000 steps
    (one launch), then min-ESS over 8 tracked coordinates; everything must be
    finite, momenta unit-norm to 1e-5, and ``log_tau``'s second-half moments
-   near N(0, 1);
+   near N(0, 1); the line gives the launch's bound and kernel / bound;
 9. each new (kernel, target) pair against its plain version on the card:
    the dc machine on eight schools (d=10, 512 chains) and on logistic
    regression at the covertype-class shape (4,096 points x 54, numpy seed,
    512 chains), the fused leapfrog (4,096 chains, 10 steps) and the fused
-   MCLMC (4,096 chains, 64 steps) on the same logistic regression. The dc
+   MCLMC (4,096 chains, 64 steps, all 54 coordinates tracked, as phase 14
+   tracks them) on the same logistic regression. The dc
    machine's steps must be identical, the share of chains agreeing to
    MATRIX_TOL above the floor, and every chain that agrees must take the same
    gradient count (so the totals are identical wherever every chain agrees;
@@ -86,8 +87,12 @@ them in phases, one line each:
    tiles, and the difference
    grows along a trajectory to ~1.5e-4 in 4 transitions, as it does between
    the plain version on the card and on the CPU; the fused kernels are held
-   as in phases 5 and 7. Each prints both times by CUDA events, the kernel's
-   device time by torch.profiler and the card. The dc machine's logistic
+   as in phases 5 and 7, and each must launch once in the tiles form (the
+   block's chains sharing each gradient, X streamed through shared memory in
+   tiles; its chains a block, rows a tile and bytes are printed). Each
+   prints both times by CUDA events, the kernel's device time by
+   torch.profiler ("not measured" where the trace lost kernel records) and
+   the card. The dc machine's logistic
    regression must launch in the tiles form (the block's eight chains in
    lockstep, sharing tiles of X streamed through shared memory); its line
    gives the kernel's time against its bound and their ratio, the share of
@@ -164,11 +169,26 @@ them in phases, one line each:
    chains x 256 transitions from phase 4's positions on its step size and
    metric (``budget=112 x 256``, ``chunk=256``); every chain must complete,
    everything be finite, ``log_tau``'s moments near N(0, 1), and the leaves
-   per transition within 10% of phase 4's dc run. Then the kernel against its
+   per transition within 10% of phase 4's dc run; the line gives the
+   launch's bound and kernel / bound. Then the kernel against its
    plain version: 512 x 16 on the flagship (identical steps and gradient
    totals, share at 1e-5 above the floor, both times, the bound),
    ``trace=64`` on 64 x 4 (every column identical on the floor's share of
-   chains), and phase 9's logistic regression on 512 x 8 (share at 1e-3).
+   chains), and phase 9's logistic regression on 512 x 8 (share at 1e-3);
+14. the MCLMC path on phase 9's logistic regression, launch counts reset
+   just before it: the port's single-chain ``mclmc_find_L_and_step_size``
+   (2,000 steps' worth) from zeros, then ``fused_mclmc`` on 4,096 chains
+   from the tuned position plus 0.01 N(0, I) (numpy seed 14) with unit
+   momenta for 1,000 steps in one launch, tracking all 54 coordinates, then
+   min-ESS over the second half; everything must be finite and the kernel
+   launched once, in the tiles form. The line gives the kernel's time by
+   CUDA events (a warm call after the main path's, whose time also holds the
+   history's allocation, is printed beside it) and by torch.profiler, its
+   bound at this shape, grads/s,
+   min-ESS and ESS/s, the form with its chains a block and rows a tile, and
+   the largest offset of a coordinate's second-half mean from the JAX
+   package's NUTS posterior (phase 11's reference), in posterior sd,
+   reported and not gated: unadjusted MCLMC keeps a bias of its step size.
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
@@ -240,6 +260,8 @@ LEGACY_BUDGET = 112 * LEGACY_TRANSITIONS
 LEGACY_CMP_CHAINS, LEGACY_CMP_TRANSITIONS = 512, 16
 LEGACY_TRACE_CHAINS, LEGACY_TRACE_TRANSITIONS, LEGACY_TRACE = 64, 4, 64
 UNKEYED_WARMUP_MS_PER_LEAF = 48.44e3 / 9151  # phase 4's warmup before the keyed draws
+# phase 14: MCLMC on phase 9's logistic regression, one launch at full depth
+LR_MCLMC_STEPS = 1000
 # The horseshoe's posterior by the JAX package's own NUTS on the CPU
 # (tests/test_torch_horseshoe_slice.py:reference_bands: window_adaptation 600
 # steps from zeros, then 64 chains from 0.05 N(0, I) x 256 transitions, seed
@@ -409,7 +431,10 @@ def _timed_mean(torch, fn, repeats):
 
 def _device_ms(torch, fn, kernel, repeats=20):
     """Device time per call of the kernels whose name holds ``kernel``, by
-    torch.profiler (CUPTI), or None where the trace shows no device time."""
+    torch.profiler (CUPTI): their records' durations, summed over
+    ``repeats`` calls. The trace can drop kernel records (PERF.md §7), so
+    a count of records that is not a multiple of ``repeats`` is refused.
+    None where the trace holds no record or lost some."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -422,8 +447,10 @@ def _device_ms(torch, fn, kernel, repeats=20):
             for _ in range(repeats):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
-    return us / 1e3 / repeats if us > 0 else None
+        runs = [e for e in prof.events() if kernel in e.name]
+    if not runs or len(runs) % repeats:
+        return None
+    return sum(e.time_range.elapsed_us() for e in runs) / 1e3 / repeats
 
 
 # FP32 operations per element, counted from the kernels' code: the dc
@@ -879,11 +906,16 @@ def main() -> int:
              f"log_tau moments {mean_lt8}, {var_lt8} far off its N(0, 1) marginal")
     secs8 = ms8 / 1e3
     grads8 = C * MCLMC_STEPS * 2  # two gradients per McLachlan step
+    # the launch's own bound, as phase 7's at its depth
+    bound8 = _bound(4 * C * D * 4 + C * 4 + hist8.numel() * 4,
+                    C * MCLMC_STEPS * (2 * GRAD_OPS["hierarchical"] * D + MCLMC_STEP_OPS * D),
+                    peaks, C * MCLMC_STEPS * 2 * D * THREEFRY_OPS)
     print(f"phase 8: mclmc_find_L_and_step_size single chain, {tune_total} tuning steps in "
           f"{tune8_s:.2f} s: L {L8:.5f}, step size {step8:.5f}, mean imm "
           f"{float(imm8.mean()):.5f}, imm[log_tau] {float(imm8[0]):.5f}; mclmc 5 transitions x "
           f"{C} chains in {mclmc_s:.2f} s; fused_mclmc d={D} C={C} {MCLMC_STEPS} steps: kernel "
-          f"{ms8:.2f} ms, {grads8} grads ({grads8 / secs8:.4g} grads/s), min-ESS over "
+          f"{ms8:.2f} ms (bound {bound8[0]:.3f} ms by {bound8[1]}, kernel / bound "
+          f"{ms8 / bound8[0]:.1f}), {grads8} grads ({grads8 / secs8:.4g} grads/s), min-ESS over "
           f"{NUM_TRACK} tracked dims {min_ess8:.1f} ({min_ess8 / secs8:.4g} ESS/s), momenta "
           f"unit-norm to {norm_err8:.2g}, log_tau over the second half: mean {mean_lt8:.4f} var "
           f"{var_lt8:.4f}; fused_mclmc launches {fm_launches} ({smi})")
@@ -957,9 +989,15 @@ def main() -> int:
     imm9 = torch.from_numpy(rng9.uniform(0.5, 1.5, LR_D).astype(np.float32)).to(dev)
 
     def fused_pair(name, run, run_plain, floor, kernel, repeats, nbytes, ops, int_ops=0.0):
-        lf.LAUNCHES["fused_leapfrog"] = fm.LAUNCHES["fused_mclmc"] = 0
+        for counts in (lf.LAUNCHES, fm.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
         kern = run()
         launches = lf.LAUNCHES["fused_leapfrog"] + fm.LAUNCHES["fused_mclmc"]
+        tiles = lf.LAUNCHES["fused_leapfrog:logreg_tiles"] + fm.LAUNCHES["fused_mclmc:logreg_tiles"]
+        _require(launches == 1 and tiles == 1,
+                 f"{name}: {launches} launches, {tiles} in the tiles form; one in the tiles form "
+                 f"expected")
         plain = run_plain()
         close = torch.ones(C, dtype=torch.bool, device=dev)
         err = 0.0
@@ -975,7 +1013,10 @@ def main() -> int:
         dev_ms = _device_ms(torch, run, kernel, repeats=repeats)
         bound = _bound(nbytes, ops, peaks, int_ops)
         device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        print(f"phase 9: {name} logistic regression {LR_N} x {LR_D}, C={C}: {share:.4f} of "
+        plan = lf.tiles_plan(LR_D)
+        print(f"phase 9: {name} logistic regression {LR_N} x {LR_D}, C={C}, tiles form "
+              f"({plan.chains} chains a block, {plan.tile_rows}-row tiles, {plan.nbytes} B of "
+              f"shared memory a block): {share:.4f} of "
               f"chains agree to {AGREE_TOL} (floor {floor}), max |diff| {err:.3g}; per call by "
               f"CUDA events: kernel {ms:.3f} ms (device {device_time}), plain {plain_ms:.3f} ms; "
               f"bound {bound[0]:.4f} ms by {bound[1]} ({smi})")
@@ -989,12 +1030,14 @@ def main() -> int:
         "leapfrog_kernel", 5, 4 * C * LR_D * 4 + C * 4 + X9.nbytes + y9.nbytes,
         C * ((HMC_STEPS + 1) * lr_grad + HMC_STEPS * LEAPFROG_STEP_OPS * LR_D))
     m9 = m9 / torch.linalg.vector_norm(m9, dim=1, keepdim=True)
-    fm_kw = dict(target=lr, num_steps=MCLMC_CMP_STEPS, seed=SEED, track_dims=range(NUM_TRACK))
+    # all 54 coordinates tracked, as phase 14 tracks them: the history of
+    # both registers of a lane (N = 2) is held against the plain version
+    fm_kw = dict(target=lr, num_steps=MCLMC_CMP_STEPS, seed=SEED, track_dims=range(LR_D))
     pairs["mclmc_logreg"] = fused_pair(
         "fused_mclmc", lambda: fm.fused_mclmc(x9, m9, imm9, 0.01, 0.3, **fm_kw),
         lambda: fm.fused_mclmc_plain(x9, m9, imm9, 0.01, 0.3, **fm_kw), MCLMC_FLOOR,
         "mclmc_kernel", 2,
-        4 * C * LR_D * 4 + C * 4 + C * MCLMC_CMP_STEPS * NUM_TRACK * 4 + X9.nbytes + y9.nbytes,
+        4 * C * LR_D * 4 + C * 4 + C * MCLMC_CMP_STEPS * LR_D * 4 + X9.nbytes + y9.nbytes,
         C * MCLMC_CMP_STEPS * (2 * lr_grad + MCLMC_STEP_OPS * LR_D),
         C * MCLMC_CMP_STEPS * 2 * LR_D * THREEFRY_OPS)
 
@@ -1406,10 +1449,15 @@ def main() -> int:
     _require(abs(leaves13 / leaves4 - 1.0) <= LEAVES_REL,
              f"fused_nuts_run {leaves13:.3f} leaves a transition, phase 4's dc run {leaves4:.3f}")
     secs13 = ms13 / 1e3
+    # the launch's own bound, as the comparison's below at its shape
+    bound13 = _bound(2 * C * D * 4 + hist13.numel() * 4 + 2 * C * 4,
+                     float(grads13) * (LEGACY_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
+                     (3 * float(grads13) + C * LEGACY_TRANSITIONS * D) * THREEFRY_OPS)
     print(f"phase 13: fused_nuts_run (the older machine, csrc/fused_nuts.cu) d={D} C={C} "
           f"S={LEGACY_TRANSITIONS} max_doublings={MAX_DOUBLINGS} budget={LEGACY_BUDGET} from phase "
           f"4's positions on its step size and metric: all chains completed, one launch, kernel "
-          f"{ms13:.2f} ms, {float(grads13):.0f} grads ({float(grads13) / secs13:.4g} grads/s, "
+          f"{ms13:.2f} ms (bound {bound13[0]:.4f} ms by {bound13[1]}, kernel / bound "
+          f"{ms13 / bound13[0]:.1f}), {float(grads13):.0f} grads ({float(grads13) / secs13:.4g} grads/s, "
           f"{leaves13:.3f} leaves per transition; phase 4's dc run {leaves4:.3f}), min-ESS over "
           f"{NUM_TRACK} tracked dims {min_ess13:.1f} ({min_ess13 / secs13:.4g} ESS/s), log_tau "
           f"over the second half: mean {mean_lt13:.4f} var {var_lt13:.4f}; ptxas "
@@ -1472,6 +1520,70 @@ def main() -> int:
           f"part), {share_l:.4f} of chains agree to {MATRIX_TOL}, max |diff| {err_l:.3g}, kernel "
           f"{lr_ms:.3f} ms ({smi})")
 
+    # ---- phase 14: MCLMC on the logistic regression ----
+    marks.append((14, time.perf_counter()))
+    for name in fm.LAUNCHES:
+        fm.LAUNCHES[name] = 0
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tune_state = mclmc.init(torch.zeros(LR_D, device=dev), lr.logdensity_fn, generator)
+    tune_end, tuned, tune_total14 = blackjax_tpu_torch.mclmc_find_L_and_step_size(
+        mclmc.build_kernel(), MCLMC_TUNE_STEPS, tune_state, generator,
+        logdensity_fn=lr.logdensity_fn)
+    L14, step14, imm14 = float(tuned.L), float(tuned.step_size), tuned.inverse_mass_matrix
+    tune14_s = time.perf_counter() - t0
+    _require(np.isfinite([L14, step14]).all() and L14 > 0 and step14 > 0,
+             f"logistic regression: tuned L {L14}, step size {step14}")
+    _require(bool(torch.isfinite(imm14).all() and (imm14 > 0).all()),
+             "logistic regression: tuned metric")
+    rng14 = np.random.default_rng(14)
+    x14 = tune_end.position + torch.from_numpy(
+        (0.01 * rng14.standard_normal((C, LR_D))).astype(np.float32)).to(dev)
+    m14 = torch.from_numpy(rng14.standard_normal((C, LR_D)).astype(np.float32)).to(dev)
+    m14 = m14 / torch.linalg.vector_norm(m14, dim=1, keepdim=True)
+    kw14 = dict(target=lr, num_steps=LR_MCLMC_STEPS, seed=SEED, track_dims=range(LR_D))
+
+    def lr_mclmc():
+        return fm.fused_mclmc(x14, m14, imm14, step14, L14, **kw14)
+
+    (fx14, fm14, ld14, hist14), cold14 = _timed(torch, lr_mclmc)
+    launches14 = dict(fm.LAUNCHES)
+    _require(launches14["fused_mclmc"] == 1 and launches14["fused_mclmc:logreg_tiles"] == 1,
+             f"phase 14: fused_mclmc launches {launches14}, not one in the tiles form")
+    for name, t in [("positions", fx14), ("momenta", fm14), ("log densities", ld14),
+                    ("history", hist14)]:
+        _require(bool(torch.isfinite(t).all()), f"non-finite {name} at phase 14")
+    _require(hist14.shape == (C, LR_MCLMC_STEPS, LR_D), "phase 14 history shape")
+    second14 = hist14[:, LR_MCLMC_STEPS // 2:]
+    ess14 = blackjax_tpu_torch.ess(second14.double())
+    _require(bool(torch.isfinite(ess14).all()), "non-finite ESS at phase 14")
+    min_ess14 = float(ess14.min())
+    pooled14 = second14.reshape(-1, LR_D).double()
+    z14 = float(((pooled14.mean(0) - ref_mean) / ref_sd).abs().max())
+    # timed warm: the main path's call above also paid for the allocation
+    # of the 885 MB history between its events
+    ms14 = _timed_mean(torch, lr_mclmc, 1)
+    dev_ms14 = _device_ms(torch, lr_mclmc, "mclmc_kernel", repeats=2)
+    bound14 = _bound(4 * C * LR_D * 4 + C * 4 + hist14.numel() * 4 + X9.nbytes + y9.nbytes,
+                     C * LR_MCLMC_STEPS * (2 * lr_grad + MCLMC_STEP_OPS * LR_D), peaks,
+                     C * LR_MCLMC_STEPS * 2 * LR_D * THREEFRY_OPS)
+    secs14 = ms14 / 1e3
+    grads14 = C * (2 * LR_MCLMC_STEPS + 1)
+    device_time = "not measured" if dev_ms14 is None else f"{dev_ms14:.2f} ms"
+    print(f"phase 14: mclmc_find_L_and_step_size on the logistic regression {LR_N} x {LR_D}, "
+          f"single chain, {tune_total14} tuning steps in {tune14_s:.2f} s: L {L14:.5f}, step "
+          f"size {step14:.5f}, mean imm {float(imm14.mean()):.6f}; fused_mclmc C={C} "
+          f"{LR_MCLMC_STEPS} steps in one launch, tiles form ({lf.tiles_plan(LR_D).chains} "
+          f"chains a block, {lf.tiles_plan(LR_D).tile_rows}-row tiles): kernel {ms14:.2f} ms by "
+          f"CUDA events on a warm call ({cold14:.2f} ms on the first, the history's allocation "
+          f"included; device {device_time} by torch.profiler), bound {bound14[0]:.3f} ms by "
+          f"{bound14[1]} (kernel / bound {ms14 / bound14[0]:.1f}), {grads14} grads "
+          f"({grads14 / secs14:.4g} grads/s), min-ESS over the second half of all {LR_D} "
+          f"coordinates {min_ess14:.1f} ({min_ess14 / secs14:.4g} ESS/s), largest |mean - the "
+          f"JAX package's NUTS mean| {z14:.4f} posterior sd (reported, not gated); launches "
+          f"{launches14} ({smi})")
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
@@ -1493,6 +1605,8 @@ def main() -> int:
                _bound(4 * C * D * 4 + C * 4 + C * MCLMC_CMP_STEPS * NUM_TRACK * 4, fm_ops, peaks,
                       C * MCLMC_CMP_STEPS * 2 * D * THREEFRY_OPS)),
     ]
+    # the MCLMC kernel on logistic regression has a main path since phase 14
+    pairs["mclmc_logreg"]["launches"] = launches14["fused_mclmc:logreg_tiles"]
     for key, name, source, replaces in [
         ("horseshoe", "fused_nuts_dc:finnish_horseshoe", "matrix_targets.cuh",
          "blackjax_tpu/ops/targets_dc.py:144"),
@@ -1500,9 +1614,9 @@ def main() -> int:
          "blackjax_tpu/ops/targets_dc.py:61"),
         ("eight_schools", "fused_nuts_dc:eight_schools", "matrix_targets.cuh",
          "blackjax_tpu/ops/targets_dc.py:365"),
-        ("leapfrog_logreg", "fused_leapfrog:logistic_regression", "matrix_targets.cuh",
-         "blackjax_tpu/ops/fused_leapfrog.py:324"),
-        ("mclmc_logreg", "fused_mclmc:logistic_regression", "matrix_targets.cuh",
+        ("leapfrog_logreg", "fused_leapfrog:logistic_regression (tiles form)",
+         "matrix_targets.cuh", "blackjax_tpu/ops/fused_leapfrog.py:324"),
+        ("mclmc_logreg", "fused_mclmc:logistic_regression (tiles form)", "matrix_targets.cuh",
          "blackjax_tpu/ops/fused_leapfrog.py:324"),
     ]:
         f = pairs[key]

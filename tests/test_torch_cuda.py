@@ -466,19 +466,22 @@ def test_leapfrog_kernel_matches_plain_version(cuda, case, d):
     assert float(close.float().mean()) >= LEAPFROG_FLOOR
 
 
+@pytest.mark.parametrize("C", [250, 256])
 @pytest.mark.parametrize("n, d", [(23, 12), (300, 54), (4096, 54)])
-def test_leapfrog_logistic_regression_matches_plain_version(cuda, n, d):
+def test_leapfrog_logistic_regression_matches_plain_version(cuda, n, d, C):
+    """The tiles form, launched, against the plain version; at C = 250 the
+    last block holds parked warps."""
     target = fl.make_logistic_regression_target(*_logreg_data(n, d))
     rng = np.random.default_rng(n)
-    C = 256
     x = torch.from_numpy((0.1 * rng.standard_normal((C, d))).astype(np.float32)).to(cuda)
     m = torch.from_numpy(rng.standard_normal((C, d)).astype(np.float32)).to(cuda)
     imm = torch.from_numpy(rng.uniform(0.5, 2.0, d).astype(np.float32)).to(cuda)
     eps = 0.2 / np.sqrt(n)
-    before = fl.LAUNCHES["fused_leapfrog"]
+    before = dict(fl.LAUNCHES)
     kern = fl.fused_leapfrog(x, m, imm, eps, target=target, num_steps=10)
     torch.cuda.synchronize()
-    assert fl.LAUNCHES["fused_leapfrog"] == before + 1
+    assert {k: v - before[k] for k, v in fl.LAUNCHES.items()} == {
+        "fused_leapfrog": 1, "fused_leapfrog:logreg_tiles": 1}
     plain = fl.fused_leapfrog_plain(x, m, imm, eps, target=target, num_steps=10)
     close = torch.ones(C, dtype=torch.bool, device=cuda)
     for a, b in zip(kern, plain):
@@ -544,21 +547,25 @@ def test_mclmc_kernel_matches_plain_version(cuda, case, d, refresh):
     assert torch.allclose(norms, torch.ones_like(norms), atol=1e-5)
 
 
+@pytest.mark.parametrize("C", [250, 256])
 @pytest.mark.parametrize("refresh", [False, True])
 @pytest.mark.parametrize("n, d", [(23, 12), (4096, 54)])
-def test_mclmc_logistic_regression_matches_plain_version(cuda, n, d, refresh):
+def test_mclmc_logistic_regression_matches_plain_version(cuda, n, d, refresh, C):
+    """The tiles form, launched, against the plain version; at C = 250 the
+    last block holds parked warps."""
     target = fl.make_logistic_regression_target(*_logreg_data(n, d))
     rng = np.random.default_rng(n)
-    C, S = 256, 16
+    S = 16
     x = torch.from_numpy((0.1 * rng.standard_normal((C, d))).astype(np.float32)).to(cuda)
     m = torch.nn.functional.normalize(torch.randn(C, d, device=cuda), dim=1)
     imm = torch.from_numpy(rng.uniform(0.5, 2.0, d).astype(np.float32)).to(cuda)
     kw = dict(target=target, num_steps=S, seed=3, track_dims=(0, d - 1), refresh=refresh)
     eps = 0.5 / np.sqrt(n)
-    before = fm.LAUNCHES["fused_mclmc"]
+    before = dict(fm.LAUNCHES)
     kern = fm.fused_mclmc(x, m, imm, eps, 1.0, **kw)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES["fused_mclmc"] == before + 1
+    assert {k: v - before[k] for k, v in fm.LAUNCHES.items()} == {
+        "fused_mclmc": 1, "fused_mclmc:logreg_tiles": 1, "counter_normals": 0}
     plain = fm.fused_mclmc_plain(x, m, imm, eps, 1.0, **kw)
     close = torch.ones(C, dtype=torch.bool, device=cuda)
     for a, b in zip(kern, plain):
@@ -566,6 +573,23 @@ def test_mclmc_logistic_regression_matches_plain_version(cuda, n, d, refresh):
         ok = torch.isclose(a, b, rtol=MCLMC_TOL, atol=MCLMC_TOL)
         close &= ok.flatten(1).all(1) if ok.dim() > 1 else ok
     assert float(close.float().mean()) >= MCLMC_FLOOR
+
+
+@pytest.mark.parametrize("d, tile_rows, nbytes", [
+    (1, 256, 49_408), (12, 256, 49_920), (54, 256, 142_848), (100, 128, 116_992),
+    (200, 64, 121_344), (256, 64, 153_600),
+])
+def test_tiles_plan_matches_the_kernels_layout(cuda, d, tile_rows, nbytes):
+    """Chains a block, rows a tile and bytes of shared memory a block of the
+    tiles form, as the kernels count them and the wrapper reads them to
+    size the upload of X, against the count from the layout's parts at
+    sixteen chains a block (``tests/test_torch_fused_tiles.py``): the ring
+    of two tiles at a row stride of ``round_up(d, 4)`` that is 4 mod 8 (or
+    the backward pass's partial sums, if larger), the positions and the
+    backward pass's weights, in f32."""
+    plan = fl.tiles_plan(d)
+    assert plan == fl.TilesPlan(16, tile_rows, nbytes)
+    assert plan.nbytes <= 232_448
 
 
 def test_mclmc_counter_normals_on_the_card(cuda):

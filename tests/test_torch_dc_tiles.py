@@ -112,8 +112,9 @@ def test_x_is_laid_out_in_whole_tiles(rows, cols, tile_rows, stride):
 
 def test_the_tiles_upload_leaves_the_fused_kernels_x_as_it_was():
     """The dc machine's logistic regression uploads X as tiles and no X^T;
-    the fused kernels' logistic regression (the same target id) still gets
-    both orientations of X from the shared upload."""
+    the per-warp form of the fused targets' logistic regression (the same
+    target id; the older NUTS machine takes it) still gets both orientations
+    of X from the shared upload."""
     import importlib
 
     from blackjax_tpu_torch.ops import targets_dc

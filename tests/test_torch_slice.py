@@ -89,7 +89,7 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     scripts = [root.parent / name for name in (
         "chip_smoke.py", "warmup_ms_per_leaf.py", "dc_kernel_ms.py", "horseshoe_dc_sections.py",
-        "logreg_dc_tiles.py")]
+        "logreg_dc_tiles.py", "fused_logreg_tiles.py")]
     for path in files + scripts:
         for name in _imported_modules(path):
             top = name.split(".")[0]
