@@ -154,6 +154,7 @@
 
 #include "counter_rng.cuh"     // threefry2x32, to_unit, box_muller
 #include "matrix_targets.cuh"  // warp_sum, logaddexp, the matrix targets
+#include "resident_form.cuh"   // ColdVec, copy, warp_sums, slots_fit_shared, occupancy_of
 
 namespace {
 
@@ -205,29 +206,17 @@ __device__ __forceinline__ float dot(const float (&a)[N], const float (&b)[N]) {
   return warp_sum(s);
 }
 
-template <int N, class A, class B>
-__device__ __forceinline__ void copy(A& dst, const B& src) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) dst[k] = src[k];
-}
-
 // The N >= 13 instantiations keep the ten state vectors that a transition
 // touches only at its restart and subtree boundaries (the accepted state,
 // the trajectory's two ends, the proposal) in a per-chain scratch in device
 // memory, so that the leaf's hot vectors and the target's gradient have the
 // registers; below N = 13 they are register arrays, as the others are.
-// ColdVec<N> reads and writes element k of the lane at p[k * 32]
-// (coalesced). ops/fused_nuts_dc.py:_cold_floats mirrors the scratch's size.
+// ColdVec<N> (resident_form.cuh) reads and writes element k of the lane at
+// p[k * 32] (coalesced). ops/fused_nuts_dc.py:_cold_floats mirrors the
+// scratch's size.
 template <int N>
 constexpr bool kColdState = N >= 13;
 constexpr int kColdVectors = 10;
-
-template <int N>
-struct ColdVec {
-  float* p;
-  __device__ __forceinline__ float& operator[](int k) { return p[k * 32]; }
-  __device__ __forceinline__ float operator[](int k) const { return p[k * 32]; }
-};
 
 template <int N, bool kCold>
 using StateVec = std::conditional_t<kCold, ColdVec<N>, float[N]>;
@@ -851,11 +840,6 @@ __host__ __device__ constexpr int resident_vectors() {
 template <int N, int M>
 __host__ __device__ constexpr int resident_cold_floats() { return resident_vectors<M>() * N * 32; }
 
-// the shared memory an SM shares among its blocks (228 KB), and what each
-// block of them reserves for the system
-constexpr int kSmemPerSM = 233472;
-constexpr int kSmemReserved = 1024;
-
 // floats of a resident warp's shared memory when its checkpoint slots live
 // there: the dense and low-rank metrics' staging vector, the subtree's
 // sample (x and g) and the slots, level by level
@@ -869,9 +853,8 @@ __host__ __device__ constexpr int resident_shared_floats(int max_depth) {
 // else they live in device memory, beside the other cold vectors
 template <int N, int M>
 __host__ __device__ constexpr bool resident_slots_shared(int max_depth) {
-  return resident_warps<N>() / kResidentBlockWarps *
-             (kResidentBlockWarps * resident_shared_floats<N, M>(max_depth) * (int)sizeof(float) +
-              kSmemReserved) <= kSmemPerSM;
+  return slots_fit_shared(resident_warps<N>(), kResidentBlockWarps,
+                          resident_shared_floats<N, M>(max_depth));
 }
 
 // a resident block's dynamic shared memory: for each of its warps
@@ -884,23 +867,11 @@ __host__ __device__ constexpr size_t resident_block_bytes(int max_depth) {
                                                  : own_floats<N, 0, M>());
 }
 
-// the xor butterfly of warp_sum on K values at once: each value is summed in
-// warp_sum's order (so every lane holds the same bits), and the K chains of
-// shuffles overlap
-template <int K>
-__device__ __forceinline__ void warp_sums(float (&v)[K]) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-    for (int i = 0; i < K; ++i) v[i] += __shfl_xor_sync(kFull, v[i], o);
-  }
-}
-
 // the resident form's checkpoint slot i: its m, msum and (dense and
 // low-rank) w, one vector after the other
 template <int N, int M>
 __device__ __forceinline__ float* slot_at(float* slots, int i) {
-  return slots + i * (M == kDiag ? 2 : 3) * N * 32;
+  return slot_level<N, M == kDiag ? 2 : 3>(slots, i);
 }
 
 // the lane's parts of the U-turn check against checkpoint slot i
@@ -1261,14 +1232,11 @@ __global__ void __launch_bounds__(kResidentBlockWarps * 32,
   }
 }
 
-// the carveout of the SM's shared memory that the resident form asks for:
-// the most shared memory where its slots live there, else the driver's
-// choice (a carveout for the most L1 leaves room for the 1 KB that each
-// block reserves for 8 blocks only, 8 warps an SM at one warp a block)
+// the carveout of the SM's shared memory that the resident form asks for
+// (carveout_for)
 template <int N, int M>
 int resident_carveout(int max_depth) {
-  return resident_slots_shared<N, M>(max_depth) ? (int)cudaSharedmemCarveoutMaxShared
-                                                : (int)cudaSharedmemCarveoutDefault;
+  return carveout_for(resident_slots_shared<N, M>(max_depth));
 }
 
 template <int N, int T, int M>
@@ -1398,24 +1366,6 @@ void scratch_floats_for(int target, bool form, int max_depth, long long* out) {
   }
   out[0] = kColdState<N> ? kColdVectors * N * 32 : 0;
   out[1] = target == kLogRegDC ? slot_floats<N, M>(max_depth) : 0;
-}
-
-// registers, local memory and resident warps an SM of a kernel launched
-// with block_warps warps a block and smem bytes of dynamic shared memory
-template <class K>
-cudaError_t occupancy_of(K kernel, int block_warps, size_t smem, int* out, int carveout = -1) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e == cudaSuccess && carveout >= 0)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, block_warps * 32, smem);
-  out[0] *= block_warps;
-  out[1] = a.numRegs;
-  out[2] = (int)a.localSizeBytes;
-  return e;
 }
 
 // the analytic target's instantiation for d, in the form

@@ -26,7 +26,12 @@ the reference's numbers and is held against it chain by chain.
 Two implementations of the same machine live here:
 
 - the CUDA kernel ``csrc/fused_nuts.cu`` (one warp per chain), launched for
-  CUDA tensors;
+  CUDA tensors, in one of two forms that :func:`plan` picks before the
+  launch: the resident form (the hierarchical and Gaussian targets without
+  a trace: one warp a block, most of a chain's state in a scratch in device
+  memory, as the dc machine's resident form) or the registers form (the
+  trace and logistic regression: four warps a block, the chain's state in
+  registers). Both give the same bits. :data:`LAUNCHES` counts each form;
 - :func:`fused_nuts_run_plain`, the plain PyTorch version on the ``(C, d)``
   batch with masks, taken for CPU tensors and used on the card as the
   kernel's reference.
@@ -63,16 +68,20 @@ from blackjax_tpu_torch.ops.fused_leapfrog import (
 from blackjax_tpu_torch.ops.fused_nuts_dc import _dot, _logaddexp, _round_up, _sel
 
 __all__ = [
+    "FORMS",
     "LAUNCHES",
     "TRACE_COLS",
     "build",
     "fused_nuts_run",
     "fused_nuts_run_plain",
     "make_mxu_safe_hierarchical_target",
+    "occupancy",
+    "plan",
 ]
 
-# kernel launches made by fused_nuts_run, by kernel name
-LAUNCHES = {"fused_nuts": 0}
+# kernel launches made by fused_nuts_run, by kernel name, and by the form
+# the launch took
+LAUNCHES = {"fused_nuts": 0, "fused_nuts:resident": 0, "fused_nuts:registers": 0}
 
 # per-iteration quantities recorded by fused_nuts_run(trace=N), as the
 # reference names them (fused_nuts.py:43-47)
@@ -83,6 +92,8 @@ TRACE_COLS = (
 )
 
 _MAX_CUDA_DIM = 256  # eight registers per lane and vector
+_ANALYTIC = (0, 1)  # the hierarchical and Gaussian targets' cuda_target
+FORMS = ("resident", "registers")
 
 
 def make_mxu_safe_hierarchical_target(dim: int) -> TargetKernel:
@@ -315,6 +326,33 @@ def _machine_plain(x0, imm, step_size, *, target, num_steps, max_depth, seed,
 
 
 # ---------------------------------------------------------------------------
+# the form's plan
+# ---------------------------------------------------------------------------
+
+
+def plan(d: int, target: int, trace: int = 0, form: str = None) -> str:
+    """The form of a launch on ``d`` dimensions of the target ``target`` (a
+    ``cuda_target`` id) with ``trace`` traced iterations.
+
+    ``form=None`` takes the resident form where it applies (the
+    hierarchical and Gaussian targets, ``trace == 0``) and the registers
+    form elsewhere; ``"resident"`` and ``"registers"`` ask for one. A form
+    that does not apply raises ``ValueError``; nothing falls back to another.
+    The layout of each form (shared memory, scratch in device memory) is the
+    kernel's: the launch reads its scratch from the library."""
+    if form not in (None, *FORMS):
+        raise ValueError(f"form must be None or one of {FORMS}, got {form!r}")
+    if not 1 <= d <= _MAX_CUDA_DIM:
+        raise ValueError(f"the CUDA machine holds 1 <= d <= {_MAX_CUDA_DIM} per warp; got d={d}")
+    resident_fits = target in _ANALYTIC and trace == 0
+    if form == "resident" and not resident_fits:
+        raise ValueError(
+            "the resident form runs the hierarchical and Gaussian targets without a trace; "
+            f"got target {target}, trace={trace}")
+    return "registers" if form == "registers" or not resident_fits else "resident"
+
+
+# ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
 
@@ -325,10 +363,19 @@ _FLOAT = ctypes.c_float
 
 @functools.lru_cache(maxsize=1)
 def _library():
-    lib = _nvcc.load("fused_nuts")
+    return _bind(_nvcc.load("fused_nuts"))
+
+
+def _bind(lib):
+    """Declare the C interface of a library of the machine (also for a copy
+    built with other constants, as ``dc_kernel_ms.py`` builds them)."""
     lib.bjt_fused_nuts.argtypes = (
-        [_VP] * 12 + [_INT] * 10 + [_FLOAT] * 4 + [ctypes.c_uint32, _VP])
+        [_VP] * 14 + [_INT] * 11 + [_FLOAT] * 4 + [ctypes.c_uint32, _VP])
     lib.bjt_fused_nuts.restype = _INT
+    lib.bjt_fused_nuts_scratch_floats.argtypes = [_INT] * 3 + [_VP]
+    lib.bjt_fused_nuts_scratch_floats.restype = _INT
+    lib.bjt_fused_nuts_occupancy.argtypes = [_INT] * 4 + [_VP]
+    lib.bjt_fused_nuts_occupancy.restype = _INT
     lib.bjt_error_string.argtypes = [_INT]
     lib.bjt_error_string.restype = ctypes.c_char_p
     return lib
@@ -342,11 +389,10 @@ def build() -> str:
 
 
 def _launch_cuda(x, imm, step_size, *, target, num_steps, max_depth, seed, num_track,
-                 budget, chunk, divergence_threshold, trace):
+                 budget, chunk, divergence_threshold, trace, form=None):
     del chunk  # the kernel stops each chain on its own
     C, d = x.shape
-    if d > _MAX_CUDA_DIM:
-        raise ValueError(f"the CUDA machine holds d <= {_MAX_CUDA_DIM} per warp; got d={d}")
+    form = plan(d, target.cuda_target, trace, form)
     dev = x.device
     _nvcc.require_cuda_f32("positions", x, dev, (C, d))
     _nvcc.require_cuda_f32("inverse_mass_matrix", imm, dev, (d,))
@@ -361,17 +407,35 @@ def _launch_cuda(x, imm, step_size, *, target, num_steps, max_depth, seed, num_t
     # (C, trace, cols) per chain; the caller gets (cols, trace, C)
     out_trace = (torch.zeros(C, trace, len(TRACE_COLS), dtype=torch.float32, device=dev)
                  if trace else None)
+    floats = (ctypes.c_longlong * 2)()  # a chain's cold vectors and checkpoint slots
+    lib.bjt_fused_nuts_scratch_floats(d, int(form == "resident"), max_depth, floats)
+    cold, slots = (torch.empty(C * n, dtype=torch.float32, device=dev) if n else None
+                   for n in floats)
     code = lib.bjt_fused_nuts(
         x.data_ptr(), imm.data_ptr(), sigma_m.data_ptr(), *map(_ptr, (inv_var, *matrix)),
         out_x.data_ptr(), out_steps.data_ptr(), out_grads.data_ptr(), hist.data_ptr(),
-        _ptr(out_trace), C, d, num_steps, num_track, max_depth, budget, trace,
-        target.cuda_target, rows, len(TRACE_COLS), float(step_size),
-        float(divergence_threshold), *k, seed, _nvcc.stream_handle(dev),
+        *map(_ptr, (out_trace, cold, slots)), C, d, num_steps, num_track, max_depth, budget,
+        trace, target.cuda_target, rows, len(TRACE_COLS), int(form == "resident"),
+        float(step_size), float(divergence_threshold), *k, seed, _nvcc.stream_handle(dev),
     )
     _nvcc.check_launch(lib, code, "fused_nuts")
     LAUNCHES["fused_nuts"] += 1
+    LAUNCHES[f"fused_nuts:{form}"] += 1
     traces = None if out_trace is None else out_trace.permute(2, 1, 0)
     return out_x, out_steps, out_grads, hist, traces
+
+
+def occupancy(d: int, resident: bool = True, target: int = 0, max_depth: int = 8) -> dict:
+    """What the card reports for the analytic target's instantiation for
+    ``d`` in the resident form or the registers form: its resident warps an
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), its registers
+    and its local memory a thread in bytes (its stack frame and any spills).
+    Needs the card."""
+    out = (_INT * 3)()
+    lib = _library()
+    code = lib.bjt_fused_nuts_occupancy(d, target, int(resident), max_depth, out)
+    _nvcc.check_launch(lib, code, "bjt_fused_nuts_occupancy")
+    return {"warps_per_sm": out[0], "registers": out[1], "local_bytes": out[2]}
 
 
 def _prepare(positions, inverse_mass_matrix, *, target, num_steps, max_num_doublings=8,
@@ -422,6 +486,7 @@ def fused_nuts_run(
     chunk: int = 64,
     divergence_threshold: float = 1000.0,
     trace: int = 0,
+    form: str = None,
 ):
     """Run ``num_steps`` NUTS transitions per chain.
 
@@ -435,8 +500,11 @@ def fused_nuts_run(
     With ``trace=N`` a fifth output maps each name of :data:`TRACE_COLS` to
     its ``(N, C)`` values over the first ``N`` iterations.
 
-    A CUDA tensor launches the kernel (``d <= 256``, else ``ValueError``);
-    a CPU tensor runs the plain version. ``tile_chains`` is ignored.
+    A CUDA tensor launches the kernel (``d <= 256``, else ``ValueError``)
+    in the form :func:`plan` picks, or in ``form`` (``"resident"`` or
+    ``"registers"``) where it is given; a form that does not apply raises,
+    on any device. A CPU tensor runs the plain version. ``tile_chains`` is
+    ignored.
     """
     del tile_chains
     x, imm, machine = _prepare(
@@ -444,8 +512,10 @@ def fused_nuts_run(
         max_num_doublings=max_num_doublings, seed=seed, num_track=num_track, budget=budget,
         chunk=chunk, divergence_threshold=divergence_threshold, trace=trace,
     )
+    if form is not None:
+        plan(x.shape[1], target.cuda_target, machine["trace"], form)
     if x.device.type == "cuda":
-        return _result(_launch_cuda(x, imm, float(step_size), **machine), trace)
+        return _result(_launch_cuda(x, imm, float(step_size), form=form, **machine), trace)
     if x.device.type == "cpu":
         return _result(_machine_plain(x, imm, float(step_size), **machine), trace)
     raise NotImplementedError(f"no machine for device type {x.device.type!r}")

@@ -16,11 +16,12 @@ covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
    ``csrc/fused_nuts_dc_low_rank.cu`` (the dc machine of
    ``csrc/fused_nuts_dc.cuh`` for each metric), ``csrc/fused_leapfrog.cu``,
    ``csrc/fused_mclmc.cu`` and ``csrc/fused_nuts.cu`` (with the shared
-   headers ``csrc/counter_rng.cuh``, ``csrc/analytic_targets.cuh`` and
-   ``csrc/matrix_targets.cuh``) with nvcc, one process each, all started
-   together, with their seconds and the register and spill report of each
-   instantiation (N registers per vector, target family F, metric M, trace
-   flag);
+   headers ``csrc/counter_rng.cuh``, ``csrc/analytic_targets.cuh``,
+   ``csrc/matrix_targets.cuh`` and ``csrc/resident_form.cuh``) with nvcc,
+   one process each, all started together, with their seconds and the
+   register and spill report of each instantiation (N registers per vector,
+   target family F, metric M, trace flag; a resident form by its analytic
+   target T);
 2. the dc kernel's own threefry2x32 device function against the plain
    version, bit for bit, on 100,000 counters, and with a key per element
    (the draws of ``blackjax_tpu_torch.prng``) on 1,048,576 keys, with both
@@ -167,14 +168,19 @@ covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
 13. the older machine's path, launch counts reset just before it: one launch
    of ``ops.fused_nuts.fused_nuts_run`` (``csrc/fused_nuts.cu``) for 4,096
    chains x 256 transitions from phase 4's positions on its step size and
-   metric (``budget=112 x 256``, ``chunk=256``); every chain must complete,
+   metric (``budget=112 x 256``, ``chunk=256``), which must take the
+   resident form; every chain must complete,
    everything be finite, ``log_tau``'s moments near N(0, 1), and the leaves
    per transition within 10% of phase 4's dc run; the line gives the
-   launch's bound and kernel / bound. Then the kernel against its
-   plain version: 512 x 16 on the flagship (identical steps and gradient
+   launch's bound and kernel / bound, and each form's warps an SM,
+   registers and local memory. The registers form on the same inputs must
+   give all four outputs bit for bit. Then the kernel against its
+   plain version: 512 x 16 on the flagship (the resident form and the
+   registers form bit for bit; identical steps and gradient
    totals, share at 1e-5 above the floor, both times, the bound),
-   ``trace=64`` on 64 x 4 (every column identical on the floor's share of
-   chains), and phase 9's logistic regression on 512 x 8 (share at 1e-3);
+   ``trace=64`` on 64 x 4 in the registers form (every column identical on
+   the floor's share of chains), and phase 9's logistic regression on 512 x
+   8 (share at 1e-3);
 14. the MCLMC path on phase 9's logistic regression, launch counts reset
    just before it: the port's single-chain ``mclmc_find_L_and_step_size``
    (2,000 steps' worth) from zeros, then ``fused_mclmc`` on 4,096 chains
@@ -344,7 +350,7 @@ def _ptxas_summary(log: str) -> list:
             if n and n.group(6):
                 flag = f" {'shared' if n.group(1) == 'nuts_dc' else 'trace'}={n.group(6)}"
             if n and n.group(2) == "resident":  # the analytic target T in the resident form
-                name = f"nuts_dc resident N={n.group(3)} T={n.group(4)}{metric}"
+                name = f"{n.group(1)} resident N={n.group(3)} T={n.group(4)}{metric}"
             else:
                 name = (f"{n.group(1)} N={n.group(3)} F={n.group(4)}{metric}{flag}" if n
                         else f"{export} export")
@@ -461,9 +467,19 @@ def _device_ms(torch, fn, kernel, repeats=20):
 # is about 70 integer operations a block (20 rounds and the key schedule).
 DC_LEAF_OPS, LEAPFROG_STEP_OPS, MCLMC_STEP_OPS = 24, 7, 55
 GRAD_OPS = {"hierarchical": 4, "gaussian": 3}
-# the older machine's leaf: the dc leaf and a separate log density (2 a dim)
-LEGACY_LEAF_OPS = DC_LEAF_OPS + 2
 THREEFRY_OPS = 70
+
+
+def _legacy_bound(peaks, chains, transitions, grads):
+    """The bound of a ``fused_nuts_run`` launch on the flagship (d = D),
+    from its gradient total: positions in and out, the history and the two
+    per-chain totals; the dc leaf's operations and the gradient (whose
+    theta^2 sum gives the log density too) at each leaf; and the fewest
+    threefry blocks that give its bits: one a leaf, the direction and
+    proposal pair of at least one subtree a transition, and the momentum."""
+    return _bound(2 * chains * D * 4 + chains * transitions * NUM_TRACK * 4 + 2 * chains * 4,
+                  grads * (DC_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
+                  (grads + 2 * chains * transitions + chains * transitions * D) * THREEFRY_OPS)
 
 
 def _grad_ops(kind, d, n=0, m=0):
@@ -500,6 +516,46 @@ def _log_tau_moments(hist):
     of a (chains, samples, k) history."""
     log_tau = hist[:, hist.shape[1] // 2:, 0].flatten()
     return float(log_tau.mean()), float(log_tau.var())
+
+
+def flagship_init(torch, dev):
+    """The flagship's C starting positions: 0.5 N(0, I) of numpy seed 1."""
+    return torch.from_numpy((0.5 * np.random.default_rng(1).standard_normal((C, D)))
+                            .astype(np.float32)).to(dev)
+
+
+def warm_start(torch, dev):
+    """Phase 4's start, from which phases 4, 12 and 13 run: window
+    adaptation of NUTS on the flagship (one chain, WARMUP_STEPS steps, torch
+    seed SEED), then five NUTS transitions of C chains from 0.5 N(0, I) of
+    numpy seed 1. Returns the positions, the step size, the metric, the
+    adaptation's leaves and the seconds of each part."""
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
+    from blackjax_tpu_torch.mcmc import nuts
+    from blackjax_tpu_torch.models import hierarchical_gaussian
+    from blackjax_tpu_torch.util import run_inference_algorithm
+
+    flagship = hierarchical_gaussian(D)
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warmup = blackjax_tpu_torch.window_adaptation(
+        nuts, flagship.logdensity_fn, max_num_doublings=MAX_DOUBLINGS,
+        adaptation_info_fn=get_filter_adapt_info_fn(info_keys={"num_integration_steps"}),
+    )
+    (_, params), warm_info = warmup.run(generator, torch.zeros(D, device=dev), WARMUP_STEPS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    step, imm = params["step_size"], params["inverse_mass_matrix"]
+    algo = blackjax_tpu_torch.nuts(flagship.logdensity_fn, step_size=step,
+                                   inverse_mass_matrix=imm, max_num_doublings=6)
+    t0 = time.perf_counter()
+    state, _ = run_inference_algorithm(generator, algo, 5,
+                                       initial_position=flagship_init(torch, dev))
+    torch.cuda.synchronize()
+    return (state.position, step, imm, int(warm_info.info.num_integration_steps.sum()), warm_s,
+            time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -634,33 +690,12 @@ def main() -> int:
     marks.append((4, time.perf_counter()))
     S = 256
     flagship = hierarchical_gaussian(D)
-    generator = torch.Generator(device=dev).manual_seed(SEED)
-    init = torch.from_numpy((0.5 * np.random.default_rng(1).standard_normal((C, D)))
-                            .astype(np.float32)).to(dev)
+    init = flagship_init(torch, dev)
     for name in dc.LAUNCHES:
         dc.LAUNCHES[name] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    warmup = blackjax_tpu_torch.window_adaptation(
-        nuts, flagship.logdensity_fn, max_num_doublings=MAX_DOUBLINGS,
-        adaptation_info_fn=get_filter_adapt_info_fn(info_keys={"num_integration_steps"}),
-    )
-    (_, params), warm_info = warmup.run(
-        generator, torch.zeros(D, device=dev), WARMUP_STEPS)
-    torch.cuda.synchronize()
-    warm4_s = time.perf_counter() - t0
-    step4, imm4 = params["step_size"], params["inverse_mass_matrix"]
+    positions, step4, imm4, warm_leaves, warm4_s, nuts_s = warm_start(torch, dev)
     _require(np.isfinite(step4) and step4 > 0, f"warmup step size {step4}")
     _require(bool(torch.isfinite(imm4).all() and (imm4 > 0).all()), "warmup metric")
-    warm_leaves = int(warm_info.info.num_integration_steps.sum())
-
-    algo = blackjax_tpu_torch.nuts(flagship.logdensity_fn, step_size=step4,
-                                   inverse_mass_matrix=imm4, max_num_doublings=6)
-    t0 = time.perf_counter()
-    state, _ = run_inference_algorithm(generator, algo, 5, initial_position=init)
-    torch.cuda.synchronize()
-    nuts_s = time.perf_counter() - t0
-    positions = state.position
     run_kw = dict(target=target, num_steps=S, max_num_doublings=MAX_DOUBLINGS, seed=SEED,
                   num_track=NUM_TRACK, budget=2**MAX_DOUBLINGS * S)
     (fx, hist, grads, steps), ms4 = _timed(
@@ -1430,15 +1465,18 @@ def main() -> int:
                  max_num_doublings=MAX_DOUBLINGS, seed=SEED, num_track=NUM_TRACK,
                  budget=LEGACY_BUDGET, chunk=LEGACY_CHUNK)
     fn.fused_nuts_run(positions[:8], imm4, step4, **dict(fn_kw, num_steps=1))  # first launch
-    fn.LAUNCHES["fused_nuts"] = 0
+    for name in fn.LAUNCHES:
+        fn.LAUNCHES[name] = 0
     (fx13, hist13, grads13, steps13), ms13 = _timed(
         torch, lambda: fn.fused_nuts_run(positions, imm4, step4, **fn_kw))
     launches13 = fn.LAUNCHES["fused_nuts"]
+    forms13 = dict(fn.LAUNCHES)
     ess13 = blackjax_tpu_torch.ess(hist13)
     min_ess13 = float(ess13.min())
     leaves13, leaves4 = float(grads13) / (C * LEGACY_TRANSITIONS), grads4 / (C * S)
 
-    _require(launches13 == 1, f"fused_nuts_run launched {launches13} times, not once")
+    _require(launches13 == 1 and forms13["fused_nuts:resident"] == 1,
+             f"fused_nuts_run launched {forms13}, not once in the resident form")
     _require(bool((steps13 == LEGACY_TRANSITIONS).all()),
              f"chains short of {LEGACY_TRANSITIONS} transitions: {int(steps13.min())}")
     for name, t in [("positions", fx13), ("history", hist13), ("ess", ess13)]:
@@ -1449,19 +1487,27 @@ def main() -> int:
     _require(abs(leaves13 / leaves4 - 1.0) <= LEAVES_REL,
              f"fused_nuts_run {leaves13:.3f} leaves a transition, phase 4's dc run {leaves4:.3f}")
     secs13 = ms13 / 1e3
-    # the launch's own bound, as the comparison's below at its shape
-    bound13 = _bound(2 * C * D * 4 + hist13.numel() * 4 + 2 * C * 4,
-                     float(grads13) * (LEGACY_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
-                     (3 * float(grads13) + C * LEGACY_TRANSITIONS * D) * THREEFRY_OPS)
+    bound13 = _legacy_bound(peaks, C, LEGACY_TRANSITIONS, float(grads13))
+    # the registers form on the same inputs: the same bits at the path's shape
+    registers_run13 = fn.fused_nuts_run(positions, imm4, step4, form="registers", **fn_kw)
+    _require(all(torch.equal(a, b) for a, b in
+                 zip((fx13, hist13, grads13, steps13), registers_run13)),
+             "phase 13: the resident and the registers forms differ at 4096 x 256")
+    occ13 = {form: fn.occupancy(D, form == "resident") for form in fn.FORMS}
     print(f"phase 13: fused_nuts_run (the older machine, csrc/fused_nuts.cu) d={D} C={C} "
           f"S={LEGACY_TRANSITIONS} max_doublings={MAX_DOUBLINGS} budget={LEGACY_BUDGET} from phase "
-          f"4's positions on its step size and metric: all chains completed, one launch, kernel "
+          f"4's positions on its step size and metric: all chains completed, one launch in the "
+          f"resident form ({occ13['resident']['warps_per_sm']} warps an SM, "
+          f"{occ13['resident']['registers']} registers, {occ13['resident']['local_bytes']} B local "
+          f"a thread; the registers form {occ13['registers']['warps_per_sm']} warps an SM, "
+          f"{occ13['registers']['registers']} registers, {occ13['registers']['local_bytes']} B), kernel "
           f"{ms13:.2f} ms (bound {bound13[0]:.4f} ms by {bound13[1]}, kernel / bound "
           f"{ms13 / bound13[0]:.1f}), {float(grads13):.0f} grads ({float(grads13) / secs13:.4g} grads/s, "
           f"{leaves13:.3f} leaves per transition; phase 4's dc run {leaves4:.3f}), min-ESS over "
           f"{NUM_TRACK} tracked dims {min_ess13:.1f} ({min_ess13 / secs13:.4g} ESS/s), log_tau "
           f"over the second half: mean {mean_lt13:.4f} var {var_lt13:.4f}; ptxas "
-          f"{'; '.join(_ptxas_summary(fn_log))} ({smi})")
+          f"{'; '.join(_ptxas_summary(fn_log))}; the registers form on the same inputs: all "
+          f"four outputs bit for bit ({smi})")
 
     # the kernel against its plain version: the flagship, the trace, logistic regression
     cmp13 = dict(fn_kw, num_steps=LEGACY_CMP_TRANSITIONS,
@@ -1472,6 +1518,10 @@ def main() -> int:
         return fn.fused_nuts_run(head13, imm4, step4, **cmp13)
 
     kern, _ = _timed(torch, legacy_call)
+    # the two forms of the kernel, bit for bit
+    registers13 = fn.fused_nuts_run(head13, imm4, step4, form="registers", **cmp13)
+    _require(all(torch.equal(a, b) for a, b in zip(kern, registers13)),
+             "phase 13: the resident and the registers forms differ")
     plain, fn_plain_ms = _timed(
         torch, lambda: fn.fused_nuts_run_plain(head13, imm4, step4, **cmp13))
     _require(torch.equal(kern[3], plain[3]) and float(kern[2]) == float(plain[2]),
@@ -1479,19 +1529,17 @@ def main() -> int:
     share13, err13 = _agreement(torch, kern[:2], plain[:2])
     _require(share13 >= AGREE_FLOOR, f"phase 13: only {share13} of chains agree")
     fn_ms = _timed_mean(torch, legacy_call, 5)
-    fn_dev_ms = _device_ms(torch, legacy_call, "nuts_kernel", repeats=5)
+    fn_dev_ms = _device_ms(torch, legacy_call, "nuts_", repeats=5)  # either form's kernel
     cmp_grads = float(kern[2])
-    fn_bound = _bound(2 * LEGACY_CMP_CHAINS * D * 4
-                      + LEGACY_CMP_CHAINS * LEGACY_CMP_TRANSITIONS * NUM_TRACK * 4
-                      + 2 * LEGACY_CMP_CHAINS * 4,
-                      cmp_grads * (LEGACY_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
-                      (3 * cmp_grads + LEGACY_CMP_CHAINS * LEGACY_CMP_TRANSITIONS * D)
-                      * THREEFRY_OPS)
+    fn_bound = _legacy_bound(peaks, LEGACY_CMP_CHAINS, LEGACY_CMP_TRANSITIONS, cmp_grads)
     device_time = "not measured" if fn_dev_ms is None else f"{fn_dev_ms:.4f} ms"
     trace_kw = dict(fn_kw, num_steps=LEGACY_TRACE_TRANSITIONS, budget=LEGACY_TRACE,
                     chunk=LEGACY_TRACE, trace=LEGACY_TRACE)
     head_t = positions[:LEGACY_TRACE_CHAINS].contiguous()
+    before = fn.LAUNCHES["fused_nuts:registers"]
     kern_t = fn.fused_nuts_run(head_t, imm4, step4, **trace_kw)
+    _require(fn.LAUNCHES["fused_nuts:registers"] == before + 1,
+             "phase 13: the trace did not take the registers form")
     plain_t = fn.fused_nuts_run_plain(head_t, imm4, step4, **trace_kw)
     trace_share = {}
     for col in fn.TRACE_COLS:
@@ -1508,7 +1556,8 @@ def main() -> int:
     plain_l, _ = _per_chain(torch, fn, False, x13, lr_ones, 0.01, lr_kw)
     share_l, _, err_l, lr_grads, lr_plain_grads, lr_other = _matrix_pair(
         torch, "phase 13 logistic regression", kern_l, plain_l, 8)
-    print(f"phase 13 comparisons: flagship {LEGACY_CMP_CHAINS} x {LEGACY_CMP_TRANSITIONS}: steps "
+    print(f"phase 13 comparisons: flagship {LEGACY_CMP_CHAINS} x {LEGACY_CMP_TRANSITIONS}: the "
+          f"resident and the registers forms bit for bit; steps "
           f"and gradient totals identical ({cmp_grads:.0f} grads), {share13:.4f} of chains agree "
           f"to {AGREE_TOL} (floor {AGREE_FLOOR}), max |diff| {err13:.3g}, kernel {fn_ms:.3f} ms "
           f"(device {device_time}), plain {fn_plain_ms:.1f} ms, bound {fn_bound[0]:.4f} ms by "

@@ -58,9 +58,27 @@ parts' borders. Last, chain 0 runs alone (one warp on the card), once
 with the counters (its cycles a leaf by part) and once without: its time
 over its iterations is a leaf's latency with no other warp beside it, the
 least a chain's leaf can take in this kernel.
+
+``--machine older`` times the older NUTS machine instead: one
+``fused_nuts_run`` launch (``csrc/fused_nuts.cu``) at phase 13's shape
+(4,096 chains x 256 transitions, ``max_num_doublings=8``, a budget of 112 x
+256 leaves, ``chunk=256``) on the flagship's positions and step size. Each
+line also gives a SHA-256 of the outputs' bytes (final positions, history,
+gradient total, steps), so that ``parent change change parent`` in one call
+shows both the time and the bits. ``--form``, ``--warps`` and ``--sections``
+work as for the dc machine, on ``csrc/fused_nuts.cu`` (a tree without the
+resident form runs the registers form, and its sections count that form's
+leaf loop); the per-chain iterations come from the counters (one leaf an
+iteration). ``--inputs FILE`` runs it on phase 13's own inputs instead of
+0.5 N(0, I) at ``--step-size``: phase 4's final positions, step size and
+metric, loaded from FILE, or, where FILE does not exist yet, made by the
+root's ``chip_smoke.warm_start`` (about 80 s on the card) and saved there,
+so that the first run of a ``parent change change parent`` call, given the
+change's root, makes them once for all four.
 """
 import argparse
 import ctypes
+import hashlib
 import os
 import re
 import shutil
@@ -273,6 +291,251 @@ def _tail(span, warps_per_sm):
     return below / total, held / (total * warps_per_sm), (t1 - t0) / 1e6, len(sms)
 
 
+# the older machine's leaf loops (csrc/fused_nuts.cu): the registers form
+# (every tree) and the resident form (nuts_resident)
+_OLDER_REGISTERS = [
+    ("  for (int it = 0; it < p.budget; ++it) {\n",
+     "  unsigned long long t_ = sec_now();\n  for (int it = 0; it < p.budget; ++it) {\n"),
+    ("    // ---- one velocity-Verlet leaf ----\n",
+     "    sec_add(chain, 5, t_);\n    // ---- one velocity-Verlet leaf ----\n"),
+    ("    target_grad<N, F>(p, new_x, iv, new_g, lane, scratch);\n",
+     "    sec_add(chain, 1, t_);\n    target_grad<N, F>(p, new_x, iv, new_g, lane, scratch);\n"
+     "    sec_add(chain, 0, t_);\n    if ((threadIdx.x & 31) == 0) g_sec[chain * 8 + 6] += 1;\n"),
+    ("    // ---- progressive uniform merge within the subtree ----\n",
+     "    sec_add(chain, 1, t_);\n    // ---- progressive uniform merge within the subtree ----\n"),
+    ("    // ---- checkpointed subtree U-turn (termination.py:37-43) ----\n",
+     "    sec_add(chain, 2, t_);\n"
+     "    // ---- checkpointed subtree U-turn (termination.py:37-43) ----\n"),
+    ("    // ---- subtree boundary: merge into the trajectory ----\n",
+     "    sec_add(chain, 3, t_);\n    // ---- subtree boundary: merge into the trajectory ----\n"),
+    ("    // ---- transition close ----\n",
+     "    sec_add(chain, 4, t_);\n    // ---- transition close ----\n"),
+    ("  if (chain >= p.C) return;  // the whole warp leaves together\n",
+     "  if (chain >= p.C) return;  // the whole warp leaves together\n  sec_span(chain, 0);\n"),
+    ("    copy<N>(cur_x, new_x); copy<N>(cur_m, new_m); copy<N>(cur_g, new_g);\n  }\n",
+     "    copy<N>(cur_x, new_x); copy<N>(cur_m, new_m); copy<N>(cur_g, new_g);\n  }\n"
+     "  sec_add(chain, 5, t_);\n  sec_span(chain, 1);\n"),
+]
+
+_OLDER_RESIDENT = [
+    ("  for (int it = 0; it < p.budget; ++it) {  // resident\n",
+     "  unsigned long long t_ = sec_now();\n"
+     "  for (int it = 0; it < p.budget; ++it) {  // resident\n"),
+    ("    // ---- one velocity-Verlet leaf (resident) ----\n",
+     "    sec_add(chain, 5, t_);\n    // ---- one velocity-Verlet leaf (resident) ----\n"),
+    ("    const float ld_part = resident_grad<N, T>(p, x, iv, g, lane);\n",
+     "    sec_add(chain, 1, t_);\n"
+     "    const float ld_part = resident_grad<N, T>(p, x, iv, g, lane);\n"
+     "    sec_add(chain, 0, t_);\n"
+     "    if ((threadIdx.x & 31) == 0) g_sec[chain * 8 + 6] += 1;\n"),
+    ("    // ---- the energy and the U-turn checks' sums (resident) ----\n",
+     "    sec_add(chain, 1, t_);\n"
+     "    // ---- the energy and the U-turn checks' sums (resident) ----\n"),
+    ("    // ---- progressive uniform merge within the subtree (resident) ----\n",
+     "    sec_add(chain, 3, t_);\n"
+     "    // ---- progressive uniform merge within the subtree (resident) ----\n"),
+    ("    // ---- subtree boundary: merge into the trajectory (resident) ----\n",
+     "    sec_add(chain, 2, t_);\n"
+     "    // ---- subtree boundary: merge into the trajectory (resident) ----\n"),
+    ("    // ---- transition close (resident) ----\n",
+     "    sec_add(chain, 4, t_);\n    // ---- transition close (resident) ----\n"),
+    ("  if (chain >= p.C) return;  // resident\n",
+     "  if (chain >= p.C) return;  // resident\n  sec_span(chain, 0);\n"),
+    ("  // ---- final state (resident) ----\n",
+     "  sec_add(chain, 5, t_);\n  sec_span(chain, 1);\n  // ---- final state (resident) ----\n"),
+]
+
+# the registers form's occupancy, appended where the tree has no export
+_OLDER_PARENT_OCCUPANCY = r"""
+extern "C" int bjt_fused_nuts_occupancy(int d, int target, int form, int max_depth, int* out) {
+  (void)d; (void)target; (void)form;
+  const auto k = nuts_kernel<4, 0, false>;
+  const size_t smem = (size_t)kWarps * (2 * max_depth * 4 * 32 + scratch_floats<4>()) * 4;
+  cudaFuncAttributes a;
+  int e = (int)cudaFuncGetAttributes(&a, k);
+  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, kWarps * 32, smem);
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[0] *= kWarps;
+  return e;
+}
+"""
+
+
+def _older_copy(nvcc, fn, tag, sections=None, warps=None):
+    """The bound library of a copy of the tree's ``csrc/fused_nuts.cu``: with
+    ``clock64()`` counters in the leaf loop of the form ``sections``
+    (``"resident"`` or ``"registers"``), or with the resident form's launch
+    bound set to ``warps`` warps an SM at every width. Returns the library
+    and its ptxas report."""
+    out = nvcc.build_dir() / f"older_{tag}"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(nvcc._SRC_DIR, out)
+    src = out / "fused_nuts.cu"
+    text = src.read_text()
+    if warps is not None:
+        text, count = re.subn(r"constexpr int resident_warps\(\) \{ return [^;]*; \}",
+                              f"constexpr int resident_warps() {{ return {warps}; }}", text)
+        if count != 1:
+            raise RuntimeError("fused_nuts.cu: resident_warps not found")
+        src.write_text(text)
+    if sections:
+        loop = _OLDER_RESIDENT if sections == "resident" else _OLDER_REGISTERS
+        _edit(src, [("namespace {\n", _HEAD)] + loop,
+              _TAIL + ("" if "bjt_fused_nuts_occupancy" in text else _OLDER_PARENT_OCCUPANCY))
+    lib_path = out / "fused_nuts.so"
+    proc = subprocess.run([nvcc._nvcc(), *nvcc.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc, the copy {tag}:\n{proc.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(lib_path))
+    if hasattr(fn, "_bind"):
+        fn._bind(lib)
+    else:  # a tree before the resident form: its one C interface
+        lib.bjt_fused_nuts.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
+                                       + [ctypes.c_float] * 4 + [ctypes.c_uint32, ctypes.c_void_p])
+        lib.bjt_fused_nuts.restype = ctypes.c_int
+        lib.bjt_error_string.argtypes = [ctypes.c_int]
+        lib.bjt_error_string.restype = ctypes.c_char_p
+    lib.bjt_fused_nuts_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    if sections:
+        lib.bjt_sections.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    return lib, proc.stdout + proc.stderr
+
+
+def _digest(out):
+    """SHA-256 of the outputs' bytes: final positions, history, gradient
+    total, steps."""
+    h = hashlib.sha256()
+    for t in out[:4]:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _older(args, torch, card, label):
+    """--machine older: the older machine at phase 13's shape."""
+    from blackjax_tpu_torch.ops import _nvcc
+    from blackjax_tpu_torch.ops import fused_nuts as fn
+
+    import chip_smoke
+
+    dev = torch.device("cuda")
+    d, chains, step = args.dim, 4096, args.step_size
+    x = torch.from_numpy((0.5 * np.random.default_rng(1).standard_normal(
+        (chains, d))).astype(np.float32)).to(dev)
+    imm = torch.ones(d, device=dev)
+    if args.inputs:
+        if not os.path.exists(args.inputs):
+            positions, step, imm, *_ = chip_smoke.warm_start(torch, dev)
+            torch.save({"positions": positions.cpu(), "step_size": float(step),
+                        "inverse_mass_matrix": imm.cpu()}, args.inputs)
+        saved = torch.load(args.inputs)
+        x, imm = (saved[k].to(dev) for k in ("positions", "inverse_mass_matrix"))
+        step, (chains, d) = saved["step_size"], x.shape
+        print(f"{label} older: phase 13's inputs from {args.inputs}: {chains} x {d}, step size "
+              f"{step:.6f}, mean metric {float(imm.mean()):.6f}", flush=True)
+    kw = dict(target=fn.make_mxu_safe_hierarchical_target(d), num_steps=args.steps,
+              max_num_doublings=8, seed=7, num_track=8, budget=112 * args.steps, chunk=256)
+    has_forms = hasattr(fn, "plan")
+    if args.form is not None:
+        if not has_forms and args.form == "resident":
+            raise SystemExit(f"{label}: this tree has no resident form")
+        if has_forms:
+            kw["form"] = args.form
+    form = fn.plan(d, 0, 0, kw.get("form")) if has_forms else "registers"
+
+    def launch(xs=x, **extra):
+        return fn.fused_nuts_run(xs, imm, step, **kw, **extra)
+
+    def occupancy(lib):
+        out = np.zeros(3, np.int32)
+        code = lib.bjt_fused_nuts_occupancy(d, 0, int(form == "resident"), 8, out.ctypes.data)
+        if code:
+            raise RuntimeError(f"occupancy query failed ({code})")
+        return tuple(int(v) for v in out)
+
+    launch()
+    if args.sections:
+        lib, log = _older_copy(_nvcc, fn, "sections", sections=form)
+        warps_sm, regs, local = occupancy(lib)
+        (_, _, _, _), plain_ms = chip_smoke._timed(torch, launch)
+
+        def counted(xs):
+            library = fn._library
+            fn._library = lambda: lib
+            try:
+                launch(xs)
+                sec = np.zeros(8192 * 8, np.uint64)
+                span = np.zeros(8192 * 3, np.uint64)
+                lib.bjt_sections(sec.ctypes.data, span.ctypes.data, len(xs))  # drains them
+                out, ms = chip_smoke._timed(torch, lambda: launch(xs))
+                lib.bjt_sections(sec.ctypes.data, span.ctypes.data, len(xs))
+            finally:
+                fn._library = library
+            sec = sec[:len(xs) * 8].reshape(len(xs), 8).astype(np.float64)
+            per_leaf = sec[:, :len(SECTIONS)].sum(0) / sec[:, 6].sum()
+            return out, per_leaf, span[:len(xs) * 3].reshape(len(xs), 3), sec[:, 6], ms
+
+        def parts(per_leaf):
+            return (", ".join(f"{n} {c:.0f}" for n, c in zip(SECTIONS, per_leaf))
+                    + f", total {per_leaf.sum():.0f}")
+
+        out, per_leaf, span, leaves, ms = counted(x)
+        below, held, span_ms, n_sm = _tail(span, warps_sm)
+        ptxas = [s for s in chip_smoke._ptxas_summary(log) if "N=4" in s and "F=2" not in s]
+        print(f"{label} older sections ({form} form): launch {plain_ms:.2f} ms without the "
+              f"counters, {ms:.2f} ms with them; cycles a leaf: {parts(per_leaf)}; "
+              f"{leaves.sum():.0f} leaves, all chains complete: "
+              f"{bool((out[3] == args.steps).all())}; tail: {below:.4f} of SM-time between the "
+              f"first start and the last end ({span_ms:.2f} ms on {n_sm} SMs) with fewer than "
+              f"{warps_sm // 2} warps resident, mean {held:.4f} of {warps_sm} warps held; "
+              f"iterations a chain: max {leaves.max():.0f}, p99 {np.percentile(leaves, 99):.0f}, "
+              f"mean {leaves.mean():.1f}; occupancy {warps_sm} warps an SM, {regs} registers, "
+              f"{local} B local a thread; ptxas {'; '.join(ptxas)} ({card})", flush=True)
+        _, lone_parts, _, lone_leaves, lone_counted_ms = counted(x[:1])
+        launch(x[:1])
+        _, lone_ms = chip_smoke._timed(torch, lambda: launch(x[:1]))
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout.split()[0])
+        n1 = float(lone_leaves[0])
+        for what, ms1 in (("without the counters", lone_ms), ("with them", lone_counted_ms)):
+            ns = ms1 * 1e6 / n1
+            print(f"{label} older, chain 0 alone {what}: {n1:.0f} iterations in {ms1:.2f} ms, "
+                  f"{ns:.0f} ns a leaf ({ns * mhz / 1e3:.0f} cycles at {mhz:.0f} MHz); the "
+                  f"slowest chain's {leaves.max():.0f} iterations at that rate: "
+                  f"{leaves.max() * ns / 1e6:.2f} ms ({card})", flush=True)
+        print(f"{label} older, chain 0 alone: cycles a leaf: {parts(lone_parts)}", flush=True)
+        shutil.rmtree(_nvcc.build_dir() / "older_sections", ignore_errors=True)
+        return 0
+    runs = [(None, None)]
+    if args.warps:  # one nvcc a copy, all started together
+        with ThreadPoolExecutor(max_workers=len(args.warps)) as pool:
+            libs = pool.map(lambda w: _older_copy(_nvcc, fn, f"warps_{w}", warps=w)[0], args.warps)
+            runs = list(zip(args.warps, libs))
+    library = fn._library
+    for warps, lib in runs:
+        if lib is not None:  # the launch and its scratch follow the copy
+            fn._library = lambda lib=lib: lib
+        launch()
+        times = []
+        for _ in range(args.repeats):
+            out, ms = chip_smoke._timed(torch, launch)
+            times.append(ms)
+        occ = ""
+        if has_forms:
+            w, r, loc = occupancy(fn._library())
+            occ = f", {w} warps an SM, {r} registers, {loc} B local a thread"
+        name = label + ("" if lib is None else f" ({warps} warps an SM)")
+        print(f"{name} older d={d}: {', '.join(f'{t:.2f}' for t in times)} ms, median "
+              f"{statistics.median(times):.2f} ms, {float(out[2]):.0f} grads, form {form}{occ}, "
+              f"outputs sha256 {_digest(out)} ({card})", flush=True)
+        if lib is not None:
+            fn._library = library
+            shutil.rmtree(_nvcc.build_dir() / f"older_warps_{warps}", ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -287,6 +550,8 @@ def main() -> int:
     parser.add_argument("--form", choices=("resident", "registers"), default=None)
     parser.add_argument("--warps", type=int, nargs="+", default=None)
     parser.add_argument("--block-warps", type=int, nargs="+", default=None)
+    parser.add_argument("--machine", choices=("dc", "older"), default="dc")
+    parser.add_argument("--inputs", default=None)
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -294,6 +559,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("dc_kernel_ms: no CUDA device visible", file=sys.stderr)
         return 1
+    if args.machine == "older":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+        return _older(args, torch, card, args.label or args.root)
     from blackjax_tpu_torch.ops import _nvcc, targets_dc
     from blackjax_tpu_torch.ops import fused_nuts_dc as dc
 

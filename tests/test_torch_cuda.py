@@ -833,3 +833,105 @@ def test_resident_occupancy_is_the_recorded_one(cuda):
     assert resident["warps_per_sm"] == dc.resident_warps(4) == 20
     assert resident["registers"] <= 65_536 // (32 * 20)
     assert dc.occupancy(100, resident=False)["warps_per_sm"] == 16
+
+
+# ---- the older machine's resident form (csrc/fused_nuts.cu: nuts_resident) ----
+
+OLDER_WIDTHS = (8, 50, 100, 200)  # N = 1, 2, 4, 8
+
+
+def _older_run(cuda, case, d, C, S, budget, max_depth=6, form=None, seed=7):
+    """One launch of fused_nuts_run (its public outputs) and the forms it
+    counted."""
+    fn = importlib.import_module("blackjax_tpu_torch.ops.fused_nuts")
+    target = (fn.make_mxu_safe_hierarchical_target(d) if case == "hierarchical"
+              else fl.make_gaussian_target(d, np.linspace(0.5, 2.0, d)))
+    x = torch.from_numpy((0.5 * np.random.default_rng(d).standard_normal((C, d)))
+                         .astype(np.float32)).to(cuda)
+    kw = dict(target=target, num_steps=S, max_num_doublings=max_depth, seed=seed,
+              num_track=min(d, 8), budget=budget, chunk=8)
+    before = dict(fn.LAUNCHES)
+    out = fn.fused_nuts_run(x, torch.ones(d, device=cuda), 0.2, form=form, **kw)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in fn.LAUNCHES.items() if v != before[k]}
+    return fn, x, kw, out, launched
+
+
+@pytest.mark.parametrize("budget", [2**6 * 8, 40])
+@pytest.mark.parametrize("d", OLDER_WIDTHS)
+@pytest.mark.parametrize("case", ["hierarchical", "gaussian"])
+def test_older_resident_form_is_the_registers_form_bit_for_bit(cuda, case, d, budget):
+    """Both forms of the older machine compute the same sums in the same
+    order and draw the same numbers: every output of 256 chains x 8
+    transitions is the same bits, also where the budget runs out."""
+    fn, _, _, resident, launched = _older_run(cuda, case, d, 256, 8, budget)
+    assert launched == {"fused_nuts": 1, "fused_nuts:resident": 1}
+    *_, registers, launched = _older_run(cuda, case, d, 256, 8, budget, form="registers")
+    assert launched == {"fused_nuts": 1, "fused_nuts:registers": 1}
+    assert all(torch.equal(a, b) for a, b in zip(resident, registers))
+    if budget == 40:
+        assert int(resident[3].min()) < 8
+
+
+@pytest.mark.parametrize("d, max_depth", [(100, 11), (200, 8)])
+def test_older_resident_form_with_slots_in_device_memory(cuda, d, max_depth):
+    """Where the slots do not fit in shared memory they live in device
+    memory, with the same bits."""
+    assert _older_scratch(d, 1, max_depth)[1] > 0
+    *_, resident, _ = _older_run(cuda, "hierarchical", d, 128, 4, 2**max_depth * 4, max_depth)
+    *_, registers, _ = _older_run(cuda, "hierarchical", d, 128, 4, 2**max_depth * 4, max_depth,
+                                  form="registers")
+    assert all(torch.equal(a, b) for a, b in zip(resident, registers))
+
+
+@pytest.mark.parametrize("case, d", [("hierarchical", 8), ("hierarchical", 100),
+                                     ("gaussian", 4), ("gaussian", 100), ("gaussian", 200)])
+def test_older_resident_form_matches_plain_version(cuda, case, d):
+    """The resident form against the plain version at the older machine's
+    gates: identical steps and gradient totals, the floor's share of chains
+    at TOL."""
+    fn, x, kw, kern, launched = _older_run(cuda, case, d, 256, 8, 2**6 * 8)
+    assert launched["fused_nuts:resident"] == 1
+    plain = fn.fused_nuts_run_plain(x, torch.ones(d, device=cuda), 0.2, **kw)
+    assert torch.equal(kern[3], plain[3]) and float(kern[2]) == float(plain[2])
+    close = torch.isclose(kern[0], plain[0], rtol=TOL, atol=TOL).all(1)
+    close &= torch.isclose(kern[1], plain[1], rtol=TOL, atol=TOL).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
+
+
+def _older_scratch(d, resident, max_depth):
+    """A chain's floats of scratch in device memory, as the older machine's
+    launch allocates them (bjt_fused_nuts_scratch_floats): its cold vectors
+    and its checkpoint slots."""
+    import ctypes
+
+    fn = importlib.import_module("blackjax_tpu_torch.ops.fused_nuts")
+    out = (ctypes.c_longlong * 2)()
+    assert fn._library().bjt_fused_nuts_scratch_floats(d, resident, max_depth, out) == 0
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("d, max_depth, shared", [
+    (8, 30, True), (64, 16, True), (64, 17, False), (100, 8, True), (100, 9, True),
+    (100, 10, False), (200, 5, True), (200, 6, False), (256, 8, False),
+])
+def test_older_scratch_moves_the_slots_beyond_shared_memory(cuda, d, max_depth, shared):
+    """The resident form keeps thirteen cold vectors a chain in device
+    memory, and its 2 x max_depth checkpoint slots too where the SM's
+    resident warps do not fit them in shared memory; the registers form
+    keeps no scratch there."""
+    vec = 32 * next(n for n in (1, 2, 4, 8) if 32 * n >= d)
+    assert _older_scratch(d, 1, max_depth) == (13 * vec, 0 if shared else 2 * max_depth * vec)
+    assert _older_scratch(d, 0, max_depth) == (0, 0)
+
+
+def test_older_resident_occupancy_is_the_recorded_one(cuda):
+    """Phase 13's instantiation (d = 100, max_depth 8) holds the warps an SM
+    it is built for (resident_warps) in the resident form, within the
+    registers that allows and without spills, and 16 in the registers
+    form."""
+    fn = importlib.import_module("blackjax_tpu_torch.ops.fused_nuts")
+    resident = fn.occupancy(100)
+    assert resident["warps_per_sm"] == 20
+    assert resident["registers"] <= 65_536 // (32 * 20)
+    assert fn.occupancy(100, resident=False)["warps_per_sm"] == 16
