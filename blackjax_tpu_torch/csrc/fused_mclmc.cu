@@ -29,7 +29,10 @@
 // and on the target family, as the leapfrog kernel is.
 // History values come from the lane that holds the dim by shuffles and are
 // stored by lane k for tracked dim k, so a step's K values are one contiguous
-// store per chain.
+// store per chain. The analytic targets run in one of two forms with the
+// same bits: the resident form (mclmc_resident, below), which the wrapper
+// takes, and the registers form (mclmc_kernel<N, 0>), which it takes where
+// asked.
 //
 // Bound. Device memory sees x and m once in and once out and the (C, S, K)
 // history (131 MB at C = 4,096, S = 1,000, K = 8). Per step a lane does
@@ -67,6 +70,7 @@
 
 #include "counter_rng.cuh"     // threefry2x32, box_muller
 #include "matrix_targets.cuh"  // warp_sum, target_grad, target_logdensity
+#include "resident_form.cuh"   // slots_fit_shared, carveout_for, occupancy_of
 
 namespace {
 
@@ -83,9 +87,11 @@ struct Params {
   float* out_logdensity;  // (C,) log density at the end positions
   float* out_hist;        // (C, num_steps, n_track) tracked positions
   int C, d, d_pad, num_steps, n_track, target, refresh, n_coef;
+  int pool;               // the resident form's steps of refresh noise a pool
   float eps, L;
   uint32_t seed;
   float coef[kMaxStages];  // kicks at even stages, drifts at odd ones
+  float dt[kMaxStages];    // coef[i] * eps, rounded as the kernel rounds it
   MatrixData mat;          // logistic regression's tiles of X, y, else zeros
 };
 
@@ -102,32 +108,45 @@ __device__ __forceinline__ float row_norm(const float (&v)[N]) {
   return sqrtf(warp_sum(s));
 }
 
-// The overflow-free ESH momentum update (fused_mclmc.py:146-157).
+// The overflow-free ESH momentum update (fused_mclmc.py:146-157), in two
+// halves: what depends on the gradient and the step alone (the unit
+// direction e and the decay zeta), and what the momentum adds to it.
 template <int N>
-__device__ __forceinline__ void kick(float (&m)[N], const float (&g)[N],
-                                     const float (&sqrt_imm)[N], float dt,
-                                     float dims) {
-  float gw[N], e[N];
+__device__ __forceinline__ void kick_direction(const float (&g)[N], const float (&sqrt_imm)[N],
+                                               float dt, float dims, float (&e)[N],
+                                               float& zeta) {
+  float gw[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) gw[k] = g[k] * sqrt_imm[k];
   const float grad_norm = row_norm<N>(gw);
   const float scale = nan_max(grad_norm, 1e-30f);
-  float pr = 0.f;
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    e[k] = gw[k] / scale;
-    pr += m[k] * e[k];
-  }
-  const float proj = warp_sum(pr);
+  for (int k = 0; k < N; ++k) e[k] = gw[k] / scale;
   const float delta = dt * grad_norm / (dims - 1.0f);
-  const float zeta = expf(-delta);
+  zeta = expf(-delta);
+}
+
+template <int N>
+__device__ __forceinline__ void kick_momentum(float (&m)[N], const float (&e)[N], float zeta) {
+  float pr = 0.f, unnorm[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) pr += m[k] * e[k];
+  const float proj = warp_sum(pr);
   const float a = (1.0f - zeta) * (1.0f + zeta + proj * (1.0f - zeta));
   const float b = 2.0f * zeta;
 #pragma unroll
-  for (int k = 0; k < N; ++k) gw[k] = e[k] * a + b * m[k];  // unnormalized
-  const float norm = nan_max(row_norm<N>(gw), 1e-30f);
+  for (int k = 0; k < N; ++k) unnorm[k] = e[k] * a + b * m[k];
+  const float norm = nan_max(row_norm<N>(unnorm), 1e-30f);
 #pragma unroll
-  for (int k = 0; k < N; ++k) m[k] = gw[k] / norm;
+  for (int k = 0; k < N; ++k) m[k] = unnorm[k] / norm;
+}
+
+template <int N>
+__device__ __forceinline__ void kick(float (&m)[N], const float (&g)[N],
+                                     const float (&sqrt_imm)[N], float dt, float dims) {
+  float e[N], zeta;
+  kick_direction<N>(g, sqrt_imm, dt, dims, e, zeta);
+  kick_momentum<N>(m, e, zeta);
 }
 
 // The O-U refresh on the sphere (fused_mclmc.py:159-162): m + nu z, renormed.
@@ -247,6 +266,302 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- the resident form (mclmc_resident): the analytic targets ----
+//
+// Built for the flagship's 4,096 chains in one wave on 132 SMs: 32 warps an
+// SM at N = 4, so that no chain waits for another to end, with the
+// registers that leaves (64 a thread). At N <= 4 a block is the SM's 32
+// warps, and they meet once a pool (block_step): a warp that ran ahead of
+// the others would end early and leave the SM's last steps to too few warps
+// to hide their latency. It gives the registers form's bits: every sum in
+// its order, every normal with its key.
+//
+// The refresh noise is drawn ahead, densely. The draws depend on nothing of
+// the chain's state, so once every P steps the warp draws the 2 P d normals
+// of the next P steps' refreshes in one pass over all 32 lanes (PoolWalk)
+// into its pool in shared memory, each with its own key, and the refreshes
+// read them by dim. Drawn per refresh, a lane draws its dims k 32 + lane, and
+// at d = 100 the fourth register's block runs on 4 lanes of 32: 128 blocks
+// issued for 100 draws. Pooled over P = 4 steps, 800 draws take 25 rounds.
+// The pool also takes the draws' 20 dependent rounds off the chain's path.
+//
+// The stages are unrolled for the port's coefficient sets (S = 3, 5, 7 and
+// 11 stages; S = 0 runs the stage loop at run time), and where the first and
+// the last coefficient are the same float, the first kick of a step takes
+// the last kick's direction and decay from the step before: the same
+// gradient and the same step, so the same bits, and one reduction, N
+// divisions and an expf fewer a step.
+
+// the warps an SM the form is built for at N registers a lane and vector
+// (its launch bound), and the warps a block
+template <int N>
+__host__ __device__ constexpr int mclmc_resident_warps() { return N <= 4 ? 32 : 20; }
+template <int N>
+__host__ __device__ constexpr int mclmc_block_warps() {
+  return N <= 4 ? mclmc_resident_warps<N>() : 4;
+}
+// blocks an SM for the launch bound (one where a copy's blocks outsize it)
+template <int N>
+__host__ __device__ constexpr int mclmc_resident_blocks() {
+  return mclmc_resident_warps<N>() > mclmc_block_warps<N>()
+             ? mclmc_resident_warps<N>() / mclmc_block_warps<N>()
+             : 1;
+}
+
+// the most steps of refresh noise a pool holds
+constexpr int kMaxPoolSteps = 4;
+
+// the steps a pool holds at width d: the most, up to kMaxPoolSteps, whose
+// pools (2 P d floats a warp) fit the SM's resident warps in shared memory
+template <int N>
+__host__ __device__ constexpr int pool_steps(int d) {
+  int steps = kMaxPoolSteps;
+  while (steps > 1 &&
+         !slots_fit_shared(mclmc_resident_warps<N>(), mclmc_block_warps<N>(), 2 * steps * d))
+    steps /= 2;
+  return steps;
+}
+
+// The analytic target T fixed at compile time, for grad and logdensity
+// (analytic_targets.cuh), which read the fields d and target.
+template <int T>
+struct Analytic {
+  int d;
+  static constexpr int target = T;
+};
+
+// A warp's walk over a pool of count = 2 P d normals: element i = q d + j
+// (q = 2 (step - the pool's first step) + refresh, j the dim) is drawn by
+// lane i % 32 in round i / 32 and lands in slot i of the warp's pool. Every
+// lane draws in every round but the last; a round moves i by 32 = dq d + dj.
+struct PoolWalk {
+  int dq, dj, q0, j0;
+  __device__ PoolWalk(int d, int lane) : dq(32 / d), dj(32 % d), q0(lane / d), j0(lane % d) {}
+  template <class F>
+  __device__ __forceinline__ void operator()(int d, int count, int lane, F&& f) const {
+    int q = q0, j = j0;
+    for (int i = lane; i < count; i += 32) {
+      f(i, q, j);
+      q += dq;
+      j += dj;
+      if (j >= d) {
+        j -= d;
+        ++q;
+      }
+    }
+  }
+};
+
+// The normals of steps first .. first + steps - 1 into the warp's pool, each
+// keyed as ou_refresh keys it: c0 = the chain's row + dim, c1 = 2 step or
+// 2 step + 1.
+__device__ __forceinline__ void draw_pool(const Params& p, const PoolWalk& walk, float* pool,
+                                          uint32_t row_base, int first, int steps, int lane) {
+  __syncwarp();  // every lane has read the last pool
+  walk(p.d, 2 * steps * p.d, lane, [&](int i, int q, int j) {
+    uint32_t b1, b2;
+    threefry2x32(p.seed, kKey1, row_base + (uint32_t)j, 2u * (uint32_t)first + (uint32_t)q, b1,
+                 b2);
+    pool[i] = box_muller(b1, b2);
+  });
+  __syncwarp();  // the pool is in place for every lane
+}
+
+// The warps of a block meet once a pool: none runs ahead of the others, so
+// that an SM keeps all its warps, and their latency hidden, to the end of
+// the launch (a warp that ran ahead would leave the last steps to fewer).
+__device__ __forceinline__ void block_step(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+// The O-U refresh of ou_refresh with its d normals z read from the pool.
+template <int N>
+__device__ __forceinline__ void pooled_refresh(float (&m)[N], const float* z, int d, float nu,
+                                               int lane) {
+  float v[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    v[k] = m[k] + nu * (j < d ? z[j] : 0.f);
+  }
+  const float scale = nan_max(row_norm<N>(v), 1e-30f);
+#pragma unroll
+  for (int k = 0; k < N; ++k) m[k] = v[k] / scale;
+}
+
+template <int N, int T, int S>
+__global__ void __launch_bounds__(mclmc_block_warps<N>() * 32, mclmc_resident_blocks<N>())
+    mclmc_resident(const Params p) {
+  constexpr int kBlock = mclmc_block_warps<N>();
+  extern __shared__ __align__(16) float pools[];  // 2 P d normals a warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chain = blockIdx.x * kBlock + warp;
+  if (chain >= p.C) return;  // resident
+  // the threads of the block's warps that hold a chain
+  const int block_threads = 32 * min(kBlock, p.C - (int)blockIdx.x * kBlock);
+  const Analytic<T> tp{p.d};
+  const size_t row = (size_t)chain * p.d;
+
+  // pad dims (j >= d) hold zeros and a zero inverse mass, so they stay zero
+  float x[N], m[N], g[N], sqrt_imm[N], iv[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    const bool valid = j < p.d;
+    x[k] = valid ? p.x0[row + j] : 0.f;
+    m[k] = valid ? p.m0[row + j] : 0.f;
+    sqrt_imm[k] = sqrtf(valid ? p.imm[j] : 0.f);
+    iv[k] = (T == kGaussian && valid) ? p.inv_var[j] : 0.f;
+  }
+  const float dims = (float)p.d;
+  const float nu =
+      p.refresh ? sqrtf((expf(2.0f * (0.5f * p.eps) / p.L) - 1.0f) / dims) : 0.f;
+  const uint32_t row_base = (uint32_t)chain * (uint32_t)p.d_pad;
+  float* pool = pools + (size_t)warp * 2 * p.pool * p.d;
+  const PoolWalk walk(p.d, lane);
+  const int n_coef = S > 0 ? S : p.n_coef;
+  // the first kick of a step is the last kick of the step before where
+  // their coefficients are the same float
+  const bool reuse = p.coef[0] == p.coef[n_coef - 1];
+  float e[N], zeta = 0.f;  // the last kick's direction and decay
+
+  grad<N>(tp, x, iv, g, lane);
+  int at = p.pool;  // the step's place in its pool
+  for (int s = 0; s < p.num_steps; ++s) {  // resident
+    // ---- the pooled draws (resident) ----
+    if (at == p.pool) {
+      block_step(block_threads);
+      if (p.refresh) draw_pool(p, walk, pool, row_base, s, min(p.pool, p.num_steps - s), lane);
+      at = 0;
+    }
+    // ---- the refresh before the stages (resident) ----
+    if (p.refresh) pooled_refresh<N>(m, pool + 2 * at * p.d, p.d, nu, lane);
+    // ---- the stages (resident) ----
+    const auto stage = [&](int i) {
+      const float ce = p.dt[i];  // from the parameters: no register holds it
+      if (i % 2 == 0) {
+        // ---- a kick (resident) ----
+        if (i > 0 || s == 0 || !reuse) kick_direction<N>(g, sqrt_imm, ce, dims, e, zeta);
+        kick_momentum<N>(m, e, zeta);
+        // ---- the kick's end (resident) ----
+      } else {
+        // ---- a drift and its gradient (resident) ----
+#pragma unroll
+        for (int k = 0; k < N; ++k) x[k] = x[k] + ce * (m[k] * sqrt_imm[k]);
+        grad<N>(tp, x, iv, g, lane);
+        // ---- the gradient's end (resident) ----
+      }
+    };
+    if constexpr (S > 0) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) stage(i);
+    } else {
+      for (int i = 0; i < n_coef; ++i) stage(i);
+    }
+    // ---- the refresh after the stages (resident) ----
+    if (p.refresh) pooled_refresh<N>(m, pool + (2 * at + 1) * p.d, p.d, nu, lane);
+    ++at;
+    // ---- the history (resident) ----
+    for (int t0 = 0; t0 < p.n_track; t0 += 32) {
+      float* hist = p.out_hist + ((size_t)chain * p.num_steps + s) * p.n_track;
+      const int t = t0 + lane;
+      const int dim = t < p.n_track ? p.track[t] : 0;
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float held = __shfl_sync(kFull, x[k], dim & 31);
+        if ((dim >> 5) == k) v = held;
+      }
+      if (t < p.n_track) hist[t] = v;
+    }
+    // ---- the step's end (resident) ----
+  }
+
+  // ---- final state (resident) ----
+  const float ld = logdensity<N>(tp, x, iv, lane);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int j = k * 32 + lane;
+    if (j < p.d) {
+      p.out_x[row + j] = x[k];
+      p.out_m[row + j] = m[k];
+    }
+  }
+  if (lane == 0) p.out_logdensity[chain] = ld;
+  // ---- the chain's end (resident) ----
+}
+
+// the resident form's shared memory a block: its warps' pools
+template <int N>
+size_t resident_block_bytes(const Params& p) {
+  return p.refresh ? (size_t)mclmc_block_warps<N>() * 2 * p.pool * p.d * sizeof(float) : 0;
+}
+
+// A refusal of the carveout or of the shared memory comes back to the
+// wrapper, which raises.
+template <int N, int T, int S>
+cudaError_t launch_resident(const Params& p, cudaStream_t stream) {
+  constexpr int kBlock = mclmc_block_warps<N>();
+  const auto kernel = mclmc_resident<N, T, S>;
+  const size_t smem = resident_block_bytes<N>(p);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       carveout_for(smem > 0));
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<(p.C + kBlock - 1) / kBlock, kBlock * 32, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the stage counts unrolled: the port's coefficient sets (velocity Verlet,
+// McLachlan, Yoshida, Omelyan); any other count runs the loop at run time
+template <int N, int T>
+cudaError_t launch_resident_stages(const Params& p, cudaStream_t stream) {
+  switch (p.n_coef) {
+    case 3: return launch_resident<N, T, 3>(p, stream);
+    case 5: return launch_resident<N, T, 5>(p, stream);
+    case 7: return launch_resident<N, T, 7>(p, stream);
+    case 11: return launch_resident<N, T, 11>(p, stream);
+    default: return launch_resident<N, T, 0>(p, stream);
+  }
+}
+
+template <int N>
+cudaError_t launch_resident_n(Params p, cudaStream_t stream) {
+  p.pool = pool_steps<N>(p.d);
+  return p.target == kHierarchical ? launch_resident_stages<N, kHierarchical>(p, stream)
+                                   : launch_resident_stages<N, kGaussian>(p, stream);
+}
+
+// warps an SM, registers and local bytes a thread of the instantiation for
+// d in the resident form (McLachlan's, out[3]: its steps a pool) or the
+// registers form (out[3] = 0)
+template <int N>
+int occupancy_n(int d, int target, int form, int* out) {
+  if (!form) {
+    out[3] = 0;
+    return (int)occupancy_of(mclmc_kernel<N, 0>, kFusedWarps, 0, out);
+  }
+  constexpr int kBlock = mclmc_block_warps<N>();
+  out[3] = pool_steps<N>(d);
+  const size_t smem = (size_t)kBlock * 2 * out[3] * d * sizeof(float);
+  const int carveout = carveout_for(true);
+  return (int)(target == kHierarchical
+                   ? occupancy_of(mclmc_resident<N, kHierarchical, 5>, kBlock, smem, out, carveout)
+                   : occupancy_of(mclmc_resident<N, kGaussian, 5>, kBlock, smem, out, carveout));
+}
+
+// The pool's layout through the kernel's own walk, for checks: out[2 i],
+// out[2 i + 1] = (q, j) of slot i, -1 where a lane of the last round idles.
+__global__ void pool_layout_kernel(int d, int count, int* out) {
+  const int lane = threadIdx.x;
+  for (int i = lane; i < (count + 31) / 32 * 32; i += 32) out[2 * i] = out[2 * i + 1] = -1;
+  PoolWalk(d, lane)(d, count, lane, [&](int i, int q, int j) {
+    out[2 * i] = q;
+    out[2 * i + 1] = j;
+  });
+}
+
 // The refresh noise through the kernel's own device functions, for checks:
 // element (r, j) of a (rows, d) block, keyed as the kernel keys chain
 // chain_base + r.
@@ -275,33 +590,66 @@ extern "C" {
 // is logistic regression's data matrix as tiles (bjt_fused_tiles_layout in
 // the leapfrog's library: rows at the stride shared_x_stride(d), zero padded
 // to whole tiles), y its rows labels (rows,), and k0, k1 its 1 /
-// prior_scale^2 and -0.5 / prior_scale^2 (null and 0 otherwise).
+// prior_scale^2 and -0.5 / prior_scale^2 (null and 0 otherwise). form 1
+// launches the resident form (the hierarchical and Gaussian targets only),
+// form 0 the registers form, or logistic regression's tiles form.
 int bjt_fused_mclmc(const float* x0, const float* m0, const float* imm,
                     const float* inv_var, const float* X,
                     const float* y, const int* track, float* out_x,
                     float* out_m, float* out_logdensity, float* out_hist,
                     const float* coefs, int n_coef, int C, int d, int num_steps,
-                    int n_track, int target, int rows, int refresh, float eps,
+                    int n_track, int target, int rows, int refresh, int form, float eps,
                     float L, float k0, float k1, uint32_t seed, void* stream) {
   if (target != kHierarchical && target != kGaussian && target != kLogisticRegression)
     return cudaErrorInvalidValue;
   if (target == kGaussian && inv_var == nullptr) return cudaErrorInvalidValue;
-  if (target == kLogisticRegression && (X == nullptr || y == nullptr))
+  if (target == kLogisticRegression && (X == nullptr || y == nullptr || form != 0))
     return cudaErrorInvalidValue;
   if (n_coef < 1 || n_coef > kMaxStages || n_coef % 2 == 0) return cudaErrorInvalidValue;
   if (n_track > 0 && track == nullptr) return cudaErrorInvalidValue;
   Params p{x0, m0, imm, inv_var, track, out_x, out_m, out_logdensity, out_hist,
-           C, d, round_up_lanes(d), num_steps, n_track, target, refresh, n_coef,
-           eps, L, seed, {}, {X, nullptr, y, nullptr, rows, d, {k0, k1}}};
-  for (int i = 0; i < n_coef; ++i) p.coef[i] = coefs[i];
+           C, d, round_up_lanes(d), num_steps, n_track, target, refresh, n_coef, 0,
+           eps, L, seed, {}, {}, {X, nullptr, y, nullptr, rows, d, {k0, k1}}};
+  for (int i = 0; i < n_coef; ++i) {
+    p.coef[i] = coefs[i];
+    p.dt[i] = p.coef[i] * eps;  // one IEEE product, the bits of the kernel's
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C <= 0) return cudaSuccess;
   const int n = (d + 31) / 32;
+  if (form) {
+    if (n <= 1) return launch_resident_n<1>(p, s);
+    if (n <= 2) return launch_resident_n<2>(p, s);
+    if (n <= 4) return launch_resident_n<4>(p, s);
+    if (n <= 8) return launch_resident_n<8>(p, s);
+    return cudaErrorInvalidValue;
+  }
   if (n <= 1) return launch<1>(p, s);
   if (n <= 2) return launch<2>(p, s);
   if (n <= 4) return launch<4>(p, s);
   if (n <= 8) return launch<8>(p, s);
   return cudaErrorInvalidValue;
+}
+
+// Warps an SM, registers, local bytes a thread and steps a pool (0 in the
+// registers form) of the analytic target's instantiation for d in form 1
+// (resident, McLachlan's) or 0 (registers).
+int bjt_fused_mclmc_occupancy(int d, int target, int form, int* out) {
+  const int n = (d + 31) / 32;
+  if (d < 1 || n > 8 || (target != kHierarchical && target != kGaussian))
+    return cudaErrorInvalidValue;
+  if (n <= 1) return occupancy_n<1>(d, target, form, out);
+  if (n <= 2) return occupancy_n<2>(d, target, form, out);
+  if (n <= 4) return occupancy_n<4>(d, target, form, out);
+  return occupancy_n<8>(d, target, form, out);
+}
+
+// The resident form's pool layout at width d for a pool of steps steps:
+// out holds 2 ints a slot, for round_up(2 steps d, 32) slots.
+int bjt_mclmc_pool_layout(int d, int steps, int* out, void* stream) {
+  if (d < 1 || steps < 1) return cudaErrorInvalidValue;
+  pool_layout_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(d, 2 * steps * d, out);
+  return cudaGetLastError();
 }
 
 // The kernel's counter normals of a (rows, d) block: both threefry words and

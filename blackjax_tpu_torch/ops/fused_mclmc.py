@@ -5,9 +5,14 @@ Port of ``blackjax_tpu/ops/fused_mclmc.py`` (``fused_mclmc`` and its Pallas
 kernel ``_mclmc_kernel``). Two implementations of the same trajectory live
 here:
 
-- the CUDA kernel ``csrc/fused_mclmc.cu`` (one warp per chain; on logistic
-  regression the chains of a block share each gradient in the tiles form of
-  :mod:`~blackjax_tpu_torch.ops.fused_leapfrog`), launched for CUDA tensors;
+- the CUDA kernel ``csrc/fused_mclmc.cu`` (one warp per chain), launched
+  for CUDA tensors in one of three forms that :func:`plan` picks before the
+  launch: the resident form on the hierarchical and Gaussian targets (all of
+  the flagship's chains in one wave, the refresh noise drawn ahead into
+  shared memory, the stages unrolled), the registers form where it is asked
+  for (the same bits), and on logistic regression the tiles form of
+  :mod:`~blackjax_tpu_torch.ops.fused_leapfrog` (the chains of a block share
+  each gradient). :data:`LAUNCHES` counts each form;
 - :func:`fused_mclmc_plain`, the plain PyTorch version on the ``(C, d)``
   block, taken for CPU tensors and used on the card as the kernel's
   reference.
@@ -43,20 +48,28 @@ from blackjax_tpu_torch.ops.fused_leapfrog import (
 )
 
 __all__ = [
+    "FORMS",
     "LAUNCHES",
     "build",
     "counter_normals_device",
     "fused_mclmc",
     "fused_mclmc_plain",
+    "occupancy",
+    "plan",
+    "pool_layout",
+    "pool_layout_device",
 ]
 
-# kernel launches made by this module, by kernel name; a launch on logistic
-# regression also counts under its form, the tiles form
-LAUNCHES = {"fused_mclmc": 0, "fused_mclmc:logreg_tiles": 0, "counter_normals": 0}
+# kernel launches made by this module, by kernel name; a trajectory's launch
+# also counts under its form
+LAUNCHES = {"fused_mclmc": 0, "fused_mclmc:resident": 0, "fused_mclmc:registers": 0,
+            "fused_mclmc:logreg_tiles": 0, "counter_normals": 0, "pool_layout": 0}
 
 _LANE = 128  # the reference's lane padding, which the noise counters count
 _MAX_CUDA_DIM = 256  # eight registers per lane and vector
 _MAX_STAGES = 16
+_ANALYTIC = (0, 1)  # the hierarchical and Gaussian targets' cuda_target
+FORMS = ("resident", "registers")
 
 
 def _round_up(n: int, m: int) -> int:
@@ -119,6 +132,47 @@ def _trajectory_plain(x, m, imm, step_size, L, *, target, num_steps, seed,
 
 
 # ---------------------------------------------------------------------------
+# the form's plan and the pool's layout
+# ---------------------------------------------------------------------------
+
+
+def plan(d: int, target: int, form: str = None) -> str:
+    """The form of a launch on ``d`` dimensions of the target ``target`` (a
+    ``cuda_target`` id): ``"resident"``, ``"registers"`` or ``"tiles"``.
+
+    ``form=None`` takes the resident form on the hierarchical and Gaussian
+    targets and the tiles form on logistic regression; ``"resident"`` and
+    ``"registers"`` ask for one of the analytic targets' forms. A form that
+    does not apply raises ``ValueError``; nothing falls back to another. The
+    layout of each form (warps, the pool's steps, shared memory) is the
+    kernel's own."""
+    if form not in (None, *FORMS):
+        raise ValueError(f"form must be None or one of {FORMS}, got {form!r}")
+    if not 1 <= d <= _MAX_CUDA_DIM:
+        raise ValueError(f"the CUDA MCLMC kernel holds d <= {_MAX_CUDA_DIM} per warp; got d={d}")
+    if target not in _ANALYTIC:
+        if form is not None:
+            raise ValueError(f"logistic regression runs the tiles form; got form={form!r}")
+        return "tiles"
+    return form or "resident"
+
+
+def pool_layout(d: int, steps: int):
+    """The resident form's pooled draws of ``steps`` steps at width ``d``,
+    as its warp draws them: an int64 ``(rounds, 32, 2)`` tensor whose
+    ``[r, lane]`` is ``(q, j)`` of the normal that ``lane`` draws in round
+    ``r`` (refresh ``q = 2 (step - the pool's first step) + (0 before the
+    stages, 1 after)``, dim ``j``; its slot in the warp's pool is ``32 r +
+    lane = q d + j``), or ``(-1, -1)`` where the lane idles in the last
+    round. Each normal keeps the key of its step, refresh and dim."""
+    count = 2 * steps * d
+    slot = torch.arange(-(-count // 32) * 32, dtype=torch.int64)
+    out = torch.stack([slot // d, slot % d], dim=-1)
+    out[slot >= count] = -1
+    return out.reshape(-1, 32, 2)
+
+
+# ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
 
@@ -132,9 +186,13 @@ _FLOAT = ctypes.c_float
 def _library():
     lib = _nvcc.load("fused_mclmc")
     lib.bjt_fused_mclmc.argtypes = (
-        [_VP] * 11 + [ctypes.POINTER(_FLOAT)] + [_INT] * 8 + [_FLOAT] * 4 + [_U32, _VP]
+        [_VP] * 11 + [ctypes.POINTER(_FLOAT)] + [_INT] * 9 + [_FLOAT] * 4 + [_U32, _VP]
     )
     lib.bjt_fused_mclmc.restype = _INT
+    lib.bjt_fused_mclmc_occupancy.argtypes = [_INT] * 3 + [_VP]
+    lib.bjt_fused_mclmc_occupancy.restype = _INT
+    lib.bjt_mclmc_pool_layout.argtypes = [_INT, _INT, _VP, _VP]
+    lib.bjt_mclmc_pool_layout.restype = _INT
     lib.bjt_counter_normals.argtypes = [_U32, _U32, _U32, _INT, _INT, _VP, _VP, _VP, _VP]
     lib.bjt_counter_normals.restype = _INT
     lib.bjt_error_string.argtypes = [_INT]
@@ -150,10 +208,9 @@ def build() -> str:
 
 
 def _launch_cuda(x, m, imm, step_size, L, *, target, num_steps, seed, coefficients,
-                 track_dims, refresh):
+                 track_dims, refresh, form=None):
     C, d = x.shape
-    if d > _MAX_CUDA_DIM:
-        raise ValueError(f"the CUDA MCLMC kernel holds d <= {_MAX_CUDA_DIM} per warp; got d={d}")
+    form = plan(d, target.cuda_target, form)
     dev = x.device
     for name, t, shape in [("positions", x, (C, d)), ("momenta", m, (C, d)),
                            ("inverse_mass_matrix", imm, (d,))]:
@@ -170,14 +227,42 @@ def _launch_cuda(x, m, imm, step_size, L, *, target, num_steps, seed, coefficien
         out_x.data_ptr(), out_m.data_ptr(), logdensity.data_ptr(),
         hist.data_ptr() if hist.numel() else None, coefs,
         len(coefficients), C, d, num_steps, len(track_dims), target.cuda_target, rows,
-        int(refresh), float(step_size), float(L) if refresh else math.inf, *k,
-        seed & counter_rng.MASK32, _nvcc.stream_handle(dev),
+        int(refresh), int(form == "resident"), float(step_size),
+        float(L) if refresh else math.inf, *k, seed & counter_rng.MASK32,
+        _nvcc.stream_handle(dev),
     )
     _nvcc.check_launch(lib, code, "fused_mclmc")
     LAUNCHES["fused_mclmc"] += 1
-    if target.matrix is not None:
-        LAUNCHES["fused_mclmc:logreg_tiles"] += 1
+    LAUNCHES["fused_mclmc:logreg_tiles" if form == "tiles" else f"fused_mclmc:{form}"] += 1
     return out_x, out_m, logdensity, hist
+
+
+def occupancy(d: int, form: str = "resident", target: int = 0) -> dict:
+    """What the card reports for the analytic target's instantiation for
+    ``d`` in the resident form (McLachlan's stages) or the registers form:
+    its resident warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    its registers and local memory a thread in bytes, and the resident
+    form's steps a pool (0 in the registers form). Needs the card."""
+    out = (_INT * 4)()
+    lib = _library()
+    code = lib.bjt_fused_mclmc_occupancy(d, target, int(plan(d, target, form) == "resident"),
+                                         out)
+    _nvcc.check_launch(lib, code, "bjt_fused_mclmc_occupancy")
+    return {"warps_per_sm": out[0], "registers": out[1], "local_bytes": out[2],
+            "pool_steps": out[3]}
+
+
+def pool_layout_device(d: int, steps: int, device):
+    """:func:`pool_layout` through the kernel's own walk on a CUDA
+    ``device``."""
+    device = torch.device(device)
+    rounds = -(-2 * steps * d // 32)
+    out = torch.empty((rounds, 32, 2), dtype=torch.int32, device=device)
+    lib = _library()
+    code = lib.bjt_mclmc_pool_layout(d, steps, out.data_ptr(), _nvcc.stream_handle(device))
+    _nvcc.check_launch(lib, code, "pool_layout")
+    LAUNCHES["pool_layout"] += 1
+    return out.to(torch.int64)
 
 
 def _prepare(positions, momenta, inverse_mass_matrix, target, coefficients, track_dims):
@@ -218,6 +303,7 @@ def fused_mclmc(
     tile_chains: int = 256,
     refresh: bool = True,
     interpret: bool = False,
+    form: str = None,
 ):
     """Run ``num_steps`` stochastic isokinetic (MCLMC) steps per chain.
 
@@ -232,17 +318,21 @@ def fused_mclmc(
     limit): deterministic dynamics. The noise is keyed on ``(seed, chain,
     step, phase)``, as the reference keys it.
 
-    A CUDA tensor launches the kernel (``d <= 256``, else ``ValueError``); a
-    CPU tensor takes the plain version. ``tile_chains`` and ``interpret``
-    are ignored.
+    A CUDA tensor launches the kernel (``d <= 256``, else ``ValueError``)
+    in the form :func:`plan` picks, or in ``form`` (``"resident"`` or
+    ``"registers"``) where it is given; a form that does not apply raises,
+    on any device. A CPU tensor takes the plain version. ``tile_chains`` and
+    ``interpret`` are ignored.
     """
     del tile_chains, interpret
     x, m, imm, coefficients, track_dims = _prepare(
         positions, momenta, inverse_mass_matrix, target, coefficients, track_dims)
+    if form is not None:
+        plan(x.shape[1], target.cuda_target, form)
     kw = dict(target=target, num_steps=num_steps, seed=seed, coefficients=coefficients,
               track_dims=track_dims, refresh=refresh)
     if x.device.type == "cuda":
-        return _launch_cuda(x, m, imm, step_size, L, **kw)
+        return _launch_cuda(x, m, imm, step_size, L, form=form, **kw)
     if x.device.type == "cpu":
         return _trajectory_plain(x, m, imm, step_size, L, **kw)
     raise NotImplementedError(f"no MCLMC kernel for device type {x.device.type!r}")

@@ -61,19 +61,25 @@ covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
    launch each), then min-ESS over 8 tracked coordinates; everything must be
    finite, the kernel launched 1,000 times, the mean acceptance in
    [0.5, 0.99], and ``log_tau``'s second-half moments near N(0, 1);
-7. the MCLMC kernel against its plain version on the card at d=100, 4,096
-   chains, 64 steps, for both targets with the refresh off and on: the share
-   of chains whose positions, momenta, log density and history agree to
-   1e-5 (floor 0.9), the largest difference and how it grows with depth (to
-   512 steps), both times per call by CUDA events, and the kernel's device
-   time by torch.profiler;
+7. the MCLMC kernel in its resident form against its plain version on the
+   card at d=100, 4,096 chains, 64 steps, for both targets with the refresh
+   off and on: the share of chains whose positions, momenta, log density and
+   history agree to 1e-5 (floor 0.9), the largest difference and how it
+   grows with depth (to 512 steps), the resident form's outputs against the
+   registers form's bit for bit on the first 512 chains, the times per call
+   of both forms and the plain version by CUDA events, and the kernel's
+   device time by torch.profiler;
 8. the MCLMC path, launch counts reset just before it: the port's
    single-chain ``mclmc_find_L_and_step_size`` (2,000 steps' worth: 200 +
    266 + 200 tuning steps), then the port's ``mclmc`` for 5 transitions over
    the numpy-seeded init of phase 4, then ``fused_mclmc`` for 1,000 steps
-   (one launch), then min-ESS over 8 tracked coordinates; everything must be
-   finite, momenta unit-norm to 1e-5, and ``log_tau``'s second-half moments
-   near N(0, 1); the line gives the launch's bound and kernel / bound;
+   (one launch, which must take the resident form), then min-ESS over 8
+   tracked coordinates; everything must be finite, momenta unit-norm to
+   1e-5, ``log_tau``'s second-half moments near N(0, 1), and the registers
+   form on the same inputs the same bits; the line gives the form's warps
+   an SM, registers, local memory and steps a pool, both forms' times, and
+   the launch's bound, also with Box-Muller's transcendentals counted, and
+   kernel / bound;
 9. each new (kernel, target) pair against its plain version on the card:
    the dc machine on eight schools (d=10, 512 chains) and on logistic
    regression at the covertype-class shape (4,096 points x 54, numpy seed,
@@ -240,6 +246,7 @@ HMC_TRANSITIONS = 1000
 MCLMC_CMP_STEPS = 64  # phase 7's comparison depth ...
 MCLMC_DEPTH = 512  # ... and how deep it reports the growth of differences
 MCLMC_FLOOR = 0.9
+MCLMC_EQUAL_CHAINS = 512  # phase 7's resident form against the registers form
 MCLMC_TUNE_STEPS = 2000
 MCLMC_STEPS = 1000
 MATRIX_TOL = 1e-3  # the dc machine's matrix targets against their plain version
@@ -337,7 +344,8 @@ def _ptxas_summary(log: str) -> list:
     dense, 2 low-rank) and where the horseshoe reads X (shared=1: a copy in
     shared memory); the dc machine's resident form by N, its analytic target
     (T: 0 hierarchical, 1 Gaussian) and M; the older NUTS machine by its
-    trace flag."""
+    trace flag; the MCLMC kernel's resident form by N, T and its unrolled
+    stages (S, 0 for the stage loop at run time)."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -345,7 +353,9 @@ def _ptxas_summary(log: str) -> list:
             n = re.search(r"(nuts_dc|nuts|leapfrog|mclmc)_(kernel|resident)ILi(\d+)ELi(\d+)E"
                           r"(?:Li(\d+)E)?(?:Lb(\d)E)?", entry.group(1))
             export = "threefry" if "threefry" in entry.group(1) else "counter_normals"
-            metric = f" M={n.group(5)}" if n and n.group(5) else ""
+            metric = ""
+            if n and n.group(5):  # the dc machine's metric, or MCLMC's unrolled stages
+                metric = f" {'S' if n.group(1) == 'mclmc' else 'M'}={n.group(5)}"
             flag = ""
             if n and n.group(6):
                 flag = f" {'shared' if n.group(1) == 'nuts_dc' else 'trace'}={n.group(6)}"
@@ -468,6 +478,27 @@ def _device_ms(torch, fn, kernel, repeats=20):
 DC_LEAF_OPS, LEAPFROG_STEP_OPS, MCLMC_STEP_OPS = 24, 7, 55
 GRAD_OPS = {"hierarchical": 4, "gaussian": 3}
 THREEFRY_OPS = 70
+# MCLMC_STEP_OPS leaves out Box-Muller's logf, sqrtf and cosf. Recounted
+# from the SASS of the registers form's refresh draws (dc_kernel_ms.py
+# --machine mclmc --sass, PR 13: 661 integer, 368 FP32, 8 MUFU and 40
+# conversion warp-instructions for a step's 8 blocks a lane at d = 100), a
+# normal is 46 FP32 operations, 6 on the special-function pipe (MUFU and
+# conversions) and 12.6 integer ones beside its block's THREEFRY_OPS.
+BOX_MULLER_OPS = {"fp32": 46.0, "sfu": 6.0, "int32": 82.625 - THREEFRY_OPS}
+
+
+def _mclmc_bound(peaks, chains, steps, d, tracked, box_muller=False):
+    """The bound of a ``fused_mclmc`` launch on the hierarchical target:
+    x and m in and out, the log densities and the history; two gradients
+    and MCLMC_STEP_OPS a step and dim; a threefry block a refresh normal,
+    two refreshes a step; with ``box_muller``, each normal's Box-Muller
+    too."""
+    normals = chains * steps * 2 * d
+    extra = BOX_MULLER_OPS if box_muller else dict.fromkeys(BOX_MULLER_OPS, 0.0)
+    return _bound(4 * chains * d * 4 + chains * 4 + chains * steps * tracked * 4,
+                  chains * steps * (2 * GRAD_OPS["hierarchical"] * d + MCLMC_STEP_OPS * d)
+                  + normals * extra["fp32"], peaks,
+                  normals * (THREEFRY_OPS + extra["int32"]), normals * extra["sfu"])
 
 
 def _legacy_bound(peaks, chains, transitions, grads):
@@ -495,12 +526,13 @@ def _grad_ops(kind, d, n=0, m=0):
     return GRAD_OPS[kind] * d
 
 
-def _bound(nbytes, fp32_ops, peaks, int_ops=0.0):
+def _bound(nbytes, fp32_ops, peaks, int_ops=0.0, sfu_ops=0.0):
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over their peak rates. Returns
     ``(ms, "bytes" or "operations")``."""
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = (fp32_ops / peaks["fp32"] + int_ops / peaks["int32"]) * 1e3
+    op_ms = (fp32_ops / peaks["fp32"] + int_ops / peaks["int32"]
+             + sfu_ops / peaks["sfu"]) * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
@@ -558,6 +590,40 @@ def warm_start(torch, dev):
             time.perf_counter() - t0)
 
 
+def mclmc_start(torch, dev):
+    """Phase 8's start: ``mclmc_find_L_and_step_size`` on one flagship chain
+    (MCLMC_TUNE_STEPS steps' worth from zeros, torch seed SEED), then five
+    ``mclmc`` transitions of C chains from 0.5 N(0, I) of numpy seed 1 on the
+    same generator. Returns the positions, the momenta, L, the step size, the
+    metric, the tuning steps and the seconds of each part."""
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch.mcmc import mclmc
+    from blackjax_tpu_torch.models import hierarchical_gaussian
+    from blackjax_tpu_torch.util import run_inference_algorithm
+
+    flagship = hierarchical_gaussian(D)
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tune_state = mclmc.init(torch.zeros(D, device=dev), flagship.logdensity_fn, generator)
+    _, tuned, tune_total = blackjax_tpu_torch.mclmc_find_L_and_step_size(
+        mclmc.build_kernel(), MCLMC_TUNE_STEPS, tune_state, generator,
+        logdensity_fn=flagship.logdensity_fn)
+    L, step, imm = float(tuned.L), float(tuned.step_size), tuned.inverse_mass_matrix
+    tune_s = time.perf_counter() - t0
+    _require(np.isfinite([L, step]).all() and L > 0 and step > 0,
+             f"tuned L {L}, step size {step}")
+    _require(bool(torch.isfinite(imm).all() and (imm > 0).all()), "tuned metric")
+    algo = blackjax_tpu_torch.mclmc(flagship.logdensity_fn, L=L, step_size=step,
+                                    inverse_mass_matrix=imm)
+    t0 = time.perf_counter()
+    state, _ = run_inference_algorithm(generator, algo, 5,
+                                       initial_position=flagship_init(torch, dev))
+    torch.cuda.synchronize()
+    return (state.position, state.momentum, L, step, imm, tune_total, tune_s,
+            time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -596,8 +662,10 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    # FP32 outside the tensor cores: 128 lanes a multiply-add per clock; INT32 64
-    peaks = {"fp32": sms * 128 * 2 * sm_mhz * 1e6, "int32": sms * 64 * sm_mhz * 1e6}
+    # FP32 outside the tensor cores: 128 lanes a multiply-add per clock; INT32
+    # 64; special functions and conversions 16
+    peaks = {"fp32": sms * 128 * 2 * sm_mhz * 1e6, "int32": sms * 64 * sm_mhz * 1e6,
+             "sfu": sms * 16 * sm_mhz * 1e6}
 
     def build(module):
         t = time.perf_counter()
@@ -859,7 +927,10 @@ def main() -> int:
     for (name, mclmc_target), refresh in itertools.product(lf_targets.items(), (False, True)):
         kw7 = dict(target=mclmc_target, num_steps=MCLMC_CMP_STEPS, seed=SEED,
                    track_dims=range(NUM_TRACK), refresh=refresh)
+        before7 = fm.LAUNCHES["fused_mclmc:resident"]
         kern = fm.fused_mclmc(x7, m7, imm7, step7, L7, **kw7)
+        _require(fm.LAUNCHES["fused_mclmc:resident"] == before7 + 1,
+                 f"phase 7 ({name}, refresh={refresh}) did not launch the resident form")
         plain = fm.fused_mclmc_plain(x7, m7, imm7, step7, L7, **kw7)
         close = torch.ones(C, dtype=torch.bool, device=dev)
         errs = []
@@ -871,21 +942,32 @@ def main() -> int:
         _require(share7 >= MCLMC_FLOOR,
                  f"only {share7} of MCLMC chains agree ({name}, refresh={refresh})")
         err7 = max(err7, errs[0], errs[1], errs[3])
+        # the resident form against the registers form on the first chains
+        first = slice(0, MCLMC_EQUAL_CHAINS)
+        same7 = all(torch.equal(a, b) for a, b in zip(
+            fm.fused_mclmc(x7[first], m7[first], imm7, step7, L7, **kw7),
+            fm.fused_mclmc(x7[first], m7[first], imm7, step7, L7, form="registers", **kw7)))
+        _require(same7, f"phase 7 ({name}, refresh={refresh}): the resident and the registers "
+                        f"forms differ")
         line = (f"phase 7: fused_mclmc {name} refresh={refresh} d={D} C={C} "
-                f"num_steps={MCLMC_CMP_STEPS}: {share7:.4f} of chains agree to {AGREE_TOL} in "
-                f"x, m, log density and history (floor {MCLMC_FLOOR}); max |diff| x {errs[0]:.3g}, "
-                f"m {errs[1]:.3g}, log density {errs[2]:.3g}, history {errs[3]:.3g}")
+                f"num_steps={MCLMC_CMP_STEPS}, resident form: {share7:.4f} of chains agree to "
+                f"{AGREE_TOL} in x, m, log density and history (floor {MCLMC_FLOOR}); max |diff| "
+                f"x {errs[0]:.3g}, m {errs[1]:.3g}, log density {errs[2]:.3g}, history "
+                f"{errs[3]:.3g}; the registers form's outputs the same bits on "
+                f"{MCLMC_EQUAL_CHAINS} x {MCLMC_CMP_STEPS}")
         if name == "hierarchical" and refresh:  # the main path's kernel
-            def call():
-                return fm.fused_mclmc(x7, m7, imm7, step7, L7, **kw7)
+            def call(form=None):
+                return fm.fused_mclmc(x7, m7, imm7, step7, L7, form=form, **kw7)
 
             ms7 = _timed_mean(torch, call, 20)
+            registers_ms7 = _timed_mean(torch, lambda: call("registers"), 20)
             plain_ms7 = _timed_mean(
                 torch, lambda: fm.fused_mclmc_plain(x7, m7, imm7, step7, L7, **kw7), 2)
-            dev_ms7 = _device_ms(torch, call, "mclmc_kernel", repeats=5)
+            dev_ms7 = _device_ms(torch, call, "mclmc_", repeats=5)
             device_time = "not measured" if dev_ms7 is None else f"{dev_ms7:.4f} ms"
-            line += (f"; per call by CUDA events: kernel {ms7:.4f} ms, plain {plain_ms7:.2f} ms; "
-                     f"the kernel's device time by torch.profiler {device_time} per launch")
+            line += (f"; per call by CUDA events: kernel {ms7:.4f} ms (the registers form "
+                     f"{registers_ms7:.4f} ms), plain {plain_ms7:.2f} ms; the kernel's device "
+                     f"time by torch.profiler {device_time} per launch")
         print(f"{line} ({smi})")
     # how the difference grows with depth, on the main path's target
     for refresh in (False, True):
@@ -902,34 +984,25 @@ def main() -> int:
     marks.append((8, time.perf_counter()))
     for name in fm.LAUNCHES:
         fm.LAUNCHES[name] = 0
-    generator = torch.Generator(device=dev).manual_seed(SEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tune_state = mclmc.init(torch.zeros(D, device=dev), flagship.logdensity_fn, generator)
-    _, tuned, tune_total = blackjax_tpu_torch.mclmc_find_L_and_step_size(
-        mclmc.build_kernel(), MCLMC_TUNE_STEPS, tune_state, generator,
-        logdensity_fn=flagship.logdensity_fn)
-    L8, step8, imm8 = float(tuned.L), float(tuned.step_size), tuned.inverse_mass_matrix
-    tune8_s = time.perf_counter() - t0
-    _require(np.isfinite([L8, step8]).all() and L8 > 0 and step8 > 0,
-             f"tuned L {L8}, step size {step8}")
-    _require(bool(torch.isfinite(imm8).all() and (imm8 > 0).all()), "tuned metric")
-
-    algo = blackjax_tpu_torch.mclmc(flagship.logdensity_fn, L=L8, step_size=step8,
-                                    inverse_mass_matrix=imm8)
-    t0 = time.perf_counter()
-    state, _ = run_inference_algorithm(generator, algo, 5, initial_position=init)
-    torch.cuda.synchronize()
-    mclmc_s = time.perf_counter() - t0
-    (x8, m8, ld8, hist8), ms8 = _timed(torch, lambda: fm.fused_mclmc(
-        state.position, state.momentum, imm8, step8, L8,
-        target=lf.make_hierarchical_gaussian_target(D), num_steps=MCLMC_STEPS, seed=SEED,
-        track_dims=range(NUM_TRACK)))
+    pos8, mom8, L8, step8, imm8, tune_total, tune8_s, mclmc_s = mclmc_start(torch, dev)
+    kw8 = dict(target=lf.make_hierarchical_gaussian_target(D), num_steps=MCLMC_STEPS,
+               seed=SEED, track_dims=range(NUM_TRACK))
+    (x8, m8, ld8, hist8), ms8 = _timed(
+        torch, lambda: fm.fused_mclmc(pos8, mom8, imm8, step8, L8, **kw8))
     ess8 = blackjax_tpu_torch.ess(hist8.double())
     min_ess8 = float(ess8.min())
-    fm_launches = fm.LAUNCHES["fused_mclmc"]
+    launches8 = dict(fm.LAUNCHES)
+    fm_launches = launches8["fused_mclmc"]
 
     _require(fm_launches == 1, f"fused_mclmc launched {fm_launches} times, not once")
+    _require(launches8["fused_mclmc:resident"] == 1,
+             f"phase 8 did not launch the resident form: {launches8}")
+    # the registers form on the same inputs, off the path: the same bits
+    registers8, registers_ms8 = _timed(
+        torch, lambda: fm.fused_mclmc(pos8, mom8, imm8, step8, L8, form="registers", **kw8))
+    _require(all(torch.equal(a, b) for a, b in zip((x8, m8, ld8, hist8), registers8)),
+             "phase 8: the resident and the registers forms differ")
+    occ8 = fm.occupancy(D)
     for name, t in [("positions", x8), ("momenta", m8), ("log densities", ld8),
                     ("history", hist8), ("ess", ess8)]:
         _require(bool(torch.isfinite(t).all()), f"non-finite {name} at phase 8")
@@ -941,19 +1014,24 @@ def main() -> int:
              f"log_tau moments {mean_lt8}, {var_lt8} far off its N(0, 1) marginal")
     secs8 = ms8 / 1e3
     grads8 = C * MCLMC_STEPS * 2  # two gradients per McLachlan step
-    # the launch's own bound, as phase 7's at its depth
-    bound8 = _bound(4 * C * D * 4 + C * 4 + hist8.numel() * 4,
-                    C * MCLMC_STEPS * (2 * GRAD_OPS["hierarchical"] * D + MCLMC_STEP_OPS * D),
-                    peaks, C * MCLMC_STEPS * 2 * D * THREEFRY_OPS)
+    # the launch's own bound, as phase 7's at its depth, and with Box-Muller
+    bound8 = _mclmc_bound(peaks, C, MCLMC_STEPS, D, NUM_TRACK)
+    bound8_bm = _mclmc_bound(peaks, C, MCLMC_STEPS, D, NUM_TRACK, box_muller=True)
     print(f"phase 8: mclmc_find_L_and_step_size single chain, {tune_total} tuning steps in "
           f"{tune8_s:.2f} s: L {L8:.5f}, step size {step8:.5f}, mean imm "
           f"{float(imm8.mean()):.5f}, imm[log_tau] {float(imm8[0]):.5f}; mclmc 5 transitions x "
-          f"{C} chains in {mclmc_s:.2f} s; fused_mclmc d={D} C={C} {MCLMC_STEPS} steps: kernel "
-          f"{ms8:.2f} ms (bound {bound8[0]:.3f} ms by {bound8[1]}, kernel / bound "
-          f"{ms8 / bound8[0]:.1f}), {grads8} grads ({grads8 / secs8:.4g} grads/s), min-ESS over "
+          f"{C} chains in {mclmc_s:.2f} s; fused_mclmc d={D} C={C} {MCLMC_STEPS} steps in the "
+          f"resident form ({occ8['warps_per_sm']} warps an SM, {occ8['registers']} registers, "
+          f"{occ8['local_bytes']} B local a thread, {occ8['pool_steps']} steps a pool): kernel "
+          f"{ms8:.2f} ms (the registers form on the same inputs {registers_ms8:.2f} ms, the same "
+          f"bits; bound {bound8[0]:.3f} ms by {bound8[1]}, kernel / bound "
+          f"{ms8 / bound8[0]:.1f}; with Box-Muller's logf, sqrtf and cosf recounted from the SASS "
+          f"{bound8_bm[0]:.3f} ms, kernel / bound {ms8 / bound8_bm[0]:.1f}), {grads8} grads "
+          f"({grads8 / secs8:.4g} grads/s), min-ESS over "
           f"{NUM_TRACK} tracked dims {min_ess8:.1f} ({min_ess8 / secs8:.4g} ESS/s), momenta "
           f"unit-norm to {norm_err8:.2g}, log_tau over the second half: mean {mean_lt8:.4f} var "
-          f"{var_lt8:.4f}; fused_mclmc launches {fm_launches} ({smi})")
+          f"{var_lt8:.4f}; fused_mclmc launches {fm_launches}, in the resident form "
+          f"{launches8['fused_mclmc:resident']} ({smi})")
 
     # ---- phase 9: the new (kernel, target) pairs against their plain versions ----
     marks.append((9, time.perf_counter()))
@@ -1639,7 +1717,6 @@ def main() -> int:
 
     lf_ops = C * ((HMC_STEPS + 1) * GRAD_OPS["hierarchical"] * D
                   + HMC_STEPS * LEAPFROG_STEP_OPS * D)
-    fm_ops = C * MCLMC_CMP_STEPS * (2 * GRAD_OPS["hierarchical"] * D + MCLMC_STEP_OPS * D)
     kernels = [
         _entry("fused_nuts_dc", "fused_nuts_dc.cu", "blackjax_tpu/ops/fused_nuts_dc.py:964",
                launches["fused_nuts_dc"], err3, ms3, plain_ms3,
@@ -1649,10 +1726,9 @@ def main() -> int:
         _entry("fused_leapfrog", "fused_leapfrog.cu", "blackjax_tpu/ops/fused_leapfrog.py:206",
                lf_launches, err5, *lf_times["hierarchical"],
                _bound(4 * C * D * 4 + C * 4, lf_ops, peaks)),
-        _entry("fused_mclmc", "fused_mclmc.cu", "blackjax_tpu/ops/fused_mclmc.py:301",
-               fm_launches, err7, ms7, plain_ms7,
-               _bound(4 * C * D * 4 + C * 4 + C * MCLMC_CMP_STEPS * NUM_TRACK * 4, fm_ops, peaks,
-                      C * MCLMC_CMP_STEPS * 2 * D * THREEFRY_OPS)),
+        _entry("fused_mclmc (resident form)", "fused_mclmc.cu",
+               "blackjax_tpu/ops/fused_mclmc.py:301", launches8["fused_mclmc:resident"], err7,
+               ms7, plain_ms7, _mclmc_bound(peaks, C, MCLMC_CMP_STEPS, D, NUM_TRACK)),
     ]
     # the MCLMC kernel on logistic regression has a main path since phase 14
     pairs["mclmc_logreg"]["launches"] = launches14["fused_mclmc:logreg_tiles"]

@@ -75,6 +75,30 @@ metric, loaded from FILE, or, where FILE does not exist yet, made by the
 root's ``chip_smoke.warm_start`` (about 80 s on the card) and saved there,
 so that the first run of a ``parent change change parent`` call, given the
 change's root, makes them once for all four.
+
+``--machine mclmc`` times the fused MCLMC kernel instead: one
+``fused_mclmc`` launch (``csrc/fused_mclmc.cu``) on the flagship at phase
+8's shape (4,096 chains x 1,000 steps, McLachlan's stages, 8 tracked dims,
+seed 7), from phase 7's inputs (numpy seed 7, step size 0.5, L 5; ``--dim``
+for another width, ``--steps`` for another depth), or with ``--inputs FILE``
+on phase 8's own: the state after its five ``mclmc`` transitions, its tuned
+L, step size and metric, made by ``chip_smoke.mclmc_start`` where FILE does
+not exist yet. Each line gives the times, the form, the warps an SM,
+registers, local memory and steps a pool where the tree can say, the ptxas
+line, and a SHA-256 of the outputs (x, m, log density, history).
+``--root``, ``--form`` and ``--warps W ...`` (copies whose resident form is
+built for W warps an SM, ``mclmc_resident_warps``; ``--block-warps B ...``
+for ``mclmc_block_warps``) work as for the machines above. ``--sections``
+counts the launched form's step by part (the refresh draws, the refresh
+norms, the kicks, the drifts with their gradients, the history, the rest;
+cycles a step over all steps of all chains), with the warps' starts and ends
+(how many warps started after the first one ended: a second wave), the
+occupancy, and chain 0 alone with and without the counters. ``--sass``
+builds the tree's source with ``-lineinfo`` into a cubin, writes its SASS
+(``nvdisasm``) under ``chiprun_out/mclmc_sass/`` and prints a step's
+warp-instructions of the launched form's flagship instantiation by part and
+by pipe (integer, FP32, MUFU, conversions, shuffles), cold slow paths left
+out, and the issue floor they set at an SM's issue rates.
 """
 import argparse
 import ctypes
@@ -536,6 +560,532 @@ def _older(args, torch, card, label):
     return 0
 
 
+# the parts of an MCLMC step that --machine mclmc --sections counts, and
+# that --sass attributes the step loop's instructions to
+MCLMC_SECTIONS = ("refresh draws", "refresh norms", "kicks", "drifts and gradients", "history",
+                  "rest")
+
+# counters in the registers form's step loop (mclmc_kernel; every tree):
+# ou_refresh takes the counter and the chain, so that its draws and its norm
+# count apart
+_MCLMC_REGISTERS = [
+    ("                                           float nu, int lane) {\n  float noisy[N];\n",
+     "                                           float nu, int lane, unsigned long long& t_,\n"
+     "                                           int chain) {\n  float noisy[N];\n"),
+    ("  const float norm = nan_max(row_norm<N>(noisy), 1e-30f);\n"
+     "#pragma unroll\n  for (int k = 0; k < N; ++k) m[k] = noisy[k] / norm;\n}\n",
+     "  sec_add(chain, 0, t_);\n  const float norm = nan_max(row_norm<N>(noisy), 1e-30f);\n"
+     "#pragma unroll\n  for (int k = 0; k < N; ++k) m[k] = noisy[k] / norm;\n"
+     "  sec_add(chain, 1, t_);\n}\n"),
+    ("    if (p.refresh) ou_refresh<N>(p, m, row_base, 2u * (uint32_t)s, nu, lane);\n",
+     "    if (p.refresh) ou_refresh<N>(p, m, row_base, 2u * (uint32_t)s, nu, lane, t_, chain);\n"),
+    ("    if (p.refresh) ou_refresh<N>(p, m, row_base, 2u * (uint32_t)s + 1u, nu, lane);\n",
+     "    if (p.refresh) ou_refresh<N>(p, m, row_base, 2u * (uint32_t)s + 1u, nu, lane, t_, "
+     "chain);\n"),
+    ("  target_grad<N, F, kTiles>(p, x, iv, g, lane, smem);\n"
+     "  for (int s = 0; s < p.num_steps; ++s) {\n",
+     "  target_grad<N, F, kTiles>(p, x, iv, g, lane, smem);\n"
+     "  unsigned long long t_ = sec_now();\n  for (int s = 0; s < p.num_steps; ++s) {\n"),
+    ("        kick<N>(m, g, sqrt_imm, ce, dims);\n",
+     "        kick<N>(m, g, sqrt_imm, ce, dims);\n        sec_add(chain, 2, t_);\n"),
+    ("        target_grad<N, F, kTiles>(p, x, iv, g, lane, smem);\n      }\n",
+     "        target_grad<N, F, kTiles>(p, x, iv, g, lane, smem);\n"
+     "        sec_add(chain, 3, t_);\n      }\n"),
+    ("      if (present && t < p.n_track) hist[t] = v;\n    }\n",
+     "      if (present && t < p.n_track) hist[t] = v;\n    }\n    sec_add(chain, 4, t_);\n"
+     "    if ((threadIdx.x & 31) == 0) g_sec[chain * 8 + 6] += 1;\n"),
+    ("  if (!kTiles && !present) return;  // the whole warp leaves together\n",
+     "  if (!kTiles && !present) return;  // the whole warp leaves together\n"
+     "  sec_span(chain, 0);\n"),
+    ("  if (lane == 0) p.out_logdensity[chain] = ld;\n}\n",
+     "  if (lane == 0) p.out_logdensity[chain] = ld;\n  sec_add(chain, 5, t_);\n"
+     "  sec_span(chain, 1);\n}\n"),
+]
+
+# counters in the resident form's step loop (mclmc_resident)
+_MCLMC_RESIDENT = [
+    ("  if (chain >= p.C) return;  // resident\n",
+     "  if (chain >= p.C) return;  // resident\n  sec_span(chain, 0);\n"),
+    ("  for (int s = 0; s < p.num_steps; ++s) {  // resident\n",
+     "  unsigned long long t_ = sec_now();\n"
+     "  for (int s = 0; s < p.num_steps; ++s) {  // resident\n"),
+    ("    // ---- the pooled draws (resident) ----\n",
+     "    sec_add(chain, 5, t_);\n    // ---- the pooled draws (resident) ----\n"),
+    ("    // ---- the refresh before the stages (resident) ----\n",
+     "    sec_add(chain, 0, t_);\n    // ---- the refresh before the stages (resident) ----\n"),
+    ("    // ---- the stages (resident) ----\n",
+     "    sec_add(chain, 1, t_);\n    // ---- the stages (resident) ----\n"),
+    ("        // ---- a kick (resident) ----\n",
+     "        sec_add(chain, 5, t_);\n        // ---- a kick (resident) ----\n"),
+    ("        // ---- a drift and its gradient (resident) ----\n",
+     "        sec_add(chain, 5, t_);\n        // ---- a drift and its gradient (resident) ----\n"),
+    ("        // ---- the kick's end (resident) ----\n",
+     "        sec_add(chain, 2, t_);\n        // ---- the kick's end (resident) ----\n"),
+    ("        // ---- the gradient's end (resident) ----\n",
+     "        sec_add(chain, 3, t_);\n        // ---- the gradient's end (resident) ----\n"),
+    ("    // ---- the refresh after the stages (resident) ----\n",
+     "    sec_add(chain, 5, t_);\n    // ---- the refresh after the stages (resident) ----\n"),
+    ("    // ---- the history (resident) ----\n",
+     "    sec_add(chain, 1, t_);\n    // ---- the history (resident) ----\n"),
+    ("    // ---- the step's end (resident) ----\n",
+     "    sec_add(chain, 4, t_);\n    if ((threadIdx.x & 31) == 0) g_sec[chain * 8 + 6] += 1;\n"
+     "    // ---- the step's end (resident) ----\n"),
+    ("  // ---- final state (resident) ----\n",
+     "  sec_add(chain, 5, t_);\n  // ---- final state (resident) ----\n"),
+    ("  // ---- the chain's end (resident) ----\n",
+     "  sec_span(chain, 1);\n  // ---- the chain's end (resident) ----\n"),
+]
+
+# the registers form's occupancy at d = 100, appended where the tree has no
+# export: warps an SM, registers, local bytes a thread, steps a pool (none)
+_MCLMC_PARENT_OCCUPANCY = r"""
+extern "C" int bjt_fused_mclmc_occupancy(int d, int target, int form, int* out) {
+  (void)d; (void)target; (void)form;
+  const auto k = mclmc_kernel<4, 0>;
+  cudaFuncAttributes a;
+  int e = (int)cudaFuncGetAttributes(&a, k);
+  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, kFusedWarps * 32, 0);
+  out[0] *= kFusedWarps;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = 0;
+  return e;
+}
+"""
+
+# the SASS opcodes of each pipe that --sass counts, and the warp-instructions
+# an SM issues of each a clock (Hopper, CUDA C++ Programming Guide's
+# arithmetic throughput table for compute capability 9.0: 64 results a clock
+# for 32-bit integer add, logic, shift and compare, 128 for FP32, 16 for
+# special functions and conversions, 32 for shuffles; four schedulers)
+SASS_PIPES = {
+    "integer": (("IADD3", "LOP3", "SHF", "IMAD", "ISETP", "LEA", "IMNMX", "SEL", "PRMT",
+                 "IABS", "POPC", "FLO", "BREV", "SGXT", "VIADD", "VIMNMX"), 2.0),
+    "fp32": (("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK", "FSET", "FSWZADD"), 4.0),
+    "mufu": (("MUFU",), 0.5),
+    "conversion": (("I2F", "F2I", "F2F", "I2FP", "F2IP", "FRND"), 0.5),
+    "shfl": (("SHFL",), 1.0),
+}
+SASS_ISSUE = 4.0  # warp-instructions an SM issues a clock, all pipes
+
+
+def _pipe(opcode):
+    base = opcode.split(".")[0]
+    for name, (ops, _) in SASS_PIPES.items():
+        if base in ops:
+            return name
+    return "other"
+
+
+def _sass_functions(text):
+    """{mangled name: [(opcode, frames, address, text)]} and {mangled name:
+    {label: address}} from nvdisasm's output with line information and
+    inlining: an instruction's frames are the (file, line) pairs of the
+    ``//## File`` lines before it, the innermost first and the kernel's own
+    line last (an instruction without such lines keeps the last frames)."""
+    funcs, labels, name, frames, fresh, pending = {}, {}, None, (), True, []
+    for raw in text.splitlines():
+        head = re.match(r"\s*\.section\s+\.text\.([^,\s]+)", raw)
+        if head:
+            name, pending = head.group(1), []
+            funcs[name], labels[name] = [], {}
+            continue
+        info = re.search(r'//## File "([^"]+)", line (\d+)', raw)
+        if info:
+            frame = (info.group(1), int(info.group(2)))
+            frames, fresh = ((frame,) if fresh else frames + (frame,)), False
+            continue
+        if name is None:
+            continue
+        label = re.match(r"\s*\.?(L_x_\d+):", raw)
+        if label:
+            pending.append(label.group(1))
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", raw)
+        if ins:
+            addr = int(ins.group(1), 16)
+            for lab in pending:
+                labels[name][lab] = addr
+            pending, fresh = [], True
+            funcs[name].append((ins.group(2), frames, addr, raw))
+    return funcs, labels
+
+
+def _sass_count(text, source, kernel, pool=None):
+    """A step's warp-instructions of the step loop of ``kernel`` (a regex
+    on the mangled name) by part and pipe, from nvdisasm's text of a
+    ``-lineinfo`` build and the lines of ``fused_mclmc.cu`` (``source``).
+
+    The step loop is the function's widest backward branch, and its body
+    runs once a step. Of the loops directly inside it, the stage loop (the
+    one with a kick: the registers form, or S = 0) runs its kick path three
+    times a step, its drift path twice and the rest five times
+    (McLachlan's). The history's rounds (one for eight tracked dims) and,
+    in the resident form, the pool walk's rounds (``pool = (rounds a pool,
+    steps a pool)``) go to their loops by the stores in each (STG a round of
+    history, STS a round of the pool; an unrolled loop holds more than one),
+    widest first, and what is left to the straight copies after them; the
+    rest of the pool's draws run once a pool. Cold code counts nothing: any
+    other loop (the Payne-Hanek reduction of cosf, for |x| >= 105615), and
+    the code that a forward branch skips where it calls a slow path (the
+    IEEE division's and square root's) or holds such a loop and no shuffle
+    (every hot branch of these kernels holds a reduction). An instruction
+    belongs to the part of the outermost line of ``fused_mclmc.cu`` on its
+    inlining chain that names one: a refresh (its draws where a frame is in
+    counter_rng.cuh), the pool, a kick, a drift or a gradient, or the
+    history; else the rest."""
+    funcs, labels = _sass_functions(text)
+    names = [n for n in funcs if re.search(kernel, n)]
+    if len(names) != 1:
+        raise RuntimeError(f"{kernel}: {len(names)} functions in the SASS")
+    ins, at = funcs[names[0]], labels[names[0]]
+    addrs = [a for _, _, a, _ in ins]
+
+    def target(raw):
+        jump = re.search(r"\bBRA\b.*?\.?(L_x_\d+)", raw)
+        return at.get(jump.group(1)) if jump else None
+
+    loops = [(target(raw), a) for _, _, a, raw in ins
+             if target(raw) is not None and target(raw) <= a]
+    if not loops:
+        raise RuntimeError(f"{kernel}: no loop in the SASS")
+    outer = max(loops, key=lambda lo: lo[1] - lo[0])
+    inside = [lo for lo in loops if lo != outer and outer[0] <= lo[0] and lo[1] <= outer[1]]
+    direct = [lo for lo in inside
+              if not any(o != lo and o[0] <= lo[0] and lo[1] <= o[1] for o in inside)]
+
+    def part(frames):
+        draws = any(f.endswith("counter_rng.cuh") for f, _ in frames)
+        for f, line in reversed(frames):
+            if not f.endswith("fused_mclmc.cu") or not 0 < line <= len(source):
+                continue
+            code = source[line - 1]
+            if "refresh" in code:
+                return "refresh draws" if draws else "refresh norms"
+            if "pool" in code:
+                return "refresh draws"
+            if "kick" in code:
+                return "kicks"
+            if re.search(r"x\[k\] \+ ce|grad<", code):
+                return "drifts and gradients"
+            if re.search(r"hist|n_track|dim & 31|held", code):
+                return "history"
+        return "refresh draws" if draws else "rest"
+
+    parts = [part(frames) for _, frames, _, _ in ins]
+    in_step = [outer[0] <= a <= outer[1] for a in addrs]
+
+    def members(lo):
+        return [i for i, a in enumerate(addrs) if lo[0] <= a <= lo[1]]
+
+    def stores(idx, op):
+        return sum(ins[i][0].split(".")[0] == op for i in idx)
+
+    times = [1.0] * len(ins)
+    loose, rounds_of = set(), {}  # rounds_of: loop -> (kind, stores a pass)
+    for lo in inside:
+        idx = members(lo)
+        kinds = {parts[i] for i in idx}
+        if lo not in direct:
+            loose.update(idx)
+        elif "kicks" in kinds:
+            for i in idx:
+                times[i] *= {"kicks": 3.0, "drifts and gradients": 2.0}.get(parts[i], 5.0)
+        elif "refresh draws" in kinds and pool and stores(idx, "STS"):
+            rounds_of[lo] = ("pool", stores(idx, "STS"))
+        elif "history" in kinds and stores(idx, "STG"):
+            rounds_of[lo] = ("history", stores(idx, "STG"))
+        else:
+            loose.update(idx)
+    in_loop = {i for lo in inside for i in members(lo)}
+    for kind, total, per in (("pool", pool[0] if pool else 0, 1.0 / pool[1] if pool else 1.0),
+                             ("history", 1, 1.0)):
+        left = total
+        for lo, (_, k) in sorted(((lo, v) for lo, v in rounds_of.items() if v[0] == kind),
+                                 key=lambda item: -item[1][1]):
+            passes, left = left // k, left % k
+            for i in members(lo):
+                times[i] *= passes * per
+        sec = "refresh draws" if kind == "pool" else "history"
+        straight = [i for i in range(len(ins)) if in_step[i] and i not in in_loop
+                    and parts[i] == sec]
+        copies = stores(straight, "STS" if kind == "pool" else "STG")
+        if kind == "pool" and pool:  # the setup once a pool, and the last rounds
+            share = per * (left / copies if copies else 1.0)
+        else:
+            share = left / copies if copies else 1.0
+        for i in straight:
+            times[i] *= share
+    # forward branches over slow paths, the narrowest first: a branch's
+    # body, less the bodies already found cold, that calls a slow path or
+    # holds a loose loop, and holds no shuffle, is cold
+    cold = set()
+    skips = sorted(((i, end) for i, (_, _, a, raw) in enumerate(ins)
+                    if re.match(r"\s*/\*[0-9a-f]+\*/\s+@", raw)
+                    and (end := target(raw)) is not None and end > a),
+                   key=lambda s: s[1] - addrs[s[0]])
+    for i, end in skips:
+        span = [k for k in range(i + 1, len(ins)) if addrs[k] < end]
+        rest = [k for k in span if k not in cold]
+        if (any(ins[k][0].startswith("CALL") or k in loose for k in rest)
+                and not any(ins[k][0].split(".")[0] == "SHFL" for k in rest)):
+            cold.update(span)
+    cold |= loose
+    counts = {s: dict.fromkeys((*SASS_PIPES, "other", "all"), 0.0) for s in MCLMC_SECTIONS}
+    for k, ((opcode, _, _, _), sec) in enumerate(zip(ins, parts)):
+        if not in_step[k] or k in cold:
+            continue
+        counts[sec][_pipe(opcode)] += times[k]
+        counts[sec]["all"] += times[k]
+    return counts, len(direct), names[0]
+
+
+def _sass(nvcc, label, src_dir, out_dir, kernel, pool, card):
+    """Build ``src_dir``'s fused_mclmc.cu with -lineinfo into a cubin, write
+    its SASS (nvdisasm, with line information) under ``out_dir``, and print a
+    step's instructions of ``kernel`` by part and pipe and the issue floor
+    they set."""
+    work = nvcc.build_dir() / f"mclmc_sass_{re.sub(r'[^A-Za-z0-9]', '_', label)}"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(src_dir, work)
+    flags = [f for f in nvcc.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cubin = work / "fused_mclmc.cubin"
+    proc = subprocess.run([nvcc._nvcc(), *flags, "-lineinfo", "-cubin", "-o", str(cubin),
+                           str(work / "fused_mclmc.cu")], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -cubin:\n{proc.stderr[-3000:]}")
+    bindir = os.path.dirname(nvcc._nvcc())
+    text = subprocess.run([os.path.join(bindir, "nvdisasm"), "--print-line-info-inline",
+                           "--print-code", str(cubin)], capture_output=True, text=True)
+    if text.returncode:
+        text = subprocess.run([os.path.join(bindir, "nvdisasm"), "--print-line-info",
+                               "--print-code", str(cubin)], capture_output=True, text=True,
+                              check=True)
+    os.makedirs(out_dir, exist_ok=True)
+    dump = os.path.join(out_dir, f"{os.path.basename(work)}.sass")
+    with open(dump, "w") as f:
+        f.write(text.stdout)
+    source = (work / "fused_mclmc.cu").read_text().splitlines()
+    try:
+        counts, n_inner, name = _sass_count(text.stdout, source, kernel, pool)
+    except (RuntimeError, ValueError, IndexError) as err:  # the dump stays for reading
+        print(f"{label} mclmc SASS: not counted ({err}); {dump} ({card})", flush=True)
+        return None
+    total = {q: sum(c[q] for c in counts.values()) for q in (*SASS_PIPES, "other", "all")}
+    floor = max([total["all"] / SASS_ISSUE]
+                + [total[q] / rate for q, (_, rate) in SASS_PIPES.items()])
+    print(f"{label} mclmc SASS of {name} ({n_inner} inner loops in the step loop; {dump}): "
+          + "; ".join(f"{s}: " + ", ".join(f"{q} {c[q]:.1f}" for q in (*SASS_PIPES, "other",
+                                                                          "all"))
+                      for s, c in counts.items())
+          + f"; a step: {', '.join(f'{q} {v:.1f}' for q, v in total.items())} warp-instructions;"
+          f" issue floor {floor:.1f} SM-cycles a chain-step (the busiest of all issue at "
+          f"{SASS_ISSUE:g} a clock and each pipe at its rate: "
+          + ", ".join(f"{q} {total[q] / rate:.1f}" for q, (_, rate) in SASS_PIPES.items())
+          + f") ({card})", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return floor
+
+
+def _mclmc_copy(nvcc, fm, tag, sections=None, warps=None, block_warps=None):
+    """The library of a copy of the tree's ``csrc/fused_mclmc.cu``: with
+    ``clock64()`` counters in the step loop of the form ``sections``, or
+    with the resident form built for ``warps`` warps an SM at every width and
+    ``block_warps`` a block. Returns the library and its ptxas report."""
+    out = nvcc.build_dir() / f"mclmc_{tag}"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(nvcc._SRC_DIR, out)
+    src = out / "fused_mclmc.cu"
+    text = src.read_text()
+    for value, pattern, line in (
+            (warps, r"constexpr int mclmc_resident_warps\(\) \{ return [^;]*; \}",
+             f"constexpr int mclmc_resident_warps() {{ return {warps}; }}"),
+            (block_warps, r"constexpr int mclmc_block_warps\(\) \{\s*return [^;]*;\s*\}",
+             f"constexpr int mclmc_block_warps() {{ return {block_warps}; }}")):
+        if value is not None:
+            text, count = re.subn(pattern, line, text)
+            if count != 1:
+                raise RuntimeError(f"fused_mclmc.cu: {pattern} not found")
+    src.write_text(text)
+    if sections:
+        loop = _MCLMC_RESIDENT if sections == "resident" else _MCLMC_REGISTERS
+        _edit(src, [("namespace {\n", _HEAD)] + loop,
+              _TAIL + ("" if "bjt_fused_mclmc_occupancy" in text else _MCLMC_PARENT_OCCUPANCY))
+    lib_path = out / "fused_mclmc.so"
+    proc = subprocess.run([nvcc._nvcc(), *nvcc.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc, the copy {tag}:\n{proc.stderr[-4000:]}")
+    lib, own = ctypes.CDLL(str(lib_path)), fm._library()
+    for name in ("bjt_fused_mclmc", "bjt_counter_normals", "bjt_error_string",
+                 "bjt_fused_mclmc_occupancy", "bjt_mclmc_pool_layout"):
+        if hasattr(own, name):  # the tree's own C interface, as its wrapper binds it
+            getattr(lib, name).argtypes = getattr(own, name).argtypes
+            getattr(lib, name).restype = getattr(own, name).restype
+    lib.bjt_fused_mclmc_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    if sections:
+        lib.bjt_sections.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    return lib, proc.stdout + proc.stderr
+
+
+def _mclmc(args, torch, card, label):
+    """--machine mclmc: the fused MCLMC kernel on the flagship at phase 8's
+    shape."""
+    import importlib
+
+    from blackjax_tpu_torch.ops import _nvcc
+
+    import chip_smoke
+
+    fm = importlib.import_module("blackjax_tpu_torch.ops.fused_mclmc")
+    lf = importlib.import_module("blackjax_tpu_torch.ops.fused_leapfrog")
+    dev = torch.device("cuda")
+    steps = args.steps
+    rng = np.random.default_rng(7)  # phase 7's inputs
+    x = torch.from_numpy((0.5 * rng.standard_normal((4096, args.dim))).astype(np.float32)).to(dev)
+    m = torch.from_numpy(rng.standard_normal((4096, args.dim)).astype(np.float32)).to(dev)
+    m = m / torch.linalg.vector_norm(m, dim=1, keepdim=True)
+    imm = torch.from_numpy(rng.uniform(0.5, 1.5, args.dim).astype(np.float32)).to(dev)
+    step, L = 0.5, 5.0
+    if args.inputs:
+        if not os.path.exists(args.inputs):
+            pos, mom, L, step, imm, *_ = chip_smoke.mclmc_start(torch, dev)
+            torch.save({"positions": pos.cpu(), "momenta": mom.cpu(), "L": float(L),
+                        "step_size": float(step), "inverse_mass_matrix": imm.cpu()}, args.inputs)
+        saved = torch.load(args.inputs)
+        x, m, imm = (saved[k].to(dev) for k in ("positions", "momenta", "inverse_mass_matrix"))
+        step, L = saved["step_size"], saved["L"]
+        print(f"{label} mclmc: phase 8's inputs from {args.inputs}: {tuple(x.shape)}, L {L:.6f}, "
+              f"step size {step:.6f}, mean metric {float(imm.mean()):.6f}", flush=True)
+    chains, d = x.shape
+    kw = dict(target=lf.make_hierarchical_gaussian_target(d), num_steps=steps, seed=7,
+              track_dims=range(8))
+    has_forms = hasattr(fm, "plan")
+    if args.form is not None:
+        if not has_forms and args.form == "resident":
+            raise SystemExit(f"{label}: this tree has no resident form")
+        if has_forms:
+            kw["form"] = args.form
+    form = fm.plan(d, 0, kw.get("form")) if has_forms else "registers"
+
+    def launch(xs=x, ms=m):
+        return fm.fused_mclmc(xs, ms, imm, step, L, **kw)
+
+    def occupancy(lib):
+        out = np.zeros(4, np.int32)
+        code = lib.bjt_fused_mclmc_occupancy(d, 0, int(form == "resident"), out.ctypes.data)
+        if code:
+            raise RuntimeError(f"occupancy query failed ({code})")
+        return tuple(int(v) for v in out)
+
+    def digest(out):
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    launch()
+    if args.sass:
+        n = (d + 31) // 32
+        kernel = (rf"mclmc_residentILi{n}ELi0ELi5E" if form == "resident"
+                  else rf"mclmc_kernelILi{n}ELi0E")
+        pool = None
+        if form == "resident":
+            steps_a_pool = occupancy(fm._library())[3]
+            pool = (-(-2 * steps_a_pool * d // 32), steps_a_pool)
+        _sass(_nvcc, label, _nvcc._SRC_DIR, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "chiprun_out", "mclmc_sass"), kernel, pool, card)
+    if args.sections:
+        lib, log = _mclmc_copy(_nvcc, fm, "sections", sections=form)
+        warps_sm, regs, local, pool = occupancy(lib)
+        _, plain_ms = chip_smoke._timed(torch, launch)
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout.split()[0])
+
+        def counted(xs, ms):
+            library = fm._library
+            fm._library = lambda: lib
+            try:
+                launch(xs, ms)
+                sec = np.zeros(8192 * 8, np.uint64)
+                span = np.zeros(8192 * 3, np.uint64)
+                lib.bjt_sections(sec.ctypes.data, span.ctypes.data, len(xs))  # drains them
+                out, t = chip_smoke._timed(torch, lambda: launch(xs, ms))
+                lib.bjt_sections(sec.ctypes.data, span.ctypes.data, len(xs))
+            finally:
+                fm._library = library
+            sec = sec[:len(xs) * 8].reshape(len(xs), 8).astype(np.float64)
+            per_step = sec[:, :len(MCLMC_SECTIONS)].sum(0) / sec[:, 6].sum()
+            return out, per_step, span[:len(xs) * 3].reshape(len(xs), 3), t
+
+        def parts(per_step):
+            return (", ".join(f"{n_} {c:.0f}" for n_, c in zip(MCLMC_SECTIONS, per_step))
+                    + f", total {per_step.sum():.0f}")
+
+        out, per_step, span, ms = counted(x, m)
+        below, held, span_ms, n_sm = _tail(span, warps_sm)
+        start = span[:, 0].astype(np.int64)
+        end = span[:, 1].astype(np.int64)
+        late = int((start > end.min()).sum())  # warps that started after the first one ended
+        ptxas = [s for s in chip_smoke._ptxas_summary(log)
+                 if f"N={(d + 31) // 32} " in s and ("F=0" in s or "T=0 S=5" in s)]
+        print(f"{label} mclmc sections ({form} form): launch {plain_ms:.2f} ms without the "
+              f"counters, {ms:.2f} ms with them; cycles a step: {parts(per_step)}; waves: "
+              f"{late} of {len(x)} warps started after the first warp ended, the last "
+              f"start {(start.max() - start.min()) / 1e6:.3f} ms after the first; tail: "
+              f"{below:.4f} of SM-time between the first start and the last end ({span_ms:.2f} "
+              f"ms on {n_sm} SMs) with fewer than {warps_sm // 2} warps resident, mean "
+              f"{held:.4f} of {warps_sm} warps held; occupancy {warps_sm} warps an SM, {regs} "
+              f"registers, {local} B local a thread, {pool} steps a pool; ptxas "
+              f"{'; '.join(ptxas)} ({card})", flush=True)
+        _, lone_parts, _, lone_counted_ms = counted(x[:1], m[:1])
+        launch(x[:1], m[:1])
+        _, lone_ms = chip_smoke._timed(torch, lambda: launch(x[:1], m[:1]))
+        for what, ms1 in (("without the counters", lone_ms), ("with them", lone_counted_ms)):
+            ns = ms1 * 1e6 / steps
+            print(f"{label} mclmc, chain 0 alone {what}: {steps} steps in {ms1:.3f} ms, "
+                  f"{ns:.0f} ns a step ({ns * mhz / 1e3:.0f} cycles at {mhz:.0f} MHz) ({card})",
+                  flush=True)
+        print(f"{label} mclmc, chain 0 alone: cycles a step: {parts(lone_parts)}", flush=True)
+        shutil.rmtree(_nvcc.build_dir() / "mclmc_sections", ignore_errors=True)
+        return 0
+    runs = [(None, None, None)]
+    if args.warps or args.block_warps:  # one nvcc a copy, all started together
+        shapes = [(w, b) for w in args.warps or [None] for b in args.block_warps or [None]]
+        with ThreadPoolExecutor(max_workers=len(shapes)) as pool:
+            libs = pool.map(lambda wb: _mclmc_copy(_nvcc, fm, f"warps_{wb[0]}_{wb[1]}",
+                                                   warps=wb[0], block_warps=wb[1])[0], shapes)
+            runs = [(w, b, lib) for (w, b), lib in zip(shapes, libs)]
+    library = fm._library
+    for warps, block, lib in runs:
+        if lib is not None:
+            fm._library = lambda lib=lib: lib
+        launch()
+        times = []
+        for _ in range(args.repeats):
+            out, ms = chip_smoke._timed(torch, launch)
+            times.append(ms)
+        occ = ""
+        if lib is None:
+            n = (d + 31) // 32
+            occ = ", ptxas " + "; ".join(
+                s for s in chip_smoke._ptxas_summary(_nvcc.build_log("fused_mclmc"))
+                if f"N={n} F=0" in s or f"N={n} T=0 S=5" in s)
+        if hasattr(fm, "occupancy"):
+            w, r, loc, pool = occupancy(fm._library())
+            occ += f", {w} warps an SM, {r} registers, {loc} B local a thread, {pool} steps a pool"
+        name = label + ("" if lib is None else
+                        f" ({warps or 'default'} warps an SM, {block or 'default'} a block)")
+        print(f"{name} mclmc d={d} C={chains} S={steps}: {', '.join(f'{t:.3f}' for t in times)} "
+              f"ms, median {statistics.median(times):.3f} ms, form {form}{occ}, outputs sha256 "
+              f"{digest(out)} ({card})", flush=True)
+        if lib is not None:
+            fm._library = library
+            shutil.rmtree(_nvcc.build_dir() / f"mclmc_warps_{warps}_{block}", ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -545,25 +1095,29 @@ def main() -> int:
     parser.add_argument("--label", default=None)
     parser.add_argument("--sections", action="store_true")
     parser.add_argument("--dim", type=int, default=100)
-    parser.add_argument("--steps", type=int, default=256)
+    parser.add_argument("--steps", type=int, default=None)
     parser.add_argument("--step-size", type=float, default=0.15)
     parser.add_argument("--form", choices=("resident", "registers"), default=None)
     parser.add_argument("--warps", type=int, nargs="+", default=None)
     parser.add_argument("--block-warps", type=int, nargs="+", default=None)
-    parser.add_argument("--machine", choices=("dc", "older"), default="dc")
+    parser.add_argument("--machine", choices=("dc", "older", "mclmc"), default="dc")
+    parser.add_argument("--sass", action="store_true")
     parser.add_argument("--inputs", default=None)
     args = parser.parse_args()
+    if args.steps is None:
+        args.steps = 1000 if args.machine == "mclmc" else 256
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
     if not torch.cuda.is_available():
         print("dc_kernel_ms: no CUDA device visible", file=sys.stderr)
         return 1
-    if args.machine == "older":
+    if args.machine in ("older", "mclmc"):
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip()
-        return _older(args, torch, card, args.label or args.root)
+        run = _older if args.machine == "older" else _mclmc
+        return run(args, torch, card, args.label or args.root)
     from blackjax_tpu_torch.ops import _nvcc, targets_dc
     from blackjax_tpu_torch.ops import fused_nuts_dc as dc
 

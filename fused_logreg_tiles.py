@@ -15,7 +15,8 @@ then:
 
 - holds the analytic instantiations (F = 0) of both trees bit for bit: the
   MCLMC kernel at phase 7's inputs (the hierarchical target, d=100, 4,096
-  chains x 64 steps, refresh on) and the leapfrog at phase 5's (10 steps);
+  chains x 64 steps, refresh on; a tree with the resident form launches it)
+  and the leapfrog at phase 5's (10 steps);
 - times both trees' kernels on logistic regression, interleaved (parent,
   change, change, parent, ... ``--repeats`` rounds), one launch of MCLMC and
   ten of the leapfrog by CUDA events each, and prints each time and the
@@ -184,9 +185,11 @@ class Tree:
             Xd = torch.from_numpy(X).to(dev)
             self.matrix = (Xd, Xd.t().contiguous(), torch.from_numpy(y).to(dev))
         n_ptr = len(self.matrix)
+        # a tree with the resident form takes the form after the refresh flag
+        self.forms = hasattr(self.mclmc, "bjt_fused_mclmc_occupancy")
         self.mclmc.bjt_fused_mclmc.argtypes = (
-            [_VP] * (9 + n_ptr) + [ctypes.POINTER(_FLOAT)] + [_INT] * 8 + [_FLOAT] * 4
-            + [ctypes.c_uint32, _VP])
+            [_VP] * (9 + n_ptr) + [ctypes.POINTER(_FLOAT)] + [_INT] * (8 + self.forms)
+            + [_FLOAT] * 4 + [ctypes.c_uint32, _VP])
         self.leapfrog.bjt_fused_leapfrog.argtypes = (
             [_VP] * (7 + n_ptr) + [_INT] * 5 + [_FLOAT] * 3 + [_VP])
         self.rows = X.shape[0]
@@ -209,7 +212,8 @@ class Tree:
         code = self.mclmc.bjt_fused_mclmc(
             x.data_ptr(), m.data_ptr(), imm.data_ptr(), None, *matrix, track.data_ptr(),
             *(o.data_ptr() for o in out), coefs, len(mclachlan_coefficients), C, x.shape[1],
-            steps, NUM_TRACK, target, rows, 1, eps, L, *k, SEED,
+            steps, NUM_TRACK, target, rows, 1,
+            *([int(target != LOGISTIC_REGRESSION)] if self.forms else []), eps, L, *k, SEED,
             torch.cuda.current_stream(self.dev).cuda_stream)
         if code:
             raise RuntimeError(f"{self.label}: MCLMC launch failed ({code})")

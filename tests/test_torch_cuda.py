@@ -565,7 +565,8 @@ def test_mclmc_logistic_regression_matches_plain_version(cuda, n, d, refresh, C)
     kern = fm.fused_mclmc(x, m, imm, eps, 1.0, **kw)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in fm.LAUNCHES.items()} == {
-        "fused_mclmc": 1, "fused_mclmc:logreg_tiles": 1, "counter_normals": 0}
+        "fused_mclmc": 1, "fused_mclmc:resident": 0, "fused_mclmc:registers": 0,
+        "fused_mclmc:logreg_tiles": 1, "counter_normals": 0, "pool_layout": 0}
     plain = fm.fused_mclmc_plain(x, m, imm, eps, 1.0, **kw)
     close = torch.ones(C, dtype=torch.bool, device=cuda)
     for a, b in zip(kern, plain):
@@ -607,6 +608,95 @@ def test_mclmc_wide_targets_are_refused(cuda):
             torch.ones(d, device=cuda), 0.1, 1.0,
             target=fl.make_hierarchical_gaussian_target(d), num_steps=2,
         )
+
+
+# ---- the MCLMC kernel's resident form (csrc/fused_mclmc.cu: mclmc_resident) ----
+
+# the port's coefficient sets by stage count (unrolled in the resident form),
+# and a set of 9 stages that is no palindrome (the stage loop at run time,
+# no kick reused)
+MCLMC_STAGES = {
+    3: "velocity_verlet_coefficients", 5: "mclachlan_coefficients",
+    7: "yoshida_coefficients", 11: "omelyan_coefficients",
+}
+MCLMC_UNEVEN = (0.1, 0.2, 0.3, 0.4, 0.0, 0.4, 0.3, 0.2, 0.15)
+
+
+def _mclmc_forms(cuda, case, d, S, refresh, coefficients, C=70):
+    """The resident and the registers form's outputs on the same inputs,
+    and the forms each launch counted."""
+    rng = np.random.default_rng(d + S)
+    target = (fl.make_hierarchical_gaussian_target(d) if case == "hierarchical"
+              else fl.make_gaussian_target(d, rng.uniform(0.5, 4.0, d)))
+    x = torch.from_numpy((0.5 * rng.standard_normal((C, d))).astype(np.float32)).to(cuda)
+    m = torch.from_numpy(rng.standard_normal((C, d)).astype(np.float32)).to(cuda)
+    m = m / torch.linalg.vector_norm(m, dim=1, keepdim=True)
+    imm = torch.from_numpy(rng.uniform(0.5, 2.0, d).astype(np.float32)).to(cuda)
+    kw = dict(target=target, num_steps=S, seed=3, coefficients=coefficients,
+              track_dims=sorted({0, min(1, d - 1), d - 1}), refresh=refresh)
+    outs, forms = [], []
+    for form in (None, "registers"):
+        before = dict(fm.LAUNCHES)
+        outs.append(fm.fused_mclmc(x, m, imm, 0.3, 2.0, form=form, **kw))
+        torch.cuda.synchronize()
+        forms.append({k: v - before[k] for k, v in fm.LAUNCHES.items() if v != before[k]})
+    return outs, forms
+
+
+def _same_bits(a, b):
+    """torch.equal on the bits, so that NaNs (d = 1 divides by d - 1) count
+    as equal where their bits are."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [1, 32, 33, 100, 200, 256])
+@pytest.mark.parametrize("stages", [3, 5, 7, 11, 9])
+@pytest.mark.parametrize("refresh", [False, True])
+@pytest.mark.parametrize("case", ["hierarchical", "gaussian"])
+def test_mclmc_resident_form_is_the_registers_form_bit_for_bit(cuda, case, refresh, stages, d):
+    """The resident form draws every normal with its key and sums in the
+    registers form's order: x, m, the log density and the history are the
+    same bits at 1, 3, 5 and 64 steps (partial last pools at 1, 3 and 5),
+    for the port's coefficient sets and a set of 9 stages."""
+    from blackjax_tpu_torch.mcmc import integrators
+
+    coefficients = (getattr(integrators, MCLMC_STAGES[stages]) if stages in MCLMC_STAGES
+                    else MCLMC_UNEVEN)
+    for S in (1, 3, 5, 64):
+        (resident, registers), forms = _mclmc_forms(cuda, case, d, S, refresh, coefficients)
+        assert forms == [{"fused_mclmc": 1, "fused_mclmc:resident": 1},
+                         {"fused_mclmc": 1, "fused_mclmc:registers": 1}]
+        assert all(_same_bits(a, b) for a, b in zip(resident, registers)), S
+
+
+@pytest.mark.parametrize("d", [1, 31, 33, 100, 200, 256])
+def test_mclmc_pool_layout_is_the_kernels_walk(cuda, d):
+    """The kernel's own walk over a pool (its export) lays the draws out as
+    ``pool_layout`` does, for pools of 1 to 4 steps."""
+    for steps in (1, 2, 3, 4):
+        assert torch.equal(fm.pool_layout_device(d, steps, cuda).cpu(),
+                           fm.pool_layout(d, steps)), steps
+
+
+def test_mclmc_resident_form_refuses_logistic_regression(cuda):
+    target = fl.make_logistic_regression_target(*_logreg_data(23, 12))
+    before = dict(fm.LAUNCHES)
+    with pytest.raises(ValueError):
+        fm.fused_mclmc(torch.zeros(8, 12, device=cuda), torch.ones(8, 12, device=cuda) / 12**0.5,
+                       torch.ones(12, device=cuda), 0.1, 1.0, target=target, num_steps=2,
+                       form="resident")
+    assert fm.LAUNCHES == before
+
+
+def test_mclmc_resident_occupancy_is_the_recorded_one(cuda):
+    """Phase 8's instantiation (d = 100, McLachlan's) holds the warps an SM
+    it is built for (``mclmc_resident_warps``: all 4,096 flagship chains in
+    one wave on 132 SMs) within the registers that allows, without spills,
+    and pools 4 steps of noise; the registers form held 28."""
+    resident = fm.occupancy(100)
+    assert resident["warps_per_sm"] == 32 and resident["pool_steps"] == 4
+    assert resident["registers"] <= 65_536 // (32 * 32) and resident["local_bytes"] == 0
+    assert fm.occupancy(100, "registers")["warps_per_sm"] == 28
 
 
 # ---- the per-element-key threefry, the older NUTS machine, the runner ----
