@@ -7,7 +7,8 @@ kernels for the TPU are hand-written CUDA kernels for Hopper
 ``ops.fused_nuts_dc.fused_nuts_run_dc``, with the threefry export that
 :mod:`blackjax_tpu_torch.prng` draws through; ``csrc/fused_nuts.cu``, the
 older machine of ``ops.fused_nuts.fused_nuts_run``;
-``csrc/fused_leapfrog.cu``, the trajectory of ``fused_hmc``;
+``csrc/fused_leapfrog.cu``, the trajectory of ``fused_hmc`` and, on the
+analytic targets, its whole transition;
 ``csrc/fused_mclmc.cu``, the trajectory of ``ops.fused_mclmc.fused_mclmc``;
 the matrix targets' device functions they share are in
 ``csrc/matrix_targets.cuh``). Kernels follow ``(key, state) -> (state,

@@ -26,6 +26,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The analytic target T fixed at compile time, for grad and logdensity,
+// which read the fields d and target.
+template <int T>
+struct Analytic {
+  int d;
+  static constexpr int target = T;
+};
+
 // sum over dims of (x * theta_mask)^2, theta_mask = 1 on dims 1..d-1
 template <int N, class P>
 __device__ __forceinline__ float theta_sq(const P& p, const float (&x)[N],

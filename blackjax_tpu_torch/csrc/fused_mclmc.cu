@@ -322,14 +322,6 @@ __host__ __device__ constexpr int pool_steps(int d) {
   return steps;
 }
 
-// The analytic target T fixed at compile time, for grad and logdensity
-// (analytic_targets.cuh), which read the fields d and target.
-template <int T>
-struct Analytic {
-  int d;
-  static constexpr int target = T;
-};
-
 // A warp's walk over a pool of count = 2 P d normals: element i = q d + j
 // (q = 2 (step - the pool's first step) + refresh, j the dim) is drawn by
 // lane i % 32 in round i / 32 and lands in slot i of the warp's pool. Every

@@ -1,17 +1,28 @@
 """Chain-blocked HMC on the fused leapfrog (reference
 ``blackjax_tpu/ops/fused_hmc.py``).
 
-The state is a ``(C, d)`` block; the momentum draw and the Metropolis accept
-are PyTorch on the block, and the whole trajectory is one call of
-:func:`blackjax_tpu_torch.ops.fused_leapfrog.fused_leapfrog` (one kernel
-launch per transition on the card). A step is split in two: :meth:`fused_hmc.step`
-draws ``z ~ N(0, I)`` and the accept uniforms from the caller's generator,
-and :meth:`fused_hmc.step_from_draws` is the rest, term by term as the
-reference's step, so that tests can feed it the reference's draws.
+The state is a ``(C, d)`` block. A step is split in two: :meth:`fused_hmc.step`
+draws ``z ~ N(0, I)`` and then the accept uniforms from the caller's
+generator, and :meth:`fused_hmc.step_from_draws` is the rest, term by term as
+the reference's step, so that tests can feed it the reference's draws.
+:func:`plan` picks how the rest runs:
 
-This is the registered-target fast path; arbitrary logdensities take the
-generic :mod:`blackjax_tpu_torch.mcmc.hmc`.
+- ``"transition"``: a CUDA tensor on an analytic target: the whole rest in
+  one launch of the transition kernel (``hmc_transition`` in
+  ``csrc/fused_leapfrog.cu``), so a transition is three launches (the two
+  draws and the kernel);
+- ``"leapfrog"``: everything else: the momentum, energies and accept in
+  PyTorch around one call of
+  :func:`blackjax_tpu_torch.ops.fused_leapfrog.fused_leapfrog`, which
+  launches its tiles form on a CUDA tensor (logistic regression) and runs the
+  plain leapfrog on a CPU tensor, so that on the CPU this is the plain
+  transition.
+
+A failure to build or launch a kernel raises; nothing falls back to another
+form. This is the registered-target fast path; arbitrary logdensities take
+the generic :mod:`blackjax_tpu_torch.mcmc.hmc`.
 """
+import functools
 from typing import NamedTuple, Union
 
 import torch
@@ -19,6 +30,8 @@ import torch
 from blackjax_tpu_torch.base import SamplingAlgorithm
 from blackjax_tpu_torch.ops.fused_leapfrog import (
     TargetKernel,
+    _hmc_transition_cuda,
+    _hmc_transition_ops,
     fused_leapfrog,
     get_registered_target,
 )
@@ -45,6 +58,23 @@ class FusedHMCInfo(NamedTuple):
     energy: Array  # (C,) proposal energies
 
 
+def plan(target: TargetKernel, device) -> str:
+    """How a transition of ``target`` runs on ``device``: ``"transition"``
+    (CUDA, an analytic target) or ``"leapfrog"`` (the rest). What a form
+    cannot run, its function refuses: the transition kernel ``d > 256``,
+    ``fused_leapfrog`` that and a device type other than CPU and CUDA."""
+    analytic = target.matrix is None
+    return "transition" if torch.device(device).type == "cuda" and analytic else "leapfrog"
+
+
+# what runs a transition in each form, with the signature of
+# ops.fused_leapfrog._hmc_transition_plain
+_RUN = {
+    "transition": _hmc_transition_cuda,
+    "leapfrog": functools.partial(_hmc_transition_ops, fused_leapfrog),
+}
+
+
 class fused_hmc:
     """Batched-chain HMC bound to a registered analytic target.
 
@@ -66,7 +96,7 @@ class fused_hmc:
         self.step_size = step_size
         self.inverse_mass_matrix = torch.broadcast_to(
             torch.as_tensor(inverse_mass_matrix).to(torch.float32), (target.dim,)
-        )
+        ).contiguous()
         self.num_integration_steps = num_integration_steps
         self.tile_chains = tile_chains
 
@@ -88,37 +118,15 @@ class fused_hmc:
     def step_from_draws(self, state: FusedHMCState, z: Array, u: Array):
         """One transition from given draws: ``z`` ``(C, d)`` standard normal
         momenta in the ``M^{1/2}`` basis, ``u`` ``(C,)`` accept uniforms."""
-        imm = self.inverse_mass_matrix.to(state.positions.device)
-        momenta = z / torch.sqrt(imm)[None, :]
-        kinetic0 = 0.5 * (momenta**2 * imm[None, :]).sum(1)
-        energy0 = -state.logdensities + kinetic0
-
-        x_new, m_new, energy1 = fused_leapfrog(
-            state.positions,
-            momenta,
-            imm,
-            self.step_size,
-            target=self.target,
-            num_steps=self.num_integration_steps,
-            tile_chains=self.tile_chains,
+        dev = state.positions.device
+        run = _RUN[plan(self.target, dev)]
+        x, logdensities, p_accept, accept, energy = run(
+            *(t.to(dtype=torch.float32, device=dev).contiguous()
+              for t in (state.positions, state.logdensities, z, u)),
+            self.inverse_mass_matrix.to(dev), self.step_size,
+            target=self.target, num_steps=self.num_integration_steps,
         )
-
-        delta = energy0 - energy1
-        delta = torch.where(torch.isnan(delta), -torch.inf, delta)
-        p_accept = torch.clamp(torch.exp(delta), max=1.0)
-        accept = u < p_accept
-
-        new_positions = torch.where(accept[:, None], x_new, state.positions)
-        new_logdensities = torch.where(
-            accept,
-            # energy1 already holds -logdensity(x_end) + KE(m_end)
-            -(energy1 - 0.5 * (m_new**2 * imm).sum(1)),
-            state.logdensities,
-        )
-        return (
-            FusedHMCState(new_positions, new_logdensities),
-            FusedHMCInfo(p_accept, accept, energy1),
-        )
+        return FusedHMCState(x, logdensities), FusedHMCInfo(p_accept, accept, energy)
 
 
 # ---------------------------------------------------------------------------
@@ -171,17 +179,24 @@ def as_top_level_api(
 ) -> SamplingAlgorithm:
     """``blackjax_tpu_torch.fused_hmc(...)``: the registered-target HMC fast
     path as a :class:`SamplingAlgorithm`. ``target`` is a
-    :class:`TargetKernel` or a registered name, resolved against ``dim`` (by
-    default the positions' trailing dimension)."""
-    kernel = build_kernel(tile_chains=tile_chains)
+    :class:`TargetKernel` or a registered name, resolved against ``dim`` at
+    ``init`` (by default the positions' trailing dimension) and against the
+    state's width at ``step``, as ``build_kernel``'s kernel resolves it. The
+    sampler is built once for each width, at its first step."""
+    samplers = {}
 
     def init_fn(position, rng_key=None):
         del rng_key
         return init(position, target, dim)
 
     def step_fn(rng_key: PRNGKey, state):
-        return kernel(
-            rng_key, state, target, step_size, inverse_mass_matrix, num_integration_steps
-        )
+        width = state.positions.shape[-1]
+        sampler = samplers.get(width)
+        if sampler is None:
+            sampler = samplers[width] = fused_hmc(
+                _resolve_target(target, width), step_size, inverse_mass_matrix,
+                num_integration_steps, tile_chains=tile_chains,
+            )
+        return sampler.step(rng_key, state)
 
     return SamplingAlgorithm(init_fn, step_fn)

@@ -15,6 +15,13 @@ Both keep the Pallas kernel's operation order (``m + (0.5 * eps) * g``,
 ``x + eps * (m * imm)`` and the tile functions' own expressions), so they
 round alike except for the order of their sums.
 
+The same library also runs a whole ``fused_hmc`` transition in one launch
+for the analytic targets (``hmc_transition`` in
+``csrc/fused_leapfrog.cu``: the momentum from the draws, both energies, the
+trajectory and the Metropolis accept); :func:`_hmc_transition_plain` is its
+plain version, the reference's step term by term over
+:func:`fused_leapfrog_plain`. ``ops.fused_hmc`` picks between them.
+
 Ported: the hierarchical, Gaussian and logistic-regression targets, ``d <=
 256`` on the card. Logistic regression computes its two ``(C, N) x (N, d)``
 contractions inside the kernel in the tiles form (``csrc/matrix_targets.cuh``:
@@ -58,9 +65,11 @@ __all__ = [
     "tiles_plan",
 ]
 
-# kernel launches made by fused_leapfrog, by kernel name; a launch on
-# logistic regression also counts under its form, the tiles form
-LAUNCHES = {"fused_leapfrog": 0, "fused_leapfrog:logreg_tiles": 0}
+# kernel launches of the library, by kernel name; a launch on logistic
+# regression also counts under its form, the tiles form, and a launch of the
+# HMC transition under its own
+LAUNCHES = {"fused_leapfrog": 0, "fused_leapfrog:logreg_tiles": 0,
+            "fused_leapfrog:hmc_transition": 0}
 
 # the target ids of csrc/analytic_targets.cuh and csrc/matrix_targets.cuh
 _CUDA_HIERARCHICAL = 0
@@ -286,6 +295,8 @@ def _library():
     lib = _nvcc.load("fused_leapfrog")
     lib.bjt_fused_leapfrog.argtypes = [_VP] * 9 + [_INT] * 5 + [ctypes.c_float] * 3 + [_VP]
     lib.bjt_fused_leapfrog.restype = _INT
+    lib.bjt_hmc_transition.argtypes = [_VP] * 11 + [_INT] * 4 + [ctypes.c_float, _VP]
+    lib.bjt_hmc_transition.restype = _INT
     lib.bjt_fused_tiles_layout.argtypes = [_INT, _VP]
     lib.bjt_fused_tiles_layout.restype = _INT
     lib.bjt_error_string.argtypes = [_INT]
@@ -461,3 +472,79 @@ def fused_leapfrog_plain(
     del tile_chains
     x, m, imm = _prepare(positions, momenta, inverse_mass_matrix, target)
     return _trajectory_plain(x, m, imm, step_size, target=target, num_steps=num_steps)
+
+
+# ---------------------------------------------------------------------------
+# the HMC transition: one launch a fused_hmc step on the analytic targets
+# ---------------------------------------------------------------------------
+
+
+def _hmc_transition_ops(leapfrog, positions, logdensities, z, u, imm, step_size, *,
+                        target, num_steps):
+    """One ``fused_hmc`` transition from the draws ``z`` (``(C, d)`` standard
+    normal momenta in the ``M^{1/2}`` basis) and ``u`` (``(C,)`` accept
+    uniforms), term by term as the reference's step
+    (``blackjax_tpu/ops/fused_hmc.py:82-110``), with the trajectory by
+    ``leapfrog``. Returns the new positions and log densities, ``p_accept``,
+    the accept flags and the proposal's energy."""
+    momenta = z / torch.sqrt(imm)[None, :]
+    kinetic0 = 0.5 * (momenta**2 * imm[None, :]).sum(1)
+    energy0 = -logdensities + kinetic0
+
+    x_new, m_new, energy1 = leapfrog(
+        positions, momenta, imm, step_size, target=target, num_steps=num_steps)
+
+    delta = energy0 - energy1
+    delta = torch.where(torch.isnan(delta), -torch.inf, delta)
+    p_accept = torch.clamp(torch.exp(delta), max=1.0)
+    accept = u < p_accept
+
+    new_positions = torch.where(accept[:, None], x_new, positions)
+    new_logdensities = torch.where(
+        accept,
+        # energy1 already holds -logdensity(x_end) + KE(m_end)
+        -(energy1 - 0.5 * (m_new**2 * imm).sum(1)),
+        logdensities,
+    )
+    return new_positions, new_logdensities, p_accept, accept, energy1
+
+
+def _hmc_transition_plain(positions, logdensities, z, u, imm, step_size, *, target,
+                          num_steps):
+    """The plain version of the transition kernel: :func:`_hmc_transition_ops`
+    over :func:`fused_leapfrog_plain`, on the device of ``positions``. It
+    launches nothing of ours and counts nothing."""
+    return _hmc_transition_ops(fused_leapfrog_plain, positions, logdensities, z, u, imm,
+                               step_size, target=target, num_steps=num_steps)
+
+
+def _hmc_transition_cuda(positions, logdensities, z, u, imm, step_size, *, target,
+                         num_steps):
+    """One launch of ``hmc_transition`` on the analytic ``target``, with the
+    outputs of :func:`_hmc_transition_plain`."""
+    C, d = positions.shape
+    if d > _MAX_CUDA_DIM:
+        raise ValueError(
+            f"the CUDA HMC transition holds d <= {_MAX_CUDA_DIM} per warp; got d={d}")
+    if target.matrix is not None:
+        raise ValueError("the HMC transition kernel takes the analytic targets only")
+    dev = positions.device
+    for name, t, shape in [("positions", positions, (C, d)), ("logdensities", logdensities, (C,)),
+                           ("z", z, (C, d)), ("u", u, (C,)), ("inverse_mass_matrix", imm, (d,))]:
+        _nvcc.require_cuda_f32(name, t, dev, shape)
+    inv_var = _inv_var(target, dev, d)
+    lib = _library()
+    out_x = torch.empty_like(positions)
+    out_ld, p_accept, energy = (torch.empty(C, dtype=torch.float32, device=dev)
+                                for _ in range(3))
+    accept = torch.empty(C, dtype=torch.bool, device=dev)
+    code = lib.bjt_hmc_transition(
+        positions.data_ptr(), logdensities.data_ptr(), z.data_ptr(), u.data_ptr(),
+        imm.data_ptr(), _ptr(inv_var), out_x.data_ptr(), out_ld.data_ptr(),
+        p_accept.data_ptr(), accept.data_ptr(), energy.data_ptr(), C, d, num_steps,
+        target.cuda_target, float(step_size), _nvcc.stream_handle(dev),
+    )
+    _nvcc.check_launch(lib, code, "hmc_transition")
+    LAUNCHES["fused_leapfrog"] += 1
+    LAUNCHES["fused_leapfrog:hmc_transition"] += 1
+    return out_x, out_ld, p_accept, accept, energy

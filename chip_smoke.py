@@ -54,13 +54,21 @@ covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
    d=100, 4,096 chains, 10 steps, for both targets: the share of chains
    whose positions, momenta and energy agree to 1e-5 (floor 0.99), the
    largest difference, both times per call by CUDA events, and the
-   kernel's device time per launch by torch.profiler;
+   kernel's device time per launch by torch.profiler; then the HMC
+   transition kernel (``hmc_transition`` in ``csrc/fused_leapfrog.cu``, a
+   whole ``fused_hmc`` transition in one launch) against its plain version
+   on the same inputs and draws: the share of chains whose positions, log
+   densities and p_accept agree to 1e-5 with the same accept flag (floor
+   0.99), both times per call by CUDA events, the kernel's device time by
+   torch.profiler and its bound;
 6. the HMC path, launch counts reset just before it: the port's
    ``window_adaptation(hmc)`` over all 4,096 chains (pooled, 10 leapfrog
-   steps, 400 steps), then ``fused_hmc`` for 1,000 transitions (one kernel
-   launch each), then min-ESS over 8 tracked coordinates; everything must be
-   finite, the kernel launched 1,000 times, the mean acceptance in
-   [0.5, 0.99], and ``log_tau``'s second-half moments near N(0, 1);
+   steps, 400 steps), then ``fused_hmc`` for 1,000 transitions (one launch
+   of the transition kernel each, beside the two draws), then min-ESS over
+   8 tracked coordinates; everything must be finite, all 1,000 transitions
+   in the transition form, the mean acceptance in [0.5, 0.99], and
+   ``log_tau``'s second-half moments near N(0, 1); the line gives the
+   milliseconds a transition;
 7. the MCLMC kernel in its resident form against its plain version on the
    card at d=100, 4,096 chains, 64 steps, for both targets with the refresh
    off and on: the share of chains whose positions, momenta, log density and
@@ -211,7 +219,9 @@ regression comparison), one for the older machine (phase 13's 512 x 16 times)
 and one for the threefry kernel with a key per element (phase 2's times on
 1,048,576 keys; its launches are phase 12's). ``launches`` is the count from the
 main path's run, or, for a pair that no main path drives, from the pair's checked
-call. ``bound_ms`` is
+call; ``fused_leapfrog`` counts ``leapfrog_kernel``'s own launches on phase 6,
+apart from the transition kernel's (its own entry), so none.
+``bound_ms`` is
 the larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations over 132 SMs x 128 lanes x 2 x the SM clock ``nvidia-smi``
 reads, from the call's inputs and outputs (gradient counts from the run);
@@ -345,13 +355,14 @@ def _ptxas_summary(log: str) -> list:
     shared memory); the dc machine's resident form by N, its analytic target
     (T: 0 hierarchical, 1 Gaussian) and M; the older NUTS machine by its
     trace flag; the MCLMC kernel's resident form by N, T and its unrolled
-    stages (S, 0 for the stage loop at run time)."""
+    stages (S, 0 for the stage loop at run time); the HMC transition by N
+    and T."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            n = re.search(r"(nuts_dc|nuts|leapfrog|mclmc)_(kernel|resident)ILi(\d+)ELi(\d+)E"
-                          r"(?:Li(\d+)E)?(?:Lb(\d)E)?", entry.group(1))
+            n = re.search(r"(nuts_dc|nuts|leapfrog|mclmc|hmc)_(kernel|resident|transition)ILi(\d+)"
+                          r"ELi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", entry.group(1))
             export = "threefry" if "threefry" in entry.group(1) else "counter_normals"
             metric = ""
             if n and n.group(5):  # the dc machine's metric, or MCLMC's unrolled stages
@@ -359,7 +370,9 @@ def _ptxas_summary(log: str) -> list:
             flag = ""
             if n and n.group(6):
                 flag = f" {'shared' if n.group(1) == 'nuts_dc' else 'trace'}={n.group(6)}"
-            if n and n.group(2) == "resident":  # the analytic target T in the resident form
+            if n and n.group(2) == "transition":  # N and the analytic target T
+                name = f"hmc_transition N={n.group(3)} T={n.group(4)}"
+            elif n and n.group(2) == "resident":  # the analytic target T in the resident form
                 name = f"{n.group(1)} resident N={n.group(3)} T={n.group(4)}{metric}"
             else:
                 name = (f"{n.group(1)} N={n.group(3)} F={n.group(4)}{metric}{flag}" if n
@@ -476,6 +489,9 @@ def _device_ms(torch, fn, kernel, repeats=20):
 # of 3, two refreshes of 5); the analytic gradients per dim. threefry2x32
 # is about 70 integer operations a block (20 rounds and the key schedule).
 DC_LEAF_OPS, LEAPFROG_STEP_OPS, MCLMC_STEP_OPS = 24, 7, 55
+# the HMC transition's own per dim beside its trajectory: the momentum (a
+# square root and a division), both kinetic energies (3 each) and the select
+TRANSITION_OPS = 9
 GRAD_OPS = {"hierarchical": 4, "gaussian": 3}
 THREEFRY_OPS = 70
 # MCLMC_STEP_OPS leaves out Box-Muller's logf, sqrtf and cosf. Recounted
@@ -590,6 +606,51 @@ def warm_start(torch, dev):
             time.perf_counter() - t0)
 
 
+def hmc_start(torch, dev):
+    """Phase 6's start: window adaptation of the generic HMC pooled over C
+    chains from 0.5 N(0, I) of numpy seed 1 (HMC_STEPS leapfrog steps,
+    WARMUP_STEPS steps, torch seed SEED). Returns the positions, the step
+    size, the metric, the generator that goes on into the sampling, the
+    seconds and the mean acceptance."""
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
+    from blackjax_tpu_torch.mcmc import hmc
+    from blackjax_tpu_torch.models import hierarchical_gaussian
+
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warmup = blackjax_tpu_torch.window_adaptation(
+        hmc, hierarchical_gaussian(D).logdensity_fn, n_chains=C,
+        num_integration_steps=HMC_STEPS,
+        adaptation_info_fn=get_filter_adapt_info_fn(info_keys={"acceptance_rate"}),
+    )
+    (warm_state, params), warm_info = warmup.run(generator, flagship_init(torch, dev),
+                                                 WARMUP_STEPS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    step, imm = params["step_size"], params["inverse_mass_matrix"]
+    _require(np.isfinite(step) and step > 0, f"warmup step size {step}")
+    _require(bool(torch.isfinite(imm).all() and (imm > 0).all()), "warmup metric")
+    return (warm_state.position, step, imm, generator, warm_s,
+            float(warm_info.info.acceptance_rate.mean()))
+
+
+def hmc_path(torch, sampler, generator, positions):
+    """Phase 6's sampling: HMC_TRANSITIONS transitions of ``sampler`` from
+    ``positions`` on ``generator``, tracking the first NUM_TRACK coordinates
+    and the acceptance rates. Returns them (stacked over transitions), the
+    milliseconds by CUDA events and the seconds by the host clock."""
+    from blackjax_tpu_torch.util import run_inference_algorithm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_, history), ms = _timed(torch, lambda: run_inference_algorithm(
+        generator, sampler, HMC_TRANSITIONS, initial_position=positions,
+        transform=lambda s, i: (s.positions[:, :NUM_TRACK], i.acceptance_rate)))
+    return history, ms, time.perf_counter() - t0
+
+
 def mclmc_start(torch, dev):
     """Phase 8's start: ``mclmc_find_L_and_step_size`` on one flagship chain
     (MCLMC_TUNE_STEPS steps' worth from zeros, torch seed SEED), then five
@@ -635,14 +696,13 @@ def main() -> int:
 
     import blackjax_tpu_torch
     from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
-    from blackjax_tpu_torch.mcmc import hmc, mclmc, nuts
+    from blackjax_tpu_torch.mcmc import mclmc, nuts
     from blackjax_tpu_torch.models import hierarchical_gaussian
     from blackjax_tpu_torch import prng
     from blackjax_tpu_torch.mcmc import integrators
     from blackjax_tpu_torch.ops import counter_rng
     from blackjax_tpu_torch.ops import fused_nuts as fn
     from blackjax_tpu_torch.ops import fused_nuts_dc as dc
-    from blackjax_tpu_torch.util import run_inference_algorithm
 
     lf = importlib.import_module("blackjax_tpu_torch.ops.fused_leapfrog")
     fm = importlib.import_module("blackjax_tpu_torch.ops.fused_mclmc")
@@ -758,7 +818,6 @@ def main() -> int:
     marks.append((4, time.perf_counter()))
     S = 256
     flagship = hierarchical_gaussian(D)
-    init = flagship_init(torch, dev)
     for name in dc.LAUNCHES:
         dc.LAUNCHES[name] = 0
     positions, step4, imm4, warm_leaves, warm4_s, nuts_s = warm_start(torch, dev)
@@ -862,36 +921,66 @@ def main() -> int:
               f"{LEAPFROG_FLOOR}), max |diff| so far {err5:.3g}; per call by CUDA events: "
               f"kernel {ms5:.4f} ms, plain {plain_ms5:.4f} ms; the kernel's device time by "
               f"torch.profiler {device_time} per launch ({smi})")
+    # the HMC transition kernel on the same inputs, with m5 as its normal
+    # draws and uniforms of its own
+    u5 = torch.from_numpy(rng5.random(C).astype(np.float32)).to(dev)
+    # x0 and z in, x out; the log density and u in; the log density,
+    # p_accept, energy1 and the accept flag out; the metric
+    tr_bytes = 3 * C * D * 4 + C * (4 * 5 + 1) + D * 4
+    tr_ops = C * ((HMC_STEPS + 1) * GRAD_OPS["hierarchical"] * D
+                  + HMC_STEPS * LEAPFROG_STEP_OPS * D + TRANSITION_OPS * D)
+    tr_bound = _bound(tr_bytes, tr_ops, peaks)
+    tr_times, err5t = {}, 0.0
+    for name, lf_target in lf_targets.items():
+        ld5 = lf_target.logdensity_fn(x5)
+        tr_args = (x5, ld5, m5, u5, imm5, 0.1)
+        tr_kw = dict(target=lf_target, num_steps=HMC_STEPS)
+        before5 = dict(lf.LAUNCHES)
+        kern = lf._hmc_transition_cuda(*tr_args, **tr_kw)
+        torch.cuda.synchronize()
+        _require(lf.LAUNCHES["fused_leapfrog:hmc_transition"]
+                 == before5["fused_leapfrog:hmc_transition"] + 1,
+                 "phase 5: the transition kernel was not counted")
+        plain = lf._hmc_transition_plain(*tr_args, **tr_kw)
+        same = kern[3] == plain[3]
+        for a, b in zip(kern[:3], plain[:3]):
+            ok = torch.isclose(a, b, rtol=AGREE_TOL, atol=AGREE_TOL)
+            same &= ok.all(1) if ok.dim() == 2 else ok
+            err5t = max(err5t, float((a - b).abs().max()))
+        share5t = float(same.float().mean())
+        _require(share5t >= LEAPFROG_FLOOR,
+                 f"only {share5t} of the transition's chains agree ({name})")
+        _require(all(bool(torch.isfinite(a).all()) for a in kern[:3]),
+                 f"phase 5: non-finite transition output ({name})")
+        ms5t = _timed_mean(torch, lambda: lf._hmc_transition_cuda(*tr_args, **tr_kw), 50)
+        plain_ms5t = _timed_mean(torch, lambda: lf._hmc_transition_plain(*tr_args, **tr_kw), 10)
+        dev_ms5t = _device_ms(
+            torch, lambda: lf._hmc_transition_cuda(*tr_args, **tr_kw), "hmc_transition")
+        tr_times[name] = (ms5t, plain_ms5t, dev_ms5t)
+        device_time = "not measured" if dev_ms5t is None else f"{dev_ms5t:.4f} ms"
+        print(f"phase 5: hmc_transition {name} d={D} C={C} num_steps={HMC_STEPS}: {share5t:.4f} "
+              f"of chains agree to {AGREE_TOL} in x, log density and p_accept with the same "
+              f"accept flag (floor {LEAPFROG_FLOOR}), accepted {float(kern[3].float().mean()):.4f}, "
+              f"max |diff| so far {err5t:.3g}; per call by CUDA events: kernel {ms5t:.4f} ms, "
+              f"plain {plain_ms5t:.4f} ms; the kernel's device time by torch.profiler "
+              f"{device_time} per launch; bound {tr_bound[0]:.5f} ms by {tr_bound[1]} ({smi})")
 
     # ---- phase 6: the HMC path ----
     marks.append((6, time.perf_counter()))
     for name in lf.LAUNCHES:
         lf.LAUNCHES[name] = 0
-    generator = torch.Generator(device=dev).manual_seed(SEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    warmup = blackjax_tpu_torch.window_adaptation(
-        hmc, flagship.logdensity_fn, n_chains=C, num_integration_steps=HMC_STEPS,
-        adaptation_info_fn=get_filter_adapt_info_fn(info_keys={"acceptance_rate"}),
-    )
-    (warm_state, params), warm_info = warmup.run(generator, init, WARMUP_STEPS)
-    torch.cuda.synchronize()
-    warm6_s = time.perf_counter() - t0
-    step6, imm6 = params["step_size"], params["inverse_mass_matrix"]
-    _require(np.isfinite(step6) and step6 > 0, f"warmup step size {step6}")
-    _require(bool(torch.isfinite(imm6).all() and (imm6 > 0).all()), "warmup metric")
-
+    warm6, step6, imm6, generator, warm6_s, warm_acc6 = hmc_start(torch, dev)
     sampler = blackjax_tpu_torch.fused_hmc(
         lf.make_hierarchical_gaussian_target(D), step6, imm6, HMC_STEPS)
-    t0 = time.perf_counter()
-    (_, (track, acc)), ms6 = _timed(torch, lambda: run_inference_algorithm(
-        generator, sampler, HMC_TRANSITIONS, initial_position=warm_state.position,
-        transform=lambda s, i: (s.positions[:, :NUM_TRACK], i.acceptance_rate)))
-    host6_s = time.perf_counter() - t0
+    (track, acc), ms6, host6_s = hmc_path(torch, sampler, generator, warm6)
     hist6 = track.permute(1, 0, 2)  # (chains, samples, tracked)
     ess6 = blackjax_tpu_torch.ess(hist6.double())
     min_ess6 = float(ess6.min())
     lf_launches = lf.LAUNCHES["fused_leapfrog"]
+    tr_launches = lf.LAUNCHES["fused_leapfrog:hmc_transition"]
+    # leapfrog_kernel's own launches: the library's, less the transition's and
+    # the tiles form's
+    leapfrog6 = lf_launches - tr_launches - lf.LAUNCHES["fused_leapfrog:logreg_tiles"]
     mean_acc = float(acc.mean())
 
     for name, t in [("history", hist6), ("acceptance", acc), ("ess", ess6)]:
@@ -899,6 +988,8 @@ def main() -> int:
     _require(hist6.shape == (C, HMC_TRANSITIONS, NUM_TRACK), "phase 6 history shape")
     _require(lf_launches == HMC_TRANSITIONS,
              f"fused_leapfrog launched {lf_launches} times, not {HMC_TRANSITIONS}")
+    _require(tr_launches == HMC_TRANSITIONS,
+             f"{tr_launches} of {HMC_TRANSITIONS} transitions in the transition form")
     _require(0.5 <= mean_acc <= 0.99, f"mean acceptance {mean_acc}")
     mean_lt6, var_lt6 = _log_tau_moments(hist6)
     _require(abs(mean_lt6) < 0.3 and abs(var_lt6 - 1.0) < 0.3,
@@ -907,13 +998,15 @@ def main() -> int:
     grads6 = C * HMC_TRANSITIONS * HMC_STEPS
     print(f"phase 6: window_adaptation(hmc) pooled over {C} chains, {WARMUP_STEPS} steps "
           f"x {HMC_STEPS} leapfrogs, in {warm6_s:.2f} s (warmup acceptance "
-          f"{float(warm_info.info.acceptance_rate.mean()):.4f}): step size {step6:.5f}, mean "
+          f"{warm_acc6:.4f}): step size {step6:.5f}, mean "
           f"imm {float(imm6.mean()):.5f}, imm[log_tau] {float(imm6[0]):.5f}; fused_hmc "
           f"{HMC_TRANSITIONS} transitions x {C} chains: {ms6:.2f} ms by CUDA events "
-          f"({host6_s:.2f} s host clock), {grads6} grads ({grads6 / secs6:.4g} grads/s), "
+          f"({host6_s:.2f} s host clock; {ms6 / HMC_TRANSITIONS:.4f} ms a transition), {grads6} "
+          f"grads ({grads6 / secs6:.4g} grads/s), "
           f"min-ESS over {NUM_TRACK} tracked dims {min_ess6:.1f} ({min_ess6 / secs6:.4g} "
           f"ESS/s), mean acceptance {mean_acc:.4f}, log_tau over the second half: mean "
-          f"{mean_lt6:.4f} var {var_lt6:.4f}; fused_leapfrog launches {lf_launches} ({smi})")
+          f"{mean_lt6:.4f} var {var_lt6:.4f}; fused_leapfrog launches {lf_launches}, "
+          f"{tr_launches} of them the transition form, {leapfrog6} leapfrog_kernel ({smi})")
 
     # ---- phase 7: the MCLMC kernel against its plain version ----
     marks.append((7, time.perf_counter()))
@@ -1724,8 +1817,11 @@ def main() -> int:
                       grads3 * (DC_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
                       (grads3 + C * 16 * D) * THREEFRY_OPS)),
         _entry("fused_leapfrog", "fused_leapfrog.cu", "blackjax_tpu/ops/fused_leapfrog.py:206",
-               lf_launches, err5, *lf_times["hierarchical"],
+               leapfrog6, err5, *lf_times["hierarchical"],
                _bound(4 * C * D * 4 + C * 4, lf_ops, peaks)),
+        _entry("fused_leapfrog (hmc transition)", "fused_leapfrog.cu",
+               "blackjax_tpu/ops/fused_leapfrog.py:206", tr_launches, err5t,
+               *tr_times["hierarchical"][:2], tr_bound),
         _entry("fused_mclmc (resident form)", "fused_mclmc.cu",
                "blackjax_tpu/ops/fused_mclmc.py:301", launches8["fused_mclmc:resident"], err7,
                ms7, plain_ms7, _mclmc_bound(peaks, C, MCLMC_CMP_STEPS, D, NUM_TRACK)),

@@ -99,6 +99,24 @@ builds the tree's source with ``-lineinfo`` into a cubin, writes its SASS
 warp-instructions of the launched form's flagship instantiation by part and
 by pipe (integer, FP32, MUFU, conversions, shuffles), cold slow paths left
 out, and the issue floor they set at an SM's issue rates.
+
+``--machine hmc`` runs phase 6's HMC path of ``chip_smoke.py`` for the tree
+under ``--root``: ``fused_hmc`` on the flagship, 1,000 transitions of 4,096
+chains from phase 6's warm start (``--inputs FILE`` saves it, or loads it
+where FILE exists, with the generator's state, so that every tree of a call
+draws the same numbers). It prints the first run (its build and the history's
+allocations included), then REPEATS runs, each with its time by CUDA events
+and by the host clock, its launches and a SHA-256 of the tracked history and
+the accept rates; the min-ESS of the last run; with ``--history FILE`` the
+share of chains whose history equals the one saved in FILE (saved there by
+the first tree that runs); a SHA-256 of phase 5's ``fused_leapfrog`` outputs;
+and one transition's device records and time by torch.profiler.
+``--sections`` counts the transition kernel's cycles by part (the prologue,
+a step's kicks and drift, its gradient, the epilogue) at phase 5's shape for
+both targets, with the warps' spans and chain 0 alone; ``--block-warps B
+...`` builds a copy of the tree's source for each B warps a block
+(``kTransitionBlockWarps``) and prints each copy's device time, whether its
+outputs are the tree's bits and its agreement with the plain version.
 """
 import argparse
 import ctypes
@@ -1086,6 +1104,303 @@ def _mclmc(args, torch, card, label):
     return 0
 
 
+# the parts of an HMC transition that --machine hmc --sections counts, in
+# the order they are printed: the prologue (loads, the momentum, energy0 and
+# the first gradient) and the epilogue (energy1, the accept, the stores) once
+# a chain, the others once a step
+HMC_SECTIONS = ("prologue", "kicks and drift", "gradient", "epilogue")
+
+# counters in the transition form (hmc_transition in csrc/fused_leapfrog.cu)
+_HMC_TRANSITION = [
+    ("  const int lane = threadIdx.x & 31;\n  const Analytic<T> tp{p.d};\n",
+     "  const int lane = threadIdx.x & 31;\n  const Analytic<T> tp{p.d};\n"
+     "  sec_span(chain, 0);\n  unsigned long long t_ = sec_now();\n"),
+    ("  // ---- the trajectory (transition) ----\n",
+     "  sec_add(chain, 0, t_);\n  // ---- the trajectory (transition) ----\n"),
+    ("    // ---- the gradient (transition) ----\n",
+     "    sec_add(chain, 1, t_);\n    // ---- the gradient (transition) ----\n"),
+    ("    // ---- the second kick (transition) ----\n",
+     "    sec_add(chain, 2, t_);\n    // ---- the second kick (transition) ----\n"),
+    ("    // ---- the step's end (transition) ----\n",
+     "    sec_add(chain, 1, t_);\n    if ((threadIdx.x & 31) == 0) g_sec[chain * 8 + 6] += 1;\n"
+     "    // ---- the step's end (transition) ----\n"),
+    ("  // ---- the chain's end (transition) ----\n",
+     "  sec_add(chain, 3, t_);\n  sec_span(chain, 1);\n  // ---- the chain's end (transition) ----\n"),
+]
+
+
+def _hmc_copy(nvcc, lf, tag, sections=False, block_warps=None):
+    """The library of a copy of the tree's ``csrc/fused_leapfrog.cu``: with
+    ``clock64()`` counters in the transition form, or with its warps a block
+    (``kTransitionBlockWarps``) set. Returns the library and its ptxas
+    report."""
+    out = nvcc.build_dir() / f"hmc_{tag}"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(nvcc._SRC_DIR, out)
+    src = out / "fused_leapfrog.cu"
+    text = src.read_text()
+    if block_warps is not None:
+        text, count = re.subn(r"constexpr int kTransitionBlockWarps = \d+;",
+                              f"constexpr int kTransitionBlockWarps = {block_warps};", text)
+        if count != 1:
+            raise RuntimeError("fused_leapfrog.cu: kTransitionBlockWarps not found")
+    src.write_text(text)
+    if sections:
+        _edit(src, [("namespace {\n", _HEAD)] + _HMC_TRANSITION, _TAIL)
+    lib_path = out / "fused_leapfrog.so"
+    proc = subprocess.run([nvcc._nvcc(), *nvcc.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc, the copy {tag}:\n{proc.stderr[-4000:]}")
+    lib, own = ctypes.CDLL(str(lib_path)), lf._library()
+    for name in ("bjt_fused_leapfrog", "bjt_hmc_transition", "bjt_fused_tiles_layout",
+                 "bjt_error_string"):
+        getattr(lib, name).argtypes = getattr(own, name).argtypes
+        getattr(lib, name).restype = getattr(own, name).restype
+    if sections:
+        lib.bjt_sections.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    return lib, proc.stdout + proc.stderr
+
+
+def _own_chip_smoke():
+    """This file's ``chip_smoke.py`` (phase 6's start and path), whatever tree
+    ``--root`` names: its functions use the root's package."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_hmc", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _hmc(args, torch, card, label):
+    """--machine hmc: phase 6's fused_hmc path and its transition."""
+    import importlib
+
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch.ops import _nvcc
+
+    smoke = _own_chip_smoke()
+    lf = importlib.import_module("blackjax_tpu_torch.ops.fused_leapfrog")
+    dev = torch.device("cuda")
+    if args.inputs and os.path.exists(args.inputs):
+        saved = torch.load(args.inputs)
+        x, imm = saved["positions"].to(dev), saved["inverse_mass_matrix"].to(dev)
+        step, gen_state = saved["step_size"], saved["generator"]
+    else:
+        x, step, imm, generator, warm_s, warm_acc = smoke.hmc_start(torch, dev)
+        gen_state = generator.get_state()
+        print(f"{label} hmc: phase 6's warmup in {warm_s:.2f} s (acceptance {warm_acc:.4f}), "
+              f"step size {step:.6f}, mean metric {float(imm.mean()):.6f}", flush=True)
+        if args.inputs:
+            torch.save({"positions": x.cpu(), "step_size": float(step),
+                        "inverse_mass_matrix": imm.cpu(), "generator": gen_state}, args.inputs)
+    target = lf.make_hierarchical_gaussian_target(x.shape[1])
+    sampler = blackjax_tpu_torch.fused_hmc(target, step, imm, smoke.HMC_STEPS)
+    has_transition = "fused_leapfrog:hmc_transition" in lf.LAUNCHES
+
+    def generator():
+        g = torch.Generator(device=dev)
+        g.set_state(gen_state)
+        return g
+
+    if args.sections:
+        if not has_transition:
+            raise SystemExit(f"{label}: this tree has no transition form")
+        return _hmc_sections(args, torch, card, label, lf, smoke, _nvcc)
+    if args.block_warps:
+        return _hmc_copies(args, torch, card, label, lf, smoke, _nvcc)
+
+    # the first run pays for the build and for the device memory that the
+    # kept history's positions take (as phase 6 does in chip_smoke.py)
+    segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+    _, cold_ms, cold_s = smoke.hmc_path(torch, sampler, generator(), x)
+    segments = torch.cuda.memory_stats().get("segment.all.allocated", 0) - segments
+    print(f"{label} hmc: the first run, its build and allocations included: {cold_ms:.2f} ms by "
+          f"CUDA events, {cold_s:.4f} s host clock, {segments} device segments allocated "
+          f"({card})", flush=True)
+    for _ in range(args.repeats):
+        before = dict(lf.LAUNCHES)
+        (track, acc), ms, host_s = smoke.hmc_path(torch, sampler, generator(), x)
+        launches = {k.split(":")[-1]: v - before[k] for k, v in lf.LAUNCHES.items()}
+        h = hashlib.sha256()
+        for t_ in (track, acc):
+            h.update(t_.cpu().contiguous().numpy().tobytes())
+        print(f"{label} hmc: {smoke.HMC_TRANSITIONS} transitions x {x.shape[0]} chains: {ms:.2f} "
+              f"ms by CUDA events ({ms / smoke.HMC_TRANSITIONS:.4f} ms a transition), "
+              f"{host_s:.4f} s host clock, mean acceptance {float(acc.mean()):.4f}, launches "
+              f"{launches}, history sha256 {h.hexdigest()[:16]} ({card})", flush=True)
+    hist = track.permute(1, 0, 2)  # (chains, samples, tracked)
+    min_ess = float(blackjax_tpu_torch.ess(hist.double()).min())
+    print(f"{label} hmc: min-ESS over {hist.shape[2]} tracked dims {min_ess:.1f} "
+          f"({min_ess / (ms / 1e3):.4g} ESS/s on the last run)", flush=True)
+    if args.history:
+        if os.path.exists(args.history):
+            other = torch.load(args.history).to(dev)
+            equal = (hist == other).flatten(1).all(1)
+            close = torch.isclose(hist, other, rtol=1e-5, atol=1e-5).flatten(1).all(1)
+            parted = (hist != other).flatten(2).any(2)  # (chains, samples)
+            first = parted.float().argmax(1)[parted.any(1)]
+            print(f"{label} hmc: history against {args.history}: {float(equal.float().mean()):.4f} "
+                  f"of chains bit for bit, {float(close.float().mean()):.4f} within 1e-5; "
+                  f"{int(parted.any(1).sum())} chains part, the first at transition "
+                  f"{int(first.min()) if len(first) else '-'}", flush=True)
+        else:
+            torch.save(hist.cpu(), args.history)
+    # phase 5's fused_leapfrog on this tree: the SHA-256 of its outputs
+    h = hashlib.sha256()
+    for case in ("hierarchical", "gaussian"):
+        (x5, _, m5, _, imm5, eps5), kw5 = _hmc_inputs(torch, lf, smoke, case)
+        for t_ in lf.fused_leapfrog(x5, m5, imm5, eps5, **kw5):
+            h.update(t_.cpu().contiguous().numpy().tobytes())
+    print(f"{label} hmc: phase 5's fused_leapfrog outputs (both targets) sha256 "
+          f"{h.hexdigest()[:16]}", flush=True)
+    # one transition: its kernels' device time by torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    state = sampler.init(x)
+    g = generator()
+    for _ in range(3):
+        state, _ = sampler.step(g, state)
+    torch.cuda.synchronize()
+    repeats = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            state, _ = sampler.step(g, state)
+        torch.cuda.synchronize()
+    records = [e for e in prof.events() if e.device_type.name == "CUDA"
+               and e.time_range.elapsed_us() > 0]
+    kernel = [e for e in records if "hmc_transition" in e.name or "leapfrog_kernel" in e.name]
+    total = sum(e.time_range.elapsed_us() for e in records) / 1e3 / repeats
+    own = sum(e.time_range.elapsed_us() for e in kernel) / 1e3 / repeats
+    print(f"{label} hmc: one transition by torch.profiler over {repeats}: {len(records) / repeats:.1f} "
+          f"device records a transition, {total:.4f} ms of device time in all, of which the "
+          f"fused kernel {own:.4f} ms ({card})", flush=True)
+    return 0
+
+
+def _hmc_inputs(torch, lf, smoke, case):
+    """Phase 5's inputs for the transition kernel (numpy seed 5: positions
+    0.5 N(0, I), normal draws, uniforms and a metric; step size 0.1)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    C, D = smoke.C, smoke.D
+    x = torch.from_numpy((0.5 * rng.standard_normal((C, D))).astype(np.float32)).to(dev)
+    z = torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32)).to(dev)
+    imm = torch.from_numpy(rng.uniform(0.5, 1.5, D).astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.random(C).astype(np.float32)).to(dev)
+    target = (lf.make_hierarchical_gaussian_target(D) if case == "hierarchical"
+              else lf.make_gaussian_target(D, np.logspace(-1, 1, D)))
+    return (x, target.logdensity_fn(x), z, u, imm, 0.1), dict(target=target,
+                                                              num_steps=smoke.HMC_STEPS)
+
+
+def _hmc_sections(args, torch, card, label, lf, smoke, nvcc):
+    """--machine hmc --sections: the transition kernel's cycles by part, at
+    phase 5's shape, for both targets, and chain 0 alone."""
+    lib, log = _hmc_copy(nvcc, lf, "sections", sections=True)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    ptxas = [s for s in smoke._ptxas_summary(log) if s.startswith("hmc_transition N=4 ")]
+
+    def counted(targs, kw):
+        library = lf._library
+        lf._library = lambda: lib
+        try:
+            lf._hmc_transition_cuda(*targs, **kw)
+            n = len(targs[0])
+            sec = np.zeros(8192 * 8, np.uint64)
+            span = np.zeros(8192 * 3, np.uint64)
+            lib.bjt_sections(sec.ctypes.data, span.ctypes.data, n)  # drains them
+            out, ms = smoke._timed(torch, lambda: lf._hmc_transition_cuda(*targs, **kw))
+            lib.bjt_sections(sec.ctypes.data, span.ctypes.data, n)
+        finally:
+            lf._library = library
+        sec = sec[:n * 8].reshape(n, 8).astype(np.float64)
+        counted_chains = sec[:, 6] > 0
+        steps = sec[counted_chains, 6].sum()
+        chains = counted_chains.sum()
+        parts = [sec[counted_chains, 0].sum() / chains, sec[counted_chains, 1].sum() / steps,
+                 sec[counted_chains, 2].sum() / steps, sec[counted_chains, 3].sum() / chains]
+        span = span[:n * 3].reshape(n, 3)[counted_chains].astype(np.int64)
+        return out, parts, span, ms
+
+    def line(parts, steps):
+        per_chain = parts[0] + steps * (parts[1] + parts[2]) + parts[3]
+        return (", ".join(f"{n_} {c:.0f}" for n_, c in zip(HMC_SECTIONS, parts))
+                + f"; a chain {per_chain:.0f} cycles ({per_chain / mhz:.3f} us at {mhz:.0f} MHz)")
+
+    for case in ("hierarchical", "gaussian"):
+        targs, kw = _hmc_inputs(torch, lf, smoke, case)
+        lf._hmc_transition_cuda(*targs, **kw)
+        _, plain_ms = smoke._timed(torch, lambda: lf._hmc_transition_cuda(*targs, **kw))
+        dev_ms = smoke._device_ms(torch, lambda: lf._hmc_transition_cuda(*targs, **kw),
+                                  "hmc_transition", repeats=50)
+        _, parts, span, ms = counted(targs, kw)
+        start, end = span[:, 0], span[:, 1]
+        print(f"{label} hmc sections, {case} d={smoke.D} C={smoke.C} num_steps={kw['num_steps']}: "
+              f"cycles a warp (prologue and epilogue a chain, the others a step): "
+              f"{line(parts, kw['num_steps'])}; warps' spans: first start to last end "
+              f"{(end.max() - start.min()) / 1e3:.2f} us, a warp's span mean "
+              f"{(end - start).mean() / 1e3:.2f} us, starts spread over "
+              f"{(start.max() - start.min()) / 1e3:.2f} us; launch {ms:.4f} ms by CUDA events with "
+              f"the counters, {plain_ms:.4f} ms without; the kernel's device time by "
+              f"torch.profiler {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}; ptxas "
+              f"{'; '.join(ptxas)} ({card})", flush=True)
+        one = tuple(a[:1] for a in targs[:4]) + targs[4:]  # x, ld, z, u of chain 0
+        _, lone, _, _ = counted(one, kw)
+        print(f"{label} hmc sections, {case}, chain 0 alone: {line(lone, kw['num_steps'])} "
+              f"({card})", flush=True)
+    shutil.rmtree(nvcc.build_dir() / "hmc_sections", ignore_errors=True)
+    return 0
+
+
+def _hmc_copies(args, torch, card, label, lf, smoke, nvcc):
+    """--machine hmc --block-warps B ...: the transition kernel
+    of each copy at phase 5's shape, both targets: its device time by
+    torch.profiler, its outputs against the tree's own launch and the plain
+    version, and its ptxas line."""
+    shapes = args.block_warps
+    lf._library()  # the tree's own first: the copies take its C interface
+    with ThreadPoolExecutor(max_workers=len(shapes)) as pool:
+        built = list(pool.map(lambda b: _hmc_copy(nvcc, lf, f"b{b}", block_warps=b), shapes))
+    library = lf._library
+    inputs = {case: _hmc_inputs(torch, lf, smoke, case) for case in ("hierarchical", "gaussian")}
+    own = {case: lf._hmc_transition_cuda(*targs, **kw) for case, (targs, kw) in inputs.items()}
+    plain = {case: lf._hmc_transition_plain(*targs, **kw) for case, (targs, kw) in inputs.items()}
+    for rnd in range(args.repeats):
+        for block, (lib, log) in [(None, (None, ""))] + list(zip(shapes, built)):
+            times = []
+            for case, (targs, kw) in inputs.items():
+                if lib is not None:
+                    lf._library = lambda lib=lib: lib
+                try:
+                    out = lf._hmc_transition_cuda(*targs, **kw)
+                    dev_ms = smoke._device_ms(
+                        torch, lambda: lf._hmc_transition_cuda(*targs, **kw), "hmc_transition",
+                        repeats=50)
+                finally:
+                    lf._library = library
+                same = all(torch.equal(a, b) for a, b in zip(out, own[case]))
+                agree = out[3] == plain[case][3]
+                for a, b in zip(out[:3], plain[case][:3]):
+                    ok = torch.isclose(a, b, rtol=1e-5, atol=1e-5)
+                    agree &= ok.all(1) if ok.dim() == 2 else ok
+                times.append(f"{case} {'not measured' if dev_ms is None else f'{dev_ms:.4f}'} ms "
+                             f"(bits of the tree's: {same}; {float(agree.float().mean()):.4f} of "
+                             f"chains agree with the plain version)")
+            ptxas = [s for s in smoke._ptxas_summary(log) if s.startswith("hmc_transition ")]
+            print(f"{label} hmc round {rnd}, {block or 'default'} warps a block: "
+                  f"{'; '.join(times)}"
+                  + (f"; ptxas {'; '.join(ptxas)}" if ptxas else "") + f" ({card})", flush=True)
+    for block in shapes:
+        shutil.rmtree(nvcc.build_dir() / f"hmc_b{block}", ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -1100,7 +1415,8 @@ def main() -> int:
     parser.add_argument("--form", choices=("resident", "registers"), default=None)
     parser.add_argument("--warps", type=int, nargs="+", default=None)
     parser.add_argument("--block-warps", type=int, nargs="+", default=None)
-    parser.add_argument("--machine", choices=("dc", "older", "mclmc"), default="dc")
+    parser.add_argument("--machine", choices=("dc", "older", "mclmc", "hmc"), default="dc")
+    parser.add_argument("--history", default=None)
     parser.add_argument("--sass", action="store_true")
     parser.add_argument("--inputs", default=None)
     args = parser.parse_args()
@@ -1112,11 +1428,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("dc_kernel_ms: no CUDA device visible", file=sys.stderr)
         return 1
-    if args.machine in ("older", "mclmc"):
+    if args.machine in ("older", "mclmc", "hmc"):
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip()
-        run = _older if args.machine == "older" else _mclmc
+        run = {"older": _older, "mclmc": _mclmc, "hmc": _hmc}[args.machine]
         return run(args, torch, card, args.label or args.root)
     from blackjax_tpu_torch.ops import _nvcc, targets_dc
     from blackjax_tpu_torch.ops import fused_nuts_dc as dc

@@ -481,7 +481,7 @@ def test_leapfrog_logistic_regression_matches_plain_version(cuda, n, d, C):
     kern = fl.fused_leapfrog(x, m, imm, eps, target=target, num_steps=10)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in fl.LAUNCHES.items()} == {
-        "fused_leapfrog": 1, "fused_leapfrog:logreg_tiles": 1}
+        "fused_leapfrog": 1, "fused_leapfrog:logreg_tiles": 1, "fused_leapfrog:hmc_transition": 0}
     plain = fl.fused_leapfrog_plain(x, m, imm, eps, target=target, num_steps=10)
     close = torch.ones(C, dtype=torch.bool, device=cuda)
     for a, b in zip(kern, plain):
@@ -506,12 +506,159 @@ def test_fused_hmc_launches_once_per_transition(cuda):
     algo = fused_hmc(fl.make_hierarchical_gaussian_target(d), 0.15, torch.ones(d, device=cuda), 10)
     state = algo.init(0.5 * torch.randn(C, d, device=cuda))
     g = torch.Generator(device=cuda).manual_seed(0)
-    before = fl.LAUNCHES["fused_leapfrog"]
+    before = dict(fl.LAUNCHES)
     for _ in range(5):
         state, info = algo.step(g, state)
     torch.cuda.synchronize()
-    assert fl.LAUNCHES["fused_leapfrog"] == before + 5
+    assert {k: v - before[k] for k, v in fl.LAUNCHES.items()} == {
+        "fused_leapfrog": 5, "fused_leapfrog:logreg_tiles": 0, "fused_leapfrog:hmc_transition": 5}
     assert torch.isfinite(state.positions).all() and info.acceptance_rate.shape == (C,)
+    assert info.is_accepted.dtype == torch.bool
+
+
+def _transition_inputs(cuda, case, d, C):
+    """A target, positions and their log densities, draws and a metric for
+    the transition kernel, from numpy seed d + C."""
+    rng = np.random.default_rng(d + C)
+    if case == "hierarchical":
+        target = fl.make_hierarchical_gaussian_target(d)
+    else:
+        target = fl.make_gaussian_target(d, rng.uniform(0.5, 4.0, d))
+
+    def on(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    x = on(0.5 * rng.standard_normal((C, d)))
+    return (target, x, target.logdensity_fn(x), on(rng.standard_normal((C, d))),
+            on(rng.random(C)), on(rng.uniform(0.5, 1.5, d)))
+
+
+def _hold_to_float64(case, kern, x, ld, z, imm, step_size, kw):
+    """The transition kernel's outputs on its own trajectory: the positions
+    and energy1 are ``fused_leapfrog``'s from the same momenta, bit for bit,
+    and on every chain with a finite proposal the accepted log density and
+    p_accept are within eight float32 epsilons of the largest term they come
+    from (a kinetic energy, a log density or, on the hierarchical target,
+    ``0.5 theta^2 exp(-log_tau)``) of the same quantities in float64 from
+    that trajectory's f32 end (p_accept relative to itself, with its own
+    rounding). A wrong kinetic or log-density term shows
+    here; the plain version cannot hold the kernel this tight, since its
+    trajectory parts from the kernel's within rounding."""
+    eps = torch.finfo(torch.float32).eps
+    target, num_steps = kw["target"], kw["num_steps"]
+    m0 = z / torch.sqrt(imm)
+    xe, me, e1 = fl.fused_leapfrog(x, m0, imm, step_size, target=target, num_steps=num_steps)
+    x1, ld1, p_accept, accept, energy = kern
+    torch.testing.assert_close(energy, e1, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(x1, torch.where(accept[:, None], xe, x))
+    assert torch.equal(ld1[~accept], ld[~accept])
+    kinetic0 = 0.5 * (m0.double() ** 2 * imm.double()).sum(1)
+    kinetic1 = 0.5 * (me.double() ** 2 * imm.double()).sum(1)
+    ld_end = target.logdensity_tile(xe.double())
+    p64 = torch.clamp(torch.exp(-ld.double() + kinetic0 - (-ld_end + kinetic1)), max=1.0)
+    terms = torch.stack([kinetic0, kinetic1, ld.double().abs(), ld_end.abs()]).amax(0)
+    if case == "hierarchical":
+        x64 = xe.double()
+        terms = torch.maximum(terms, 0.5 * (x64[:, 1:] ** 2).sum(1) * torch.exp(-x64[:, 0]))
+    finite = torch.isfinite(terms) & torch.isfinite(p64)
+    tol = 8 * eps * terms
+    held = accept & finite
+    assert ((ld1.double() - ld_end).abs() <= tol)[held].all()
+    # p_accept also rounds to f32 itself, and underflows below f32's tiny
+    tiny = torch.finfo(torch.float32).tiny
+    assert ((p_accept.double() - p64).abs() <= (tol + eps) * p64 + tiny)[finite].all()
+
+
+def _transition_pair(cuda, case, d, C, num_steps, step_size):
+    """The transition kernel, launched once, and its plain version on the
+    same inputs; returns both outputs and the share of chains that agree:
+    the same accept flag, positions to 1e-5, and log densities and p_accept
+    to 1e-5 of the energy they come from. Both are differences of two
+    energies of order d (``-(energy1 - kinetic1)``, ``exp(energy0 -
+    energy1)``): the plain version's gradient sums run in torch's order, so
+    its trajectory parts from the kernel's within rounding, and on the
+    hierarchical target at d = 256 the log density amplifies that to up to
+    ~100 float32 epsilons of the energy on a few chains in a hundred. The
+    kernel is also held to float64 on its own trajectory
+    (:func:`_hold_to_float64`), on every chain."""
+    target, x, ld, z, u, imm = _transition_inputs(cuda, case, d, C)
+    kw = dict(target=target, num_steps=num_steps)
+    before = dict(fl.LAUNCHES)
+    kern = fl._hmc_transition_cuda(x, ld, z, u, imm, step_size, **kw)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in fl.LAUNCHES.items()} == {
+        "fused_leapfrog": 1, "fused_leapfrog:logreg_tiles": 0, "fused_leapfrog:hmc_transition": 1}
+    plain = fl._hmc_transition_plain(x, ld, z, u, imm, step_size, **kw)
+    for a, b in zip(kern, plain):
+        assert a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+    _hold_to_float64(case, kern, x, ld, z, imm, step_size, kw)
+    scale = torch.nan_to_num(plain[4].abs(), nan=1.0, posinf=1.0).clamp(min=1.0)
+    same = (kern[3] == plain[3]) & torch.isclose(kern[0], plain[0], rtol=TOL, atol=TOL).all(1)
+    same &= (kern[1] - plain[1]).abs() <= TOL * scale
+    same &= (kern[2] - plain[2]).abs() <= TOL + TOL * scale * plain[2]
+    return kern, plain, float(same.float().mean())
+
+
+@pytest.mark.parametrize("num_steps", [1, 10])
+@pytest.mark.parametrize("C", [1, 5, 4096])
+@pytest.mark.parametrize("d", [1, 31, 32, 33, 100, 128, 256])
+@pytest.mark.parametrize("case", ["hierarchical", "gaussian"])
+def test_hmc_transition_kernel_matches_plain_version(cuda, case, d, C, num_steps):
+    kern, _, share = _transition_pair(cuda, case, d, C, num_steps, 0.1)
+    assert share >= LEAPFROG_FLOOR
+    for t in kern[:3]:
+        assert torch.isfinite(t).all()
+
+
+@pytest.mark.parametrize("case", ["hierarchical", "gaussian"])
+def test_hmc_transition_kernel_rejects_a_divergent_trajectory(cuda, case):
+    """At a step size where every trajectory diverges: delta's NaN is -inf,
+    p_accept 0, nothing accepted, the positions and log densities kept, as
+    in the plain version."""
+    (x, ld, p_accept, accept, energy), plain, share = _transition_pair(
+        cuda, case, 100, 512, 10, 1e4)
+    target, x0, ld0, *_ = _transition_inputs(cuda, case, 100, 512)
+    assert not torch.isfinite(energy).any() and not torch.isfinite(plain[4]).any()
+    assert (p_accept == 0).all() and not accept.any()
+    assert torch.equal(x, x0) and torch.equal(ld, ld0)
+    assert share == 1.0
+
+
+def test_hmc_transition_refuses_d257(cuda):
+    d = 257
+    target = fl.make_hierarchical_gaussian_target(d)
+    x = torch.zeros(4, d, device=cuda)
+    with pytest.raises(ValueError, match="d <= 256"):
+        fl._hmc_transition_cuda(x, torch.zeros(4, device=cuda), x, torch.zeros(4, device=cuda),
+                                torch.ones(d, device=cuda), 0.1, target=target, num_steps=2)
+    algo = fused_hmc(target, 0.1, torch.ones(d, device=cuda), 2)
+    with pytest.raises(ValueError, match="d <= 256"):
+        algo.step(torch.Generator(device=cuda).manual_seed(0), algo.init(x))
+
+
+def test_fused_hmc_logistic_regression_keeps_the_tiles_leapfrog(cuda):
+    """A transition on logistic regression is one launch of the tiles-form
+    leapfrog and the PyTorch ops around it, the plain transition's ops."""
+    n, d, C = 300, 54, 256
+    target = fl.make_logistic_regression_target(*_logreg_data(n, d))
+    algo = fused_hmc(target, 0.2 / np.sqrt(n), torch.ones(d, device=cuda), 10)
+    state = algo.init(0.1 * torch.randn(C, d, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    z = torch.randn(C, d, generator=g, device=cuda)
+    u = torch.rand(C, generator=g, device=cuda)
+    before = dict(fl.LAUNCHES)
+    new_state, info = algo.step_from_draws(state, z, u)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in fl.LAUNCHES.items()} == {
+        "fused_leapfrog": 1, "fused_leapfrog:logreg_tiles": 1, "fused_leapfrog:hmc_transition": 0}
+    plain = fl._hmc_transition_plain(state.positions, state.logdensities, z, u,
+                                     algo.inverse_mass_matrix, algo.step_size, target=target,
+                                     num_steps=10)
+    same = info.is_accepted == plain[3]
+    for a, b in zip((new_state.positions, new_state.logdensities, info.acceptance_rate), plain):
+        ok = torch.isclose(a, b, rtol=TOL, atol=TOL)
+        same &= ok.all(1) if ok.dim() == 2 else ok
+    assert float(same.float().mean()) >= LEAPFROG_FLOOR
 
 
 MCLMC_TOL = 1e-5
