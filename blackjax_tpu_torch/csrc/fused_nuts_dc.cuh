@@ -65,6 +65,11 @@
 // (255 a thread). Its 2 * max_depth checkpoint slots, indexed by a
 // data-dependent slot id, live in shared memory (each lane touches only its
 // own dims, so no barrier), and so does a matrix target's per-warp scratch.
+// Eight schools (d = 10) under the diagonal metric has a second form, the
+// thread form (nuts_dc_thread): one chain a thread, its sums short trees of
+// adds in the registers form's association order, so the same bits (see
+// the head of its section below). It measured slower than the registers
+// form, which the wrapper keeps unless its _EIGHT_SCHOOLS_THREAD is set.
 //
 // Metrics. The diagonal metric keeps M^{-1} (and, at a restart, the momentum
 // scale) per lane in registers and recomputes w = M^{-1} m where a U-turn check
@@ -1232,6 +1237,319 @@ __global__ void __launch_bounds__(kResidentBlockWarps * 32,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The thread form: eight schools under the diagonal metric, one chain a thread
+// ---------------------------------------------------------------------------
+//
+// At d = 10 a chain fits one thread's registers, so a warp runs 32 chains,
+// as the Pallas kernel runs one chain a lane of the TPU's vector unit. Every
+// sum that the registers form takes with a butterfly is a short tree of adds
+// in one thread (thread_sum10, thread_sum8), in the butterfly's association
+// order, so both forms give the same bits; nothing crosses lanes, so a
+// leaf's dependent chain loses the registers form's shuffles. The leaf's x,
+// m and g (updated in place), the accepted state, the subtree's sample and
+// both momentum sums stay in registers; the checkpoint slots, indexed by a
+// data-dependent level, live in shared memory as [level][m | msum][dim]
+// [lane], so that a warp's 32 chains hit 32 banks; the proposal and the
+// trajectory's two ends, touched at subtree boundaries only, live beside
+// them as [vector][dim][lane]. A block is one warp: device memory for the
+// ends, and blocks of more warps, measured slower (dc_kernel_ms.py: PERF.md
+// §6). The draws are the registers form's: the same counter keys, one
+// threefry block a leaf drawn before the gradient (as the resident form
+// draws it). A warp runs its loop until its last chain is done; a finished or parked thread does nothing meanwhile, so per chain
+// it, budget, steps and iters keep their meaning. The launch ends with its
+// slowest warp, whose time is its slowest chain's iterations times the
+// warp's iteration.
+//
+// Measured (PERF.md §6), it loses to the registers form at the
+// tracked shape (512 chains x 800 transitions): 19.61 against 9.08 ms. A
+// thread issues a chain's ten dims one after the other, so even alone its
+// iteration (1,481 cycles) is slower than a warp's with its butterflies
+// (1,290), and the warp runs every branch that one of its 32 chains takes,
+// which nearly doubles that on the full launch; 512 chains fill 16 warps, one
+// scheduler each, where the registers form gives each chain its own.
+
+constexpr int kThreadDim = 10;  // eight schools
+
+// the thread form's vectors beside the registers, by index
+enum ThreadVec { kTPropX, kTPropG, kTLeftX, kTLeftM, kTLeftG, kTRightX, kTRightM, kTRightG,
+                 kThreadVectors };
+
+// floats of a block's (one warp's) checkpoint slots
+__host__ __device__ constexpr int thread_slot_floats(int max_depth) {
+  return 2 * max_depth * kThreadDim * 32;
+}
+// a block's dynamic shared memory, the slots and then the proposal and the
+// ends; ops/fused_nuts_dc.py:shared_memory_plan mirrors it
+__host__ __device__ constexpr size_t thread_block_bytes(int max_depth) {
+  return (size_t)(thread_slot_floats(max_depth) + kThreadVectors * kThreadDim * 32) *
+         sizeof(float);
+}
+
+// a chain's value of tracked coordinate r, by selects (no local memory)
+__device__ __forceinline__ float tracked(const float (&x)[kThreadDim], int r) {
+  float v = x[0];
+#pragma unroll
+  for (int k = 1; k < kThreadDim; ++k) v = r == k ? x[k] : v;
+  return v;
+}
+
+// The machine of nuts_dc_kernel<1, F, M> with one chain a thread.
+template <int F, int M>
+__global__ void __launch_bounds__(32) nuts_dc_thread(const Params p) {
+  static_assert(F == kEightSchoolsDC && M == kDiag, "the thread form runs eight schools, diag");
+  constexpr int D = kThreadDim;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x;
+  const int chain = blockIdx.x * 32 + lane;
+  if (chain >= p.C) return;  // thread
+  // slot i's m at ck[(2 i D + k) 32], its msum at ck[((2 i + 1) D + k) 32]
+  float* const ck = smem + lane;
+  // the proposal and the ends, [vector][dim][lane]
+  float* const cold = ck + thread_slot_floats(p.max_depth);
+  const auto vec = [&](int i) { return ColdVec<D>{cold + i * D * 32}; };
+  ColdVec<D> prop_x = vec(kTPropX), prop_g = vec(kTPropG);
+  ColdVec<D> left_x = vec(kTLeftX), left_m = vec(kTLeftM), left_g = vec(kTLeftG);
+  ColdVec<D> right_x = vec(kTRightX), right_m = vec(kTRightM), right_g = vec(kTRightG);
+
+  float imm[D], u[8], s[8];
+  float x[D], m[D], g[D], w[D], acc_x[D], acc_g[D], sub_x[D], sub_g[D], msum[D], sub_msum[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    imm[k] = __ldg(p.imm + k);
+    x[k] = p.x0[(size_t)chain * D + k];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    u[i] = __ldg(p.mat.u + i);
+    s[i] = __ldg(p.mat.s + i);
+  }
+  float acc_ld = eight_schools_thread(u, s, x, g);
+  copy<D>(acc_x, x); copy<D>(acc_g, g);
+
+  float prop_ld = 0.f, sub_ld = 0.f, prop_w = 0.f, sub_w = 0.f, h0 = 0.f;
+  float direction = 1.f, grads = 0.f;
+  // the subtree's second uniform word (its biased merge) and the next
+  // subtree's two words (its direction's and its merge's)
+  uint32_t u_prop = 0u, u_next_dir = 0u, u_next_prop = 0u;
+  int depth = 0, leaf = 0, nstates = 0, steps = 0;
+  // iteration 0 starts with done = 1, so it opens the first transition;
+  // prop_new: the proposal has moved off the accepted state this transition
+  bool done = true, div = false, turn = false, prop_new = false;
+  const int S = p.S;
+  const int budget = p.budgets != nullptr ? p.budgets[chain] : p.budget;
+  int iters = 0;  // thread
+  for (int it = 0;; ++it) {
+    if (it >= budget || steps >= S) break;
+    // a closed chain restarts on the gated iterations only; until then it is
+    // parked, and a parked leaf changes nothing the restart keeps
+    if (done && it % p.restart_every != 0) continue;
+    // counter key of this (chain, step), wrapping modulo 2^32 as the int32
+    // of the reference (fused_nuts_dc.py:395)
+    const uint32_t base_row = (uint32_t)chain * (uint32_t)S + (uint32_t)steps;
+
+    if (done) {
+      // ---- inline restart (thread) ----
+      // the registers form's momentum keys (with their collision at chains *
+      // num_steps >= 2^24, kept for parity: see nuts_dc_kernel); the
+      // subtree's sample is set at its first leaf, and the proposal stays
+      // the accepted state until a subtree is taken
+      const uint32_t c1 = (1u << 24) | base_row;
+      float e[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        uint32_t b1, b2;
+        threefry2x32(p.seed, kKey1, (uint32_t)k, c1, b1, b2);
+        m[k] = __ldg(p.sigma_m + k) * box_muller(b1, b2);
+        e[k] = imm[k] * m[k] * m[k];
+      }
+      h0 = -acc_ld + 0.5f * thread_sum10(e);
+      copy<D>(x, acc_x); copy<D>(g, acc_g);
+      copy<D>(left_x, x); copy<D>(left_m, m); copy<D>(left_g, g);
+      copy<D>(right_x, x); copy<D>(right_m, m); copy<D>(right_g, g);
+      copy<D>(msum, m);
+      prop_ld = acc_ld;
+      prop_w = 0.f;
+      prop_new = false;
+      depth = leaf = nstates = 0;
+      div = turn = done = false;
+      threefry2x32(p.seed, kKey1, base_row, 2u << 24, u_next_dir, u_next_prop);  // depth 0's
+    }
+
+    // ---- subtree start (thread): the direction drawn ahead, the other end
+    // read only on a turn of direction (see nuts_dc_resident) ----
+    const bool at_start = leaf == 0;
+    if (at_start) {
+      u_prop = u_next_prop;
+      const float last = direction;
+      direction = to_unit(u_next_dir) < 0.5f ? -1.f : 1.f;
+      if (depth > 0 && direction != last) {
+        if (direction > 0.f) {
+          copy<D>(x, right_x); copy<D>(m, right_m); copy<D>(g, right_g);
+        } else {
+          copy<D>(x, left_x); copy<D>(m, left_m); copy<D>(g, left_g);
+        }
+      }
+    }
+    const bool fwd = direction > 0.f;
+
+    // ---- one velocity-Verlet leaf (thread) ----
+    // the merge's uniform, or on a subtree's first leaf the next subtree's block
+    uint32_t u_leaf, u_second;
+    threefry2x32(p.seed, kKey1, base_row,
+                 at_start ? (2u << 24) | (uint32_t)(depth + 1) : (3u << 24) | (uint32_t)nstates,
+                 u_leaf, u_second);
+    if (at_start) {
+      u_next_dir = u_leaf;
+      u_next_prop = u_second;
+    }
+    const float d_eps = direction * p.eps;
+    const float half = 0.5f * d_eps;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      m[k] = m[k] + half * g[k];
+      x[k] = x[k] + d_eps * (imm[k] * m[k]);
+    }
+    const float new_ld = eight_schools_thread(u, s, x, g);
+    float e[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      m[k] = m[k] + half * g[k];
+      w[k] = imm[k] * m[k];
+      e[k] = w[k] * m[k];
+      sub_msum[k] = at_start ? m[k] : sub_msum[k] + m[k];
+    }
+    const float energy = -new_ld + 0.5f * thread_sum10(e);
+    float delta = h0 - energy;
+    if (isnan(delta)) delta = -INFINITY;  // fused_nuts_dc.py:484
+    const float leaf_w = delta;
+    const bool leaf_div = -delta > p.threshold;
+
+    // ---- progressive uniform merge within the subtree (thread) ----
+    {
+      const float p_acc = 1.f / (1.f + expf(-(leaf_w - sub_w)));
+      const float merged_w = logaddexp(sub_w, leaf_w);
+      if (at_start || to_unit(u_leaf) < p_acc) {
+        copy<D>(sub_x, x); copy<D>(sub_g, g);
+        sub_ld = new_ld;
+      }
+      sub_w = at_start ? leaf_w : merged_w;
+    }
+
+    // ---- checkpointed subtree U-turn (thread) ----
+    const int idx_max = __popc(leaf >> 1);
+    bool subtree_turning = false;
+    if ((leaf & 1) == 0) {
+      float* slot = ck + 2 * idx_max * D * 32;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        slot[k * 32] = m[k];
+        slot[(D + k) * 32] = sub_msum[k];
+      }
+    } else {
+      const int idx_min = idx_max - __popc(((~leaf) & (leaf + 1)) - 1) + 1;
+      for (int i = idx_min; i <= idx_max && !subtree_turning; ++i) {
+        const float* slot = ck + 2 * i * D * 32;
+        float a[D], b[D];
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          const float ckm = slot[k * 32], cks = slot[(D + k) * 32];
+          const float rho = sub_msum[k] - 0.5f * m[k] - cks + 0.5f * ckm;
+          a[k] = imm[k] * ckm * rho;
+          b[k] = w[k] * rho;
+        }
+        subtree_turning = thread_sum10(a) <= 0.f || thread_sum10(b) <= 0.f;
+      }
+    }
+
+    // ---- subtree boundary: merge into the trajectory (thread) ----
+    const bool aborted = leaf_div || subtree_turning;
+    const bool closing = leaf + 1 >= (1 << depth) || aborted;
+    bool full_turn = false;
+    if (closing) {
+      // the leaf becomes the end on its side; the full tree's check reads
+      // the other end
+      float a[D], b[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        msum[k] = msum[k] + sub_msum[k];
+        float lm, rm;
+        if (fwd) {
+          right_x[k] = x[k]; right_m[k] = m[k]; right_g[k] = g[k];
+          lm = left_m[k];
+          rm = m[k];
+        } else {
+          left_x[k] = x[k]; left_m[k] = m[k]; left_g[k] = g[k];
+          lm = m[k];
+          rm = right_m[k];
+        }
+        const float rho = msum[k] - 0.5f * (lm + rm);
+        a[k] = imm[k] * lm * rho;
+        b[k] = imm[k] * rm * rho;
+      }
+      // biased merge toward the new subtree; an aborted subtree adds nothing.
+      // min(NaN, 1) stays NaN, as jnp.minimum.
+      const float ratio = expf(sub_w - prop_w);
+      const float p_biased = ratio > 1.f ? 1.f : ratio;
+      if (to_unit(u_prop) < p_biased && !aborted) {
+        copy<D>(prop_x, sub_x); copy<D>(prop_g, sub_g);
+        prop_ld = sub_ld;
+        prop_new = true;
+      }
+      if (!aborted) prop_w = logaddexp(prop_w, sub_w);
+      full_turn = thread_sum10(a) <= 0.f || thread_sum10(b) <= 0.f;
+      depth += 1;
+      leaf = 0;
+    } else {
+      leaf += 1;
+    }
+
+    // ---- transition close (thread) ----
+    div = div || leaf_div;  // the divergence test is -delta > threshold
+    turn = turn || (closing && (subtree_turning || full_turn));
+    done = div || turn || (closing && depth >= p.max_depth);
+    nstates += 1;
+    if (done) {
+      // grads counts nstates only when a transition closes (:581)
+      grads = grads + (float)nstates;
+      if (prop_new) {
+        copy<D>(acc_x, prop_x); copy<D>(acc_g, prop_g);
+      }
+      acc_ld = prop_ld;
+      iters = it + 1;
+      // history row steps - 1 of the closed transition; rows never reached
+      // keep the caller's zeros
+      float* row = p.out_hist + ((size_t)chain * S + steps) * p.n_track;
+      for (int t = 0; t < p.n_track; ++t) row[t] = tracked(acc_x, __ldg(p.track_rows + t));
+      steps += 1;
+    }
+  }
+
+  // ---- final state (thread) ----
+#pragma unroll
+  for (int k = 0; k < D; ++k) p.out_x[(size_t)chain * D + k] = acc_x[k];
+  p.out_steps[chain] = steps;
+  p.out_grads[chain] = grads;
+  p.out_iters[chain] = iters;
+}
+
+template <int M>
+cudaError_t launch_thread(const Params& p, cudaStream_t stream) {
+  if constexpr (M != kDiag) {
+    return cudaErrorInvalidValue;
+  } else {
+    const size_t smem = thread_block_bytes(p.max_depth);
+    const auto kernel = nuts_dc_thread<kEightSchoolsDC, M>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         carveout_for(true));
+    if (e == cudaSuccess && smem > 48 * 1024)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<(p.C + 31) / 32, 32, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+}
+
 // the carveout of the SM's shared memory that the resident form asks for
 // (carveout_for)
 template <int N, int M>
@@ -1277,9 +1595,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // the family's instantiation for the target and the form the wrapper chose
 // (form = 1: for the horseshoe X in shared memory, else X from L2; for the
 // analytic targets the resident form, N <= 8, else one warp's state in
-// registers); eight schools has d = 10
+// registers; form = 2: eight schools' thread form, else its registers form);
+// eight schools has d = 10
 template <int N, int M>
-cudaError_t launch_target(const Params& p, bool form, cudaStream_t stream) {
+cudaError_t launch_target(const Params& p, int form, cudaStream_t stream) {
   switch (p.target) {
     case kHierarchical:
     case kGaussian:
@@ -1297,7 +1616,7 @@ cudaError_t launch_target(const Params& p, bool form, cudaStream_t stream) {
                   : launch<N, kHorseshoeDC, M>(p, stream);
     case kEightSchoolsDC:
       if constexpr (N == 1) {
-        return launch<1, kEightSchoolsDC, M>(p, stream);
+        return form == 2 ? launch_thread<M>(p, stream) : launch<1, kEightSchoolsDC, M>(p, stream);
       } else {
         return cudaErrorInvalidValue;
       }
@@ -1308,7 +1627,7 @@ cudaError_t launch_target(const Params& p, bool form, cudaStream_t stream) {
 // checks the metric's operands and launches the instantiation for d: N = 1,
 // 2, 4, 8 for every metric, and 13, 16 for the diagonal one
 template <int M>
-cudaError_t run_machine(const Params& p, bool form, cudaStream_t s) {
+cudaError_t run_machine(const Params& p, int form, cudaStream_t s) {
   if constexpr (M == kDiag) {
     if (p.imm == nullptr || p.sigma_m == nullptr) return cudaErrorInvalidValue;
   } else if constexpr (M == kDense) {
@@ -1334,7 +1653,7 @@ cudaError_t run_machine(const Params& p, bool form, cudaStream_t s) {
 
 // block_bytes of the instantiation for d with N registers per vector
 template <int M, int N>
-size_t block_bytes_for(int target, bool form, int max_depth, int rows, int cols, int rank,
+size_t block_bytes_for(int target, int form, int max_depth, int rows, int cols, int rank,
                        bool metric_shared) {
   switch (target) {
     case kLogRegDC:
@@ -1343,6 +1662,7 @@ size_t block_bytes_for(int target, bool form, int max_depth, int rows, int cols,
       return form ? block_bytes<N, kHorseshoeDC, M, true>(max_depth, rows, cols, rank, false)
                   : block_bytes<N, kHorseshoeDC, M, false>(max_depth, rows, cols, rank, false);
     case kEightSchoolsDC:
+      if (form == 2) return thread_block_bytes(max_depth);
       return block_bytes<N, kEightSchoolsDC, M, false>(max_depth, rows, cols, rank, false);
     default:
       if constexpr (N <= 8) {
@@ -1355,7 +1675,11 @@ size_t block_bytes_for(int target, bool form, int max_depth, int rows, int cols,
 // a chain's floats of scratch in device memory, {cold vectors, checkpoint
 // slots}, of the instantiation for d with N registers per vector
 template <int M, int N>
-void scratch_floats_for(int target, bool form, int max_depth, long long* out) {
+void scratch_floats_for(int target, int form, int max_depth, long long* out) {
+  if (target == kEightSchoolsDC && form == 2) {
+    out[0] = out[1] = 0;
+    return;
+  }
   const bool resident = N <= 8 && form && (target == kHierarchical || target == kGaussian);
   if constexpr (N <= 8) {
     if (resident) {
@@ -1370,7 +1694,7 @@ void scratch_floats_for(int target, bool form, int max_depth, long long* out) {
 
 // the analytic target's instantiation for d, in the form
 template <int M, int N>
-cudaError_t analytic_occupancy(int target, bool form, int max_depth, int* out) {
+cudaError_t analytic_occupancy(int target, int form, int max_depth, int* out) {
   if constexpr (N <= 8) {
     if (form) {
       const size_t smem = resident_block_bytes<N, M>(max_depth);
@@ -1448,10 +1772,12 @@ int bjt_fused_nuts_dc(const float* x0, const float* imm, const float* sigma_m,
   if (target == kHorseshoeDC && (X == nullptr || (Xt == nullptr && !form) || u == nullptr ||
                                  s_vec == nullptr || d != 2 * cols + 4))
     return cudaErrorInvalidValue;
-  if (form && target != kHorseshoeDC && !analytic) return cudaErrorInvalidValue;
+  if (form < 0 || form > 2 || (form == 1 && target != kHorseshoeDC && !analytic) ||
+      (form == 2 && target != kEightSchoolsDC))
+    return cudaErrorInvalidValue;
   if (target == kEightSchoolsDC && (u == nullptr || s_vec == nullptr || d != 10))
     return cudaErrorInvalidValue;
-  return run_machine<BJT_DC_METRIC>(p, form != 0, static_cast<cudaStream_t>(stream));
+  return run_machine<BJT_DC_METRIC>(p, form, static_cast<cudaStream_t>(stream));
 }
 
 // the dynamic shared memory a launch of bjt_fused_nuts_dc with these
@@ -1460,7 +1786,7 @@ long long bjt_dc_block_bytes(int d, int target, int form, int max_depth, int row
                              int cols, int rank, int metric_shared) {
   return for_width<BJT_DC_METRIC>(d, [&](auto width) {
     return (long long)block_bytes_for<BJT_DC_METRIC, decltype(width)::value>(
-        target, form != 0, max_depth, rows, cols, rank, metric_shared != 0);
+        target, form, max_depth, rows, cols, rank, metric_shared != 0);
   }, -1LL);
 }
 
@@ -1469,17 +1795,32 @@ long long bjt_dc_block_bytes(int d, int target, int form, int max_depth, int row
 // slots; returns -1 where no instantiation takes d
 int bjt_dc_scratch_floats(int d, int target, int form, int max_depth, long long* out) {
   return for_width<BJT_DC_METRIC>(d, [&](auto width) {
-    scratch_floats_for<BJT_DC_METRIC, decltype(width)::value>(target, form != 0, max_depth, out);
+    scratch_floats_for<BJT_DC_METRIC, decltype(width)::value>(target, form, max_depth, out);
     return 0;
   }, -1);
 }
 
-// the analytic target's instantiation for d in the form (1: resident) at
-// max_depth: out[0] its resident warps an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times its warps a block), out[1] its
-// registers a thread, out[2] its local memory a thread in bytes (spills);
-// returns the CUDA error code
+// the instantiation for d in the form at max_depth, for an analytic target
+// (form 1: resident) or eight schools (form 2: thread): out[0] its resident
+// warps an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor times its warps
+// a block), out[1] its registers a thread, out[2] its local memory a thread
+// in bytes (spills); returns the CUDA error code
 int bjt_dc_occupancy(int d, int target, int form, int max_depth, int* out) {
+  if (target == kEightSchoolsDC) {
+    if (d != kThreadDim) return cudaErrorInvalidValue;
+    if (form == 2) {
+      if constexpr (BJT_DC_METRIC != kDiag) {
+        return cudaErrorInvalidValue;
+      } else {
+        return (int)occupancy_of(nuts_dc_thread<kEightSchoolsDC, kDiag>, 1,
+                                 thread_block_bytes(max_depth), out, carveout_for(true));
+      }
+    }
+    if (form != 0) return cudaErrorInvalidValue;
+    return (int)occupancy_of(nuts_dc_kernel<1, kEightSchoolsDC, BJT_DC_METRIC, false>, kWarps,
+                             block_bytes<1, kEightSchoolsDC, BJT_DC_METRIC, false>(
+                                 max_depth, 0, 0, 0, false), out);
+  }
   if (target != kHierarchical && target != kGaussian) return cudaErrorInvalidValue;
   return for_width<BJT_DC_METRIC>(d, [&](auto width) {
     return (int)analytic_occupancy<BJT_DC_METRIC, decltype(width)::value>(target, form != 0,

@@ -613,7 +613,8 @@ __device__ float horseshoe_dc(const MatrixData& m, int d, const float (&x)[N], f
 }
 
 // targets_dc.py:394-432, the layout [z(8), mu, log_tau]: one register per
-// lane (d = 10), z in lanes 0..7, mu and log_tau in lanes 8 and 9
+// lane (d = 10), z in lanes 0..7, mu and log_tau in lanes 8 and 9 (the
+// registers form; the thread form's is eight_schools_thread below)
 __device__ float eight_schools_dc(const MatrixData& m, const float (&x)[1], float (&g)[1],
                                   int lane) {
   const float mu = __shfl_sync(kFull, x[0], 8), log_tau = __shfl_sync(kFull, x[0], 9);
@@ -630,6 +631,48 @@ __device__ float eight_schools_dc(const MatrixData& m, const float (&x)[1], floa
   g[0] = is_z ? -z + r * tau
               : lane == 8 ? -0.04f * mu + r_sum
               : lane == 9 ? -0.04f * log_tau + tau * rz : 0.f;
+  return lp;
+}
+
+// warp_sum of a chain's values in lanes 0..7 (8) or 0..9 (10), zeros in the
+// other lanes, summed by one thread in the butterfly's association order:
+// offset 16 adds each lane's zero partner, offset 8 pairs lanes 0, 1 with 8,
+// 9, and offsets 4, 2, 1 form the tree below. Adding +0.0 is exact but for a
+// zero's sign: the butterfly's sum is never -0, which the closing + 0.f
+// gives here too, so both hold the same bits.
+__device__ __forceinline__ float thread_sum8(const float (&v)[8]) {
+  return (((v[0] + v[4]) + (v[2] + v[6])) + ((v[1] + v[5]) + (v[3] + v[7]))) + 0.f;
+}
+__device__ __forceinline__ float thread_sum10(const float (&v)[10]) {
+  const float s0 = v[0] + v[8], s1 = v[1] + v[9];
+  return (((s0 + v[4]) + (v[2] + v[6])) + ((s1 + v[5]) + (v[3] + v[7]))) + 0.f;
+}
+
+// eight_schools_dc for one thread's chain, the layout [z(8), mu, log_tau] in
+// ten registers; u and s are y and 1/sigma^2. The same operations in the same
+// order, so the same bits.
+__device__ __forceinline__ float eight_schools_thread(const float (&u)[8], const float (&s)[8],
+                                                      const float (&x)[10], float (&g)[10]) {
+  const float mu = x[8], log_tau = x[9];
+  const float tau = expf(log_tau);
+  float resid[8], r[8], zz[8], rr[8], rz[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    resid[i] = u[i] - mu - tau * x[i];
+    r[i] = resid[i] * s[i];
+    zz[i] = x[i] * x[i];
+    rr[i] = resid[i] * r[i];
+    rz[i] = r[i] * x[i];
+  }
+  const float z2 = thread_sum8(zz), r2 = thread_sum8(rr);
+  const float r_sum = thread_sum8(r), rzs = thread_sum8(rz);
+  float lp = -0.02f * (mu * mu) - 0.02f * (log_tau * log_tau);
+  lp = lp + -0.5f * z2;
+  lp = lp + -0.5f * r2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) g[i] = -x[i] + r[i] * tau;
+  g[8] = -0.04f * mu + r_sum;
+  g[9] = -0.04f * log_tau + tau * rzs;
   return lp;
 }
 

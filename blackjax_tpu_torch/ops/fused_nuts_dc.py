@@ -46,8 +46,13 @@ On the card the analytic targets take the resident form up to ``d = 256``
 as :func:`resident_warps` says, the leaf's vectors in registers and the rest
 of the chain's state in device memory, its checkpoint slots in shared memory
 where they fit; the dense metric below ``d = 225`` and every ``d > 256``
-keep the whole state in registers (``csrc/fused_nuts_dc.cuh``).
-The Finnish horseshoe's data matrix is copied into shared
+keep the whole state in registers (``csrc/fused_nuts_dc.cuh``). Eight
+schools (``d = 10``) under the diagonal metric has a thread form besides:
+one chain a thread, 32 a warp, its sums trees of adds in one thread in the
+registers form's association order, so both give the same bits; it runs
+where ``_EIGHT_SCHOOLS_THREAD`` is set (by default not: it measured
+slower), and eight schools otherwise keeps the registers form. The Finnish
+horseshoe's data matrix is copied into shared
 memory once per block where it fits beside the block's four chains, and read
 from L2 where it does not. Logistic regression always takes the tiles form:
 the chains of a block run their leaves in lockstep and share one gradient,
@@ -108,10 +113,13 @@ __all__ = [
 # the form it took: X copied into shared memory, read from L2, or streamed in
 # tiles by chains in lockstep (logistic regression); one on an analytic
 # target under its form: resident (the chain's state and slots in device
-# memory, all chains of a launch resident at once) or registers.
+# memory, all chains of a launch resident at once) or registers; one on eight
+# schools under its form: thread (one chain a thread) or registers (one
+# chain a warp).
 LAUNCHES = {"fused_nuts_dc": 0, "fused_nuts_dc:x_shared": 0, "fused_nuts_dc:x_l2": 0,
             "fused_nuts_dc:x_tiles": 0, "fused_nuts_dc:analytic_resident": 0,
-            "fused_nuts_dc:analytic_registers": 0, "threefry2x32": 0}
+            "fused_nuts_dc:analytic_registers": 0, "fused_nuts_dc:thread": 0,
+            "fused_nuts_dc:registers": 0, "threefry2x32": 0}
 
 # the target ids of csrc/fused_nuts_dc.cu and csrc/matrix_targets.cuh
 _CUDA_HIERARCHICAL = 0
@@ -130,6 +138,14 @@ _CHAINS_LR = 8  # chains per block of the tiles form (kChainsLR)
 # it, where it measured faster (dc_kernel_ms.py: PERF.md §6); the others keep
 # one warp's state in registers
 RESIDENT_WIDTHS = {"diag": (1, 2, 4, 8), "dense": (8,), "low_rank": (1, 2, 4, 8)}
+# whether eight schools under the diagonal metric takes the thread form (one
+# chain a thread, csrc/fused_nuts_dc.cuh:nuts_dc_thread); the dense and
+# low-rank metrics keep the registers form. Off: at the tracked shape it
+# measured 2.16 times slower than the registers form (dc_kernel_ms.py
+# --target eight_schools: PERF.md §6), so it runs only where a caller sets this
+_EIGHT_SCHOOLS_THREAD = False
+_THREAD_DIM = 10  # eight schools (kThreadDim)
+_THREAD_VECTORS = 8  # the proposal (x, g) and both ends (x, m, g) (kThreadVectors)
 SHARED_MEMORY_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 _SMEM_PER_SM = 233_472  # bytes of shared memory an SM shares among its blocks (kSmemPerSM)
 _SMEM_RESERVED = 1_024  # bytes each block of them reserves (kSmemReserved)
@@ -685,19 +701,21 @@ class SharedMemoryPlan(NamedTuple):
     matrix X from (``"shared"``, ``"l2"``, ``"tiles"``, or None for a target
     without one), the block's bytes of dynamic shared memory, whether the
     tiles form copies a dense or low-rank metric's matrices into shared
-    memory (else it reads them from device memory), and whether an analytic
-    target takes the resident form."""
+    memory (else it reads them from device memory), whether an analytic
+    target takes the resident form, and whether eight schools takes the
+    thread form."""
 
     x_form: Optional[str]
     nbytes: int
     metric_shared: bool = False
     resident: bool = False
+    thread: bool = False
 
     @property
     def form(self) -> int:
         """The kernel's form argument: 1 for the horseshoe's X in shared
-        memory and for the resident form, else 0."""
-        return int(self.x_form == "shared" or self.resident)
+        memory and for the resident form, 2 for the thread form, else 0."""
+        return 2 if self.thread else int(self.x_form == "shared" or self.resident)
 
 
 def _register_width(d: int) -> int:
@@ -731,6 +749,8 @@ def scratch_floats(plan: "SharedMemoryPlan", n: int, metric: str, max_depth: int
     ``plan`` reads and writes: ``(cold vectors, checkpoint slots)``, as
     ``bjt_dc_scratch_floats`` counts them; the slots live there in the tiles
     form, and in the resident form where they do not fit in shared memory."""
+    if plan.thread:
+        return 0, 0
     slots = _slot_floats(n, metric, max_depth)
     if plan.resident:
         shared = _resident_slots_shared(n, metric, max_depth)
@@ -760,6 +780,13 @@ def _resident_slots_shared(n: int, metric: str, max_depth: int) -> bool:
     blocks = resident_warps(n) // _RESIDENT_BLOCK_WARPS
     floats = _resident_shared_floats(n, metric, max_depth)
     return blocks * (_RESIDENT_BLOCK_WARPS * floats * 4 + _SMEM_RESERVED) <= _SMEM_PER_SM
+
+
+def _thread_block_bytes(max_depth: int) -> int:
+    """A thread-form block's bytes of shared memory (``thread_block_bytes``):
+    its one warp's checkpoint slots (m and msum for 32 chains at each of
+    ``max_depth`` levels), the proposal and the ends."""
+    return 4 * (2 * max_depth + _THREAD_VECTORS) * _THREAD_DIM * 32
 
 
 def _shared_x_stride(cols: int) -> int:
@@ -834,7 +861,12 @@ def shared_memory_plan(n: int, family: int, metric: str, max_depth: int, rows: i
     memory (``rows`` rows of ``cols`` rounded up to a multiple of 4 that is 4
     mod 8 floats: 204 for 200 columns) where that and the warps fit in
     :data:`SHARED_MEMORY_LIMIT`, and reads X from L2 where they do not; the
-    choice is made here, before the launch, and never on a failed one."""
+    choice is made here, before the launch, and never on a failed one. Eight
+    schools under the diagonal metric takes the thread form where
+    ``_EIGHT_SCHOOLS_THREAD`` is set: :func:`_thread_block_bytes`, nothing in
+    device memory."""
+    if _EIGHT_SCHOOLS_THREAD and family == _CUDA_EIGHT_SCHOOLS and metric == "diag":
+        return SharedMemoryPlan(None, _thread_block_bytes(max_depth), thread=True)
     vec = n * 32
     analytic = family in (_CUDA_HIERARCHICAL, _CUDA_GAUSSIAN)
     if analytic and n in RESIDENT_WIDTHS[metric]:
@@ -936,18 +968,22 @@ def _launch_cuda(x, metric, step_size, *, target, num_steps, max_depth,
         LAUNCHES[f"fused_nuts_dc:x_{plan.x_form}"] += 1
     elif target.matrix is None:
         LAUNCHES[f"fused_nuts_dc:analytic_{'resident' if plan.resident else 'registers'}"] += 1
+    else:  # eight schools
+        LAUNCHES[f"fused_nuts_dc:{'thread' if plan.thread else 'registers'}"] += 1
     return out_x, out_steps, out_grads, hist, out_iters
 
 
-def occupancy(d: int, metric: str = "diag", resident: bool = True,
+def occupancy(d: int, metric: str = "diag", form: int = 1,
               target: int = _CUDA_HIERARCHICAL, max_depth: int = 8) -> dict:
-    """What the card reports for the analytic target's instantiation for
-    ``d`` in the resident form or the registers form: its resident warps an
-    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), its registers
-    and its local memory a thread in bytes (its stack frame and any spills).
-    Needs the card."""
+    """What the card reports for the instantiation for ``d`` in the kernel's
+    form ``form`` (:attr:`SharedMemoryPlan.form`): an analytic target's
+    resident form (1) or registers form (0), or eight schools'
+    (``target=_CUDA_EIGHT_SCHOOLS``) thread form (2) or registers form (0).
+    Its resident warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    its registers and its local memory a thread in bytes (its stack frame
+    and any spills). Needs the card."""
     out = (_INT * 3)()
-    code = _library(metric).bjt_dc_occupancy(d, target, int(resident), max_depth, out)
+    code = _library(metric).bjt_dc_occupancy(d, target, form, max_depth, out)
     _nvcc.check_launch(_library(metric), code, "bjt_dc_occupancy")
     return {"warps_per_sm": out[0], "registers": out[1], "local_bytes": out[2]}
 

@@ -5,11 +5,13 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's nine main paths once, five at the flagship's full
+It drives the port's ten main paths once, five at the flagship's full
 width (the 100-dim hierarchical posterior, 4,096 chains), one at the
-Finnish horseshoe's (N=100, M=200, d=404, 512 chains) and three at the
+Finnish horseshoe's (N=100, M=200, d=404, 512 chains), three at the
 covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
-4,096 under MCLMC), and checks them in phases, one line each:
+4,096 under MCLMC) and one at the tracked eight-schools configuration's
+(d=10, 512 chains x 800 transitions), and checks them in phases, one line
+each:
 
 1. the card (``nvidia-smi`` name and power limit) and the builds of
    ``csrc/fused_nuts_dc.cu``, ``csrc/fused_nuts_dc_dense.cu``,
@@ -89,7 +91,8 @@ covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
    the launch's bound, also with Box-Muller's transcendentals counted, and
    kernel / bound;
 9. each new (kernel, target) pair against its plain version on the card:
-   the dc machine on eight schools (d=10, 512 chains) and on logistic
+   the dc machine on eight schools (d=10, 512 chains, in the form the plan
+   picks: one chain a warp, the registers form) and on logistic
    regression at the covertype-class shape (4,096 points x 54, numpy seed,
    512 chains), the fused leapfrog (4,096 chains, 10 steps) and the fused
    MCLMC (4,096 chains, 64 steps, all 54 coordinates tracked, as phase 14
@@ -209,13 +212,40 @@ covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
    the largest offset of a coordinate's second-half mean from the JAX
    package's NUTS posterior (phase 11's reference), in posterior sd,
    reported and not gated: unadjusted MCLMC keeps a bias of its step size.
+15. the tracked eight-schools path (``benchmarks/tracked.py:396-480``),
+   launch counts reset just before it: the port's single-chain
+   ``window_adaptation(nuts, eight_schools_noncentered().logdensity_fn)``
+   (400 steps from zeros, torch seed SEED on the card), then
+   ``fused_nuts_run_dc`` on 512 chains from 0.1 N(0, I) (numpy seed 15) in
+   the machine's layout (``eight_schools_dc_perm``) for 800 transitions at
+   the tracked settings (``max_num_doublings=10``, ``pack=4``,
+   ``restart_every=16``, ``chunk=256``, a budget of 160 x 800 x 4 leaves), all
+   10 coordinates tracked, in one launch of the form the plan picks
+   (required: its count 1, the other form's 0; the registers form, one
+   chain a warp, since the thread form, one chain a thread, measured slower:
+   PERF.md §6), then min-ESS over all 10. Every chain must complete,
+   everything must be finite, the second-half means and variances of mu and
+   log_tau must lie in bands around the JAX package's NUTS posterior
+   (``reference_bands`` in ``tests/test_torch_dc_eight_schools.py``), and a
+   launch of each form on the same inputs must give every output
+   (positions, steps, gradients, history, iterations) bit for bit (SHA-256
+   of the history printed). Then the plan's form against the plain version
+   on the path's own start, step size, metric and settings, cut only to 16
+   transitions (and the budget to 160 x 16 x 4), under phase 9's gate:
+   steps identical, the share of chains agreeing to MATRIX_TOL above the
+   floor, and the same gradient count on every chain that agrees. The line gives the launch's ms by CUDA events,
+   ESS/s, grads/s, leaves per transition, the per-chain iterations (max,
+   p99, mean), the bound at this shape and the launch / bound, each form's warps
+   an SM, registers and local memory and its time on the per-chain
+   launches, and the warmup's seconds and ms per leaf.
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
 kernel of the main paths (``ms`` and ``plain_ms`` are phase 3's, 5's and 7's
 like-for-like times), one per new (kernel, target) pair (phase 9's and
 10's times) and one per metric of the dc machine (phase 11's logistic
-regression comparison), one for the older machine (phase 13's 512 x 16 times)
+regression comparison), one for the older machine (phase 13's 512 x 16 times; eight schools'
+launches are phase 15's)
 and one for the threefry kernel with a key per element (phase 2's times on
 1,048,576 keys; its launches are phase 12's). ``launches`` is the count from the
 main path's run, or, for a pair that no main path drives, from the pair's checked
@@ -230,6 +260,7 @@ functions. The last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises and exits non-zero without that line; so does a machine
 without CUDA, and a directory without the package.
 """
+import hashlib
 import itertools
 import json
 import re
@@ -285,6 +316,21 @@ LEGACY_TRACE_CHAINS, LEGACY_TRACE_TRANSITIONS, LEGACY_TRACE = 64, 4, 64
 UNKEYED_WARMUP_MS_PER_LEAF = 48.44e3 / 9151  # phase 4's warmup before the keyed draws
 # phase 14: MCLMC on phase 9's logistic regression, one launch at full depth
 LR_MCLMC_STEPS = 1000
+# phase 15: the tracked eight-schools configuration (benchmarks/tracked.py:
+# 396-480, 317-337): 512 chains x 800 transitions after a 400-step warmup
+ES_CHAINS, ES_TRANSITIONS, ES_WARMUP_STEPS = 512, 800, 400
+ES_MAX_DOUBLINGS, ES_PACK, ES_RESTART_EVERY, ES_CHUNK = 10, 4, 16, 256
+ES_BUDGET = 160 * ES_TRANSITIONS * ES_PACK  # budget_factor 160 (tracked.py:451)
+ES_PLAIN_TRANSITIONS = 16  # the pair against the plain version, at the same settings
+# The posterior of mu and log_tau by the JAX package's own NUTS on the CPU
+# (tests/test_torch_dc_eight_schools.py:reference_bands: window_adaptation
+# 1,000 steps from zeros, then 128 chains from 0.1 N(0, I) x 2,000
+# transitions, key 15, second half): mean, variance, the mean's MCSE.
+ES_REFERENCE = {"mu": (4.56320, 10.24402, 0.01208), "log_tau": (-2.77182, 11.80050, 0.01602)}
+# bands: the mean within 0.1 posterior sd and the variance within [0.9, 1.1]
+# of the reference's; 512 chains x 400 draws leave a Monte Carlo error of
+# about 0.01 sd in the mean and 0.02 in the variance ratio
+ES_MEAN_SD, ES_VAR_RATIO = 0.1, (0.9, 1.1)
 # The horseshoe's posterior by the JAX package's own NUTS on the CPU
 # (tests/test_torch_horseshoe_slice.py:reference_bands: window_adaptation 600
 # steps from zeros, then 64 chains from 0.05 N(0, I) x 256 transitions, seed
@@ -356,12 +402,13 @@ def _ptxas_summary(log: str) -> list:
     (T: 0 hierarchical, 1 Gaussian) and M; the older NUTS machine by its
     trace flag; the MCLMC kernel's resident form by N, T and its unrolled
     stages (S, 0 for the stage loop at run time); the HMC transition by N
-    and T."""
+    and T; the dc machine's thread form by F and M."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            n = re.search(r"(nuts_dc|nuts|leapfrog|mclmc|hmc)_(kernel|resident|transition)ILi(\d+)"
+            n = re.search(r"(nuts_dc|nuts|leapfrog|mclmc|hmc)_"
+                          r"(kernel|resident|transition|thread)ILi(\d+)"
                           r"ELi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", entry.group(1))
             export = "threefry" if "threefry" in entry.group(1) else "counter_normals"
             metric = ""
@@ -370,7 +417,9 @@ def _ptxas_summary(log: str) -> list:
             flag = ""
             if n and n.group(6):
                 flag = f" {'shared' if n.group(1) == 'nuts_dc' else 'trace'}={n.group(6)}"
-            if n and n.group(2) == "transition":  # N and the analytic target T
+            if n and n.group(2) == "thread":  # the dc machine's thread form: F and M
+                name = f"nuts_dc thread F={n.group(3)} M={n.group(4)}"
+            elif n and n.group(2) == "transition":  # N and the analytic target T
                 name = f"hmc_transition N={n.group(3)} T={n.group(4)}"
             elif n and n.group(2) == "resident":  # the analytic target T in the resident form
                 name = f"{n.group(1)} resident N={n.group(3)} T={n.group(4)}{metric}"
@@ -683,6 +732,161 @@ def mclmc_start(torch, dev):
     torch.cuda.synchronize()
     return (state.position, state.momentum, L, step, imm, tune_total, tune_s,
             time.perf_counter() - t0)
+
+
+def eight_schools_start(torch, dev):
+    """Phase 15's start: window adaptation of NUTS on non-centered eight
+    schools (one chain from zeros, ES_WARMUP_STEPS steps, torch seed SEED on
+    the card), and ES_CHAINS positions 0.1 N(0, I) of numpy seed 15. Returns
+    the positions and the metric in the machine's layout
+    (``eight_schools_dc_perm``), the step size, the adaptation's leaves and
+    its seconds."""
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
+    from blackjax_tpu_torch.mcmc import nuts
+    from blackjax_tpu_torch.models import eight_schools_noncentered
+    from blackjax_tpu_torch.ops.targets_dc import eight_schools_dc_perm
+
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warmup = blackjax_tpu_torch.window_adaptation(
+        nuts, eight_schools_noncentered().logdensity_fn,
+        adaptation_info_fn=get_filter_adapt_info_fn(info_keys={"num_integration_steps"}),
+    )
+    (_, params), warm_info = warmup.run(generator, torch.zeros(10, device=dev), ES_WARMUP_STEPS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    step, imm = params["step_size"], params["inverse_mass_matrix"]
+    _require(np.isfinite(step) and step > 0, f"eight schools: warmup step size {step}")
+    _require(bool(torch.isfinite(imm).all() and (imm > 0).all()), "eight schools: warmup metric")
+    to_dc = torch.from_numpy(eight_schools_dc_perm()[0]).to(dev)
+    x0 = np.zeros((ES_CHAINS, 10)) + 0.1 * np.random.default_rng(15).standard_normal(
+        (ES_CHAINS, 10))
+    x0 = torch.from_numpy(x0.astype(np.float32)).to(dev)[:, to_dc].contiguous()
+    return (x0, step, imm[to_dc].contiguous(), int(warm_info.info.num_integration_steps.sum()),
+            warm_s)
+
+
+def _eight_schools_form(dc):
+    """The form the plan gives eight schools under the diagonal metric."""
+    return "thread" if dc._EIGHT_SCHOOLS_THREAD else "registers"
+
+
+def eight_schools_path(torch, dev, es_target, peaks, smi):
+    """Phase 15: the tracked eight-schools configuration end to end, with its
+    gates and its line (see the head of this file). Returns the dc launches
+    counted on the path, before the comparison launches, and the form the
+    plan took."""
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+
+    planned = _eight_schools_form(dc)
+    other = "registers" if planned == "thread" else "thread"
+
+    for name in dc.LAUNCHES:
+        dc.LAUNCHES[name] = 0
+    x15, step15, imm15, warm15_leaves, warm15_s = eight_schools_start(torch, dev)
+    es_kw = dict(target=es_target, num_steps=ES_TRANSITIONS, max_num_doublings=ES_MAX_DOUBLINGS,
+                 seed=SEED, num_track=10, pack=ES_PACK, restart_every=ES_RESTART_EVERY,
+                 chunk=ES_CHUNK, budget=ES_BUDGET)
+    (fx15, hist15, grads15, steps15), ms15 = _timed(
+        torch, lambda: dc.fused_nuts_run_dc(x15, imm15, step15, **es_kw))
+    launches15 = dict(dc.LAUNCHES)  # counted before the comparison launches
+    ess15 = blackjax_tpu_torch.ess(hist15)
+    min_ess15 = float(ess15.min())
+    _require(launches15["fused_nuts_dc"] == 1 and launches15[f"fused_nuts_dc:{planned}"] == 1
+             and launches15[f"fused_nuts_dc:{other}"] == 0,
+             f"phase 15: the dc launches {launches15}, not one in the {planned} form")
+    _require(bool((steps15 == ES_TRANSITIONS).all()),
+             f"eight-schools chains short of {ES_TRANSITIONS} transitions: {int(steps15.min())}")
+    for name, t in [("positions", fx15), ("history", hist15), ("ess", ess15)]:
+        _require(bool(torch.isfinite(t).all()), f"non-finite eight-schools {name}")
+    _require(hist15.shape == (ES_CHAINS, ES_TRANSITIONS, 10), "eight-schools history shape")
+    second15 = hist15[:, ES_TRANSITIONS // 2:].double()
+    moments15 = {}
+    for name, column in (("mu", 8), ("log_tau", 9)):  # the machine's layout [z(8), mu, log_tau]
+        mean, var = float(second15[..., column].mean()), float(second15[..., column].var())
+        ref_mean, ref_var, _ = ES_REFERENCE[name]
+        _require(abs(mean - ref_mean) <= ES_MEAN_SD * ref_var**0.5,
+                 f"eight schools: {name}'s second-half mean {mean} more than {ES_MEAN_SD} sd "
+                 f"from the reference's {ref_mean}")
+        _require(ES_VAR_RATIO[0] <= var / ref_var <= ES_VAR_RATIO[1],
+                 f"eight schools: {name}'s second-half variance {var} against the reference's "
+                 f"{ref_var}")
+        moments15[name] = (mean, var)
+    # the same inputs through both forms, per chain: every output bit for bit
+    x32, metric15, machine15 = dc._prepare(x15, imm15, **es_kw)
+    planned_out, planned_ms = _timed(
+        torch, lambda: dc._launch_cuda(x32, metric15, float(step15), **machine15))
+    dc._EIGHT_SCHOOLS_THREAD = other == "thread"
+    try:
+        before = dc.LAUNCHES[f"fused_nuts_dc:{other}"]
+        other_out, other_ms = _timed(
+            torch, lambda: dc._launch_cuda(x32, metric15, float(step15), **machine15))
+        _require(dc.LAUNCHES[f"fused_nuts_dc:{other}"] == before + 1,
+                 f"phase 15: the comparison did not take the {other} form")
+    finally:
+        dc._EIGHT_SCHOOLS_THREAD = planned == "thread"
+    same15 = all(torch.equal(a, b) for a, b in zip(planned_out, other_out))
+    digests = [hashlib.sha256(out[3].cpu().numpy().tobytes()).hexdigest()[:16]
+               for out in (planned_out, other_out)]
+    _require(same15 and digests[0] == digests[1],
+             "phase 15: the thread form and the registers form differ")
+    _require(torch.equal(planned_out[0], fx15) and torch.equal(planned_out[3], hist15)
+             and torch.equal(planned_out[1], steps15)
+             and float(planned_out[2].sum()) == float(grads15),
+             "phase 15: the per-chain launch differs from the path's")
+    # the plan's form against the plain version at the path's settings, cut
+    # only in its transitions
+    cut_kw = dict(es_kw, num_steps=ES_PLAIN_TRANSITIONS,
+                  budget=160 * ES_PLAIN_TRANSITIONS * ES_PACK)
+    before = dc.LAUNCHES[f"fused_nuts_dc:{planned}"]
+    kern_cut, cut_ms = _per_chain(torch, dc, True, x15, imm15, step15, cut_kw)
+    _require(dc.LAUNCHES[f"fused_nuts_dc:{planned}"] == before + 1,
+             f"phase 15: the cut pair did not take the {planned} form")
+    plain_cut, plain_cut_ms = _per_chain(torch, dc, False, x15, imm15, step15, cut_kw)
+    cut_share, cut_share5, cut_err, cut_grads, cut_plain_grads, cut_other = _matrix_pair(
+        torch, "phase 15's cut pair", kern_cut, plain_cut, ES_PLAIN_TRANSITIONS)
+    iters15 = planned_out[4].double().cpu()
+    secs15 = ms15 / 1e3
+    grads15 = float(grads15)
+    bound15 = _bound(2 * ES_CHAINS * 10 * 4 + hist15.numel() * 4 + 3 * ES_CHAINS * 4,
+                     grads15 * (DC_LEAF_OPS * 10 + _grad_ops("eight_schools", 10)), peaks,
+                     (grads15 + ES_CHAINS * ES_TRANSITIONS * 10) * THREEFRY_OPS)
+    occ15 = {form: dc.occupancy(10, target=es_target.cuda_target, max_depth=ES_MAX_DOUBLINGS,
+                                form=2 if form == "thread" else 0)
+             for form in (planned, other)}
+    occ_words = "; ".join(f"{form} form {o['warps_per_sm']} warps an SM, {o['registers']} "
+                          f"registers, {o['local_bytes']} B local a thread"
+                          for form, o in occ15.items())
+    print(f"phase 15: window_adaptation(nuts, eight_schools_noncentered) single chain, "
+          f"{ES_WARMUP_STEPS} steps, {warm15_leaves} leaves in {warm15_s:.2f} s "
+          f"({warm15_s / warm15_leaves * 1e3:.2f} ms a leaf): step size {step15:.5f}, mean imm "
+          f"{float(imm15.mean()):.5f}; fused_nuts_run_dc d=10 C={ES_CHAINS} S={ES_TRANSITIONS} "
+          f"max_doublings={ES_MAX_DOUBLINGS} pack={ES_PACK} restart_every={ES_RESTART_EVERY} "
+          f"budget={ES_BUDGET}, all 10 tracked: all chains completed, one launch in the plan's "
+          f"{planned} form ({occ_words}): the call {ms15:.3f} ms by CUDA events (pack's lane "
+          f"accounting on the host included; the launch alone {planned_ms:.3f} ms), "
+          f"{grads15:.0f} grads ({grads15 / secs15:.4g} grads/s, "
+          f"{grads15 / (ES_CHAINS * ES_TRANSITIONS):.3f} leaves per transition), min-ESS over "
+          f"all 10 coordinates {min_ess15:.1f} ({min_ess15 / secs15:.4g} ESS/s); bound "
+          f"{bound15[0]:.5f} ms by {bound15[1]} (launch / bound {planned_ms / bound15[0]:.1f}); "
+          f"iterations a chain max {float(iters15.max()):.0f}, p99 "
+          f"{float(np.percentile(iters15.numpy(), 99)):.0f}, mean {float(iters15.mean()):.1f}; "
+          f"second-half mu mean {moments15['mu'][0]:.4f} var {moments15['mu'][1]:.4f}, log_tau "
+          f"mean {moments15['log_tau'][0]:.4f} var {moments15['log_tau'][1]:.4f} (the JAX "
+          f"package's NUTS: {ES_REFERENCE}; bands {ES_MEAN_SD} sd, variance ratio "
+          f"{ES_VAR_RATIO}); the {planned} form and the {other} form on the same inputs: every "
+          f"output bit for bit, history SHA-256 {digests[0]} / {digests[1]}, per-chain launches "
+          f"{planned_ms:.3f} / {other_ms:.3f} ms; the {planned} form against the plain version "
+          f"at these settings cut to {ES_PLAIN_TRANSITIONS} transitions (budget "
+          f"{cut_kw['budget']}): steps identical, {cut_share:.4f} of chains agree to "
+          f"{MATRIX_TOL} (floor {AGREE_FLOOR}; {cut_share5:.4f} to {AGREE_TOL}), max |diff| "
+          f"{cut_err:.3g}, grads kernel {cut_grads:.0f} plain {cut_plain_grads:.0f} ({cut_other} "
+          f"chains with other counts, all among those that part), kernel {cut_ms:.3f} ms, plain "
+          f"{plain_cut_ms:.1f} ms; launches {launches15} ({smi})")
+    return launches15, planned
 
 
 def main() -> int:
@@ -1148,11 +1352,12 @@ def main() -> int:
         kern, ms = _per_chain(torch, dc, True, x, imm, step, kw)
         launches = dc.LAUNCHES["fused_nuts_dc"]
         forms = [key.split(":x_")[1] for key, v in dc.LAUNCHES.items() if ":x_" in key and v]
+        es_forms = {k: dc.LAUNCHES[f"fused_nuts_dc:{k}"] for k in ("thread", "registers")}
         plain, plain_ms = _per_chain(torch, dc, False, x, imm, step, kw)
         share, share5, err, grads, plain_grads, other = _matrix_pair(
             torch, name, kern, plain, num_steps)
         dev_ms = _device_ms(torch, lambda: dc.fused_nuts_run_dc(x, imm, step, **kw),
-                            "nuts_dc_kernel", repeats=3)
+                            "nuts_dc_", repeats=3)
         chains, d = x.shape
         data_bytes = 0 if target.matrix.X is None else target.matrix.X.nbytes
         nbytes = 2 * chains * d * 4 + chains * num_steps * d * 4 + 3 * chains * 4 + data_bytes
@@ -1164,6 +1369,11 @@ def main() -> int:
             _require(forms == ["tiles"], f"{name}: the dc kernel took the forms {forms}, not tiles")
             idle, _ = _tiles_idle_share(torch, dc, x, imm, step, kw)
             form = f", lockstep idle warp-iterations {idle:.4f}"
+        if kind == "eight_schools":
+            planned = _eight_schools_form(dc)
+            _require(es_forms[planned] == launches == 1,
+                     f"{name}: the dc kernel took the forms {es_forms}, not the {planned} form")
+            form = f", the plan's {planned} form"
         if forms:
             plan = dc.shared_memory_plan(dc._register_width(d), target.cuda_target, "diag",
                                          max_doublings, *target.matrix.X.shape)
@@ -1804,6 +2014,10 @@ def main() -> int:
           f"JAX package's NUTS mean| {z14:.4f} posterior sd (reported, not gated); launches "
           f"{launches14} ({smi})")
 
+    # ---- phase 15: the tracked eight-schools path ----
+    marks.append((15, time.perf_counter()))
+    launches15, es_form = eight_schools_path(torch, dev, es_target, peaks, smi)
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
@@ -1826,14 +2040,16 @@ def main() -> int:
                "blackjax_tpu/ops/fused_mclmc.py:301", launches8["fused_mclmc:resident"], err7,
                ms7, plain_ms7, _mclmc_bound(peaks, C, MCLMC_CMP_STEPS, D, NUM_TRACK)),
     ]
-    # the MCLMC kernel on logistic regression has a main path since phase 14
+    # the MCLMC kernel on logistic regression has a main path since phase 14,
+    # the dc machine's eight schools since phase 15
     pairs["mclmc_logreg"]["launches"] = launches14["fused_mclmc:logreg_tiles"]
+    pairs["eight_schools"]["launches"] = launches15[f"fused_nuts_dc:{es_form}"]
     for key, name, source, replaces in [
         ("horseshoe", "fused_nuts_dc:finnish_horseshoe", "matrix_targets.cuh",
          "blackjax_tpu/ops/targets_dc.py:144"),
         ("logreg_dc", "fused_nuts_dc:logreg", "matrix_targets.cuh",
          "blackjax_tpu/ops/targets_dc.py:61"),
-        ("eight_schools", "fused_nuts_dc:eight_schools", "matrix_targets.cuh",
+        ("eight_schools", f"fused_nuts_dc:eight_schools ({es_form} form)", "fused_nuts_dc.cuh",
          "blackjax_tpu/ops/targets_dc.py:365"),
         ("leapfrog_logreg", "fused_leapfrog:logistic_regression (tiles form)",
          "matrix_targets.cuh", "blackjax_tpu/ops/fused_leapfrog.py:324"),

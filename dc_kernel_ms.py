@@ -21,7 +21,10 @@ that ``.gitignore`` lists and run both roots in turn in one call, e.g.
     python3 dc_kernel_ms.py --root _archive_check/parent --target flagship
 
 ``--steps S`` and ``--step-size E`` run the flagship for S transitions at step
-size E (phase 3's shape: 16 at 0.2). ``--dim D`` runs the flagship's
+size E (phase 3's shape: 16 at 0.2). ``--inputs FILE`` runs the flagship on
+phase 4's own start instead (the warm start's positions, step size and
+metric, made by this file's ``chip_smoke.warm_start`` where FILE does not
+exist yet, about 80 s, and saved; ``--machine older`` reads the same file). ``--dim D`` runs the flagship's
 hierarchical Gaussian, or the Gaussian of the
 dense and low-rank pairs (with a rank of min(10, D - 1)), at width D instead
 of 100. On a tree with the resident form of the analytic targets, ``--form
@@ -58,6 +61,21 @@ parts' borders. Last, chain 0 runs alone (one warp on the card), once
 with the counters (its cycles a leaf by part) and once without: its time
 over its iterations is a leaf's latency with no other warp beside it, the
 least a chain's leaf can take in this kernel.
+
+``--target eight_schools`` times phase 15's launch: the tracked
+eight-schools configuration (512 chains x 800 transitions,
+``max_num_doublings=10``, ``pack=4``, ``restart_every=16``, a budget of 160 x
+800 x 4, all 10 coordinates tracked) from 0.1 N(0, I) of numpy seed 15 at
+``--step-size`` and a unit metric, or with ``--inputs FILE`` on phase 15's
+own start (the adapted step size and metric, made by this file's
+``chip_smoke.eight_schools_start`` where FILE does not exist yet, about a
+minute, and saved). It runs the form the tree's plan picks, or ``--form
+thread`` (one chain a thread, where the tree has it) or ``--form
+registers`` (one chain a warp), and prints each time, the median, the
+per-chain iterations, the form's occupancy and a SHA-256 of every output
+(positions, steps, gradients, history, iterations). ``--sections`` counts
+the form's leaf by part as for the flagship (the thread form: each thread
+its own chain, a warp's span from its chains'), and chain 0 alone.
 
 ``--machine older`` times the older NUTS machine instead: one
 ``fused_nuts_run`` launch (``csrc/fused_nuts.cu``) at phase 13's shape
@@ -155,6 +173,20 @@ __device__ __forceinline__ void sec_add(int chain, int i, unsigned long long& t)
   if ((threadIdx.x & 31) == 0) g_sec[chain * 8 + i] += c - t;
   t = c;
 }
+// the thread form's: each thread counts its own chain
+__device__ __forceinline__ void sec_add_t(int chain, int i, unsigned long long& t) {
+  const unsigned long long c = clock64();
+  g_sec[chain * 8 + i] += c - t;
+  t = c;
+}
+__device__ __forceinline__ void sec_span_t(int chain, int at) {
+  unsigned long long ns;
+  unsigned int sm;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+  g_span[chain * 3 + at] = ns;
+  g_span[chain * 3 + 2] = sm;
+}
 __device__ __forceinline__ void sec_span(int chain, int at) {
   unsigned long long ns;
   unsigned int sm;
@@ -233,6 +265,31 @@ _RESIDENT = [
      "  sec_add(chain, 5, t_);\n  sec_span(chain, 1);\n  // ---- final state (resident) ----\n"),
 ]
 
+# the thread form's leaf loop (nuts_dc_thread): each thread counts its chain
+_THREAD = [
+    ("  int iters = 0;  // thread\n",
+     "  int iters = 0;  // thread\n  unsigned long long t_ = sec_now();\n"),
+    ("    // ---- one velocity-Verlet leaf (thread) ----\n",
+     "    sec_add_t(chain, 5, t_);\n    // ---- one velocity-Verlet leaf (thread) ----\n"),
+    ("    const float new_ld = eight_schools_thread(u, s, x, g);\n",
+     "    sec_add_t(chain, 1, t_);\n    const float new_ld = eight_schools_thread(u, s, x, g);\n"
+     "    sec_add_t(chain, 0, t_);\n    g_sec[chain * 8 + 6] += 1;\n"),
+    ("    // ---- progressive uniform merge within the subtree (thread) ----\n",
+     "    sec_add_t(chain, 1, t_);\n"
+     "    // ---- progressive uniform merge within the subtree (thread) ----\n"),
+    ("    // ---- checkpointed subtree U-turn (thread) ----\n",
+     "    sec_add_t(chain, 2, t_);\n    // ---- checkpointed subtree U-turn (thread) ----\n"),
+    ("    // ---- subtree boundary: merge into the trajectory (thread) ----\n",
+     "    sec_add_t(chain, 3, t_);\n"
+     "    // ---- subtree boundary: merge into the trajectory (thread) ----\n"),
+    ("    // ---- transition close (thread) ----\n",
+     "    sec_add_t(chain, 4, t_);\n    // ---- transition close (thread) ----\n"),
+    ("  if (chain >= p.C) return;  // thread\n",
+     "  if (chain >= p.C) return;  // thread\n  sec_span_t(chain, 0);\n"),
+    ("  // ---- final state (thread) ----\n",
+     "  sec_add_t(chain, 5, t_);\n  sec_span_t(chain, 1);\n  // ---- final state (thread) ----\n"),
+]
+
 # the form's own occupancy query, appended where the tree has no export
 _PARENT_OCCUPANCY = r"""
 extern "C" int bjt_dc_occupancy(int d, int target, int form, int max_depth, int* out) {
@@ -250,16 +307,22 @@ extern "C" int bjt_dc_occupancy(int d, int target, int form, int max_depth, int*
 """
 
 
-def _sections_copy(nvcc, dc):
-    """Build the counted copy of the tree's diagonal dc source; returns the
-    bound library and its ptxas report."""
+def _sections_copy(nvcc, dc, form=None):
+    """Build the counted copy of the tree's diagonal dc source, with the
+    counters in the leaf loop of ``form`` (``"registers"``, ``"resident"``
+    or ``"thread"``; by default the resident form where the tree has one);
+    returns the bound library and its ptxas report."""
     out = nvcc.build_dir() / "dc_sections"
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(nvcc._SRC_DIR, out)
     header = out / "fused_nuts_dc.cuh"
-    resident = "nuts_dc_resident" in header.read_text()
-    _edit(header, [("namespace {\n", _HEAD)] + (_RESIDENT if resident else _REGISTERS))
-    _edit(out / "fused_nuts_dc.cu", [], _TAIL + ("" if resident else _PARENT_OCCUPANCY))
+    text = header.read_text()
+    if form is None:
+        form = "resident" if "nuts_dc_resident" in text else "registers"
+    anchors = {"registers": _REGISTERS, "resident": _RESIDENT, "thread": _THREAD}[form]
+    _edit(header, [("namespace {\n", _HEAD)] + anchors)
+    _edit(out / "fused_nuts_dc.cu", [],
+          _TAIL + ("" if "bjt_dc_occupancy" in text else _PARENT_OCCUPANCY))
     lib_path = out / "fused_nuts_dc_sections.so"
     proc = subprocess.run([nvcc._nvcc(), *nvcc.NVCC_FLAGS, "-o", str(lib_path),
                            str(out / "fused_nuts_dc.cu")], capture_output=True, text=True)
@@ -297,6 +360,136 @@ def _warps_copy(nvcc, dc, warps, block_warps):
         raise RuntimeError(f"nvcc, {warps} warps an SM, {block_warps} a block:\n"
                            f"{proc.stderr[-4000:]}")
     return dc._bind(ctypes.CDLL(str(lib_path)), "diag")
+
+
+def _eight_schools(args, torch, card, label):
+    """--target eight_schools: phase 15's launch of chip_smoke.py (512 chains
+    x 800 transitions, max_num_doublings 10, pack 4, restart_every 16, a
+    budget of 160 x 800 x 4, all 10 coordinates tracked), in the form the
+    tree's plan picks or ``--form``."""
+    import chip_smoke
+    from blackjax_tpu_torch.ops import _nvcc, targets_dc
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+
+    dev = torch.device("cuda")
+    target = targets_dc.make_eight_schools_target_dc()
+    to_dc = targets_dc.eight_schools_dc_perm()[0]
+    x = torch.from_numpy((0.1 * np.random.default_rng(15).standard_normal((512, 10)))[:, to_dc]
+                         .astype(np.float32)).to(dev)
+    step, imm = args.step_size, torch.ones(10, device=dev)
+    if args.inputs:
+        if not os.path.exists(args.inputs):
+            x, step, imm, *_ = _own_chip_smoke().eight_schools_start(torch, dev)
+            torch.save({"positions": x.cpu(), "step_size": float(step),
+                        "inverse_mass_matrix": imm.cpu()}, args.inputs)
+        saved = torch.load(args.inputs)
+        x, imm = (saved[k].to(dev) for k in ("positions", "inverse_mass_matrix"))
+        step = saved["step_size"]
+        print(f"{label} eight_schools: phase 15's inputs from {args.inputs}: {tuple(x.shape)}, "
+              f"step size {step:.6f}, mean metric {float(imm.mean()):.6f}", flush=True)
+    kw = dict(target=target, num_steps=800, max_num_doublings=10, seed=7, num_track=10, pack=4,
+              restart_every=16, chunk=256, budget=160 * 800 * 4)
+    has_thread = hasattr(dc, "_EIGHT_SCHOOLS_THREAD")
+    form = args.form or ("thread" if has_thread and dc._EIGHT_SCHOOLS_THREAD else "registers")
+    if form == "resident" or (form == "thread" and not has_thread):
+        raise SystemExit(f"{label}: no {form} form for eight schools in this tree")
+    if has_thread:
+        dc._EIGHT_SCHOOLS_THREAD = form == "thread"
+    x32, metric, machine = dc._prepare(x, imm, **kw)
+
+    def launch(xs=x32):
+        return dc._launch_cuda(xs, metric, float(step), **machine)
+
+    def occupancy():
+        """(warps an SM or None, the words for it)"""
+        if not has_thread:
+            return None, "occupancy not exported by this tree"
+        o = dc.occupancy(10, target=dc._CUDA_EIGHT_SCHOOLS, max_depth=10,
+                         form=2 if form == "thread" else 0)
+        return o["warps_per_sm"], (f"{o['warps_per_sm']} warps an SM, {o['registers']} "
+                                   f"registers, {o['local_bytes']} B local a thread")
+
+    def iterations(iters):
+        it = iters.double().cpu().numpy()
+        return f"max {it.max():.0f}, p99 {np.percentile(it, 99):.0f}, mean {it.mean():.1f}"
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    launch()
+    if args.sections:
+        lib, log = _sections_copy(_nvcc, dc, form)
+        _, plain_ms = chip_smoke._timed(torch, launch)
+
+        def counted(xs):
+            """One counted launch: per-chain outputs, cycles a leaf by part,
+            the chains' spans, the leaves and the milliseconds."""
+            library = dc._library
+            dc._library = lambda kind="diag": lib
+            try:
+                launch(xs)
+                sec = np.zeros(8192 * 8, np.uint64)
+                span = np.zeros(8192 * 3, np.uint64)
+                lib.bjt_sections(sec.ctypes.data, span.ctypes.data, len(xs))  # drains them
+                out, ms = chip_smoke._timed(torch, lambda: launch(xs))
+                lib.bjt_sections(sec.ctypes.data, span.ctypes.data, len(xs))
+            finally:
+                dc._library = library
+            sec = sec[:len(xs) * 8].reshape(len(xs), 8).astype(np.float64)
+            per_leaf = sec[:, :len(SECTIONS)].sum(0) / sec[:, 6].sum()
+            return out, per_leaf, span[:len(xs) * 3].reshape(len(xs), 3), sec[:, 6].sum(), ms
+
+        def parts(per_leaf):
+            return (", ".join(f"{n} {c:.0f}" for n, c in zip(SECTIONS, per_leaf))
+                    + f", total {per_leaf.sum():.0f}")
+
+        out, per_leaf, span, leaves, ms = counted(x32)
+        if form == "thread":  # a warp's span: its first chain's start to its last one's end
+            warps = span.reshape(-1, 32, 3)
+            span = np.stack([warps[..., 0].min(1), warps[..., 1].max(1), warps[:, 0, 2]], 1)
+        warps_sm, occ = occupancy()
+        tail = "tail not measured (no occupancy export)"
+        if warps_sm:
+            below, held, span_ms, n_sm = _tail(span, warps_sm)
+            tail = (f"tail: {below:.4f} of SM-time between the first start and the last end "
+                    f"({span_ms:.3f} ms on {n_sm} SMs) with fewer than {warps_sm // 2} warps "
+                    f"resident, mean {held:.4f} of {warps_sm} warps held")
+        ptxas = [s for s in chip_smoke._ptxas_summary(log) if "F=4 M=0" in s or "thread" in s]
+        print(f"{label} eight_schools sections ({form} form): launch {plain_ms:.3f} ms without "
+              f"the counters, {ms:.3f} ms with them; cycles a leaf: {parts(per_leaf)}; "
+              f"{leaves:.0f} leaves, all chains complete: {bool((out[1] == 800).all())}; {tail}; "
+              f"iterations a chain: {iterations(out[4])}; {occ}; ptxas "
+              f"{'; '.join(ptxas)} ({card})", flush=True)
+        (_, _, _, _, iters1), lone_parts, _, _, lone_counted_ms = counted(x32[:1])
+        launch(x32[:1])
+        _, lone_ms = chip_smoke._timed(torch, lambda: launch(x32[:1]))
+        n1 = float(iters1[0])
+        for what, ms1 in (("without the counters", lone_ms), ("with them", lone_counted_ms)):
+            ns = ms1 * 1e6 / n1
+            print(f"{label} eight_schools, chain 0 alone {what}: {n1:.0f} iterations in "
+                  f"{ms1:.3f} ms, {ns:.0f} ns a leaf ({ns * mhz / 1e3:.0f} cycles at {mhz:.0f} "
+                  f"MHz) ({card})", flush=True)
+        print(f"{label} eight_schools, chain 0 alone: cycles a leaf: {parts(lone_parts)}",
+              flush=True)
+        shutil.rmtree(_nvcc.build_dir() / "dc_sections", ignore_errors=True)
+        return 0
+    before = dict(dc.LAUNCHES)
+    out = launch()
+    times = []
+    for _ in range(args.repeats):
+        out, ms = chip_smoke._timed(torch, launch)
+        times.append(ms)
+    forms = ",".join(k.split(":", 1)[1] for k, v in dc.LAUNCHES.items()
+                     if ":" in k and v != before[k])
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    print(f"{label} eight_schools ({form} form): {', '.join(f'{t:.3f}' for t in times)} ms, "
+          f"median {statistics.median(times):.3f} ms, {float(out[2].sum()):.0f} grads, "
+          f"launched as {forms}, all chains complete: {bool((out[1] == 800).all())}, "
+          f"iterations a chain: {iterations(out[4])}; {occupancy()[1]}; outputs (x, steps, "
+          f"grads, history, iterations) sha256 {h.hexdigest()[:16]} ({card})", flush=True)
+    return 0
 
 
 def _occupancy(lib, resident, d=100):
@@ -1405,14 +1598,15 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     parser.add_argument("--target", choices=("flagship", "horseshoe", "gaussian_dense",
-                                             "gaussian_low_rank"), default="flagship")
+                                             "gaussian_low_rank", "eight_schools"),
+                        default="flagship")
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument("--label", default=None)
     parser.add_argument("--sections", action="store_true")
     parser.add_argument("--dim", type=int, default=100)
     parser.add_argument("--steps", type=int, default=None)
     parser.add_argument("--step-size", type=float, default=0.15)
-    parser.add_argument("--form", choices=("resident", "registers"), default=None)
+    parser.add_argument("--form", choices=("resident", "registers", "thread"), default=None)
     parser.add_argument("--warps", type=int, nargs="+", default=None)
     parser.add_argument("--block-warps", type=int, nargs="+", default=None)
     parser.add_argument("--machine", choices=("dc", "older", "mclmc", "hmc"), default="dc")
@@ -1434,6 +1628,11 @@ def main() -> int:
             capture_output=True, text=True, check=True).stdout.strip()
         run = {"older": _older, "mclmc": _mclmc, "hmc": _hmc}[args.machine]
         return run(args, torch, card, args.label or args.root)
+    if args.target == "eight_schools":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+        return _eight_schools(args, torch, card, args.label or args.root)
     from blackjax_tpu_torch.ops import _nvcc, targets_dc
     from blackjax_tpu_torch.ops import fused_nuts_dc as dc
 
@@ -1471,6 +1670,17 @@ def main() -> int:
         x = torch.from_numpy((scale * np.random.default_rng(1).standard_normal(
             (chains, target.dim))).astype(np.float32)).to(dev)
         imm = torch.ones(target.dim, device=dev)
+    if args.target == "flagship" and args.inputs:  # phase 4's own start
+        if not os.path.exists(args.inputs):
+            positions, step, imm, *_ = _own_chip_smoke().warm_start(torch, dev)
+            torch.save({"positions": positions.cpu(), "step_size": float(step),
+                        "inverse_mass_matrix": imm.cpu()}, args.inputs)
+        saved = torch.load(args.inputs)
+        x, imm = (saved[k].to(dev) for k in ("positions", "inverse_mass_matrix"))
+        step = saved["step_size"]
+        print(f"{args.label or args.root} flagship: phase 4's inputs from {args.inputs}: "
+              f"{tuple(x.shape)}, step size {step:.6f}, mean metric {float(imm.mean()):.6f}",
+              flush=True)
     kw.update(target=target, seed=7, num_track=8)
     resident = hasattr(dc, "RESIDENT_WIDTHS")
     if args.form is not None:

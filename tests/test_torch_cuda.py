@@ -182,30 +182,35 @@ def test_horseshoe_forms_match_plain_version(cuda, case):
 
 
 @pytest.mark.parametrize("kind", ["diag", "dense", "low_rank"])
-def test_block_bytes_match_the_plan(cuda, kind):
+def test_block_bytes_match_the_plan(cuda, monkeypatch, kind):
     """The kernel asks for the shared memory that shared_memory_plan counts,
     and reads and writes the scratch in device memory that the wrapper
     allocates (scratch_floats: the cold vectors and checkpoint slots of the
-    resident, the tiles and the N >= 13 forms)."""
+    resident, the tiles and the N >= 13 forms); eight schools in both of
+    its forms: the registers form the plan keeps, and the thread form
+    where _EIGHT_SCHOOLS_THREAD is set (the diagonal metric)."""
     import ctypes
 
     lib = dc._library(kind)
     shapes = [(404, dc._CUDA_HORSESHOE, 10, 100, 200), (404, dc._CUDA_HORSESHOE, 10, 400, 200),
               (100, dc._CUDA_HORSESHOE, 6, 37, 48), (36, dc._CUDA_HORSESHOE, 6, 12, 16),
               (54, dc._CUDA_LOGREG, 8, 4096, 54), (10, dc._CUDA_EIGHT_SCHOOLS, 8, 0, 0),
+              (10, dc._CUDA_EIGHT_SCHOOLS, 6, 0, 0), (10, dc._CUDA_EIGHT_SCHOOLS, 10, 0, 0),
               (100, dc._CUDA_HIERARCHICAL, 8, 0, 0), (8, dc._CUDA_HIERARCHICAL, 10, 0, 0),
               (200, dc._CUDA_GAUSSIAN, 6, 0, 0), (404, dc._CUDA_HIERARCHICAL, 8, 0, 0)]
     rank = 4 if kind == "low_rank" else 0
-    for d, family, max_depth, rows, cols in shapes:
-        if kind != "diag" and d > 256:
-            continue
-        n = dc._register_width(d)
-        plan = dc.shared_memory_plan(n, family, kind, max_depth, rows, cols, rank)
-        assert lib.bjt_dc_block_bytes(d, family, plan.form, max_depth, rows, cols, rank,
-                                      int(plan.metric_shared)) == plan.nbytes
-        floats = (ctypes.c_longlong * 2)()
-        assert lib.bjt_dc_scratch_floats(d, family, plan.form, max_depth, floats) == 0
-        assert tuple(floats) == dc.scratch_floats(plan, n, kind, max_depth)
+    for thread in (False, True) if kind == "diag" else (False,):
+        monkeypatch.setattr(dc, "_EIGHT_SCHOOLS_THREAD", thread)
+        for d, family, max_depth, rows, cols in shapes:
+            if kind != "diag" and d > 256:
+                continue
+            n = dc._register_width(d)
+            plan = dc.shared_memory_plan(n, family, kind, max_depth, rows, cols, rank)
+            assert lib.bjt_dc_block_bytes(d, family, plan.form, max_depth, rows, cols, rank,
+                                          int(plan.metric_shared)) == plan.nbytes
+            floats = (ctypes.c_longlong * 2)()
+            assert lib.bjt_dc_scratch_floats(d, family, plan.form, max_depth, floats) == 0
+            assert tuple(floats) == dc.scratch_floats(plan, n, kind, max_depth)
 
 
 @pytest.mark.parametrize("max_depth", [6, 8, 10])
@@ -1069,7 +1074,7 @@ def test_resident_occupancy_is_the_recorded_one(cuda):
     resident = dc.occupancy(100)
     assert resident["warps_per_sm"] == dc.resident_warps(4) == 20
     assert resident["registers"] <= 65_536 // (32 * 20)
-    assert dc.occupancy(100, resident=False)["warps_per_sm"] == 16
+    assert dc.occupancy(100, form=0)["warps_per_sm"] == 16
 
 
 # ---- the older machine's resident form (csrc/fused_nuts.cu: nuts_resident) ----
@@ -1172,3 +1177,106 @@ def test_older_resident_occupancy_is_the_recorded_one(cuda):
     assert resident["warps_per_sm"] == 20
     assert resident["registers"] <= 65_536 // (32 * 20)
     assert fn.occupancy(100, resident=False)["warps_per_sm"] == 16
+
+
+# ---- eight schools' thread form (csrc/fused_nuts_dc.cuh: nuts_dc_thread) ----
+
+
+def _eight_schools_inputs(cuda, C, seed=15):
+    x = torch.from_numpy(
+        (0.5 * np.random.default_rng(seed).standard_normal((C, 10))).astype(np.float32)
+    ).to(cuda)
+    return x, torch.from_numpy(np.random.default_rng(seed).uniform(0.5, 2.0, 10)
+                               .astype(np.float32)).to(cuda)
+
+
+def _both_forms(run, monkeypatch):
+    """``run()`` in the thread form (switched on), then in the registers
+    form (the plan's own), each counted under its form."""
+    before = dict(dc.LAUNCHES)
+    with monkeypatch.context() as m:
+        m.setattr(dc, "_EIGHT_SCHOOLS_THREAD", True)
+        thread = run()
+    assert dc.LAUNCHES["fused_nuts_dc:thread"] > before["fused_nuts_dc:thread"]
+    assert dc.LAUNCHES["fused_nuts_dc:registers"] == before["fused_nuts_dc:registers"]
+    registers = run()
+    assert dc.LAUNCHES["fused_nuts_dc:registers"] > before["fused_nuts_dc:registers"]
+    return thread, registers
+
+
+@pytest.mark.parametrize("restart_every", [1, 16])
+@pytest.mark.parametrize("max_depth", [6, 8, 10])
+@pytest.mark.parametrize("C", [1, 31, 32, 33, 512, 4096])
+def test_thread_form_is_the_registers_form_bit_for_bit(cuda, monkeypatch, C, max_depth,
+                                                       restart_every):
+    """One chain a thread and one chain a warp give the same bits: every
+    output per chain (positions, steps, gradients, history, iterations)
+    under per-chain budgets that cut some chains short, and the public
+    outputs under pack=4 and a lane budget, with tracked rows out of
+    order."""
+    target = targets_dc.make_eight_schools_target_dc()
+    x, imm = _eight_schools_inputs(cuda, C)
+    S = 8
+    kw = dict(target=target, num_steps=S, max_num_doublings=max_depth, seed=7, num_track=4,
+              track_rows=(9, 8, 0, 3), chunk=16, restart_every=restart_every)
+    budgets = torch.from_numpy(np.random.default_rng(C).integers(8, 40 * S, C))
+    x32, metric, machine = dc._prepare(x, imm, budget=40 * S, **kw)
+    thread, registers = _both_forms(
+        lambda: dc._launch_cuda(x32, metric, 0.2, budgets=budgets, **machine), monkeypatch)
+    assert all(torch.equal(a, b) for a, b in zip(thread, registers))
+    if C >= 32:
+        assert 0 < int((thread[1] < S).sum()) < C
+    packed = dict(kw, pack=4, budget=12 * S * 4)
+    thread, registers = _both_forms(
+        lambda: dc.fused_nuts_run_dc(x, imm, 0.2, **packed), monkeypatch)
+    assert all(torch.equal(a, b) for a, b in zip(thread, registers))
+    assert bool(torch.isfinite(thread[0]).all() and torch.isfinite(thread[1]).all())
+
+
+@pytest.mark.parametrize("max_depth", [8, 10])
+@pytest.mark.parametrize("restart_every", [1, 16])
+def test_thread_form_matches_plain_version(cuda, monkeypatch, restart_every, max_depth):
+    """Phase 9's shape (512 chains x 8 transitions), with pack=4, gated
+    restarts and a lane budget, at phase 9's depth and the tracked
+    configuration's, held against the plain version under the matrix
+    targets' gate."""
+    monkeypatch.setattr(dc, "_EIGHT_SCHOOLS_THREAD", True)
+    target = targets_dc.make_eight_schools_target_dc()
+    x, imm = _eight_schools_inputs(cuda, 512, seed=9)
+    kw = dict(target=target, num_steps=8, max_num_doublings=max_depth, seed=7, num_track=10,
+              pack=4, restart_every=restart_every, chunk=16, budget=12 * 8 * 4)
+    before = dc.LAUNCHES["fused_nuts_dc:thread"]
+    kern = dc.fused_nuts_run_dc(x, imm, 0.2, **kw)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES["fused_nuts_dc:thread"] > before
+    plain = dc.fused_nuts_run_dc_plain(x, imm, 0.2, **kw)
+    assert torch.equal(kern[3], plain[3]) and 0 < int((kern[3] < 8).sum()) < 512
+    assert float(kern[2]) == float(plain[2])
+    close = torch.isclose(kern[0], plain[0], rtol=MATRIX_TOL, atol=MATRIX_TOL).all(1)
+    close &= torch.isclose(kern[1], plain[1], rtol=MATRIX_TOL, atol=MATRIX_TOL).flatten(1).all(1)
+    assert float(close.float().mean()) >= AGREE_FLOOR
+
+
+def test_thread_form_occupancy_is_the_recorded_one(cuda):
+    """At max_depth 10 a one-warp block takes 35,840 B of shared memory, so
+    an SM holds six (233,472 B, 1 KB reserved a block); ptxas gives the
+    kernel 168 registers and a 96 B stack frame (PERF.md §6); the registers
+    form holds its four warps a block."""
+    thread = dc.occupancy(10, target=dc._CUDA_EIGHT_SCHOOLS, max_depth=10, form=2)
+    assert thread["warps_per_sm"] == 6
+    assert thread["registers"] <= 255 and thread["local_bytes"] <= 96
+    registers = dc.occupancy(10, target=dc._CUDA_EIGHT_SCHOOLS, max_depth=10, form=0)
+    assert registers["warps_per_sm"] % 4 == 0 and registers["warps_per_sm"] > 0
+
+
+def test_thread_form_refuses_other_targets(cuda, monkeypatch):
+    """The kernel's entry refuses the thread form for a target it does not
+    run, and the wrapper raises: nothing falls back."""
+    target = dc.make_hierarchical_target_dc(10)
+    x = torch.zeros(4, 10, device=cuda)
+    x32, metric, machine = dc._prepare(x, torch.ones(10, device=cuda), target=target,
+                                       num_steps=2, num_track=2)
+    monkeypatch.setattr(dc, "shared_memory_plan",
+                        lambda *a, **k: dc.SharedMemoryPlan(None, 35_840, thread=True))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dc._launch_cuda(x32, metric, 0.2, **machine)
