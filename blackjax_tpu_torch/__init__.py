@@ -16,7 +16,9 @@ info)`` with a leading chain axis on every state tensor; the key is key
 words (one ``jax.random`` key per chain) or a ``torch.Generator``.
 
 Registry subset so far (every name is the reference's): ``hmc``, ``nuts``,
-``mclmc``, ``fused_hmc``, ``window_adaptation``,
+``mala``, ``mclmc``, ``fused_hmc``, ``tempered_smc``,
+``adaptive_tempered_smc``, ``inner_kernel_tuning``,
+``partial_posteriors_smc``, ``window_adaptation``,
 ``window_adaptation_low_rank``, ``staged_adaptation``,
 ``mclmc_find_L_and_step_size``, ``dual_averaging_adaptation``,
 ``dual_averaging``, ``diagnostics`` (with ``ess``, ``ess_bulk`` and
@@ -40,9 +42,14 @@ from blackjax_tpu_torch.base import (
 from blackjax_tpu_torch.diagnostics import effective_sample_size as ess
 from blackjax_tpu_torch.diagnostics import ess_bulk, rhat
 from blackjax_tpu_torch.mcmc import hmc as _hmc
+from blackjax_tpu_torch.mcmc import mala as _mala
 from blackjax_tpu_torch.mcmc import mclmc as _mclmc
 from blackjax_tpu_torch.mcmc import nuts as _nuts
 from blackjax_tpu_torch.optimizers import dual_averaging
+from blackjax_tpu_torch.smc import adaptive_tempered as _adaptive_tempered
+from blackjax_tpu_torch.smc import inner_kernel_tuning as _inner_kernel_tuning
+from blackjax_tpu_torch.smc import partial_posteriors_path as _partial_posteriors_smc
+from blackjax_tpu_torch.smc import tempered as _tempered
 
 __version__ = "0.1.0"
 
@@ -70,6 +77,12 @@ def generate_top_level_api_from(module) -> GenerateSamplingAPI:
 hmc = generate_top_level_api_from(_hmc)
 nuts = generate_top_level_api_from(_nuts)
 mclmc = generate_top_level_api_from(_mclmc)
+mala = generate_top_level_api_from(_mala)
+
+tempered_smc = generate_top_level_api_from(_tempered)
+adaptive_tempered_smc = generate_top_level_api_from(_adaptive_tempered)
+inner_kernel_tuning = generate_top_level_api_from(_inner_kernel_tuning)
+partial_posteriors_smc = generate_top_level_api_from(_partial_posteriors_smc)
 
 # the class `ops.fused_hmc` shadows its module's name in `ops`, so the
 # module is resolved through importlib (as in the reference)
@@ -82,7 +95,12 @@ __all__ = [
     "hmc",
     "nuts",
     "mclmc",
+    "mala",
     "fused_hmc",
+    "tempered_smc",
+    "adaptive_tempered_smc",
+    "inner_kernel_tuning",
+    "partial_posteriors_smc",
     "window_adaptation",
     "window_adaptation_low_rank",
     "staged_adaptation",

@@ -7,18 +7,23 @@ inverse mass matrices (diagonal, dense or low-rank payloads) and step sizes
 (alone or as a warmup's parameters), low-rank metric cores' states,
 MCLMC states and tuned parameters, fused-HMC states, the fused kernels'
 targets, the test posteriors by name, and PRNG keys (as key words, with
-which the port draws what the reference draws).
+which the port draws what the reference draws), and the SMC layer's states
+and infos (tempered SMC states, ``SMCInfo`` with its update's info, MALA
+states).
 """
 import numpy as np
 import torch
 
 from blackjax_tpu_torch.adaptation.mclmc_adaptation import MCLMCAdaptationState
 from blackjax_tpu_torch.adaptation.metric_recipes import LowRankMetricCoreState
-from blackjax_tpu_torch.mcmc.hmc import HMCState
+from blackjax_tpu_torch.mcmc.hmc import HMCInfo, HMCState
 from blackjax_tpu_torch.mcmc.integrators import IntegratorState
+from blackjax_tpu_torch.mcmc.mala import MALAInfo, MALAState
 from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix
 from blackjax_tpu_torch.mcmc.nuts import NUTSInfo
 from blackjax_tpu_torch.models import targets
+from blackjax_tpu_torch.smc.base import SMCInfo
+from blackjax_tpu_torch.smc.tempered import TemperedSMCState
 from blackjax_tpu_torch.ops import fused_nuts_dc, targets_dc
 from blackjax_tpu_torch.ops.fused_hmc import FusedHMCState
 from blackjax_tpu_torch.ops.fused_nuts import make_mxu_safe_hierarchical_target
@@ -41,6 +46,9 @@ __all__ = [
     "step_size",
     "adaptation_parameters",
     "mclmc_state",
+    "mala_state",
+    "tempered_smc_state",
+    "smc_info",
     "mclmc_parameters",
     "fused_hmc_state",
     "target_dc",
@@ -159,6 +167,44 @@ def mclmc_parameters(params, *, device=None, dtype=None) -> MCLMCAdaptationState
         step_size(params.step_size),
         to_tensor(params.inverse_mass_matrix, device=device, dtype=dtype),
     )
+
+
+def mala_state(state, *, device=None, dtype=None) -> MALAState:
+    """A ``MALAState`` of the reference (fields as arrays) as the port's."""
+    return MALAState(*(to_tensor(v, device=device, dtype=dtype) for v in state))
+
+
+# the reference's state and info records by name, and the port's counterparts
+_RECORDS = {cls.__name__: cls for cls in (
+    MALAInfo, MALAState, HMCInfo, HMCState, IntegratorState, SMCInfo, TemperedSMCState)}
+
+
+def _tree(value, device, dtype):
+    """A tree of the reference's values as the port's: its records by name,
+    tuples, lists and dicts walked, every leaf a tensor."""
+    if isinstance(value, tuple) and hasattr(value, "_fields"):
+        cls = _RECORDS.get(type(value).__name__)
+        if cls is None:
+            raise NotImplementedError(f"record {type(value).__name__} is not ported yet")
+        return cls(*(_tree(v, device, dtype) for v in value))
+    if isinstance(value, (tuple, list)):
+        return type(value)(_tree(v, device, dtype) for v in value)
+    if isinstance(value, dict):
+        return {k: _tree(v, device, dtype) for k, v in value.items()}
+    return to_tensor(value, device=device, dtype=dtype)
+
+
+def tempered_smc_state(state, *, device=None, dtype=None) -> TemperedSMCState:
+    """A ``TemperedSMCState`` of the reference (particles a tensor or a
+    pytree) as the port's, its tempering parameter a 0-d tensor."""
+    return _tree(TemperedSMCState(*state), device, dtype)
+
+
+def smc_info(info, *, device=None, dtype=None) -> SMCInfo:
+    """An ``SMCInfo`` of the reference as the port's: ancestors an integer
+    tensor, the increment a tensor, the update's info (MALA's or HMC's
+    record) the port's record."""
+    return _tree(SMCInfo(*info), device, dtype)
 
 
 def fused_hmc_state(state, *, device=None) -> FusedHMCState:

@@ -1,6 +1,8 @@
 """MCMC mechanics and samplers ported so far."""
+from blackjax_tpu_torch.mcmc import diffusions as diffusions
 from blackjax_tpu_torch.mcmc import hmc as hmc
 from blackjax_tpu_torch.mcmc import integrators as integrators
+from blackjax_tpu_torch.mcmc import mala as mala
 from blackjax_tpu_torch.mcmc import mclmc as mclmc
 from blackjax_tpu_torch.mcmc import metrics as metrics
 from blackjax_tpu_torch.mcmc import nuts as nuts

@@ -4,9 +4,13 @@
 One transition: draw the momentum from the metric, integrate the
 Hamiltonian flow for a fixed number of leapfrog steps, then
 Metropolis-accept the momentum-flipped endpoint. The kernel moves every
-chain of a ``(C, d)`` block at once. Its two draws come from the caller's
-generator, the momentum first and then the accept uniforms; the proposal
-itself takes the uniforms, so that a test can hand it the reference's.
+chain of a ``(C, d)`` block at once. Its randomness is a key per chain
+(:mod:`blackjax_tpu_torch.prng`), split into the momentum key and the
+accept key as the reference splits it, so the port draws what the
+reference draws from the same keys (SMC moves its particles so); or a
+``torch.Generator``, from which it draws the momentum first and then the
+accept uniforms. The proposal itself takes the uniforms, so that a test
+can hand it the reference's.
 
 Ported: the endpoint proposal. ``multinomial_hmc_proposal`` and traced
 per-chain step counts (``max_num_integration_steps``) come with a later
@@ -16,6 +20,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from blackjax_tpu_torch import prng
 from blackjax_tpu_torch.base import SamplingAlgorithm, build_sampling_algorithm
 from blackjax_tpu_torch.mcmc import integrators, metrics, trajectory
 from blackjax_tpu_torch.mcmc.proposal import safe_energy_diff, static_binomial_sampling
@@ -95,11 +100,17 @@ def build_kernel(
             divergence_threshold,
         )
         position = state.position
-        momentum = metric.sample_momentum(rng_key, position)
-        uniform = torch.rand(
-            position.shape[:-1], generator=rng_key, dtype=position.dtype,
-            device=position.device,
-        )
+        if isinstance(rng_key, torch.Generator):
+            momentum = metric.sample_momentum(rng_key, position)
+            uniform = torch.rand(
+                position.shape[:-1], generator=rng_key, dtype=position.dtype,
+                device=position.device,
+            )
+        else:
+            key_momentum, key_accept = prng.split(rng_key.to(position.device)).unbind(-2)
+            momentum = metric.sample_momentum(key_momentum, position)
+            # bernoulli(key_accept, p_accept): a uniform in p_accept's dtype below it
+            uniform = prng.uniform(key_accept, (), position.dtype)
         head = integrators.IntegratorState(
             position, momentum, state.logdensity, state.logdensity_grad
         )

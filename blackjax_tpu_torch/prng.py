@@ -17,11 +17,15 @@ leading axes, one key per chain. The constructions are those of
 - ``bernoulli(key, p)`` is ``uniform(key) < p`` in ``p``'s dtype (JAX takes
   a Python float in its default float dtype: f64 under x64, else f32);
 - ``normal`` is ``sqrt(2) erfinv(u)`` with ``u`` uniform on
-  ``[nextafter(-1, 0), 1)``.
+  ``[nextafter(-1, 0), 1)``;
+- ``exponential`` is ``-log1p(-u)`` of a uniform ``u``;
+- ``permutation`` is JAX's sort-based shuffle: ``ceil(3 ln n / ln(2**32 -
+  1))`` rounds, each splitting the key into ``(key, subkey)`` and stably
+  sorting by the subkey's 32-bit bits.
 
 So the port draws the numbers the JAX package draws from the same keys, bit
 for bit, except ``normal``, whose ``erfinv`` differs from XLA's in the last
-bits. On a CUDA tensor each ``threefry2x32`` is one launch of the
+bits (and ``exponential``, whose ``log1p`` may). On a CUDA tensor each ``threefry2x32`` is one launch of the
 hand-written kernel of ``csrc/fused_nuts_dc.cu`` (a key per element); on a
 CPU tensor it is :func:`blackjax_tpu_torch.ops.counter_rng.threefry2x32`,
 the plain version.
@@ -40,6 +44,8 @@ __all__ = [
     "uniform",
     "bernoulli",
     "normal",
+    "exponential",
+    "permutation",
 ]
 
 MASK32 = 0xFFFFFFFF
@@ -164,3 +170,26 @@ def normal(keys: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype), torch.tensor(0.0, dtype=dtype))
     u = uniform(keys, shape, dtype, float(lo), 1.0)
     return torch.tensor(math.sqrt(2), dtype=dtype, device=keys.device) * torch.special.erfinv(u)
+
+
+def exponential(keys: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.exponential``: ``-log1p(-u)``, ``u`` uniform on ``[0, 1)``;
+    ``keys.shape[:-1] + shape``."""
+    return -torch.log1p(-uniform(keys, shape, dtype))
+
+
+def permutation(key: torch.Tensor, x) -> torch.Tensor:
+    """``jax.random.permutation`` of one key ``(2,)``: ``x`` an int (a
+    permutation of ``arange(x)``) or a tensor shuffled along its first
+    axis."""
+    if key.shape != (2,):
+        raise ValueError(f"permutation takes one key (2,), got {tuple(key.shape)}")
+    if not torch.is_tensor(x):
+        x = torch.arange(int(x), device=key.device)
+    n = x.shape[0]
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(MASK32))
+    for _ in range(rounds):
+        key, subkey = split(key)
+        sort_keys = bits(subkey, (n,))
+        x = x[torch.sort(sort_keys, stable=True).indices]
+    return x

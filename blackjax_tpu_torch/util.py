@@ -19,6 +19,7 @@ __all__ = [
     "generate_unit_vector",
     "pytree_size",
     "run_inference_algorithm",
+    "tree_leaves",
     "tree_map",
     "value_and_grad",
 ]
@@ -36,6 +37,18 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in the reference's flattening order: tuples,
+    NamedTuples and lists in order, dicts by sorted key, ``None`` skipped."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
 
 
 def value_and_grad(fn: Callable, x: Array) -> tuple[Array, Array]:

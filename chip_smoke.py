@@ -5,13 +5,14 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's ten main paths once, five at the flagship's full
+It drives the port's eleven main paths once, five at the flagship's full
 width (the 100-dim hierarchical posterior, 4,096 chains), one at the
 Finnish horseshoe's (N=100, M=200, d=404, 512 chains), three at the
 covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
-4,096 under MCLMC) and one at the tracked eight-schools configuration's
-(d=10, 512 chains x 800 transitions), and checks them in phases, one line
-each:
+4,096 under MCLMC), one at the tracked eight-schools configuration's
+(d=10, 512 chains x 800 transitions) and one at the tracked tempered-SMC
+configuration's (d=10, 16,384 particles), and checks them in phases, one
+line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the builds of
    ``csrc/fused_nuts_dc.cu``, ``csrc/fused_nuts_dc_dense.cu``,
@@ -238,6 +239,31 @@ each:
    p99, mean), the bound at this shape and the launch / bound, each form's warps
    an SM, registers and local memory and its time on the per-chain
    launches, and the warmup's seconds and ms per leaf.
+16. the tracked adaptive-tempered SMC path
+   (``benchmarks/tracked.py:566-624``), launch counts reset just before it,
+   nothing cut: ``adaptive_tempered_smc`` with ``mala`` moves (a shared step
+   size of 0.1, 5 MCMC steps), ``resampling.systematic``, target ESS 0.5, on
+   16,384 particles of d=10 from 3 N(0, I) (numpy seed 1), in f32, the
+   prior N(0, 9 I) and the likelihood N(obs, I) with obs = linspace(-1, 1,
+   10), run by the reference's host-paced loop (lambda read once a step, at
+   most 50 steps): one warm run (key 17), three timed runs (split(key 18,
+   3)), best of 3 as runs/sec (full tempering), then one waste-free run
+   (``waste_free_smc(16384, 8)``, key 19). Each run must take lambda
+   strictly up to exactly 1.0, keep everything finite and on the card, its
+   weights summing to 1 within 1e-5, log Z (the summed log increments)
+   within 0.25 of the exact -5 ln 10 - sum obs^2 / 20, every weighted mean
+   within 0.06 of 0.9 obs and every weighted variance in [0.8, 1.0] (the
+   waste-free run: 0.6 and 0.15), and a mean MALA acceptance above 0.9 at
+   every step; the path must launch the threefry kernel (every draw of the
+   path goes through ``prng``). The lines give each run's lambda schedule,
+   log Z and its error, the largest mean and variance errors, the
+   acceptance per step, seconds and host ms a tempering step, the threefry
+   launches a run, one run's device records by torch.profiler against
+   its time, and the median ms of each part of a tempering step (the ESS
+   solver and its objective evaluations, resampling, the key split, the
+   MALA moves, the reweight) and of the whole step. Then the same run in f64 at 1,024 particles on the card and on
+   the CPU, on key 18: the same step count, lambda within 1e-10, ancestors
+   identical at every step, particles within 1e-9.
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
@@ -247,7 +273,7 @@ like-for-like times), one per new (kernel, target) pair (phase 9's and
 regression comparison), one for the older machine (phase 13's 512 x 16 times; eight schools'
 launches are phase 15's)
 and one for the threefry kernel with a key per element (phase 2's times on
-1,048,576 keys; its launches are phase 12's). ``launches`` is the count from the
+1,048,576 keys; its launches are phases 12's and 16's). ``launches`` is the count from the
 main path's run, or, for a pair that no main path drives, from the pair's checked
 call; ``fused_leapfrog`` counts ``leapfrog_kernel``'s own launches on phase 6,
 apart from the transition kernel's (its own entry), so none.
@@ -331,6 +357,24 @@ ES_REFERENCE = {"mu": (4.56320, 10.24402, 0.01208), "log_tau": (-2.77182, 11.800
 # of the reference's; 512 chains x 400 draws leave a Monte Carlo error of
 # about 0.01 sd in the mean and 0.02 in the variance ratio
 ES_MEAN_SD, ES_VAR_RATIO = 0.1, (0.9, 1.1)
+# phase 16: the tracked adaptive-tempered SMC configuration
+# (benchmarks/tracked.py:566-624): d = 10, 16,384 particles from 3 N(0, I),
+# prior N(0, 9 I), likelihood N(obs, I) with obs = linspace(-1, 1, 10), MALA
+# moves at a shared step size of 0.1, systematic resampling, target ESS 0.5,
+# 5 MCMC steps, at most 50 tempering steps; nothing cut
+SMC_D, SMC_PARTICLES, SMC_MAX_STEPS = 10, 16384, 50
+SMC_STEP_SIZE, SMC_TARGET_ESS, SMC_MCMC_STEPS = 0.1, 0.5, 5
+SMC_WASTE_FREE_P = 8  # waste_free_smc(16384, 8), num_mcmc_steps=None
+SMC_OBS = np.linspace(-1.0, 1.0, SMC_D)
+# the exact posterior: mean 0.9 obs, variance 0.9; log Z = -5 ln 10 - sum obs^2 / 20
+SMC_LOG_Z = -0.5 * SMC_D * np.log(10.0) - float((SMC_OBS**2).sum()) / 20.0
+# gates, about three times the worst errors of the JAX package's own runs of
+# this configuration on a CPU, keys 18-22 (log Z off by up to 0.084, means by
+# 0.030; waste-free, keys 18-20: 0.29 and 0.078): log Z and means by form,
+# the variances' band, the smallest mean acceptance a step
+SMC_GATES = {"adaptive": (0.25, 0.06), "waste-free": (0.6, 0.15)}
+SMC_VAR_BAND, SMC_MIN_ACCEPT = (0.8, 1.0), 0.9
+SMC_CMP_PARTICLES, SMC_CMP_TOL = 1024, 1e-9  # the f64 run on the card against the CPU
 # The horseshoe's posterior by the JAX package's own NUTS on the CPU
 # (tests/test_torch_horseshoe_slice.py:reference_bands: window_adaptation 600
 # steps from zeros, then 64 chains from 0.05 N(0, I) x 256 transitions, seed
@@ -887,6 +931,277 @@ def eight_schools_path(torch, dev, es_target, peaks, smi):
           f"chains with other counts, all among those that part), kernel {cut_ms:.3f} ms, plain "
           f"{plain_cut_ms:.1f} ms; launches {launches15} ({smi})")
     return launches15, planned
+
+
+def smc_init(torch, n, device, dtype):
+    """Phase 16's starting particles: 3 N(0, I) of numpy seed 1, the first
+    ``n`` of SMC_PARTICLES rows."""
+    x = 3.0 * np.random.default_rng(1).standard_normal((SMC_PARTICLES, SMC_D))[:n]
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def smc_target(torch, device, dtype):
+    """The tracked SMC target's log prior, N(0, 9 I), and log likelihood,
+    N(obs, I): each maps ``(n, d)`` particles to ``(n,)``."""
+    obs = torch.from_numpy(SMC_OBS).to(device=device, dtype=dtype)
+
+    def logprior_fn(x):
+        return -0.5 * (x**2).sum(-1) / 9.0
+
+    def loglikelihood_fn(x):
+        return -0.5 * ((x - obs) ** 2).sum(-1)
+
+    return logprior_fn, loglikelihood_fn
+
+
+def smc_run(torch, x0, key, waste_free=False, max_steps=SMC_MAX_STEPS):
+    """One full run of the tracked SMC configuration from particles ``x0``,
+    as ``benchmarks/tracked.py:591-616`` runs it: the host-paced loop that
+    splits ``key`` into the next key and the step's key and reads lambda
+    once a step. Returns the final state and each step's ``(state, info)``."""
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.mcmc import mala
+    from blackjax_tpu_torch.smc import resampling
+    from blackjax_tpu_torch.smc.waste_free import waste_free_smc
+
+    logprior_fn, loglikelihood_fn = smc_target(torch, x0.device, x0.dtype)
+    strategy = ({"update_strategy": waste_free_smc(x0.shape[0], SMC_WASTE_FREE_P)}
+                if waste_free else {})
+    algo = blackjax_tpu_torch.adaptive_tempered_smc(
+        logprior_fn, loglikelihood_fn, mala.build_kernel(), mala.init,
+        {"step_size": torch.full((1,), SMC_STEP_SIZE, dtype=x0.dtype, device=x0.device)},
+        resampling.systematic, target_ess=SMC_TARGET_ESS,
+        num_mcmc_steps=None if waste_free else SMC_MCMC_STEPS, **strategy)
+    state = algo.init(x0)
+    steps = []
+    while float(state.tempering_param) < 1.0 and len(steps) < max_steps:
+        key, step_key = prng.split(key)
+        state, info = algo.step(step_key, state)
+        steps.append((state, info))
+    return state, steps
+
+
+def smc_summary(torch, state, steps):
+    """A run's lambda schedule, log Z (the sum of the log increments), the
+    weighted posterior means and variances, and each step's mean MALA
+    acceptance, on the host."""
+    w = state.weights.double()
+    x = state.particles.double()
+    mean = (w[:, None] * x).sum(0)
+    var = (w[:, None] * (x - mean) ** 2).sum(0)
+    return {"lambdas": [float(step.tempering_param) for step, _ in steps],
+            "log_z": float(sum(info.log_likelihood_increment.double() for _, info in steps)),
+            "mean": mean.cpu().numpy(), "var": var.cpu().numpy(),
+            "accept": [float(info.update_info.acceptance_rate.double().mean())
+                       for _, info in steps]}
+
+
+def smc_gates(torch, label, state, steps):
+    """Phase 16's gates on one run (see the head of this file); returns its
+    summary."""
+    log_z_tol, mean_tol = SMC_GATES["waste-free" if label.startswith("waste-free") else
+                                     "adaptive"]
+    s = smc_summary(torch, state, steps)
+    lams = s["lambdas"]
+    _require(len(steps) <= SMC_MAX_STEPS and lams[-1] == 1.0,
+             f"phase 16 {label}: lambda ends at {lams[-1]} after {len(steps)} steps")
+    _require(all(b > a for a, b in zip([0.0] + lams, lams)),
+             f"phase 16 {label}: lambda does not rise strictly: {lams}")
+    tensors = [state.particles, state.weights, state.tempering_param] + [
+        t for _, info in steps for t in (info.ancestors, info.log_likelihood_increment,
+                                         *info.update_info)]
+    _require(all(t.device.type == "cuda" for t in tensors),
+             f"phase 16 {label}: a state or info tensor is on the CPU")
+    _require(all(bool(torch.isfinite(t).all()) for t in tensors if t.is_floating_point()),
+             f"phase 16 {label}: non-finite values")
+    _require(abs(float(state.weights.double().sum()) - 1.0) <= 1e-5,
+             f"phase 16 {label}: weights sum to {float(state.weights.double().sum())}")
+    _require(abs(s["log_z"] - SMC_LOG_Z) <= log_z_tol,
+             f"phase 16 {label}: log Z {s['log_z']} against {SMC_LOG_Z} (tolerance {log_z_tol})")
+    mean_err = float(np.abs(s["mean"] - 0.9 * SMC_OBS).max())
+    _require(mean_err <= mean_tol, f"phase 16 {label}: a mean {mean_err} from 0.9 obs")
+    _require(bool(((s["var"] >= SMC_VAR_BAND[0]) & (s["var"] <= SMC_VAR_BAND[1])).all()),
+             f"phase 16 {label}: variances {s['var']} outside {SMC_VAR_BAND}")
+    _require(min(s["accept"]) > SMC_MIN_ACCEPT,
+             f"phase 16 {label}: mean MALA acceptance {s['accept']}")
+    s["mean_err"], s["var_err"] = mean_err, float(np.abs(s["var"] - 0.9).max())
+    return s
+
+
+def smc_step_parts(torch, state, repeats=20):
+    """Where a tempering step from ``state`` spends its time: the median
+    host-clock ms, around a synchronize, of ``repeats`` calls after a warm
+    one, of each part of ``adaptive_tempered_smc``'s step and of the whole
+    step, and the number of objective evaluations of the ESS solver."""
+    import functools
+    import statistics
+
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.mcmc import mala
+    from blackjax_tpu_torch.smc import adaptive_tempered, base, ess, resampling, solver
+    from blackjax_tpu_torch.util import value_and_grad
+
+    x, lam, n = state.particles, state.tempering_param, state.particles.shape[0]
+    dev, dtype = x.device, x.dtype
+    logprior_fn, loglikelihood_fn = smc_target(torch, dev, dtype)
+
+    def target(y):
+        return logprior_fn(y) + lam * loglikelihood_fn(y)
+
+    evaluations = [0]
+
+    def counted_dichotomy(fun, lo, hi):
+        def counted(delta):
+            evaluations[0] += 1
+            return fun(delta)
+        return solver.dichotomy(counted, lo, hi)
+
+    kernel = mala.build_kernel()
+    step_size = torch.tensor(SMC_STEP_SIZE, dtype=dtype, device=dev)
+    keys = prng.split(prng.key(5, dev), n)
+    mala_state = mala.init(x, target)
+    update, _ = base.update_and_take_last(
+        mala.init, target, functools.partial(kernel, step_size=step_size), SMC_MCMC_STEPS, n)
+    step = adaptive_tempered.build_kernel(logprior_fn, loglikelihood_fn, kernel, mala.init,
+                                          resampling.systematic, SMC_TARGET_ESS)
+    params = {"step_size": torch.full((1,), SMC_STEP_SIZE, dtype=dtype, device=dev)}
+
+    def reweight():
+        log_weights = 0.1 * loglikelihood_fn(x)
+        return torch.exp(log_weights - torch.logsumexp(log_weights, 0))
+
+    parts = {
+        "the ESS solver (a host loop of bisections)": lambda: ess.ess_solver(
+            loglikelihood_fn, x, SMC_TARGET_ESS, 1.0 - lam, counted_dichotomy),
+        "systematic resampling and the gather": lambda: x[
+            resampling.systematic(prng.key(6, dev), state.weights, n)],
+        "the particles' key split": lambda: prng.split(prng.key(7, dev), n),
+        f"mala.init and {SMC_MCMC_STEPS} MALA moves": lambda: update(keys, x, {}),
+        "one MALA move": lambda: kernel(keys, mala_state, target, step_size),
+        "its value_and_grad": lambda: value_and_grad(target, x),
+        "the reweight": reweight,
+        "the whole step": lambda: step(prng.key(8, dev), state, SMC_MCMC_STEPS, params),
+    }
+
+    def ms(fn):
+        fn()
+        times = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    times = {name: ms(fn) for name, fn in parts.items()}
+    evaluations[0] = 0
+    parts["the ESS solver (a host loop of bisections)"]()
+    return times, evaluations[0]
+
+
+def _device_busy(torch, fn):
+    """One call of ``fn`` under torch.profiler (CUPTI): the summed durations
+    of its device records (kernels, copies, sets), their number, and the
+    call's host-clock milliseconds under the profiler. None where the trace
+    holds no device record."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Warning: Profiler clears events")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        records = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not records:
+        return None
+    return sum(e.time_range.elapsed_us() for e in records) / 1e3, len(records), wall_ms
+
+
+def smc_path(torch, dev, smi):
+    """Phase 16: the tracked adaptive-tempered SMC configuration end to end,
+    with its gates and its lines (see the head of this file). Returns the
+    threefry launches counted on the path."""
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+
+    x0 = smc_init(torch, SMC_PARTICLES, dev, torch.float32)
+
+    def run(key, waste_free=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, steps = smc_run(torch, x0, key, waste_free)
+        torch.cuda.synchronize()
+        return state, steps, time.perf_counter() - t0
+
+    for name in dc.LAUNCHES:
+        dc.LAUNCHES[name] = 0
+    runs = [("warm run (key 17)", *run(prng.key(17, dev)))]
+    for i, key in enumerate(prng.split(prng.key(18, dev), 3)):
+        runs.append((f"timed run {i} (split(key 18, 3)[{i}])", *run(key)))
+    per_run = dc.LAUNCHES["threefry2x32"] / len(runs)
+    runs.append(("waste-free run (key 19)", *run(prng.key(19, dev), waste_free=True)))
+    launches16 = dict(dc.LAUNCHES)  # counted before the comparison's launches
+    _require(launches16["threefry2x32"] > 0, "phase 16: the SMC path launched no threefry kernel")
+    summaries = [(label, smc_gates(torch, label, state, steps), len(steps), secs)
+                 for label, state, steps, secs in runs]
+    timed = [(secs, n) for label, _, n, secs in summaries if label.startswith("timed")]
+    best_s, best_steps = min(timed)
+    for label, s, n, secs in summaries:
+        moves = (f"waste_free_smc({SMC_PARTICLES}, {SMC_WASTE_FREE_P})"
+                 if label.startswith("waste") else f"{SMC_MCMC_STEPS} MCMC steps")
+        print(f"phase 16 {label}: adaptive_tempered_smc(mala) {moves}, {SMC_PARTICLES} particles x {SMC_D}, f32: {n} tempering steps, lambda "
+              f"{', '.join(f'{lam:.6f}' for lam in s['lambdas'])}; log Z {s['log_z']:.5f} "
+              f"(exact {SMC_LOG_Z:.5f}, error {s['log_z'] - SMC_LOG_Z:+.5f}); largest |mean - "
+              f"0.9 obs| {s['mean_err']:.5f}, largest |var - 0.9| {s['var_err']:.5f} (variances "
+              f"{float(s['var'].min()):.4f}-{float(s['var'].max()):.4f}); mean acceptance a step "
+              f"{', '.join(f'{a:.4f}' for a in s['accept'])}; {secs:.4f} s by host clock, "
+              f"{secs / n * 1e3:.3f} ms a tempering step ({smi})")
+    busy = _device_busy(torch, lambda: smc_run(torch, x0, prng.split(prng.key(18, dev), 3)[0]))
+    busy_words = "not measured (no device record in the trace)" if busy is None else (
+        f"{busy[0]:.3f} ms of device records ({busy[1]} records) in a {busy[2]:.3f} ms run "
+        f"under torch.profiler: busy {busy[0] / busy[2]:.4f} of it, {busy[0] / (best_s * 1e3):.4f} "
+        f"of the best run's time")
+    print(f"phase 16: runs/sec (full tempering) {1.0 / best_s:.4f}, best of 3 timed runs "
+          f"{best_s:.4f} s ({best_steps} steps, {best_s / best_steps * 1e3:.3f} ms a tempering step "
+          f"by host clock); threefry launches {per_run:.1f} a run, "
+          f"{launches16['threefry2x32']} on the path (warm, 3 timed and waste-free runs); "
+          f"device {busy_words} ({smi})")
+    step3 = runs[1][2][2][0]  # timed run 0's state after its third step
+    parts, evaluations = smc_step_parts(torch, step3)
+    print(f"phase 16 a tempering step's parts, from timed run 0's state after its third step "
+          f"(lambda {float(step3.tempering_param):.6f}), medians of 20 by host clock: "
+          + "; ".join(f"{name} {t:.3f} ms" for name, t in parts.items())
+          + f"; the solver evaluates its objective {evaluations} times, reading each to the "
+          f"host ({smi})")
+
+    # the card against the port on the CPU: the same run in float64 at
+    # SMC_CMP_PARTICLES particles on the same key
+    xc = smc_init(torch, SMC_CMP_PARTICLES, "cpu", torch.float64)
+    card_state, card_steps = smc_run(torch, xc.to(dev), prng.key(18, dev))
+    cpu_state, cpu_steps = smc_run(torch, xc, prng.key(18))
+    _require(len(card_steps) == len(cpu_steps),
+             f"phase 16 f64: {len(card_steps)} steps on the card, {len(cpu_steps)} on the CPU")
+    lam_err = x_err = 0.0
+    for (card, card_info), (cpu, cpu_info) in zip(card_steps, cpu_steps):
+        _require(torch.equal(card_info.ancestors.cpu(), cpu_info.ancestors),
+                 "phase 16 f64: ancestors differ between the card and the CPU")
+        lam_err = max(lam_err, abs(float(card.tempering_param) - float(cpu.tempering_param)))
+        x_err = max(x_err, float((card.particles.cpu() - cpu.particles).abs().max()))
+    _require(lam_err <= 1e-10 and x_err <= SMC_CMP_TOL,
+             f"phase 16 f64: lambda {lam_err}, particles {x_err} between the card and the CPU")
+    print(f"phase 16 f64 hold, {SMC_CMP_PARTICLES} particles, key 18: the card and the port on "
+          f"the CPU take {len(card_steps)} steps each, ancestors identical at every step, "
+          f"largest lambda difference {lam_err:.3g} (tolerance 1e-10), largest particle "
+          f"difference {x_err:.3g} (tolerance {SMC_CMP_TOL}); launches {launches16} ({smi})")
+    return launches16["threefry2x32"]
 
 
 def main() -> int:
@@ -2018,6 +2333,10 @@ def main() -> int:
     marks.append((15, time.perf_counter()))
     launches15, es_form = eight_schools_path(torch, dev, es_target, peaks, smi)
 
+    # ---- phase 16: the tracked adaptive-tempered SMC path ----
+    marks.append((16, time.perf_counter()))
+    launches16 = smc_path(torch, dev, smi)
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
@@ -2067,7 +2386,8 @@ def main() -> int:
     kernels.append(_entry("fused_nuts", "fused_nuts.cu", "blackjax_tpu/ops/fused_nuts.py:711",
                           launches13, err13, fn_ms, fn_plain_ms, fn_bound))
     kernels.append(_entry("threefry2x32 (a key per element)", "fused_nuts_dc.cu",
-                          "blackjax_tpu/mcmc/trajectory.py:764", launches12["threefry2x32"], tf_err,
+                          "blackjax_tpu/mcmc/trajectory.py:764",
+                          launches12["threefry2x32"] + launches16, tf_err,
                           tf_ms, tf_plain_ms, tf_bound))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1280,3 +1280,65 @@ def test_thread_form_refuses_other_targets(cuda, monkeypatch):
                         lambda *a, **k: dc.SharedMemoryPlan(None, 35_840, thread=True))
     with pytest.raises(RuntimeError, match="launch failed"):
         dc._launch_cuda(x32, metric, 0.2, **machine)
+
+
+# ---- the SMC layer on the card (chip_smoke.py's phase 16) ----
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("num_samples", [1000, 333])
+@pytest.mark.parametrize("scheme", ["systematic", "stratified", "multinomial", "residual"])
+def test_resampling_on_the_card_draws_the_cpu_ancestors(cuda, scheme, num_samples, dtype):
+    """The same draws on the card and on the CPU. In float64 the ancestors
+    are identical; in float32 the card's cumulative sums associate otherwise
+    (a parallel scan), so a position within their rounding of a boundary
+    may pick the neighbour: 0.99 of the ancestors must be identical."""
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.smc import resampling
+
+    rng = np.random.default_rng(num_samples)
+    for weights in [rng.dirichlet(np.full(1000, 0.3)), np.full(1000, 1e-3),
+                    np.eye(1000)[417]]:
+        w = torch.from_numpy(weights).to(dtype)
+        for seed in range(3):
+            before = dc.LAUNCHES["threefry2x32"]
+            card = getattr(resampling, scheme)(prng.key(seed, cuda), w.to(cuda), num_samples)
+            assert dc.LAUNCHES["threefry2x32"] > before
+            assert card.device.type == "cuda"
+            cpu = getattr(resampling, scheme)(prng.key(seed), w, num_samples)
+            if dtype == torch.float64:
+                assert torch.equal(card.cpu(), cpu), (scheme, seed)
+            else:
+                assert float((card.cpu() == cpu).double().mean()) >= 0.99, (scheme, seed)
+
+
+def test_smc_state_stays_on_the_card(cuda):
+    import chip_smoke
+    from blackjax_tpu_torch import prng
+
+    x0 = chip_smoke.smc_init(torch, 512, cuda, torch.float32)
+    state, steps = chip_smoke.smc_run(torch, x0, prng.key(3, cuda), max_steps=2)
+    (first, info), _ = steps
+    for t in [state.particles, state.weights, state.tempering_param, first.particles,
+              info.ancestors, info.log_likelihood_increment, *info.update_info]:
+        assert t.device.type == "cuda"
+    assert info.update_info.acceptance_rate.shape == (512, chip_smoke.SMC_MCMC_STEPS)
+
+
+@pytest.mark.parametrize("waste_free", [False, True])
+def test_tracked_smc_f64_on_the_card_is_the_cpu_run(cuda, waste_free):
+    """Phase 16's hold: the tracked configuration in float64 at 1,024
+    particles on the card and on the CPU, on the same key: the same steps,
+    lambda within 1e-10, ancestors identical, particles within 1e-9."""
+    import chip_smoke
+    from blackjax_tpu_torch import prng
+
+    x0 = chip_smoke.smc_init(torch, chip_smoke.SMC_CMP_PARTICLES, "cpu", torch.float64)
+    _, card_steps = chip_smoke.smc_run(torch, x0.to(cuda), prng.key(18, cuda), waste_free)
+    _, cpu_steps = chip_smoke.smc_run(torch, x0, prng.key(18), waste_free)
+    assert len(card_steps) == len(cpu_steps)
+    for (card, card_info), (cpu, cpu_info) in zip(card_steps, cpu_steps):
+        assert torch.equal(card_info.ancestors.cpu(), cpu_info.ancestors)
+        assert abs(float(card.tempering_param) - float(cpu.tempering_param)) <= 1e-10
+        assert float((card.particles.cpu() - cpu.particles).abs().max()) <= chip_smoke.SMC_CMP_TOL
+    assert float(card_steps[-1][0].tempering_param) == 1.0

@@ -2,8 +2,9 @@
 ``jax.random`` itself, on 1,000 random keys and data words.
 
 ``key``, ``fold_in``, ``split``, ``bits`` (32 and 64), ``uniform`` (f32 and
-f64) and ``bernoulli`` agree bit for bit; ``normal`` to 1e-12 relative in
-f64, where ``torch.special.erfinv`` and XLA's differ in the last bits. The
+f64), ``bernoulli`` and ``permutation`` agree bit for bit; ``normal`` to
+1e-12 relative in f64, where ``torch.special.erfinv`` and XLA's differ in
+the last bits, and ``exponential`` to 1e-13, where ``log1p`` does. The
 constructions hold under ``jax_threefry_partitionable``, JAX's default,
 which the test asserts.
 """
@@ -111,3 +112,35 @@ def test_draws_from_a_generator_are_key_words():
     assert bool(((words >= 0) & (words < 2**32)).all())
     with pytest.raises(ValueError, match="uint32 key words"):
         interop.prng_key(np.zeros((3,), np.int32))
+
+
+@pytest.mark.parametrize("shape", [(), (9,)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_exponential_is_log1p_of_the_same_uniforms(keys, dtype, shape):
+    """``-log1p(-u)`` of the bit-for-bit uniforms: torch's ``log1p`` and
+    XLA's differ in the last bits (XLA's CPU ``log1p`` is a rational
+    approximation below sqrt(2) - 1), so the draws agree to 1e-13 in f64
+    and to four ulps in f32, as ``normal`` does through ``erfinv``."""
+    jk, tk = keys
+    jdt, tdt = DTYPES[dtype]
+    expected = np.asarray(jax.vmap(lambda k: jax.random.exponential(k, shape, jdt))(jk))
+    got = prng.exponential(tk, shape, tdt)
+    assert got.dtype == tdt
+    tol = 1e-13 if dtype == "f64" else 4 * float(torch.finfo(tdt).eps)
+    np.testing.assert_allclose(got.numpy(), expected, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n", [1, 2, 100, 16384, 70000])
+def test_permutation_bit_for_bit(keys, n):
+    """JAX's sort-based shuffle: one round below n = 1,626, two above (and
+    three from n = 2**21.3); an int draws a permutation of ``arange(n)``, a
+    tensor is shuffled along its first axis."""
+    jk, tk = keys
+    for i in range(3):
+        expected = np.asarray(jax.random.permutation(jk[i], n))
+        np.testing.assert_array_equal(prng.permutation(tk[i], n).numpy(), expected)
+    x = np.random.default_rng(n).standard_normal((n, 2))
+    expected = np.asarray(jax.random.permutation(jk[0], jnp.asarray(x)))
+    np.testing.assert_array_equal(prng.permutation(tk[0], torch.from_numpy(x)).numpy(), expected)
+    with pytest.raises(ValueError, match="one key"):
+        prng.permutation(tk[:2], n)

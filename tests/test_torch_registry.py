@@ -6,6 +6,10 @@
   keeps them.
 - ``nuts.build_kernel`` reaches both engines, and ``build_fused_many_steps``
   is in ``mcmc.nuts``.
+- The SMC slice's names (``mala``, ``tempered_smc``, ``adaptive_tempered_smc``,
+  ``inner_kernel_tuning``, ``partial_posteriors_smc``) are exported with
+  their modules' ``init`` and ``build_kernel``, and every ported module of
+  ``smc`` is reachable from the package as in the reference.
 - ``pyproject.toml``'s package data names every CUDA source under ``csrc/``,
   so that an installed copy can build its kernels.
 """
@@ -50,6 +54,36 @@ def test_kernel_modules_are_reachable(module, function):
     assert isinstance(mod, types.ModuleType) and callable(getattr(mod, function))
     # the package attribute is the module, as in the reference
     assert getattr(blackjax_tpu_torch.ops, module) is mod
+
+
+@pytest.mark.parametrize("name, module", [
+    ("mala", "mcmc.mala"),
+    ("tempered_smc", "smc.tempered"),
+    ("adaptive_tempered_smc", "smc.adaptive_tempered"),
+    ("inner_kernel_tuning", "smc.inner_kernel_tuning"),
+    ("partial_posteriors_smc", "smc.partial_posteriors_path"),
+])
+def test_smc_slice_names_are_exported(name, module):
+    assert name in blackjax_tpu_torch.__all__ and name in blackjax_tpu.__all__
+    api = getattr(blackjax_tpu_torch, name)
+    mod = importlib.import_module(f"blackjax_tpu_torch.{module}")
+    assert api.init is mod.init and api.build_kernel is mod.build_kernel
+    assert api.differentiable is mod.as_top_level_api
+
+
+@pytest.mark.parametrize("module", [
+    "base", "ess", "from_mcmc", "resampling", "solver", "adaptive_tempered",
+    "partial_posteriors_path", "tempered", "inner_kernel_tuning", "tuning", "waste_free",
+])
+def test_smc_modules_are_reachable(module):
+    import blackjax_tpu.smc
+    import blackjax_tpu_torch.smc
+
+    mod = importlib.import_module(f"blackjax_tpu_torch.smc.{module}")
+    assert getattr(blackjax_tpu_torch.smc, module) is mod
+    assert set(blackjax_tpu_torch.smc.__all__) <= set(blackjax_tpu.smc.__all__)
+    ref = importlib.import_module(f"blackjax_tpu.smc.{module}")
+    assert set(getattr(mod, "__all__", [])) == set(getattr(ref, "__all__", []))
 
 
 @pytest.mark.parametrize("engine", ["flattened", "nested"])
