@@ -15,16 +15,22 @@ the matrix targets' device functions they share are in
 info)`` with a leading chain axis on every state tensor; the key is key
 words (one ``jax.random`` key per chain) or a ``torch.Generator``.
 
-Registry subset so far (every name is the reference's): ``hmc``, ``nuts``,
-``mala``, ``mclmc``, ``fused_hmc``, ``tempered_smc``,
-``adaptive_tempered_smc``, ``inner_kernel_tuning``,
+Registry subset so far (every name is the reference's): the MCMC samplers
+``hmc``, ``mhmc`` (``multinomial_hmc``), ``dhmc`` (``dynamic_hmc``),
+``dmhmc``, ``nuts``, ``ghmc``, ``mala``, ``barker`` (``barker_proposal``),
+``rmh``, ``irmh``, ``additive_step_random_walk``, ``normal_random_walk``,
+``mclmc``, ``adjusted_mclmc``, ``adjusted_mclmc_dynamic``,
+``elliptical_slice``, ``slice_sampling``, ``coordinate_slice``,
+``orbital_hmc``, ``mgrad_gaussian``, ``fused_hmc`` and ``hmc_family``;
+``tempered_smc``, ``adaptive_tempered_smc``, ``inner_kernel_tuning``,
 ``partial_posteriors_smc``, ``window_adaptation``,
 ``window_adaptation_low_rank``, ``staged_adaptation``,
 ``mclmc_find_L_and_step_size``, ``dual_averaging_adaptation``,
-``dual_averaging``, ``diagnostics`` (with ``ess``, ``ess_bulk`` and
-``rhat``) and ``util``.
+``dual_averaging``, ``diagnostics`` (with ``ess``, ``ess_bulk``,
+``ess_tail``, ``pareto_khat`` and ``rhat``) and ``util``.
 """
 import dataclasses
+import functools
 import importlib
 from typing import Callable
 
@@ -40,11 +46,21 @@ from blackjax_tpu_torch.base import (
     build_sampling_algorithm,
 )
 from blackjax_tpu_torch.diagnostics import effective_sample_size as ess
-from blackjax_tpu_torch.diagnostics import ess_bulk, rhat
+from blackjax_tpu_torch.diagnostics import ess_bulk, ess_tail, pareto_khat, rhat
+from blackjax_tpu_torch.mcmc import adjusted_mclmc as _adjusted_mclmc
+from blackjax_tpu_torch.mcmc import adjusted_mclmc_dynamic as _adjusted_mclmc_dynamic
+from blackjax_tpu_torch.mcmc import barker as _barker
+from blackjax_tpu_torch.mcmc import dynamic_hmc as _dynamic_hmc
+from blackjax_tpu_torch.mcmc import elliptical_slice as _elliptical_slice
+from blackjax_tpu_torch.mcmc import ghmc as _ghmc
 from blackjax_tpu_torch.mcmc import hmc as _hmc
 from blackjax_tpu_torch.mcmc import mala as _mala
+from blackjax_tpu_torch.mcmc import marginal_latent_gaussian as _marginal_latent_gaussian
 from blackjax_tpu_torch.mcmc import mclmc as _mclmc
 from blackjax_tpu_torch.mcmc import nuts as _nuts
+from blackjax_tpu_torch.mcmc import periodic_orbital as _periodic_orbital
+from blackjax_tpu_torch.mcmc import random_walk
+from blackjax_tpu_torch.mcmc import slice as _slice
 from blackjax_tpu_torch.optimizers import dual_averaging
 from blackjax_tpu_torch.smc import adaptive_tempered as _adaptive_tempered
 from blackjax_tpu_torch.smc import inner_kernel_tuning as _inner_kernel_tuning
@@ -76,8 +92,49 @@ def generate_top_level_api_from(module) -> GenerateSamplingAPI:
 
 hmc = generate_top_level_api_from(_hmc)
 nuts = generate_top_level_api_from(_nuts)
-mclmc = generate_top_level_api_from(_mclmc)
 mala = generate_top_level_api_from(_mala)
+ghmc = generate_top_level_api_from(_ghmc)
+mclmc = generate_top_level_api_from(_mclmc)
+adjusted_mclmc = generate_top_level_api_from(_adjusted_mclmc)
+adjusted_mclmc_dynamic = generate_top_level_api_from(_adjusted_mclmc_dynamic)
+dhmc = generate_top_level_api_from(_dynamic_hmc)
+dynamic_hmc = dhmc
+
+rmh = GenerateSamplingAPI(random_walk.rmh_as_top_level_api, random_walk.init, random_walk.build_rmh)
+irmh = GenerateSamplingAPI(
+    random_walk.irmh_as_top_level_api, random_walk.init, random_walk.build_irmh
+)
+additive_step_random_walk = GenerateSamplingAPI(
+    random_walk.additive_step_random_walk, random_walk.init, random_walk.build_additive_step
+)
+additive_step_random_walk.register_factory("normal_random_walk", random_walk.normal_random_walk)
+normal_random_walk = random_walk.normal_random_walk
+
+mhmc = GenerateSamplingAPI(
+    functools.partial(_hmc.as_top_level_api, build_proposal=_hmc.multinomial_hmc_proposal),
+    _hmc.init,
+    functools.partial(_hmc.build_kernel, build_proposal=_hmc.multinomial_hmc_proposal),
+)
+multinomial_hmc = mhmc
+dmhmc = GenerateSamplingAPI(
+    functools.partial(
+        _dynamic_hmc.as_top_level_api, build_proposal=_hmc.multinomial_hmc_proposal
+    ),
+    _dynamic_hmc.init,
+    functools.partial(_dynamic_hmc.build_kernel, build_proposal=_hmc.multinomial_hmc_proposal),
+)
+
+hmc_family = [hmc, nuts, mhmc]
+
+barker = generate_top_level_api_from(_barker)
+barker_proposal = barker
+elliptical_slice = generate_top_level_api_from(_elliptical_slice)
+slice_sampling = generate_top_level_api_from(_slice)
+coordinate_slice = GenerateSamplingAPI(
+    _slice.coordinate_slice, _slice.init, _slice.build_coordinate_kernel
+)
+orbital_hmc = generate_top_level_api_from(_periodic_orbital)
+mgrad_gaussian = generate_top_level_api_from(_marginal_latent_gaussian)
 
 tempered_smc = generate_top_level_api_from(_tempered)
 adaptive_tempered_smc = generate_top_level_api_from(_adaptive_tempered)
@@ -93,9 +150,29 @@ fused_hmc = generate_top_level_api_from(
 __all__ = [
     "__version__",
     "hmc",
+    "mhmc",
+    "multinomial_hmc",
+    "dhmc",
+    "dynamic_hmc",
+    "dmhmc",
     "nuts",
+    "ghmc",
     "mclmc",
+    "adjusted_mclmc",
+    "adjusted_mclmc_dynamic",
     "mala",
+    "barker",
+    "barker_proposal",
+    "rmh",
+    "irmh",
+    "additive_step_random_walk",
+    "normal_random_walk",
+    "elliptical_slice",
+    "slice_sampling",
+    "coordinate_slice",
+    "orbital_hmc",
+    "mgrad_gaussian",
+    "hmc_family",
     "fused_hmc",
     "tempered_smc",
     "adaptive_tempered_smc",
@@ -111,6 +188,8 @@ __all__ = [
     "util",
     "ess",
     "ess_bulk",
+    "ess_tail",
+    "pareto_khat",
     "rhat",
     "AdaptationAlgorithm",
     "SamplingAlgorithm",

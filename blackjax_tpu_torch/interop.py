@@ -9,16 +9,30 @@ MCLMC states and tuned parameters, fused-HMC states, the fused kernels'
 targets, the test posteriors by name, and PRNG keys (as key words, with
 which the port draws what the reference draws), and the SMC layer's states
 and infos (tempered SMC states, ``SMCInfo`` with its update's info, MALA
-states).
+states), and the states of the MCMC family beyond NUTS (dynamic HMC with
+its carried key, GHMC, Barker, the random walks, elliptical slice, slice,
+periodic orbital and mGrad, with mGrad's ``CovarianceSVD``).
 """
 import numpy as np
 import torch
 
 from blackjax_tpu_torch.adaptation.mclmc_adaptation import MCLMCAdaptationState
 from blackjax_tpu_torch.adaptation.metric_recipes import LowRankMetricCoreState
+from blackjax_tpu_torch.mcmc.barker import BarkerInfo, BarkerState
+from blackjax_tpu_torch.mcmc.dynamic_hmc import DynamicHMCState
+from blackjax_tpu_torch.mcmc.elliptical_slice import EllipSliceInfo, EllipSliceState
+from blackjax_tpu_torch.mcmc.ghmc import GHMCState
 from blackjax_tpu_torch.mcmc.hmc import HMCInfo, HMCState
 from blackjax_tpu_torch.mcmc.integrators import IntegratorState
 from blackjax_tpu_torch.mcmc.mala import MALAInfo, MALAState
+from blackjax_tpu_torch.mcmc.marginal_latent_gaussian import (
+    CovarianceSVD,
+    MarginalInfo,
+    MarginalState,
+)
+from blackjax_tpu_torch.mcmc.periodic_orbital import PeriodicOrbitalInfo, PeriodicOrbitalState
+from blackjax_tpu_torch.mcmc.random_walk import RWInfo, RWState
+from blackjax_tpu_torch.mcmc.slice import SliceInfo, SliceState
 from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix
 from blackjax_tpu_torch.mcmc.nuts import NUTSInfo
 from blackjax_tpu_torch.models import targets
@@ -47,6 +61,9 @@ __all__ = [
     "adaptation_parameters",
     "mclmc_state",
     "mala_state",
+    "dynamic_hmc_state",
+    "sampler_state",
+    "covariance_svd",
     "tempered_smc_state",
     "smc_info",
     "mclmc_parameters",
@@ -176,7 +193,10 @@ def mala_state(state, *, device=None, dtype=None) -> MALAState:
 
 # the reference's state and info records by name, and the port's counterparts
 _RECORDS = {cls.__name__: cls for cls in (
-    MALAInfo, MALAState, HMCInfo, HMCState, IntegratorState, SMCInfo, TemperedSMCState)}
+    MALAInfo, MALAState, HMCInfo, HMCState, IntegratorState, SMCInfo, TemperedSMCState,
+    GHMCState, BarkerState, BarkerInfo, RWState, RWInfo, EllipSliceState, EllipSliceInfo,
+    SliceState, SliceInfo, PeriodicOrbitalState, PeriodicOrbitalInfo, MarginalState,
+    MarginalInfo, CovarianceSVD)}
 
 
 def _tree(value, device, dtype):
@@ -192,6 +212,34 @@ def _tree(value, device, dtype):
     if isinstance(value, dict):
         return {k: _tree(v, device, dtype) for k, v in value.items()}
     return to_tensor(value, device=device, dtype=dtype)
+
+
+def dynamic_hmc_state(state, *, device=None, dtype=None) -> DynamicHMCState:
+    """A ``DynamicHMCState`` of the reference as the port's; its
+    ``random_generator_arg`` given as key words (``jax.random.key_data`` of
+    the keys, uint32 ``(..., 2)``) becomes the port's keys, any other
+    integer array (a Halton index) a tensor."""
+    *fields, arg = state
+    arg = np.asarray(arg)
+    if arg.dtype == np.uint32 and arg.shape[-1:] == (2,):
+        arg = prng_key(arg, device=device)
+    else:
+        arg = to_tensor(arg, device=device)
+    return DynamicHMCState(*(to_tensor(v, device=device, dtype=dtype) for v in fields), arg)
+
+
+def sampler_state(state, *, device=None, dtype=None):
+    """A state or info record of the reference's samplers (GHMC, Barker,
+    the random walks, elliptical slice, slice, periodic orbital, mGrad, or
+    an HMC record), fields as arrays, as the port's record of the same
+    name."""
+    return _tree(state, device, dtype)
+
+
+def covariance_svd(cov_svd, *, device=None, dtype=None) -> CovarianceSVD:
+    """mGrad's ``CovarianceSVD`` of the reference (``U``, ``Gamma``,
+    ``U_t``) as the port's, so that both draw along the same eigenvectors."""
+    return CovarianceSVD(*(to_tensor(v, device=device, dtype=dtype) for v in cov_svd))
 
 
 def tempered_smc_state(state, *, device=None, dtype=None) -> TemperedSMCState:

@@ -17,6 +17,7 @@ from typing import Any, Callable, NamedTuple, TypeAlias
 
 import torch
 
+from blackjax_tpu_torch import prng
 from blackjax_tpu_torch.types import ArrayTree
 from blackjax_tpu_torch.util import value_and_grad
 
@@ -235,12 +236,26 @@ def with_isokinetic_maruyama(integrator):
     O-U momentum refreshes (reference ``integrators.py:255``).
 
     The step is ``(state, step_size, L, rng_key) -> (state, dK)``. ``rng_key``
-    is a ``torch.Generator``, from which the refresh before the step draws
-    its normals first and the refresh after it second, or that pair of
-    normals ``(before, after)``, each shaped like the momentum."""
+    is key words (one key a chain), split into the refresh before the step
+    and the one after it as the reference splits them, each drawing
+    ``jax.random.normal`` over the momentum's last axis; or a
+    ``torch.Generator``, from which the refresh before the step draws its
+    normals first and the refresh after it second; or that pair of normals
+    ``(before, after)``, each shaped like the momentum. Where ``L`` is the
+    number ``inf`` the refreshes leave the momentum as it is and draw
+    nothing."""
 
     def stochastic_step(state: IntegratorState, step_size, L_proposal, rng_key):
-        before, after = (rng_key, rng_key) if not isinstance(rng_key, tuple) else rng_key
+        if isinstance(L_proposal, (int, float)) and math.isinf(L_proposal):
+            return integrator(state, step_size)
+        if isinstance(rng_key, tuple):
+            before, after = rng_key
+        elif torch.is_tensor(rng_key) and not rng_key.is_floating_point():
+            key_pre, key_post = prng.split(rng_key).unbind(-2)
+            shape, dtype = state.momentum.shape[rng_key.dim() - 1:], state.momentum.dtype
+            before, after = prng.normal(key_pre, shape, dtype), prng.normal(key_post, shape, dtype)
+        else:
+            before = after = rng_key
         momentum = partially_refresh_momentum(state.momentum, before, 0.5 * step_size, L_proposal)
         state, kinetic_change = integrator(state._replace(momentum=momentum), step_size)
         momentum = partially_refresh_momentum(state.momentum, after, 0.5 * step_size, L_proposal)

@@ -45,6 +45,7 @@ __all__ = [
     "reorder_trajectories",
     "merge_trajectories",
     "static_integration",
+    "static_progressive_integration",
     "dynamic_progressive_integration",
     "dynamic_multiplicative_expansion",
     "dynamic_recursive_integration",
@@ -104,19 +105,87 @@ def hmc_energy(kinetic_energy):
 
 
 def static_integration(integrator: Callable, direction: int = 1) -> Callable:
-    """``integrate(state, step_size, num_integration_steps)``: apply the
-    integrator a fixed number of times in one direction (reference
-    ``trajectory.py:152``). The step size is a number or one per chain
-    ``(C,)``; the step count is one Python int for the whole block. Traced
-    per-chain step counts (the reference's ``max_num_integration_steps``)
-    come with a later slice."""
+    """``integrate(state, step_size, num_integration_steps,
+    max_num_integration_steps=None)``: apply the integrator a fixed number
+    of times in one direction (reference ``trajectory.py:152``). The step
+    size is a number or one per chain ``(C,)``.
 
-    def integrate(initial_state: IntegratorState, step_size, num_integration_steps):
+    An int step count runs that many steps. A step count per chain, a
+    ``(C,)`` integer tensor, runs the reference's masked fixed-trip loop:
+    ``max_num_integration_steps`` steps (by default the largest count, read
+    once to the host), a chain's state frozen once ``i >= num[c]``. Frozen
+    steps change nothing, so each chain ends where its own count takes it.
+    (The reference's ``unroll`` only schedules its loop; the port has
+    none.)"""
+
+    def integrate(
+        initial_state: IntegratorState,
+        step_size,
+        num_integration_steps,
+        max_num_integration_steps=None,
+    ):
         directed = direction * step_size
         state = initial_state
-        for _ in range(int(num_integration_steps)):
-            state = integrator(state, directed)
+        if max_num_integration_steps is None and not torch.is_tensor(num_integration_steps):
+            for _ in range(int(num_integration_steps)):
+                state = integrator(state, directed)
+            return state
+        if max_num_integration_steps is None:
+            max_num_integration_steps = int(num_integration_steps.max())
+        num = torch.as_tensor(num_integration_steps, device=initial_state.position.device)
+        for i in range(int(max_num_integration_steps)):
+            state = tree_select(num > i, integrator(state, directed), state)
         return state
+
+    return integrate
+
+
+def static_progressive_integration(
+    integrator: Callable,
+    kinetic_energy: Callable,
+    num_integration_steps,
+    divergence_threshold: float,
+) -> Callable:
+    """``integrate(rng_key, initial_state, step_size) -> (proposal,
+    is_diverging)``: integrate a fixed-length trajectory while
+    reservoir-sampling one state in proportion to ``exp(-H)`` (reference
+    ``trajectory.py:268``). Step ``i`` accepts with a uniform of
+    ``fold_in(key, i)``, per chain, as the reference draws it; ``rng_key``
+    may also be a ``torch.Generator``, which draws one uniform a chain a
+    step. The step count is an int or one per chain ``(C,)``; a chain past
+    its count is frozen, as the reference's loop under ``vmap`` leaves it."""
+    energy_fn = hmc_energy(kinetic_energy)
+    _, generate_proposal = proposal_generator(energy_fn)
+
+    def integrate(rng_key, initial_state: IntegratorState, step_size):
+        initial_energy = energy_fn(initial_state)
+        held = Proposal(
+            initial_state, initial_energy, torch.zeros_like(initial_energy),
+            torch.full_like(initial_energy, -torch.inf),
+        )
+        state = initial_state
+        any_divergent = torch.zeros_like(initial_energy, dtype=torch.bool)
+        per_chain = torch.is_tensor(num_integration_steps)
+        trips = int(num_integration_steps.max()) if per_chain else int(num_integration_steps)
+        for i in range(trips):
+            new_state = integrator(state, step_size)
+            new_proposal = generate_proposal(initial_energy, new_state)
+            diverged = any_divergent | (-new_proposal.weight > divergence_threshold)
+            if isinstance(rng_key, torch.Generator):
+                uniform = torch.rand(
+                    initial_energy.shape, generator=rng_key, dtype=initial_energy.dtype,
+                    device=initial_energy.device,
+                )
+            else:
+                uniform = prng.uniform(prng.fold_in(rng_key, i), (), initial_energy.dtype)
+            sampled = progressive_uniform_sampling(uniform, held, new_proposal)
+            if per_chain:
+                going = num_integration_steps.to(initial_energy.device) > i
+                state, held, any_divergent = tree_select(
+                    going, (new_state, sampled, diverged), (state, held, any_divergent))
+            else:
+                state, held, any_divergent = new_state, sampled, diverged
+        return held, any_divergent
 
     return integrate
 

@@ -13,7 +13,7 @@ leading axes, one key per chain. The constructions are those of
   ``i`` the flat index into the per-key shape;
 - ``uniform`` sets the top mantissa bits of 1.0 from the bits (64-bit words
   for f64, 32-bit for f32) and subtracts 1, then scales to ``[minval,
-  maxval)``;
+  maxval)`` by one fused multiply-add, as XLA contracts it;
 - ``bernoulli(key, p)`` is ``uniform(key) < p`` in ``p``'s dtype (JAX takes
   a Python float in its default float dtype: f64 under x64, else f32);
 - ``normal`` is ``sqrt(2) erfinv(u)`` with ``u`` uniform on
@@ -21,7 +21,12 @@ leading axes, one key per chain. The constructions are those of
 - ``exponential`` is ``-log1p(-u)`` of a uniform ``u``;
 - ``permutation`` is JAX's sort-based shuffle: ``ceil(3 ln n / ln(2**32 -
   1))`` rounds, each splitting the key into ``(key, subkey)`` and stably
-  sorting by the subkey's 32-bit bits.
+  sorting by the subkey's 32-bit bits;
+- ``randint`` splits the key in two, draws ``nbits``-wide bits from each
+  half and combines them modulo the span, ``(hi % span) * (2**nbits %
+  span) + lo % span``, all modulo the span, plus ``minval``;
+- ``choice`` with probabilities ``p`` searches the cumulative sum of ``p``
+  (summed in XLA's order, :func:`xla_cumsum`) for ``total * (1 - u)``.
 
 So the port draws the numbers the JAX package draws from the same keys, bit
 for bit, except ``normal``, whose ``erfinv`` differs from XLA's in the last
@@ -46,6 +51,10 @@ __all__ = [
     "normal",
     "exponential",
     "permutation",
+    "permutation_indices",
+    "randint",
+    "choice",
+    "xla_cumsum",
 ]
 
 MASK32 = 0xFFFFFFFF
@@ -145,13 +154,16 @@ def _unit(t0: torch.Tensor, t1: torch.Tensor, dtype) -> torch.Tensor:
 
 def uniform(keys: torch.Tensor, shape=(), dtype=torch.float32, minval=0.0, maxval=1.0):
     """``jax.random.uniform`` on ``[minval, maxval)``: ``keys.shape[:-1] +
-    shape`` in ``dtype``."""
+    shape`` in ``dtype``. The bounds are numbers or tensors broadcasting
+    against that shape (one interval per chain, as under ``vmap``)."""
     floats = _unit(*_words(keys, shape), dtype)
-    if minval == 0.0 and maxval == 1.0:
+    bounded = torch.is_tensor(minval) or torch.is_tensor(maxval)
+    if not bounded and minval == 0.0 and maxval == 1.0:
         return floats  # floats * 1 + 0, at least 0: the same bits
-    lo = torch.tensor(minval, dtype=dtype, device=keys.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=keys.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    lo = torch.as_tensor(minval, dtype=dtype, device=keys.device)
+    hi = torch.as_tensor(maxval, dtype=dtype, device=keys.device)
+    # XLA contracts floats * (hi - lo) + lo into one fused multiply-add
+    return torch.maximum(lo, torch.addcmul(lo, floats, hi - lo))
 
 
 def bernoulli(keys: torch.Tensor, p=0.5, dtype=torch.float32) -> torch.Tensor:
@@ -185,11 +197,93 @@ def permutation(key: torch.Tensor, x) -> torch.Tensor:
     if key.shape != (2,):
         raise ValueError(f"permutation takes one key (2,), got {tuple(key.shape)}")
     if not torch.is_tensor(x):
-        x = torch.arange(int(x), device=key.device)
-    n = x.shape[0]
+        return permutation_indices(key, int(x))
+    return x[permutation_indices(key, x.shape[0])]
+
+
+def permutation_indices(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for each key of a batch ``(...,
+    2)``: ``(..., n)``, as the reference draws it under ``vmap``."""
+    x = torch.arange(n, device=keys.device).expand(keys.shape[:-1] + (n,))
     rounds = math.ceil(3 * math.log(max(1, n)) / math.log(MASK32))
     for _ in range(rounds):
-        key, subkey = split(key)
-        sort_keys = bits(subkey, (n,))
-        x = x[torch.sort(sort_keys, stable=True).indices]
+        keys, subkeys = split(keys).unbind(-2)
+        order = torch.sort(bits(subkeys, (n,)), stable=True, dim=-1).indices
+        x = torch.gather(x, -1, order)
     return x
+
+
+def randint(keys: torch.Tensor, shape=(), minval=0, maxval=1, dtype=torch.int64) -> torch.Tensor:
+    """``jax.random.randint`` on ``[minval, maxval)``: ``keys.shape[:-1] +
+    shape`` in ``dtype`` (``torch.int64``: JAX's default integer under x64;
+    ``torch.int32`` its 32-bit default). JAX's own algorithm, bit for bit:
+    ``k1, k2 = split(key)``, ``nbits``-wide bits ``hi`` from ``k1`` and ``lo``
+    from ``k2``, and ``minval + ((hi % span) * m + lo % span) % span`` with
+    ``m = (2**(nbits / 2) % span)**2 % span``, in unsigned ``nbits``-bit
+    arithmetic. The bounds are ints or integer tensors broadcasting against
+    the output; a span of at most 2**31 is supported (64-bit words are
+    reduced through their 32-bit halves)."""
+    nbits = {torch.int64: 64, torch.int32: 32}.get(dtype)
+    if nbits is None:
+        raise NotImplementedError(f"randint in {dtype} is not ported")
+    minval = torch.as_tensor(minval, dtype=torch.int64, device=keys.device)
+    maxval = torch.as_tensor(maxval, dtype=torch.int64, device=keys.device)
+    span = torch.where(maxval <= minval, torch.ones_like(maxval), maxval - minval)
+    if bool((span > 2**31).any()):
+        raise NotImplementedError("randint spans above 2**31 are not ported")
+    k1, k2 = split(keys).unbind(-2)
+    if nbits == 32:
+        def mod_span(words):  # 32-bit words, below 2**32: int64 holds them
+            return (words & MASK32) % span
+
+        hi, lo = mod_span(bits(k1, shape, 32)), mod_span(bits(k2, shape, 32))
+        multiplier = (2**16 % span) * (2**16 % span) & MASK32
+        offset = ((hi * (multiplier % span)) & MASK32) + lo & MASK32
+    else:
+        def mod_span(words):  # the unsigned 64-bit word through its halves
+            high, low = (words >> 32) & MASK32, words & MASK32
+            return ((high % span) * (2**32 % span) + low % span) % span
+
+        hi, lo = mod_span(bits(k1, shape, 64)), mod_span(bits(k2, shape, 64))
+        multiplier = (2**32 % span) * (2**32 % span)
+        offset = hi * (multiplier % span) + lo
+    return (minval + offset % span).to(dtype)
+
+
+def xla_cumsum(x: torch.Tensor, base: int = 16) -> torch.Tensor:
+    """``jnp.cumsum`` over the last axis in the order XLA's CPU backend sums
+    it, so that the same inputs give the same bits: sequential up to
+    ``base`` elements; longer, sequential within blocks of ``base`` (zero
+    padded) with the blocks' exclusive prefix, itself summed so, added to
+    each block."""
+    n = x.shape[-1]
+    if n <= base:
+        out = x.clone()
+        for k in range(1, n):
+            out[..., k] = out[..., k - 1] + x[..., k]
+        return out
+    padded = torch.nn.functional.pad(x, (0, -n % base))
+    blocks = xla_cumsum(padded.reshape(x.shape[:-1] + (-1, base)), base)
+    prefix = xla_cumsum(blocks[..., -1], base)
+    exclusive = torch.cat((torch.zeros_like(prefix[..., :1]), prefix[..., :-1]), -1)
+    return (blocks + exclusive[..., None]).reshape(padded.shape)[..., :n]
+
+
+def choice(keys: torch.Tensor, a: int, shape=(), p=None) -> torch.Tensor:
+    """``jax.random.choice(key, a, shape, replace=True, p=p)`` of an int
+    ``a``: indices ``keys.shape[:-1] + shape``. With ``p`` (``(..., a)``,
+    one row a key), ``searchsorted(cumsum(p), cumsum(p)[-1] * (1 - u))``
+    with ``u`` uniform in ``p``'s dtype, as JAX draws it; without,
+    ``randint(key, shape, 0, a)``."""
+    if p is None:
+        return randint(keys, shape, 0, int(a))
+    if p.shape[-1] != int(a):
+        raise ValueError(f"p must have {a} entries in its last axis, got {tuple(p.shape)}")
+    cumulative = xla_cumsum(p)
+    u = uniform(keys, shape, p.dtype)
+    extra = len(_shape(shape))
+    total = cumulative[..., -1].reshape(cumulative.shape[:-1] + (1,) * extra)
+    r = total * (1 - u)
+    flat_r = r.reshape(r.shape[: r.dim() - extra] + (-1,))
+    index = torch.searchsorted(cumulative.contiguous(), flat_r.contiguous())
+    return index.reshape(r.shape)

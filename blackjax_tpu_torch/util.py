@@ -51,6 +51,25 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def require_tensor_position(position, sampler: str) -> None:
+    """Refuse a position that is not a tensor, naming the queue item that
+    brings pytree positions."""
+    if not torch.is_tensor(position):
+        raise ValueError(
+            f"{sampler} takes a (C, d) or (d,) tensor position, got {type(position).__name__}: "
+            "pytree positions come with ROADMAP queue 1, item 11"
+        )
+
+
+def chain_keys(rng_key: PRNGKey, position: Array) -> Array:
+    """Key words on ``position``'s device: ``rng_key`` itself (one key a
+    chain, or one key for a single ``(d,)`` position), or, from a
+    ``torch.Generator``, one fresh key a chain."""
+    if isinstance(rng_key, torch.Generator):
+        return prng.from_generator(rng_key, position.shape[:-1], position.device)
+    return rng_key.to(position.device)
+
+
 def value_and_grad(fn: Callable, x: Array) -> tuple[Array, Array]:
     """``(fn(x), d fn / d x)`` by autograd of the batch-summed value.
 
@@ -68,7 +87,9 @@ def linear_map(diag_or_dense_a: Array, b: Array) -> Array:
 
     A scalar or 1-d ``A`` is a diagonal and multiplies elementwise; a 2-d
     ``A`` is dense and applies to every row of a ``(..., d)`` batch."""
-    a = torch.as_tensor(diag_or_dense_a, device=b.device)
+    if not torch.is_tensor(diag_or_dense_a):  # a number: a weak scalar, in b's dtype
+        return diag_or_dense_a * b
+    a = diag_or_dense_a.to(b.device)
     dtype = torch.promote_types(a.dtype, b.dtype)
     a, b = a.to(dtype), b.to(dtype)
     if a.dim() <= 1:

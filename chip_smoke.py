@@ -5,14 +5,15 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's eleven main paths once, five at the flagship's full
+It drives the port's twelve main paths once, five at the flagship's full
 width (the 100-dim hierarchical posterior, 4,096 chains), one at the
 Finnish horseshoe's (N=100, M=200, d=404, 512 chains), three at the
 covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
 4,096 under MCLMC), one at the tracked eight-schools configuration's
-(d=10, 512 chains x 800 transitions) and one at the tracked tempered-SMC
-configuration's (d=10, 16,384 particles), and checks them in phases, one
-line each:
+(d=10, 512 chains x 800 transitions), one at the tracked tempered-SMC
+configuration's (d=10, 16,384 particles) and one at the tracked static-HMC
+configuration's (d=100, 128 chains) under the MCMC family beyond NUTS, and
+checks them in phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the builds of
    ``csrc/fused_nuts_dc.cu``, ``csrc/fused_nuts_dc_dense.cu``,
@@ -264,6 +265,35 @@ line each:
    MALA moves, the reweight) and of the whole step. Then the same run in f64 at 1,024 particles on the card and on
    the CPU, on key 18: the same step count, lambda within 1e-10, ancestors
    identical at every step, particles within 1e-9.
+17. the MCMC family beyond NUTS on the tracked static-HMC configuration
+   (``benchmarks/tracked.py:112-163``: ``ill_conditioned_gaussian(100)``,
+   128 chains from 0.5 N(0, I) of numpy seed 7, step size 0.08, 10
+   integration steps, unit inverse mass, f32), threefry launch counts reset
+   just before it, each transition's keys split as the configuration splits
+   them: ``hmc`` for 1,024 transitions (cut from 131,072: the generic step
+   is host-bound), then ``mhmc``, ``dhmc``, ``ghmc``, ``barker``,
+   ``normal_random_walk``, ``irmh``, ``adjusted_mclmc``,
+   ``adjusted_mclmc_dynamic``, ``elliptical_slice`` and ``mgrad_gaussian``
+   (the prior N(0, diag(var)), a likelihood N(1, 1) per coordinate),
+   ``slice_sampling``, ``coordinate_slice`` and ``orbital_hmc`` (in f64:
+   its weights underflow f32), each for the transitions of
+   ``FAM_TRANSITIONS``; every state and info tensor must stay on the card
+   and finite, each sampler must launch the threefry kernel, and its mean
+   acceptance (elliptical slice: mean ``subiter``; the slice samplers: mean
+   ``num_shrink``) must lie within 0.03 (the counts: 15 %) of the JAX
+   package's own CPU run at the same settings and keys
+   (``tools/mcmc_family_reference.py``). Each line gives transitions/sec
+   (chains x transitions, the configuration's unit), host ms a transition,
+   threefry launches a transition, the device's busy share over a few
+   transitions by torch.profiler, the statistic and the last state's
+   moments against the target's. Then the registry's ``fused_hmc`` on the
+   same configuration for all 131,072 transitions (one launch of the
+   transition kernel each, all required), its mean acceptance in the same
+   band as ``hmc``'s and its variances, every 16th transition after 1,024,
+   within [0.9, 1.1] of the target's. Then each sampler in f64 at 16 chains
+   x d = 5 for 20 transitions on the card and on the CPU, on the same keys:
+   positions within 1e-12, accept flags, drawn step counts, ``subiter`` and
+   the slice counts identical.
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
@@ -273,10 +303,10 @@ like-for-like times), one per new (kernel, target) pair (phase 9's and
 regression comparison), one for the older machine (phase 13's 512 x 16 times; eight schools'
 launches are phase 15's)
 and one for the threefry kernel with a key per element (phase 2's times on
-1,048,576 keys; its launches are phases 12's and 16's). ``launches`` is the count from the
+1,048,576 keys; its launches are phases 12's, 16's and 17's). ``launches`` is the count from the
 main path's run, or, for a pair that no main path drives, from the pair's checked
 call; ``fused_leapfrog`` counts ``leapfrog_kernel``'s own launches on phase 6,
-apart from the transition kernel's (its own entry), so none.
+apart from the transition kernel's (its own entry: phases 6's and 17's), so none.
 ``bound_ms`` is
 the larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations over 132 SMs x 128 lanes x 2 x the SM clock ``nvidia-smi``
@@ -375,6 +405,50 @@ SMC_LOG_Z = -0.5 * SMC_D * np.log(10.0) - float((SMC_OBS**2).sum()) / 20.0
 SMC_GATES = {"adaptive": (0.25, 0.06), "waste-free": (0.6, 0.15)}
 SMC_VAR_BAND, SMC_MIN_ACCEPT = (0.8, 1.0), 0.9
 SMC_CMP_PARTICLES, SMC_CMP_TOL = 1024, 1e-9  # the f64 run on the card against the CPU
+# phase 17: the MCMC family beyond NUTS on the tracked static-HMC configuration
+# (benchmarks/tracked.py:112-163): ill_conditioned_gaussian(100), 128 chains from
+# 0.5 N(0, I) of numpy seed 7, step size 0.08, 10 integration steps, unit inverse
+# mass, f32; a transition's keys split as tracked.py:134 splits them (split(run
+# key, 131072)[i], then a key a chain), the run key split(key(8), 4)[0], the
+# first of the configuration's variants (tracked.py:139)
+FAM_D, FAM_CHAINS, FAM_X0_SEED = 100, 128, 7
+FAM_STEP_SIZE, FAM_STEPS = 0.08, 10
+FAM_TRACKED_TRANSITIONS = 131072  # tracked.py:120 on the chip; fused_hmc runs all
+FAM_FUSED_BURN, FAM_FUSED_THIN = 1024, 16  # fused_hmc's moments: after 1,024, every 16th
+FAM_FUSED_VAR_BAND = (0.9, 1.1)  # its variances over the target's
+# Transitions a sampler. The generic samplers are host-bound (about 20-25 us a
+# torch op, 21 ms a transition of hmc's 10 leapfrog steps on an H100's host),
+# so each is cut from the configuration's 131,072 to a few seconds' worth (hmc
+# to 1,024, about 22 s); coordinate_slice sweeps 100 univariate slices a
+# transition, each a few host-paced loops (9 s), so it takes 1.
+FAM_TRANSITIONS = {
+    "hmc": 1024, "mhmc": 128, "dhmc": 128, "ghmc": 512, "barker": 512,
+    "normal_random_walk": 1024, "irmh": 1024, "adjusted_mclmc": 128,
+    "adjusted_mclmc_dynamic": 128, "elliptical_slice": 128, "slice_sampling": 32,
+    "coordinate_slice": 1, "orbital_hmc": 64, "mgrad_gaussian": 512,
+}
+FAM_IRMH_SCALE, FAM_PERIOD = 1.05, 8  # irmh's proposal N(0, 1.1025 diag(var)); orbital_hmc's
+# orbital_hmc runs in f64: its weights exp(logdensity - K) at d = 100 underflow
+# f32 (to 0 / 0 once a whole orbit does), in the reference as in the port
+FAM_F64 = ("orbital_hmc",)
+FAM_MGRAD_DELTA, FAM_MCLMC_STEP, FAM_MCLMC_STEPS = 1.0, 1.0, 5
+FAM_BUSY_TRANSITIONS = 8  # the transitions of the busy-share run (coordinate_slice 1)
+# Bands of the mean acceptance (elliptical slice: mean subiter; the slice
+# samplers: mean num_shrink), from the JAX package's own run of each sampler on
+# the CPU at the same settings, keys and transitions
+# (tools/mcmc_family_reference.py): its mean, +- FAM_BAND_WIDTH (relative for
+# the counts)
+FAM_REFERENCE = {
+    "hmc": 0.982564, "mhmc": 0.984720, "dhmc": 0.984613, "ghmc": 0.995384,
+    "barker": 0.836033, "normal_random_walk": 0.558916, "irmh": 0.620505,
+    "adjusted_mclmc": 0.999528, "adjusted_mclmc_dynamic": 0.999546,
+    "elliptical_slice": 6.647827, "slice_sampling": 2.852783,
+    "coordinate_slice": 285.523438, "mgrad_gaussian": 0.332422,
+}
+FAM_REFERENCE["fused_hmc"] = FAM_REFERENCE["hmc"]  # the same HMC, its own draws
+FAM_BAND_WIDTH, FAM_COUNT_BAND = 0.03, 0.15
+FAM_COUNTED = ("elliptical_slice", "slice_sampling", "coordinate_slice")
+FAM_CMP_CHAINS, FAM_CMP_D, FAM_CMP_TRANSITIONS, FAM_CMP_TOL = 16, 5, 20, 1e-12
 # The horseshoe's posterior by the JAX package's own NUTS on the CPU
 # (tests/test_torch_horseshoe_slice.py:reference_bands: window_adaptation 600
 # steps from zeros, then 64 chains from 0.05 N(0, I) x 256 transitions, seed
@@ -1119,10 +1193,13 @@ def _device_busy(torch, fn):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        records = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # the profiler's own records: building its Python events takes about
+        # 60 us each, a minute for a run of half a million launches
+        records = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA]
     if not records:
         return None
-    return sum(e.time_range.elapsed_us() for e in records) / 1e3, len(records), wall_ms
+    return sum(records) / 1e6, len(records), wall_ms
 
 
 def smc_path(torch, dev, smi):
@@ -1202,6 +1279,281 @@ def smc_path(torch, dev, smi):
           f"largest lambda difference {lam_err:.3g} (tolerance 1e-10), largest particle "
           f"difference {x_err:.3g} (tolerance {SMC_CMP_TOL}); launches {launches16} ({smi})")
     return launches16["threefry2x32"]
+
+
+def family_algorithms(bj, asarray, normal, d):
+    """Phase 17's samplers, built by the package ``bj`` on the
+    ill-conditioned Gaussian of width ``d`` (variances logspace(-1, 1, d)):
+    name -> (algorithm, whether ``init`` takes a key). ``asarray`` makes the
+    package's arrays from numpy, ``normal(key, shape)`` its standard normals
+    of a key; ``elliptical_slice`` and ``mgrad_gaussian`` take the prior N(0,
+    diag(var)) and a likelihood N(1, 1) per coordinate. The JAX package's
+    counterpart of this run (tools/mcmc_family_reference.py) builds the same
+    samplers through this function."""
+    var = asarray(np.logspace(-1.0, 1.0, d))
+    ones, zeros = asarray(np.ones(d)), asarray(np.zeros(d))
+
+    def logdensity(x):
+        return -0.5 * (x**2 / var).sum(-1)
+
+    def loglikelihood(x):
+        return -0.5 * ((x - 1.0) ** 2).sum(-1)
+
+    def irmh_draw(key):
+        return FAM_IRMH_SCALE * var**0.5 * normal(key, (d,))
+
+    def irmh_logdensity(new, old):  # log q(new -> old): the proposal's density at old
+        return -0.5 * (old.position**2 / (FAM_IRMH_SCALE**2 * var)).sum(-1)
+
+    step, steps = FAM_STEP_SIZE, FAM_STEPS
+    return {
+        "hmc": (bj.hmc(logdensity, step, ones, steps), False),
+        "mhmc": (bj.mhmc(logdensity, step, ones, steps), False),
+        "dhmc": (bj.dhmc(logdensity, step, ones), True),
+        "ghmc": (bj.ghmc(logdensity, step, ones, 0.05, 0.01), True),
+        "barker": (bj.barker(logdensity, 0.2), False),
+        "normal_random_walk": (bj.normal_random_walk(logdensity, 0.08), False),
+        "irmh": (bj.irmh(logdensity, irmh_draw, irmh_logdensity), False),
+        "adjusted_mclmc": (bj.adjusted_mclmc(
+            logdensity, FAM_MCLMC_STEP, num_integration_steps=FAM_MCLMC_STEPS), False),
+        "adjusted_mclmc_dynamic": (bj.adjusted_mclmc_dynamic(logdensity, FAM_MCLMC_STEP), True),
+        "elliptical_slice": (bj.elliptical_slice(loglikelihood, mean=zeros, cov=var), False),
+        "slice_sampling": (bj.slice_sampling(logdensity), False),
+        "coordinate_slice": (bj.coordinate_slice(logdensity), False),
+        "orbital_hmc": (bj.orbital_hmc(logdensity, step, ones, FAM_PERIOD), False),
+        "mgrad_gaussian": (bj.mgrad_gaussian(
+            loglikelihood, covariance=asarray(np.diag(np.logspace(-1.0, 1.0, d))),
+            step_size=FAM_MGRAD_DELTA), False),
+    }
+
+
+def family_statistic(name, info):
+    """What phase 17 reads of a transition's info: the acceptance rate (the
+    slice samplers and elliptical slice have none: mean ``num_shrink`` and
+    ``subiter``), and the count it holds identical between the card and the
+    CPU."""
+    if name == "elliptical_slice":
+        return info.subiter, ("subiter",)
+    if name in ("slice_sampling", "coordinate_slice"):
+        return info.num_shrink, ("is_accepted", "num_expansions", "num_shrink")
+    if name == "orbital_hmc":
+        return None, ()
+    drawn = ("num_integration_steps",) if name in ("dhmc", "adjusted_mclmc_dynamic") else ()
+    return info.acceptance_rate, ("is_accepted",) + drawn
+
+
+def _samples(state):
+    """A state's draws and their weights: ``(C, d)`` and None, or periodic
+    orbital's weighted orbits ``(C, period, d)`` and ``(C, period)``."""
+    if hasattr(state, "positions"):
+        return state.positions, state.weights
+    return state.position, None
+
+
+def _weighted_moments(x, w):
+    x = x.double()
+    if w is None:
+        return x.mean(0), x.var(0, correction=0)
+    w = w.double()[..., None] / w.shape[0]
+    mean = (w * x).sum((0, 1))
+    return mean, (w * (x - mean) ** 2).sum((0, 1))
+
+
+def family_run(algo, keys_of, state, n):
+    """``n`` transitions of ``algo`` on the tracked keys: the last state and
+    info."""
+    info = None
+    for i in range(n):
+        state, info = algo.step(keys_of(i), state)
+    return state, info
+
+
+def _on_card(torch, tree):
+    from blackjax_tpu_torch.util import tree_leaves
+
+    leaves = [x for x in tree_leaves(tuple(tree)) if torch.is_tensor(x)]
+    return all(x.is_cuda for x in leaves), all(
+        bool(torch.isfinite(x).all()) for x in leaves if x.is_floating_point())
+
+
+def family_path(torch, dev, smi):
+    """Phase 17: the tracked static-HMC configuration through ``hmc`` (cut)
+    and ``fused_hmc`` (all 131,072 transitions), and every new sampler on
+    the card, with their gates and lines (see the head of this file).
+    Returns the threefry launches and the transition kernel's launches."""
+    import importlib
+
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+
+    lf = importlib.import_module("blackjax_tpu_torch.ops.fused_leapfrog")
+    dtype = torch.float32
+    x0 = torch.from_numpy(0.5 * np.random.default_rng(FAM_X0_SEED).standard_normal(
+        (FAM_CHAINS, FAM_D))).to(dtype).to(dev)
+    var = np.logspace(-1.0, 1.0, FAM_D)
+
+    def build(dtype):
+        def on_card(values):
+            return torch.from_numpy(np.asarray(values)).to(dtype).to(dev)
+
+        return family_algorithms(blackjax_tpu_torch, on_card,
+                                 lambda key, shape: prng.normal(key, shape, dtype), FAM_D)
+
+    algorithms = build(dtype)
+    algorithms.update({name: build(torch.float64)[name] for name in FAM_F64})
+    run_key = prng.split(prng.key(8, dev), 4)[0]
+    step_keys = prng.split(run_key, FAM_TRACKED_TRANSITIONS)  # tracked.py:134
+
+    def keys_of(i):
+        return prng.split(step_keys[i], FAM_CHAINS)
+
+    init_keys = prng.split(prng.key(9, dev), FAM_CHAINS)
+    for name in dc.LAUNCHES:
+        dc.LAUNCHES[name] = 0
+    threefry17 = 0
+    for name, (algo, keyed_init) in algorithms.items():
+        n = FAM_TRANSITIONS[name]
+        start = x0.double() if name in FAM_F64 else x0
+        state0 = algo.init(start, init_keys) if keyed_init else algo.init(start)
+        before = dc.LAUNCHES["threefry2x32"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, state, info = [], state0, None
+        for i in range(n):
+            state, info = algo.step(keys_of(i), state)
+            stat, _ = family_statistic(name, info)
+            if stat is not None:
+                stats.append(stat)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dc.LAUNCHES["threefry2x32"] - before
+        threefry17 += launches
+        card, finite = _on_card(torch, tuple(state) + tuple(info))
+        _require(card, f"phase 17 {name}: a state or info tensor is not on the card")
+        _require(finite, f"phase 17 {name}: non-finite values")
+        _require(launches > 0, f"phase 17 {name}: no threefry launch")
+        mean_stat = float(torch.stack(stats).double().mean()) if stats else None
+        busy_n = 1 if name == "coordinate_slice" else FAM_BUSY_TRANSITIONS
+        busy = _device_busy(torch, lambda: family_run(algo, keys_of, state, busy_n))
+        x, w = _samples(state)
+        mean, variance = _weighted_moments(x, w)
+        z = float((mean.cpu() / np.sqrt(var)).abs().max())
+        ratio = variance.cpu().numpy() / var
+        if mean_stat is not None:
+            ref = FAM_REFERENCE[name]
+            width = FAM_COUNT_BAND * ref if name in FAM_COUNTED else FAM_BAND_WIDTH
+            _require(abs(mean_stat - ref) <= width,
+                     f"phase 17 {name}: mean statistic {mean_stat} outside {ref} +- {width}")
+        stat_name = {"elliptical_slice": "mean subiter",
+                     "slice_sampling": "mean num_shrink",
+                     "coordinate_slice": "mean num_shrink (a sweep)"}.get(name, "mean acceptance")
+        extra = ""
+        if name in ("slice_sampling", "coordinate_slice"):
+            extra = f", last transition's mean num_expansions {float(info.num_expansions.double().mean()):.3f}"
+        busy_words = "not measured (no device record)" if busy is None else (
+            f"{busy[0]:.3f} ms of device records ({busy[1]}) in {busy[2]:.3f} ms: busy "
+            f"{busy[0] / busy[2]:.4f}")
+        stat_words = "no acceptance (weighted orbit)" if mean_stat is None else (
+            f"{stat_name} {mean_stat:.4f} (the JAX package on the CPU {FAM_REFERENCE[name]:.4f})")
+        print(f"phase 17 {name}: {FAM_CHAINS} chains x {FAM_D}, "
+              f"{'f64' if name in FAM_F64 else 'f32'}, {n} transitions in "
+              f"{secs:.3f} s: {FAM_CHAINS * n / secs:.1f} transitions/sec (chains x transitions), "
+              f"{secs / n * 1e3:.3f} host ms a transition, {launches / n:.2f} threefry launches a "
+              f"transition; device over {busy_n} transitions {busy_words}; {stat_words}{extra}; "
+              f"last state's largest |mean| / sd {z:.3f}, variance / target's "
+              f"{ratio.min():.3f}-{ratio.max():.3f} ({smi})")
+
+    # the same configuration through fused_hmc: all 131,072 transitions
+    for name in lf.LAUNCHES:
+        lf.LAUNCHES[name] = 0
+    fused = blackjax_tpu_torch.fused_hmc(lf.make_gaussian_target(FAM_D, var), FAM_STEP_SIZE,
+                                         torch.ones(FAM_D, device=dev), FAM_STEPS)
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    state = fused.init(x0)
+    s1 = torch.zeros(FAM_D, dtype=torch.float64, device=dev)
+    s2 = torch.zeros(FAM_D, dtype=torch.float64, device=dev)
+    accept = torch.zeros((), dtype=torch.float64, device=dev)
+    kept = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(FAM_TRACKED_TRANSITIONS):
+        state, info = fused.step(generator, state)
+        if i >= FAM_FUSED_BURN and i % FAM_FUSED_THIN == 0:
+            x = state.positions.double()
+            s1 += x.sum(0)
+            s2 += (x * x).sum(0)
+            accept += info.acceptance_rate.double().sum()
+            kept += 1
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    transition_launches = lf.LAUNCHES["fused_leapfrog:hmc_transition"]
+    _require(transition_launches == FAM_TRACKED_TRANSITIONS,
+             f"phase 17 fused_hmc: {transition_launches} transition launches")
+    card, finite = _on_card(torch, tuple(state) + tuple(info))
+    _require(card and finite, "phase 17 fused_hmc: a tensor off the card or not finite")
+    n_draws = kept * FAM_CHAINS
+    fmean = (s1 / n_draws).cpu().numpy()
+    fvar = (s2 / n_draws).cpu().numpy() - fmean**2
+    fratio = fvar / var
+    faccept = float(accept) / n_draws
+    _require(FAM_FUSED_VAR_BAND[0] <= fratio.min() and fratio.max() <= FAM_FUSED_VAR_BAND[1],
+             f"phase 17 fused_hmc: variance / target's {fratio.min()}-{fratio.max()} outside "
+             f"{FAM_FUSED_VAR_BAND}")
+    _require(abs(faccept - FAM_REFERENCE["fused_hmc"]) <= FAM_BAND_WIDTH,
+             f"phase 17 fused_hmc: mean acceptance {faccept}")
+    busy = _device_busy(torch, lambda: [fused.step(generator, state) for _ in range(64)])
+    busy_words = "not measured (no device record)" if busy is None else (
+        f"{busy[0]:.3f} ms of device records ({busy[1]}) in {busy[2]:.3f} ms: busy "
+        f"{busy[0] / busy[2]:.4f}")
+    print(f"phase 17 fused_hmc (the registry's fused form, make_gaussian_target({FAM_D}, "
+          f"variances)): {FAM_CHAINS} chains, all {FAM_TRACKED_TRANSITIONS} transitions in "
+          f"{fused_s:.3f} s: {FAM_CHAINS * FAM_TRACKED_TRANSITIONS / fused_s:.1f} transitions/sec "
+          f"(chains x transitions), {fused_s / FAM_TRACKED_TRANSITIONS * 1e3:.4f} host ms a "
+          f"transition (with the moments' sums every {FAM_FUSED_THIN}th), "
+          f"{transition_launches} launches of the transition kernel, 0 threefry (a "
+          f"torch.Generator draws); device over 64 transitions {busy_words}; mean acceptance "
+          f"{faccept:.4f}; over {kept} kept transitions after {FAM_FUSED_BURN}: largest |mean| / "
+          f"sd {float(np.abs(fmean / np.sqrt(var)).max()):.4f}, variance / target's "
+          f"{fratio.min():.4f}-{fratio.max():.4f} (band {FAM_FUSED_VAR_BAND}) ({smi})")
+
+    # the card against the port on the CPU: f64, FAM_CMP_CHAINS chains of the
+    # d = FAM_CMP_D configuration, FAM_CMP_TRANSITIONS transitions on the same keys
+    def f64_run(device):
+        asarray = lambda v: torch.from_numpy(np.asarray(v, dtype=np.float64)).to(device)  # noqa: E731
+        algos = family_algorithms(blackjax_tpu_torch, asarray, lambda key, shape: prng.normal(
+            key, shape, torch.float64), FAM_CMP_D)
+        xc = asarray(0.5 * np.random.default_rng(FAM_X0_SEED).standard_normal(
+            (FAM_CMP_CHAINS, FAM_CMP_D)))
+        keys = prng.split(prng.split(prng.key(8, device), 4)[0], FAM_CMP_TRANSITIONS)
+        ikeys = prng.split(prng.key(9, device), FAM_CMP_CHAINS)
+        out = {}
+        for name, (algo, keyed_init) in algos.items():
+            st = algo.init(xc, ikeys) if keyed_init else algo.init(xc)
+            trace = []
+            for i in range(FAM_CMP_TRANSITIONS):
+                st, inf = algo.step(prng.split(keys[i], FAM_CMP_CHAINS), st)
+                _, exact = family_statistic(name, inf)
+                trace.append((_samples(st)[0].cpu(), [getattr(inf, f).cpu() for f in exact]))
+            out[name] = trace
+        return out
+
+    card_runs, cpu_runs = f64_run(dev), f64_run("cpu")
+    worst = 0.0
+    for name in card_runs:
+        for (xa, fa), (xb, fb) in zip(card_runs[name], cpu_runs[name]):
+            _require(all(torch.equal(a, b) for a, b in zip(fa, fb)),
+                     f"phase 17 f64 {name}: flags or counts differ between the card and the CPU")
+            err = float((xa - xb).abs().max())
+            _require(err <= FAM_CMP_TOL, f"phase 17 f64 {name}: positions differ by {err}")
+            worst = max(worst, err)
+    print(f"phase 17 f64 hold: every sampler ({len(card_runs)}), {FAM_CMP_CHAINS} chains x "
+          f"{FAM_CMP_D} for {FAM_CMP_TRANSITIONS} transitions on the same keys, the card against "
+          f"the port on the CPU: accept flags, drawn step counts, subiter and the slice counts "
+          f"identical, largest position difference {worst:.3g} (tolerance {FAM_CMP_TOL}); "
+          f"threefry launches on the path {threefry17}, transition kernel launches "
+          f"{transition_launches} ({smi})")
+    return threefry17, transition_launches
 
 
 def main() -> int:
@@ -2337,6 +2689,10 @@ def main() -> int:
     marks.append((16, time.perf_counter()))
     launches16 = smc_path(torch, dev, smi)
 
+    # ---- phase 17: the MCMC family beyond NUTS, the tracked static-HMC config ----
+    marks.append((17, time.perf_counter()))
+    threefry17, transitions17 = family_path(torch, dev, smi)
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
@@ -2353,7 +2709,7 @@ def main() -> int:
                leapfrog6, err5, *lf_times["hierarchical"],
                _bound(4 * C * D * 4 + C * 4, lf_ops, peaks)),
         _entry("fused_leapfrog (hmc transition)", "fused_leapfrog.cu",
-               "blackjax_tpu/ops/fused_leapfrog.py:206", tr_launches, err5t,
+               "blackjax_tpu/ops/fused_leapfrog.py:206", tr_launches + transitions17, err5t,
                *tr_times["hierarchical"][:2], tr_bound),
         _entry("fused_mclmc (resident form)", "fused_mclmc.cu",
                "blackjax_tpu/ops/fused_mclmc.py:301", launches8["fused_mclmc:resident"], err7,
@@ -2387,7 +2743,7 @@ def main() -> int:
                           launches13, err13, fn_ms, fn_plain_ms, fn_bound))
     kernels.append(_entry("threefry2x32 (a key per element)", "fused_nuts_dc.cu",
                           "blackjax_tpu/mcmc/trajectory.py:764",
-                          launches12["threefry2x32"] + launches16, tf_err,
+                          launches12["threefry2x32"] + launches16 + threefry17, tf_err,
                           tf_ms, tf_plain_ms, tf_bound))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1342,3 +1342,74 @@ def test_tracked_smc_f64_on_the_card_is_the_cpu_run(cuda, waste_free):
         assert abs(float(card.tempering_param) - float(cpu.tempering_param)) <= 1e-10
         assert float((card.particles.cpu() - cpu.particles).abs().max()) <= chip_smoke.SMC_CMP_TOL
     assert float(card_steps[-1][0].tempering_param) == 1.0
+
+
+# ---- the MCMC family beyond NUTS on the card (chip_smoke.py's phase 17) ----
+
+FAMILY = ["hmc", "mhmc", "dhmc", "ghmc", "barker", "normal_random_walk", "irmh",
+          "adjusted_mclmc", "adjusted_mclmc_dynamic", "elliptical_slice", "slice_sampling",
+          "coordinate_slice", "orbital_hmc", "mgrad_gaussian"]
+
+
+def _family_run(name, device, transitions=5, chains=16, d=10):
+    """Phase 17's sampler ``name`` in float64 at ``chains`` x ``d`` on
+    ``device``: its positions and the info fields held identical, per
+    transition."""
+    import chip_smoke
+    from blackjax_tpu_torch import prng
+
+    import blackjax_tpu_torch
+
+    def asarray(v):
+        return torch.from_numpy(np.asarray(v, dtype=np.float64)).to(device)
+
+    algo, keyed_init = chip_smoke.family_algorithms(
+        blackjax_tpu_torch, asarray, lambda key, shape: prng.normal(key, shape, torch.float64),
+        d)[name]
+    x0 = asarray(0.5 * np.random.default_rng(7).standard_normal((chains, d)))
+    state = algo.init(x0, prng.split(prng.key(9, device), chains)) if keyed_init else algo.init(x0)
+    keys = prng.split(prng.key(8, device), transitions)
+    trace = []
+    for i in range(transitions):
+        state, info = algo.step(prng.split(keys[i], chains), state)
+        _, exact = chip_smoke.family_statistic(name, info)
+        x = state.positions if hasattr(state, "positions") else state.position
+        assert x.device.type == device.type
+        trace.append((x.cpu(), [getattr(info, f).cpu() for f in exact]))
+    return trace
+
+
+@pytest.mark.parametrize("name", FAMILY)
+def test_family_step_on_the_card_is_the_cpu_step(cuda, name):
+    """Each new sampler's transitions on the card against the port on the
+    CPU, f64, on the same keys: positions within 1e-12, accept flags, drawn
+    step counts, ``subiter`` and the slice counts identical."""
+    card, cpu = _family_run(name, cuda), _family_run(name, torch.device("cpu"))
+    for (xa, fa), (xb, fb) in zip(card, cpu):
+        assert all(torch.equal(a, b) for a, b in zip(fa, fb)), name
+        assert float((xa - xb).abs().max()) <= 1e-12, name
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("bounds", [(1, 10), (-3, 100003), (0, 2**31)])
+def test_randint_on_the_card_is_the_cpu_draw(cuda, dtype, bounds):
+    from blackjax_tpu_torch import prng
+
+    keys = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 2**32, (1000, 2), dtype=np.uint64).astype(np.int64))
+    card = prng.randint(keys.to(cuda), (3,), *bounds, dtype=dtype)
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), prng.randint(keys, (3,), *bounds, dtype=dtype))
+
+
+@pytest.mark.parametrize("n", [8, 17, 40])
+def test_choice_on_the_card_is_the_cpu_draw(cuda, n):
+    from blackjax_tpu_torch import prng
+
+    keys = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 2**32, (1000, 2), dtype=np.uint64).astype(np.int64))
+    for dtype in (torch.float32, torch.float64):
+        p = torch.from_numpy(np.random.default_rng(n + 1).uniform(0, 1, (1000, n)) ** 3).to(dtype)
+        card = prng.choice(keys.to(cuda), n, (), p=p.to(cuda))
+        assert torch.equal(card.cpu(), prng.choice(keys, n, (), p=p))
+    assert torch.equal(prng.choice(keys.to(cuda), n).cpu(), prng.choice(keys, n))

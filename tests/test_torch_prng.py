@@ -144,3 +144,58 @@ def test_permutation_bit_for_bit(keys, n):
     np.testing.assert_array_equal(prng.permutation(tk[0], torch.from_numpy(x)).numpy(), expected)
     with pytest.raises(ValueError, match="one key"):
         prng.permutation(tk[:2], n)
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32"])
+@pytest.mark.parametrize("bounds, shape", [((1, 10), ()), ((0, 7), (5,)), ((-3, 100003), ()),
+                                           ((0, 2**31), (2,)), ((5, 5), ())])
+def test_randint_bit_for_bit(keys, dtype, bounds, shape):
+    """JAX's own algorithm: two bit streams from ``split(key)``, combined
+    modulo the span with its multiplier, in 64-bit words (x64's default
+    integer) and in 32-bit ones."""
+    jk, tk = keys
+    lo, hi = bounds
+    expected = np.asarray(jax.vmap(lambda k: jax.random.randint(
+        k, shape, lo, hi, dtype=getattr(jnp, dtype)))(jk))
+    got = prng.randint(tk, shape, lo, hi, dtype=getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.numpy(), expected)
+
+
+@pytest.mark.parametrize("n, shape", [(3, ()), (6, ()), (16, ()), (17, ()), (40, (3,))])
+def test_choice_with_p_bit_for_bit(keys, n, shape):
+    """``choice(key, n, shape, p=p)``: the cumulative sum (in XLA's order,
+    blocks of 16 beyond 16 entries) searched for ``total (1 - u)``, with a
+    row of ``p`` a key, as under ``vmap``; and without ``p``, ``randint``."""
+    jk, tk = keys
+    p = np.random.default_rng(n).uniform(0.0, 1.0, (N, n)) ** 3
+    expected = np.asarray(jax.vmap(lambda k, w: jax.random.choice(k, n, shape, p=w))(
+        jk, jnp.asarray(p)))
+    got = prng.choice(tk, n, shape, p=torch.from_numpy(p))
+    np.testing.assert_array_equal(got.numpy(), expected)
+    expected = np.asarray(jax.vmap(lambda k: jax.random.choice(k, n, shape))(jk))
+    np.testing.assert_array_equal(prng.choice(tk, n, shape).numpy(), expected)
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 17, 40, 300])
+def test_xla_cumsum_bit_for_bit(n):
+    x = np.random.default_rng(n).standard_normal((50, n)) * 10.0 ** np.random.default_rng(
+        n + 1).uniform(-6, 6, (50, n))
+    expected = np.asarray(jnp.cumsum(jnp.asarray(x), axis=-1))
+    np.testing.assert_array_equal(prng.xla_cumsum(torch.from_numpy(x)).numpy(), expected)
+
+
+def test_permutation_indices_per_key(keys):
+    jk, tk = keys
+    expected = np.asarray(jax.vmap(lambda k: jax.random.permutation(k, 9))(jk[:50]))
+    np.testing.assert_array_equal(prng.permutation_indices(tk[:50], 9).numpy(), expected)
+
+
+def test_uniform_with_bounds_per_key(keys):
+    jk, tk = keys
+    lo = np.random.default_rng(2).uniform(-7.0, 0.0, N)
+    hi = lo + np.random.default_rng(3).uniform(0.0, 7.0, N)
+    expected = np.asarray(jax.vmap(lambda k, a, b: jax.random.uniform(
+        k, (), jnp.float64, a, b))(jk, jnp.asarray(lo), jnp.asarray(hi)))
+    got = prng.uniform(tk, (), torch.float64, torch.from_numpy(lo), torch.from_numpy(hi))
+    np.testing.assert_array_equal(got.numpy(), expected)

@@ -10,6 +10,11 @@
   ``inner_kernel_tuning``, ``partial_posteriors_smc``) are exported with
   their modules' ``init`` and ``build_kernel``, and every ported module of
   ``smc`` is reachable from the package as in the reference.
+- The MCMC family's names (``mhmc``, ``dhmc``, ``ghmc``, ``barker``, the
+  random walks, adjusted MCLMC, the slice samplers, ``orbital_hmc``,
+  ``mgrad_gaussian``, ``hmc_family``) and ``ess_tail`` and ``pareto_khat``
+  are exported as the reference builds them, and each ported ``mcmc``
+  module's ``__all__`` is its reference module's.
 - ``pyproject.toml``'s package data names every CUDA source under ``csrc/``,
   so that an installed copy can build its kernels.
 """
@@ -84,6 +89,77 @@ def test_smc_modules_are_reachable(module):
     assert set(blackjax_tpu_torch.smc.__all__) <= set(blackjax_tpu.smc.__all__)
     ref = importlib.import_module(f"blackjax_tpu.smc.{module}")
     assert set(getattr(mod, "__all__", [])) == set(getattr(ref, "__all__", []))
+
+
+@pytest.mark.parametrize("name, module", [
+    ("ghmc", "mcmc.ghmc"),
+    ("adjusted_mclmc", "mcmc.adjusted_mclmc"),
+    ("adjusted_mclmc_dynamic", "mcmc.adjusted_mclmc_dynamic"),
+    ("dhmc", "mcmc.dynamic_hmc"),
+    ("dynamic_hmc", "mcmc.dynamic_hmc"),
+    ("barker", "mcmc.barker"),
+    ("barker_proposal", "mcmc.barker"),
+    ("elliptical_slice", "mcmc.elliptical_slice"),
+    ("slice_sampling", "mcmc.slice"),
+    ("orbital_hmc", "mcmc.periodic_orbital"),
+    ("mgrad_gaussian", "mcmc.marginal_latent_gaussian"),
+])
+def test_mcmc_family_names_are_exported(name, module):
+    assert name in blackjax_tpu_torch.__all__ and name in blackjax_tpu.__all__
+    api = getattr(blackjax_tpu_torch, name)
+    mod = importlib.import_module(f"blackjax_tpu_torch.{module}")
+    assert api.init is mod.init and api.build_kernel is mod.build_kernel
+    assert api.differentiable is mod.as_top_level_api
+
+
+@pytest.mark.parametrize("name, builds", [
+    ("mhmc", ("mcmc.hmc", "as_top_level_api", "build_kernel")),
+    ("multinomial_hmc", ("mcmc.hmc", "as_top_level_api", "build_kernel")),
+    ("dmhmc", ("mcmc.dynamic_hmc", "as_top_level_api", "build_kernel")),
+    ("rmh", ("mcmc.random_walk", "rmh_as_top_level_api", "build_rmh")),
+    ("irmh", ("mcmc.random_walk", "irmh_as_top_level_api", "build_irmh")),
+    ("additive_step_random_walk",
+     ("mcmc.random_walk", "additive_step_random_walk", "build_additive_step")),
+    ("coordinate_slice", ("mcmc.slice", "coordinate_slice", "build_coordinate_kernel")),
+])
+def test_composed_names_are_built_as_the_reference_builds_them(name, builds):
+    module, top, build = builds
+    mod = importlib.import_module(f"blackjax_tpu_torch.{module}")
+    api = getattr(blackjax_tpu_torch, name)
+    assert name in blackjax_tpu_torch.__all__ and name in blackjax_tpu.__all__
+    assert api.init is mod.init
+    for got, expected in ((api.differentiable, getattr(mod, top)),
+                          (api.build_kernel, getattr(mod, build))):
+        # the multinomial names bind the multinomial proposal, as the reference's do
+        target = getattr(got, "func", got)
+        assert target is expected
+        if name in ("mhmc", "multinomial_hmc", "dmhmc"):
+            assert got.keywords["build_proposal"] is blackjax_tpu_torch.mcmc.hmc.multinomial_hmc_proposal
+
+
+def test_family_lists_and_diagnostics_names():
+    port = blackjax_tpu_torch
+    assert port.hmc_family == [port.hmc, port.nuts, port.mhmc]
+    assert port.normal_random_walk is port.mcmc.random_walk.normal_random_walk
+    assert port.additive_step_random_walk.normal_random_walk is port.normal_random_walk
+    assert port.ess_tail is port.diagnostics.ess_tail
+    assert port.pareto_khat is port.diagnostics.pareto_khat
+
+
+@pytest.mark.parametrize("module", [
+    "hmc", "dynamic_hmc", "ghmc", "barker", "random_walk", "adjusted_mclmc",
+    "adjusted_mclmc_dynamic", "elliptical_slice", "slice", "periodic_orbital",
+    "marginal_latent_gaussian", "trajectory",
+])
+def test_mcmc_modules_export_the_reference_s_names(module):
+    import blackjax_tpu.mcmc
+    import blackjax_tpu_torch.mcmc
+
+    mod = importlib.import_module(f"blackjax_tpu_torch.mcmc.{module}")
+    assert getattr(blackjax_tpu_torch.mcmc, module) is mod
+    ref = importlib.import_module(f"blackjax_tpu.mcmc.{module}")
+    assert set(mod.__all__) == set(ref.__all__)
+    assert set(blackjax_tpu_torch.mcmc.__all__) <= set(blackjax_tpu.mcmc.__all__)
 
 
 @pytest.mark.parametrize("engine", ["flattened", "nested"])
