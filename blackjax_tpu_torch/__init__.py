@@ -10,6 +10,7 @@ older machine of ``ops.fused_nuts.fused_nuts_run``;
 ``csrc/fused_leapfrog.cu``, the trajectory of ``fused_hmc`` and, on the
 analytic targets, its whole transition;
 ``csrc/fused_mclmc.cu``, the trajectory of ``ops.fused_mclmc.fused_mclmc``;
+``csrc/vpu_peak.cu``, the FP32 roofline of ``ops.vpu_peak``;
 the matrix targets' device functions they share are in
 ``csrc/matrix_targets.cuh``). Kernels follow ``(key, state) -> (state,
 info)`` with a leading chain axis on every state tensor; the key is key
@@ -21,7 +22,9 @@ Registry subset so far (every name is the reference's): the MCMC samplers
 ``rmh``, ``irmh``, ``additive_step_random_walk``, ``normal_random_walk``,
 ``mclmc``, ``adjusted_mclmc``, ``adjusted_mclmc_dynamic``,
 ``elliptical_slice``, ``slice_sampling``, ``coordinate_slice``,
-``orbital_hmc``, ``mgrad_gaussian``, ``fused_hmc`` and ``hmc_family``;
+``orbital_hmc``, ``mgrad_gaussian``, ``gist_step_size``,
+``gist_trajectory_length``, ``fused_hmc`` and ``hmc_family``; the
+stochastic-gradient samplers ``sgld``, ``sghmc``, ``sgnht`` and ``csgld``;
 ``tempered_smc``, ``adaptive_tempered_smc``, ``inner_kernel_tuning``,
 ``partial_posteriors_smc``, ``window_adaptation``,
 ``window_adaptation_low_rank``, ``staged_adaptation``,
@@ -53,6 +56,8 @@ from blackjax_tpu_torch.mcmc import barker as _barker
 from blackjax_tpu_torch.mcmc import dynamic_hmc as _dynamic_hmc
 from blackjax_tpu_torch.mcmc import elliptical_slice as _elliptical_slice
 from blackjax_tpu_torch.mcmc import ghmc as _ghmc
+from blackjax_tpu_torch.mcmc import gist_step_size as _gist_step_size
+from blackjax_tpu_torch.mcmc import gist_trajectory_length as _gist_trajectory_length
 from blackjax_tpu_torch.mcmc import hmc as _hmc
 from blackjax_tpu_torch.mcmc import mala as _mala
 from blackjax_tpu_torch.mcmc import marginal_latent_gaussian as _marginal_latent_gaussian
@@ -62,6 +67,10 @@ from blackjax_tpu_torch.mcmc import periodic_orbital as _periodic_orbital
 from blackjax_tpu_torch.mcmc import random_walk
 from blackjax_tpu_torch.mcmc import slice as _slice
 from blackjax_tpu_torch.optimizers import dual_averaging
+from blackjax_tpu_torch.sgmcmc import csgld as _csgld
+from blackjax_tpu_torch.sgmcmc import sghmc as _sghmc
+from blackjax_tpu_torch.sgmcmc import sgld as _sgld
+from blackjax_tpu_torch.sgmcmc import sgnht as _sgnht
 from blackjax_tpu_torch.smc import adaptive_tempered as _adaptive_tempered
 from blackjax_tpu_torch.smc import inner_kernel_tuning as _inner_kernel_tuning
 from blackjax_tpu_torch.smc import partial_posteriors_path as _partial_posteriors_smc
@@ -135,6 +144,13 @@ coordinate_slice = GenerateSamplingAPI(
 )
 orbital_hmc = generate_top_level_api_from(_periodic_orbital)
 mgrad_gaussian = generate_top_level_api_from(_marginal_latent_gaussian)
+gist_step_size = generate_top_level_api_from(_gist_step_size)
+gist_trajectory_length = generate_top_level_api_from(_gist_trajectory_length)
+
+sgld = generate_top_level_api_from(_sgld)
+sghmc = generate_top_level_api_from(_sghmc)
+sgnht = generate_top_level_api_from(_sgnht)
+csgld = generate_top_level_api_from(_csgld)
 
 tempered_smc = generate_top_level_api_from(_tempered)
 adaptive_tempered_smc = generate_top_level_api_from(_adaptive_tempered)
@@ -172,8 +188,14 @@ __all__ = [
     "coordinate_slice",
     "orbital_hmc",
     "mgrad_gaussian",
+    "gist_step_size",
+    "gist_trajectory_length",
     "hmc_family",
     "fused_hmc",
+    "sgld",
+    "sghmc",
+    "sgnht",
+    "csgld",
     "tempered_smc",
     "adaptive_tempered_smc",
     "inner_kernel_tuning",

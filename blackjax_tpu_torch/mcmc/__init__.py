@@ -6,6 +6,9 @@ from blackjax_tpu_torch.mcmc import diffusions as diffusions
 from blackjax_tpu_torch.mcmc import dynamic_hmc as dynamic_hmc
 from blackjax_tpu_torch.mcmc import elliptical_slice as elliptical_slice
 from blackjax_tpu_torch.mcmc import ghmc as ghmc
+from blackjax_tpu_torch.mcmc import gist as gist
+from blackjax_tpu_torch.mcmc import gist_step_size as gist_step_size
+from blackjax_tpu_torch.mcmc import gist_trajectory_length as gist_trajectory_length
 from blackjax_tpu_torch.mcmc import hmc as hmc
 from blackjax_tpu_torch.mcmc import integrators as integrators
 from blackjax_tpu_torch.mcmc import mala as mala

@@ -167,34 +167,60 @@ def finnish_horseshoe(
 
 
 def logistic_regression(
-    generator: torch.Generator | None = None,
+    rng=None,
     num_points: int = 512,
     dim: int = 25,
     *,
     X=None,
     y=None,
+    device=None,
+    dtype=torch.float32,
 ):
     """Synthetic logistic regression with a ``N(0, I)`` prior; returns
     ``(target, X, y)`` so that minibatching samplers can use the same data.
 
-    The data are drawn with ``generator`` (a fresh one seeded 0 if None):
-    ``X ~ N(0, 1)``, true weights ``~ N(0, 1)``, ``y ~ Bernoulli(sigmoid(X
-    w))``. The reference draws them with ``jax.random``, so the same seed
-    gives a different dataset here; pass ``X`` and ``y`` (arrays or tensors)
+    ``rng`` draws the data: ``X ~ N(0, 1)``, true weights ``~ N(0, 1)``, ``y ~
+    Bernoulli(sigmoid(X w))``. Key words ``(2,)`` draw them as the reference's
+    ``logistic_regression(rng_key, ...)`` does (``split(key, 3)`` into the
+    keys of X, the weights and y; :mod:`blackjax_tpu_torch.prng`), X in
+    ``dtype`` and y in float32, as the reference casts it; a ``torch.Generator`` (a fresh one seeded 0 if None) draws
+    them with torch's own stream. Pass ``X`` and ``y`` (arrays or tensors)
     to use given data, such as the reference's.
+
+    The data live on ``device`` (by default the key's, the generator's or
+    the given X's), made there once; a log density evaluated in another
+    dtype or on another device converts them once and keeps the copy.
     """
     if X is None or y is None:
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        X = torch.randn(num_points, dim, generator=generator)
-        true_w = torch.randn(dim, generator=generator)
-        y = torch.bernoulli(torch.sigmoid(X @ true_w), generator=generator)
+        if torch.is_tensor(rng):
+            from blackjax_tpu_torch import prng
+
+            keys = rng.to(rng.device if device is None else device)
+            kx, kw, ky = prng.split(keys, 3).unbind(-2)
+            X = prng.normal(kx, (num_points, dim), dtype)
+            true_w = prng.normal(kw, (dim,), dtype)
+            y = prng.bernoulli(ky, torch.sigmoid(X @ true_w), shape=(num_points,)).float()
+        else:
+            generator = torch.Generator().manual_seed(0) if rng is None else rng
+            X = torch.randn(num_points, dim, generator=generator, device=generator.device)
+            true_w = torch.randn(dim, generator=generator, device=generator.device)
+            y = torch.bernoulli(torch.sigmoid(X @ true_w), generator=generator)
     X, y = (t if isinstance(t, torch.Tensor) else torch.from_numpy(np.array(t)) for t in (X, y))
+    if device is not None:
+        X, y = X.to(device), y.to(device)
     num_points, dim = X.shape
+    converted = {(X.dtype, X.device): (X, y.to(X.dtype))}
+
+    def data_like(w):
+        key = (w.dtype, w.device)
+        if key not in converted:
+            converted[key] = (X.to(dtype=w.dtype, device=w.device),
+                              y.to(dtype=w.dtype, device=w.device))
+        return converted[key]
 
     def logdensity_fn(w):
-        logits = w @ X.to(dtype=w.dtype, device=w.device).T
-        yy = y.to(dtype=w.dtype, device=w.device)
+        xs, yy = data_like(w)
+        logits = w @ xs.T
         loglik = (
             yy * torch.nn.functional.logsigmoid(logits)
             + (1 - yy) * torch.nn.functional.logsigmoid(-logits)

@@ -166,14 +166,15 @@ def uniform(keys: torch.Tensor, shape=(), dtype=torch.float32, minval=0.0, maxva
     return torch.maximum(lo, torch.addcmul(lo, floats, hi - lo))
 
 
-def bernoulli(keys: torch.Tensor, p=0.5, dtype=torch.float32) -> torch.Tensor:
-    """``jax.random.bernoulli``: ``uniform(key) < p`` in ``p``'s dtype, one
-    draw per key; ``p`` broadcasts against the keys' batch shape. A Python
-    float ``p`` is taken in ``dtype``, the counterpart of JAX's default
-    float dtype."""
+def bernoulli(keys: torch.Tensor, p=0.5, dtype=torch.float32, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli``: ``uniform(key, shape) < p`` in ``p``'s
+    dtype, ``keys.shape[:-1] + shape`` draws; ``p`` broadcasts against them
+    (one draw per key by default; ``shape=p.shape`` with one key is the
+    reference's default). A Python float ``p`` is taken in ``dtype``, the
+    counterpart of JAX's default float dtype."""
     if not torch.is_tensor(p):
         p = torch.tensor(p, dtype=dtype, device=keys.device)
-    return uniform(keys, (), p.dtype) < p
+    return uniform(keys, shape, p.dtype) < p
 
 
 def normal(keys: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:

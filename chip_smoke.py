@@ -5,27 +5,47 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's twelve main paths once, five at the flagship's full
+It drives the port's thirteen main paths once, five at the flagship's full
 width (the 100-dim hierarchical posterior, 4,096 chains), one at the
 Finnish horseshoe's (N=100, M=200, d=404, 512 chains), three at the
 covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
 4,096 under MCLMC), one at the tracked eight-schools configuration's
 (d=10, 512 chains x 800 transitions), one at the tracked tempered-SMC
-configuration's (d=10, 16,384 particles) and one at the tracked static-HMC
-configuration's (d=100, 128 chains) under the MCMC family beyond NUTS, and
-checks them in phases, one line each:
+configuration's (d=10, 16,384 particles), one at the tracked static-HMC
+configuration's (d=100, 128 chains) under the MCMC family beyond NUTS and
+one at the tracked SG-MCMC configurations' (SGLD on the covertype-class
+logistic regression, one chain and 4,096 chains), and reads the card's
+FP32 roofline through which their bounds are read, and checks them in
+phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the builds of
    ``csrc/fused_nuts_dc.cu``, ``csrc/fused_nuts_dc_dense.cu``,
    ``csrc/fused_nuts_dc_low_rank.cu`` (the dc machine of
    ``csrc/fused_nuts_dc.cuh`` for each metric), ``csrc/fused_leapfrog.cu``,
-   ``csrc/fused_mclmc.cu`` and ``csrc/fused_nuts.cu`` (with the shared
-   headers ``csrc/counter_rng.cuh``, ``csrc/analytic_targets.cuh``,
-   ``csrc/matrix_targets.cuh`` and ``csrc/resident_form.cuh``) with nvcc,
-   one process each, all started together, with their seconds and the
-   register and spill report of each instantiation (N registers per vector,
-   target family F, metric M, trace flag; a resident form by its analytic
-   target T);
+   ``csrc/fused_mclmc.cu``, ``csrc/fused_nuts.cu`` and ``csrc/vpu_peak.cu``
+   (with the shared headers ``csrc/counter_rng.cuh``,
+   ``csrc/analytic_targets.cuh``, ``csrc/matrix_targets.cuh`` and
+   ``csrc/resident_form.cuh``) with nvcc, one process each, all started
+   together, with their seconds and the register and spill report of each
+   instantiation (N registers per vector, target family F, metric M, trace
+   flag; a resident form by its analytic target T; the VPU-peak kernel by
+   N, its rounding and its mode). Then the VPU-peak kernel
+   (``ops.vpu_peak``, the port of ``benchmarks/vpu_peak.py:58``): in both
+   modes (``fma``: ``x = x * a + b``; ``select``: ``x = where(x > t, x * a +
+   b, x + b)``) and both roundings of ``x * a + b`` (fused, one rounding;
+   unfused, a multiply and an add, as ``--fmad=false`` compiles it), at
+   every N values a lane (1, 2, 4, 8, 13, 16) and 20 and 32 warps an SM,
+   on a full grid and a partial block, bit for bit its plain version after
+   64 iterations, and the kernels line's call (unfused ``fma``, N = 4, 32
+   warps, 4,096 iterations) bit for bit its plain version; then, launch
+   counts reset, its sustained element-updates a second at each mode,
+   rounding and N at 20 and 32 warps an SM (a two-point slope, ``iters``
+   against ``4 * iters``, by CUDA events, distinct inputs for each call, as
+   the reference's ``measure`` reads it), each as a share of the spec rate
+   (one FMA a lane a clock), and the SM clock ``nvidia-smi`` reads under
+   load. Twice the unfused ``fma`` rate at the N nearest a kernel's own,
+   the better of the two warp counts, is the measured FP32 operation rate
+   of the kernels line's ``bound_measured_ms``;
 2. the dc kernel's own threefry2x32 device function against the plain
    version, bit for bit, on 100,000 counters, and with a key per element
    (the draws of ``blackjax_tpu_torch.prng``) on 1,048,576 keys, with both
@@ -147,8 +167,8 @@ checks them in phases, one line each:
    counts reset just before each: the port's single-chain
    ``window_adaptation(nuts, is_mass_matrix_diagonal=False)``, or
    ``window_adaptation_low_rank(nuts, max_rank=10)`` (which restarts at its
-   ``mu*``), 400 steps from zeros at ``max_num_doublings=6`` (cut from 8 for
-   time), then ``fused_nuts_run_dc`` with the adapted
+   ``mu*``), 250 steps from zeros at ``max_num_doublings=6`` (cut from 400
+   steps and from depth 8 for time), then ``fused_nuts_run_dc`` with the adapted
    ``(54, 54)`` or low-rank metric on 1,024 chains from the warmup's position
    plus 0.01 N(0, I) (numpy seed) for 256 transitions, tracking all 54
    coordinates, in one launch in the tiles form (required), then min-ESS over
@@ -293,7 +313,29 @@ checks them in phases, one line each:
    within [0.9, 1.1] of the target's. Then each sampler in f64 at 16 chains
    x d = 5 for 20 transitions on the card and on the CPU, on the same keys:
    positions within 1e-12, accept flags, drawn step counts, ``subiter`` and
-   the slice counts identical.
+   the slice counts identical. The GIST samplers run among them
+   (``gist_step_size`` at the configuration's step size as its initial one
+   and 10 integration steps, ``gist_trajectory_length`` at its step size),
+   their step indices or step counts and U-turn counts held identical too.
+18. the tracked SG-MCMC configurations (``benchmarks/tracked.py``), threefry
+   launch counts reset just before them, on the reference's dataset,
+   ``logistic_regression(num_points=4096, dim=54)`` drawn on the card from
+   ``jax.random.key(0)``'s words, in f32: ``config_sgld`` (``:486-563``:
+   ``sgld``, one chain, batch 512, step size 1e-5, minibatch keys
+   ``split(key(13))``, step keys ``split(key(14))``, the start of
+   ``split(key(15), 4)[0]``) and ``config_sgld_chains`` (``:790-856``: 4,096
+   chains, batch 256, one shared minibatch a step, the start of key 25, the
+   run key ``split(key(26), 4)[0]``), each cut from 20,000 steps to 5,000
+   (host-bound). Each line gives the
+   configuration's unit (updates/sec, chain-updates/sec), host ms a step,
+   threefry launches a step and the device's busy share over 64 steps; the
+   final position (one chain) must lie within 0.05 second-half sd of the JAX
+   package's on the CPU at the same keys, and the mean over the 4,096 chains
+   within 0.25 standard errors (``tools/sgmcmc_reference.py``); the
+   minibatch indices are int32, JAX's default integer without x64. Then ``sgld``,
+   ``sghmc``, ``sgnht`` and ``csgld`` in f64 at 16 chains x 20 steps, batch 64,
+   on the card and on the CPU on the same keys: minibatch indices (and
+   csgld's bins) identical, positions within 1e-12.
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
@@ -303,7 +345,9 @@ like-for-like times), one per new (kernel, target) pair (phase 9's and
 regression comparison), one for the older machine (phase 13's 512 x 16 times; eight schools'
 launches are phase 15's)
 and one for the threefry kernel with a key per element (phase 2's times on
-1,048,576 keys; its launches are phases 12's, 16's and 17's). ``launches`` is the count from the
+1,048,576 keys; its launches are phases 12's, 16's, 17's and 18's), and one
+for the VPU-peak kernel (its unfused ``fma`` at N = 4 and 32 warps an SM,
+4,096 iterations; its launches are phase 1's sweep). ``launches`` is the count from the
 main path's run, or, for a pair that no main path drives, from the pair's checked
 call; ``fused_leapfrog`` counts ``leapfrog_kernel``'s own launches on phase 6,
 apart from the transition kernel's (its own entry: phases 6's and 17's), so none.
@@ -311,6 +355,7 @@ apart from the transition kernel's (its own entry: phases 6's and 17's), so none
 the larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations over 132 SMs x 128 lanes x 2 x the SM clock ``nvidia-smi``
 reads, from the call's inputs and outputs (gradient counts from the run);
+``bound_measured_ms`` the same with phase 1's measured FP32 rate;
 ``library_ms`` is null: no single PyTorch call computes any of these
 functions. The last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises and exits non-zero without that line; so does a machine
@@ -319,6 +364,7 @@ without CUDA, and a directory without the package.
 import hashlib
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -357,6 +403,13 @@ HS_BUDGET = 1600 * HS_TRANSITIONS * HS_PACK  # budget_factor 1600 (tracked.py:94
 HS_WARMUP_STEPS, HS_WARMUP_DOUBLINGS = 100, 6  # cut from 600 at 10: see phase 10
 HS_CMP_CHAINS, HS_CMP_TRANSITIONS, HS_CMP_DOUBLINGS = 128, 4, 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+# phase 1: the VPU-peak kernel (csrc/vpu_peak.cu, the port of benchmarks/vpu_peak.py:58)
+# held bit for bit against its plain version at VP_HOLD_ITERS iterations, then
+# its rates at each values a lane and these warps an SM, each call's shorter
+# run VP_UPDATES element-updates (about 1.2 ms unfused on an NVIDIA H100 80GB
+# HBM3 at 700.00 W)
+VP_A, VP_HOLD_ITERS, VP_WARPS, VP_UPDATES = 0.999, 64, (20, 32), 2e10
+VP_ENTRY_ITERS = 4096  # the kernels line's call: unfused fma, N = 4, 32 warps an SM
 TF_KEYS = 1 << 20  # phase 2's per-element-key threefry check
 # phase 12: the continuous runner, cut from the bench's 256 transitions
 # because it reads its loop condition on the host once per block of leaves
@@ -426,13 +479,15 @@ FAM_TRANSITIONS = {
     "normal_random_walk": 1024, "irmh": 1024, "adjusted_mclmc": 128,
     "adjusted_mclmc_dynamic": 128, "elliptical_slice": 128, "slice_sampling": 32,
     "coordinate_slice": 1, "orbital_hmc": 64, "mgrad_gaussian": 512,
+    "gist_step_size": 32, "gist_trajectory_length": 16,
 }
 FAM_IRMH_SCALE, FAM_PERIOD = 1.05, 8  # irmh's proposal N(0, 1.1025 diag(var)); orbital_hmc's
 # orbital_hmc runs in f64: its weights exp(logdensity - K) at d = 100 underflow
 # f32 (to 0 / 0 once a whole orbit does), in the reference as in the port
 FAM_F64 = ("orbital_hmc",)
 FAM_MGRAD_DELTA, FAM_MCLMC_STEP, FAM_MCLMC_STEPS = 1.0, 1.0, 5
-FAM_BUSY_TRANSITIONS = 8  # the transitions of the busy-share run (coordinate_slice 1)
+FAM_BUSY_TRANSITIONS = 8  # the transitions of the busy-share run, but for the slowest:
+FAM_BUSY_SHORT = {"coordinate_slice": 1, "gist_trajectory_length": 2}
 # Bands of the mean acceptance (elliptical slice: mean subiter; the slice
 # samplers: mean num_shrink), from the JAX package's own run of each sampler on
 # the CPU at the same settings, keys and transitions
@@ -444,11 +499,83 @@ FAM_REFERENCE = {
     "adjusted_mclmc": 0.999528, "adjusted_mclmc_dynamic": 0.999546,
     "elliptical_slice": 6.647827, "slice_sampling": 2.852783,
     "coordinate_slice": 285.523438, "mgrad_gaussian": 0.332422,
+    "gist_step_size": 0.710899, "gist_trajectory_length": 0.313429,
 }
 FAM_REFERENCE["fused_hmc"] = FAM_REFERENCE["hmc"]  # the same HMC, its own draws
 FAM_BAND_WIDTH, FAM_COUNT_BAND = 0.03, 0.15
 FAM_COUNTED = ("elliptical_slice", "slice_sampling", "coordinate_slice")
 FAM_CMP_CHAINS, FAM_CMP_D, FAM_CMP_TRANSITIONS, FAM_CMP_TOL = 16, 5, 20, 1e-12
+# phase 18: the tracked SG-MCMC configurations (benchmarks/tracked.py:486-563,
+# config_sgld, and :790-856, config_sgld_chains) at their chip sizes: SGLD on
+# logistic_regression(num_points=4096, dim=54) of jax.random.key(0) (rebuilt on the
+# card from the same key words), step size 1e-5, f32; the steps cut
+SG_N, SG_D, SG_STEP_SIZE = 4096, 54, 1e-5
+# Steps cut from the configurations' 20,000 to 5,000 for the script's time
+# limit: the path is host-bound, 3.5-4.7 host ms a step on the slowest host
+# seen (NVIDIA H100 80GB HBM3, 700.00 W: 165 s for both at 20,000); the rates are per step, so the cut leaves
+# them as they are
+SG_STEPS, SG_BATCH = 5000, 512  # config_sgld: one chain (tracked.py:496)
+SG_CHAINS, SG_CHAINS_STEPS, SG_CHAINS_BATCH = 4096, 5000, 256  # config_sgld_chains (:797-798)
+# The JAX package's own run of both on the CPU at the same keys and steps, each
+# configuration's first variant (tools/sgmcmc_reference.py --steps 5000, f32): config_sgld's
+# final position and each coordinate's sd over the second half of its path;
+# config_sgld_chains' mean of the final positions over the chains and their sd
+SG_REFERENCE = {
+    "final": np.array([
+        -1.819085, -1.603215, 0.1873654, -0.2362033, -0.4770269, -1.019885, -0.8274411,
+        0.3738279, -0.908547, 1.757591, -0.1956443, 0.7076208, -1.062181, -0.5357544,
+        -0.2312086, 0.3295972, -0.8578554, -0.2386726, -0.5836334, -1.48494, -0.7068718,
+        -0.2883728, 0.7173298, 0.6459404, -0.7142124, -0.3434721, 0.5401345, 1.345892,
+        -0.3869458, -0.007621103, -0.6261434, -1.315481, -0.1668209, 0.6826252, -0.9782977,
+        -0.6570091, -1.84334, -1.24404, -0.4299658, -1.206998, -1.585694, -1.19704,
+        -0.2529073, -0.5046874, 0.4513108, -0.8356835, 1.215136, 0.4046865, -0.1273224,
+        0.6770605, 0.5044151, -0.7258906, 0.5443416, -0.9518069,
+    ]),
+    "second_half_sd": np.array([
+        0.1141192, 0.1271819, 0.04436543, 0.05592619, 0.03658879, 0.08406787, 0.08625795,
+        0.03977094, 0.04748584, 0.09277409, 0.07145383, 0.04263968, 0.08198582, 0.07336894,
+        0.04991065, 0.06683867, 0.06244345, 0.05528003, 0.04303041, 0.1202726, 0.06414911,
+        0.06339868, 0.03980412, 0.07051702, 0.04850467, 0.03080023, 0.03519541, 0.1451348,
+        0.03821668, 0.03594237, 0.07580478, 0.05031082, 0.04530316, 0.0981418, 0.07099992,
+        0.07870327, 0.1213138, 0.08845272, 0.05023422, 0.06764634, 0.08328339, 0.1122095,
+        0.06795481, 0.046452, 0.05875515, 0.09606201, 0.09678213, 0.04810083, 0.03881906,
+        0.03660685, 0.05791528, 0.06876022, 0.08600952, 0.07745489,
+    ]),
+    "mean": np.array([
+        -1.727482, -1.461765, 0.2024845, -0.1931868, -0.4876084, -0.9305537, -0.7842476,
+        0.2352747, -0.8988873, 1.560292, -0.1483768, 0.6464502, -0.965542, -0.5281513,
+        -0.1994255, 0.3041494, -0.8093485, -0.1095939, -0.5957328, -1.297739, -0.7538126,
+        -0.2522543, 0.8563341, 0.6081879, -0.7541219, -0.4086341, 0.5604503, 1.310848,
+        -0.3249289, 0.02255092, -0.4719694, -1.37839, -0.2121394, 0.7162133, -0.9504989,
+        -0.5409011, -1.741322, -1.169232, -0.3085513, -1.221615, -1.484882, -1.152384,
+        -0.1974775, -0.4511559, 0.3410877, -0.730858, 1.256566, 0.4371473, -0.1486333,
+        0.6245088, 0.5047882, -0.6764551, 0.4304737, -0.9410118,
+    ]),
+    "sd": np.array([
+        0.07928643, 0.07545574, 0.06555492, 0.06126855, 0.0667757, 0.06902723, 0.0688014,
+        0.06475879, 0.06760615, 0.07502422, 0.06111808, 0.06506749, 0.06921493, 0.06626017,
+        0.06501641, 0.06621442, 0.06659357, 0.06441295, 0.06529031, 0.07363868, 0.06685714,
+        0.06338947, 0.06584104, 0.06677722, 0.06953185, 0.06566641, 0.06760511, 0.07327747,
+        0.06586295, 0.06874856, 0.06474507, 0.07354447, 0.06403091, 0.0691295, 0.06948566,
+        0.06826858, 0.07814831, 0.07209067, 0.06483111, 0.07163059, 0.07550089, 0.07229092,
+        0.06336217, 0.06474867, 0.0655148, 0.06722875, 0.07400421, 0.06848945, 0.06458481,
+        0.06641068, 0.06688292, 0.06542008, 0.06777839, 0.0692323,
+    ]),
+}
+# Bands: config_sgld's final position within 0.05 of the second half's sd of the
+# reference's, every coordinate; config_sgld_chains' mean over the chains within
+# 0.25 standard errors (sd / sqrt(4,096)) of the reference's. The same keys
+# drive the same noise and minibatches, so the port's paths follow the
+# reference's up to rounding and the dataset's last bits (torch's f32 erfinv):
+# on a CPU the port came within 7.4e-6 sd (20,000 steps) and 0.0023 standard
+# errors (4,096 chains x 2,000 steps), on an NVIDIA H100 80GB HBM3 at 700.00 W
+# under 5e-5 sd and within 0.0016 standard errors (20,000 steps). Other minibatches (int64 indices, which draw
+# other numbers from the same keys) moved the single chain 0.38 sd
+SG_SINGLE_BAND, SG_CHAINS_BAND = 0.05, 0.25
+SG_BUSY_STEPS = 64  # the steps of each configuration's busy-share run
+# the f64 hold, the card against the CPU: chains x steps x batch
+SG_CMP_CHAINS, SG_CMP_STEPS, SG_CMP_BATCH, SG_CMP_TOL = 16, 20, 64, 1e-12
+SG_SAMPLERS = ("sgld", "sghmc", "sgnht", "csgld")
 # The horseshoe's posterior by the JAX package's own NUTS on the CPU
 # (tests/test_torch_horseshoe_slice.py:reference_bands: window_adaptation 600
 # steps from zeros, then 64 chains from 0.05 N(0, I) x 256 transitions, seed
@@ -461,8 +588,11 @@ ALPHA_BAND = (0.00138 - 0.1, 0.00138 + 0.1)
 LOG_SIGMA_BAND = (-0.15748 - 0.1, -0.15748 + 0.1)
 # phase 11's warmups, cut to max_num_doublings=6: the dense one's early
 # windows (25 and 50 draws in 54 dims) give a rank-deficient metric, and at 8
-# its 400 steps ran 17,389 leaves in 156 s on an H100
-MET_WARMUP_STEPS, MET_WARMUP_DOUBLINGS = 400, 6
+# its 400 steps ran 17,389 leaves in 156 s on an H100; then cut to 250 steps
+# for the script's time limit (both warmups took 242.9 s at 400 steps on the
+# slowest host seen, NVIDIA H100 80GB HBM3, 700.00 W); the last slow window
+# keeps 100 draws
+MET_WARMUP_STEPS, MET_WARMUP_DOUBLINGS = 250, 6
 MET_CHAINS, MET_TRANSITIONS, MET_DOUBLINGS = 1024, 256, 8  # phase 11's dc runs
 MET_MAX_RANK = 10  # window_adaptation_low_rank's max_rank
 MET_CMP_CHAINS, MET_CMP_TRANSITIONS = 512, 8  # phase 11's pairs on logistic regression
@@ -524,7 +654,10 @@ def _ptxas_summary(log: str) -> list:
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
-        if entry:
+        if entry and "vpu_peak_kernel" in entry.group(1):
+            v = re.search(r"vpu_peak_kernelILi(\d+)ELb(\d)ELb(\d)E", entry.group(1))
+            name = f"vpu_peak N={v.group(1)} fused={v.group(2)} select={v.group(3)}"
+        elif entry:
             n = re.search(r"(nuts_dc|nuts|leapfrog|mclmc|hmc)_"
                           r"(kernel|resident|transition|thread)ILi(\d+)"
                           r"ELi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", entry.group(1))
@@ -681,7 +814,7 @@ def _mclmc_bound(peaks, chains, steps, d, tracked, box_muller=False):
     return _bound(4 * chains * d * 4 + chains * 4 + chains * steps * tracked * 4,
                   chains * steps * (2 * GRAD_OPS["hierarchical"] * d + MCLMC_STEP_OPS * d)
                   + normals * extra["fp32"], peaks,
-                  normals * (THREEFRY_OPS + extra["int32"]), normals * extra["sfu"])
+                  normals * (THREEFRY_OPS + extra["int32"]), normals * extra["sfu"], d=d)
 
 
 def _legacy_bound(peaks, chains, transitions, grads):
@@ -693,7 +826,8 @@ def _legacy_bound(peaks, chains, transitions, grads):
     proposal pair of at least one subtree a transition, and the momentum."""
     return _bound(2 * chains * D * 4 + chains * transitions * NUM_TRACK * 4 + 2 * chains * 4,
                   grads * (DC_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
-                  (grads + 2 * chains * transitions + chains * transitions * D) * THREEFRY_OPS)
+                  (grads + 2 * chains * transitions + chains * transitions * D) * THREEFRY_OPS,
+                  d=D)
 
 
 def _grad_ops(kind, d, n=0, m=0):
@@ -709,21 +843,36 @@ def _grad_ops(kind, d, n=0, m=0):
     return GRAD_OPS[kind] * d
 
 
-def _bound(nbytes, fp32_ops, peaks, int_ops=0.0, sfu_ops=0.0):
+def _measured_fp32(peaks, d):
+    """The measured FP32 operation rate for a kernel of width ``d``: twice
+    phase 1's unfused ``fma`` updates a second (a multiply and an add each,
+    as ``--fmad=false`` compiles ``a * x + b``) at the values a lane nearest
+    the kernel's ``ceil(d / 32)``, the better of the two warp counts."""
+    measured = peaks.get("fp32_measured")
+    if not measured:
+        raise RuntimeError("no measured FP32 rate: phase 1's vpu_peak sweep has not run")
+    lanes = min(measured, key=lambda n: (abs(n - math.ceil(d / 32)), n))
+    return measured[lanes]
+
+
+def _bound(nbytes, fp32_ops, peaks, int_ops=0.0, sfu_ops=0.0, *, d):
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over their peak rates. Returns
-    ``(ms, "bytes" or "operations")``."""
+    ``(ms, "bytes" or "operations", measured ms)``: the last with the FP32
+    operations over the measured rate for width ``d`` (phase 1)."""
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = (fp32_ops / peaks["fp32"] + int_ops / peaks["int32"]
-             + sfu_ops / peaks["sfu"]) * 1e3
-    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+    other_s = int_ops / peaks["int32"] + sfu_ops / peaks["sfu"]
+    op_ms = (fp32_ops / peaks["fp32"] + other_s) * 1e3
+    measured_ms = max(byte_ms, (fp32_ops / _measured_fp32(peaks, d) + other_s) * 1e3)
+    return ((byte_ms, "bytes", measured_ms) if byte_ms >= op_ms
+            else (op_ms, "operations", measured_ms))
 
 
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
     return {"name": name, "route": "cuda", "source": f"blackjax_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": None}
+            "bound_measured_ms": bound[2], "library_ms": None}
 
 
 def _log_tau_moments(hist):
@@ -737,6 +886,92 @@ def flagship_init(torch, dev):
     """The flagship's C starting positions: 0.5 N(0, I) of numpy seed 1."""
     return torch.from_numpy((0.5 * np.random.default_rng(1).standard_normal((C, D)))
                             .astype(np.float32)).to(dev)
+
+
+def vpu_peak_phase(torch, vp, dev, sms, sm_mhz, peaks, smi):
+    """Phase 1's VPU-peak part (see the head of this file): the kernel held
+    bit for bit against its plain version in every mode, rounding and
+    values a lane; the rate sweep, its launches counted from 0; the SM
+    clock under load; ``peaks["fp32_measured"]`` set for the bounds.
+    Returns the ``kernels`` entry's numbers."""
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    held = 0
+    for warps in VP_WARPS:
+        for lanes in vp.LANES:
+            for rows in (vp.block_rows(sms, lanes, warps), 8):  # a full grid; a partial block
+                x = torch.randn((rows, vp.COLS), generator=generator, device=dev)
+                for mode in vp.MODES:
+                    for fused in (True, False):
+                        got = vp.vpu_peak(x, VP_A, VP_HOLD_ITERS, mode, fused, lanes=lanes,
+                                          warps=warps)
+                        plain = vp.vpu_peak_plain(x, VP_A, VP_HOLD_ITERS, mode, fused)
+                        _require(torch.equal(got, plain),
+                                 f"phase 1: vpu_peak {mode} fused={fused} N={lanes} "
+                                 f"warps={warps} rows={rows} differs from its plain version by "
+                                 f"{float((got - plain).abs().max())}")
+                        held += 1
+    # the entry's call: the unfused fma (what the port's kernels compile a * x + b to),
+    # held against its plain version on the same x
+    rows = vp.block_rows(sms, 4, VP_WARPS[1])
+    x = 0.5 + 0.01 * torch.randn((rows, vp.COLS), generator=generator, device=dev)
+    ms = _timed_mean(torch, lambda: vp.vpu_peak(x, VP_A, VP_ENTRY_ITERS, "fma", False,
+                                                 lanes=4, warps=VP_WARPS[1]), 5)
+    plain, plain_ms = _timed(
+        torch, lambda: vp.vpu_peak_plain(x, VP_A, VP_ENTRY_ITERS, "fma", False))
+    got = vp.vpu_peak(x, VP_A, VP_ENTRY_ITERS, "fma", False, lanes=4, warps=VP_WARPS[1])
+    err = float((got - plain).abs().max())
+    _require(bool(torch.isfinite(got).all()) and err == 0.0,
+             f"phase 1: vpu_peak's entry call differs from its plain version by {err}")
+    # the sweep, launches counted from 0
+    vp.LAUNCHES["vpu_peak"] = 0
+    rates = {}
+    for warps in VP_WARPS:
+        for lanes in vp.LANES:
+            elements = sms * warps * 32 * lanes
+            iters = max(16, round(VP_UPDATES / elements / 16) * 16)
+            for mode in vp.MODES:
+                for fused in (True, False):
+                    rates[mode, fused, lanes, warps] = vp.updates_per_second(
+                        mode, fused, lanes, warps, iters, device=dev)
+    launches = vp.LAUNCHES["vpu_peak"]
+    _require(launches == 4 * len(rates), f"phase 1: vpu_peak launches {launches}")
+    # the SM clock while a long unfused launch (about half a second) runs
+    long_iters = int(VP_UPDATES * 400 / x.numel())
+    vp.vpu_peak(x, VP_A, long_iters, "fma", False, lanes=4, warps=VP_WARPS[1])
+    time.sleep(0.1)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip()
+    torch.cuda.synchronize()
+    spec = sms * 128 * sm_mhz * 1e6  # one FMA instruction a lane a clock
+    peaks["fp32_measured"] = {
+        lanes: 2 * max(rates["fma", False, lanes, w] for w in VP_WARPS) for lanes in vp.LANES}
+    bound = _bound(2 * x.numel() * 4, 2.0 * x.numel() * VP_ENTRY_ITERS, peaks, d=32 * 4)  # N = 4
+    for warps in VP_WARPS:
+        parts = []
+        for lanes in vp.LANES:
+            cells = [f"{mode} {'fused' if fused else 'unfused'} "
+                     f"{rates[mode, fused, lanes, warps] / 1e9:.1f} "
+                     f"({rates[mode, fused, lanes, warps] / spec:.3f})"
+                     for mode in vp.MODES for fused in (True, False)]
+            parts.append(f"N={lanes}: " + ", ".join(cells))
+        print(f"phase 1: vpu_peak at {warps} warps an SM ({sms} blocks of {warps} warps), G "
+              f"element-updates/s (share of the spec {spec / 1e12:.2f}e12: {sms} SMs x 128 lanes "
+              f"x {sm_mhz:.0f} MHz, one FMA a lane a clock), two-point slope by CUDA events: "
+              + "; ".join(parts) + f" ({smi})")
+    print(f"phase 1: vpu_peak held bit for bit against its plain version in {held} cases "
+          f"(both modes, both roundings, N = {', '.join(map(str, vp.LANES))}, a full grid and a "
+          f"partial block, {' and '.join(map(str, VP_WARPS))} warps an SM, {VP_HOLD_ITERS} "
+          f"iterations); SM clock under load {clock} (spec "
+          f"{sm_mhz:.0f} MHz); measured FP32 rate (twice the unfused fma rate, the better warp "
+          f"count) " + ", ".join(f"N={n} {r / 1e12:.2f}e12" for n, r in
+                                  peaks["fp32_measured"].items())
+          + f" ops/s against the spec {peaks['fp32'] / 1e12:.2f}e12; the entry's call (unfused "
+          f"fma, N=4, {VP_WARPS[1]} warps, {x.numel()} elements x {VP_ENTRY_ITERS}) {ms:.4f} ms, "
+          f"max_abs_err {err} against its plain version, "
+          f"plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]}, measured bound "
+          f"{bound[2]:.4f} ms; launches in the sweep {launches} ({smi})")
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound,
+            "clock": clock}
 
 
 def warm_start(torch, dev):
@@ -971,7 +1206,7 @@ def eight_schools_path(torch, dev, es_target, peaks, smi):
     grads15 = float(grads15)
     bound15 = _bound(2 * ES_CHAINS * 10 * 4 + hist15.numel() * 4 + 3 * ES_CHAINS * 4,
                      grads15 * (DC_LEAF_OPS * 10 + _grad_ops("eight_schools", 10)), peaks,
-                     (grads15 + ES_CHAINS * ES_TRANSITIONS * 10) * THREEFRY_OPS)
+                     (grads15 + ES_CHAINS * ES_TRANSITIONS * 10) * THREEFRY_OPS, d=10)
     occ15 = {form: dc.occupancy(10, target=es_target.cuda_target, max_depth=ES_MAX_DOUBLINGS,
                                 form=2 if form == "thread" else 0)
              for form in (planned, other)}
@@ -1324,6 +1559,8 @@ def family_algorithms(bj, asarray, normal, d):
         "mgrad_gaussian": (bj.mgrad_gaussian(
             loglikelihood, covariance=asarray(np.diag(np.logspace(-1.0, 1.0, d))),
             step_size=FAM_MGRAD_DELTA), False),
+        "gist_step_size": (bj.gist_step_size(logdensity, ones, step, steps), False),
+        "gist_trajectory_length": (bj.gist_trajectory_length(logdensity, ones, step), False),
     }
 
 
@@ -1339,6 +1576,11 @@ def family_statistic(name, info):
     if name == "orbital_hmc":
         return None, ()
     drawn = ("num_integration_steps",) if name in ("dhmc", "adjusted_mclmc_dynamic") else ()
+    if name == "gist_step_size":
+        drawn = ("step_index", "reverse_step_index", "search_exhausted")
+    if name == "gist_trajectory_length":
+        drawn = ("num_integration_steps", "num_steps_to_uturn_forward",
+                 "num_steps_to_uturn_reverse")
     return info.acceptance_rate, ("is_accepted",) + drawn
 
 
@@ -1434,7 +1676,7 @@ def family_path(torch, dev, smi):
         _require(finite, f"phase 17 {name}: non-finite values")
         _require(launches > 0, f"phase 17 {name}: no threefry launch")
         mean_stat = float(torch.stack(stats).double().mean()) if stats else None
-        busy_n = 1 if name == "coordinate_slice" else FAM_BUSY_TRANSITIONS
+        busy_n = FAM_BUSY_SHORT.get(name, FAM_BUSY_TRANSITIONS)
         busy = _device_busy(torch, lambda: family_run(algo, keys_of, state, busy_n))
         x, w = _samples(state)
         mean, variance = _weighted_moments(x, w)
@@ -1556,6 +1798,193 @@ def family_path(torch, dev, smi):
     return threefry17, transition_launches
 
 
+def sgld_model(torch):
+    """The tracked configurations' log prior and the log-likelihood of ONE
+    data point (tracked.py:501-507, which the reference maps over a
+    minibatch's points), for positions ``(..., 54)``: ``(logprior_fn,
+    loglikelihood_fn)``."""
+
+    def logprior_fn(w):
+        return -0.5 * (w**2).sum(-1)
+
+    def loglikelihood_fn(w, point):
+        x, y = point
+        logits = w @ x
+        return y * logits - torch.logaddexp(torch.zeros_like(logits), logits)
+
+    return logprior_fn, loglikelihood_fn
+
+
+def sgld_dataset(torch, prng, device, dtype):
+    """``logistic_regression(num_points=4096, dim=54)`` of key 0, drawn on
+    ``device`` from the reference's key words: ``(X, y)``."""
+    from blackjax_tpu_torch.models import logistic_regression
+
+    _, X, y = logistic_regression(prng.key(0, device), SG_N, SG_D, dtype=dtype)
+    return X, y
+
+
+def _sgmcmc_algorithm(bj, torch, name, data_size):
+    logprior_fn, loglikelihood_fn = sgld_model(torch)
+    grad = bj.sgmcmc.gradients.grad_estimator(logprior_fn, loglikelihood_fn, data_size)
+    if name == "sgld":
+        return bj.sgld(grad)
+    if name == "sghmc":
+        return bj.sghmc(grad, num_integration_steps=5)
+    if name == "sgnht":
+        return bj.sgnht(grad)
+    estimate = bj.sgmcmc.gradients.logdensity_estimator(logprior_fn, loglikelihood_fn, data_size)
+    return bj.csgld(estimate, grad)
+
+
+def _index_dtype(torch, X):
+    """The minibatch indices' dtype: JAX's default integer, int64 under x64
+    (an f64 run) and int32 without (the f32 configurations), whose
+    ``randint`` draws other numbers from the same keys."""
+    return torch.int64 if X.dtype == torch.float64 else torch.int32
+
+
+def sgld_single(torch, bj, prng, X, y, num_steps, batch):
+    """``config_sgld``'s run on ``(X, y)``'s device (tracked.py:509-530,
+    its first variant): the minibatch indices ``randint(split(key(13),
+    num_steps)[i], (batch,), 0, 4096)``, the step keys ``split(key(14),
+    num_steps)``, the start ``0.01 N(0, I)`` of ``split(key(15), 4)[0]``.
+    Returns the final position and the indices ``(num_steps, batch)``."""
+    dev, (data_size, d) = X.device, X.shape
+    step = _sgmcmc_algorithm(bj, torch, "sgld", data_size).step
+    batch_idx = prng.randint(prng.split(prng.key(13, dev), num_steps), (batch,), 0, data_size,
+                             _index_dtype(torch, X))
+    step_keys = prng.split(prng.key(14, dev), num_steps)
+    w = 0.01 * prng.normal(prng.split(prng.key(15, dev), 4)[0], (d,), X.dtype)
+    for i in range(num_steps):
+        idx = batch_idx[i]
+        w = step(step_keys[i], w, (X[idx], y[idx]), SG_STEP_SIZE)
+    return w, batch_idx
+
+
+def sgmcmc_chains(torch, bj, prng, X, y, name, num_chains, num_steps, batch, trace=False):
+    """``config_sgld_chains``'s run (tracked.py:815-833, its first variant)
+    through the sampler ``name`` on ``(X, y)``'s device: the start ``0.1 N(0,
+    I)`` of key 25, the run key ``split(key(26), 4)[0]`` split a step, each
+    step's key split into the minibatch's (``randint(k, (batch,), 0, 4096)``)
+    and the chains' (``split(k, num_chains)``); ``sgnht`` starts its momenta
+    from ``split(key(27), num_chains)``. Returns the final state, the
+    indices ``(num_steps, batch)`` and, with ``trace``, every step's
+    positions."""
+    dev, (data_size, d) = X.device, X.shape
+    algo = _sgmcmc_algorithm(bj, torch, name, data_size)
+    w0 = 0.1 * prng.normal(prng.key(25, dev), (num_chains, d), X.dtype)
+    state = (algo.init(w0, prng.split(prng.key(27, dev), num_chains)) if name == "sgnht"
+             else algo.init(w0))
+    run_keys = prng.split(prng.split(prng.key(26, dev), 4)[0], num_steps)
+    idx_keys, chain_keys = prng.split(run_keys).unbind(-2)
+    batch_idx = prng.randint(idx_keys, (batch,), 0, data_size, _index_dtype(torch, X))
+    path = []
+    for i in range(num_steps):
+        idx = batch_idx[i]
+        state = algo.step(prng.split(chain_keys[i], num_chains), state, (X[idx], y[idx]),
+                          SG_STEP_SIZE)
+        if trace:
+            path.append(state if torch.is_tensor(state) else state.position)
+    return state, batch_idx, path
+
+
+def sgmcmc_path(torch, dev, smi):
+    """Phase 18: the two tracked SGLD configurations at their chip sizes on
+    the reference's dataset, their gates, lines and busy shares, then the f64
+    hold of every SG-MCMC sampler, the card against the CPU (see the head of
+    this file). Returns the threefry launches of the two runs."""
+    import blackjax_tpu_torch as bj
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+
+    X, y = sgld_dataset(torch, prng, dev, torch.float32)
+    _require(X.is_cuda and y.is_cuda, "phase 18: the dataset is not on the card")
+    for name in dc.LAUNCHES:
+        dc.LAUNCHES[name] = 0
+    lines, threefry18 = [], 0
+    for label, steps, chains in (("config_sgld", SG_STEPS, 1),
+                                 ("config_sgld_chains", SG_CHAINS_STEPS, SG_CHAINS)):
+        before = dc.LAUNCHES["threefry2x32"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if chains == 1:
+            w, idx = sgld_single(torch, bj, prng, X, y, steps, SG_BATCH)
+        else:
+            w, idx, _ = sgmcmc_chains(torch, bj, prng, X, y, "sgld", chains, steps,
+                                      SG_CHAINS_BATCH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dc.LAUNCHES["threefry2x32"] - before
+        threefry18 += launches
+        _require(w.is_cuda and bool(torch.isfinite(w).all()),
+                 f"phase 18 {label}: the positions are off the card or not finite")
+        _require(launches > 0, f"phase 18 {label}: no threefry launch")
+        final = w.double().cpu().numpy()
+        if chains == 1:
+            ref, scale = SG_REFERENCE["final"], SG_REFERENCE["second_half_sd"]
+            off = float((np.abs(final - ref) / scale).max())
+            band, what = SG_SINGLE_BAND, "final position"
+            unit, rate = "updates/sec", steps / secs
+        else:
+            ref, scale = SG_REFERENCE["mean"], SG_REFERENCE["sd"] / np.sqrt(chains)
+            off = float((np.abs(final.mean(0) - ref) / scale).max())
+            band, what = SG_CHAINS_BAND, "mean over the chains"
+            unit, rate = "chain-updates/sec", chains * steps / secs
+        _require(off <= band, f"phase 18 {label}: the {what} is {off} band units from the JAX "
+                              f"package's (band {band})")
+        busy_w = w.clone()
+
+        def busy_run():
+            logprior_fn, loglik = sgld_model(torch)
+            step = bj.sgld(bj.sgmcmc.gradients.grad_estimator(logprior_fn, loglik, SG_N)).step
+            keys = prng.split(prng.key(28, dev), SG_BUSY_STEPS)
+            v = busy_w
+            for i in range(SG_BUSY_STEPS):
+                k = prng.split(keys[i], chains) if chains > 1 else keys[i]
+                v = step(k, v, (X[idx[i]], y[idx[i]]), SG_STEP_SIZE)
+            return v
+
+        busy = _device_busy(torch, busy_run)
+        busy_words = "not measured (no device record)" if busy is None else (
+            f"{busy[0]:.3f} ms of device records ({busy[1]}) in {busy[2]:.3f} ms: busy "
+            f"{busy[0] / busy[2]:.4f}")
+        lines.append(
+            f"phase 18 {label}: sgld on logistic_regression({SG_N} x {SG_D}) of key 0, "
+            f"{chains} chain{'s' if chains > 1 else ''}, {steps} steps, batch "
+            f"{SG_BATCH if chains == 1 else SG_CHAINS_BATCH}, step size {SG_STEP_SIZE}, f32, in "
+            f"{secs:.3f} s: {rate:.1f} {unit}, {secs / steps * 1e3:.4f} host ms a step, "
+            f"{launches / steps:.2f} threefry launches a step; device over {SG_BUSY_STEPS} steps "
+            f"{busy_words}; {what} within {off:.3g} of the JAX package's on the CPU (band "
+            f"{band} {'second-half sd' if chains == 1 else 'standard errors'}) ({smi})")
+    for line in lines:
+        print(line)
+
+    # the card against the port on the CPU: f64, every sampler at the cut size,
+    # the dataset drawn once on the CPU
+    X64, y64 = sgld_dataset(torch, prng, "cpu", torch.float64)
+    worst = {}
+    for name in SG_SAMPLERS:
+        runs = [sgmcmc_chains(torch, bj, prng, X64.to(device), y64.to(device), name,
+                              SG_CMP_CHAINS, SG_CMP_STEPS, SG_CMP_BATCH, trace=True)
+                for device in (dev, "cpu")]
+        (card_state, card_idx, card_path), (cpu_state, cpu_idx, cpu_path) = runs
+        _require(torch.equal(card_idx.cpu(), cpu_idx),
+                 f"phase 18 f64 {name}: minibatch indices differ between the card and the CPU")
+        if name == "csgld":
+            _require(torch.equal(card_state.energy_idx.cpu(), cpu_state.energy_idx),
+                     "phase 18 f64 csgld: energy bins differ between the card and the CPU")
+        worst[name] = max(float((a.cpu() - b).abs().max()) for a, b in zip(card_path, cpu_path))
+        _require(worst[name] <= SG_CMP_TOL,
+                 f"phase 18 f64 {name}: positions differ by {worst[name]}")
+    print(f"phase 18 f64 hold: {', '.join(SG_SAMPLERS)} on config_sgld_chains' keys, "
+          f"{SG_CMP_CHAINS} chains x {SG_CMP_STEPS} steps, batch {SG_CMP_BATCH}, the card "
+          f"against the port on the CPU: minibatch indices identical, largest position "
+          f"difference " + ", ".join(f"{n} {e:.3g}" for n, e in worst.items())
+          + f" (tolerance {SG_CMP_TOL}); threefry launches on the two runs {threefry18} ({smi})")
+    return threefry18
+
+
 def main() -> int:
     import torch
 
@@ -1574,6 +2003,7 @@ def main() -> int:
     from blackjax_tpu_torch.ops import counter_rng
     from blackjax_tpu_torch.ops import fused_nuts as fn
     from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+    from blackjax_tpu_torch.ops import vpu_peak as vp
 
     lf = importlib.import_module("blackjax_tpu_torch.ops.fused_leapfrog")
     fm = importlib.import_module("blackjax_tpu_torch.ops.fused_mclmc")
@@ -1605,17 +2035,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # one nvcc per source: dc.build() starts its three (one per metric) itself
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        builds = [pool.submit(build, module) for module in (dc, lf, fm, fn)]
-        (dc_s, dc_log), (lf_s, lf_log), (fm_s, fm_log), (fn_s, fn_log) = (
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        builds = [pool.submit(build, module) for module in (dc, lf, fm, fn, vp)]
+        (dc_s, dc_log), (lf_s, lf_log), (fm_s, fm_log), (fn_s, fn_log), (vp_s, vp_log) = (
             b.result() for b in builds)
     build_s = time.perf_counter() - t0
-    print(f"phase 1: card {kind!r} ({smi}); built the six sources in {build_s:.2f} s: "
+    print(f"phase 1: card {kind!r} ({smi}); built the seven sources in {build_s:.2f} s: "
           f"csrc/fused_nuts_dc.cu, fused_nuts_dc_dense.cu and fused_nuts_dc_low_rank.cu "
           f"{dc_s:.2f} s, ptxas {'; '.join(_ptxas_summary(dc_log))}; "
           f"csrc/fused_leapfrog.cu {lf_s:.2f} s, ptxas {'; '.join(_ptxas_summary(lf_log))}; "
           f"csrc/fused_mclmc.cu {fm_s:.2f} s, ptxas {'; '.join(_ptxas_summary(fm_log))}; "
-          f"csrc/fused_nuts.cu {fn_s:.2f} s, ptxas {'; '.join(_ptxas_summary(fn_log))}")
+          f"csrc/fused_nuts.cu {fn_s:.2f} s, ptxas {'; '.join(_ptxas_summary(fn_log))}; "
+          f"csrc/vpu_peak.cu {vp_s:.2f} s, ptxas {'; '.join(_ptxas_summary(vp_log))}")
+    vpu = vpu_peak_phase(torch, vp, dev, sms, sm_mhz, peaks, smi)
 
     # ---- phase 2: threefry export, bit for bit ----
     marks.append((2, time.perf_counter()))
@@ -1646,7 +2078,7 @@ def main() -> int:
     keyed_same = all(torch.equal(a.cpu(), b) for a, b in zip(tf_card, tf_plain))
     tf_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(tf_card, tf_plain))
     _require(keyed_same, "per-element-key threefry2x32 kernel != prng's plain version")
-    tf_bound = _bound(TF_KEYS * 6 * 8, 0.0, peaks, TF_KEYS * THREEFRY_OPS)
+    tf_bound = _bound(TF_KEYS * 6 * 8, 0.0, peaks, TF_KEYS * THREEFRY_OPS, d=1)  # no FP32 work
     print(f"phase 2: threefry2x32 device function equals the plain version bit for bit "
           f"on {c0.numel()} counters: {same}; with a key per element on {TF_KEYS} keys "
           f"(prng's draws): bit for bit {keyed_same}, kernel {tf_ms:.4f} ms, plain (int64 torch "
@@ -1721,7 +2153,7 @@ def main() -> int:
     # second launch on the same inputs (it gives the same outputs)
     bound4 = _bound(2 * C * D * 4 + C * S * NUM_TRACK * 4 + 3 * C * 4,
                     grads4 * (DC_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
-                    (grads4 + C * S * D) * THREEFRY_OPS)
+                    (grads4 + C * S * D) * THREEFRY_OPS, d=D)
     x4, operands4, machine4 = dc._prepare(positions, imm4, **run_kw)
     iters4 = dc._launch_cuda(x4, operands4, float(step4), **machine4)[4].double().cpu()
     occ4 = dc.occupancy(D)
@@ -1800,7 +2232,7 @@ def main() -> int:
     tr_bytes = 3 * C * D * 4 + C * (4 * 5 + 1) + D * 4
     tr_ops = C * ((HMC_STEPS + 1) * GRAD_OPS["hierarchical"] * D
                   + HMC_STEPS * LEAPFROG_STEP_OPS * D + TRANSITION_OPS * D)
-    tr_bound = _bound(tr_bytes, tr_ops, peaks)
+    tr_bound = _bound(tr_bytes, tr_ops, peaks, d=D)
     tr_times, err5t = {}, 0.0
     for name, lf_target in lf_targets.items():
         ld5 = lf_target.logdensity_fn(x5)
@@ -2029,7 +2461,8 @@ def main() -> int:
         data_bytes = 0 if target.matrix.X is None else target.matrix.X.nbytes
         nbytes = 2 * chains * d * 4 + chains * num_steps * d * 4 + 3 * chains * 4 + data_bytes
         ops = grads * (DC_LEAF_OPS * d + _grad_ops(kind, d, n, m))
-        bound = _bound(nbytes, ops, peaks, (grads + chains * num_steps * d) * THREEFRY_OPS)
+        bound = _bound(nbytes, ops, peaks, (grads + chains * num_steps * d) * THREEFRY_OPS,
+                       d=d)
         device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         form = ""
         if kind == "logreg":
@@ -2094,7 +2527,7 @@ def main() -> int:
         ms = _timed_mean(torch, run, repeats)
         plain_ms = _timed_mean(torch, run_plain, repeats)
         dev_ms = _device_ms(torch, run, kernel, repeats=repeats)
-        bound = _bound(nbytes, ops, peaks, int_ops)
+        bound = _bound(nbytes, ops, peaks, int_ops, d=LR_D)
         device_time = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         plan = lf.tiles_plan(LR_D)
         print(f"phase 9: {name} logistic regression {LR_N} x {LR_D}, C={C}, tiles form "
@@ -2180,7 +2613,7 @@ def main() -> int:
     hs_ops = float(grads10) * (DC_LEAF_OPS * hs_d + _grad_ops("horseshoe", hs_d, HS_N, HS_M))
     bound10 = _bound(2 * HS_CHAINS * hs_d * 4 + hist10.numel() * 4 + 3 * HS_CHAINS * 4
                      + hs_target.matrix.X.nbytes, hs_ops, peaks,
-                     (float(grads10) + HS_CHAINS * HS_TRANSITIONS * hs_d) * THREEFRY_OPS)
+                     (float(grads10) + HS_CHAINS * HS_TRANSITIONS * hs_d) * THREEFRY_OPS, d=hs_d)
     # the shared-memory bound: X read twice a gradient, at 128 bytes a clock
     # on each SM that holds a block (one block of four chains an SM)
     hs_sms = min(sms, -(-HS_CHAINS // dc._WARPS))
@@ -2230,7 +2663,8 @@ def main() -> int:
                   + mbytes)
         ops = (grads * (DC_LEAF_OPS * d + _grad_ops(family, d, n) + 2 * mops)
                + chains * num_steps * 2 * mops)
-        return _bound(nbytes, ops, peaks, (grads + chains * num_steps * d) * THREEFRY_OPS)
+        return _bound(nbytes, ops, peaks, (grads + chains * num_steps * d) * THREEFRY_OPS,
+                      d=d)
 
     rng11 = np.random.default_rng(11)
     jitter11 = torch.from_numpy(
@@ -2664,7 +3098,7 @@ def main() -> int:
     dev_ms14 = _device_ms(torch, lr_mclmc, "mclmc_kernel", repeats=2)
     bound14 = _bound(4 * C * LR_D * 4 + C * 4 + hist14.numel() * 4 + X9.nbytes + y9.nbytes,
                      C * LR_MCLMC_STEPS * (2 * lr_grad + MCLMC_STEP_OPS * LR_D), peaks,
-                     C * LR_MCLMC_STEPS * 2 * LR_D * THREEFRY_OPS)
+                     C * LR_MCLMC_STEPS * 2 * LR_D * THREEFRY_OPS, d=LR_D)
     secs14 = ms14 / 1e3
     grads14 = C * (2 * LR_MCLMC_STEPS + 1)
     device_time = "not measured" if dev_ms14 is None else f"{dev_ms14:.2f} ms"
@@ -2693,6 +3127,10 @@ def main() -> int:
     marks.append((17, time.perf_counter()))
     threefry17, transitions17 = family_path(torch, dev, smi)
 
+    # ---- phase 18: the tracked SG-MCMC configurations ----
+    marks.append((18, time.perf_counter()))
+    threefry18 = sgmcmc_path(torch, dev, smi)
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
@@ -2704,10 +3142,10 @@ def main() -> int:
                launches["fused_nuts_dc"], err3, ms3, plain_ms3,
                _bound(2 * C * D * 4 + C * 16 * NUM_TRACK * 4 + 3 * C * 4,
                       grads3 * (DC_LEAF_OPS + GRAD_OPS["hierarchical"]) * D, peaks,
-                      (grads3 + C * 16 * D) * THREEFRY_OPS)),
+                      (grads3 + C * 16 * D) * THREEFRY_OPS, d=D)),
         _entry("fused_leapfrog", "fused_leapfrog.cu", "blackjax_tpu/ops/fused_leapfrog.py:206",
                leapfrog6, err5, *lf_times["hierarchical"],
-               _bound(4 * C * D * 4 + C * 4, lf_ops, peaks)),
+               _bound(4 * C * D * 4 + C * 4, lf_ops, peaks, d=D)),
         _entry("fused_leapfrog (hmc transition)", "fused_leapfrog.cu",
                "blackjax_tpu/ops/fused_leapfrog.py:206", tr_launches + transitions17, err5t,
                *tr_times["hierarchical"][:2], tr_bound),
@@ -2743,8 +3181,10 @@ def main() -> int:
                           launches13, err13, fn_ms, fn_plain_ms, fn_bound))
     kernels.append(_entry("threefry2x32 (a key per element)", "fused_nuts_dc.cu",
                           "blackjax_tpu/mcmc/trajectory.py:764",
-                          launches12["threefry2x32"] + launches16 + threefry17, tf_err,
-                          tf_ms, tf_plain_ms, tf_bound))
+                          launches12["threefry2x32"] + launches16 + threefry17 + threefry18,
+                          tf_err, tf_ms, tf_plain_ms, tf_bound))
+    kernels.append(_entry("vpu_peak (unfused fma)", "vpu_peak.cu", "benchmarks/vpu_peak.py:58",
+                          vpu["launches"], vpu["err"], vpu["ms"], vpu["plain_ms"], vpu["bound"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1348,7 +1348,8 @@ def test_tracked_smc_f64_on_the_card_is_the_cpu_run(cuda, waste_free):
 
 FAMILY = ["hmc", "mhmc", "dhmc", "ghmc", "barker", "normal_random_walk", "irmh",
           "adjusted_mclmc", "adjusted_mclmc_dynamic", "elliptical_slice", "slice_sampling",
-          "coordinate_slice", "orbital_hmc", "mgrad_gaussian"]
+          "coordinate_slice", "orbital_hmc", "mgrad_gaussian", "gist_step_size",
+          "gist_trajectory_length"]
 
 
 def _family_run(name, device, transitions=5, chains=16, d=10):
@@ -1413,3 +1414,69 @@ def test_choice_on_the_card_is_the_cpu_draw(cuda, n):
         card = prng.choice(keys.to(cuda), n, (), p=p.to(cuda))
         assert torch.equal(card.cpu(), prng.choice(keys, n, (), p=p))
     assert torch.equal(prng.choice(keys.to(cuda), n).cpu(), prng.choice(keys, n))
+
+
+# ---- the VPU-peak kernel (chip_smoke.py's phase 1) ----
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 13, 16])
+@pytest.mark.parametrize("mode", ["fma", "select"])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("warps", [3, 32])  # 32: the 1,024-thread blocks of the rate sweep
+def test_vpu_peak_is_its_plain_version_bit_for_bit(cuda, lanes, mode, fused, warps):
+    from blackjax_tpu_torch.ops import vpu_peak as vp
+
+    x = torch.randn((40, vp.COLS), generator=torch.Generator().manual_seed(lanes)).to(cuda)
+    before = vp.LAUNCHES["vpu_peak"]
+    got = vp.vpu_peak(x, 0.999, 48, mode, fused, lanes=lanes, warps=warps)
+    assert vp.LAUNCHES["vpu_peak"] == before + 1
+    assert torch.equal(got, vp.vpu_peak_plain(x, 0.999, 48, mode, fused))
+    assert torch.equal(got.cpu(), vp.vpu_peak_plain(x.cpu(), 0.999, 48, mode, fused))
+
+
+def test_vpu_peak_refuses_what_it_does_not_instantiate(cuda):
+    from blackjax_tpu_torch.ops import vpu_peak as vp
+
+    x = torch.zeros((8, vp.COLS), device=cuda)
+    with pytest.raises(ValueError, match="lanes"):
+        vp.vpu_peak(x, 0.999, 4, lanes=3)
+    with pytest.raises(ValueError, match="warps"):
+        vp.vpu_peak(x, 0.999, 4, warps=33)
+    # about 0.5 ms for the shorter call: a slope well above launch jitter
+    rate = vp.updates_per_second("fma", False, 4, 8, 65536, device=cuda)
+    assert 0 < rate < 1e14
+
+
+# ---- the SG-MCMC slice on the card (chip_smoke.py's phase 18) ----
+
+
+@pytest.mark.parametrize("name", ["sgld", "sghmc", "sgnht", "csgld"])
+def test_sgmcmc_on_the_card_is_the_cpu_run(cuda, name):
+    """Phase 18's f64 hold at 8 chains x 6 steps: minibatch indices
+    identical, positions within 1e-12, everything on the card."""
+    import chip_smoke
+    from blackjax_tpu_torch import prng
+
+    import blackjax_tpu_torch
+
+    X, y = chip_smoke.sgld_dataset(torch, prng, "cpu", torch.float64)
+    runs = [chip_smoke.sgmcmc_chains(torch, blackjax_tpu_torch, prng, X.to(device), y.to(device),
+                                     name, 8, 6, 32, trace=True)
+            for device in (cuda, torch.device("cpu"))]
+    (state, idx, path), (cpu_state, cpu_idx, cpu_path) = runs
+    assert idx.is_cuda and all(p.is_cuda for p in path)
+    assert torch.equal(idx.cpu(), cpu_idx)
+    for a, b in zip(path, cpu_path):
+        assert float((a.cpu() - b).abs().max()) <= 1e-12
+
+
+def test_sgld_dataset_on_the_card_is_the_cpu_one(cuda):
+    import chip_smoke
+    from blackjax_tpu_torch import prng
+
+    X, y = chip_smoke.sgld_dataset(torch, prng, cuda, torch.float32)
+    cX, cy = chip_smoke.sgld_dataset(torch, prng, "cpu", torch.float32)
+    assert X.is_cuda and y.is_cuda and X.shape == (4096, 54)
+    assert int((y.cpu() != cy).sum()) == 0
+    assert float((X.cpu() - cX).abs().max()) <= 1e-5
+

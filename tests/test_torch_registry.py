@@ -14,7 +14,9 @@
   random walks, adjusted MCLMC, the slice samplers, ``orbital_hmc``,
   ``mgrad_gaussian``, ``hmc_family``) and ``ess_tail`` and ``pareto_khat``
   are exported as the reference builds them, and each ported ``mcmc``
-  module's ``__all__`` is its reference module's.
+  module's ``__all__`` is its reference module's; so are the GIST samplers'
+  and the SG-MCMC samplers' (``sgld``, ``sghmc``, ``sgnht``, ``csgld``), and
+  each ``sgmcmc`` module's ``__all__``.
 - ``pyproject.toml``'s package data names every CUDA source under ``csrc/``,
   so that an installed copy can build its kernels.
 """
@@ -103,6 +105,12 @@ def test_smc_modules_are_reachable(module):
     ("slice_sampling", "mcmc.slice"),
     ("orbital_hmc", "mcmc.periodic_orbital"),
     ("mgrad_gaussian", "mcmc.marginal_latent_gaussian"),
+    ("gist_step_size", "mcmc.gist_step_size"),
+    ("gist_trajectory_length", "mcmc.gist_trajectory_length"),
+    ("sgld", "sgmcmc.sgld"),
+    ("sghmc", "sgmcmc.sghmc"),
+    ("sgnht", "sgmcmc.sgnht"),
+    ("csgld", "sgmcmc.csgld"),
 ])
 def test_mcmc_family_names_are_exported(name, module):
     assert name in blackjax_tpu_torch.__all__ and name in blackjax_tpu.__all__
@@ -149,7 +157,7 @@ def test_family_lists_and_diagnostics_names():
 @pytest.mark.parametrize("module", [
     "hmc", "dynamic_hmc", "ghmc", "barker", "random_walk", "adjusted_mclmc",
     "adjusted_mclmc_dynamic", "elliptical_slice", "slice", "periodic_orbital",
-    "marginal_latent_gaussian", "trajectory",
+    "marginal_latent_gaussian", "trajectory", "gist", "gist_step_size", "gist_trajectory_length",
 ])
 def test_mcmc_modules_export_the_reference_s_names(module):
     import blackjax_tpu.mcmc
@@ -160,6 +168,18 @@ def test_mcmc_modules_export_the_reference_s_names(module):
     ref = importlib.import_module(f"blackjax_tpu.mcmc.{module}")
     assert set(mod.__all__) == set(ref.__all__)
     assert set(blackjax_tpu_torch.mcmc.__all__) <= set(blackjax_tpu.mcmc.__all__)
+
+
+@pytest.mark.parametrize("module", ["gradients", "diffusions", "sgld", "sghmc", "sgnht", "csgld"])
+def test_sgmcmc_modules_export_the_reference_s_names(module):
+    import blackjax_tpu.sgmcmc
+    import blackjax_tpu_torch.sgmcmc
+
+    mod = importlib.import_module(f"blackjax_tpu_torch.sgmcmc.{module}")
+    assert getattr(blackjax_tpu_torch.sgmcmc, module) is mod
+    ref = importlib.import_module(f"blackjax_tpu.sgmcmc.{module}")
+    assert set(mod.__all__) == set(ref.__all__)
+    assert blackjax_tpu_torch.sgmcmc.__all__ == blackjax_tpu.sgmcmc.__all__
 
 
 @pytest.mark.parametrize("engine", ["flattened", "nested"])
