@@ -26,7 +26,10 @@ Registry subset so far (every name is the reference's): the MCMC samplers
 ``gist_trajectory_length``, ``fused_hmc`` and ``hmc_family``; the
 stochastic-gradient samplers ``sgld``, ``sghmc``, ``sgnht`` and ``csgld``;
 ``tempered_smc``, ``adaptive_tempered_smc``, ``inner_kernel_tuning``,
-``partial_posteriors_smc``, ``window_adaptation``,
+``partial_posteriors_smc``, ``persistent_sampling_smc``,
+``adaptive_persistent_sampling_smc``, ``pretuning`` and ``smc_family``; the
+nested slice samplers ``nss``, ``nsswig`` and ``ns_family``;
+``window_adaptation``,
 ``window_adaptation_low_rank``, ``staged_adaptation``,
 ``mclmc_find_L_and_step_size``, ``dual_averaging_adaptation``,
 ``dual_averaging``, ``diagnostics`` (with ``ess``, ``ess_bulk``,
@@ -71,9 +74,13 @@ from blackjax_tpu_torch.sgmcmc import csgld as _csgld
 from blackjax_tpu_torch.sgmcmc import sghmc as _sghmc
 from blackjax_tpu_torch.sgmcmc import sgld as _sgld
 from blackjax_tpu_torch.sgmcmc import sgnht as _sgnht
+from blackjax_tpu_torch.ns import nss as _nss
+from blackjax_tpu_torch.smc import adaptive_persistent_sampling as _adaptive_persistent
 from blackjax_tpu_torch.smc import adaptive_tempered as _adaptive_tempered
 from blackjax_tpu_torch.smc import inner_kernel_tuning as _inner_kernel_tuning
 from blackjax_tpu_torch.smc import partial_posteriors_path as _partial_posteriors_smc
+from blackjax_tpu_torch.smc import persistent_sampling as _persistent_sampling
+from blackjax_tpu_torch.smc import pretuning as _pretuning
 from blackjax_tpu_torch.smc import tempered as _tempered
 
 __version__ = "0.1.0"
@@ -156,6 +163,20 @@ tempered_smc = generate_top_level_api_from(_tempered)
 adaptive_tempered_smc = generate_top_level_api_from(_adaptive_tempered)
 inner_kernel_tuning = generate_top_level_api_from(_inner_kernel_tuning)
 partial_posteriors_smc = generate_top_level_api_from(_partial_posteriors_smc)
+persistent_sampling_smc = generate_top_level_api_from(_persistent_sampling)
+adaptive_persistent_sampling_smc = generate_top_level_api_from(_adaptive_persistent)
+pretuning = generate_top_level_api_from(_pretuning)
+smc_family = [
+    tempered_smc,
+    adaptive_tempered_smc,
+    partial_posteriors_smc,
+    persistent_sampling_smc,
+    adaptive_persistent_sampling_smc,
+]
+
+nss = GenerateSamplingAPI(_nss.as_top_level_api, _nss.init, _nss.build_kernel)
+nsswig = GenerateSamplingAPI(_nss.swig_as_top_level_api, _nss.init, _nss.build_swig_kernel)
+ns_family = [nss, nsswig]
 
 # the class `ops.fused_hmc` shadows its module's name in `ops`, so the
 # module is resolved through importlib (as in the reference)
@@ -200,6 +221,13 @@ __all__ = [
     "adaptive_tempered_smc",
     "inner_kernel_tuning",
     "partial_posteriors_smc",
+    "persistent_sampling_smc",
+    "adaptive_persistent_sampling_smc",
+    "pretuning",
+    "smc_family",
+    "nss",
+    "nsswig",
+    "ns_family",
     "window_adaptation",
     "window_adaptation_low_rank",
     "staged_adaptation",

@@ -9,7 +9,9 @@ MCLMC states and tuned parameters, fused-HMC states, the fused kernels'
 targets, the test posteriors by name, and PRNG keys (as key words, with
 which the port draws what the reference draws), and the SMC layer's states
 and infos (tempered SMC states, ``SMCInfo`` with its update's info, MALA
-states), and the states of the MCMC family beyond NUTS (dynamic HMC with
+states, persistent-sampling states), nested sampling's states and infos
+(``NSState``, ``AdaptiveNSState`` with its integrator and inner-kernel
+parameters, ``NSInfo``), and the states of the MCMC family beyond NUTS (dynamic HMC with
 its carried key, GHMC, Barker, the random walks, elliptical slice, slice,
 periodic orbital and mGrad, with mGrad's ``CovarianceSVD``).
 """
@@ -36,7 +38,12 @@ from blackjax_tpu_torch.mcmc.slice import SliceInfo, SliceState
 from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix
 from blackjax_tpu_torch.mcmc.nuts import NUTSInfo
 from blackjax_tpu_torch.models import targets
+from blackjax_tpu_torch.ns.adaptive import AdaptiveNSState
+from blackjax_tpu_torch.ns.base import NSInfo, NSState, StateWithLogLikelihood
+from blackjax_tpu_torch.ns.from_mcmc import ConstrainedMCMCInfo
+from blackjax_tpu_torch.ns.integrator import NSIntegrator
 from blackjax_tpu_torch.smc.base import SMCInfo
+from blackjax_tpu_torch.smc.persistent_sampling import PersistentSMCState
 from blackjax_tpu_torch.smc.tempered import TemperedSMCState
 from blackjax_tpu_torch.ops import fused_nuts_dc, targets_dc
 from blackjax_tpu_torch.ops.fused_hmc import FusedHMCState
@@ -66,6 +73,9 @@ __all__ = [
     "covariance_svd",
     "tempered_smc_state",
     "smc_info",
+    "persistent_smc_state",
+    "ns_state",
+    "ns_info",
     "mclmc_parameters",
     "fused_hmc_state",
     "target_dc",
@@ -196,12 +206,15 @@ _RECORDS = {cls.__name__: cls for cls in (
     MALAInfo, MALAState, HMCInfo, HMCState, IntegratorState, SMCInfo, TemperedSMCState,
     GHMCState, BarkerState, BarkerInfo, RWState, RWInfo, EllipSliceState, EllipSliceInfo,
     SliceState, SliceInfo, PeriodicOrbitalState, PeriodicOrbitalInfo, MarginalState,
-    MarginalInfo, CovarianceSVD)}
+    MarginalInfo, CovarianceSVD, StateWithLogLikelihood, NSState, NSInfo, AdaptiveNSState,
+    NSIntegrator, ConstrainedMCMCInfo)}
 
 
 def _tree(value, device, dtype):
     """A tree of the reference's values as the port's: its records by name,
-    tuples, lists and dicts walked, every leaf a tensor."""
+    tuples, lists and dicts walked, every leaf a tensor, ``None`` kept."""
+    if value is None:
+        return None
     if isinstance(value, tuple) and hasattr(value, "_fields"):
         cls = _RECORDS.get(type(value).__name__)
         if cls is None:
@@ -253,6 +266,27 @@ def smc_info(info, *, device=None, dtype=None) -> SMCInfo:
     tensor, the increment a tensor, the update's info (MALA's or HMC's
     record) the port's record."""
     return _tree(SMCInfo(*info), device, dtype)
+
+
+def persistent_smc_state(state, *, device=None, dtype=None) -> PersistentSMCState:
+    """A ``PersistentSMCState`` of the reference (the padded history, its
+    particles a tensor or a pytree) as the port's, its iteration an int."""
+    *fields, iteration = state
+    return PersistentSMCState(*(_tree(v, device, dtype) for v in fields),
+                              int(np.asarray(iteration)))
+
+
+def ns_state(state, *, device=None, dtype=None):
+    """An ``NSState`` or ``AdaptiveNSState`` of the reference (the live
+    set's ``StateWithLogLikelihood``; the integrator and the inner kernel's
+    parameters) as the port's."""
+    return _tree(state, device, dtype)
+
+
+def ns_info(info, *, device=None, dtype=None) -> NSInfo:
+    """An ``NSInfo`` of the reference (the dead particles and the inner
+    update's info: slice or constrained-MCMC records) as the port's."""
+    return _tree(NSInfo(*info), device, dtype)
 
 
 def fused_hmc_state(state, *, device=None) -> FusedHMCState:

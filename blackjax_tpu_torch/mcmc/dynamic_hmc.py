@@ -10,11 +10,13 @@
 
 Every chain carries its own argument and draws its own count: by default a
 key per chain, ``randint(key, (), 1, 10)`` through
-:func:`blackjax_tpu_torch.prng.randint`, advanced to ``split(key)[1]`` (the
-reference's ``_fresh_key``). The counts, one per chain ``(C,)``, run
+:func:`blackjax_tpu_torch.prng.randint` in the state's
+:func:`~blackjax_tpu_torch.prng.default_int_dtype`, advanced to
+``split(key)[1]`` (the reference's ``_fresh_key``). The counts, one per chain ``(C,)``, run
 through the masked loop of
 :func:`blackjax_tpu_torch.mcmc.trajectory.static_integration`.
 """
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -44,8 +46,8 @@ def _fresh_key(key):
     return prng.split(key)[..., 1, :]
 
 
-def _uniform_steps(key):
-    return prng.randint(key, (), 1, 10)
+def _uniform_steps(key, dtype=torch.int64):
+    return prng.randint(key, (), 1, 10, dtype)
 
 
 class DynamicHMCState(NamedTuple):
@@ -125,7 +127,13 @@ def build_kernel(
         def stepped(key, chain, n):
             return static_kernel(key, chain, logdensity_fn, step_size, inverse_mass_matrix, n)
 
-        lifted = lift_drawn_steps(stepped, integration_steps_fn, next_random_arg_fn)
+        # the default draw takes the state's integer width; a caller's own
+        # integration_steps_fn takes the carried argument alone
+        steps_fn = integration_steps_fn
+        if integration_steps_fn is _uniform_steps:
+            steps_fn = functools.partial(
+                _uniform_steps, dtype=prng.default_int_dtype(state.logdensity.dtype))
+        lifted = lift_drawn_steps(stepped, steps_fn, next_random_arg_fn)
         return lifted(rng_key, state, integration_steps_params)
 
     return kernel

@@ -107,19 +107,13 @@ def _randint(rng_key: PRNGKey, lo: Array, hi: Array, dtype: torch.dtype) -> Arra
     return prng.randint(rng_key.to(hi.device), (), lo, hi, dtype)
 
 
-def _int_dtype(state: IntegratorState) -> torch.dtype:
-    """The reference's default integer for this state: int64 under x64 (a
-    float64 state), int32 without, whose ``randint`` draws other numbers
-    from the same keys."""
-    return torch.int64 if state.logdensity.dtype == torch.float64 else torch.int32
-
-
 def _gibbs_draw(integrator, step_size, max_num_steps, path_fraction):
     def tuning_parameter_fn(rng_key, state, logdensity_fn, metric):
         uturn_fn = num_steps_to_uturn(integrator, step_size, metric, max_num_steps)
         forward = uturn_fn(state, logdensity_fn)
         lo, _ = _draw_interval(forward, path_fraction)
-        return _randint(rng_key, lo, forward + 1, _int_dtype(state)), forward
+        dtype = prng.default_int_dtype(state.logdensity.dtype)
+        return _randint(rng_key, lo, forward + 1, dtype), forward
 
     return tuning_parameter_fn
 

@@ -163,7 +163,6 @@ def _shrink(rng_key, slice_fn, level, accept_fn, left, right, current_state, max
     """Neal's Fig. 5 shrinkage within ``max_shrinkage`` tries; a chain that
     exhausts them stays put. The accepted candidate's state is threaded
     out."""
-    t = torch.zeros_like(left)
     lo, hi, key = left, right, rng_key
     tries = torch.zeros(left.shape, dtype=torch.int64, device=left.device)
     state = current_state
@@ -171,16 +170,16 @@ def _shrink(rng_key, slice_fn, level, accept_fn, left, right, current_state, max
     going = ~found & (tries < max_shrinkage)
     while bool(going.any()):
         key_new, draw_key = prng.split(key).unbind(-2)
-        t_new = lo + prng.uniform(draw_key, (), lo.dtype) * (hi - lo)
-        candidate, is_valid = slice_fn(t_new)
-        found_new = (candidate.logdensity >= level) & is_valid & accept_fn(t_new)
+        t = lo + prng.uniform(draw_key, (), lo.dtype) * (hi - lo)
+        candidate, is_valid = slice_fn(t)
+        found_new = (candidate.logdensity >= level) & is_valid & accept_fn(t)
         # a failed draw pulls its side of the bracket in toward t = 0
-        lo_new = torch.where(t_new < 0.0, t_new, lo)
-        hi_new = torch.where(t_new < 0.0, hi, t_new)
-        state_new = tree_select(found_new, candidate, state)
-        t, lo, hi, key, tries, state, found = tree_select(
-            going, (t_new, lo_new, hi_new, key_new, tries + 1, state_new, found_new),
-            (t, lo, hi, key, tries, state, found))
+        below = t < 0.0
+        lo, hi, key, found = tree_select(
+            going, (torch.where(below, t, lo), torch.where(below, hi, t), key_new, found_new),
+            (lo, hi, key, found))
+        state = tree_select(going & found_new, candidate, state)
+        tries = tries + going
         going = ~found & (tries < max_shrinkage)
     return state, tries, found
 

@@ -55,6 +55,7 @@ __all__ = [
     "randint",
     "choice",
     "xla_cumsum",
+    "default_int_dtype",
 ]
 
 MASK32 = 0xFFFFFFFF
@@ -249,6 +250,13 @@ def randint(keys: torch.Tensor, shape=(), minval=0, maxval=1, dtype=torch.int64)
         multiplier = (2**32 % span) * (2**32 % span)
         offset = hi * (multiplier % span) + lo
     return (minval + offset % span).to(dtype)
+
+
+def default_int_dtype(float_dtype: torch.dtype) -> torch.dtype:
+    """JAX's default integer beside floats of ``float_dtype``: int64 under
+    x64 (float64 data), int32 without. ``randint`` draws other numbers from
+    the same keys in each, so a run draws its integers in this dtype."""
+    return torch.int64 if float_dtype == torch.float64 else torch.int32
 
 
 def xla_cumsum(x: torch.Tensor, base: int = 16) -> torch.Tensor:

@@ -5,13 +5,15 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's thirteen main paths once, five at the flagship's full
+It drives the port's fourteen main paths once, five at the flagship's full
 width (the 100-dim hierarchical posterior, 4,096 chains), one at the
 Finnish horseshoe's (N=100, M=200, d=404, 512 chains), three at the
 covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
 4,096 under MCLMC), one at the tracked eight-schools configuration's
 (d=10, 512 chains x 800 transitions), one at the tracked tempered-SMC
-configuration's (d=10, 16,384 particles), one at the tracked static-HMC
+configuration's (d=10, 16,384 particles), one at the same target's under
+persistent sampling, pretuning and nested slice sampling (16,384 particles
+or live points), one at the tracked static-HMC
 configuration's (d=100, 128 chains) under the MCMC family beyond NUTS and
 one at the tracked SG-MCMC configurations' (SGLD on the covertype-class
 logistic regression, one chain and 4,096 chains), and reads the card's
@@ -290,7 +292,7 @@ phases, one line each:
    128 chains from 0.5 N(0, I) of numpy seed 7, step size 0.08, 10
    integration steps, unit inverse mass, f32), threefry launch counts reset
    just before it, each transition's keys split as the configuration splits
-   them: ``hmc`` for 1,024 transitions (cut from 131,072: the generic step
+   them: ``hmc`` for 128 transitions (cut from 131,072: the generic step
    is host-bound), then ``mhmc``, ``dhmc``, ``ghmc``, ``barker``,
    ``normal_random_walk``, ``irmh``, ``adjusted_mclmc``,
    ``adjusted_mclmc_dynamic``, ``elliptical_slice`` and ``mgrad_gaussian``
@@ -311,7 +313,7 @@ phases, one line each:
    transition kernel each, all required), its mean acceptance in the same
    band as ``hmc``'s and its variances, every 16th transition after 1,024,
    within [0.9, 1.1] of the target's. Then each sampler in f64 at 16 chains
-   x d = 5 for 20 transitions on the card and on the CPU, on the same keys:
+   x d = 5 for 2 transitions on the card and on the CPU, on the same keys:
    positions within 1e-12, accept flags, drawn step counts, ``subiter`` and
    the slice counts identical. The GIST samplers run among them
    (``gist_step_size`` at the configuration's step size as its initial one
@@ -325,7 +327,7 @@ phases, one line each:
    ``split(key(13))``, step keys ``split(key(14))``, the start of
    ``split(key(15), 4)[0]``) and ``config_sgld_chains`` (``:790-856``: 4,096
    chains, batch 256, one shared minibatch a step, the start of key 25, the
-   run key ``split(key(26), 4)[0]``), each cut from 20,000 steps to 5,000
+   run key ``split(key(26), 4)[0]``), each cut from 20,000 steps to 2,500
    (host-bound). Each line gives the
    configuration's unit (updates/sec, chain-updates/sec), host ms a step,
    threefry launches a step and the device's busy share over 64 steps; the
@@ -336,6 +338,29 @@ phases, one line each:
    ``sghmc``, ``sgnht`` and ``csgld`` in f64 at 16 chains x 20 steps, batch 64,
    on the card and on the CPU on the same keys: minibatch indices (and
    csgld's bins) identical, positions within 1e-12.
+19. persistent-sampling SMC, pretuning and nested slice sampling on phase
+   16's target (16,384 particles or live points, f32, key 18), threefry launch
+   counts reset just before them (the two SMC samplers timed after a warm
+   run on key 17): ``adaptive_persistent_sampling_smc`` (a
+   history of 50 slots, MALA at 0.1, systematic resampling, target ESS 0.5, 5
+   MCMC steps) to lambda = 1; ``pretuning`` over ``tempered_smc`` along
+   linspace(0.05, 1, 20) with a per-particle MALA step size (sigma 0.05,
+   alpha 1, the step size kept positive, the ESJD in the identity metric);
+   ``nss`` deleting 2,048 a step with 20 inner steps and ``nsswig`` with 1
+   (a sweep of the 10 coordinates), both until ``logZ_live - logZ < -3``
+   (at most 400 steps), then ``ns.utils.sample`` (16,384 draws) and
+   ``ns.utils.ess``. Each line gives log Z against the exact value, the
+   largest mean error against 0.9 obs and the variances, gated at about
+   three times the worst errors of the JAX package's own CPU runs of the
+   same configuration (``tools/particle_reference.py``), the steps, seconds
+   by host clock and by CUDA events, runs/sec, host ms a step, threefry
+   launches and the busy share (the nested samplers' over a 2-step run).
+   Then each sampler in f64 at 1,024 particles or live points (the nested
+   samplers deleting 128) for 3 steps on the card and on the CPU on the same
+   key: ancestors, dead and start indices, ``num_shrink`` and
+   ``num_expansions`` identical, particles within 1e-9. Then the threefry
+   export at the path's launch sizes (1,024 to 163,840 keys) by CUDA events,
+   bit for bit its plain version, with each size's bound by bytes.
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
@@ -345,7 +370,7 @@ like-for-like times), one per new (kernel, target) pair (phase 9's and
 regression comparison), one for the older machine (phase 13's 512 x 16 times; eight schools'
 launches are phase 15's)
 and one for the threefry kernel with a key per element (phase 2's times on
-1,048,576 keys; its launches are phases 12's, 16's, 17's and 18's), and one
+1,048,576 keys; its launches are phases 12's and 16-19's), and one
 for the VPU-peak kernel (its unfused ``fma`` at N = 4 and 32 warps an SM,
 4,096 iterations; its launches are phase 1's sweep). ``launches`` is the count from the
 main path's run, or, for a pair that no main path drives, from the pair's checked
@@ -361,6 +386,7 @@ functions. The last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises and exits non-zero without that line; so does a machine
 without CUDA, and a directory without the package.
 """
+import contextlib
 import hashlib
 import itertools
 import json
@@ -458,6 +484,44 @@ SMC_LOG_Z = -0.5 * SMC_D * np.log(10.0) - float((SMC_OBS**2).sum()) / 20.0
 SMC_GATES = {"adaptive": (0.25, 0.06), "waste-free": (0.6, 0.15)}
 SMC_VAR_BAND, SMC_MIN_ACCEPT = (0.8, 1.0), 0.9
 SMC_CMP_PARTICLES, SMC_CMP_TOL = 1024, 1e-9  # the f64 run on the card against the CPU
+# phase 19: persistent-sampling SMC, pretuning and nested slice sampling on
+# phase 16's target (d = 10, prior N(0, 9 I), likelihood N(obs, I), 16,384
+# particles or live points from 3 N(0, I) of numpy seed 1), f32: the adaptive
+# persistent sampler at phase 16's settings with the configuration's cap of 50
+# tempering steps as its history; pretuning over tempered_smc along
+# linspace(0.05, 1, 20) with a per-particle MALA step size; nss deleting 2,048
+# a step with max(5, 2 d) = 20 inner steps (blackjax_tpu/ns/nss.py:242-244)
+# until logZ_live - logZ < -3, at most 400 steps, then 16,384 posterior draws
+PS_N_SCHEDULE = 50
+PRETUNE_SCHEDULE = (0.05, 1.0, 20)  # linspace(0.05, 1, 20)
+PRETUNE_SIGMA, PRETUNE_ALPHA = 0.05, 1.0
+NS_DELETE, NS_INNER, NS_MAX_STEPS, NS_STOP, NS_SAMPLES = 2048, 20, 400, -3.0, 16384
+# nsswig: 1 inner step (cut from 20 to fit the phase's time), a sweep of all
+# 10 coordinates, so a step moves each particle by 10 univariate slices where
+# nss's moves it by 20 hit-and-run slices; the same stop rule
+SWIG_INNER = 1
+NS_BUSY_STEPS = 4  # the nested samplers' busy share: a run of 4 steps under the profiler
+# The JAX package's own runs of these configurations on a CPU, f32
+# (tools/particle_reference.py; keys 18-22, the nested samplers 18-20): each
+# sampler's worst |log Z - SMC_LOG_Z| and worst largest |mean - 0.9 obs|; the
+# gates are about three times those (log Z, means), the variances in SMC_VAR_BAND
+# (python tools/particle_reference.py; adaptive_persistent_sampling_smc 5 steps on
+# every key, pretuning 20, nss and nsswig 100-101)
+PARTICLE_REFERENCE = {
+    "adaptive_persistent_sampling_smc": {"worst_log_z_err": 0.1158, "worst_mean_err": 0.0367},
+    "pretuning": {"worst_log_z_err": 0.0345, "worst_mean_err": 0.0147,
+                  "step_size_mean": 0.5924},
+    "nss": {"worst_log_z_err": 0.0308, "worst_mean_err": 0.0230},
+    "nsswig": {"worst_log_z_err": 0.0295, "worst_mean_err": 0.0231},
+}
+PARTICLE_GATES = {  # (log Z, means)
+    "adaptive_persistent_sampling_smc": (0.35, 0.11), "pretuning": (0.1, 0.045),
+    "nss": (0.1, 0.07), "nsswig": (0.09, 0.07),
+}
+# the f64 holds, the card against the CPU: 1,024 particles or live points (the
+# nested samplers deleting 128 a step, the configuration's 1/8), 3 steps each
+P19_CMP_N, P19_CMP_STEPS, NS_CMP_DELETE = 1024, 3, 128
+TF_PATH_KEYS = (1024, 2048, 16384, 163840)  # phase 19's threefry launch sizes, timed
 # phase 17: the MCMC family beyond NUTS on the tracked static-HMC configuration
 # (benchmarks/tracked.py:112-163): ill_conditioned_gaussian(100), 128 chains from
 # 0.5 N(0, I) of numpy seed 7, step size 0.08, 10 integration steps, unit inverse
@@ -471,15 +535,17 @@ FAM_FUSED_BURN, FAM_FUSED_THIN = 1024, 16  # fused_hmc's moments: after 1,024, e
 FAM_FUSED_VAR_BAND = (0.9, 1.1)  # its variances over the target's
 # Transitions a sampler. The generic samplers are host-bound (about 20-25 us a
 # torch op, 21 ms a transition of hmc's 10 leapfrog steps on an H100's host),
-# so each is cut from the configuration's 131,072 to a few seconds' worth (hmc
-# to 1,024, about 22 s); coordinate_slice sweeps 100 univariate slices a
-# transition, each a few host-paced loops (9 s), so it takes 1.
+# so each is cut from the configuration's 131,072 to a second or a few of
+# work: hmc to 128 (3 s); GIST's searches and rollouts run to the slowest
+# chain (0.2 and 0.9 s a transition), so 8 and 4; coordinate_slice sweeps 100
+# univariate slices a transition, each a few host-paced loops (9 s), so 1.
+# dhmc keeps its 128: its band is the JAX package's 0.9846 at 128.
 FAM_TRANSITIONS = {
-    "hmc": 1024, "mhmc": 128, "dhmc": 128, "ghmc": 512, "barker": 512,
-    "normal_random_walk": 1024, "irmh": 1024, "adjusted_mclmc": 128,
-    "adjusted_mclmc_dynamic": 128, "elliptical_slice": 128, "slice_sampling": 32,
-    "coordinate_slice": 1, "orbital_hmc": 64, "mgrad_gaussian": 512,
-    "gist_step_size": 32, "gist_trajectory_length": 16,
+    "hmc": 128, "mhmc": 32, "dhmc": 128, "ghmc": 128, "barker": 128,
+    "normal_random_walk": 256, "irmh": 256, "adjusted_mclmc": 32,
+    "adjusted_mclmc_dynamic": 32, "elliptical_slice": 32, "slice_sampling": 8,
+    "coordinate_slice": 1, "orbital_hmc": 16, "mgrad_gaussian": 128,
+    "gist_step_size": 8, "gist_trajectory_length": 4,
 }
 FAM_IRMH_SCALE, FAM_PERIOD = 1.05, 8  # irmh's proposal N(0, 1.1025 diag(var)); orbital_hmc's
 # orbital_hmc runs in f64: its weights exp(logdensity - K) at d = 100 underflow
@@ -494,72 +560,76 @@ FAM_BUSY_SHORT = {"coordinate_slice": 1, "gist_trajectory_length": 2}
 # (tools/mcmc_family_reference.py): its mean, +- FAM_BAND_WIDTH (relative for
 # the counts)
 FAM_REFERENCE = {
-    "hmc": 0.982564, "mhmc": 0.984720, "dhmc": 0.984613, "ghmc": 0.995384,
-    "barker": 0.836033, "normal_random_walk": 0.558916, "irmh": 0.620505,
-    "adjusted_mclmc": 0.999528, "adjusted_mclmc_dynamic": 0.999546,
-    "elliptical_slice": 6.647827, "slice_sampling": 2.852783,
-    "coordinate_slice": 285.523438, "mgrad_gaussian": 0.332422,
-    "gist_step_size": 0.710899, "gist_trajectory_length": 0.313429,
+    "hmc": 0.982488, "mhmc": 0.984549, "dhmc": 0.984613, "ghmc": 0.995063,
+    "barker": 0.839059, "normal_random_walk": 0.559713, "irmh": 0.599140,
+    "adjusted_mclmc": 0.999612, "adjusted_mclmc_dynamic": 0.999620,
+    "elliptical_slice": 6.656250, "slice_sampling": 2.897461,
+    "coordinate_slice": 285.523438, "mgrad_gaussian": 0.345868, "gist_step_size": 0.724351,
+    "gist_trajectory_length": 0.148431,
 }
 FAM_REFERENCE["fused_hmc"] = FAM_REFERENCE["hmc"]  # the same HMC, its own draws
 FAM_BAND_WIDTH, FAM_COUNT_BAND = 0.03, 0.15
 FAM_COUNTED = ("elliptical_slice", "slice_sampling", "coordinate_slice")
 FAM_CMP_CHAINS, FAM_CMP_D, FAM_CMP_TRANSITIONS, FAM_CMP_TOL = 16, 5, 20, 1e-12
+# The f64 hold's transitions for the two slowest samplers, which take two
+# thirds of the hold's host time at 20: 5, so that their carried keys and
+# counts still pass from one transition to the next four times
+FAM_CMP_SHORT = {"coordinate_slice": 5, "gist_trajectory_length": 5}
 # phase 18: the tracked SG-MCMC configurations (benchmarks/tracked.py:486-563,
 # config_sgld, and :790-856, config_sgld_chains) at their chip sizes: SGLD on
 # logistic_regression(num_points=4096, dim=54) of jax.random.key(0) (rebuilt on the
 # card from the same key words), step size 1e-5, f32; the steps cut
 SG_N, SG_D, SG_STEP_SIZE = 4096, 54, 1e-5
-# Steps cut from the configurations' 20,000 to 5,000 for the script's time
-# limit: the path is host-bound, 3.5-4.7 host ms a step on the slowest host
-# seen (NVIDIA H100 80GB HBM3, 700.00 W: 165 s for both at 20,000); the rates are per step, so the cut leaves
-# them as they are
-SG_STEPS, SG_BATCH = 5000, 512  # config_sgld: one chain (tracked.py:496)
-SG_CHAINS, SG_CHAINS_STEPS, SG_CHAINS_BATCH = 4096, 5000, 256  # config_sgld_chains (:797-798)
+# Steps cut from the configurations' 20,000 to 2,500 for the script's time
+# limit: the path is host-bound, 3.5-4.7 host ms a step
+# on the slowest host seen (NVIDIA H100 80GB HBM3, 700.00 W: 165 s for both at
+# 20,000); the rates are per step, so the cut leaves them as they are
+SG_STEPS, SG_BATCH = 2500, 512  # config_sgld: one chain (tracked.py:496)
+SG_CHAINS, SG_CHAINS_STEPS, SG_CHAINS_BATCH = 4096, 2500, 256  # config_sgld_chains (:797-798)
 # The JAX package's own run of both on the CPU at the same keys and steps, each
-# configuration's first variant (tools/sgmcmc_reference.py --steps 5000, f32): config_sgld's
+# configuration's first variant (tools/sgmcmc_reference.py --steps 2500, f32): config_sgld's
 # final position and each coordinate's sd over the second half of its path;
 # config_sgld_chains' mean of the final positions over the chains and their sd
 SG_REFERENCE = {
     "final": np.array([
-        -1.819085, -1.603215, 0.1873654, -0.2362033, -0.4770269, -1.019885, -0.8274411,
-        0.3738279, -0.908547, 1.757591, -0.1956443, 0.7076208, -1.062181, -0.5357544,
-        -0.2312086, 0.3295972, -0.8578554, -0.2386726, -0.5836334, -1.48494, -0.7068718,
-        -0.2883728, 0.7173298, 0.6459404, -0.7142124, -0.3434721, 0.5401345, 1.345892,
-        -0.3869458, -0.007621103, -0.6261434, -1.315481, -0.1668209, 0.6826252, -0.9782977,
-        -0.6570091, -1.84334, -1.24404, -0.4299658, -1.206998, -1.585694, -1.19704,
-        -0.2529073, -0.5046874, 0.4513108, -0.8356835, 1.215136, 0.4046865, -0.1273224,
-        0.6770605, 0.5044151, -0.7258906, 0.5443416, -0.9518069,
+        -1.348754, -1.210663, 0.193174, -0.1148259, -0.3326218, -0.7986589, -0.5603418,
+        0.2369299, -0.7970953, 1.272055, -0.1804155, 0.5750017, -0.9241427, -0.414382,
+        -0.2594881, 0.2779017, -0.5871443, -0.05280408, -0.4450062, -1.041753, -0.6548429,
+        -0.1672624, 0.717369, 0.507221, -0.6398844, -0.3041559, 0.4842886, 1.068429,
+        -0.3364348, -0.03858395, -0.3238212, -1.19746, -0.1765748, 0.5145469, -0.7288695,
+        -0.4502739, -1.33546, -0.9252672, -0.2017347, -0.9446333, -1.270321, -0.9170223,
+        -0.1140079, -0.3796523, 0.2653918, -0.4763966, 0.8959071, 0.2963807, -0.1152162,
+        0.5730949, 0.3986357, -0.6002307, 0.3138802, -0.7532742,
     ]),
     "second_half_sd": np.array([
-        0.1141192, 0.1271819, 0.04436543, 0.05592619, 0.03658879, 0.08406787, 0.08625795,
-        0.03977094, 0.04748584, 0.09277409, 0.07145383, 0.04263968, 0.08198582, 0.07336894,
-        0.04991065, 0.06683867, 0.06244345, 0.05528003, 0.04303041, 0.1202726, 0.06414911,
-        0.06339868, 0.03980412, 0.07051702, 0.04850467, 0.03080023, 0.03519541, 0.1451348,
-        0.03821668, 0.03594237, 0.07580478, 0.05031082, 0.04530316, 0.0981418, 0.07099992,
-        0.07870327, 0.1213138, 0.08845272, 0.05023422, 0.06764634, 0.08328339, 0.1122095,
-        0.06795481, 0.046452, 0.05875515, 0.09606201, 0.09678213, 0.04810083, 0.03881906,
-        0.03660685, 0.05791528, 0.06876022, 0.08600952, 0.07745489,
+        0.09163939, 0.09192088, 0.04118009, 0.02596398, 0.05253625, 0.05093194, 0.03483851,
+        0.02819128, 0.07445553, 0.08453886, 0.0730449, 0.05453248, 0.05851975, 0.04440681,
+        0.04174002, 0.05984278, 0.07447068, 0.03160733, 0.03495173, 0.05506947, 0.03843383,
+        0.04638955, 0.05559858, 0.06980368, 0.05153384, 0.04362027, 0.02748093, 0.09284537,
+        0.04673624, 0.03268397, 0.02732387, 0.06759942, 0.03797298, 0.02451508, 0.05258001,
+        0.04850705, 0.08247773, 0.06899917, 0.07813957, 0.05245828, 0.1024149, 0.05423744,
+        0.03348743, 0.04268625, 0.04483991, 0.03430581, 0.04524148, 0.03360541, 0.02587919,
+        0.05964445, 0.04512003, 0.05578918, 0.03901876, 0.04022311,
     ]),
     "mean": np.array([
-        -1.727482, -1.461765, 0.2024845, -0.1931868, -0.4876084, -0.9305537, -0.7842476,
-        0.2352747, -0.8988873, 1.560292, -0.1483768, 0.6464502, -0.965542, -0.5281513,
-        -0.1994255, 0.3041494, -0.8093485, -0.1095939, -0.5957328, -1.297739, -0.7538126,
-        -0.2522543, 0.8563341, 0.6081879, -0.7541219, -0.4086341, 0.5604503, 1.310848,
-        -0.3249289, 0.02255092, -0.4719694, -1.37839, -0.2121394, 0.7162133, -0.9504989,
-        -0.5409011, -1.741322, -1.169232, -0.3085513, -1.221615, -1.484882, -1.152384,
-        -0.1974775, -0.4511559, 0.3410877, -0.730858, 1.256566, 0.4371473, -0.1486333,
-        0.6245088, 0.5047882, -0.6764551, 0.4304737, -0.9410118,
+        -1.397192, -1.18241, 0.1574046, -0.1652026, -0.3946783, -0.7403936, -0.623666,
+        0.1997968, -0.7153115, 1.277761, -0.1205506, 0.5334706, -0.7671768, -0.4318465,
+        -0.1525162, 0.2342079, -0.6648453, -0.07808214, -0.4928384, -1.048598, -0.6104817,
+        -0.1969902, 0.7003841, 0.4929084, -0.626716, -0.311064, 0.4653035, 1.066245,
+        -0.2749989, 0.01615869, -0.3854758, -1.13024, -0.1793078, 0.597003, -0.7602406,
+        -0.4358149, -1.42812, -0.9455445, -0.2673121, -0.991798, -1.211579, -0.9381046,
+        -0.1784226, -0.3745916, 0.2927605, -0.597661, 1.011473, 0.3634001, -0.1277749,
+        0.5018995, 0.4084376, -0.5530244, 0.3514769, -0.7579892,
     ]),
     "sd": np.array([
-        0.07928643, 0.07545574, 0.06555492, 0.06126855, 0.0667757, 0.06902723, 0.0688014,
-        0.06475879, 0.06760615, 0.07502422, 0.06111808, 0.06506749, 0.06921493, 0.06626017,
-        0.06501641, 0.06621442, 0.06659357, 0.06441295, 0.06529031, 0.07363868, 0.06685714,
-        0.06338947, 0.06584104, 0.06677722, 0.06953185, 0.06566641, 0.06760511, 0.07327747,
-        0.06586295, 0.06874856, 0.06474507, 0.07354447, 0.06403091, 0.0691295, 0.06948566,
-        0.06826858, 0.07814831, 0.07209067, 0.06483111, 0.07163059, 0.07550089, 0.07229092,
-        0.06336217, 0.06474867, 0.0655148, 0.06722875, 0.07400421, 0.06848945, 0.06458481,
-        0.06641068, 0.06688292, 0.06542008, 0.06777839, 0.0692323,
+        0.06737898, 0.06498543, 0.05869558, 0.05704436, 0.05976256, 0.06129592, 0.05918556,
+        0.0577869, 0.06101636, 0.06452508, 0.05624394, 0.05926043, 0.05973601, 0.05988242,
+        0.05887704, 0.05887382, 0.05914433, 0.05710816, 0.0575347, 0.06424752, 0.06105425,
+        0.05683161, 0.06010024, 0.06006492, 0.06151789, 0.0596681, 0.05937316, 0.06445526,
+        0.05988169, 0.06281646, 0.05921819, 0.06450171, 0.05821054, 0.06112157, 0.06105561,
+        0.06063011, 0.06688767, 0.0615692, 0.05652867, 0.06229772, 0.06390687, 0.0624359,
+        0.05767173, 0.0577707, 0.05978322, 0.05961166, 0.06427278, 0.06005005, 0.05855239,
+        0.0601669, 0.06016434, 0.05603443, 0.06036293, 0.06059438,
     ]),
 }
 # Bands: config_sgld's final position within 0.05 of the second half's sd of the
@@ -782,6 +852,14 @@ def _device_ms(torch, fn, kernel, repeats=20):
     return sum(e.time_range.elapsed_us() for e in runs) / 1e3 / repeats
 
 
+def _ms_words(ms, unit="ms"):
+    """``ms`` in ``unit`` for a line, or "not measured" where the trace held
+    no record (``_device_ms`` returned None)."""
+    if ms is None:
+        return "not measured (no device record)"
+    return f"{ms * 1e3:.2f} us" if unit == "us" else f"{ms:.4f} ms"
+
+
 # FP32 operations per element, counted from the kernels' code: the dc
 # machine's own per leaf and dim (leapfrog 7, energy 4, sums 1, U-turn
 # checks 8 on average); the leapfrog's per step and dim (two kicks, a
@@ -794,6 +872,11 @@ DC_LEAF_OPS, LEAPFROG_STEP_OPS, MCLMC_STEP_OPS = 24, 7, 55
 TRANSITION_OPS = 9
 GRAD_OPS = {"hierarchical": 4, "gaussian": 3}
 THREEFRY_OPS = 70
+# The bytes a threefry2x32 with a key per element must move: a key and a
+# counter in (four 32-bit words), two words out. The export carries each
+# word as int64 (PyTorch's integer type), so it moves twice that; the bound
+# counts what the function needs.
+THREEFRY_BYTES = 6 * 4
 # MCLMC_STEP_OPS leaves out Box-Muller's logf, sqrtf and cosf. Recounted
 # from the SASS of the registers form's refresh draws (dc_kernel_ms.py
 # --machine mclmc --sass, PR 13: 661 integer, 368 FP32, 8 MUFU and 40
@@ -1249,10 +1332,11 @@ def smc_init(torch, n, device, dtype):
     return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
-def smc_target(torch, device, dtype):
+def smc_target(torch, device, dtype, d=SMC_D):
     """The tracked SMC target's log prior, N(0, 9 I), and log likelihood,
-    N(obs, I): each maps ``(n, d)`` particles to ``(n,)``."""
-    obs = torch.from_numpy(SMC_OBS).to(device=device, dtype=dtype)
+    N(obs, I), obs = linspace(-1, 1, d): each maps ``(..., d)`` points to
+    ``(...)``."""
+    obs = torch.from_numpy(np.linspace(-1.0, 1.0, d)).to(device=device, dtype=dtype)
 
     def logprior_fn(x):
         return -0.5 * (x**2).sum(-1) / 9.0
@@ -1289,6 +1373,116 @@ def smc_run(torch, x0, key, waste_free=False, max_steps=SMC_MAX_STEPS):
         state, info = algo.step(step_key, state)
         steps.append((state, info))
     return state, steps
+
+
+def ps_run(torch, x0, key, adaptive=True, schedule=None, n_schedule=PS_N_SCHEDULE,
+           mcmc_steps=SMC_MCMC_STEPS, max_steps=PS_N_SCHEDULE):
+    """Persistent-sampling SMC with MALA moves (step size SMC_STEP_SIZE,
+    systematic resampling) on the tracked SMC target from particles ``x0``:
+    ``adaptive_persistent_sampling_smc`` to lambda = 1 at SMC_TARGET_ESS, or
+    ``persistent_sampling_smc`` along ``schedule``; the host loop splits
+    ``key`` into the next key and the step's key, as ``smc_run``. Each
+    step's ``(state, info)``."""
+    import blackjax_tpu_torch as bj
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.mcmc import mala
+    from blackjax_tpu_torch.smc import resampling
+
+    logprior_fn, loglikelihood_fn = smc_target(torch, x0.device, x0.dtype, x0.shape[1])
+    params = {"step_size": torch.full((1,), SMC_STEP_SIZE, dtype=x0.dtype, device=x0.device)}
+    common = (logprior_fn, loglikelihood_fn, n_schedule, mala.build_kernel(), mala.init,
+              params, resampling.systematic)
+    if adaptive:
+        algo = bj.adaptive_persistent_sampling_smc(
+            *common, target_ess=SMC_TARGET_ESS, num_mcmc_steps=mcmc_steps)
+    else:
+        algo = bj.persistent_sampling_smc(*common, num_mcmc_steps=mcmc_steps)
+    state, steps = algo.init(x0), []
+    for i in range(max_steps if adaptive else len(schedule)):
+        if adaptive and float(state.tempering_param) >= 1.0:
+            break
+        key, step_key = prng.split(key)
+        state, info = (algo.step(step_key, state) if adaptive
+                       else algo.step(step_key, state, schedule[i]))
+        steps.append((state, info))
+    return steps
+
+
+def pretune_run(torch, x0, key, schedule, mcmc_steps=SMC_MCMC_STEPS):
+    """``pretuning`` over ``tempered_smc`` on the tracked SMC target with
+    MALA moves whose step size is a per-particle parameter (initially
+    SMC_STEP_SIZE), along ``schedule`` (0-d tensors): the ESJD in the
+    identity metric (MALA has no mass matrix for the default measure),
+    ``sigma_parameters={"step_size": PRETUNE_SIGMA}``, ``alpha=PRETUNE_ALPHA``
+    and the step size kept positive, as the reference's own end-to-end test
+    (``tests/smc/test_persistent_pretuning.py:192-230``). Each step's
+    ``(state, info)``."""
+    import blackjax_tpu_torch as bj
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.mcmc import mala
+    from blackjax_tpu_torch.smc import resampling
+    from blackjax_tpu_torch.smc.pretuning import build_pretune, esjd
+
+    n, d = x0.shape
+    logprior_fn, loglikelihood_fn = smc_target(torch, x0.device, x0.dtype, d)
+    eye = torch.eye(d, dtype=x0.dtype, device=x0.device)
+    pretune = build_pretune(
+        mala.init, mala.build_kernel(), alpha=PRETUNE_ALPHA,
+        sigma_parameters={"step_size": torch.tensor(PRETUNE_SIGMA, dtype=x0.dtype,
+                                                    device=x0.device)},
+        n_particles=n, performance_of_chain_measure_factory=lambda state: esjd(eye),
+        positive_parameters=["step_size"])
+    algo = bj.pretuning(
+        bj.tempered_smc, logprior_fn, loglikelihood_fn, mala.build_kernel(), mala.init,
+        resampling.systematic, num_mcmc_steps=mcmc_steps,
+        initial_parameter_value={"step_size": torch.full((n,), SMC_STEP_SIZE, dtype=x0.dtype,
+                                                         device=x0.device)},
+        pretune_fn=pretune)
+    state, steps = algo.init(x0), []
+    for lam in schedule:
+        key, step_key = prng.split(key)
+        state, info = algo.step(step_key, state, tempering_param=lam)
+        steps.append((state, info))
+    return steps
+
+
+def ns_run(torch, x0, key, variant="nss", num_delete=NS_DELETE, num_inner_steps=NS_INNER,
+           max_steps=NS_MAX_STEPS, stop=NS_STOP):
+    """Nested slice sampling (the registry's ``nss`` or ``nsswig``) on the
+    tracked SMC target from the live points ``x0`` until ``logZ_live - logZ
+    < stop`` (read to the host once a step) or ``max_steps`` steps (``stop``
+    None: all of them), the loop splitting ``key`` as ``smc_run``. Returns
+    the final state and each step's ``(state, info)``."""
+    import blackjax_tpu_torch as bj
+    from blackjax_tpu_torch import prng
+
+    logprior_fn, loglikelihood_fn = smc_target(torch, x0.device, x0.dtype, x0.shape[1])
+    build = bj.nss if variant == "nss" else bj.nsswig
+    algo = build(logprior_fn, loglikelihood_fn, num_inner_steps=num_inner_steps,
+                 num_delete=num_delete)
+    state, steps = algo.init(x0), []
+    while len(steps) < max_steps:
+        integ = state.integrator
+        if stop is not None and float(integ.logZ_live - integ.logZ) < stop:
+            break
+        key, step_key = prng.split(key)
+        state, info = algo.step(step_key, state)
+        steps.append((state, info))
+    return state, steps
+
+
+def ns_summary(torch, state, steps, key, samples=NS_SAMPLES):
+    """log Z (the dead points' evidence with the live points' remainder),
+    the mean and variance of ``samples`` posterior draws of
+    ``ns.utils.sample`` on ``key``, and the Kish ESS, on the host."""
+    from blackjax_tpu_torch.ns import utils as ns_utils
+
+    dead = ns_utils.finalise(state, [info for _, info in steps], update_info=False)
+    draws = ns_utils.sample(key, dead, samples).position.double()
+    integ = state.integrator
+    return {"log_z": float(torch.logaddexp(integ.logZ, integ.logZ_live)),
+            "mean": draws.mean(0).cpu().numpy(), "var": draws.var(0, correction=0).cpu().numpy(),
+            "ess": float(ns_utils.ess(key, dead))}
 
 
 def smc_summary(torch, state, steps):
@@ -1773,7 +1967,7 @@ def family_path(torch, dev, smi):
         for name, (algo, keyed_init) in algos.items():
             st = algo.init(xc, ikeys) if keyed_init else algo.init(xc)
             trace = []
-            for i in range(FAM_CMP_TRANSITIONS):
+            for i in range(FAM_CMP_SHORT.get(name, FAM_CMP_TRANSITIONS)):
                 st, inf = algo.step(prng.split(keys[i], FAM_CMP_CHAINS), st)
                 _, exact = family_statistic(name, inf)
                 trace.append((_samples(st)[0].cpu(), [getattr(inf, f).cpu() for f in exact]))
@@ -1790,7 +1984,8 @@ def family_path(torch, dev, smi):
             _require(err <= FAM_CMP_TOL, f"phase 17 f64 {name}: positions differ by {err}")
             worst = max(worst, err)
     print(f"phase 17 f64 hold: every sampler ({len(card_runs)}), {FAM_CMP_CHAINS} chains x "
-          f"{FAM_CMP_D} for {FAM_CMP_TRANSITIONS} transitions on the same keys, the card against "
+          f"{FAM_CMP_D} for {FAM_CMP_TRANSITIONS} transitions on the same keys ("
+          f"{', '.join(f'{n} {k}' for n, k in FAM_CMP_SHORT.items())}), the card against "
           f"the port on the CPU: accept flags, drawn step counts, subiter and the slice counts "
           f"identical, largest position difference {worst:.3g} (tolerance {FAM_CMP_TOL}); "
           f"threefry launches on the path {threefry17}, transition kernel launches "
@@ -1837,13 +2032,6 @@ def _sgmcmc_algorithm(bj, torch, name, data_size):
     return bj.csgld(estimate, grad)
 
 
-def _index_dtype(torch, X):
-    """The minibatch indices' dtype: JAX's default integer, int64 under x64
-    (an f64 run) and int32 without (the f32 configurations), whose
-    ``randint`` draws other numbers from the same keys."""
-    return torch.int64 if X.dtype == torch.float64 else torch.int32
-
-
 def sgld_single(torch, bj, prng, X, y, num_steps, batch):
     """``config_sgld``'s run on ``(X, y)``'s device (tracked.py:509-530,
     its first variant): the minibatch indices ``randint(split(key(13),
@@ -1853,7 +2041,7 @@ def sgld_single(torch, bj, prng, X, y, num_steps, batch):
     dev, (data_size, d) = X.device, X.shape
     step = _sgmcmc_algorithm(bj, torch, "sgld", data_size).step
     batch_idx = prng.randint(prng.split(prng.key(13, dev), num_steps), (batch,), 0, data_size,
-                             _index_dtype(torch, X))
+                             prng.default_int_dtype(X.dtype))
     step_keys = prng.split(prng.key(14, dev), num_steps)
     w = 0.01 * prng.normal(prng.split(prng.key(15, dev), 4)[0], (d,), X.dtype)
     for i in range(num_steps):
@@ -1878,7 +2066,7 @@ def sgmcmc_chains(torch, bj, prng, X, y, name, num_chains, num_steps, batch, tra
              else algo.init(w0))
     run_keys = prng.split(prng.split(prng.key(26, dev), 4)[0], num_steps)
     idx_keys, chain_keys = prng.split(run_keys).unbind(-2)
-    batch_idx = prng.randint(idx_keys, (batch,), 0, data_size, _index_dtype(torch, X))
+    batch_idx = prng.randint(idx_keys, (batch,), 0, data_size, prng.default_int_dtype(X.dtype))
     path = []
     for i in range(num_steps):
         idx = batch_idx[i]
@@ -1985,6 +2173,324 @@ def sgmcmc_path(torch, dev, smi):
     return threefry18
 
 
+def _ps_summary(steps):
+    """A persistent-sampling run's lambdas, log Z (the persistent estimate at
+    its last iteration) and the moments of its last slot's particles."""
+    state = steps[-1][0]
+    x = state.particles.double()
+    return {"lambdas": [float(st.tempering_param) for st, _ in steps],
+            "log_z": float(state.log_Z), "mean": x.mean(0).cpu().numpy(),
+            "var": x.var(0, correction=0).cpu().numpy(),
+            "accept": [float(info.update_info.acceptance_rate.double().mean())
+                       for _, info in steps]}
+
+
+def _pretune_summary(torch, steps):
+    """A pretuning run's log Z (the sum of the increments), its weighted
+    moments and the step-size population's mean and range at the end."""
+    smc_state = steps[-1][0].sampler_state
+    s = smc_summary(torch, smc_state, [(st.sampler_state, info) for st, info in steps])
+    sizes = steps[-1][0].parameter_override["step_size"].double()
+    s.update(step_size=(float(sizes.mean()), float(sizes.min()), float(sizes.max())))
+    return s
+
+
+def _particle_gates(torch, name, s, tensors):
+    """Phase 19's gates on one run's summary ``s``: every tensor on the card
+    and finite, log Z and the means within PARTICLE_GATES of the exact
+    values, the variances in SMC_VAR_BAND. Returns the mean and variance
+    errors."""
+    card, finite = _on_card(torch, tensors)
+    _require(card, f"phase 19 {name}: a state or info tensor is not on the card")
+    _require(finite, f"phase 19 {name}: non-finite values")
+    log_z_tol, mean_tol = PARTICLE_GATES[name]
+    _require(abs(s["log_z"] - SMC_LOG_Z) <= log_z_tol,
+             f"phase 19 {name}: log Z {s['log_z']} against {SMC_LOG_Z} (tolerance {log_z_tol})")
+    mean_err = float(np.abs(s["mean"] - 0.9 * SMC_OBS).max())
+    _require(mean_err <= mean_tol, f"phase 19 {name}: a mean {mean_err} from 0.9 obs")
+    _require(bool(((s["var"] >= SMC_VAR_BAND[0]) & (s["var"] <= SMC_VAR_BAND[1])).all()),
+             f"phase 19 {name}: variances {s['var']} outside {SMC_VAR_BAND}")
+    return mean_err, float(np.abs(s["var"] - 0.9).max())
+
+
+@contextlib.contextmanager
+def recorded_choices():
+    """While open, every index draw of ``prng.choice`` is also appended to
+    the list it yields: in an NS step that is the start indices its inner
+    update draws (the step's only ``choice``), read where the kernel draws
+    them."""
+    from blackjax_tpu_torch import prng
+
+    drawn, own = [], prng.choice
+
+    def choice(*args, **kwargs):
+        out = own(*args, **kwargs)
+        drawn.append(out)
+        return out
+
+    prng.choice = choice
+    try:
+        yield drawn
+    finally:
+        prng.choice = own
+
+
+def particle_holds(torch, dev):
+    """Phase 19's f64 holds: each sampler at P19_CMP_N particles or live
+    points for P19_CMP_STEPS steps on the card and on the CPU, key 18 (see
+    the head of this file). Returns a line's words for each."""
+    from blackjax_tpu_torch import prng
+
+    xc = smc_init(torch, P19_CMP_N, "cpu", torch.float64)
+    words = []
+
+    def diff(a, b):
+        return float((a.cpu().double() - b.double()).abs().max())
+
+    card = ps_run(torch, xc.to(dev), prng.key(18, dev), max_steps=P19_CMP_STEPS)
+    cpu = ps_run(torch, xc, prng.key(18), max_steps=P19_CMP_STEPS)
+    _require(len(card) == len(cpu) == P19_CMP_STEPS,
+             f"phase 19 f64 persistent sampling: {len(card)} steps on the card, {len(cpu)} on the CPU")
+    errs = [0.0, 0.0]
+    for (a, a_info), (b, b_info) in zip(card, cpu):
+        _require(torch.equal(a_info.ancestors.cpu(), b_info.ancestors),
+                 "phase 19 f64 persistent sampling: ancestors differ between the card and the CPU")
+        errs[0] = max(errs[0], diff(a.tempering_schedule, b.tempering_schedule),
+                      diff(a.persistent_log_Z, b.persistent_log_Z))
+        errs[1] = max(errs[1], diff(a.persistent_particles, b.persistent_particles))
+    _require(errs[0] <= 1e-10 and errs[1] <= SMC_CMP_TOL,
+             f"phase 19 f64 persistent sampling: lambda and log Z {errs[0]}, particles {errs[1]}")
+    words.append(f"adaptive_persistent_sampling_smc: ancestors identical at every step, lambda "
+                 f"and log Z within {errs[0]:.3g} (tolerance 1e-10), particles {errs[1]:.3g}")
+
+    # pretuning's random walk draws float32 normals, also in an f64 run (as
+    # the reference does), and torch's float32 erfinv on the card is not the
+    # CPU's to the last bit: the card's draw is held to float32 rounding here,
+    # and the f64 hold gives both runs the CPU's draw
+    from blackjax_tpu_torch.smc import pretuning
+
+    own_noise = pretuning.generate_gaussian_noise
+    probe = torch.linspace(0.01, 1.0, P19_CMP_N)
+    noise_card = own_noise(prng.key(5, dev), probe.to(dev), sigma=PRETUNE_SIGMA).cpu()
+    noise_cpu = own_noise(prng.key(5), probe, sigma=PRETUNE_SIGMA)
+    noise_rel = float(((noise_card - noise_cpu).abs() / noise_cpu.abs()).max())
+    _require(noise_rel <= 4 * 2.0**-23,
+             f"phase 19 pretuning: the card's float32 noise {noise_rel} from the CPU's")
+
+    def cpu_noise(key, position, mu=0.0, sigma=1.0):
+        sigma = sigma.cpu() if torch.is_tensor(sigma) else sigma
+        return own_noise(key.cpu(), position.cpu(), mu, sigma).to(position.device)
+
+    schedule = np.linspace(*PRETUNE_SCHEDULE)[:P19_CMP_STEPS]
+    pretuning.generate_gaussian_noise = cpu_noise
+    try:
+        card = pretune_run(torch, xc.to(dev), prng.key(18, dev),
+                           [torch.tensor(v, dtype=torch.float64, device=dev) for v in schedule])
+    finally:
+        pretuning.generate_gaussian_noise = own_noise
+    cpu = pretune_run(torch, xc, prng.key(18),
+                      [torch.tensor(v, dtype=torch.float64) for v in schedule])
+    sizes = parts = 0.0
+    for (a, a_info), (b, b_info) in zip(card, cpu):
+        _require(torch.equal(a_info.ancestors.cpu(), b_info.ancestors),
+                 "phase 19 f64 pretuning: ancestors differ between the card and the CPU")
+        sizes = max(sizes, diff(a.parameter_override["step_size"],
+                                b.parameter_override["step_size"]))
+        parts = max(parts, diff(a.sampler_state.particles, b.sampler_state.particles))
+    _require(sizes <= SMC_CMP_TOL and parts <= SMC_CMP_TOL,
+             f"phase 19 f64 pretuning: step sizes {sizes}, particles {parts}")
+    words.append(f"pretuning (its float32 noise drawn on the CPU for both; the card's own "
+                 f"draw within {noise_rel:.3g} relative of the CPU's): ancestors identical, step "
+                 f"sizes within {sizes:.3g}, particles {parts:.3g}")
+
+    from blackjax_tpu_torch.ns import base
+
+    for variant, inner in (("nss", NS_INNER), ("nsswig", SWIG_INNER)):
+        runs = []
+        for device in (dev, "cpu"):
+            x, key = xc.to(device), prng.key(18, device)
+            prev = ns_run(torch, x, key, variant, NS_CMP_DELETE, inner, 0, None)[0]
+            with recorded_choices() as starts:
+                _, steps = ns_run(torch, x, key, variant, NS_CMP_DELETE, inner, P19_CMP_STEPS,
+                                  None)
+            _require(len(starts) == len(steps),
+                     f"phase 19 f64 {variant}: {len(starts)} start draws in {len(steps)} steps")
+            indices = []
+            for (state, _), start in zip(steps, starts):
+                indices.append((base.delete_fn(prev, NS_CMP_DELETE)[0], start))
+                prev = state
+            runs.append((steps, indices))
+        (card, card_idx), (cpu, cpu_idx) = runs
+        x_err = z_err = 0.0
+        for (a, a_info), (b, b_info), ia, ib in zip(card, cpu, card_idx, cpu_idx):
+            for one, other, what in ((ia[0], ib[0], "dead"), (ia[1], ib[1], "start")):
+                _require(torch.equal(one.cpu(), other),
+                         f"phase 19 f64 {variant}: {what} indices differ between the card and the CPU")
+            for field in ("num_shrink", "num_expansions"):
+                _require(torch.equal(getattr(a_info.update_info, field).cpu(),
+                                     getattr(b_info.update_info, field)),
+                         f"phase 19 f64 {variant}: {field} differ between the card and the CPU")
+            x_err = max(x_err, diff(a.particles.position, b.particles.position),
+                        diff(a_info.particles.position, b_info.particles.position))
+            z_err = max(z_err, *(diff(getattr(a.integrator, f), getattr(b.integrator, f))
+                                 for f in ("logX", "logZ", "logZ_live")))
+        _require(x_err <= SMC_CMP_TOL and z_err <= 1e-10,
+                 f"phase 19 f64 {variant}: positions {x_err}, integrator {z_err}")
+        words.append(f"{variant} (deleting {NS_CMP_DELETE}, {inner} inner steps): dead and start "
+                     f"indices, num_shrink and num_expansions identical, positions within "
+                     f"{x_err:.3g}, the integrator within {z_err:.3g} (tolerance 1e-10)")
+    return words
+
+
+def particle_path(torch, dev, peaks, smi):
+    """Phase 19: persistent-sampling SMC, pretuning and nested slice sampling
+    on the tracked SMC target at 16,384 particles or live points, with their
+    gates, the f64 holds and the threefry export's times at the path's
+    launch sizes (see the head of this file). Returns the threefry launches
+    counted on the path."""
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.ops import counter_rng
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+
+    x0 = smc_init(torch, SMC_PARTICLES, dev, torch.float32)
+    schedule = [torch.tensor(v, dtype=torch.float32, device=dev)
+                for v in np.linspace(*PRETUNE_SCHEDULE)]
+    samplers = {
+        "adaptive_persistent_sampling_smc": lambda: ps_run(torch, x0, prng.key(18, dev)),
+        "pretuning": lambda: pretune_run(torch, x0, prng.key(18, dev), schedule),
+        "nss": lambda: ns_run(torch, x0, prng.key(18, dev)),
+        "nsswig": lambda: ns_run(torch, x0, prng.key(18, dev), "nsswig",
+                                 num_inner_steps=SWIG_INNER),
+    }
+    busy_runs = {
+        "nss": lambda: ns_run(torch, x0, prng.key(18, dev), max_steps=NS_BUSY_STEPS, stop=None),
+        "nsswig": lambda: ns_run(torch, x0, prng.key(18, dev), "nsswig",
+                                 num_inner_steps=SWIG_INNER, max_steps=NS_BUSY_STEPS, stop=None),
+    }
+    for name in dc.LAUNCHES:
+        dc.LAUNCHES[name] = 0
+    # a warm run of each short sampler first (key 17), as phase 16 does: a
+    # first run loads kernels and grows the allocator's pool
+    ps_run(torch, x0, prng.key(17, dev))
+    pretune_run(torch, x0, prng.key(17, dev), schedule)
+    results = {}
+    for name, run in samplers.items():
+        before = dc.LAUNCHES["threefry2x32"]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = run()
+        end.record()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        results[name] = (out, secs, start.elapsed_time(end), dc.LAUNCHES["threefry2x32"] - before)
+    launches19 = dict(dc.LAUNCHES)  # counted before the busy runs' and the holds' launches
+    _require(all(r[3] > 0 for r in results.values()),
+             f"phase 19: a sampler launched no threefry kernel: "
+             f"{ {name: r[3] for name, r in results.items()} }")
+
+    parts = {"runs": sum(r[1] for r in results.values()), "summaries and gates": 0.0,
+             "busy-share runs": 0.0}
+    for name, (out, secs, event_ms, launches) in results.items():
+        t_part = time.perf_counter()
+        if name == "adaptive_persistent_sampling_smc":
+            steps = out
+            s = _ps_summary(steps)
+            _require(s["lambdas"][-1] == 1.0 and len(steps) <= PS_N_SCHEDULE,
+                     f"phase 19 {name}: lambda ends at {s['lambdas'][-1]} after {len(steps)} steps")
+            tensors = tuple(steps[-1][0][:4]) + tuple(steps[-1][1])
+            what = (f"n_schedule {PS_N_SCHEDULE}, MALA at {SMC_STEP_SIZE}, target ESS "
+                    f"{SMC_TARGET_ESS}, {SMC_MCMC_STEPS} MCMC steps: lambda "
+                    f"{', '.join(f'{lam:.6f}' for lam in s['lambdas'])}; mean acceptance a step "
+                    f"{', '.join(f'{a:.4f}' for a in s['accept'])}")
+            unit, busy_fn = "tempering steps", lambda: ps_run(torch, x0, prng.key(18, dev))
+        elif name == "pretuning":
+            steps = out
+            s = _pretune_summary(torch, steps)
+            tensors = (steps[-1][0].sampler_state, steps[-1][0].parameter_override, steps[-1][1])
+            what = (f"over tempered_smc along linspace{PRETUNE_SCHEDULE}, MALA step sizes per "
+                    f"particle from {SMC_STEP_SIZE}, sigma {PRETUNE_SIGMA}, alpha {PRETUNE_ALPHA}: "
+                    f"the step sizes end at mean {s['step_size'][0]:.4f} (range "
+                    f"{s['step_size'][1]:.4f}-{s['step_size'][2]:.4f}; the JAX package's "
+                    f"{PARTICLE_REFERENCE['pretuning']['step_size_mean']:.4f} on key 18)")
+            unit, busy_fn = "tempering steps", samplers["pretuning"]
+        else:
+            state, steps = out
+            s = ns_summary(torch, state, steps, prng.key(19, dev))
+            integ = state.integrator
+            _require(float(integ.logZ_live - integ.logZ) < NS_STOP and len(steps) < NS_MAX_STEPS,
+                     f"phase 19 {name}: not converged after {len(steps)} steps")
+            inner = NS_INNER if name == "nss" else f"{SWIG_INNER} (cut from {NS_INNER})"
+            what = (f"deleting {NS_DELETE} a step, {inner} inner steps, until logZ_live - logZ < "
+                    f"{NS_STOP}")
+            what += (f"; {NS_SAMPLES} posterior draws, ESS {s['ess']:.1f}, logZ {float(integ.logZ):.5f}, "
+                     f"logZ_live {float(integ.logZ_live):.5f}")
+            # a particle born of the prior keeps a NaN birth contour (the
+            # reference's mark): the births are held apart, never infinite
+            info = steps[-1][1]
+            births = (state.particles.loglikelihood_birth, info.particles.loglikelihood_birth)
+            _require(all(b.is_cuda and not bool(torch.isinf(b).any()) for b in births),
+                     f"phase 19 {name}: an infinite birth contour or one off the card")
+            tensors = (state.particles._replace(loglikelihood_birth=None), state.integrator,
+                       state.inner_kernel_params,
+                       info.particles._replace(loglikelihood_birth=None), info.update_info)
+            unit, busy_fn = "NS steps", busy_runs[name]
+        mean_err, var_err = _particle_gates(torch, name, s, tensors)
+        t_busy = time.perf_counter()
+        parts["summaries and gates"] += t_busy - t_part
+        busy = _device_busy(torch, busy_fn)
+        parts["busy-share runs"] += time.perf_counter() - t_busy
+        busy_words = "not measured (no device record)" if busy is None else (
+            f"{busy[0]:.3f} ms of device records ({busy[1]}) in {busy[2]:.3f} ms: busy "
+            f"{busy[0] / busy[2]:.4f}")
+        if name in busy_runs:
+            busy_words += f" (a {NS_BUSY_STEPS}-step run)"
+        ref = PARTICLE_REFERENCE[name]
+        n = len(steps)
+        print(f"phase 19 {name}: {SMC_PARTICLES} x {SMC_D}, f32, key 18, {what}; {n} {unit}; "
+              f"log Z {s['log_z']:.5f} (exact {SMC_LOG_Z:.5f}, error {s['log_z'] - SMC_LOG_Z:+.5f}, "
+              f"gate {PARTICLE_GATES[name][0]}; the JAX package's worst {ref['worst_log_z_err']:.4f}); "
+              f"largest |mean - 0.9 obs| {mean_err:.5f} (gate {PARTICLE_GATES[name][1]}; the JAX "
+              f"package's worst {ref['worst_mean_err']:.4f}), largest |var - 0.9| {var_err:.5f}; "
+              f"{secs:.4f} s by host clock ({1.0 / secs:.4f} runs/sec), {event_ms:.3f} ms by CUDA "
+              f"events, {secs / n * 1e3:.3f} host ms a step; threefry launches {launches} "
+              f"({launches / n:.1f} a step); device {busy_words} ({smi})")
+    t_part = time.perf_counter()
+    print("phase 19 f64 holds, the card against the port on the CPU, "
+          f"{P19_CMP_N} particles or live points, {P19_CMP_STEPS} steps, key 18: "
+          + "; ".join(particle_holds(torch, dev)) + f" ({smi})")
+    parts["f64 holds"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # the threefry export at the path's launch sizes (a key per element)
+    rng = np.random.default_rng(19)
+    times = []
+    for n in TF_PATH_KEYS:
+        words = [torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.int64))
+                 .to(dev) for _ in range(4)]
+        _require(all(torch.equal(a.cpu(), b) for a, b in zip(
+            prng.threefry2x32(*words), counter_rng.threefry2x32(*(w.cpu() for w in words)))),
+            f"phase 19: the threefry export differs from its plain version at {n} keys")
+        call_ms = _timed_mean(torch, lambda: prng.threefry2x32(*words), 50)
+        # a second trace where the first lost kernel records
+        dev_ms = (_device_ms(torch, lambda: prng.threefry2x32(*words), "threefry_kernel", 50)
+                  or _device_ms(torch, lambda: prng.threefry2x32(*words), "threefry_kernel", 50))
+        bound = _bound(n * THREEFRY_BYTES, 0.0, peaks, n * THREEFRY_OPS, d=1)
+        over = "" if dev_ms is None else f", {dev_ms / bound[0]:.1f} times"
+        times.append(f"{n} keys: kernel {_ms_words(dev_ms, 'us')} (bound {bound[0] * 1e3:.4f} us "
+                     f"by {bound[1]}{over}), a call {call_ms * 1e3:.2f} us")
+    print(f"phase 19 threefry2x32 (a key per element) at the path's launch sizes, bit for bit its "
+          f"plain version; the kernel's device time by torch.profiler over 50 launches, a call's "
+          f"time by CUDA events over 50 back-to-back calls that keep their outputs (paced by the "
+          f"wrapper's host work and the allocator between launches, not by the kernel): {'; '.join(times)}; launches on the path "
+          f"{launches19['threefry2x32']} ({smi})")
+    parts["threefry timings"] = time.perf_counter() - t_part
+    print("phase 19 host seconds by part: "
+          + ", ".join(f"{name} {secs:.1f}" for name, secs in parts.items()))
+    return launches19["threefry2x32"]
+
+
 def main() -> int:
     import torch
 
@@ -2078,10 +2584,14 @@ def main() -> int:
     keyed_same = all(torch.equal(a.cpu(), b) for a, b in zip(tf_card, tf_plain))
     tf_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(tf_card, tf_plain))
     _require(keyed_same, "per-element-key threefry2x32 kernel != prng's plain version")
-    tf_bound = _bound(TF_KEYS * 6 * 8, 0.0, peaks, TF_KEYS * THREEFRY_OPS, d=1)  # no FP32 work
+    tf_dev_ms = _device_ms(torch, lambda: prng.threefry2x32(*keyed_dev), "threefry_kernel")
+    tf_bound = _bound(TF_KEYS * THREEFRY_BYTES, 0.0, peaks, TF_KEYS * THREEFRY_OPS,
+                      d=1)  # no FP32 work
     print(f"phase 2: threefry2x32 device function equals the plain version bit for bit "
           f"on {c0.numel()} counters: {same}; with a key per element on {TF_KEYS} keys "
-          f"(prng's draws): bit for bit {keyed_same}, kernel {tf_ms:.4f} ms, plain (int64 torch "
+          f"(prng's draws): bit for bit {keyed_same}, kernel {_ms_words(tf_dev_ms)} by "
+          f"torch.profiler (a call {tf_ms:.4f} ms by CUDA events over 20 back-to-back calls "
+          f"that keep their outputs: paced by the host and the allocator), plain (int64 torch "
           f"ops on the card) {tf_plain_ms:.4f} ms, bound {tf_bound[0]:.4f} ms by {tf_bound[1]}; "
           f"the MCLMC kernel's counter normals on "
           f"{mz.numel()} elements: threefry words bit for bit {words_same}, normals max |diff| "
@@ -3131,6 +3641,10 @@ def main() -> int:
     marks.append((18, time.perf_counter()))
     threefry18 = sgmcmc_path(torch, dev, smi)
 
+    # ---- phase 19: persistent sampling, pretuning and nested slice sampling ----
+    marks.append((19, time.perf_counter()))
+    threefry19 = particle_path(torch, dev, peaks, smi)
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
@@ -3181,8 +3695,10 @@ def main() -> int:
                           launches13, err13, fn_ms, fn_plain_ms, fn_bound))
     kernels.append(_entry("threefry2x32 (a key per element)", "fused_nuts_dc.cu",
                           "blackjax_tpu/mcmc/trajectory.py:764",
-                          launches12["threefry2x32"] + launches16 + threefry17 + threefry18,
-                          tf_err, tf_ms, tf_plain_ms, tf_bound))
+                          launches12["threefry2x32"] + launches16 + threefry17 + threefry18
+                          + threefry19,
+                          tf_err, tf_ms if tf_dev_ms is None else tf_dev_ms, tf_plain_ms,
+                          tf_bound))
     kernels.append(_entry("vpu_peak (unfused fma)", "vpu_peak.cu", "benchmarks/vpu_peak.py:58",
                           vpu["launches"], vpu["err"], vpu["ms"], vpu["plain_ms"], vpu["bound"]))
     print(json.dumps({"kernels": kernels}))

@@ -1325,6 +1325,50 @@ def test_smc_state_stays_on_the_card(cuda):
     assert info.update_info.acceptance_rate.shape == (512, chip_smoke.SMC_MCMC_STEPS)
 
 
+def test_particle_samplers_stay_on_the_card(cuda):
+    """Phase 19's samplers at 512 particles or live points, a few steps:
+    every state and info tensor on the card and finite, the threefry export
+    counted."""
+    import chip_smoke
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.util import tree_leaves
+
+    x0 = chip_smoke.smc_init(torch, 512, cuda, torch.float32)
+    before = dc.LAUNCHES["threefry2x32"]
+    ps = chip_smoke.ps_run(torch, x0, prng.key(3, cuda), max_steps=2)
+    pre = chip_smoke.pretune_run(torch, x0, prng.key(4, cuda),
+                                 [torch.tensor(v, device=cuda) for v in (0.1, 0.3)])
+    outs = [tuple(ps[-1][0][:4]) + tuple(ps[-1][1]), pre[-1]]
+    for variant in ("nss", "nsswig"):
+        state, steps = chip_smoke.ns_run(torch, x0, prng.key(5, cuda), variant, 64, 2, 2, None)
+        # a particle born of the prior keeps a NaN birth contour (the reference's mark)
+        info = steps[-1][1]
+        for births in (state.particles.loglikelihood_birth, info.particles.loglikelihood_birth):
+            assert births.is_cuda and not bool(torch.isinf(births).any())
+        outs.append((state.particles._replace(loglikelihood_birth=None), state.integrator,
+                     state.inner_kernel_params, info.particles._replace(loglikelihood_birth=None),
+                     info.update_info))
+    assert dc.LAUNCHES["threefry2x32"] > before
+    for leaf in tree_leaves(outs):
+        if torch.is_tensor(leaf):
+            assert leaf.device.type == "cuda"
+            assert not leaf.is_floating_point() or bool(torch.isfinite(leaf).all())
+
+
+def test_particle_samplers_f64_on_the_card_are_the_cpu_runs(cuda):
+    """Phase 19's f64 holds at a smaller size: 256 particles or live points
+    (the nested samplers deleting 32), 3 steps, the card against the CPU."""
+    import chip_smoke
+
+    sizes = (chip_smoke.P19_CMP_N, chip_smoke.NS_CMP_DELETE)
+    chip_smoke.P19_CMP_N, chip_smoke.NS_CMP_DELETE = 256, 32
+    try:
+        words = chip_smoke.particle_holds(torch, cuda)
+    finally:
+        chip_smoke.P19_CMP_N, chip_smoke.NS_CMP_DELETE = sizes
+    assert len(words) == 4
+
+
 @pytest.mark.parametrize("waste_free", [False, True])
 def test_tracked_smc_f64_on_the_card_is_the_cpu_run(cuda, waste_free):
     """Phase 16's hold: the tracked configuration in float64 at 1,024

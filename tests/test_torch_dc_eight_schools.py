@@ -150,8 +150,11 @@ AGREE_FLOOR = 0.9  # tests/test_torch_fused_nuts_dc.py::AGREE_FLOOR
 def packed_runs():
     x0 = (0.5 * np.random.default_rng(15).standard_normal((C, 10))).astype(np.float32)
     ref_target = ref_dc.make_eight_schools_target_dc()
-    out_ref = ref.fused_nuts_run_dc(jnp.asarray(x0), jnp.ones(10), 0.2, target=ref_target,
-                                    num_track=10, interpret=True, **PACKED)
+    # one compiled program, at XLA's optimization level 0 (a quicker compile)
+    run_ref = jax.jit(lambda x, imm: ref.fused_nuts_run_dc(
+        x, imm, 0.2, target=ref_target, num_track=10, interpret=True, **PACKED),
+        compiler_options={"xla_backend_optimization_level": 0})
+    out_ref = run_ref(jnp.asarray(x0), jnp.ones(10))
     out_port = dc.fused_nuts_run_dc(torch.from_numpy(x0), torch.ones(10), 0.2,
                                     target=make_eight_schools_target_dc(), num_track=10,
                                     **PACKED)

@@ -5,6 +5,8 @@ against the JAX package in float64 on the same keys (``interop.prng_key``).
   loop, with and without ``max_num_integration_steps``) and
   ``static_progressive_integration`` (reservoir sampling on ``fold_in(key,
   i)``): states within 1e-12.
+- ``dhmc`` in float32 draws its step counts in int32, as the JAX package
+  without x64 does.
 - ``hmc`` with per-chain step counts, ``mhmc``, ``dhmc``, ``dmhmc`` and
   ``ghmc`` over several transitions: positions within 1e-12, accept flags,
   drawn step counts and the carried keys identical.
@@ -179,6 +181,24 @@ def test_dynamic_hmc_matches_reference(name):
         flags=("is_accepted", "num_integration_steps"),
     )
     assert len(np.unique(seen["num_integration_steps"])) > 3  # counts differ by chain
+
+
+def test_dynamic_hmc_float32_draws_the_int32_step_counts():
+    """A float32 state draws its step counts as the JAX package does
+    without x64: ``randint(key, (), 1, 10)`` in int32 on each chain's key,
+    other counts than the int64 draw of the same keys."""
+    talgo = blackjax_tpu_torch.dhmc(lambda x: _tld(x.double()).float(), 0.3,
+                                    torch.from_numpy(IMM).float())
+    init_keys = jax.random.split(jax.random.key(11), 64)
+    words = interop.prng_key(jax.random.key_data(init_keys))
+    state = talgo.init(torch.from_numpy(
+        np.random.default_rng(0).standard_normal((64, D))).float(), words)
+    _, info = talgo.step(interop.prng_key(jax.random.key_data(jax.random.key(3))), state)
+    expected = jax.vmap(lambda k: jax.random.randint(k, (), 1, 10, dtype=jnp.int32))(init_keys)
+    assert info.num_integration_steps.dtype == torch.int32
+    np.testing.assert_array_equal(info.num_integration_steps.numpy(), np.asarray(expected))
+    int64 = jax.vmap(lambda k: jax.random.randint(k, (), 1, 10, dtype=jnp.int64))(init_keys)
+    assert not np.array_equal(np.asarray(int64), np.asarray(expected))
 
 
 def test_ghmc_matches_reference():

@@ -21,6 +21,17 @@ from blackjax_tpu_torch import interop, prng  # noqa: E402
 from blackjax_tpu_torch.ops import counter_rng  # noqa: E402
 
 N = 1000
+# the reference's vmapped draws, compiled once each at XLA's optimization
+# level 0 (eagerly, each primitive compiles apart, at the default level); the
+# draws with bounds keep the default level, whose fused multiply-add the
+# port reproduces
+OPT0 = {"xla_backend_optimization_level": 0}
+
+
+def _vmap(fn, *args, **kwargs):
+    return jax.jit(jax.vmap(fn, *args, **kwargs), compiler_options=OPT0)
+
+
 DTYPES = {"f32": (jnp.float32, torch.float32), "f64": (jnp.float64, torch.float64)}
 
 
@@ -41,7 +52,7 @@ def test_key_words_of_a_seed():
 def test_fold_in_bit_for_bit(keys):
     jk, tk = keys
     data = np.random.default_rng(1).integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
-    expected = jax.random.key_data(jax.vmap(jax.random.fold_in)(jk, jnp.asarray(data)))
+    expected = jax.random.key_data(_vmap(jax.random.fold_in)(jk, jnp.asarray(data)))
     got = prng.fold_in(tk, torch.from_numpy(data.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(expected))
 
@@ -49,7 +60,7 @@ def test_fold_in_bit_for_bit(keys):
 @pytest.mark.parametrize("num", [2, 3, 5])
 def test_split_bit_for_bit(keys, num):
     jk, tk = keys
-    expected = jax.random.key_data(jax.vmap(lambda k: jax.random.split(k, num))(jk))
+    expected = jax.random.key_data(_vmap(lambda k: jax.random.split(k, num))(jk))
     np.testing.assert_array_equal(prng.split(tk, num).numpy(), np.asarray(expected))
 
 
@@ -57,7 +68,7 @@ def test_split_bit_for_bit(keys, num):
 def test_bits_bit_for_bit(keys, width, shape):
     jk, tk = keys
     dtype = jnp.uint32 if width == 32 else jnp.uint64
-    expected = np.asarray(jax.vmap(lambda k: jax.random.bits(k, shape, dtype))(jk))
+    expected = np.asarray(_vmap(lambda k: jax.random.bits(k, shape, dtype))(jk))
     got = prng.bits(tk, shape, width).numpy()
     if width == 64:
         got = got.view(np.uint64)
@@ -69,7 +80,7 @@ def test_bits_bit_for_bit(keys, width, shape):
 def test_uniform_bit_for_bit(keys, dtype, shape):
     jk, tk = keys
     jdt, tdt = DTYPES[dtype]
-    expected = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, shape, jdt))(jk))
+    expected = np.asarray(_vmap(lambda k: jax.random.uniform(k, shape, jdt))(jk))
     got = prng.uniform(tk, shape, tdt)
     assert got.dtype == tdt
     np.testing.assert_array_equal(got.numpy(), expected)
@@ -80,16 +91,16 @@ def test_bernoulli_bit_for_bit(keys, dtype):
     jk, tk = keys
     jdt, tdt = DTYPES[dtype]
     p = np.random.default_rng(2).random(N).astype(np.dtype(jdt))
-    expected = np.asarray(jax.vmap(jax.random.bernoulli)(jk, jnp.asarray(p)))
+    expected = np.asarray(_vmap(jax.random.bernoulli)(jk, jnp.asarray(p)))
     np.testing.assert_array_equal(prng.bernoulli(tk, torch.from_numpy(p)).numpy(), expected)
     # a Python float in the default float dtype (f64 under the tests' x64)
-    expected_half = np.asarray(jax.vmap(jax.random.bernoulli)(jk))
+    expected_half = np.asarray(_vmap(jax.random.bernoulli)(jk))
     np.testing.assert_array_equal(prng.bernoulli(tk, dtype=torch.float64).numpy(), expected_half)
 
 
 def test_normal_f64_to_1e12(keys):
     jk, tk = keys
-    expected = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (5,), jnp.float64))(jk))
+    expected = np.asarray(_vmap(lambda k: jax.random.normal(k, (5,), jnp.float64))(jk))
     got = prng.normal(tk, (5,), torch.float64).numpy()
     np.testing.assert_allclose(got, expected, rtol=1e-12, atol=1e-14)
 
@@ -123,7 +134,7 @@ def test_exponential_is_log1p_of_the_same_uniforms(keys, dtype, shape):
     and to four ulps in f32, as ``normal`` does through ``erfinv``."""
     jk, tk = keys
     jdt, tdt = DTYPES[dtype]
-    expected = np.asarray(jax.vmap(lambda k: jax.random.exponential(k, shape, jdt))(jk))
+    expected = np.asarray(_vmap(lambda k: jax.random.exponential(k, shape, jdt))(jk))
     got = prng.exponential(tk, shape, tdt)
     assert got.dtype == tdt
     tol = 1e-13 if dtype == "f64" else 4 * float(torch.finfo(tdt).eps)
@@ -155,7 +166,7 @@ def test_randint_bit_for_bit(keys, dtype, bounds, shape):
     integer) and in 32-bit ones."""
     jk, tk = keys
     lo, hi = bounds
-    expected = np.asarray(jax.vmap(lambda k: jax.random.randint(
+    expected = np.asarray(_vmap(lambda k: jax.random.randint(
         k, shape, lo, hi, dtype=getattr(jnp, dtype)))(jk))
     got = prng.randint(tk, shape, lo, hi, dtype=getattr(torch, dtype))
     assert got.dtype == getattr(torch, dtype)
@@ -169,11 +180,11 @@ def test_choice_with_p_bit_for_bit(keys, n, shape):
     row of ``p`` a key, as under ``vmap``; and without ``p``, ``randint``."""
     jk, tk = keys
     p = np.random.default_rng(n).uniform(0.0, 1.0, (N, n)) ** 3
-    expected = np.asarray(jax.vmap(lambda k, w: jax.random.choice(k, n, shape, p=w))(
+    expected = np.asarray(_vmap(lambda k, w: jax.random.choice(k, n, shape, p=w))(
         jk, jnp.asarray(p)))
     got = prng.choice(tk, n, shape, p=torch.from_numpy(p))
     np.testing.assert_array_equal(got.numpy(), expected)
-    expected = np.asarray(jax.vmap(lambda k: jax.random.choice(k, n, shape))(jk))
+    expected = np.asarray(_vmap(lambda k: jax.random.choice(k, n, shape))(jk))
     np.testing.assert_array_equal(prng.choice(tk, n, shape).numpy(), expected)
 
 
@@ -187,7 +198,7 @@ def test_xla_cumsum_bit_for_bit(n):
 
 def test_permutation_indices_per_key(keys):
     jk, tk = keys
-    expected = np.asarray(jax.vmap(lambda k: jax.random.permutation(k, 9))(jk[:50]))
+    expected = np.asarray(_vmap(lambda k: jax.random.permutation(k, 9))(jk[:50]))
     np.testing.assert_array_equal(prng.permutation_indices(tk[:50], 9).numpy(), expected)
 
 
@@ -195,6 +206,7 @@ def test_uniform_with_bounds_per_key(keys):
     jk, tk = keys
     lo = np.random.default_rng(2).uniform(-7.0, 0.0, N)
     hi = lo + np.random.default_rng(3).uniform(0.0, 7.0, N)
+    # at the default level, where XLA contracts u * (b - a) + a into an FMA
     expected = np.asarray(jax.vmap(lambda k, a, b: jax.random.uniform(
         k, (), jnp.float64, a, b))(jk, jnp.asarray(lo), jnp.asarray(hi)))
     got = prng.uniform(tk, (), torch.float64, torch.from_numpy(lo), torch.from_numpy(hi))

@@ -17,6 +17,10 @@
   module's ``__all__`` is its reference module's; so are the GIST samplers'
   and the SG-MCMC samplers' (``sgld``, ``sghmc``, ``sgnht``, ``csgld``), and
   each ``sgmcmc`` module's ``__all__``.
+- Persistent sampling, pretuning and nested slice sampling (``smc_family``,
+  ``ns_family``) are exported as the reference builds them: 59 of its 78
+  names, the families' members in its order, every ``ns`` module's
+  ``__all__`` its reference module's.
 - ``pyproject.toml``'s package data names every CUDA source under ``csrc/``,
   so that an installed copy can build its kernels.
 """
@@ -69,6 +73,9 @@ def test_kernel_modules_are_reachable(module, function):
     ("adaptive_tempered_smc", "smc.adaptive_tempered"),
     ("inner_kernel_tuning", "smc.inner_kernel_tuning"),
     ("partial_posteriors_smc", "smc.partial_posteriors_path"),
+    ("persistent_sampling_smc", "smc.persistent_sampling"),
+    ("adaptive_persistent_sampling_smc", "smc.adaptive_persistent_sampling"),
+    ("pretuning", "smc.pretuning"),
 ])
 def test_smc_slice_names_are_exported(name, module):
     assert name in blackjax_tpu_torch.__all__ and name in blackjax_tpu.__all__
@@ -81,6 +88,7 @@ def test_smc_slice_names_are_exported(name, module):
 @pytest.mark.parametrize("module", [
     "base", "ess", "from_mcmc", "resampling", "solver", "adaptive_tempered",
     "partial_posteriors_path", "tempered", "inner_kernel_tuning", "tuning", "waste_free",
+    "persistent_sampling", "adaptive_persistent_sampling", "pretuning",
 ])
 def test_smc_modules_are_reachable(module):
     import blackjax_tpu.smc
@@ -91,6 +99,45 @@ def test_smc_modules_are_reachable(module):
     assert set(blackjax_tpu_torch.smc.__all__) <= set(blackjax_tpu.smc.__all__)
     ref = importlib.import_module(f"blackjax_tpu.smc.{module}")
     assert set(getattr(mod, "__all__", [])) == set(getattr(ref, "__all__", []))
+
+
+def test_the_registry_holds_59_of_the_reference_s_names():
+    assert len(set(blackjax_tpu_torch.__all__)) == 59 and len(set(blackjax_tpu.__all__)) == 78
+    assert set(blackjax_tpu_torch.__all__) <= set(blackjax_tpu.__all__)
+
+
+@pytest.mark.parametrize("family, size", [("smc_family", 5), ("ns_family", 2)])
+def test_families_list_their_members_in_the_reference_s_order(family, size):
+    port, ref = getattr(blackjax_tpu_torch, family), getattr(blackjax_tpu, family)
+    assert len(port) == len(ref) == size
+    for port_api, ref_api in zip(port, ref):
+        name = ref_api.differentiable.__module__.rsplit(".", 1)[-1]
+        assert port_api.differentiable.__module__.rsplit(".", 1)[-1] == name
+        assert port_api.differentiable.__name__ == ref_api.differentiable.__name__
+
+
+@pytest.mark.parametrize("name, top_level", [
+    ("nss", "as_top_level_api"), ("nsswig", "swig_as_top_level_api")])
+def test_nested_samplers_are_exported(name, top_level):
+    from blackjax_tpu_torch.ns import nss
+
+    api = getattr(blackjax_tpu_torch, name)
+    assert api.init is nss.init and api.differentiable is getattr(nss, top_level)
+    assert api.build_kernel is (nss.build_kernel if name == "nss" else nss.build_swig_kernel)
+
+
+@pytest.mark.parametrize("module", [
+    "base", "integrator", "adaptive", "from_mcmc", "utils", "nss"])
+def test_ns_modules_are_reachable(module):
+    import blackjax_tpu.ns
+    import blackjax_tpu_torch.ns
+
+    mod = importlib.import_module(f"blackjax_tpu_torch.ns.{module}")
+    ref = importlib.import_module(f"blackjax_tpu.ns.{module}")
+    assert set(getattr(mod, "__all__", [])) == set(getattr(ref, "__all__", []))
+    assert blackjax_tpu_torch.ns.__all__ == blackjax_tpu.ns.__all__
+    if module != "nss":  # nss is not in the reference's ns.__all__ either
+        assert getattr(blackjax_tpu_torch.ns, module) is mod
 
 
 @pytest.mark.parametrize("name, module", [
