@@ -32,6 +32,7 @@ nested slice samplers ``nss``, ``nsswig`` and ``ns_family``;
 ``window_adaptation``,
 ``window_adaptation_low_rank``, ``staged_adaptation``,
 ``mclmc_find_L_and_step_size``, ``dual_averaging_adaptation``,
+``chees_adaptation``,
 ``dual_averaging``, ``diagnostics`` (with ``ess``, ``ess_bulk``,
 ``ess_tail``, ``pareto_khat`` and ``rhat``) and ``util``.
 """
@@ -41,6 +42,7 @@ import importlib
 from typing import Callable
 
 from blackjax_tpu_torch import diagnostics, util
+from blackjax_tpu_torch.adaptation.chees_adaptation import chees_adaptation
 from blackjax_tpu_torch.adaptation.low_rank_adaptation import window_adaptation_low_rank
 from blackjax_tpu_torch.adaptation.mclmc_adaptation import mclmc_find_L_and_step_size
 from blackjax_tpu_torch.adaptation.staged_adaptation import staged_adaptation
@@ -233,6 +235,7 @@ __all__ = [
     "staged_adaptation",
     "mclmc_find_L_and_step_size",
     "dual_averaging_adaptation",
+    "chees_adaptation",
     "dual_averaging",
     "diagnostics",
     "util",

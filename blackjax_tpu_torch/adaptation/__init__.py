@@ -1,4 +1,5 @@
 """Warmup and adaptation engines ported so far."""
+from blackjax_tpu_torch.adaptation import chees_adaptation as chees_adaptation
 from blackjax_tpu_torch.adaptation import low_rank_adaptation as low_rank_adaptation
 from blackjax_tpu_torch.adaptation import mass_matrix as mass_matrix
 from blackjax_tpu_torch.adaptation import mclmc_adaptation as mclmc_adaptation

@@ -13,11 +13,14 @@ states, persistent-sampling states), nested sampling's states and infos
 (``NSState``, ``AdaptiveNSState`` with its integrator and inner-kernel
 parameters, ``NSInfo``), and the states of the MCMC family beyond NUTS (dynamic HMC with
 its carried key, GHMC, Barker, the random walks, elliptical slice, slice,
-periodic orbital and mGrad, with mGrad's ``CovarianceSVD``).
+periodic orbital and mGrad, with mGrad's ``CovarianceSVD``), and the ChEES
+warmup's controller state (with its dual-averaging and optax Adam states)
+and tuned parameters.
 """
 import numpy as np
 import torch
 
+from blackjax_tpu_torch.adaptation.chees_adaptation import ChEESAdaptationState
 from blackjax_tpu_torch.adaptation.mclmc_adaptation import MCLMCAdaptationState
 from blackjax_tpu_torch.adaptation.metric_recipes import LowRankMetricCoreState
 from blackjax_tpu_torch.mcmc.barker import BarkerInfo, BarkerState
@@ -47,6 +50,8 @@ from blackjax_tpu_torch.smc.persistent_sampling import PersistentSMCState
 from blackjax_tpu_torch.smc.tempered import TemperedSMCState
 from blackjax_tpu_torch.ops import fused_nuts_dc, targets_dc
 from blackjax_tpu_torch.ops.fused_hmc import FusedHMCState
+from blackjax_tpu_torch.optimizers.dual_averaging import DualAveragingState
+from blackjax_tpu_torch.optimizers.optax_twins import EmptyState, ScaleByAdamState
 from blackjax_tpu_torch.ops.fused_nuts import make_mxu_safe_hierarchical_target
 from blackjax_tpu_torch.ops.fused_leapfrog import (
     TargetKernel,
@@ -239,6 +244,47 @@ def dynamic_hmc_state(state, *, device=None, dtype=None) -> DynamicHMCState:
     else:
         arg = to_tensor(arg, device=device)
     return DynamicHMCState(*(to_tensor(v, device=device, dtype=dtype) for v in fields), arg)
+
+
+def chees_adaptation_state(state, *, device=None, dtype=None) -> ChEESAdaptationState:
+    """The reference's ``ChEESAdaptationState`` (one step's, fields as
+    arrays) as the port's: the scalars 0-d tensors, the dual-averaging state
+    with its integer ``step``, optax's Adam state ``(ScaleByAdamState(count,
+    mu, nu), EmptyState())`` as the port's twin, and the Halton index and
+    the step counter as Python ints."""
+    def scalar(v):
+        return to_tensor(v, device=device, dtype=dtype)
+
+    adam, _ = state.optim_state
+    return ChEESAdaptationState(
+        scalar(state.step_size),
+        scalar(state.log_step_size_moving_average),
+        scalar(state.trajectory_length),
+        scalar(state.log_trajectory_length_moving_average),
+        DualAveragingState(*(scalar(v) for v in state.da_state)),
+        (ScaleByAdamState(to_tensor(adam.count, device=device), scalar(adam.mu), scalar(adam.nu)),
+         EmptyState()),
+        int(np.asarray(state.random_generator_arg)),
+        int(np.asarray(state.step)),
+    )
+
+
+def chees_parameters(parameters: dict, like: dict, *, device=None, dtype=None) -> dict:
+    """The reference ChEES warmup's ``results.parameters`` as the port's: the
+    step size, the inverse mass matrix and the integration-steps parameters
+    as tensors; the two functions (JAX code, which the port cannot call)
+    taken from ``like``, the port's parameters of a warmup of the same
+    configuration."""
+    return {
+        "step_size": to_tensor(parameters["step_size"], device=device, dtype=dtype),
+        "inverse_mass_matrix": to_tensor(parameters["inverse_mass_matrix"], device=device,
+                                         dtype=dtype),
+        "next_random_arg_fn": like["next_random_arg_fn"],
+        "integration_steps_fn": like["integration_steps_fn"],
+        "integration_steps_params": tuple(
+            to_tensor(v, device=device, dtype=dtype)
+            for v in parameters["integration_steps_params"]),
+    }
 
 
 def sampler_state(state, *, device=None, dtype=None):

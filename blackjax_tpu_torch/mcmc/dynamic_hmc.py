@@ -105,10 +105,15 @@ def build_kernel(
     integration_steps_fn: Callable = _uniform_steps,
     build_proposal: Callable = hmc_proposal,
     max_integration_steps: int = None,
+    integration_unroll: int = 1,
 ):
     """Dynamic-length HMC as a lift of the static HMC kernel.
     ``max_integration_steps`` bounds the masked loop (by default the largest
-    drawn count, read to the host)."""
+    drawn count, read to the host). ``integration_unroll`` is accepted for
+    the reference's signature and has no effect: there it only blocks the
+    trajectory's ``scan`` and changes no bits, and the port's loop is a
+    Python loop."""
+    del integration_unroll
     static_kernel = build_static_hmc_kernel(
         integrator,
         divergence_threshold,

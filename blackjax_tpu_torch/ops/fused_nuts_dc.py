@@ -119,7 +119,7 @@ __all__ = [
 LAUNCHES = {"fused_nuts_dc": 0, "fused_nuts_dc:x_shared": 0, "fused_nuts_dc:x_l2": 0,
             "fused_nuts_dc:x_tiles": 0, "fused_nuts_dc:analytic_resident": 0,
             "fused_nuts_dc:analytic_registers": 0, "fused_nuts_dc:thread": 0,
-            "fused_nuts_dc:registers": 0, "threefry2x32": 0}
+            "fused_nuts_dc:registers": 0, "threefry2x32": 0, "normal": 0}
 
 # the target ids of csrc/fused_nuts_dc.cu and csrc/matrix_targets.cuh
 _CUDA_HIERARCHICAL = 0
@@ -642,6 +642,8 @@ def _bind(lib, kind: str):
     if kind == "diag":
         lib.bjt_threefry2x32.argtypes = [_VP] * 6 + [_INT, _VP]
         lib.bjt_threefry2x32.restype = _INT
+        lib.bjt_normal.argtypes = [_VP] * 3 + [_INT, _INT, _VP]
+        lib.bjt_normal.restype = _INT
     return lib
 
 
@@ -1202,6 +1204,26 @@ def fused_nuts_run_dc_plain(positions, inverse_mass_matrix, step_size, **kwargs)
     pack = kwargs.get("pack", 1)
     x, metric, machine = _prepare(positions, inverse_mass_matrix, **kwargs)
     return _run(_machine_plain, x, metric, float(step_size), machine, pack, tile_chains)
+
+
+def normal_device(t0, t1, dtype):
+    """``jax.random.normal``'s transform of threefry words ``(t0, t1)`` (int64
+    CUDA tensors of one shape, :func:`blackjax_tpu_torch.prng._words`) into
+    float32 or float64 normals: one launch of ``bjt_normal``, the bits of
+    :func:`blackjax_tpu_torch.prng.normal_from_words`, its plain version."""
+    if t0.device.type != "cuda":
+        raise ValueError("normal_device takes CUDA tensors; prng.normal_from_words is the "
+                         "plain version")
+    if dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"normal draws in {dtype} are not ported")
+    w0, w1 = (w.to(torch.int64).contiguous() for w in torch.broadcast_tensors(t0, t1))
+    out = torch.empty(w0.shape, dtype=dtype, device=w0.device)
+    lib = _library("diag")
+    code = lib.bjt_normal(w0.data_ptr(), w1.data_ptr(), out.data_ptr(), out.numel(),
+                          int(dtype == torch.float64), _nvcc.stream_handle(w0.device))
+    _nvcc.check_launch(lib, code, "normal")
+    LAUNCHES["normal"] += 1
+    return out
 
 
 def threefry2x32_device(k0, k1, c0, c1):

@@ -17,8 +17,9 @@ leading axes, one key per chain. The constructions are those of
 - ``bernoulli(key, p)`` is ``uniform(key) < p`` in ``p``'s dtype (JAX takes
   a Python float in its default float dtype: f64 under x64, else f32);
 - ``normal`` is ``sqrt(2) erfinv(u)`` with ``u`` uniform on
-  ``[nextafter(-1, 0), 1)``;
-- ``exponential`` is ``-log1p(-u)`` of a uniform ``u``;
+  ``[nextafter(-1, 0), 1)``, ``erfinv`` XLA's own (:func:`erf_inv`);
+- ``exponential`` is ``-log1p(-u)`` of a uniform ``u``, ``log1p`` XLA's
+  CPU one (:func:`xla_log1p`);
 - ``permutation`` is JAX's sort-based shuffle: ``ceil(3 ln n / ln(2**32 -
   1))`` rounds, each splitting the key into ``(key, subkey)`` and stably
   sorting by the subkey's 32-bit bits;
@@ -29,11 +30,17 @@ leading axes, one key per chain. The constructions are those of
   (summed in XLA's order, :func:`xla_cumsum`) for ``total * (1 - u)``.
 
 So the port draws the numbers the JAX package draws from the same keys, bit
-for bit, except ``normal``, whose ``erfinv`` differs from XLA's in the last
-bits (and ``exponential``, whose ``log1p`` may). On a CUDA tensor each ``threefry2x32`` is one launch of the
-hand-written kernel of ``csrc/fused_nuts_dc.cu`` (a key per element); on a
-CPU tensor it is :func:`blackjax_tpu_torch.ops.counter_rng.threefry2x32`,
-the plain version.
+for bit, but for float64 ``normal`` and ``exponential``, measured over 2**20
+draws of one key against ``jax.random`` compiled at XLA's default level: on
+the CPU float64 ``normal`` differs on 35 draws (by at most 3 ulps), all where
+``log1p`` takes ``log(1 + x)``, whose float64 ``log`` XLA takes from the C
+library and torch from its own vector code; on an NVIDIA H100, where
+``log`` is CUDA's, on 60 (3 ulps). Float32 ``normal`` and ``exponential``
+are XLA's bits on both (``torch.special.erfinv``, which ``normal`` took
+before, differed on 59 % of float32 draws, by up to 91 ulps). On a CUDA
+tensor each ``threefry2x32`` is one launch of the hand-written kernel of
+``csrc/fused_nuts_dc.cu`` (a key per element); on a CPU tensor it is
+:func:`blackjax_tpu_torch.ops.counter_rng.threefry2x32`, the plain version.
 """
 import math
 
@@ -49,6 +56,10 @@ __all__ = [
     "uniform",
     "bernoulli",
     "normal",
+    "normal_from_words",
+    "erf_inv",
+    "xla_log1p",
+    "exact_sqrt",
     "exponential",
     "permutation",
     "permutation_indices",
@@ -178,18 +189,174 @@ def bernoulli(keys: torch.Tensor, p=0.5, dtype=torch.float32, shape=()) -> torch
     return uniform(keys, shape, p.dtype) < p
 
 
+# XLA's erf_inv as its compiled HLO holds it (Giles' single-precision
+# polynomials in w = -log1p(-x * x), split at w = 5; the double-precision ones
+# split at 6.25 and 16), highest coefficient first
+_ERF_INV_F32 = (
+    (5.0, 2.5, (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)),
+    (None, 3.0, (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)),
+)
+_ERF_INV_F64 = (
+    (6.25, 3.125, (
+        -3.64441206401782e-21, -1.6850591381820166e-19, 1.28584807152564e-18,
+        1.1157877678025181e-17, -1.333171662854621e-16, 2.0972767875968562e-17,
+        6.637638134358324e-15, -4.054566272975207e-14, -8.151934197605472e-14,
+        2.6335093153082323e-12, -1.2975133253453532e-11, -5.415412054294628e-11,
+        1.0512122733215323e-09, -4.112633980346984e-09, -2.9070369957882005e-08,
+        4.2347877827932404e-07, -1.3654692000834679e-06, -1.3882523362786469e-05,
+        0.00018673420803405714, -0.000740702534166267, -0.006033670871430149,
+        0.24015818242558962, 1.6536545626831027)),
+    (16.0, 3.25, (
+        2.2137376921775787e-09, 9.075656193888539e-08, -2.7517406297064545e-07,
+        1.8239629214389228e-08, 1.5027403968909828e-06, -4.013867526981546e-06,
+        2.9234449089955446e-06, 1.2475304481671779e-05, -4.7318229009055734e-05,
+        6.828485145957318e-05, 2.4031110387097894e-05, -0.0003550375203628475,
+        0.0009532893797373805, -0.0016882755560235047, 0.002491442096107851,
+        -0.003751208507569241, 0.005370914553590064, 1.0052589676941592,
+        3.0838856104922208)),
+    (None, 5.0, (
+        -2.7109920616438573e-11, -2.555641816996525e-10, 1.5076572693500548e-09,
+        -3.789465440126737e-09, 7.61570120807834e-09, -1.496002662714924e-08,
+        2.914795345090108e-08, -6.771199775845234e-08, 2.2900482228026655e-07,
+        -9.9298272942317e-07, 4.526062597223154e-06, -1.968177810553167e-05,
+        7.599527703001776e-05, -0.00021503011930044477, -0.00013871931833623122,
+        1.0103004648645344, 4.849906401408584)),
+)
+# XLA's CPU log1p: below |x| = sqrt(2) - 1 Cephes' rational approximation
+# (numerator and denominator, highest coefficient first), else log(1 + x);
+# in float32 the log is XLA's own polynomial (Cephes' logf)
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_NUM = (4.5270000862445199635e-5, 4.9854102823193375972e-1, 6.5787325942061044846e0,
+              2.9911919328553073277e1, 6.0949667980987787057e1, 5.7112963590585538103e1,
+              2.0039553499201281259e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192598e1, 8.3047565967967209469e1, 2.2176239823732856465e2,
+              3.0909872225312059774e2, 2.1642788614495947685e2, 6.0118660497603843919e1)
+_LOGF = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+         1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+         3.3333331174e-1)
+
+
+_CONSTANTS = {}
+
+
+def _const(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype and device, made once."""
+    key = (value, like.dtype, like.device)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.tensor(value, dtype=like.dtype, device=like.device)
+    return _CONSTANTS[key]
+
+
+def _fma(a, b, c):
+    """``a * b + c`` rounded once, as XLA contracts a multiply feeding an add
+    (``torch.addcmul`` is fused on the CPU and on the card); ``b`` and ``c``
+    may be numbers."""
+    b = b if torch.is_tensor(b) else _const(b, a)
+    return torch.addcmul(c if torch.is_tensor(c) else _const(c, a), a, b)
+
+
+def _horner(coefficients, t):
+    p = _fma(t, coefficients[0], coefficients[1])
+    for c in coefficients[2:]:
+        p = _fma(p, t, c)
+    return p
+
+
+def _logf(y):
+    """XLA's float32 ``log`` of positive ``y``: ``y = m 2**e`` with ``m`` in
+    ``[sqrt(1/2), sqrt(2))``, a degree-9 polynomial in ``m - 1`` and ``e``
+    split as ``0.693359375 - 2.12194440e-4``; 0 gives -inf, +inf itself."""
+    bits = torch.clamp(y, min=2.0**-126).view(torch.int32)
+    e = ((bits >> 23) - 127).to(y.dtype) + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    low = m < 0.707106769
+    e = e - low.to(y.dtype)
+    x = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    z = x * x
+    z3 = z * x
+    a, b, c = (_fma(_fma(x, _LOGF[i], _LOGF[i + 1]), x, _LOGF[i + 2]) for i in (0, 3, 6))
+    r = _fma(_fma(_fma(a, z3, b), z3, c), z3, e * -2.12194440e-4)
+    out = _fma(e, 0.693359375, _fma(-z, 0.5, x) + r)
+    out = torch.where(y <= 0, torch.full_like(y, math.nan), out)
+    out = torch.where(y == 0, torch.full_like(y, -math.inf), out)
+    return torch.where(y == math.inf, y, out)
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """``log1p`` as XLA computes it on the CPU (float32 bit for bit; in
+    float64 the ``log(1 + x)`` branch is torch's ``log``)."""
+    x2 = x * x
+    num = _horner(_LOG1P_NUM, x)
+    den = _horner(_LOG1P_DEN, x)
+    small = x + _fma(x2, -0.5, (x * x2) * (num / den))
+    large = _logf(x + 1.0) if x.dtype == torch.float32 else torch.log(x + 1.0)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, large)
+
+
+def exact_sqrt(w: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root (torch's vector ``sqrt`` on the CPU
+    is not): float32 through float64, float64 corrected to the neighbour
+    whose square is nearest ``w``."""
+    if w.dtype == torch.float32:
+        return torch.sqrt(w.double()).float()
+    s = torch.sqrt(w)
+    best, gap = s, _fma(-s, s, w).abs()
+    for t in (torch.nextafter(s, torch.zeros_like(s)), torch.nextafter(s, w + 1.0)):
+        g = _fma(-t, t, w).abs()
+        best, gap = torch.where(g < gap, t, best), torch.minimum(g, gap)
+    return best
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.erf_inv`` of float32 or float64 ``x`` in ``[-1, 1]``, in the
+    order XLA's compiled kernel evaluates it: ``w = -log1p(-x * x)``, a
+    polynomial in ``w - 2.5`` (``w - 3.125``) or ``sqrt(w) - 3`` (``- 3.25``,
+    ``- 5``) chosen by ``w``, by fused multiply-adds; ``x * inf`` at ``|x| =
+    1``."""
+    branches = {torch.float32: _ERF_INV_F32, torch.float64: _ERF_INV_F64}.get(x.dtype)
+    if branches is None:
+        raise NotImplementedError(f"erf_inv in {x.dtype} is not ported")
+    w = -xla_log1p(-x * x)
+    root = exact_sqrt(w)
+    p = None
+    for i, (below, shift, coefficients) in reversed(list(enumerate(branches))):
+        value = _horner(coefficients, (w if i == 0 else root) - shift)
+        p = value if p is None else torch.where(w < below, value, p)
+    return torch.where(x.abs() == 1, x * math.inf, p * x)
+
+
 def normal(keys: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
-    """``jax.random.normal``: ``sqrt(2) erfinv(u)``, ``u`` uniform on
-    ``[nextafter(-1, 0), 1)``; ``keys.shape[:-1] + shape``."""
+    """``jax.random.normal``: ``sqrt(2) erf_inv(u)``, ``u`` uniform on
+    ``[nextafter(-1, 0), 1)``; ``keys.shape[:-1] + shape``. On CUDA tensors
+    the transform of the threefry words is one launch of the hand-written
+    kernel of ``csrc/fused_nuts_dc.cu``; :func:`normal_from_words` is its
+    plain version."""
+    words = _words(keys, shape)
+    if keys.device.type == "cuda":
+        from blackjax_tpu_torch.ops.fused_nuts_dc import normal_device
+
+        return normal_device(*words, dtype)
+    return normal_from_words(*words, dtype)
+
+
+def normal_from_words(t0: torch.Tensor, t1: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal`` of the threefry words ``(t0, t1)`` of its
+    elements (:func:`_words`): the uniform on ``[nextafter(-1, 0), 1)`` from
+    the words, then ``sqrt(2) erf_inv(u)``."""
     lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype), torch.tensor(0.0, dtype=dtype))
-    u = uniform(keys, shape, dtype, float(lo), 1.0)
-    return torch.tensor(math.sqrt(2), dtype=dtype, device=keys.device) * torch.special.erfinv(u)
+    floats = _unit(t0, t1, dtype)
+    lo, hi = (torch.tensor(v, dtype=dtype, device=floats.device) for v in (float(lo), 1.0))
+    # XLA contracts floats * (hi - lo) + lo into one fused multiply-add
+    u = torch.maximum(lo, torch.addcmul(lo, floats, hi - lo))
+    return torch.tensor(math.sqrt(2), dtype=dtype, device=u.device) * erf_inv(u)
 
 
 def exponential(keys: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     """``jax.random.exponential``: ``-log1p(-u)``, ``u`` uniform on ``[0, 1)``;
     ``keys.shape[:-1] + shape``."""
-    return -torch.log1p(-uniform(keys, shape, dtype))
+    return -xla_log1p(-uniform(keys, shape, dtype))
 
 
 def permutation(key: torch.Tensor, x) -> torch.Tensor:

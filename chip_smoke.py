@@ -5,7 +5,7 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's fourteen main paths once, five at the flagship's full
+It drives the port's fifteen main paths once, five at the flagship's full
 width (the 100-dim hierarchical posterior, 4,096 chains), one at the
 Finnish horseshoe's (N=100, M=200, d=404, 512 chains), three at the
 covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
@@ -16,7 +16,8 @@ persistent sampling, pretuning and nested slice sampling (16,384 particles
 or live points), one at the tracked static-HMC
 configuration's (d=100, 128 chains) under the MCMC family beyond NUTS and
 one at the tracked SG-MCMC configurations' (SGLD on the covertype-class
-logistic regression, one chain and 4,096 chains), and reads the card's
+logistic regression, one chain and 4,096 chains), one at the tracked
+cross-chain configuration's (ChEES, d=100, 4,096 chains), and reads the card's
 FP32 roofline through which their bounds are read, and checks them in
 phases, one line each:
 
@@ -53,7 +54,11 @@ phases, one line each:
    (the draws of ``blackjax_tpu_torch.prng``) on 1,048,576 keys, with both
    times; and the MCLMC kernel's counter normals (4,096 chains x 100 dims):
    the threefry words bit for bit, the normals to 1e-6 (``logf`` and
-   ``cosf`` may differ from torch by an ulp);
+   ``cosf`` may differ from torch by an ulp); then the normal kernel
+   (``prng.normal``'s transform of the threefry words, ``bjt_normal``) on
+   1,048,576 words in float32 and float64: bit for bit its plain version on
+   the card, float32 bit for bit the port on the CPU (float64 takes CUDA's
+   ``log``: the count of draws apart is printed), with both times;
 3. the dc NUTS machine against its plain PyTorch version on the card at
    d=100, 4,096 chains, 16 transitions: identical step counts, the share of
    chains that agree to 1e-5 above the CPU test's floor, pooled moments, and
@@ -193,9 +198,9 @@ phases, one line each:
    diagonal kernel;
 12. the continuous-runner path, launch counts reset just before it:
    ``mcmc.nuts.build_fused_many_steps`` on phase 4's step size and metric,
-   4,096 chains from phase 4's final positions, 64 transitions (cut from the
+   4,096 chains from phase 4's final positions, 32 transitions (cut from the
    bench's 256: the runner reads its loop condition on the host once per
-   block) at ``unroll=4``, 8 tracked coordinates, keys ``(64, 4096, 2)``
+   block) at ``unroll=4``, 8 tracked coordinates, keys ``(32, 4096, 2)``
    split as ``bench.py:230-232`` splits them; seconds, loop iterations (one
    leaf each), ms per iteration (and at ``unroll=1`` over 8 transitions),
    leaves per transition, grads/s, min-ESS and ESS/s. Every chain must
@@ -361,6 +366,34 @@ phases, one line each:
    ``num_expansions`` identical, particles within 1e-9. Then the threefry
    export at the path's launch sizes (1,024 to 163,840 keys) by CUDA events,
    bit for bit its plain version, with each size's bound by bytes.
+20. the tracked cross-chain ChEES configuration (``benchmarks/tracked.py:
+   744-788``): ``chees_adaptation`` on ``ill_conditioned_gaussian(100)``, 4,096
+   chains from ``normal(key(19), (4096, 100))``, step size 0.05, the optax twin
+   ``adam(0.25)``, 1,000 steps and the defaults, f32, threefry launch counts
+   reset just before the timed run on ``split(key(19), 4)[0]`` (after a warm
+   run of 20 steps). Its line gives the seconds by host clock and by CUDA
+   events, host ms a step, the leapfrog gradients (the sum of
+   ``info.info.num_integration_steps``) and leapfrog-grads/sec, threefry
+   launches a step, the final step size, integration-steps parameter,
+   trajectory length and the last step's harmonic-mean acceptance, and the
+   busy share over an 8-step run; the step size and the parameter must lie
+   within three times the spread of the JAX package's values over the four
+   keys (or 5 %, ``tools/chees_reference.py``), the final ensemble's
+   variances within [0.85, 1.15] of the target's and its means within 0.1
+   sd of 0, every tensor on the card and finite. Then
+   ``mass_matrix_estimation="diagonal"`` with ``_length_floor=True`` at
+   4,096 x 200 steps (cut from 1,000): the adapted inverse mass matrix within
+   [0.8, 1.25] of the variances, and the returned length between ChEES's own
+   floored at ``(pi/2) sqrt`` of the smallest and of the largest eigenvalue of
+   the window's covariance whitened by that matrix (recomputed here from the
+   run's positions, by ``eigvalsh``; the port's power iteration returns a
+   Rayleigh quotient between the two). Then both settings in f64 at 256
+   chains x 33 steps on the card and on the CPU on key 20 (the window opens
+   at step 16, so the floor's in-loop eigen refresh runs at step 32): step
+   counts identical, every step's controller state, every chain's positions
+   and the returned parameters (the integration-steps parameter among them)
+   within 1e-9; the floored run's step counts must differ from an unfloored
+   run's on the CPU, so the floor bound on some step of the hold.
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
@@ -370,7 +403,9 @@ like-for-like times), one per new (kernel, target) pair (phase 9's and
 regression comparison), one for the older machine (phase 13's 512 x 16 times; eight schools'
 launches are phase 15's)
 and one for the threefry kernel with a key per element (phase 2's times on
-1,048,576 keys; its launches are phases 12's and 16-19's), and one
+1,048,576 keys; its launches are phases 12's and 16-20's), one for the
+normal kernel (phase 2's float32 times; its launches are phases 12's and
+16-20's), and one
 for the VPU-peak kernel (its unfused ``fma`` at N = 4 and 32 warps an SM,
 4,096 iterations; its launches are phase 1's sweep). ``launches`` is the count from the
 main path's run, or, for a pair that no main path drives, from the pair's checked
@@ -439,7 +474,8 @@ VP_ENTRY_ITERS = 4096  # the kernels line's call: unfused fma, N = 4, 32 warps a
 TF_KEYS = 1 << 20  # phase 2's per-element-key threefry check
 # phase 12: the continuous runner, cut from the bench's 256 transitions
 # because it reads its loop condition on the host once per block of leaves
-RUNNER_TRANSITIONS, RUNNER_UNROLL = 64, 4
+# (32 since phase 20 took the time of the other 32: it reports ms a loop iteration)
+RUNNER_TRANSITIONS, RUNNER_UNROLL = 32, 4
 RUNNER_CMP_CHAINS, RUNNER_CMP_TRANSITIONS = 256, 8  # its bit-identity check
 RUNNER_TOL = 1e-4  # tests/mcmc/test_nuts.py:327, the reference's f32 tolerance
 LEAVES_REL = 0.1  # leaves per transition against the dc machine's
@@ -522,6 +558,29 @@ PARTICLE_GATES = {  # (log Z, means)
 # nested samplers deleting 128 a step, the configuration's 1/8), 3 steps each
 P19_CMP_N, P19_CMP_STEPS, NS_CMP_DELETE = 1024, 3, 128
 TF_PATH_KEYS = (1024, 2048, 16384, 163840)  # phase 19's threefry launch sizes, timed
+PRNG_KERNELS = ("threefry2x32", "normal")  # the kernels under prng's draws
+# phase 20: the tracked cross-chain ChEES configuration (benchmarks/tracked.py:
+# 744-788, config_cross_chain): ill_conditioned_gaussian(100), 4,096 chains
+# from normal(key(19), (4096, 100)), step size 0.05, adam(0.25), 1,000 steps and
+# the defaults, f32; timed on split(key(19), 4)[0] after a warm run of 20 steps
+CHEES_CHAINS, CHEES_D, CHEES_STEPS, CHEES_WARM_STEPS = 4096, 100, 1000, 20
+CHEES_STEP_SIZE, CHEES_LR, CHEES_SEED = 0.05, 0.25, 19
+# the final step size and integration-steps parameter: (the JAX package's
+# mean over the four keys of split(key(19), 4), half width three times their
+# spread or 5 % of the mean), python tools/chees_reference.py (f32, CPU)
+CHEES_REFERENCE = {
+    "step_size": (0.29964111000299454, 0.014982055500149728),
+    "integration_steps_params": (19.12667179107666, 0.9563335895538331),
+}
+CHEES_VAR_BAND, CHEES_MEAN_SD = (0.85, 1.15), 0.1  # the final ensemble against the target
+# the diagonal metric with the length floor, cut from 1,000 steps to 200; its
+# adapted inverse mass matrix against the target's variances
+CHEES_DIAG_STEPS, CHEES_IMM_BAND = 200, (0.8, 1.25)
+CHEES_BUSY_STEPS = 8  # the busy share: a run of 8 steps under the profiler
+# the f64 hold, the card against the CPU: 256 chains x 33 steps at d = 100, key
+# 20; the window opens at step 16, so the length floor's in-loop eigen refresh
+# (every 32 steps once the metric is engaged) runs at step 32
+CHEES_CMP_CHAINS, CHEES_CMP_STEPS, CHEES_CMP_TOL = 256, 33, 1e-9
 # phase 17: the MCMC family beyond NUTS on the tracked static-HMC configuration
 # (benchmarks/tracked.py:112-163): ill_conditioned_gaussian(100), 128 chains from
 # 0.5 N(0, I) of numpy seed 7, step size 0.08, 10 integration steps, unit inverse
@@ -636,10 +695,11 @@ SG_REFERENCE = {
 # reference's, every coordinate; config_sgld_chains' mean over the chains within
 # 0.25 standard errors (sd / sqrt(4,096)) of the reference's. The same keys
 # drive the same noise and minibatches, so the port's paths follow the
-# reference's up to rounding and the dataset's last bits (torch's f32 erfinv):
-# on a CPU the port came within 7.4e-6 sd (20,000 steps) and 0.0023 standard
-# errors (4,096 chains x 2,000 steps), on an NVIDIA H100 80GB HBM3 at 700.00 W
-# under 5e-5 sd and within 0.0016 standard errors (20,000 steps). Other minibatches (int64 indices, which draw
+# reference's up to rounding (and, while the port's f32 normals took torch's
+# erfinv, the dataset's last bits): then on a CPU the port came within 7.4e-6
+# sd (20,000 steps) and 0.0023 standard errors (4,096 chains x 2,000 steps),
+# on an NVIDIA H100 80GB HBM3 at 700.00 W under 5e-5 sd and within 0.0016
+# standard errors (20,000 steps). Other minibatches (int64 indices, which draw
 # other numbers from the same keys) moved the single chain 0.38 sd
 SG_SINGLE_BAND, SG_CHAINS_BAND = 0.05, 0.25
 SG_BUSY_STEPS = 64  # the steps of each configuration's busy-share run
@@ -884,6 +944,17 @@ THREEFRY_BYTES = 6 * 4
 # normal is 46 FP32 operations, 6 on the special-function pipe (MUFU and
 # conversions) and 12.6 integer ones beside its block's THREEFRY_OPS.
 BOX_MULLER_OPS = {"fp32": 46.0, "sfu": 6.0, "int32": 82.625 - THREEFRY_OPS}
+# The normal kernel (prng.normal's transform of the threefry words), per
+# float32 element, counted from its source: the uniform (4), -x*x (1), log1p's
+# rational branch (two 6-term Horner chains, 12 fused multiply-adds, and 5
+# more), its log branch (logf: 21, and 3 checks), the select, the erf_inv
+# polynomial of one branch (9), the rest (5); the division and the square
+# root, correctly rounded, 4 FP32 operations and a special-function one each;
+# 8 integer operations (the words into the mantissa, logf's exponent split).
+# It must move two 32-bit words in (the export carries them as int64) and one
+# float32 out.
+NORMAL_OPS = {"fp32": 70.0, "sfu": 2.0, "int32": 8.0}
+NORMAL_BYTES = 3 * 4
 
 
 def _mclmc_bound(peaks, chains, steps, d, tracked, box_muller=False):
@@ -1707,7 +1778,7 @@ def smc_path(torch, dev, smi):
           f"the CPU take {len(card_steps)} steps each, ancestors identical at every step, "
           f"largest lambda difference {lam_err:.3g} (tolerance 1e-10), largest particle "
           f"difference {x_err:.3g} (tolerance {SMC_CMP_TOL}); launches {launches16} ({smi})")
-    return launches16["threefry2x32"]
+    return {name: launches16[name] for name in PRNG_KERNELS}
 
 
 def family_algorithms(bj, asarray, normal, d):
@@ -1847,12 +1918,12 @@ def family_path(torch, dev, smi):
     init_keys = prng.split(prng.key(9, dev), FAM_CHAINS)
     for name in dc.LAUNCHES:
         dc.LAUNCHES[name] = 0
-    threefry17 = 0
+    path17 = dict.fromkeys(PRNG_KERNELS, 0)  # the runs' launches, not the busy runs'
     for name, (algo, keyed_init) in algorithms.items():
         n = FAM_TRANSITIONS[name]
         start = x0.double() if name in FAM_F64 else x0
         state0 = algo.init(start, init_keys) if keyed_init else algo.init(start)
-        before = dc.LAUNCHES["threefry2x32"]
+        before = {k: dc.LAUNCHES[k] for k in PRNG_KERNELS}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stats, state, info = [], state0, None
@@ -1863,8 +1934,9 @@ def family_path(torch, dev, smi):
                 stats.append(stat)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = dc.LAUNCHES["threefry2x32"] - before
-        threefry17 += launches
+        for k in PRNG_KERNELS:
+            path17[k] += dc.LAUNCHES[k] - before[k]
+        launches = dc.LAUNCHES["threefry2x32"] - before["threefry2x32"]
         card, finite = _on_card(torch, tuple(state) + tuple(info))
         _require(card, f"phase 17 {name}: a state or info tensor is not on the card")
         _require(finite, f"phase 17 {name}: non-finite values")
@@ -1988,9 +2060,10 @@ def family_path(torch, dev, smi):
           f"{', '.join(f'{n} {k}' for n, k in FAM_CMP_SHORT.items())}), the card against "
           f"the port on the CPU: accept flags, drawn step counts, subiter and the slice counts "
           f"identical, largest position difference {worst:.3g} (tolerance {FAM_CMP_TOL}); "
-          f"threefry launches on the path {threefry17}, transition kernel launches "
-          f"{transition_launches} ({smi})")
-    return threefry17, transition_launches
+          f"threefry launches on the path {path17['threefry2x32']}, normal launches "
+          f"{path17['normal']}, "
+          f"transition kernel launches {transition_launches} ({smi})")
+    return path17, transition_launches
 
 
 def sgld_model(torch):
@@ -2090,10 +2163,10 @@ def sgmcmc_path(torch, dev, smi):
     _require(X.is_cuda and y.is_cuda, "phase 18: the dataset is not on the card")
     for name in dc.LAUNCHES:
         dc.LAUNCHES[name] = 0
-    lines, threefry18 = [], 0
+    lines, path18 = [], dict.fromkeys(PRNG_KERNELS, 0)
     for label, steps, chains in (("config_sgld", SG_STEPS, 1),
                                  ("config_sgld_chains", SG_CHAINS_STEPS, SG_CHAINS)):
-        before = dc.LAUNCHES["threefry2x32"]
+        before = {k: dc.LAUNCHES[k] for k in PRNG_KERNELS}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if chains == 1:
@@ -2103,8 +2176,9 @@ def sgmcmc_path(torch, dev, smi):
                                       SG_CHAINS_BATCH)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = dc.LAUNCHES["threefry2x32"] - before
-        threefry18 += launches
+        for k in PRNG_KERNELS:
+            path18[k] += dc.LAUNCHES[k] - before[k]
+        launches = dc.LAUNCHES["threefry2x32"] - before["threefry2x32"]
         _require(w.is_cuda and bool(torch.isfinite(w).all()),
                  f"phase 18 {label}: the positions are off the card or not finite")
         _require(launches > 0, f"phase 18 {label}: no threefry launch")
@@ -2169,8 +2243,9 @@ def sgmcmc_path(torch, dev, smi):
           f"{SG_CMP_CHAINS} chains x {SG_CMP_STEPS} steps, batch {SG_CMP_BATCH}, the card "
           f"against the port on the CPU: minibatch indices identical, largest position "
           f"difference " + ", ".join(f"{n} {e:.3g}" for n, e in worst.items())
-          + f" (tolerance {SG_CMP_TOL}); threefry launches on the two runs {threefry18} ({smi})")
-    return threefry18
+          + f" (tolerance {SG_CMP_TOL}); threefry launches on the two runs "
+          f"{path18['threefry2x32']}, normal launches {path18['normal']} ({smi})")
+    return path18
 
 
 def _ps_summary(steps):
@@ -2264,30 +2339,22 @@ def particle_holds(torch, dev):
                  f"and log Z within {errs[0]:.3g} (tolerance 1e-10), particles {errs[1]:.3g}")
 
     # pretuning's random walk draws float32 normals, also in an f64 run (as
-    # the reference does), and torch's float32 erfinv on the card is not the
-    # CPU's to the last bit: the card's draw is held to float32 rounding here,
-    # and the f64 hold gives both runs the CPU's draw
+    # the reference does): the card's draw is held to the CPU's bit for bit,
+    # and the f64 hold gives each run its own draw
     from blackjax_tpu_torch.smc import pretuning
 
-    own_noise = pretuning.generate_gaussian_noise
     probe = torch.linspace(0.01, 1.0, P19_CMP_N)
-    noise_card = own_noise(prng.key(5, dev), probe.to(dev), sigma=PRETUNE_SIGMA).cpu()
-    noise_cpu = own_noise(prng.key(5), probe, sigma=PRETUNE_SIGMA)
-    noise_rel = float(((noise_card - noise_cpu).abs() / noise_cpu.abs()).max())
-    _require(noise_rel <= 4 * 2.0**-23,
-             f"phase 19 pretuning: the card's float32 noise {noise_rel} from the CPU's")
-
-    def cpu_noise(key, position, mu=0.0, sigma=1.0):
-        sigma = sigma.cpu() if torch.is_tensor(sigma) else sigma
-        return own_noise(key.cpu(), position.cpu(), mu, sigma).to(position.device)
+    noise_card = pretuning.generate_gaussian_noise(prng.key(5, dev), probe.to(dev),
+                                                   sigma=PRETUNE_SIGMA).cpu()
+    noise_cpu = pretuning.generate_gaussian_noise(prng.key(5), probe, sigma=PRETUNE_SIGMA)
+    noise_differ = int((noise_card != noise_cpu).sum())
+    _require(noise_differ == 0,
+             f"phase 19 pretuning: {noise_differ} of the card's float32 noise draws differ "
+             f"from the CPU's")
 
     schedule = np.linspace(*PRETUNE_SCHEDULE)[:P19_CMP_STEPS]
-    pretuning.generate_gaussian_noise = cpu_noise
-    try:
-        card = pretune_run(torch, xc.to(dev), prng.key(18, dev),
-                           [torch.tensor(v, dtype=torch.float64, device=dev) for v in schedule])
-    finally:
-        pretuning.generate_gaussian_noise = own_noise
+    card = pretune_run(torch, xc.to(dev), prng.key(18, dev),
+                       [torch.tensor(v, dtype=torch.float64, device=dev) for v in schedule])
     cpu = pretune_run(torch, xc, prng.key(18),
                       [torch.tensor(v, dtype=torch.float64) for v in schedule])
     sizes = parts = 0.0
@@ -2299,9 +2366,9 @@ def particle_holds(torch, dev):
         parts = max(parts, diff(a.sampler_state.particles, b.sampler_state.particles))
     _require(sizes <= SMC_CMP_TOL and parts <= SMC_CMP_TOL,
              f"phase 19 f64 pretuning: step sizes {sizes}, particles {parts}")
-    words.append(f"pretuning (its float32 noise drawn on the CPU for both; the card's own "
-                 f"draw within {noise_rel:.3g} relative of the CPU's): ancestors identical, step "
-                 f"sizes within {sizes:.3g}, particles {parts:.3g}")
+    words.append(f"pretuning (the card's float32 noise the CPU's bit for bit on "
+                 f"{P19_CMP_N} draws): ancestors identical, step sizes within {sizes:.3g}, "
+                 f"particles {parts:.3g}")
 
     from blackjax_tpu_torch.ns import base
 
@@ -2484,11 +2551,223 @@ def particle_path(torch, dev, peaks, smi):
           f"plain version; the kernel's device time by torch.profiler over 50 launches, a call's "
           f"time by CUDA events over 50 back-to-back calls that keep their outputs (paced by the "
           f"wrapper's host work and the allocator between launches, not by the kernel): {'; '.join(times)}; launches on the path "
-          f"{launches19['threefry2x32']} ({smi})")
+          f"{launches19['threefry2x32']}, normal launches {launches19['normal']} ({smi})")
     parts["threefry timings"] = time.perf_counter() - t_part
     print("phase 19 host seconds by part: "
           + ", ".join(f"{name} {secs:.1f}" for name, secs in parts.items()))
-    return launches19["threefry2x32"]
+    return {name: launches19[name] for name in PRNG_KERNELS}
+
+
+def chees_run(torch, positions, key, num_steps, **options):
+    """The tracked cross-chain configuration's warmup from ``positions`` on
+    ``key`` (key words): ``chees_adaptation(ill_conditioned_gaussian(d)
+    .logdensity_fn, num_chains, **options).run(key, positions, 0.05,
+    adam(0.25), num_steps)``."""
+    from blackjax_tpu_torch import chees_adaptation
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+    from blackjax_tpu_torch.optimizers import optax_twins
+
+    target = ill_conditioned_gaussian(positions.shape[1])
+    warmup = chees_adaptation(target.logdensity_fn, positions.shape[0], **options)
+    return warmup.run(key, positions, CHEES_STEP_SIZE, optax_twins.adam(CHEES_LR), num_steps)
+
+
+def _harmonic_acceptance(info, step=-1):
+    """The harmonic mean of a step's acceptance rates over the chains that
+    did not diverge, as the controller reads them."""
+    keep = ~info.info.is_divergent[step]
+    rates = info.info.acceptance_rate[step].double()[keep]
+    return float(rates.numel() / (1.0 / rates).sum())
+
+
+def chees_holds(torch, dev):
+    """Phase 20's f64 hold: both settings at CHEES_CMP_CHAINS x
+    CHEES_CMP_STEPS on the card and on the CPU, key 20. Returns a line's
+    words for each."""
+    from blackjax_tpu_torch import prng
+
+    x = torch.from_numpy(np.random.default_rng(20).standard_normal(
+        (CHEES_CMP_CHAINS, CHEES_D)))
+    words = []
+    diagonal = {"mass_matrix_estimation": "diagonal"}
+    for label, options in (("default", {}),
+                           ("diagonal with the floor", {**diagonal, "_length_floor": True})):
+        (card_s, card_p), card_i = chees_run(torch, x.to(dev), prng.key(20, dev),
+                                             CHEES_CMP_STEPS, **options)
+        (cpu_s, cpu_p), cpu_i = chees_run(torch, x, prng.key(20), CHEES_CMP_STEPS, **options)
+        _require(torch.equal(card_i.info.num_integration_steps.cpu(),
+                             cpu_i.info.num_integration_steps),
+                 f"phase 20 f64 {label}: step counts differ between the card and the CPU")
+        ctl = max(float(((getattr(card_i.adaptation_state, f).cpu()
+                          - getattr(cpu_i.adaptation_state, f)).abs()
+                         / getattr(cpu_i.adaptation_state, f).abs()).max())
+                  for f in ("step_size", "trajectory_length", "log_step_size_moving_average",
+                            "log_trajectory_length_moving_average"))
+        pos = max(float((card_i.state.position.cpu() - cpu_i.state.position).abs().max()),
+                  float((card_s.position.cpu() - cpu_s.position).abs().max()))
+        par = max(float((card_p[k].cpu() - cpu_p[k]).abs().max())
+                  for k in ("step_size", "inverse_mass_matrix"))
+        par = max(par, float((card_p["integration_steps_params"][0].cpu()
+                              - cpu_p["integration_steps_params"][0]).abs()))
+        _require(ctl <= CHEES_CMP_TOL and pos <= CHEES_CMP_TOL and par <= CHEES_CMP_TOL,
+                 f"phase 20 f64 {label}: controller {ctl}, positions {pos}, parameters {par}")
+        floor_words = ""
+        if options.get("_length_floor"):
+            # the same run without the floor: the hold covers the floor only
+            # if it changed some step's drawn counts
+            (_, free_p), free_i = chees_run(torch, x, prng.key(20), CHEES_CMP_STEPS, **diagonal)
+            bound = (cpu_i.info.num_integration_steps
+                     != free_i.info.num_integration_steps).any(dim=1)
+            _require(bool(bound.any()), "phase 20 f64: the floor bound on no step of the hold")
+            floor_words = (f"; the floor changed the drawn counts of steps "
+                           f"{torch.nonzero(bound).flatten().tolist()} (against an unfloored "
+                           f"run), the returned parameter {float(cpu_p['integration_steps_params'][0]):.6f} "
+                           f"(unfloored {float(free_p['integration_steps_params'][0]):.6f})")
+        words.append(f"{label}: step counts identical, the controller within {ctl:.3g} "
+                     f"(relative), every chain's positions at every step within {pos:.3g}, the "
+                     f"parameters (integration_steps_params among them) within {par:.3g}"
+                     + floor_words)
+    return words
+
+
+def chees_path(torch, dev, smi):
+    """Phase 20: the tracked cross-chain ChEES configuration at full size on
+    the card, its gates, the diagonal run with the floor and the f64 hold
+    (see the head of this file). Returns the threefry and normal launches of
+    the timed run."""
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+
+    target = ill_conditioned_gaussian(CHEES_D)
+    variances = torch.tensor(target.std, dtype=torch.float64) ** 2
+    positions = prng.normal(prng.key(CHEES_SEED, dev), (CHEES_CHAINS, CHEES_D), torch.float32)
+    keys = prng.split(prng.key(CHEES_SEED, dev), 4)
+    parts = {}
+    t_part = time.perf_counter()
+    chees_run(torch, positions, keys[1], CHEES_WARM_STEPS)  # warm: kernels, the allocator
+    parts["warm run"] = time.perf_counter() - t_part
+    for name in dc.LAUNCHES:
+        dc.LAUNCHES[name] = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    (states, params), info = chees_run(torch, positions, keys[0], CHEES_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches20 = {name: dc.LAUNCHES[name] for name in PRNG_KERNELS}
+    parts["timed run"] = secs
+    _require(launches20["threefry2x32"] > 0 and launches20["normal"] > 0,
+             f"phase 20: the ChEES run launched no threefry or normal kernel: {launches20}")
+    t_part = time.perf_counter()
+    card, finite = _on_card(torch, (states, info, params["step_size"],
+                                    params["inverse_mass_matrix"],
+                                    *params["integration_steps_params"]))
+    _require(card, "phase 20: a state or info tensor is not on the card")
+    _require(finite, "phase 20: non-finite values")
+    grads = int(info.info.num_integration_steps.sum())
+    step_size = float(params["step_size"])
+    steps_param = float(params["integration_steps_params"][0])
+    for name, value in (("step_size", step_size), ("integration_steps_params", steps_param)):
+        mean, half = CHEES_REFERENCE[name]
+        _require(abs(value - mean) <= half,
+                 f"phase 20: the final {name} {value} outside {mean} +- {half}")
+    x = states.position.double()
+    ratio = (x.var(0) / variances.to(dev)).cpu().numpy()
+    mean_sd = float((x.mean(0).abs() / variances.to(dev).sqrt()).max())
+    _require(bool(((ratio >= CHEES_VAR_BAND[0]) & (ratio <= CHEES_VAR_BAND[1])).all()),
+             f"phase 20: variance / target's {ratio.min()}-{ratio.max()} outside {CHEES_VAR_BAND}")
+    _require(mean_sd <= CHEES_MEAN_SD, f"phase 20: a mean {mean_sd} sd from 0")
+    accept = _harmonic_acceptance(info)
+    del states, info
+    torch.cuda.empty_cache()
+    parts["gates"] = time.perf_counter() - t_part
+
+    t_part = time.perf_counter()
+    busy = _device_busy(torch, lambda: chees_run(
+        torch, positions, keys[0], CHEES_BUSY_STEPS,
+        adaptation_info_fn=get_filter_adapt_info_fn()))
+    parts["busy-share run"] = time.perf_counter() - t_part
+    busy_words = "not measured (no device record)" if busy is None else (
+        f"{busy[0]:.3f} ms of device records ({busy[1]}) in {busy[2]:.3f} ms: busy "
+        f"{busy[0] / busy[2]:.4f}")
+    ref = CHEES_REFERENCE
+    print(f"phase 20 chees_adaptation (benchmarks/tracked.py:744-788): ill_conditioned_gaussian"
+          f"({CHEES_D}), {CHEES_CHAINS} chains from normal(key({CHEES_SEED})), step size "
+          f"{CHEES_STEP_SIZE}, adam({CHEES_LR}), {CHEES_STEPS} steps, the defaults, f32, on "
+          f"split(key({CHEES_SEED}), 4)[0] after a warm run of {CHEES_WARM_STEPS} steps: "
+          f"{secs:.3f} s by host clock, {start.elapsed_time(end):.1f} ms by CUDA events, "
+          f"{secs / CHEES_STEPS * 1e3:.3f} host ms a step; {grads} leapfrog grads "
+          f"({grads / (CHEES_CHAINS * CHEES_STEPS):.3f} a chain a step), {grads / secs:.4g} "
+          f"leapfrog-grads/sec; threefry launches {launches20['threefry2x32']} "
+          f"({launches20['threefry2x32'] / CHEES_STEPS:.1f} a step), normal launches "
+          f"{launches20['normal']}; final step size {step_size:.5f} (the JAX package's {ref['step_size'][0]:.5f} "
+          f"+- {ref['step_size'][1]:.5f}), integration_steps_params {steps_param:.4f} "
+          f"({ref['integration_steps_params'][0]:.4f} +- "
+          f"{ref['integration_steps_params'][1]:.4f}), trajectory length "
+          f"{step_size * steps_param:.4f}, the last step's harmonic-mean acceptance "
+          f"{accept:.4f}; the final ensemble's variance / the target's "
+          f"{ratio.min():.4f}-{ratio.max():.4f}, largest |mean| {mean_sd:.4f} sd; device "
+          f"{busy_words} (a {CHEES_BUSY_STEPS}-step run) ({smi})")
+
+    t_part = time.perf_counter()
+    floor_options = {"mass_matrix_estimation": "diagonal", "_length_floor": True,
+                     "adaptation_info_fn": get_filter_adapt_info_fn(
+                         state_keys={"position"},
+                         adapt_state_keys={"log_trajectory_length_moving_average"})}
+    t0 = time.perf_counter()
+    (states_d, params_d), info_d = chees_run(torch, positions, keys[0], CHEES_DIAG_STEPS,
+                                             **floor_options)
+    torch.cuda.synchronize()
+    secs_d = time.perf_counter() - t0
+    imm = params_d["inverse_mass_matrix"].double()
+    imm_ratio = (imm / variances.to(dev)).cpu().numpy()
+    card, finite = _on_card(torch, (states_d, params_d["step_size"], imm,
+                                    *params_d["integration_steps_params"]))
+    _require(card and finite, "phase 20 diagonal: a tensor off the card or not finite")
+    _require(bool(((imm_ratio >= CHEES_IMM_BAND[0]) & (imm_ratio <= CHEES_IMM_BAND[1])).all()),
+             f"phase 20 diagonal: imm / variances {imm_ratio.min()}-{imm_ratio.max()} outside "
+             f"{CHEES_IMM_BAND}")
+    length_d = float(params_d["integration_steps_params"][0] * params_d["step_size"])
+    unfloored = float(torch.exp(info_d.adaptation_state.log_trajectory_length_moving_average[-1]))
+    # the floor from the run's own draws: the covariance of the window's
+    # positions (the dense accumulator's samples), whitened by the returned
+    # metric; the port's power iteration gives a Rayleigh quotient between its
+    # smallest and largest eigenvalue, so the returned length lies between
+    # ChEES's own floored at each (the cap, max_leapfrog_steps steps, is far)
+    window = info_d.state.position[int(CHEES_DIAG_STEPS * 0.5):].reshape(-1, CHEES_D).double()
+    centred = window - window.mean(0)
+    inv_sqrt = imm.rsqrt()
+    whitened = (centred.T @ centred) / (window.shape[0] - 1) * inv_sqrt[:, None] * inv_sqrt
+    lambdas = torch.linalg.eigvalsh(whitened)
+    floors = [math.pi / 2 * float(lam) ** 0.5 for lam in (lambdas[0], lambdas[-1])]
+    low, high = (max(unfloored, f) for f in floors)
+    _require(not bool((imm == 1.0).all()) and low * (1 - 1e-5) <= length_d <= high * (1 + 1e-5),
+             f"phase 20 diagonal: the returned length {length_d} outside [{low}, {high}] (ChEES's "
+             f"own {unfloored}, lambda {float(lambdas[0])}-{float(lambdas[-1])})")
+    parts["diagonal run"] = time.perf_counter() - t_part
+    print(f"phase 20 chees_adaptation(mass_matrix_estimation='diagonal', _length_floor=True), "
+          f"{CHEES_CHAINS} x {CHEES_DIAG_STEPS} steps (cut from {CHEES_STEPS}): {secs_d:.3f} s; "
+          f"the adapted inverse mass matrix / the target's variances {imm_ratio.min():.4f}-"
+          f"{imm_ratio.max():.4f} (gate {CHEES_IMM_BAND}); the whitened window covariance's "
+          f"eigenvalues {float(lambdas[0]):.4f}-{float(lambdas[-1]):.4f} (eigvalsh), so the floor "
+          f"{floors[0]:.4f}-{floors[1]:.4f}; the returned length {length_d:.4f} in [{low:.4f}, "
+          f"{high:.4f}] (the floor {'binds' if length_d > unfloored * (1 + 1e-6) else 'does not bind'}: "
+          f"ChEES's own {unfloored:.4f}), step size {float(params_d['step_size']):.5f} ({smi})")
+    del states_d, info_d
+    torch.cuda.empty_cache()
+
+    t_part = time.perf_counter()
+    print(f"phase 20 f64 hold, the card against the port on the CPU, {CHEES_CMP_CHAINS} chains x "
+          f"{CHEES_CMP_STEPS} steps at d = {CHEES_D}, key 20: " + "; ".join(chees_holds(torch, dev))
+          + f" (tolerance {CHEES_CMP_TOL}) ({smi})")
+    parts["f64 hold"] = time.perf_counter() - t_part
+    print("phase 20 host seconds by part: "
+          + ", ".join(f"{name} {secs:.1f}" for name, secs in parts.items()))
+    return launches20
 
 
 def main() -> int:
@@ -2587,6 +2866,38 @@ def main() -> int:
     tf_dev_ms = _device_ms(torch, lambda: prng.threefry2x32(*keyed_dev), "threefry_kernel")
     tf_bound = _bound(TF_KEYS * THREEFRY_BYTES, 0.0, peaks, TF_KEYS * THREEFRY_OPS,
                       d=1)  # no FP32 work
+    # jax.random.normal's transform of the threefry words (prng.normal's
+    # kernel) against its plain version on the card, and against the port on
+    # the CPU (float32 the same bits; float64 through CUDA's log)
+    normal_words = prng._words(prng.key(SEED, dev), (TF_KEYS,))
+    normal_cpu_words = [w.cpu() for w in normal_words]
+    normal_words_line, normal_err = [], 0.0
+    for dt in (torch.float32, torch.float64):
+        kern_n = dc.normal_device(*normal_words, dt)
+        plain_n = prng.normal_from_words(*normal_words, dt)
+        normal_err = max(normal_err, float((kern_n - plain_n).abs().max()))
+        _require(torch.equal(kern_n, plain_n), f"normal kernel != its plain version in {dt}")
+        ib = torch.int32 if dt == torch.float32 else torch.int64
+        ulps = (kern_n.cpu().view(ib).long()
+                - prng.normal_from_words(*normal_cpu_words, dt).view(ib).long()).abs()
+        differ = int((ulps > 0).sum())
+        _require(dt == torch.float64 or differ == 0,
+                 f"the normal kernel's float32 draws differ from the CPU's on {differ}")
+        normal_words_line.append(f"{str(dt).split('.')[-1]}: bit for bit its plain version on "
+                                 f"the card, {differ} of {TF_KEYS} apart from the port on the "
+                                 f"CPU (at most {int(ulps.max())} ulps)")
+    normal_ms = _timed_mean(torch, lambda: dc.normal_device(*normal_words, torch.float32), 20)
+    normal_plain_ms = _timed_mean(
+        torch, lambda: prng.normal_from_words(*normal_words, torch.float32), 5)
+    normal_dev_ms = _device_ms(torch, lambda: dc.normal_device(*normal_words, torch.float32),
+                               "normal_kernel")
+    normal_bound = _bound(TF_KEYS * NORMAL_BYTES, TF_KEYS * NORMAL_OPS["fp32"], peaks,
+                          TF_KEYS * NORMAL_OPS["int32"], TF_KEYS * NORMAL_OPS["sfu"], d=1)
+    print(f"phase 2: the normal kernel (prng.normal's transform of {TF_KEYS} threefry words): "
+          f"{'; '.join(normal_words_line)}; float32 kernel {_ms_words(normal_dev_ms)} by "
+          f"torch.profiler (a call {normal_ms:.4f} ms by CUDA events over 20 back-to-back "
+          f"calls), plain (torch ops on the card) {normal_plain_ms:.4f} ms, bound "
+          f"{normal_bound[0]:.4f} ms by {normal_bound[1]} ({smi})")
     print(f"phase 2: threefry2x32 device function equals the plain version bit for bit "
           f"on {c0.numel()} counters: {same}; with a key per element on {TF_KEYS} keys "
           f"(prng's draws): bit for bit {keyed_same}, kernel {_ms_words(tf_dev_ms)} by "
@@ -3375,7 +3686,7 @@ def main() -> int:
         return out, time.perf_counter() - t0, runner_leaves[0]
 
     # the runner starts where phase 4's dc run ended, at stationarity: from
-    # phase 4's initial positions 64 transitions leave log_tau's second half
+    # phase 4's initial positions a few dozen transitions leave log_tau's second half
     # far from its marginal (see PERF.md). The dc machine from the same
     # positions gives the leaves-per-transition yardstick.
     start12 = fx4
@@ -3631,24 +3942,31 @@ def main() -> int:
 
     # ---- phase 16: the tracked adaptive-tempered SMC path ----
     marks.append((16, time.perf_counter()))
-    launches16 = smc_path(torch, dev, smi)
+    path16 = smc_path(torch, dev, smi)
 
     # ---- phase 17: the MCMC family beyond NUTS, the tracked static-HMC config ----
     marks.append((17, time.perf_counter()))
-    threefry17, transitions17 = family_path(torch, dev, smi)
+    path17, transitions17 = family_path(torch, dev, smi)
 
     # ---- phase 18: the tracked SG-MCMC configurations ----
     marks.append((18, time.perf_counter()))
-    threefry18 = sgmcmc_path(torch, dev, smi)
+    path18 = sgmcmc_path(torch, dev, smi)
 
     # ---- phase 19: persistent sampling, pretuning and nested slice sampling ----
     marks.append((19, time.perf_counter()))
-    threefry19 = particle_path(torch, dev, peaks, smi)
+    path19 = particle_path(torch, dev, peaks, smi)
+
+    # ---- phase 20: the tracked cross-chain ChEES configuration ----
+    marks.append((20, time.perf_counter()))
+    path20 = chees_path(torch, dev, smi)
 
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
 
+    # the threefry and normal kernels' launches on every path that draws
+    path_launches = {k: sum(p[k] for p in (launches12, path16, path17, path18, path19, path20))
+                     for k in PRNG_KERNELS}
     lf_ops = C * ((HMC_STEPS + 1) * GRAD_OPS["hierarchical"] * D
                   + HMC_STEPS * LEAPFROG_STEP_OPS * D)
     kernels = [
@@ -3695,10 +4013,13 @@ def main() -> int:
                           launches13, err13, fn_ms, fn_plain_ms, fn_bound))
     kernels.append(_entry("threefry2x32 (a key per element)", "fused_nuts_dc.cu",
                           "blackjax_tpu/mcmc/trajectory.py:764",
-                          launches12["threefry2x32"] + launches16 + threefry17 + threefry18
-                          + threefry19,
+                          path_launches["threefry2x32"],
                           tf_err, tf_ms if tf_dev_ms is None else tf_dev_ms, tf_plain_ms,
                           tf_bound))
+    kernels.append(_entry("normal (jax.random.normal's transform of the threefry words)",
+                          "fused_nuts_dc.cu", "blackjax_tpu/util.py:64", path_launches["normal"],
+                          normal_err, normal_ms if normal_dev_ms is None else normal_dev_ms,
+                          normal_plain_ms, normal_bound))
     kernels.append(_entry("vpu_peak (unfused fma)", "vpu_peak.cu", "benchmarks/vpu_peak.py:58",
                           vpu["launches"], vpu["err"], vpu["ms"], vpu["plain_ms"], vpu["bound"]))
     print(json.dumps({"kernels": kernels}))

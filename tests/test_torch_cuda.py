@@ -874,6 +874,25 @@ def test_threefry_per_element_keys_bit_for_bit(cuda):
     assert torch.allclose(z_card, z_cpu, rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_normal_kernel_is_its_plain_version_bit_for_bit(cuda, dtype):
+    """prng.normal on the card: one launch of the normal kernel, the bits of
+    its plain version on the card; float32 also the CPU's (float64 takes
+    CUDA's log)."""
+    from blackjax_tpu_torch import prng
+
+    n = 65_537  # a partial block
+    before = dc.LAUNCHES["normal"]
+    got = prng.normal(prng.key(7, cuda), (n,), dtype)
+    assert dc.LAUNCHES["normal"] == before + 1 and got.dtype == dtype and got.is_cuda
+    assert torch.equal(got, prng.normal_from_words(*prng._words(prng.key(7, cuda), (n,)), dtype))
+    cpu = prng.normal(prng.key(7), (n,), dtype)
+    if dtype == torch.float32:
+        assert torch.equal(got.cpu(), cpu)
+    else:
+        assert torch.allclose(got.cpu(), cpu, rtol=1e-15, atol=0)
+
+
 def _fused_nuts_case(case, device):
     fn = importlib.import_module("blackjax_tpu_torch.ops.fused_nuts")
     rng = np.random.default_rng(7)

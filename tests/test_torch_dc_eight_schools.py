@@ -150,10 +150,12 @@ AGREE_FLOOR = 0.9  # tests/test_torch_fused_nuts_dc.py::AGREE_FLOOR
 def packed_runs():
     x0 = (0.5 * np.random.default_rng(15).standard_normal((C, 10))).astype(np.float32)
     ref_target = ref_dc.make_eight_schools_target_dc()
-    # one compiled program, at XLA's optimization level 0 (a quicker compile)
+    # one compiled program, at XLA's optimization level 0 and with its older
+    # fusion emitters (a quicker compile and run of the unrolled leaves)
     run_ref = jax.jit(lambda x, imm: ref.fused_nuts_run_dc(
         x, imm, 0.2, target=ref_target, num_track=10, interpret=True, **PACKED),
-        compiler_options={"xla_backend_optimization_level": 0})
+        compiler_options={"xla_backend_optimization_level": 0,
+                          "xla_cpu_use_fusion_emitters": False})
     out_ref = run_ref(jnp.asarray(x0), jnp.ones(10))
     out_port = dc.fused_nuts_run_dc(torch.from_numpy(x0), torch.ones(10), 0.2,
                                     target=make_eight_schools_target_dc(), num_track=10,
@@ -182,7 +184,10 @@ def test_packed_chains_agree_with_the_pallas_kernel(packed_runs):
 
 # ---- the tracked path, small: warmup, the machine, ESS ----
 
-WARMUP, CHAINS, TRANSITIONS = 200, 64, 200
+# 256 chains x 60 transitions (the second half's 7,680 draws, more than 64 x
+# 100 gave): the plain machine's lockstep loop costs by transitions, not by
+# chains, so this is 2.1 times quicker on the CPU
+WARMUP, CHAINS, TRANSITIONS = 200, 256, 60
 
 
 @pytest.fixture(scope="module")
@@ -219,8 +224,8 @@ def test_path_completes_and_is_finite(path_run):
 @pytest.mark.parametrize("name, column", [("mu", 8), ("log_tau", 9)])
 def test_path_moments_match_the_reference_nuts(path_run, name, column):
     """The second half's mean within 0.15 posterior sd of the JAX package's
-    NUTS, and its variance within [0.7, 1.4] of it: 64 chains x 100 draws
-    carry a Monte Carlo error of about 0.05 sd in the mean."""
+    NUTS, and its variance within [0.7, 1.4] of it: 256 chains x 30 draws
+    carry a Monte Carlo error of under 0.05 sd in the mean."""
     mean, var, _ = REFERENCE[name]
     v = path_run["hist"][:, TRANSITIONS // 2:, column].double()
     assert abs(float(v.mean()) - mean) <= 0.15 * var**0.5

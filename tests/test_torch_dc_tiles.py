@@ -17,6 +17,7 @@ from blackjax_tpu.ops import fused_nuts_dc as ref  # noqa: E402
 from blackjax_tpu.ops import targets_dc as ref_dc  # noqa: E402
 from blackjax_tpu_torch import interop  # noqa: E402
 from blackjax_tpu_torch.ops import fused_nuts_dc as dc  # noqa: E402
+from test_torch_fused_nuts_dc import reference_at_opt0  # noqa: E402
 
 LIMIT = 232_448  # a Hopper block's shared memory
 K = 8  # chains a block of the tiles form (kChainsLR)
@@ -167,8 +168,9 @@ def packed_logreg():
     d = 12
     ref_target = ref_dc.make_logreg_target_dc(*_logreg_data(23, d))
     x0 = (0.5 * np.random.default_rng(3).standard_normal((13, d))).astype(np.float32)
-    out_ref = ref.fused_nuts_run_dc(jnp.asarray(x0), jnp.ones(d), 0.3, target=ref_target,
-                                    num_track=d, interpret=True, **PACKED)
+    out_ref = reference_at_opt0(
+        ref.fused_nuts_run_dc, jnp.asarray(x0), jnp.ones(d), step_size=0.3, target=ref_target,
+        num_track=d, interpret=True, **PACKED)
     target = interop.target_dc(ref_target.name, d, ref_target.params)
     before = dict(dc.LAUNCHES)
     out_port = dc.fused_nuts_run_dc(torch.from_numpy(x0), torch.ones(d), 0.3, target=target,

@@ -27,7 +27,11 @@ from blackjax_tpu.ops.fused_leapfrog import (  # noqa: E402
 )
 from blackjax_tpu_torch import interop  # noqa: E402
 from blackjax_tpu_torch.ops import fused_nuts as port  # noqa: E402
-from test_torch_fused_nuts_dc import AGREE_FLOOR, agreeing_chains  # noqa: E402
+from test_torch_fused_nuts_dc import (  # noqa: E402
+    AGREE_FLOOR,
+    agreeing_chains,
+    reference_at_opt0,
+)
 
 C = 8
 VAR = [1.0, 4.0, 0.25, 2.0]
@@ -62,8 +66,9 @@ def runs(request):
     x0 = _x0(d, scale)
     kw = dict(num_steps=S, max_num_doublings=doublings, seed=3, num_track=min(d, 8),
               budget=budget, chunk=chunk, trace=trace)
-    out_ref = ref.fused_nuts_run(jnp.asarray(x0), jnp.ones(d), step_size, target=ref_target,
-                                 tile_chains=8, interpret=True, **kw)
+    out_ref = reference_at_opt0(
+        ref.fused_nuts_run, jnp.asarray(x0), jnp.ones(d), step_size=step_size, target=ref_target,
+        tile_chains=8, interpret=True, **kw)
     target = interop.fused_target(ref_target.name, d, ref_target.params)
     before = dict(port.LAUNCHES)
     out_port = port.fused_nuts_run(torch.from_numpy(x0), torch.ones(d), step_size,

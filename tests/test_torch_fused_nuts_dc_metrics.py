@@ -30,6 +30,7 @@ from blackjax_tpu.ops import targets_dc as ref_dc  # noqa: E402
 from blackjax_tpu_torch import interop  # noqa: E402
 from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix  # noqa: E402
 from blackjax_tpu_torch.ops import fused_nuts_dc as port  # noqa: E402
+from test_torch_fused_nuts_dc import reference_at_opt0  # noqa: E402
 
 C, S = 16, 8
 COMMON = dict(num_steps=S, max_num_doublings=4, seed=7, budget=S * 16, chunk=16)
@@ -96,10 +97,9 @@ def runs(request):
     d, ref_target, step_size, scale = TARGETS[name]
     x0 = _x0(d, scale)
     ref_imm, port_imm = _metrics(kind, d)
-    out_ref = ref.fused_nuts_run_dc(
-        jnp.asarray(x0), ref_imm, step_size, target=ref_target, num_track=d,
-        interpret=True, **COMMON,
-    )
+    out_ref = reference_at_opt0(
+        ref.fused_nuts_run_dc, jnp.asarray(x0), ref_imm, step_size=step_size, target=ref_target,
+        num_track=d, interpret=True, **COMMON)
     target = interop.target_dc(ref_target.name, d, ref_target.params)
     before = dict(port.LAUNCHES)
     out_port = port.fused_nuts_run_dc(

@@ -2,9 +2,10 @@
 ``jax.random`` itself, on 1,000 random keys and data words.
 
 ``key``, ``fold_in``, ``split``, ``bits`` (32 and 64), ``uniform`` (f32 and
-f64), ``bernoulli`` and ``permutation`` agree bit for bit; ``normal`` to
-1e-12 relative in f64, where ``torch.special.erfinv`` and XLA's differ in
-the last bits, and ``exponential`` to 1e-13, where ``log1p`` does. The
+f64), ``bernoulli`` and ``permutation`` agree bit for bit; ``normal`` and
+``exponential`` bit for bit in f32 against XLA's default compile, and in
+f64 ``normal`` to 1e-12 relative (35 of 2**20 draws differ, by at most 3
+ulps, through ``log``) and ``exponential`` to 1e-13. The
 constructions hold under ``jax_threefry_partitionable``, JAX's default,
 which the test asserts.
 """
@@ -211,3 +212,42 @@ def test_uniform_with_bounds_per_key(keys):
         k, (), jnp.float64, a, b))(jk, jnp.asarray(lo), jnp.asarray(hi)))
     got = prng.uniform(tk, (), torch.float64, torch.from_numpy(lo), torch.from_numpy(hi))
     np.testing.assert_array_equal(got.numpy(), expected)
+
+
+# jax.random.normal as a user compiles it (XLA's default level, which
+# contracts erf_inv's multiply-adds), on 2**20 draws of one key
+NORMAL_DRAWS = 1 << 20
+# float64: the draws where log1p takes log(1 + x), whose float64 log XLA
+# takes from the C library and torch from its own vector code (PERF.md)
+NORMAL_F64_DIFFER, NORMAL_F64_ULPS = 35, 3
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_normal_is_xla_bit_for_bit_on_a_million_draws(dtype):
+    jdt, tdt = DTYPES[dtype]
+    expected = np.asarray(jax.jit(lambda k: jax.random.normal(k, (NORMAL_DRAWS,), jdt))(
+        jax.random.key(7)))
+    got = prng.normal(prng.key(7), (NORMAL_DRAWS,), tdt).numpy()
+    if dtype == "f32":
+        np.testing.assert_array_equal(got, expected)
+        exp_expected = np.asarray(jax.jit(lambda k: jax.random.exponential(k, (4096,), jdt))(
+            jax.random.key(7)))
+        np.testing.assert_array_equal(prng.exponential(prng.key(7), (4096,), tdt).numpy(),
+                                      exp_expected)
+        return
+    ulps = np.abs(got.view(np.int64) - expected.view(np.int64))
+    assert int((ulps > 0).sum()) <= NORMAL_F64_DIFFER and int(ulps.max()) <= NORMAL_F64_ULPS
+
+
+def test_the_normal_kernel_takes_cuda_tensors_only():
+    """On the CPU ``prng.normal`` runs the plain version and launches
+    nothing; the kernel's wrapper refuses CPU tensors."""
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+
+    before = dict(dc.LAUNCHES)
+    words = prng._words(prng.key(3), (5,))
+    np.testing.assert_array_equal(prng.normal(prng.key(3), (5,)).numpy(),
+                                  prng.normal_from_words(*words).numpy())
+    assert dc.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dc.normal_device(*words, torch.float32)

@@ -18,7 +18,7 @@
   and the SG-MCMC samplers' (``sgld``, ``sghmc``, ``sgnht``, ``csgld``), and
   each ``sgmcmc`` module's ``__all__``.
 - Persistent sampling, pretuning and nested slice sampling (``smc_family``,
-  ``ns_family``) are exported as the reference builds them: 59 of its 78
+  ``ns_family``) are exported as the reference builds them: 60 of its 78
   names, the families' members in its order, every ``ns`` module's
   ``__all__`` its reference module's.
 - ``pyproject.toml``'s package data names every CUDA source under ``csrc/``,
@@ -102,8 +102,21 @@ def test_smc_modules_are_reachable(module):
 
 
 def test_the_registry_holds_59_of_the_reference_s_names():
-    assert len(set(blackjax_tpu_torch.__all__)) == 59 and len(set(blackjax_tpu.__all__)) == 78
+    """60 of the 78 since ``chees_adaptation`` (the test keeps its name)."""
+    assert len(set(blackjax_tpu_torch.__all__)) == 60 and len(set(blackjax_tpu.__all__)) == 78
     assert set(blackjax_tpu_torch.__all__) <= set(blackjax_tpu.__all__)
+
+
+def test_chees_adaptation_is_built_as_the_reference_builds_it():
+    """The warmup function itself, imported from its module, as
+    ``blackjax_tpu/__init__.py:21`` does."""
+    from blackjax_tpu.adaptation import chees_adaptation as reference
+    from blackjax_tpu_torch.adaptation import chees_adaptation as port
+
+    assert blackjax_tpu.chees_adaptation is reference.chees_adaptation
+    assert blackjax_tpu_torch.chees_adaptation is port.chees_adaptation
+    assert "chees_adaptation" in blackjax_tpu_torch.__all__
+    assert set(port.__all__) == set(reference.__all__)
 
 
 @pytest.mark.parametrize("family, size", [("smc_family", 5), ("ns_family", 2)])

@@ -93,4 +93,4 @@ def test_port_imports_no_jax():
     for path in files + scripts:
         for name in _imported_modules(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "blackjax_tpu"), f"{path} imports {name}"
+            assert top not in ("jax", "jaxlib", "optax", "blackjax_tpu"), f"{path} imports {name}"
