@@ -32,7 +32,7 @@ nested slice samplers ``nss``, ``nsswig`` and ``ns_family``;
 ``window_adaptation``,
 ``window_adaptation_low_rank``, ``staged_adaptation``,
 ``mclmc_find_L_and_step_size``, ``dual_averaging_adaptation``,
-``chees_adaptation``,
+``chees_adaptation``, ``meads_adaptation``,
 ``dual_averaging``, ``diagnostics`` (with ``ess``, ``ess_bulk``,
 ``ess_tail``, ``pareto_khat`` and ``rhat``) and ``util``.
 """
@@ -44,6 +44,7 @@ from typing import Callable
 from blackjax_tpu_torch import diagnostics, util
 from blackjax_tpu_torch.adaptation.chees_adaptation import chees_adaptation
 from blackjax_tpu_torch.adaptation.low_rank_adaptation import window_adaptation_low_rank
+from blackjax_tpu_torch.adaptation.meads_adaptation import meads_adaptation
 from blackjax_tpu_torch.adaptation.mclmc_adaptation import mclmc_find_L_and_step_size
 from blackjax_tpu_torch.adaptation.staged_adaptation import staged_adaptation
 from blackjax_tpu_torch.adaptation.step_size import dual_averaging_adaptation
@@ -236,6 +237,7 @@ __all__ = [
     "mclmc_find_L_and_step_size",
     "dual_averaging_adaptation",
     "chees_adaptation",
+    "meads_adaptation",
     "dual_averaging",
     "diagnostics",
     "util",

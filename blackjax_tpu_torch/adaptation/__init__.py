@@ -3,6 +3,8 @@ from blackjax_tpu_torch.adaptation import chees_adaptation as chees_adaptation
 from blackjax_tpu_torch.adaptation import low_rank_adaptation as low_rank_adaptation
 from blackjax_tpu_torch.adaptation import mass_matrix as mass_matrix
 from blackjax_tpu_torch.adaptation import mclmc_adaptation as mclmc_adaptation
+from blackjax_tpu_torch.adaptation import meads_adaptation as meads_adaptation
+from blackjax_tpu_torch.adaptation import metric_buffers as metric_buffers
 from blackjax_tpu_torch.adaptation import metric_estimators as metric_estimators
 from blackjax_tpu_torch.adaptation import metric_recipes as metric_recipes
 from blackjax_tpu_torch.adaptation import staged_adaptation as staged_adaptation

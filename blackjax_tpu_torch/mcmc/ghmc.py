@@ -7,6 +7,12 @@ slice variable, which moves deterministically (and by ``noise_fn``); the
 momentum is flipped on the way out, so a rejection reverses direction. Its
 randomness is a key per chain, split as the reference splits it (a
 ``torch.Generator`` draws one key a chain first).
+
+The kernel's parameters are shared by every chain, or given per chain as
+the reference's ``vmap`` over them gives them (MEADS): a ``(C,)`` step size,
+``alpha`` and ``delta``, and a per-chain diagonal momentum scale wrapped by
+:func:`_per_chain_diagonal`, never guessed from a ``(C, d)`` shape, which
+stays one dense matrix.
 """
 import math
 from typing import Callable, NamedTuple
@@ -16,6 +22,7 @@ import torch
 from blackjax_tpu_torch import prng
 from blackjax_tpu_torch.base import SamplingAlgorithm, build_sampling_algorithm
 from blackjax_tpu_torch.mcmc import hmc, integrators, metrics
+from blackjax_tpu_torch.mcmc.integrators import _per_row
 from blackjax_tpu_torch.mcmc.proposal import nonreversible_slice_sampling
 from blackjax_tpu_torch.types import ArrayLikeTree, ArrayTree, PRNGKey
 from blackjax_tpu_torch.util import (
@@ -69,13 +76,22 @@ def _metric_from_momentum_inverse_scale(momentum_inverse_scale) -> metrics.Metri
     return metrics.default_metric(x.reshape(-1) ** 2)
 
 
+def _per_chain_diagonal(momentum_inverse_scale) -> metrics.Metric:
+    """The metric of a per-chain momentum inverse scale ``(C, d)``: row ``c``
+    is chain ``c``'s per-dimension scale, squared into its diagonal inverse
+    mass matrix (the MEADS convention), as the reference's ``vmap`` of the
+    kernel over the scales builds one metric a chain."""
+    return metrics._gaussian_euclidean_rows(torch.as_tensor(momentum_inverse_scale) ** 2)
+
+
 def update_momentum(rng_key, state, alpha, momentum_generator):
     """Partial momentum refresh ``p <- sqrt(1 - alpha) p + sqrt(alpha) eps``,
-    which preserves the momentum's marginal."""
+    which preserves the momentum's marginal; a ``(C,)`` ``alpha`` refreshes
+    each chain's row at its own rate."""
     sqrt = torch.sqrt if torch.is_tensor(alpha) else math.sqrt
     keep, inject = sqrt(1.0 - alpha), sqrt(alpha)
     fresh = momentum_generator(rng_key, state.position)
-    return keep * state.momentum + inject * fresh
+    return _per_row(keep, state.momentum) * state.momentum + _per_row(inject, fresh) * fresh
 
 
 def _advance_slice(slice_var, delta, noise):

@@ -162,6 +162,46 @@ def gaussian_euclidean(inverse_mass_matrix: Array) -> Metric:
     )
 
 
+def _gaussian_euclidean_rows(inverse_mass_matrix: Array) -> Metric:
+    """:func:`gaussian_euclidean` of a diagonal inverse mass matrix given per
+    chain: row ``c`` of the ``(C, d)`` tensor is chain ``c``'s diagonal, the
+    reference's ``vmap`` of a kernel over per-chain diagonals. A ``(C, d)``
+    tensor passed to :func:`gaussian_euclidean` is one dense matrix instead,
+    so this form is only ever asked for by name. It acts on ``(C, d)``
+    batches (the batched U-turn check of NUTS's checkpoints is not
+    provided)."""
+    inverse_mass_matrix = torch.as_tensor(inverse_mass_matrix)
+    if inverse_mass_matrix.dim() != 2:
+        raise ValueError(
+            "a per-chain diagonal inverse mass matrix is (C, d); got "
+            f"ndim={inverse_mass_matrix.dim()}."
+        )
+    inv_mass_sqrt = torch.sqrt(inverse_mass_matrix)
+    mass_sqrt = 1.0 / inv_mass_sqrt
+
+    def sample_momentum(rng_key: PRNGKey, position: ArrayLikeTree) -> ArrayTree:
+        return generate_gaussian_noise(rng_key, position) * mass_sqrt
+
+    def kinetic_energy(momentum, position=None) -> Numeric:
+        del position
+        return 0.5 * _dot(momentum, inverse_mass_matrix * momentum)
+
+    def check_turning(
+        momentum_left, momentum_right, momentum_sum, position_left=None, position_right=None
+    ):
+        del position_left, position_right
+        rho = momentum_sum - 0.5 * (momentum_left + momentum_right)
+        v_left = inverse_mass_matrix * momentum_left
+        v_right = inverse_mass_matrix * momentum_right
+        return (_dot(v_left, rho) <= 0) | (_dot(v_right, rho) <= 0)
+
+    def scale(position, element, *, inv: bool, trans: bool):
+        del position, trans  # a diagonal is its own transpose
+        return (inv_mass_sqrt if inv else mass_sqrt) * element
+
+    return Metric(sample_momentum, kinetic_energy, check_turning, scale)
+
+
 def gaussian_euclidean_low_rank(sigma: Array, U: Array, lam: Array) -> Metric:
     """Euclidean metric whose inverse mass matrix is the low-rank-plus-
     diagonal ``M^{-1} = D (I + U (Lam - I) U^T) D``, ``D = diag(sigma)``

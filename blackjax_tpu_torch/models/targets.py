@@ -39,8 +39,19 @@ class Target(NamedTuple):
         return 2.0 * torch.randn(shape, generator=generator, dtype=dtype, device=device)
 
 
-def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(values, dtype=like.dtype, device=like.device)
+def _const(values) -> Callable:
+    """``values`` as a tensor in the dtype and on the device of a log
+    density's input, uploaded once for each: an upload from host memory
+    at every call would make each evaluation on the card wait for it."""
+    copies = {}
+
+    def like(x: torch.Tensor) -> torch.Tensor:
+        key = (x.dtype, x.device)
+        if key not in copies:
+            copies[key] = torch.as_tensor(values, dtype=x.dtype, device=x.device)
+        return copies[key]
+
+    return like
 
 
 def standard_normal(dim: int = 10) -> Target:
@@ -54,9 +65,10 @@ def ill_conditioned_gaussian(dim: int = 100, condition_number: float = 100.0) ->
     """Diagonal Gaussian with variances log-spaced over the condition number."""
     half = 0.5 * math.log10(condition_number)
     variances = np.logspace(-half, half, dim)
+    variances_like = _const(variances)
 
     def logdensity_fn(x):
-        return -0.5 * (x**2 / _const(variances, x)).sum(-1)
+        return -0.5 * (x**2 / variances_like(x)).sum(-1)
 
     return Target(
         logdensity_fn, dim, f"ill_cond_gaussian_{dim}", np.zeros(dim), np.sqrt(variances)
@@ -83,6 +95,7 @@ def eight_schools_noncentered() -> Target:
     """Non-centered eight schools: ``x = (mu, log_tau, z_1..z_8)``, d = 10."""
     y = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0])
     sigma = np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0])
+    y_like, sigma_like = _const(y), _const(sigma)
 
     def logdensity_fn(x):
         mu, log_tau, z = x[..., 0], x[..., 1], x[..., 2:]
@@ -90,7 +103,7 @@ def eight_schools_noncentered() -> Target:
         lp = -0.5 * (mu / 5.0) ** 2
         lp = lp - 0.5 * (log_tau / 5.0) ** 2
         lp = lp - 0.5 * (z**2).sum(-1)
-        lp = lp + (-0.5 * ((_const(y, x) - theta) / _const(sigma, x)) ** 2).sum(-1)
+        lp = lp + (-0.5 * ((y_like(x) - theta) / sigma_like(x)) ** 2).sum(-1)
         return lp
 
     return Target(logdensity_fn, 10, "eight_schools")
@@ -133,9 +146,10 @@ def finnish_horseshoe(
     tau0 = expected_nonzero / ((M - expected_nonzero) * math.sqrt(N))
     half_df = 0.5 * slab_df
     slab2 = slab_scale**2
+    X_like, y_like = _const(X_np), _const(y_np)
 
     def logdensity_fn(x):
-        X, y = _const(X_np, x), _const(y_np, x)
+        X, y = X_like(x), y_like(x)
         alpha = x[..., 0]
         log_sigma = x[..., 1]
         log_tau = x[..., 2]

@@ -172,8 +172,9 @@ def uniform(keys: torch.Tensor, shape=(), dtype=torch.float32, minval=0.0, maxva
     bounded = torch.is_tensor(minval) or torch.is_tensor(maxval)
     if not bounded and minval == 0.0 and maxval == 1.0:
         return floats  # floats * 1 + 0, at least 0: the same bits
-    lo = torch.as_tensor(minval, dtype=dtype, device=keys.device)
-    hi = torch.as_tensor(maxval, dtype=dtype, device=keys.device)
+    # a number is filled on the device: no upload for the host to wait on
+    lo, hi = (torch.as_tensor(v, dtype=dtype, device=keys.device) if torch.is_tensor(v)
+              else torch.full((), v, dtype=dtype, device=keys.device) for v in (minval, maxval))
     # XLA contracts floats * (hi - lo) + lo into one fused multiply-add
     return torch.maximum(lo, torch.addcmul(lo, floats, hi - lo))
 

@@ -5,7 +5,7 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's fifteen main paths once, five at the flagship's full
+It drives the port's sixteen main paths once, five at the flagship's full
 width (the 100-dim hierarchical posterior, 4,096 chains), one at the
 Finnish horseshoe's (N=100, M=200, d=404, 512 chains), three at the
 covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
@@ -17,7 +17,7 @@ or live points), one at the tracked static-HMC
 configuration's (d=100, 128 chains) under the MCMC family beyond NUTS and
 one at the tracked SG-MCMC configurations' (SGLD on the covertype-class
 logistic regression, one chain and 4,096 chains), one at the tracked
-cross-chain configuration's (ChEES, d=100, 4,096 chains), and reads the card's
+cross-chain configurations' (ChEES and MEADS, d=100, 4,096 chains), and reads the card's
 FP32 roofline through which their bounds are read, and checks them in
 phases, one line each:
 
@@ -394,6 +394,32 @@ phases, one line each:
    and the returned parameters (the integration-steps parameter among them)
    within 1e-9; the floored run's step counts must differ from an unfloored
    run's on the CPU, so the floor bound on some step of the hold.
+21. the tracked MEADS configuration (``benchmarks/tracked.py:859-893``):
+   ``meads_adaptation`` on ``ill_conditioned_gaussian(100)``, 4,096 chains
+   from ``normal(key(29), (4096, 100))``, its defaults (4 folds, step-size
+   multiplier 0.5, damping slowdown 1.0), f32, 1,000 steps on the first key
+   of ``split(key(29), 3)`` and 200 (cut) on the other two (after a warm
+   run of 20 steps), the per-step info filtered to the per-fold parameters
+   (the configuration's jit discards it), threefry and normal launch counts
+   reset just before the run on key 0. Its lines give each run's seconds by
+   host clock and by CUDA events, chain-steps/sec of key 0's run (4,096 x
+   1,000 over its seconds, as the configuration reckons it), host ms a
+   step, threefry and
+   normal launches a step, the host syncs made inside the steps of an
+   8-step run (torch's CUDA sync debug mode, by the stack of each; 0
+   required) and the busy share over an 8-step run; each
+   key's final step size, alpha and delta and the smallest and largest
+   ratio of the final variances to the target's and of the momentum scale
+   to its standard deviations must lie within three times the spread of the
+   JAX package's values over the three keys, or 5 % of their mean
+   (``tools/meads_reference.py``), every tensor on the card and finite.
+   Then MEADS-LRD (rank 8, the window over the second half) at 4,096 x 200
+   steps (cut from 1,000): every value finite and on the card, the payload
+   the window's eigh estimate, its seconds and host syncs. Then the
+   defaults and LRD in f64 at 256 chains x 40 steps (the configuration's
+   CPU size) on the card and on the CPU on key 21: the final states, every
+   step's per-fold parameters and the returned ones (LRD's as its operator
+   ``U diag(lam) U^T``) within 1e-9 relative to ``max(|x|, 1)``.
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
@@ -403,9 +429,9 @@ like-for-like times), one per new (kernel, target) pair (phase 9's and
 regression comparison), one for the older machine (phase 13's 512 x 16 times; eight schools'
 launches are phase 15's)
 and one for the threefry kernel with a key per element (phase 2's times on
-1,048,576 keys; its launches are phases 12's and 16-20's), one for the
+1,048,576 keys; its launches are phases 12's and 16-21's), one for the
 normal kernel (phase 2's float32 times; its launches are phases 12's and
-16-20's), and one
+16-21's), and one
 for the VPU-peak kernel (its unfused ``fma`` at N = 4 and 32 warps an SM,
 4,096 iterations; its launches are phase 1's sweep). ``launches`` is the count from the
 main path's run, or, for a pair that no main path drives, from the pair's checked
@@ -581,6 +607,40 @@ CHEES_BUSY_STEPS = 8  # the busy share: a run of 8 steps under the profiler
 # 20; the window opens at step 16, so the length floor's in-loop eigen refresh
 # (every 32 steps once the metric is engaged) runs at step 32
 CHEES_CMP_CHAINS, CHEES_CMP_STEPS, CHEES_CMP_TOL = 256, 33, 1e-9
+# phase 21: the tracked MEADS configuration (benchmarks/tracked.py:859-893,
+# config_meads): ill_conditioned_gaussian(100), 4,096 chains from
+# normal(key(29), (4096, 100)), meads_adaptation's defaults (4 folds, step-size
+# multiplier 0.5, damping slowdown 1.0), 1,000 steps, f32, on the three keys of
+# split(key(29), 3), after a warm run of 20 steps
+MEADS_CHAINS, MEADS_D, MEADS_STEPS, MEADS_WARM_STEPS, MEADS_SEED = 4096, 100, 1000, 20, 29
+MEADS_KEYS = 3
+# key 0 is timed at 1,000 steps; keys 1 and 2 run 200 steps (cut from 1,000:
+# at about 9 host ms a step three full runs take 28 s, over the phase's 25 s),
+# gated against the same bands (the JAX package's runs sit inside them from
+# step 50)
+MEADS_CHEAP_STEPS = 200
+# the final step size, alpha and delta, and the smallest and largest ratio of
+# the final positions' variances to the target's and of the momentum scale to
+# its standard deviations: (the JAX package's mean over the three keys, half
+# width three times their spread or 5 % of the mean), python
+# tools/meads_reference.py (f32, CPU)
+MEADS_REFERENCE = {
+    "step_size": (0.498953640460968, 0.024947682023048402),
+    "alpha": (0.631592313448588, 0.0315796156724294),
+    "delta": (0.315796156724294, 0.0157898078362147),
+    "var_ratio_min": (0.9357340024627793, 0.046786700123138965),
+    "var_ratio_max": (1.0633546466200396, 0.053167732331001985),
+    "scale_ratio_min": (0.9727721724706361, 0.04863860862353181),
+    "scale_ratio_max": (1.0266930299883488, 0.05133465149941744),
+}
+MEADS_BUSY_STEPS = 8  # the busy share: a run of 8 steps under the profiler
+# the LRD run at full width: 4,096 chains x 200 steps (cut from 1,000), rank 8,
+# the window over the second half
+MEADS_LRD_STEPS, MEADS_LRD_RANK = 200, 8
+# the f64 hold, the card against the CPU: the configuration's CPU size (256
+# chains x 40 steps at d = 100: ten reshuffles, every fold frozen), key 21, the
+# defaults and LRD at k = 8 with the window over the second half
+MEADS_CMP_CHAINS, MEADS_CMP_STEPS, MEADS_CMP_TOL = 256, 40, 1e-9
 # phase 17: the MCMC family beyond NUTS on the tracked static-HMC configuration
 # (benchmarks/tracked.py:112-163): ill_conditioned_gaussian(100), 128 chains from
 # 0.5 N(0, I) of numpy seed 7, step size 0.08, 10 integration steps, unit inverse
@@ -2770,6 +2830,235 @@ def chees_path(torch, dev, smi):
     return launches20
 
 
+def meads_run(torch, positions, key, num_steps, **options):
+    """The tracked MEADS configuration's warmup from ``positions`` on ``key``
+    (key words): ``meads_adaptation(ill_conditioned_gaussian(d).logdensity_fn,
+    num_chains, **options).run(key, positions, num_steps)``."""
+    from blackjax_tpu_torch import meads_adaptation
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+
+    target = ill_conditioned_gaussian(positions.shape[1])
+    warmup = meads_adaptation(target.logdensity_fn, positions.shape[0], **options)
+    return warmup.run(key, positions, num_steps)
+
+
+def meads_summary(torch, params, positions, std):
+    """A run's gated statistics, as ``tools/meads_reference.py`` reckons
+    them: the final parameters, and the smallest and largest ratio of the
+    final positions' variances (``ddof = 1``) to the target's and of the
+    momentum scale to the target's standard deviations ``std``."""
+    std = std.to(positions.device)
+    var_ratio = positions.double().var(0) / std**2
+    scale_ratio = params["momentum_inverse_scale"].double() / std
+    return {"step_size": float(params["step_size"]), "alpha": float(params["alpha"]),
+            "delta": float(params["delta"]),
+            "var_ratio_min": float(var_ratio.min()), "var_ratio_max": float(var_ratio.max()),
+            "scale_ratio_min": float(scale_ratio.min()),
+            "scale_ratio_max": float(scale_ratio.max())}
+
+
+def _host_syncs(torch, fn):
+    """``fn()`` under torch's CUDA sync debug mode: its result and, for each
+    call that made the host wait for the device (a read back, a blocking
+    copy, ``eigh``'s status check), the Python stack that made it, as
+    ``(file name, function)`` pairs."""
+    import traceback
+    import warnings
+
+    stacks = []
+
+    def record(message, *args, **kwargs):
+        if "synchroniz" in str(message):
+            stack = [(frame.filename.rsplit("/", 1)[-1], frame.name)
+                     for frame in traceback.extract_stack()[:-1]]
+            while stack and stack[-1][0] == "warnings.py":  # the warning's own frames
+                stack.pop()
+            stacks.append(stack)
+
+    torch.cuda.synchronize()
+    previous = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
+    return out, stacks
+
+
+def _in_step(stacks):
+    """The syncs made inside a MEADS step (``meads_adaptation.one_step``)."""
+    return sum(("meads_adaptation.py", "one_step") in stack for stack in stacks)
+
+
+def _relative(a, b):
+    """The largest difference of two tensors relative to ``max(|b|, 1)``."""
+    a, b = a.cpu().double(), b.cpu().double()
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def meads_holds(torch, dev):
+    """Phase 21's f64 hold: the defaults and LRD at the configuration's CPU
+    size on the card and on the CPU, key 21. Returns a line's words for
+    each."""
+    from blackjax_tpu_torch import prng
+
+    x = torch.from_numpy(np.random.default_rng(21).standard_normal((MEADS_CMP_CHAINS, MEADS_D)))
+    words = []
+    for label, options in (("the defaults", {}),
+                           (f"LRD at k = {MEADS_LRD_RANK}",
+                            {"low_rank_rank": MEADS_LRD_RANK, "low_rank_window_fraction": 0.5})):
+        (card_s, card_p), card_i = meads_run(torch, x.to(dev), prng.key(21, dev),
+                                             MEADS_CMP_STEPS, **options)
+        (cpu_s, cpu_p), cpu_i = meads_run(torch, x, prng.key(21), MEADS_CMP_STEPS, **options)
+        states = max(_relative(getattr(card_s, f), getattr(cpu_s, f)) for f in card_s._fields)
+        steps = max(_relative(getattr(card_i.adaptation_state, f),
+                              getattr(cpu_i.adaptation_state, f))
+                    for f in ("step_size", "alpha", "delta", "position_sigma"))
+        params = max(_relative(card_p[k], cpu_p[k]) for k in ("step_size", "alpha", "delta"))
+        scale, cpu_scale = card_p["momentum_inverse_scale"], cpu_p["momentum_inverse_scale"]
+        if options:  # the payload as its operator: eigh's columns carry arbitrary signs
+            params = max(params, _relative(scale.sigma, cpu_scale.sigma),
+                         _relative(scale.lam, cpu_scale.lam),
+                         _relative((scale.U * scale.lam) @ scale.U.T,
+                                   (cpu_scale.U * cpu_scale.lam) @ cpu_scale.U.T))
+        else:
+            params = max(params, _relative(scale, cpu_scale))
+        _require(max(states, steps, params) <= MEADS_CMP_TOL,
+                 f"phase 21 f64 {label}: final states {states}, per-step parameters {steps}, "
+                 f"returned parameters {params}")
+        words.append(f"{label}: the final states within {states:.3g}, every step's per-fold "
+                     f"step_size, alpha, delta and scales within {steps:.3g}, the returned "
+                     f"parameters{' (the operator U diag(lam) U^T among them)' if options else ''} "
+                     f"within {params:.3g}")
+    return words
+
+
+def meads_path(torch, dev, smi):
+    """Phase 21: the tracked MEADS configuration at full size on the card, its
+    gates, the LRD run at full width and the f64 hold (see the head of this
+    file). Returns the threefry and normal launches of the timed run on
+    key 0."""
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+
+    std = torch.tensor(ill_conditioned_gaussian(MEADS_D).std, dtype=torch.float64)
+    positions = prng.normal(prng.key(MEADS_SEED, dev), (MEADS_CHAINS, MEADS_D), torch.float32)
+    keys = prng.split(prng.key(MEADS_SEED, dev), MEADS_KEYS)
+    # the configuration's jit discards the per-step info: keep the per-fold
+    # parameters only
+    per_fold = {"adaptation_info_fn": get_filter_adapt_info_fn(
+        adapt_state_keys={"step_size", "alpha", "delta"})}
+    parts = {}
+    t_part = time.perf_counter()
+    meads_run(torch, positions, keys[1], MEADS_WARM_STEPS, **per_fold)  # kernels, the allocator
+    parts["warm run"] = time.perf_counter() - t_part
+
+    secs, events_ms, summaries, launches21 = [], [], [], None
+    for i in range(MEADS_KEYS):
+        if i == 0:
+            for name in dc.LAUNCHES:
+                dc.LAUNCHES[name] = 0
+        steps = MEADS_STEPS if i == 0 else MEADS_CHEAP_STEPS
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        (states, params), info = meads_run(torch, positions, keys[i], steps, **per_fold)
+        end.record()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        events_ms.append(start.elapsed_time(end))
+        if i == 0:
+            launches21 = {name: dc.LAUNCHES[name] for name in PRNG_KERNELS}
+        card, finite = _on_card(torch, (states, info, params))
+        _require(card, f"phase 21 key {i}: a state, info or parameter tensor is not on the card")
+        _require(finite, f"phase 21 key {i}: non-finite values")
+        summary = meads_summary(torch, params, states.position, std)
+        for name, value in summary.items():
+            mean, half = MEADS_REFERENCE[name]
+            _require(abs(value - mean) <= half,
+                     f"phase 21 key {i}: {name} {value} outside {mean} +- {half}")
+        summaries.append(summary)
+        del states, info
+    parts["key 0's timed run"], parts["keys 1-2"] = secs[0], sum(secs[1:])
+    _require(launches21["threefry2x32"] > 0 and launches21["normal"] > 0,
+             f"phase 21: the MEADS run launched no threefry or normal kernel: {launches21}")
+
+    t_part = time.perf_counter()
+    _, stacks = _host_syncs(torch, lambda: meads_run(torch, positions, keys[0],
+                                                     MEADS_BUSY_STEPS, **per_fold))
+    syncs, run_syncs = _in_step(stacks), len(stacks)
+    _require(syncs == 0, f"phase 21: {syncs} host syncs in {MEADS_BUSY_STEPS} MEADS steps")
+    busy = _device_busy(torch, lambda: meads_run(torch, positions, keys[0], MEADS_BUSY_STEPS,
+                                                 **per_fold))
+    parts["sync and busy-share runs"] = time.perf_counter() - t_part
+    busy_words = "not measured (no device record)" if busy is None else (
+        f"{busy[0]:.3f} ms of device records ({busy[1]}) in {busy[2]:.3f} ms: busy "
+        f"{busy[0] / busy[2]:.4f}")
+    print(f"phase 21 meads_adaptation (benchmarks/tracked.py:859-893): ill_conditioned_gaussian"
+          f"({MEADS_D}), {MEADS_CHAINS} chains from normal(key({MEADS_SEED})), the defaults "
+          f"(4 folds, multiplier 0.5, damping slowdown 1.0), f32, the per-step info cut to the "
+          f"per-fold parameters, after a warm run of {MEADS_WARM_STEPS} steps: "
+          f"split(key({MEADS_SEED}), {MEADS_KEYS})[0] at {MEADS_STEPS} steps {secs[0]:.3f} s by "
+          f"host clock, {events_ms[0]:.1f} ms by CUDA events: "
+          f"{MEADS_CHAINS * MEADS_STEPS / secs[0]:.6g} chain-steps/sec, "
+          f"{secs[0] / MEADS_STEPS * 1e3:.3f} host ms a step; keys 1 and 2 at "
+          f"{MEADS_CHEAP_STEPS} steps (cut) {secs[1]:.3f} and {secs[2]:.3f} s "
+          f"({secs[1] / MEADS_CHEAP_STEPS * 1e3:.3f} and {secs[2] / MEADS_CHEAP_STEPS * 1e3:.3f} "
+          f"host ms a step); threefry launches "
+          f"{launches21['threefry2x32']} ({launches21['threefry2x32'] / MEADS_STEPS:.2f} a step), "
+          f"normal launches {launches21['normal']} ({launches21['normal'] / MEADS_STEPS:.2f} a "
+          f"step) (key 0); host syncs {syncs} in {MEADS_BUSY_STEPS} steps ({run_syncs} in their "
+          f"whole run, at {sorted({s[-1] for s in stacks})}); device "
+          f"{busy_words} (a {MEADS_BUSY_STEPS}-step run) ({smi})")
+    for i, summary in enumerate(summaries):
+        steps = MEADS_STEPS if i == 0 else MEADS_CHEAP_STEPS
+        print(f"phase 21 key {i} ({steps} steps): " + ", ".join(
+            f"{name} {value:.5f} (the JAX package's {MEADS_REFERENCE[name][0]:.5f} +- "
+            f"{MEADS_REFERENCE[name][1]:.5f})" for name, value in summary.items()))
+
+    t_part = time.perf_counter()
+    lrd = {"low_rank_rank": MEADS_LRD_RANK, "low_rank_window_fraction": 0.5, **per_fold}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ((states_l, params_l), _), stacks = _host_syncs(
+        torch, lambda: meads_run(torch, positions, keys[0], MEADS_LRD_STEPS, **lrd))
+    lrd_syncs = _in_step(stacks)
+    torch.cuda.synchronize()
+    secs_l = time.perf_counter() - t0
+    payload = params_l["momentum_inverse_scale"]
+    card, finite = _on_card(torch, (states_l, params_l))
+    _require(card and finite, "phase 21 LRD: a tensor off the card or not finite")
+    _require(payload.U.shape == (MEADS_D, MEADS_LRD_RANK) and not bool((payload.lam == 1.0).all()),
+             "phase 21 LRD: the returned payload is not the window's eigh estimate")
+    parts["LRD run"] = time.perf_counter() - t_part
+    lam = payload.lam.double().cpu()
+    print(f"phase 21 meads_adaptation(low_rank_rank={MEADS_LRD_RANK}, "
+          f"low_rank_window_fraction=0.5), {MEADS_CHAINS} x {MEADS_LRD_STEPS} steps (cut from "
+          f"{MEADS_STEPS}), f32: {secs_l:.3f} s by host clock ({secs_l / MEADS_LRD_STEPS * 1e3:.3f} "
+          f"ms a step, the sync counter on), {lrd_syncs} host syncs in its steps "
+          f"({lrd_syncs / MEADS_LRD_STEPS:.2f} a step; the window's {MEADS_LRD_STEPS // 2} steps "
+          f"run eigh), {len(stacks)} in the run; every value "
+          f"finite and on the card; lam {float(lam.min()):.4f}-{float(lam.max()):.4f}, step size "
+          f"{float(params_l['step_size']):.5f}, alpha {float(params_l['alpha']):.5f} ({smi})")
+    del states_l, params_l
+    torch.cuda.empty_cache()
+
+    t_part = time.perf_counter()
+    print(f"phase 21 f64 hold, the card against the port on the CPU, {MEADS_CMP_CHAINS} chains x "
+          f"{MEADS_CMP_STEPS} steps at d = {MEADS_D}, key 21: " + "; ".join(meads_holds(torch, dev))
+          + f" (tolerance {MEADS_CMP_TOL}, relative to max(|x|, 1)) ({smi})")
+    parts["f64 hold"] = time.perf_counter() - t_part
+    print("phase 21 host seconds by part: "
+          + ", ".join(f"{name} {secs:.1f}" for name, secs in parts.items()))
+    return launches21
+
+
 def main() -> int:
     import torch
 
@@ -3960,12 +4249,17 @@ def main() -> int:
     marks.append((20, time.perf_counter()))
     path20 = chees_path(torch, dev, smi)
 
+    # ---- phase 21: the tracked MEADS configuration ----
+    marks.append((21, time.perf_counter()))
+    path21 = meads_path(torch, dev, smi)
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
 
     # the threefry and normal kernels' launches on every path that draws
-    path_launches = {k: sum(p[k] for p in (launches12, path16, path17, path18, path19, path20))
+    path_launches = {k: sum(p[k] for p in (launches12, path16, path17, path18, path19, path20,
+                                           path21))
                      for k in PRNG_KERNELS}
     lf_ops = C * ((HMC_STEPS + 1) * GRAD_OPS["hierarchical"] * D
                   + HMC_STEPS * LEAPFROG_STEP_OPS * D)

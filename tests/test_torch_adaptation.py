@@ -183,11 +183,11 @@ def test_staged_engine_on_a_fixed_sequence(n_chains):
 def test_recipe_registry():
     assert set(metric_recipes.REGISTRY) == {
         "welford_diag", "welford_dense", "fisher_low_rank", "fisher_low_rank_accumulating",
-        "sample_cov_low_rank",
+        "sample_cov_low_rank", "draws_svd_low_rank",
     }
     assert metric_recipes.lookup_recipe("welford_dense").provides_dense
-    with pytest.raises(ValueError, match="'draws_svd_low_rank' is not yet ported"):
-        metric_recipes.lookup_recipe("draws_svd_low_rank")
+    with pytest.raises(ValueError, match="'fisher_diag' is not yet ported"):
+        metric_recipes.lookup_recipe("fisher_diag")
     with pytest.raises(ValueError, match="Unknown metric recipe 'bogus'"):
         metric_recipes.lookup_recipe("bogus")
     with pytest.raises(ValueError, match="outside"):

@@ -1543,3 +1543,119 @@ def test_sgld_dataset_on_the_card_is_the_cpu_one(cuda):
     assert int((y.cpu() != cy).sum()) == 0
     assert float((X.cpu() - cX).abs().max()) <= 1e-5
 
+
+
+# ---------------------------------------------------------------------------
+# MEADS and the metric buffers: the card against the CPU port, in f64
+# ---------------------------------------------------------------------------
+
+MEADS_SETTINGS = {"folds4": {}, "folds1": {"num_folds": 1},
+                  "lrd": {"low_rank_rank": 3, "low_rank_window_fraction": 0.5}}
+
+
+def _meads_relative(a, b):
+    a, b = a.cpu().double(), b.cpu().double()
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+@pytest.mark.parametrize("name", sorted(MEADS_SETTINGS))
+def test_meads_f64_on_the_card_is_the_cpu_run(cuda, name):
+    """64 chains x 40 steps at d = 8 (the CPU tests' size) on key 5."""
+    import chip_smoke
+    from blackjax_tpu_torch import prng
+
+    x = torch.from_numpy(2.0 * np.random.default_rng(3).standard_normal((64, 8)))
+    (card_s, card_p), card_i = chip_smoke.meads_run(torch, x.to(cuda), prng.key(5, cuda), 40,
+                                                    **MEADS_SETTINGS[name])
+    (cpu_s, cpu_p), cpu_i = chip_smoke.meads_run(torch, x, prng.key(5), 40,
+                                                 **MEADS_SETTINGS[name])
+    assert card_s.position.is_cuda and card_i.adaptation_state.step_size.is_cuda
+    for field in card_s._fields:
+        assert _meads_relative(getattr(card_s, field), getattr(cpu_s, field)) <= 1e-9, field
+    for field in ("step_size", "alpha", "delta", "position_sigma"):
+        assert _meads_relative(getattr(card_i.adaptation_state, field),
+                               getattr(cpu_i.adaptation_state, field)) <= 1e-9, field
+    assert _meads_relative(card_i.state.position, cpu_i.state.position) <= 1e-9
+    scale, cpu_scale = card_p["momentum_inverse_scale"], cpu_p["momentum_inverse_scale"]
+    if name == "lrd":
+        assert scale.U.is_cuda
+        assert _meads_relative((scale.U * scale.lam) @ scale.U.T,
+                               (cpu_scale.U * cpu_scale.lam) @ cpu_scale.U.T) <= 1e-9
+    else:
+        assert _meads_relative(scale, cpu_scale) <= 1e-9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_meads_step_reads_nothing_back_on_the_card(cuda, dtype):
+    import chip_smoke
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
+
+    x = prng.normal(prng.key(29, cuda), (256, 100), dtype)
+    keep = get_filter_adapt_info_fn(adapt_state_keys={"step_size"})
+    key = prng.key(1, cuda)
+    chip_smoke.meads_run(torch, x, key, 2, adaptation_info_fn=keep)  # warm
+    _, stacks = chip_smoke._host_syncs(
+        torch, lambda: chip_smoke.meads_run(torch, x, key, 8, adaptation_info_fn=keep))
+    assert chip_smoke._in_step(stacks) == 0
+    # the LRD window's steps wait for eigh's status, one sync each
+    _, stacks = chip_smoke._host_syncs(torch, lambda: chip_smoke.meads_run(
+        torch, x, key, 8, low_rank_rank=4, adaptation_info_fn=keep))
+    assert 0 < chip_smoke._in_step(stacks) <= 4
+
+
+BUFFER_POLICIES = ["reset_window", "accumulating", "ensemble", "late_start", "raw_ring"]
+
+
+def _buffer(mb, policy, diagonal):
+    return {"reset_window": lambda: mb.reset_window_buffer(5, diagonal=diagonal),
+            "accumulating": lambda: mb.accumulating_split_pop_buffer(5, 2, diagonal=diagonal),
+            "ensemble": lambda: mb.ensemble_batch_buffer(5, 4, 2, diagonal=diagonal),
+            "late_start": lambda: mb.late_start(
+                mb.accumulating_split_pop_buffer(5, 2, diagonal=diagonal), 1),
+            "raw_ring": lambda: mb.raw_draw_ring_buffer(5, 6)}[policy]()
+
+
+@pytest.mark.parametrize("diagonal", [True, False])
+@pytest.mark.parametrize("policy", BUFFER_POLICIES)
+def test_metric_buffers_on_the_card_are_the_cpu_ones(cuda, policy, diagonal):
+    from blackjax_tpu_torch.adaptation import metric_buffers as mb
+    from blackjax_tpu_torch.util import tree_leaves
+
+    buffer = _buffer(mb, policy, diagonal)
+    rng = np.random.default_rng(9)
+    states = {dev: buffer.init(dtype=torch.float64, device=dev) for dev in ("cpu", cuda)}
+    for op in ["u", "u", "p", "u", "u", "p", "u"]:
+        batch = torch.from_numpy(rng.standard_normal((4, 5)))
+        for dev in states:
+            states[dev] = (buffer.update(states[dev], batch.to(dev)) if op == "u"
+                           else buffer.push_split(states[dev]))
+        got, expected = states[cuda], states["cpu"]
+        for a, b in zip(tree_leaves((got, buffer.get_moments(got), buffer.get_support(got),
+                                     buffer.get_diag_reference(got))),
+                        tree_leaves((expected, buffer.get_moments(expected),
+                                     buffer.get_support(expected),
+                                     buffer.get_diag_reference(expected)))):
+            if torch.is_tensor(a):
+                assert a.is_cuda
+                np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-12, atol=1e-12)
+            else:
+                assert a == b
+
+
+def test_draws_svd_recipe_on_the_card_is_the_cpu_one(cuda):
+    from blackjax_tpu_torch.adaptation.metric_recipes import lookup_recipe
+
+    core = lookup_recipe("draws_svd_low_rank").build_core(capacity=12, max_rank=3)
+    draws = torch.from_numpy(np.random.default_rng(4).standard_normal((20, 6))
+                             * np.linspace(0.5, 3.0, 6))
+    out = {}
+    for dev in ("cpu", cuda):
+        state = core.init(6, dtype=torch.float64, device=dev)
+        for chunk in draws.split(5):
+            state = core.update(state, chunk.to(dev))
+        payload = core.final(state).inverse_mass_matrix
+        out[str(dev)] = (payload.sigma.cpu(), payload.lam.cpu(),
+                         ((payload.U * payload.lam) @ payload.U.T).cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12)

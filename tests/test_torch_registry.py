@@ -18,9 +18,10 @@
   and the SG-MCMC samplers' (``sgld``, ``sghmc``, ``sgnht``, ``csgld``), and
   each ``sgmcmc`` module's ``__all__``.
 - Persistent sampling, pretuning and nested slice sampling (``smc_family``,
-  ``ns_family``) are exported as the reference builds them: 60 of its 78
-  names, the families' members in its order, every ``ns`` module's
-  ``__all__`` its reference module's.
+  ``ns_family``) are exported as the reference builds them, the families'
+  members in its order, every ``ns`` module's ``__all__`` its reference
+  module's; with ``chees_adaptation`` and ``meads_adaptation``, 61 of its 78
+  names.
 - ``pyproject.toml``'s package data names every CUDA source under ``csrc/``,
   so that an installed copy can build its kernels.
 """
@@ -102,8 +103,8 @@ def test_smc_modules_are_reachable(module):
 
 
 def test_the_registry_holds_59_of_the_reference_s_names():
-    """60 of the 78 since ``chees_adaptation`` (the test keeps its name)."""
-    assert len(set(blackjax_tpu_torch.__all__)) == 60 and len(set(blackjax_tpu.__all__)) == 78
+    """61 of the 78 since ``meads_adaptation`` (the test keeps its name)."""
+    assert len(set(blackjax_tpu_torch.__all__)) == 61 and len(set(blackjax_tpu.__all__)) == 78
     assert set(blackjax_tpu_torch.__all__) <= set(blackjax_tpu.__all__)
 
 
@@ -117,6 +118,26 @@ def test_chees_adaptation_is_built_as_the_reference_builds_it():
     assert blackjax_tpu_torch.chees_adaptation is port.chees_adaptation
     assert "chees_adaptation" in blackjax_tpu_torch.__all__
     assert set(port.__all__) == set(reference.__all__)
+
+
+def test_meads_adaptation_is_built_as_the_reference_builds_it():
+    """The warmup function itself, imported from its module, as
+    ``blackjax_tpu/__init__.py:25`` does; ``adaptation`` exports its module
+    and ``metric_buffers``, as the reference's ``adaptation/__init__.py``."""
+    import blackjax_tpu.adaptation
+    import blackjax_tpu_torch.adaptation
+    from blackjax_tpu.adaptation import meads_adaptation as reference
+    from blackjax_tpu_torch.adaptation import meads_adaptation as port
+
+    assert blackjax_tpu.meads_adaptation is reference.meads_adaptation
+    assert blackjax_tpu_torch.meads_adaptation is port.meads_adaptation
+    assert "meads_adaptation" in blackjax_tpu_torch.__all__
+    assert set(port.__all__) == set(reference.__all__)
+    for name in ("meads_adaptation", "metric_buffers"):
+        assert name in blackjax_tpu.adaptation.__all__
+        assert name in blackjax_tpu_torch.adaptation.__all__
+        module = getattr(blackjax_tpu_torch.adaptation, name)
+        assert set(module.__all__) == set(getattr(blackjax_tpu.adaptation, name).__all__)
 
 
 @pytest.mark.parametrize("family, size", [("smc_family", 5), ("ns_family", 2)])
