@@ -32,8 +32,9 @@ nested slice samplers ``nss``, ``nsswig`` and ``ns_family``;
 ``window_adaptation``,
 ``window_adaptation_low_rank``, ``staged_adaptation``,
 ``mclmc_find_L_and_step_size``, ``dual_averaging_adaptation``,
-``chees_adaptation``, ``meads_adaptation``,
-``dual_averaging``, ``diagnostics`` (with ``ess``, ``ess_bulk``,
+``chees_adaptation``, ``meads_adaptation``, ``pathfinder_adaptation``;
+``pathfinder``, ``multipathfinder`` and ``VIAlgorithm``; ``dual_averaging``,
+``lbfgs``, ``diagnostics`` (with ``ess``, ``ess_bulk``,
 ``ess_tail``, ``pareto_khat`` and ``rhat``) and ``util``.
 """
 import dataclasses
@@ -46,12 +47,14 @@ from blackjax_tpu_torch.adaptation.chees_adaptation import chees_adaptation
 from blackjax_tpu_torch.adaptation.low_rank_adaptation import window_adaptation_low_rank
 from blackjax_tpu_torch.adaptation.meads_adaptation import meads_adaptation
 from blackjax_tpu_torch.adaptation.mclmc_adaptation import mclmc_find_L_and_step_size
+from blackjax_tpu_torch.adaptation.pathfinder_adaptation import pathfinder_adaptation
 from blackjax_tpu_torch.adaptation.staged_adaptation import staged_adaptation
 from blackjax_tpu_torch.adaptation.step_size import dual_averaging_adaptation
 from blackjax_tpu_torch.adaptation.window_adaptation import window_adaptation
 from blackjax_tpu_torch.base import (
     AdaptationAlgorithm,
     SamplingAlgorithm,
+    VIAlgorithm,
     build_sampling_algorithm,
 )
 from blackjax_tpu_torch.diagnostics import effective_sample_size as ess
@@ -72,7 +75,7 @@ from blackjax_tpu_torch.mcmc import nuts as _nuts
 from blackjax_tpu_torch.mcmc import periodic_orbital as _periodic_orbital
 from blackjax_tpu_torch.mcmc import random_walk
 from blackjax_tpu_torch.mcmc import slice as _slice
-from blackjax_tpu_torch.optimizers import dual_averaging
+from blackjax_tpu_torch.optimizers import dual_averaging, lbfgs
 from blackjax_tpu_torch.sgmcmc import csgld as _csgld
 from blackjax_tpu_torch.sgmcmc import sghmc as _sghmc
 from blackjax_tpu_torch.sgmcmc import sgld as _sgld
@@ -85,6 +88,8 @@ from blackjax_tpu_torch.smc import partial_posteriors_path as _partial_posterior
 from blackjax_tpu_torch.smc import persistent_sampling as _persistent_sampling
 from blackjax_tpu_torch.smc import pretuning as _pretuning
 from blackjax_tpu_torch.smc import tempered as _tempered
+from blackjax_tpu_torch.vi import multipathfinder as _multipathfinder
+from blackjax_tpu_torch.vi import pathfinder as _pathfinder
 
 __version__ = "0.1.0"
 
@@ -103,6 +108,20 @@ class GenerateSamplingAPI:
 
     def register_factory(self, name, callable):
         setattr(self, name, callable)
+
+
+@dataclasses.dataclass
+class GeneratePathfinderAPI:
+    """Pathfinder's surface (reference ``blackjax_tpu/__init__.py:130``):
+    the call builds the ``VIAlgorithm``; ``approximate`` and ``sample`` are
+    the module's functions."""
+
+    differentiable: Callable
+    approximate: Callable
+    sample: Callable
+
+    def __call__(self, *args, **kwargs):
+        return self.differentiable(*args, **kwargs)
 
 
 def generate_top_level_api_from(module) -> GenerateSamplingAPI:
@@ -181,6 +200,11 @@ nss = GenerateSamplingAPI(_nss.as_top_level_api, _nss.init, _nss.build_kernel)
 nsswig = GenerateSamplingAPI(_nss.swig_as_top_level_api, _nss.init, _nss.build_swig_kernel)
 ns_family = [nss, nsswig]
 
+pathfinder = GeneratePathfinderAPI(
+    _pathfinder.as_top_level_api, _pathfinder.approximate, _pathfinder.sample
+)
+multipathfinder = _multipathfinder.as_top_level_api
+
 # the class `ops.fused_hmc` shadows its module's name in `ops`, so the
 # module is resolved through importlib (as in the reference)
 fused_hmc = generate_top_level_api_from(
@@ -231,6 +255,9 @@ __all__ = [
     "nss",
     "nsswig",
     "ns_family",
+    "pathfinder",
+    "multipathfinder",
+    "VIAlgorithm",
     "window_adaptation",
     "window_adaptation_low_rank",
     "staged_adaptation",
@@ -238,7 +265,9 @@ __all__ = [
     "dual_averaging_adaptation",
     "chees_adaptation",
     "meads_adaptation",
+    "pathfinder_adaptation",
     "dual_averaging",
+    "lbfgs",
     "diagnostics",
     "util",
     "ess",

@@ -7,6 +7,7 @@ from blackjax_tpu_torch.adaptation import meads_adaptation as meads_adaptation
 from blackjax_tpu_torch.adaptation import metric_buffers as metric_buffers
 from blackjax_tpu_torch.adaptation import metric_estimators as metric_estimators
 from blackjax_tpu_torch.adaptation import metric_recipes as metric_recipes
+from blackjax_tpu_torch.adaptation import pathfinder_adaptation as pathfinder_adaptation
 from blackjax_tpu_torch.adaptation import staged_adaptation as staged_adaptation
 from blackjax_tpu_torch.adaptation import step_size as step_size
 from blackjax_tpu_torch.adaptation import window_adaptation as window_adaptation

@@ -32,7 +32,9 @@ from blackjax_tpu_torch.adaptation.mass_matrix import welford_algorithm
 from blackjax_tpu_torch.base import AdaptationAlgorithm
 from blackjax_tpu_torch.mcmc import dynamic_hmc
 from blackjax_tpu_torch.optimizers import optax_twins
-from blackjax_tpu_torch.optimizers.dual_averaging import DualAveragingState
+from blackjax_tpu_torch.optimizers.dual_averaging import _fma
+from blackjax_tpu_torch.optimizers.dual_averaging import tensor_init as _da_init
+from blackjax_tpu_torch.optimizers.dual_averaging import tensor_update as _da_update
 from blackjax_tpu_torch.types import Array, PRNGKey
 from blackjax_tpu_torch.util import tree_map
 
@@ -50,8 +52,6 @@ _LENGTH_FLOOR_POWER_ITERATIONS = 5
 _LENGTH_FLOOR_FINAL_POWER_ITERATIONS = 20
 _LENGTH_FLOOR_LAMBDA_EPS = 1e-6
 
-# the dual averaging of the reference's defaults (t0, gamma, kappa)
-_DA_T0, _DA_GAMMA, _DA_KAPPA = 10, 0.05, 0.75
 
 _MESH = "axis_name (pooling over devices) is not ported yet: ROADMAP queue 1, item 12"
 
@@ -73,12 +73,6 @@ class ChEESAdaptationState(NamedTuple):
     optim_state: NamedTuple
     random_generator_arg: int
     step: int
-
-
-def _fma(a, b, c):
-    """``a * b + c`` rounded once, where XLA contracts the reference's
-    multiply-add; ``b`` may be a number."""
-    return torch.addcmul(c, a, b if torch.is_tensor(b) else torch.full_like(a, b))
 
 
 def _eig_state_init(num_dim: int, *, dtype=None, device=None) -> _ChEESEigState:
@@ -141,26 +135,6 @@ def _axis_nanmean(x):
 def _masked_sum(x, keep):
     """``jnp.sum(x, where=keep)``."""
     return torch.where(keep, x, torch.zeros_like(x)).sum()
-
-
-def _da_init(x_init) -> DualAveragingState:
-    """The reference's ``dual_averaging()`` state, on tensors: its ``step``
-    a 0-d integer tensor, since a rejected update keeps the old one."""
-    zero = torch.zeros_like(x_init)
-    step = torch.ones((), dtype=prng.default_int_dtype(x_init.dtype), device=x_init.device)
-    return DualAveragingState(torch.log(x_init), zero, step, zero, torch.log(10.0 * x_init))
-
-
-def _da_update(state: DualAveragingState, gradient) -> DualAveragingState:
-    """The reference's dual-averaging update, on tensors."""
-    log_x, log_x_avg, step, avg_error, mu = state
-    step_f = step.to(avg_error.dtype)
-    reg_step = step_f + _DA_T0
-    eta = step_f ** (-_DA_KAPPA)
-    avg_error = _fma(avg_error, 1.0 - 1.0 / reg_step, gradient / reg_step)
-    new_log_x = _fma(-(torch.sqrt(step_f) / _DA_GAMMA), avg_error, mu)
-    new_log_x_avg = _fma(eta, log_x, (1.0 - eta) * log_x_avg)
-    return DualAveragingState(new_log_x, new_log_x_avg, step + 1, avg_error, mu)
 
 
 def _select(ok, new, old):

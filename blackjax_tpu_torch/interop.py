@@ -15,13 +15,17 @@ parameters, ``NSInfo``), and the states of the MCMC family beyond NUTS (dynamic 
 its carried key, GHMC, Barker, the random walks, elliptical slice, slice,
 periodic orbital and mGrad, with mGrad's ``CovarianceSVD``), and the ChEES
 warmup's controller state (with its dual-averaging and optax Adam states)
-and tuned parameters.
+and tuned parameters, and Pathfinder's records (``PathfinderState``,
+``LBFGSHistory``, ``MultipathfinderState`` and the Pathfinder warmup's
+``PathfinderAdaptationState``).
 """
 import numpy as np
 import torch
 
 from blackjax_tpu_torch.adaptation.chees_adaptation import ChEESAdaptationState
 from blackjax_tpu_torch.adaptation.mclmc_adaptation import MCLMCAdaptationState
+from blackjax_tpu_torch.adaptation.pathfinder_adaptation import PathfinderAdaptationState
+from blackjax_tpu_torch.adaptation.step_size import DualAveragingAdaptationState
 from blackjax_tpu_torch.adaptation.metric_recipes import LowRankMetricCoreState
 from blackjax_tpu_torch.mcmc.barker import BarkerInfo, BarkerState
 from blackjax_tpu_torch.mcmc.dynamic_hmc import DynamicHMCState
@@ -51,6 +55,7 @@ from blackjax_tpu_torch.smc.tempered import TemperedSMCState
 from blackjax_tpu_torch.ops import fused_nuts_dc, targets_dc
 from blackjax_tpu_torch.ops.fused_hmc import FusedHMCState
 from blackjax_tpu_torch.optimizers.dual_averaging import DualAveragingState
+from blackjax_tpu_torch.optimizers.lbfgs import LBFGSHistory
 from blackjax_tpu_torch.optimizers.optax_twins import EmptyState, ScaleByAdamState
 from blackjax_tpu_torch.ops.fused_nuts import make_mxu_safe_hierarchical_target
 from blackjax_tpu_torch.ops.fused_leapfrog import (
@@ -60,6 +65,8 @@ from blackjax_tpu_torch.ops.fused_leapfrog import (
     make_hierarchical_gaussian_target,
     make_logistic_regression_target,
 )
+from blackjax_tpu_torch.vi.multipathfinder import MultipathfinderState
+from blackjax_tpu_torch.vi.pathfinder import PathfinderState
 
 __all__ = [
     "to_tensor",
@@ -83,6 +90,10 @@ __all__ = [
     "ns_info",
     "mclmc_parameters",
     "fused_hmc_state",
+    "pathfinder_state",
+    "lbfgs_history",
+    "multipathfinder_state",
+    "pathfinder_adaptation_state",
     "target_dc",
     "fused_target",
     "target",
@@ -285,6 +296,38 @@ def chees_parameters(parameters: dict, like: dict, *, device=None, dtype=None) -
             to_tensor(v, device=device, dtype=dtype)
             for v in parameters["integration_steps_params"]),
     }
+
+
+def pathfinder_state(state, *, device=None, dtype=None) -> PathfinderState:
+    """A ``PathfinderState`` of the reference (one path's, a batch's or a
+    whole path's, fields as arrays) as the port's."""
+    return PathfinderState(*(to_tensor(v, device=device, dtype=dtype) for v in state))
+
+
+def lbfgs_history(history, *, device=None, dtype=None) -> LBFGSHistory:
+    """The reference's ``LBFGSHistory`` as the port's; ``update_mask``
+    stays boolean."""
+    return LBFGSHistory(*(to_tensor(v, device=device, dtype=dtype) for v in history))
+
+
+def multipathfinder_state(state, *, device=None, dtype=None) -> MultipathfinderState:
+    """The reference's ``MultipathfinderState`` (the paths' states, their
+    draws and the draws' log-densities) as the port's."""
+    return MultipathfinderState(
+        pathfinder_state(state.path_states, device=device, dtype=dtype),
+        *(to_tensor(v, device=device, dtype=dtype) for v in state[1:]))
+
+
+def pathfinder_adaptation_state(state, *, device=None, dtype=None) -> PathfinderAdaptationState:
+    """The reference Pathfinder warmup's ``PathfinderAdaptationState`` (one
+    step's, a chain's or ``(C, ...)`` chains', fields as arrays) as the
+    port's: the dual-averaging state's fields tensors, its ``step``
+    integer."""
+    return PathfinderAdaptationState(
+        DualAveragingAdaptationState(*(to_tensor(v, device=device, dtype=dtype)
+                                       for v in state.ss_state)),
+        to_tensor(state.step_size, device=device, dtype=dtype),
+        to_tensor(state.inverse_mass_matrix, device=device, dtype=dtype))
 
 
 def sampler_state(state, *, device=None, dtype=None):

@@ -18,6 +18,7 @@ __all__ = [
     "default_metric",
     "gaussian_euclidean",
     "gaussian_euclidean_low_rank",
+    "lbfgs_inverse_hessian_to_low_rank_metric",
 ]
 
 
@@ -260,3 +261,23 @@ def gaussian_euclidean_low_rank(sigma: Array, U: Array, lam: Array) -> Metric:
         scale,
         _batched_turning_from_apply(apply_row),
     )
+
+
+def lbfgs_inverse_hessian_to_low_rank_metric(
+    alpha: Array, beta: Array, gamma: Array
+) -> LowRankInverseMassMatrix:
+    """Rewrite an L-BFGS factored inverse Hessian ``H^{-1} = diag(alpha) +
+    beta gamma beta^T`` (Pathfinder's form) as a
+    :class:`LowRankInverseMassMatrix` (reference ``metrics.py:366``).
+
+    With ``sigma = sqrt(alpha)``, ``H^{-1} = D (I + D^{-1} beta gamma beta^T
+    D^{-1}) D``; an orthonormal basis ``Q`` of ``D^{-1} beta`` (thin QR)
+    turns the inner correction into ``Q C Q^T``, whose eigendecomposition
+    gives ``(U, lam)``. ``eigh``'s columns carry arbitrary signs, so two
+    payloads agree through ``U diag(lam) U^T``, not through ``U``."""
+    sigma = torch.sqrt(alpha)
+    Q, R = torch.linalg.qr(beta / sigma[:, None])
+    core = R @ gamma @ R.T
+    core = 0.5 * (core + core.T)
+    eigvals, V = torch.linalg.eigh(core)
+    return LowRankInverseMassMatrix(sigma=sigma, U=Q @ V, lam=1.0 + eigvals)

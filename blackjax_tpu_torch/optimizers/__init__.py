@@ -1,4 +1,4 @@
 """Optimizers ported so far."""
-from blackjax_tpu_torch.optimizers import dual_averaging, optax_twins
+from blackjax_tpu_torch.optimizers import dual_averaging, lbfgs, optax_twins
 
-__all__ = ["dual_averaging", "optax_twins"]
+__all__ = ["dual_averaging", "lbfgs", "optax_twins"]

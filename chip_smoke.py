@@ -17,7 +17,9 @@ or live points), one at the tracked static-HMC
 configuration's (d=100, 128 chains) under the MCMC family beyond NUTS and
 one at the tracked SG-MCMC configurations' (SGLD on the covertype-class
 logistic regression, one chain and 4,096 chains), one at the tracked
-cross-chain configurations' (ChEES and MEADS, d=100, 4,096 chains), and reads the card's
+cross-chain configurations' (ChEES and MEADS, d=100, 4,096 chains), one
+at Pathfinder's warmup on config #5's target and start (4,096 chains and
+paths), and reads the card's
 FP32 roofline through which their bounds are read, and checks them in
 phases, one line each:
 
@@ -420,6 +422,44 @@ phases, one line each:
    CPU size) on the card and on the CPU on key 21: the final states, every
    step's per-fold parameters and the returned ones (LRD's as its operator
    ``U diag(lam) U^T``) within 1e-9 relative to ``max(|x|, 1)``.
+22. Pathfinder on config #5's target and start
+   (``benchmarks/tracked.py:744-788``; no published configuration runs
+   Pathfinder): ``pathfinder_adaptation(hmc, ill_conditioned_gaussian(100)
+   .logdensity_fn, num_chains=4096, num_integration_steps=20)`` with
+   ``n_paths`` at its default (4,096 paths of 200 draws), from row 0 of
+   ``normal(key(19), (4096, 100))``, f32, 400 steps on the first key of
+   ``split(key(23), 3)`` and 100 (cut) on the other two, after a warm run of
+   20 steps, the info cut to the acceptance rates and step sizes,
+   threefry and normal launch counts and the L-BFGS and line-search loops'
+   counts reset before each run. Its lines give the seconds of each run by
+   host clock and CUDA events, split at the dual-averaging loop into the
+   Pathfinder stage (L-BFGS, the ELBOs, PSIS, the mixture covariance, the
+   starts) and the dual-averaging stage, each stage's threefry and normal
+   launches, the L-BFGS and line-search iterations of the batch, host ms a
+   step, leapfrog-grads/sec (4,096 x 20 x 400 over the stage) and
+   chain-steps/sec, the host syncs in an 8-step run's dual-averaging steps
+   (0 required; the metric's one Cholesky factor before them is not a
+   step's) and the busy share of an 8-step run; each key's inverse mass
+   matrix's diagonal over the target's variances (smallest, largest), its
+   off-diagonal mass, the per-chain step sizes' median, smallest and
+   largest, and the final positions' variances over the target's
+   (smallest, largest) must lie within the JAX package's bands
+   (``tools/pathfinder_reference.py``: its three keys at 1,024 chains, 400
+   steps for key 0 and 100 for keys 1-2), every tensor on the card and
+   finite; Pareto k-hat is reported. Then single-path
+   ``pathfinder.approximate`` and ``sample`` of 4,096 draws, the chosen
+   state's ``lbfgs_inverse_hessian_to_low_rank_metric`` as its operator
+   within 1e-4 of ``lbfgs_inverse_hessian_formula_1`` (f32), and
+   ``multipathfinder`` init on 4,096 paths and its PSIS resampling of 4,096
+   draws. Then the f64 hold on key 24 at 16 chains x 40 steps: the run's
+   Pathfinder stage on the card and on the CPU (every iterate, gradient and
+   factor and every finite ELBO of every path, the draws, their
+   log-densities, the PSIS weights), the inverse mass matrix and k-hat, the
+   free run's first 3 steps, and every step 1-39 taken on the card from the
+   CPU's state before it (the final states and step sizes among them), all
+   within 1e-9 relative to ``max(|x|, 1)``; the free runs' final positions'
+   distance is reported (the dual averaging's first steps pass the
+   leapfrog's stability limit, where rounding grows tenfold a step).
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
@@ -429,9 +469,9 @@ like-for-like times), one per new (kernel, target) pair (phase 9's and
 regression comparison), one for the older machine (phase 13's 512 x 16 times; eight schools'
 launches are phase 15's)
 and one for the threefry kernel with a key per element (phase 2's times on
-1,048,576 keys; its launches are phases 12's and 16-21's), one for the
+1,048,576 keys; its launches are phases 12's and 16-22's), one for the
 normal kernel (phase 2's float32 times; its launches are phases 12's and
-16-21's), and one
+16-22's), and one
 for the VPU-peak kernel (its unfused ``fma`` at N = 4 and 32 warps an SM,
 4,096 iterations; its launches are phase 1's sweep). ``launches`` is the count from the
 main path's run, or, for a pair that no main path drives, from the pair's checked
@@ -641,6 +681,57 @@ MEADS_LRD_STEPS, MEADS_LRD_RANK = 200, 8
 # chains x 40 steps at d = 100: ten reshuffles, every fold frozen), key 21, the
 # defaults and LRD at k = 8 with the window over the second half
 MEADS_CMP_CHAINS, MEADS_CMP_STEPS, MEADS_CMP_TOL = 256, 40, 1e-9
+# phase 22: Pathfinder on config #5's target and start (benchmarks/tracked.py:
+# 744-788; no published configuration runs Pathfinder): pathfinder_adaptation(
+# hmc, ill_conditioned_gaussian(100).logdensity_fn, num_chains=4096,
+# num_integration_steps=20), n_paths at its default (4,096 paths of 200 draws,
+# 819,200 pooled draws), from row 0 of normal(key(19), (4096, 100)), 400 steps
+# (the default num_steps), f32, on the three keys of split(key(23), 3), after a
+# warm run of 20 steps; the per-step info cut to the acceptance rates and step
+# sizes
+PF_CHAINS, PF_D, PF_STEPS, PF_WARM_STEPS = 4096, 100, 400, 20
+PF_START_SEED, PF_KEY_SEED, PF_KEYS, PF_INTEGRATION_STEPS = 19, 23, 3, 20
+# keys 1 and 2 run 100 steps (cut from 400: at about 39 host ms a
+# dual-averaging step three full keys took 71.5 s of the phase's first probe)
+PF_CHEAP_STEPS = 100
+# the smallest and largest ratio of the inverse mass matrix's diagonal to the
+# target's variances, its off-diagonal mass ||M - diag M||_F / ||M||_F, the
+# median, smallest and largest per-chain step size, and the smallest and
+# largest ratio of the final positions' variances to the target's: (centre,
+# half width), python tools/pathfinder_reference.py (the JAX package, f32, the
+# three keys at 1,024 chains: three times their spread, 5 % of the mean or the
+# drift from 256 chains, whichever is widest; the final variances' band scaled
+# to 4,096 chains about 1, as their sampling noise shrinks), at 400 steps
+PATHFINDER_REFERENCE = {
+    "imm_ratio_min": (0.13286808561571942, 0.1072758724199639),
+    "imm_ratio_max": (4.124553199887284, 1.522184830098071),
+    "offdiag_mass": (0.21047099240725586, 0.1140958370148927),
+    "step_size_median": (0.3737703611453374, 0.023461103439331055),
+    "step_size_min": (0.34061841169993085, 0.0217779278755188),
+    "step_size_max": (0.4148048162460327, 0.055290430784225464),
+    "var_ratio_min": (0.9426397776504054, 0.02213198888252027),
+    "var_ratio_max": (1.0533099887754558, 0.054119960353213314)
+}
+# the same at 100 steps (--steps 100), for keys 1 and 2
+PATHFINDER_REFERENCE_CHEAP = {
+    "imm_ratio_min": (0.13286808561571942, 0.1072758724199639),
+    "imm_ratio_max": (4.124553199887284, 1.522184830098071),
+    "offdiag_mass": (0.21047099240725586, 0.1140958370148927),
+    "step_size_median": (0.33208036919434863, 0.020388633012771606),
+    "step_size_min": (0.2789186139901479, 0.01904439926147461),
+    "step_size_max": (0.395286629597346, 0.05311301350593567),
+    "var_ratio_min": (0.9532372141046406, 0.060333312712965825),
+    "var_ratio_max": (1.0599682253540208, 0.04508390856889943)
+}
+# the host syncs are counted on the warm run, in CUDA's sync debug mode; the
+# busy share is of 8 of its dual-averaging steps, rerun under the profiler
+PF_BUSY_STEPS = 8
+PF_DRAWS = 4096  # single-path Pathfinder's and multipathfinder's draws
+PF_LOW_RANK_TOL = 1e-4  # the low-rank payload's operator against formula 1, f32
+# the f64 hold, the card against the CPU: 16 chains (and paths) x 40 steps at
+# d = 100, key 24: the Pathfinder stage whole (every iterate and ELBO of every
+# path), the free run's first 3 steps, then every step from the CPU's state
+PF_CMP_CHAINS, PF_CMP_STEPS, PF_CMP_FREE, PF_CMP_TOL = 16, 40, 3, 1e-9
 # phase 17: the MCMC family beyond NUTS on the tracked static-HMC configuration
 # (benchmarks/tracked.py:112-163): ill_conditioned_gaussian(100), 128 chains from
 # 0.5 N(0, I) of numpy seed 7, step size 0.08, 10 integration steps, unit inverse
@@ -672,7 +763,10 @@ FAM_IRMH_SCALE, FAM_PERIOD = 1.05, 8  # irmh's proposal N(0, 1.1025 diag(var)); 
 FAM_F64 = ("orbital_hmc",)
 FAM_MGRAD_DELTA, FAM_MCLMC_STEP, FAM_MCLMC_STEPS = 1.0, 1.0, 5
 FAM_BUSY_TRANSITIONS = 8  # the transitions of the busy-share run, but for the slowest:
-FAM_BUSY_SHORT = {"coordinate_slice": 1, "gist_trajectory_length": 2}
+FAM_BUSY_SHORT = {"gist_trajectory_length": 2}
+# coordinate_slice's one transition takes 8-17 s, so its busy share is read
+# from the timed transition itself, under the profiler, not from a second run
+FAM_BUSY_ON_TIMED = ("coordinate_slice",)
 # Bands of the mean acceptance (elliptical slice: mean subiter; the slice
 # samplers: mean num_shrink), from the JAX package's own run of each sampler on
 # the CPU at the same settings, keys and transitions
@@ -1984,16 +2078,28 @@ def family_path(torch, dev, smi):
         start = x0.double() if name in FAM_F64 else x0
         state0 = algo.init(start, init_keys) if keyed_init else algo.init(start)
         before = {k: dc.LAUNCHES[k] for k in PRNG_KERNELS}
+
+        def timed_run():
+            stats, state, info = [], state0, None
+            for i in range(n):
+                state, info = algo.step(keys_of(i), state)
+                stat, _ = family_statistic(name, info)
+                if stat is not None:
+                    stats.append(stat)
+            return stats, state, info
+
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats, state, info = [], state0, None
-        for i in range(n):
-            state, info = algo.step(keys_of(i), state)
-            stat, _ = family_statistic(name, info)
-            if stat is not None:
-                stats.append(stat)
+        if name in FAM_BUSY_ON_TIMED:
+            out = {}
+            busy = _device_busy(torch, lambda: out.setdefault("run", timed_run()))
+            stats, state, info = out["run"]
+        else:
+            stats, state, info = timed_run()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        if name in FAM_BUSY_ON_TIMED and busy is not None:
+            secs = busy[2] / 1e3  # the run's own, not the reading of the profiler's records
         for k in PRNG_KERNELS:
             path17[k] += dc.LAUNCHES[k] - before[k]
         launches = dc.LAUNCHES["threefry2x32"] - before["threefry2x32"]
@@ -2002,8 +2108,11 @@ def family_path(torch, dev, smi):
         _require(finite, f"phase 17 {name}: non-finite values")
         _require(launches > 0, f"phase 17 {name}: no threefry launch")
         mean_stat = float(torch.stack(stats).double().mean()) if stats else None
-        busy_n = FAM_BUSY_SHORT.get(name, FAM_BUSY_TRANSITIONS)
-        busy = _device_busy(torch, lambda: family_run(algo, keys_of, state, busy_n))
+        if name in FAM_BUSY_ON_TIMED:
+            busy_n = n
+        else:
+            busy_n = FAM_BUSY_SHORT.get(name, FAM_BUSY_TRANSITIONS)
+            busy = _device_busy(torch, lambda: family_run(algo, keys_of, state, busy_n))
         x, w = _samples(state)
         mean, variance = _weighted_moments(x, w)
         z = float((mean.cpu() / np.sqrt(var)).abs().max())
@@ -2025,8 +2134,9 @@ def family_path(torch, dev, smi):
         stat_words = "no acceptance (weighted orbit)" if mean_stat is None else (
             f"{stat_name} {mean_stat:.4f} (the JAX package on the CPU {FAM_REFERENCE[name]:.4f})")
         print(f"phase 17 {name}: {FAM_CHAINS} chains x {FAM_D}, "
-              f"{'f64' if name in FAM_F64 else 'f32'}, {n} transitions in "
-              f"{secs:.3f} s: {FAM_CHAINS * n / secs:.1f} transitions/sec (chains x transitions), "
+              f"{'f64' if name in FAM_F64 else 'f32'}, {n} transitions in {secs:.3f} s"
+              f"{' (under the profiler)' if name in FAM_BUSY_ON_TIMED else ''}: "
+              f"{FAM_CHAINS * n / secs:.1f} transitions/sec (chains x transitions), "
               f"{secs / n * 1e3:.3f} host ms a transition, {launches / n:.2f} threefry launches a "
               f"transition; device over {busy_n} transitions {busy_words}; {stat_words}{extra}; "
               f"last state's largest |mean| / sd {z:.3f}, variance / target's "
@@ -3057,6 +3167,342 @@ def meads_path(torch, dev, smi):
     print("phase 21 host seconds by part: "
           + ", ".join(f"{name} {secs:.1f}" for name, secs in parts.items()))
     return launches21
+
+
+def pathfinder_run(torch, position, key, num_steps, num_chains=PF_CHAINS, **options):
+    """Phase 22's warmup from the ``(d,)`` ``position`` on ``key`` (key
+    words): ``pathfinder_adaptation(hmc, ill_conditioned_gaussian(d)
+    .logdensity_fn, num_chains, num_integration_steps=20, **options).run(key,
+    position, num_steps)``."""
+    from blackjax_tpu_torch import pathfinder_adaptation
+    from blackjax_tpu_torch.mcmc import hmc
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+
+    target = ill_conditioned_gaussian(position.shape[-1])
+    warmup = pathfinder_adaptation(hmc, target.logdensity_fn, num_chains=num_chains,
+                                   num_integration_steps=PF_INTEGRATION_STEPS, **options)
+    return warmup.run(key, position, num_steps)
+
+
+def pathfinder_summary(torch, params, positions, variances):
+    """A run's gated statistics, as ``tools/pathfinder_reference.py``
+    reckons them, in float64: the inverse mass matrix's diagonal over the
+    target's ``variances`` and its off-diagonal mass, the per-chain step
+    sizes' median (numpy's, the mean of the two middle ones), smallest and
+    largest, and the final positions' variances (``ddof = 1``) over the
+    target's; and Pareto k-hat."""
+    imm = params["inverse_mass_matrix"].double()
+    variances = variances.to(imm.device)
+    diag = torch.diagonal(imm)
+    ratio = diag / variances
+    off = imm - torch.diag(diag)
+    steps = params["step_size"].double()
+    var_ratio = positions.double().var(0) / variances
+    return {"imm_ratio_min": float(ratio.min()), "imm_ratio_max": float(ratio.max()),
+            "offdiag_mass": float(torch.linalg.norm(off) / torch.linalg.norm(imm)),
+            "step_size_median": float(torch.quantile(steps, 0.5)),
+            "step_size_min": float(steps.min()), "step_size_max": float(steps.max()),
+            "var_ratio_min": float(var_ratio.min()), "var_ratio_max": float(var_ratio.max()),
+            "pareto_k": float(params["_pathfinder_psis_pareto_k"])}
+
+
+@contextlib.contextmanager
+def _pathfinder_stages(torch, dc):
+    """Splits a ``pathfinder_adaptation`` run at its dual-averaging loop
+    (``_step_size_loop``): the loop's arguments, the host clock (after a
+    device sync) and the launch counts at its start and end."""
+    from blackjax_tpu_torch.adaptation import pathfinder_adaptation as pa
+
+    marks = {}
+    loop = pa._step_size_loop
+
+    def split(*args):
+        marks["args"] = args
+        torch.cuda.synchronize()
+        marks["start"], marks["launches"] = time.perf_counter(), dict(dc.LAUNCHES)
+        out = loop(*args)
+        torch.cuda.synchronize()
+        marks["end"] = time.perf_counter()
+        return out
+
+    pa._step_size_loop = split
+    try:
+        yield marks
+    finally:
+        pa._step_size_loop = loop
+
+
+def _in_pathfinder_step(stacks):
+    """The syncs made inside the dual-averaging loop (``_step_size_loop``):
+    ``(factor, other)``, those of the metric's Cholesky factor
+    (``metrics._sqrt_factors``), which the loop builds once before its
+    steps, and all others, which a step would make."""
+    inside = [stack for stack in stacks
+              if ("pathfinder_adaptation.py", "_step_size_loop") in stack]
+    factor = sum(("metrics.py", "_sqrt_factors") in stack for stack in inside)
+    return factor, len(inside) - factor
+
+
+def pathfinder_holds(torch, dev):
+    """Phase 22's f64 hold on key 24: the Pathfinder stage of
+    ``pathfinder_adaptation`` (every iterate and ELBO of every path, the
+    draws, the PSIS weights, the inverse mass matrix), the free run's first
+    steps, and every dual-averaging step taken on the card from the CPU's
+    state before it. Returns the line's words."""
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.adaptation import pathfinder_adaptation as pa
+    from blackjax_tpu_torch.adaptation.base import return_all_adapt_info
+    from blackjax_tpu_torch.mcmc import hmc
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+    from blackjax_tpu_torch.util import tree_map
+    from blackjax_tpu_torch.vi import multipathfinder
+
+    logdensity_fn = ill_conditioned_gaussian(PF_D).logdensity_fn
+    x0 = prng.normal(prng.key(PF_START_SEED), (PF_CMP_CHAINS, PF_D), torch.float64)[0]
+    runs, stages = {}, {}
+    multi, batch = multipathfinder.multi_approximate, multipathfinder._approximate
+    for where in ("cpu", dev):
+        # the run's own Pathfinder stage, its every iterate kept
+        captured = {}
+
+        def keep(*args, **kwargs):
+            kwargs["keep_path"] = True
+            best, captured["path"] = batch(*args, **kwargs)
+            return best, None
+
+        def recorded(*args, **kwargs):
+            captured["state"], info = multi(*args, **kwargs)
+            return captured["state"], info
+
+        multipathfinder._approximate, multipathfinder.multi_approximate = keep, recorded
+        try:
+            runs[where] = pathfinder_run(torch, x0.to(where), prng.key(24, where), PF_CMP_STEPS,
+                                         num_chains=PF_CMP_CHAINS)
+        finally:
+            multipathfinder._approximate, multipathfinder.multi_approximate = batch, multi
+        stages[where] = (captured["path"], captured["state"],
+                         multipathfinder.psis_weights(captured["state"])[0])
+    (card_path, card_mpf, card_w), (cpu_path, cpu_mpf, cpu_w) = stages[dev], stages["cpu"]
+    finite = torch.isfinite(cpu_path.elbo)
+    _require(bool(torch.equal(finite, torch.isfinite(card_path.elbo).cpu())),
+             "phase 22 f64: the card's eligible iterates are not the CPU's")
+    stage = max([_relative(card_path.elbo[finite.to(dev)], cpu_path.elbo[finite])]
+                + [_relative(getattr(card_path, f), getattr(cpu_path, f))
+                   for f in ("position", "grad_position", "alpha", "beta", "gamma")]
+                + [_relative(getattr(card_mpf, f), getattr(cpu_mpf, f))
+                   for f in ("samples", "logp", "logq")] + [_relative(card_w, cpu_w)])
+    (card_s, card_p), card_i = runs[dev]
+    (cpu_s, cpu_p), cpu_i = runs["cpu"]
+    imm = max(_relative(card_p[k], cpu_p[k])
+              for k in ("inverse_mass_matrix", "_pathfinder_psis_pareto_k"))
+    free = max(_relative(getattr(card_i.state, f)[:, :PF_CMP_FREE],
+                         getattr(cpu_i.state, f)[:, :PF_CMP_FREE]) for f in card_i.state._fields)
+    free = max(free, _relative(card_i.adaptation_state.step_size[:, :PF_CMP_FREE],
+                               cpu_i.adaptation_state.step_size[:, :PF_CMP_FREE]))
+    diverged = _relative(card_s.position, cpu_s.position)
+    # every step on the card from the CPU's state before it
+    chains_key = prng.split(prng.key(24, dev), 3)[2]
+    step_keys = prng.split(prng.split(chains_key, PF_CMP_CHAINS), PF_CMP_STEPS)
+    update = pa.base(0.80)[2]
+    kernel = hmc.build_kernel()
+    steps = 0.0
+    for t in range(1, PF_CMP_STEPS):
+        before = tree_map(lambda a: a[:, t - 1].to(dev), (cpu_i.state, cpu_i.adaptation_state))
+        state, adaptation, _ = pa._step_size_loop(
+            kernel, logdensity_fn, update, return_all_adapt_info,
+            {"num_integration_steps": PF_INTEGRATION_STEPS}, step_keys[:, t:t + 1], *before, 1)
+        steps = max([steps] + [_relative(a, b[:, t]) for a, b in zip(state, cpu_i.state)]
+                    + [_relative(a, b[:, t]) for a, b in zip(adaptation.ss_state,
+                                                             cpu_i.adaptation_state.ss_state)])
+    final = max(_relative(state.position, cpu_s.position),
+                _relative(torch.exp(adaptation.ss_state.log_step_size_avg),
+                          cpu_p["step_size"]))
+    _require(max(stage, imm, free, steps, final) <= PF_CMP_TOL,
+             f"phase 22 f64: the Pathfinder stage {stage}, imm and k-hat {imm}, the free run's "
+             f"first steps {free}, the steps {steps}, the final states and step sizes {final}")
+    return (f"the Pathfinder stage (every iterate, gradient, alpha, beta, gamma and finite ELBO "
+            f"of all {PF_CMP_CHAINS} paths, {int(finite.sum())} of {finite.numel()} iterates "
+            f"eligible on both; the 200 draws a path, their log-densities and PSIS weights) "
+            f"within {stage:.3g}; the inverse mass matrix and k-hat within {imm:.3g}; the free "
+            f"run's first {PF_CMP_FREE} steps (states and step sizes) within {free:.3g}; every "
+            f"step {1}-{PF_CMP_STEPS - 1} on the card from the CPU's state before it within "
+            f"{steps:.3g}, the final states and per-chain step sizes within {final:.3g} "
+            f"(relative to max(|x|, 1), tolerance {PF_CMP_TOL}); the free runs' final positions "
+            f"part by {diverged:.3g} (the dual averaging's first steps pass the leapfrog's "
+            f"stability limit, where rounding grows about tenfold a step)")
+
+
+def pathfinder_path(torch, dev, smi):
+    """Phase 22: Pathfinder on config #5's target and start on the card
+    (see the head of this file). Returns the threefry and normal launches of
+    the timed run on key 0."""
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.adaptation import pathfinder_adaptation as pa
+    from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
+    from blackjax_tpu_torch.mcmc.metrics import lbfgs_inverse_hessian_to_low_rank_metric
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+    from blackjax_tpu_torch.optimizers import lbfgs, optax_twins
+    from blackjax_tpu_torch.optimizers.lbfgs import lbfgs_inverse_hessian_formula_1
+    from blackjax_tpu_torch.vi import pathfinder
+
+    target = ill_conditioned_gaussian(PF_D)
+    variances = torch.tensor(target.std, dtype=torch.float64) ** 2
+    position = prng.normal(prng.key(PF_START_SEED, dev), (PF_CHAINS, PF_D), torch.float32)[0]
+    keys = prng.split(prng.key(PF_KEY_SEED, dev), PF_KEYS)
+    filtered = {"adaptation_info_fn": get_filter_adapt_info_fn(
+        info_keys={"acceptance_rate"}, adapt_state_keys={"step_size"})}
+    parts = {}
+    t_part = time.perf_counter()
+    # warms the kernels and the allocator, and counts the host syncs: the
+    # dual-averaging steps make none, the metric's one factor before them one
+    with _pathfinder_stages(torch, dc) as warm:
+        _, stacks = _host_syncs(torch, lambda: pathfinder_run(
+            torch, position, keys[1], PF_WARM_STEPS, **filtered))
+    factor_syncs, step_syncs = _in_pathfinder_step(stacks)
+    _require(factor_syncs <= 1 and step_syncs == 0,
+             f"phase 22: {step_syncs} host syncs in {PF_WARM_STEPS} dual-averaging steps, "
+             f"{factor_syncs} in the metric's factor")
+    parts["warm run (the sync count on)"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    args = list(warm["args"])
+    args[5] = args[5][:, :PF_BUSY_STEPS]  # the step keys, (chains, steps, 2)
+    busy = _device_busy(torch, lambda: pa._step_size_loop(*args))
+    parts["busy-share run"] = time.perf_counter() - t_part
+
+    runs = []
+    for i in range(PF_KEYS):
+        steps = PF_STEPS if i == 0 else PF_CHEAP_STEPS
+        for name in dc.LAUNCHES:
+            dc.LAUNCHES[name] = 0
+        lbfgs.HOST_LOOPS["lbfgs"] = optax_twins.HOST_LOOPS["zoom_linesearch"] = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        with _pathfinder_stages(torch, dc) as marks:
+            (states, params), info = pathfinder_run(torch, position, keys[i], steps, **filtered)
+        end.record()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        card, finite = _on_card(torch, (states, info, params["step_size"],
+                                        params["inverse_mass_matrix"],
+                                        params["_pathfinder_psis_pareto_k"]))
+        _require(card, f"phase 22 key {i}: a state, info or parameter tensor is not on the card")
+        _require(finite, f"phase 22 key {i}: non-finite values")
+        summary = pathfinder_summary(torch, params, states.position, variances)
+        bands = PATHFINDER_REFERENCE if steps == PF_STEPS else PATHFINDER_REFERENCE_CHEAP
+        for name, (mean, half) in bands.items():
+            _require(abs(summary[name] - mean) <= half,
+                     f"phase 22 key {i}: {name} {summary[name]} outside {mean} +- {half}")
+        runs.append({"steps": steps, "secs": secs, "events_ms": start.elapsed_time(end),
+                     "pathfinder_s": marks["start"] - t0, "loop_s": marks["end"] - marks["start"],
+                     "stage_launches": {k: marks["launches"][k] for k in PRNG_KERNELS},
+                     "launches": {k: dc.LAUNCHES[k] for k in PRNG_KERNELS},
+                     "lbfgs": lbfgs.HOST_LOOPS["lbfgs"],
+                     "linesearch": optax_twins.HOST_LOOPS["zoom_linesearch"],
+                     "acceptance": float(info.info.acceptance_rate[:, -1].double().mean()),
+                     "summary": summary, "bands": bands})
+        del states, info
+    parts["key 0's timed run"] = runs[0]["secs"]
+    parts["keys 1-2"] = sum(r["secs"] for r in runs[1:])
+    r0 = runs[0]
+    launches22 = r0["launches"]
+    loop_launches = {k: launches22[k] - r0["stage_launches"][k] for k in PRNG_KERNELS}
+    _require(r0["stage_launches"]["threefry2x32"] > 0 and r0["stage_launches"]["normal"] > 0
+             and loop_launches["threefry2x32"] > 0 and loop_launches["normal"] > 0,
+             f"phase 22: a stage launched no threefry or normal kernel: {launches22}")
+
+    busy_words = "not measured (no device record)" if busy is None else (
+        f"{busy[0]:.3f} ms of device records ({busy[1]}) in {busy[2]:.3f} ms: busy "
+        f"{busy[0] / busy[2]:.4f}")
+    grads = PF_CHAINS * PF_INTEGRATION_STEPS * PF_STEPS
+    loop_s = r0["loop_s"]
+    print(f"phase 22 pathfinder_adaptation(hmc, num_integration_steps={PF_INTEGRATION_STEPS}) "
+          f"on config #5's target and start (benchmarks/tracked.py:744-788): "
+          f"ill_conditioned_gaussian({PF_D}), {PF_CHAINS} chains and paths of 200 draws from row "
+          f"0 of normal(key({PF_START_SEED})), f32, the info cut to the acceptance rates and "
+          f"step sizes, after a warm run of {PF_WARM_STEPS} steps: split(key({PF_KEY_SEED}), "
+          f"{PF_KEYS})[0] at {PF_STEPS} steps {r0['secs']:.3f} s by host clock, "
+          f"{r0['events_ms']:.1f} ms by CUDA events: the Pathfinder stage (L-BFGS, ELBOs, PSIS, "
+          f"the mixture covariance, the starts) {r0['pathfinder_s']:.3f} s, "
+          f"{r0['lbfgs']} L-BFGS iterations and {r0['linesearch']} line-search iterations of "
+          f"the batch, threefry launches {r0['stage_launches']['threefry2x32']}, normal "
+          f"launches {r0['stage_launches']['normal']}; the dual-averaging stage "
+          f"{loop_s:.3f} s, {loop_s / PF_STEPS * 1e3:.3f} host ms a step, "
+          f"{grads / loop_s:.6g} leapfrog-grads/sec, {PF_CHAINS * PF_STEPS / loop_s:.6g} "
+          f"chain-steps/sec ({PF_CHAINS * PF_STEPS / r0['secs']:.6g} over the whole call), "
+          f"threefry launches {loop_launches['threefry2x32']} "
+          f"({loop_launches['threefry2x32'] / PF_STEPS:.2f} a step), normal launches "
+          f"{loop_launches['normal']} ({loop_launches['normal'] / PF_STEPS:.2f} a step); host "
+          f"syncs {step_syncs} in the warm run's {PF_WARM_STEPS} dual-averaging steps and "
+          f"{factor_syncs} in the metric's factor before them ({len(stacks)} in the whole warm "
+          f"run, at {sorted({s[-1] for s in stacks})}); device {busy_words} ({PF_BUSY_STEPS} "
+          f"dual-averaging steps of the warm run, rerun); the last step's mean acceptance "
+          f"{r0['acceptance']:.4f} ({smi})")
+    for i, r in enumerate(runs):
+        print(f"phase 22 key {i} ({r['steps']} steps, {r['secs']:.3f} s: Pathfinder "
+              f"{r['pathfinder_s']:.3f} s with {r['lbfgs']} L-BFGS and {r['linesearch']} "
+              f"line-search iterations, dual averaging {r['loop_s']:.3f} s): " + ", ".join(
+                  f"{name} {value:.5f}" + (
+                      f" (the JAX package's {r['bands'][name][0]:.5f} +- "
+                      f"{r['bands'][name][1]:.5f})" if name in r["bands"] else " (reported)")
+                  for name, value in r["summary"].items()))
+
+    t_part = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pf_state, pf_info = blackjax_tpu_torch.pathfinder.approximate(keys[0], target.logdensity_fn,
+                                                                  position)
+    draws, logq = pathfinder.sample(keys[1], pf_state, PF_DRAWS)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    card, finite = _on_card(torch, (pf_state, draws, logq))
+    _require(card and finite and draws.shape == (PF_DRAWS, PF_D),
+             "phase 22 single path: a tensor off the card, not finite or misshapen")
+    payload = lbfgs_inverse_hessian_to_low_rank_metric(pf_state.alpha, pf_state.beta,
+                                                       pf_state.gamma)
+    dense = lbfgs_inverse_hessian_formula_1(pf_state.alpha, pf_state.beta, pf_state.gamma)
+    sigma = payload.sigma
+    operator = sigma[:, None] * (torch.eye(PF_D, device=dev) + (payload.U * (payload.lam - 1.0))
+                                 @ payload.U.T) * sigma[None, :]
+    low_rank_err = float((operator - dense).abs().max() / dense.abs().max())
+    _require(low_rank_err <= PF_LOW_RANK_TOL,
+             f"phase 22: the low-rank payload's operator parts from formula 1 by {low_rank_err}")
+    best = int(torch.argmax(pf_info.path.elbo))
+    multi = blackjax_tpu_torch.multipathfinder(target.logdensity_fn)
+    starts = position[None] + 2.0 * prng.normal(keys[2], (PF_CHAINS, PF_D), torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mpf_state, _ = multi.init(keys[2], starts)
+    resampled = multi.sample(keys[0], mpf_state, PF_DRAWS)
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    card, finite = _on_card(torch, (mpf_state, resampled))
+    _require(card and finite and resampled.shape == (PF_DRAWS, PF_D),
+             "phase 22 multipathfinder: a tensor off the card, not finite or misshapen")
+    parts["single path and multipathfinder"] = time.perf_counter() - t_part
+    print(f"phase 22 pathfinder.approximate + sample of {PF_DRAWS} draws on the card, f32: "
+          f"{single_s:.3f} s, the best ELBO {float(pf_info.path.elbo[best]):.4f} at iterate "
+          f"{best} of {pf_info.path.elbo.numel()}; lbfgs_inverse_hessian_to_low_rank_metric of "
+          f"its state (rank {payload.lam.numel()}, lam {float(payload.lam.min()):.4f}-"
+          f"{float(payload.lam.max()):.4f}) as its operator within {low_rank_err:.3g} of "
+          f"formula 1 (relative to its largest entry; tolerance {PF_LOW_RANK_TOL}); "
+          f"multipathfinder init on {PF_CHAINS} paths of 200 draws + sample of {PF_DRAWS} "
+          f"(PSIS resampling of {PF_CHAINS * 200} pooled draws) {multi_s:.3f} s; every value "
+          f"finite and on the card ({smi})")
+    del mpf_state, resampled, draws
+    torch.cuda.empty_cache()
+
+    t_part = time.perf_counter()
+    print(f"phase 22 f64 hold, the card against the port on the CPU, {PF_CMP_CHAINS} chains x "
+          f"{PF_CMP_STEPS} steps at d = {PF_D}, key 24: " + pathfinder_holds(torch, dev)
+          + f" ({smi})")
+    parts["f64 hold"] = time.perf_counter() - t_part
+    print("phase 22 host seconds by part: "
+          + ", ".join(f"{name} {secs:.1f}" for name, secs in parts.items()))
+    return launches22
 
 
 def main() -> int:
@@ -4253,13 +4699,17 @@ def main() -> int:
     marks.append((21, time.perf_counter()))
     path21 = meads_path(torch, dev, smi)
 
+    # ---- phase 22: Pathfinder on config #5's target and start ----
+    marks.append((22, time.perf_counter()))
+    path22 = pathfinder_path(torch, dev, smi)
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
 
     # the threefry and normal kernels' launches on every path that draws
     path_launches = {k: sum(p[k] for p in (launches12, path16, path17, path18, path19, path20,
-                                           path21))
+                                           path21, path22))
                      for k in PRNG_KERNELS}
     lf_ops = C * ((HMC_STEPS + 1) * GRAD_OPS["hierarchical"] * D
                   + HMC_STEPS * LEAPFROG_STEP_OPS * D)

@@ -1659,3 +1659,116 @@ def test_draws_svd_recipe_on_the_card_is_the_cpu_one(cuda):
                          ((payload.U * payload.lam) @ payload.U.T).cpu())
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# Pathfinder (phase 22): the card against the CPU port, in f64
+# ---------------------------------------------------------------------------
+
+def test_lbfgs_batch_on_the_card_is_the_cpu_run(cuda):
+    """Five paths of ``ill_conditioned_gaussian(12)`` whose trip counts
+    differ: the same counters, histories within 1e-12."""
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+    from blackjax_tpu_torch.optimizers import lbfgs
+
+    fun = lambda x: -ill_conditioned_gaussian(12).logdensity_fn(x)  # noqa: E731
+    starts = torch.from_numpy(np.random.default_rng(2).standard_normal((5, 12))
+                              * np.array([[0.01], [0.3], [1.0], [3.0], [30.0]]))
+    card_step, card = lbfgs.minimize_lbfgs(fun, starts.to(cuda))
+    cpu_step, cpu = lbfgs.minimize_lbfgs(fun, starts)
+    assert card.x.is_cuda and torch.equal(card_step.state.iter_num.cpu(), cpu_step.state.iter_num)
+    assert torch.equal(card.update_mask.cpu(), cpu.update_mask)
+    for field in ("x", "f", "g", "alpha"):
+        np.testing.assert_allclose(getattr(card, field).cpu().numpy(),
+                                   getattr(cpu, field).numpy(), rtol=1e-12, atol=1e-12)
+
+
+def test_multi_approximate_on_the_card_is_the_cpu_run(cuda):
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+    from blackjax_tpu_torch.vi import multipathfinder
+
+    logdensity_fn = ill_conditioned_gaussian(30).logdensity_fn
+    starts = torch.from_numpy(2.0 * np.random.default_rng(6).standard_normal((8, 30)))
+    out = {}
+    for dev in ("cpu", cuda):
+        state, _ = multipathfinder.multi_approximate(prng.key(3, dev), logdensity_fn,
+                                                     starts.to(dev), 50)
+        out[str(dev)] = (state, multipathfinder.psis_weights(state))
+    (card, (card_w, card_k)), (cpu, (cpu_w, cpu_k)) = out["cuda"], out["cpu"]
+    assert card.samples.is_cuda
+    for a, b in ((card.samples, cpu.samples), (card.logp, cpu.logp), (card.logq, cpu.logq),
+                 (card.path_states.elbo, cpu.path_states.elbo),
+                 (card.path_states.beta, cpu.path_states.beta), (card_w, cpu_w), (card_k, cpu_k)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-10, atol=1e-10)
+
+
+def test_pathfinder_adaptation_f64_hold(cuda):
+    """Phase 22's hold: the Pathfinder stage, the free run's first steps and
+    every step from the CPU's state, 16 chains x 40 steps at d = 100."""
+    import chip_smoke
+
+    assert "within" in chip_smoke.pathfinder_holds(torch, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pathfinder_step_reads_nothing_back_on_the_card(cuda, dtype):
+    import chip_smoke
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.adaptation.base import get_filter_adapt_info_fn
+
+    x = prng.normal(prng.key(19, cuda), (100,), dtype)
+    keep = {"adaptation_info_fn": get_filter_adapt_info_fn(info_keys={"acceptance_rate"},
+                                                           adapt_state_keys={"step_size"})}
+    key = prng.key(1, cuda)
+    chip_smoke.pathfinder_run(torch, x, key, 2, num_chains=256, **keep)  # warm
+    _, stacks = chip_smoke._host_syncs(
+        torch, lambda: chip_smoke.pathfinder_run(torch, x, key, 8, num_chains=256, **keep))
+    factor, step = chip_smoke._in_pathfinder_step(stacks)
+    assert step == 0 and factor <= 1, "a dual-averaging step reads back, or the metric twice"
+    assert len(stacks) > 8, "the Pathfinder stage reads its loops' masks back"
+
+
+def test_low_rank_metric_on_the_card(cuda):
+    """The payload of a chosen state as its operator: formula 1's within
+    1e-4 in f32 on the card, the CPU's within 1e-10 in f64."""
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.mcmc.metrics import lbfgs_inverse_hessian_to_low_rank_metric
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+    from blackjax_tpu_torch.optimizers.lbfgs import lbfgs_inverse_hessian_formula_1
+    from blackjax_tpu_torch.vi import pathfinder
+
+    def operator(payload):
+        eye = torch.eye(payload.sigma.numel(), dtype=payload.sigma.dtype,
+                        device=payload.sigma.device)
+        middle = eye + (payload.U * (payload.lam - 1.0)) @ payload.U.T
+        return payload.sigma[:, None] * middle * payload.sigma[None, :]
+
+    target = ill_conditioned_gaussian(100)
+    ops = {}
+    for dev, dtype in ((cuda, torch.float32), (cuda, torch.float64), ("cpu", torch.float64)):
+        x0 = prng.normal(prng.key(19, dev), (100,), dtype)
+        state, _ = pathfinder.approximate(prng.key(2, dev), target.logdensity_fn, x0)
+        payload = lbfgs_inverse_hessian_to_low_rank_metric(state.alpha, state.beta, state.gamma)
+        ops[(str(dev), dtype)] = operator(payload)
+        if dtype == torch.float32:
+            dense = lbfgs_inverse_hessian_formula_1(state.alpha, state.beta, state.gamma)
+            assert float((ops[(str(dev), dtype)] - dense).abs().max() / dense.abs().max()) <= 1e-4
+    np.testing.assert_allclose(ops[("cuda", torch.float64)].cpu().numpy(),
+                               ops[("cpu", torch.float64)].numpy(), rtol=1e-10, atol=1e-10)
+
+
+def test_bfgs_sample_gives_nan_where_no_factor_exists_on_the_card(cuda):
+    """JAX's ``cholesky`` returns NaN for a matrix that is not positive
+    definite and Pathfinder relies on it: ``cholesky_ex``'s status, read on
+    the card, does the same."""
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.optimizers.lbfgs import bfgs_sample
+
+    d, m = 6, 2
+    beta = torch.eye(d, 2 * m, dtype=torch.float64, device=cuda)
+    gamma = -4.0 * torch.eye(2 * m, dtype=torch.float64, device=cuda)
+    alpha = torch.ones(d, dtype=torch.float64, device=cuda)
+    phi, logq = bfgs_sample(prng.key(0, cuda), 3, torch.zeros_like(alpha), torch.zeros_like(alpha),
+                            alpha, beta, gamma)
+    assert phi.is_cuda and bool(torch.isnan(phi).all()) and bool(torch.isnan(logq).all())

@@ -83,9 +83,13 @@ def test_plain_transition_matches_reference_step(case, d):
     ref, ref_state, target, state, imm = _setup(case, d, STEP_SIZES[case, d])
     before = dict(fl.LAUNCHES)
     outcomes, worst = set(), 0.0
+    # one compile of the reference's step, at XLA's optimization level 0 with
+    # its older fusion emitters (a quicker compile of the interpreted kernel)
+    ref_step = jax.jit(ref.step, compiler_options={"xla_backend_optimization_level": 0,
+                                                   "xla_cpu_use_fusion_emitters": False})
     for key in jax.random.split(jax.random.key(d), TRANSITIONS):
         z, u = _reference_draws(key, d)
-        ref_state, ref_info = ref.step(key, ref_state)
+        ref_state, ref_info = ref_step(key, ref_state)
         x, ld, p_accept, accept, energy = fl._hmc_transition_plain(
             state.positions, state.logdensities, z, u, imm, STEP_SIZES[case, d],
             target=target, num_steps=STEPS)

@@ -180,11 +180,15 @@ def test_fused_hmc_step_on_the_reference_draws(case):
         np.asarray(ref_state.logdensities), rtol=TOL, atol=TOL,
     )
     accepted, worst = 0, 0.0
+    # one compile of the reference's step, at XLA's optimization level 0 with
+    # its older fusion emitters (a quicker compile of the interpreted kernel)
+    ref_step = jax.jit(ref.step, compiler_options={"xla_backend_optimization_level": 0,
+                                                   "xla_cpu_use_fusion_emitters": False})
     for key in jax.random.split(jax.random.key(4), 3):
         key_momentum, key_accept = jax.random.split(key)
         z = jax.random.normal(key_momentum, (C, D), jnp.float32)
         u = jax.random.uniform(key_accept, (C,))
-        ref_state, ref_info = ref.step(key, ref_state)
+        ref_state, ref_info = ref_step(key, ref_state)
         state, info = port.step_from_draws(state, interop.to_tensor(z), interop.to_tensor(u))
         np.testing.assert_array_equal(info.is_accepted.numpy(), np.asarray(ref_info.is_accepted))
         for a, b in [(state.positions, ref_state.positions),

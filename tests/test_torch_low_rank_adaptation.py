@@ -46,11 +46,16 @@ CORES = {
 }
 
 
+# the JAX side at XLA's optimization level 0 with its older CPU fusion
+# emitters: a quicker compile
+OPT0 = {"xla_backend_optimization_level": 0, "xla_cpu_use_fusion_emitters": False}
+
 def _ref_core(name):
     """The reference's core, its update and final jitted once (each of its
     eager calls would trace both branches of a ``lax.cond`` again)."""
     core = jrecipes.lookup_recipe(name).build_core(**CORES[name])
-    return core._replace(update=jax.jit(core.update), final=jax.jit(core.final))
+    return core._replace(update=jax.jit(core.update, compiler_options=OPT0),
+                         final=jax.jit(core.final, compiler_options=OPT0))
 
 
 def _assert_same_state(port_state, ref_state):

@@ -302,7 +302,9 @@ def test_find_L_and_step_size_statistically():
     # one compiled call of the reference's tuner: run eagerly, it compiles
     # each of its ~150 small steps on its own (same results, measured)
     ref_params, ref_total = jax.jit(lambda s, k: jada.mclmc_find_L_and_step_size(
-        jmclmc.build_kernel(), num_steps, s, k, logdensity_fn=jld)[1:])(ref_state, key_tune)
+        jmclmc.build_kernel(), num_steps, s, k, logdensity_fn=jld)[1:],
+        compiler_options={"xla_backend_optimization_level": 0,
+                          "xla_cpu_use_fusion_emitters": False})(ref_state, key_tune)
     ref_total = int(ref_total)
     gen = torch.Generator().manual_seed(12)
     state = mclmc.init(_t(x0), tld, gen)

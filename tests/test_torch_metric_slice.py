@@ -13,6 +13,8 @@ transitions here; ``chip_smoke.py`` holds the full-width run to 0.15 sd and
 :func:`reference_moments` computes the posterior that ``chip_smoke.py``
 phase 11 holds its 4,096 x 54 run against.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -32,6 +34,10 @@ from blackjax_tpu_torch.mcmc.metrics import LowRankInverseMassMatrix  # noqa: E4
 from blackjax_tpu_torch.ops import targets_dc as port_dc  # noqa: E402
 from blackjax_tpu_torch.ops.fused_nuts_dc import fused_nuts_run_dc  # noqa: E402
 
+
+# the JAX side at XLA's optimization level 0 with its older CPU fusion
+# emitters: a quicker compile
+OPT0 = {"xla_backend_optimization_level": 0, "xla_cpu_use_fusion_emitters": False}
 
 def logreg_data(n, d, seed):
     """``chip_smoke.py``'s logistic-regression data (phase 9): ``X ~ N(0, 1)``
@@ -142,12 +148,12 @@ def reference_moments(n=4096, d=54, seed=9, num_warmup=1000, num_chains=64,
     # init and the ESS compile each of their small steps on their own
     results = jax.jit(lambda k: window_adaptation(
         jnuts, target.logdensity_fn, is_mass_matrix_diagonal=False
-    ).run(k, jnp.zeros(d), num_warmup)[0])(warm_key)
+    ).run(k, jnp.zeros(d), num_warmup)[0], compiler_options=OPT0)(warm_key)
     params = results.parameters
     algo = blackjax_tpu.nuts(target.logdensity_fn, **params)
     start = results.state.position + 0.01 * jax.random.normal(pos_key, (num_chains, d))
 
-    @jax.jit
+    @functools.partial(jax.jit, compiler_options=OPT0)
     def run(start, keys):
         def one(states, ks):
             states, infos = jax.vmap(algo.step)(ks, states)

@@ -37,6 +37,10 @@ IMM = np.array([1.0, 2.0, 0.5, 1.5])
 ENGINES = ["flattened", "nested"]
 
 
+# the JAX side at XLA's optimization level 0 with its older CPU fusion
+# emitters: a quicker compile
+OPT0 = {"xla_backend_optimization_level": 0, "xla_cpu_use_fusion_emitters": False}
+
 def jlogdensity(x):
     return -0.5 * jnp.sum(x**2 / jnp.asarray(VAR))
 
@@ -81,7 +85,8 @@ def reference_proposal(request):
     jis = jintegrators.IntegratorState(jstate.position, jnp.asarray(m), *jstate[1:])
     # one compiled call: run eagerly, each step of the proposal's loop
     # compiles on its own
-    jout, jinfo = jax.jit(jax.vmap(jpropose, (0, 0, None)))(keys, jis, step_size)
+    jout, jinfo = jax.jit(jax.vmap(jpropose, (0, 0, None)),
+                          compiler_options=OPT0)(keys, jis, step_size)
     return x, m, keys, step_size, threshold, jout, jinfo
 
 
@@ -114,7 +119,8 @@ def reference_chains():
     x0 = np.random.default_rng(4).standard_normal((chains, DIM))
     jkernel = jnuts.build_kernel()
     jstate = jax.vmap(lambda x: jnuts.init(x, jlogdensity))(jnp.asarray(x0))
-    jstep = jax.jit(jax.vmap(jkernel, (0, 0, None, None, None)), static_argnums=(2,))
+    jstep = jax.jit(jax.vmap(jkernel, (0, 0, None, None, None)), static_argnums=(2,),
+                    compiler_options=OPT0)
     base = jax.random.key(21)
     keys, steps, positions = [], [], []
     for i in range(25):

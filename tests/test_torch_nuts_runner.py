@@ -98,8 +98,12 @@ def test_runner_matches_the_reference_runner(setup):
     x0 = setup[0]
     rng_keys = _keys(S_REFERENCE)
     jstates = jax.vmap(lambda x: jnuts.init(x, jlogdensity))(jnp.asarray(x0))
+    # one compile at XLA's optimization level 0 with its older fusion
+    # emitters: a quicker compile of the unrolled runner
     jrun = jax.jit(jnuts.build_fused_many_steps(jlogdensity, STEP_SIZE, jnp.ones(DIM),
-                                                num_steps=S_REFERENCE))
+                                                num_steps=S_REFERENCE),
+                   compiler_options={"xla_backend_optimization_level": 0,
+                                     "xla_cpu_use_fusion_emitters": False})
     jfinal, jhist, jgrads = jrun(rng_keys, jstates)
     final, hist, grads = _run(setup, S_REFERENCE,
                               interop.prng_key(jax.random.key_data(rng_keys)))

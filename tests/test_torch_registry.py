@@ -20,8 +20,11 @@
 - Persistent sampling, pretuning and nested slice sampling (``smc_family``,
   ``ns_family``) are exported as the reference builds them, the families'
   members in its order, every ``ns`` module's ``__all__`` its reference
-  module's; with ``chees_adaptation`` and ``meads_adaptation``, 61 of its 78
-  names.
+  module's; with ``chees_adaptation`` and ``meads_adaptation``, and
+  Pathfinder's five (``pathfinder``, ``multipathfinder``, ``lbfgs``,
+  ``pathfinder_adaptation``, ``VIAlgorithm``), 66 of its 78 names; the
+  ported ``vi``, ``optimizers.lbfgs`` and ``adaptation.pathfinder_adaptation``
+  modules export their reference modules' names.
 - ``pyproject.toml``'s package data names every CUDA source under ``csrc/``,
   so that an installed copy can build its kernels.
 """
@@ -103,8 +106,9 @@ def test_smc_modules_are_reachable(module):
 
 
 def test_the_registry_holds_59_of_the_reference_s_names():
-    """61 of the 78 since ``meads_adaptation`` (the test keeps its name)."""
-    assert len(set(blackjax_tpu_torch.__all__)) == 61 and len(set(blackjax_tpu.__all__)) == 78
+    """66 of the 78 since Pathfinder's five names (the test keeps its
+    name)."""
+    assert len(set(blackjax_tpu_torch.__all__)) == 66 and len(set(blackjax_tpu.__all__)) == 78
     assert set(blackjax_tpu_torch.__all__) <= set(blackjax_tpu.__all__)
 
 
@@ -233,6 +237,38 @@ def test_family_lists_and_diagnostics_names():
     assert port.additive_step_random_walk.normal_random_walk is port.normal_random_walk
     assert port.ess_tail is port.diagnostics.ess_tail
     assert port.pareto_khat is port.diagnostics.pareto_khat
+
+
+def test_pathfinder_names_are_built_as_the_reference_builds_them():
+    """``pathfinder`` a ``GeneratePathfinderAPI`` over the module's
+    functions, ``multipathfinder`` its module's ``as_top_level_api``,
+    ``lbfgs`` the module, ``pathfinder_adaptation`` the warmup function
+    (``blackjax_tpu/__init__.py:16, 26, 130, 287-290``)."""
+    from blackjax_tpu.adaptation import pathfinder_adaptation as ref_pa
+    from blackjax_tpu_torch.adaptation import pathfinder_adaptation as port_pa
+    from blackjax_tpu_torch.base import VIAlgorithm
+    from blackjax_tpu_torch.optimizers import lbfgs
+    from blackjax_tpu_torch.vi import multipathfinder, pathfinder
+
+    api = blackjax_tpu_torch.pathfinder
+    assert type(api).__name__ == type(blackjax_tpu.pathfinder).__name__ == "GeneratePathfinderAPI"
+    assert api.differentiable is pathfinder.as_top_level_api
+    assert api.approximate is pathfinder.approximate and api.sample is pathfinder.sample
+    assert blackjax_tpu_torch.multipathfinder is multipathfinder.as_top_level_api
+    assert blackjax_tpu_torch.lbfgs is lbfgs
+    assert blackjax_tpu_torch.pathfinder_adaptation is port_pa.pathfinder_adaptation
+    assert blackjax_tpu_torch.VIAlgorithm is VIAlgorithm
+    assert set(port_pa.__all__) == set(ref_pa.__all__)
+    assert "pathfinder_adaptation" in blackjax_tpu_torch.adaptation.__all__
+
+
+@pytest.mark.parametrize("module", ["vi.pathfinder", "vi.multipathfinder", "optimizers.lbfgs"])
+def test_pathfinder_modules_export_the_reference_s_names(module):
+    mod = importlib.import_module(f"blackjax_tpu_torch.{module}")
+    ref = importlib.import_module(f"blackjax_tpu.{module}")
+    assert set(mod.__all__) == set(ref.__all__)
+    for name in mod.__all__:
+        assert hasattr(mod, name), name
 
 
 @pytest.mark.parametrize("module", [
