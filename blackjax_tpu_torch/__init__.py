@@ -33,7 +33,8 @@ nested slice samplers ``nss``, ``nsswig`` and ``ns_family``;
 ``window_adaptation_low_rank``, ``staged_adaptation``,
 ``mclmc_find_L_and_step_size``, ``dual_averaging_adaptation``,
 ``chees_adaptation``, ``meads_adaptation``, ``pathfinder_adaptation``;
-``pathfinder``, ``multipathfinder`` and ``VIAlgorithm``; ``dual_averaging``,
+``pathfinder``, ``multipathfinder``, ``meanfield_vi``, ``fullrank_vi``,
+``svgd``, ``schrodinger_follmer`` and ``VIAlgorithm``; ``dual_averaging``,
 ``lbfgs``, ``diagnostics`` (with ``ess``, ``ess_bulk``,
 ``ess_tail``, ``pareto_khat`` and ``rhat``) and ``util``.
 """
@@ -88,8 +89,12 @@ from blackjax_tpu_torch.smc import partial_posteriors_path as _partial_posterior
 from blackjax_tpu_torch.smc import persistent_sampling as _persistent_sampling
 from blackjax_tpu_torch.smc import pretuning as _pretuning
 from blackjax_tpu_torch.smc import tempered as _tempered
+from blackjax_tpu_torch.vi import fullrank_vi as _fullrank_vi
+from blackjax_tpu_torch.vi import meanfield_vi as _meanfield_vi
 from blackjax_tpu_torch.vi import multipathfinder as _multipathfinder
 from blackjax_tpu_torch.vi import pathfinder as _pathfinder
+from blackjax_tpu_torch.vi import schrodinger_follmer as _schrodinger_follmer
+from blackjax_tpu_torch.vi import svgd as _svgd
 
 __version__ = "0.1.0"
 
@@ -108,6 +113,21 @@ class GenerateSamplingAPI:
 
     def register_factory(self, name, callable):
         setattr(self, name, callable)
+
+
+@dataclasses.dataclass
+class GenerateVariationalAPI:
+    """A variational family's surface (reference
+    ``blackjax_tpu/__init__.py:119``): the call builds the ``VIAlgorithm``;
+    ``init``, ``step`` and ``sample`` are the module's functions."""
+
+    differentiable: Callable
+    init: Callable
+    step: Callable
+    sample: Callable
+
+    def __call__(self, *args, **kwargs) -> VIAlgorithm:
+        return self.differentiable(*args, **kwargs)
 
 
 @dataclasses.dataclass
@@ -200,6 +220,25 @@ nss = GenerateSamplingAPI(_nss.as_top_level_api, _nss.init, _nss.build_kernel)
 nsswig = GenerateSamplingAPI(_nss.swig_as_top_level_api, _nss.init, _nss.build_swig_kernel)
 ns_family = [nss, nsswig]
 
+svgd = generate_top_level_api_from(_svgd)
+meanfield_vi = GenerateVariationalAPI(
+    _meanfield_vi.as_top_level_api,
+    _meanfield_vi.init,
+    _meanfield_vi.step,
+    _meanfield_vi.sample,
+)
+fullrank_vi = GenerateVariationalAPI(
+    _fullrank_vi.as_top_level_api,
+    _fullrank_vi.init,
+    _fullrank_vi.step,
+    _fullrank_vi.sample,
+)
+schrodinger_follmer = GenerateVariationalAPI(
+    _schrodinger_follmer.as_top_level_api,
+    _schrodinger_follmer.init,
+    _schrodinger_follmer.step,
+    _schrodinger_follmer.sample,
+)
 pathfinder = GeneratePathfinderAPI(
     _pathfinder.as_top_level_api, _pathfinder.approximate, _pathfinder.sample
 )
@@ -255,6 +294,10 @@ __all__ = [
     "nss",
     "nsswig",
     "ns_family",
+    "svgd",
+    "meanfield_vi",
+    "fullrank_vi",
+    "schrodinger_follmer",
     "pathfinder",
     "multipathfinder",
     "VIAlgorithm",

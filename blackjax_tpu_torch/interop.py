@@ -17,7 +17,10 @@ periodic orbital and mGrad, with mGrad's ``CovarianceSVD``), and the ChEES
 warmup's controller state (with its dual-averaging and optax Adam states)
 and tuned parameters, and Pathfinder's records (``PathfinderState``,
 ``LBFGSHistory``, ``MultipathfinderState`` and the Pathfinder warmup's
-``PathfinderAdaptationState``).
+``PathfinderAdaptationState``), and the variational families' states
+(``MFVIState``, ``FRVIState``, ``SVGDState``, ``SchrodingerFollmerState``)
+with the optax states inside them (Adam's ``ScaleByAdamState``, sgd's
+``TraceState`` and the stateless ``EmptyState``) as the port's twins.
 """
 import numpy as np
 import torch
@@ -56,7 +59,7 @@ from blackjax_tpu_torch.ops import fused_nuts_dc, targets_dc
 from blackjax_tpu_torch.ops.fused_hmc import FusedHMCState
 from blackjax_tpu_torch.optimizers.dual_averaging import DualAveragingState
 from blackjax_tpu_torch.optimizers.lbfgs import LBFGSHistory
-from blackjax_tpu_torch.optimizers.optax_twins import EmptyState, ScaleByAdamState
+from blackjax_tpu_torch.optimizers.optax_twins import EmptyState, ScaleByAdamState, TraceState
 from blackjax_tpu_torch.ops.fused_nuts import make_mxu_safe_hierarchical_target
 from blackjax_tpu_torch.ops.fused_leapfrog import (
     TargetKernel,
@@ -65,8 +68,12 @@ from blackjax_tpu_torch.ops.fused_leapfrog import (
     make_hierarchical_gaussian_target,
     make_logistic_regression_target,
 )
+from blackjax_tpu_torch.vi.fullrank_vi import FRVIState
+from blackjax_tpu_torch.vi.meanfield_vi import MFVIState
 from blackjax_tpu_torch.vi.multipathfinder import MultipathfinderState
 from blackjax_tpu_torch.vi.pathfinder import PathfinderState
+from blackjax_tpu_torch.vi.schrodinger_follmer import SchrodingerFollmerState
+from blackjax_tpu_torch.vi.svgd import SVGDState
 
 __all__ = [
     "to_tensor",
@@ -223,7 +230,8 @@ _RECORDS = {cls.__name__: cls for cls in (
     GHMCState, BarkerState, BarkerInfo, RWState, RWInfo, EllipSliceState, EllipSliceInfo,
     SliceState, SliceInfo, PeriodicOrbitalState, PeriodicOrbitalInfo, MarginalState,
     MarginalInfo, CovarianceSVD, StateWithLogLikelihood, NSState, NSInfo, AdaptiveNSState,
-    NSIntegrator, ConstrainedMCMCInfo)}
+    NSIntegrator, ConstrainedMCMCInfo, ScaleByAdamState, TraceState, EmptyState, MFVIState,
+    FRVIState, SVGDState, SchrodingerFollmerState)}
 
 
 def _tree(value, device, dtype):
@@ -333,8 +341,12 @@ def pathfinder_adaptation_state(state, *, device=None, dtype=None) -> Pathfinder
 def sampler_state(state, *, device=None, dtype=None):
     """A state or info record of the reference's samplers (GHMC, Barker,
     the random walks, elliptical slice, slice, periodic orbital, mGrad, or
-    an HMC record), fields as arrays, as the port's record of the same
-    name."""
+    an HMC record) or variational families (``MFVIState``, ``FRVIState``,
+    ``SVGDState`` with its kernel parameters, ``SchrodingerFollmerState``,
+    with the optax states inside: Adam's ``(ScaleByAdamState(count, mu,
+    nu), EmptyState())``, sgd's ``(TraceState(trace) or EmptyState(),
+    EmptyState())``, the int32 ``count`` kept), fields as arrays, as the
+    port's record of the same name."""
     return _tree(state, device, dtype)
 
 

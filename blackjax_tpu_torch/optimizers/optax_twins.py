@@ -12,6 +12,16 @@ into one), then the scale. So optax's updates compiled in a ``scan`` and
 these agree bit for bit. Parameters and updates are tensors or tuples of
 tensors. ``apply_updates`` adds the updates in the parameters' dtypes.
 
+``sgd`` is optax 0.2.6's ``sgd(learning_rate, momentum, nesterov)``:
+``chain(trace(decay=momentum, nesterov), scale(-learning_rate))`` with
+momentum, ``chain(identity(), scale(-learning_rate))`` without, the state
+``(TraceState(trace) or EmptyState(), EmptyState())``. ``trace`` is ``t = g +
+decay t`` and, with Nesterov's momentum, the update ``g + decay t`` of the new
+trace, each one fused multiply-add, as XLA contracts them in a compiled loop of
+updates; so ``sgd``'s updates and states agree with optax's bit for bit. (XLA
+may also contract the parameters' ``p + (-lr) t`` where the update and its
+application fuse, on some lanes and not others; ``apply_updates`` adds.)
+
 ``lbfgs`` is optax 0.2.6's L-BFGS (``alias.py:2591``): ``chain(scale_by_lbfgs(
 memory_size), scale(-1.0), linesearch)`` with ``scale_by_zoom_linesearch``
 (``linesearch.py:455-1646``) behind it, at optax's defaults (the tolerances,
@@ -47,6 +57,9 @@ __all__ = [
     "ScaleByAdamState",
     "EmptyState",
     "adam",
+    "TraceState",
+    "trace",
+    "sgd",
     "apply_updates",
     "scale",
     "ScaleByLBFGSState",
@@ -118,7 +131,7 @@ def _moment(g, m, decay, order):
 def _bias_correction(decay, count, like):
     """``1 - decay**count``, the power in the moment's dtype, as XLA raises a
     float to an int32 array (float32 without x64, float64 with it)."""
-    base = torch.tensor(decay, dtype=like.dtype, device=like.device)
+    base = torch.full((), decay, dtype=like.dtype, device=like.device)  # a fill, no copy
     return 1 - torch.pow(base, count.to(like.dtype))
 
 
@@ -152,6 +165,51 @@ def adam(
             return -learning_rate * (m / (_bias_correction(b1, count, m) * denominator))
 
         return _map(step, mu, nu), (ScaleByAdamState(count, mu, nu), empty)
+
+    return GradientTransformation(init, update)
+
+
+class TraceState(NamedTuple):
+    """optax's ``trace`` state: the trace of past updates."""
+
+    trace: object
+
+
+def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
+    """optax's ``trace(decay, nesterov)``: the trace ``g + decay t`` and,
+    with Nesterov's momentum, the update ``g + decay t`` of the new trace,
+    each rounded once (``torch.addcmul``), as XLA contracts them."""
+
+    def decayed(g, t):
+        return torch.addcmul(g, torch.full_like(t, decay), t)
+
+    def init(params):
+        return TraceState(_map(torch.zeros_like, params))
+
+    def update(updates, state, params=None):
+        del params
+        new_trace = _map(decayed, updates, state.trace)
+        out = _map(decayed, updates, new_trace) if nesterov else new_trace
+        return out, TraceState(new_trace)
+
+    return GradientTransformation(init, update)
+
+
+def sgd(learning_rate: float, momentum: float | None = None,
+        nesterov: bool = False) -> GradientTransformation:
+    """optax's ``sgd(learning_rate, momentum, nesterov)`` (a constant
+    learning rate): :func:`trace` when ``momentum`` is set, else the
+    identity, then the scale by ``-learning_rate``."""
+    inner = trace(momentum, nesterov) if momentum is not None else None
+
+    def init(params):
+        return (EmptyState() if inner is None else inner.init(params)), EmptyState()
+
+    def update(updates, state, params=None):
+        first, empty = state
+        if inner is not None:
+            updates, first = inner.update(updates, first, params)
+        return _map(lambda u: -learning_rate * u, updates), (first, empty)
 
     return GradientTransformation(init, update)
 

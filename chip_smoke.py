@@ -5,7 +5,7 @@ toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's sixteen main paths once, five at the flagship's full
+It drives the port's seventeen main paths once, five at the flagship's full
 width (the 100-dim hierarchical posterior, 4,096 chains), one at the
 Finnish horseshoe's (N=100, M=200, d=404, 512 chains), three at the
 covertype-class logistic regression's (4,096 x 54; 1,024 chains under NUTS,
@@ -19,7 +19,9 @@ one at the tracked SG-MCMC configurations' (SGLD on the covertype-class
 logistic regression, one chain and 4,096 chains), one at the tracked
 cross-chain configurations' (ChEES and MEADS, d=100, 4,096 chains), one
 at Pathfinder's warmup on config #5's target and start (4,096 chains and
-paths), and reads the card's
+paths), one at the variational families on that target (the Gaussian
+families at 100 draws a step, SVGD on 4,096 particles, 4,096
+Schrödinger-Föllmer bridges), and reads the card's
 FP32 roofline through which their bounds are read, and checks them in
 phases, one line each:
 
@@ -200,9 +202,9 @@ phases, one line each:
    diagonal kernel;
 12. the continuous-runner path, launch counts reset just before it:
    ``mcmc.nuts.build_fused_many_steps`` on phase 4's step size and metric,
-   4,096 chains from phase 4's final positions, 32 transitions (cut from the
+   4,096 chains from phase 4's final positions, 16 transitions (cut from the
    bench's 256: the runner reads its loop condition on the host once per
-   block) at ``unroll=4``, 8 tracked coordinates, keys ``(32, 4096, 2)``
+   block) at ``unroll=4``, 8 tracked coordinates, keys ``(16, 4096, 2)``
    split as ``bench.py:230-232`` splits them; seconds, loop iterations (one
    leaf each), ms per iteration (and at ``unroll=1`` over 8 transitions),
    leaves per transition, grads/s, min-ESS and ESS/s. Every chain must
@@ -460,6 +462,36 @@ phases, one line each:
    within 1e-9 relative to ``max(|x|, 1)``; the free runs' final positions'
    distance is reported (the dual averaging's first steps pass the
    leapfrog's stability limit, where rounding grows tenfold a step).
+23. the rest of ``vi/`` on config #5's target
+   (``benchmarks/tracked.py:744-788``; no published configuration runs
+   these families), f32: ``meanfield_vi`` with ``adam(0.05)`` and
+   ``fullrank_vi`` with ``adam(0.02)`` (the optax twins),
+   ``num_samples=100``, from zeros, 500 steps on the first key of
+   ``split(key(24), 3)`` and 250 (cut) on the other two, step ``i`` on
+   ``fold_in(key, i)``; ``svgd`` with ``sgd(0.02 x 4,096)`` under the median
+   heuristic on the 4,096 particles of ``normal(key(19), (4096, 100))``, 500
+   steps, its statistics at 200 and 500 (SVGD takes no key: one run);
+   ``schrodinger_follmer`` with ``n_steps=100`` and ``n_inner_samples=200``
+   over 4,096 bridges on each of the three keys. Each family first runs 2
+   steps warm, then a short run in torch's CUDA sync debug mode (0 host
+   syncs inside a step required) and 8 steps under the profiler (the busy
+   share); threefry and normal launch counts are reset before each timed
+   run. Its lines give each run's seconds by host clock and CUDA events,
+   host ms a step, steps/sec, gradient evaluations/sec (the Gaussian
+   families: 100 draws a step), particle-steps/sec (SVGD) or
+   bridge-steps/sec, threefry and normal launches a step; each run's
+   statistics must lie within the JAX package's bands
+   (``tools/vi_reference.py``: three keys, or three 1,024-row blocks of the
+   start for SVGD, at 1,024 particles and bridges, with the drift from
+   256): the fitted standard deviations over the target's (smallest,
+   largest), the means' largest ``|mu| / sd``, the final ELBO and
+   full-rank's off-diagonal mass of ``L L^T``; the particles' and bridges'
+   variances over the target's (smallest, largest) and their means'
+   largest ``|mean| / sd``; every tensor on the card and finite. Then the
+   f64 hold from key 25: 20 steps of each Gaussian family, SVGD at 256
+   particles x 20 steps, and 64 bridges x 20 steps of 32 inner draws
+   (``sample`` equal to its steps), every step's state on the card within
+   1e-9 of the CPU's, relative to ``max(|x|, 1)``.
 
 A line then gives the host-clock seconds of each phase. The line before
 the last is the per-kernel JSON record: one entry per
@@ -469,9 +501,9 @@ like-for-like times), one per new (kernel, target) pair (phase 9's and
 regression comparison), one for the older machine (phase 13's 512 x 16 times; eight schools'
 launches are phase 15's)
 and one for the threefry kernel with a key per element (phase 2's times on
-1,048,576 keys; its launches are phases 12's and 16-22's), one for the
+1,048,576 keys; its launches are phases 12's and 16-23's), one for the
 normal kernel (phase 2's float32 times; its launches are phases 12's and
-16-22's), and one
+16-23's), and one
 for the VPU-peak kernel (its unfused ``fma`` at N = 4 and 32 warps an SM,
 4,096 iterations; its launches are phase 1's sweep). ``launches`` is the count from the
 main path's run, or, for a pair that no main path drives, from the pair's checked
@@ -540,8 +572,9 @@ VP_ENTRY_ITERS = 4096  # the kernels line's call: unfused fma, N = 4, 32 warps a
 TF_KEYS = 1 << 20  # phase 2's per-element-key threefry check
 # phase 12: the continuous runner, cut from the bench's 256 transitions
 # because it reads its loop condition on the host once per block of leaves
-# (32 since phase 20 took the time of the other 32: it reports ms a loop iteration)
-RUNNER_TRANSITIONS, RUNNER_UNROLL = 32, 4
+# (32 since phase 20 took the time of the other 32, 16 since phase 23 took half of
+# what remained: it reports ms a loop iteration)
+RUNNER_TRANSITIONS, RUNNER_UNROLL = 16, 4
 RUNNER_CMP_CHAINS, RUNNER_CMP_TRANSITIONS = 256, 8  # its bit-identity check
 RUNNER_TOL = 1e-4  # tests/mcmc/test_nuts.py:327, the reference's f32 tolerance
 LEAVES_REL = 0.1  # leaves per transition against the dc machine's
@@ -732,6 +765,81 @@ PF_LOW_RANK_TOL = 1e-4  # the low-rank payload's operator against formula 1, f32
 # d = 100, key 24: the Pathfinder stage whole (every iterate and ELBO of every
 # path), the free run's first 3 steps, then every step from the CPU's state
 PF_CMP_CHAINS, PF_CMP_STEPS, PF_CMP_FREE, PF_CMP_TOL = 16, 40, 3, 1e-9
+# phase 23: the rest of vi/ on config #5's target (benchmarks/tracked.py:744-788;
+# no published configuration runs these families): ill_conditioned_gaussian(100),
+# f32, after a warm run of each. meanfield_vi with adam(0.05) and fullrank_vi with
+# adam(0.02) from zeros, num_samples=100 (the top-level default), 500 steps (the
+# JAX package's ELBO has settled by then), step i on fold_in(key, i), on the
+# three keys of split(key(24), 3); svgd with sgd(0.02 n) under the median
+# heuristic on config #5's start normal(key(19), (4096, 100)), its statistics at
+# 200 and 500 steps (SVGD takes no key: one run; its median heuristic sorts
+# 8,386,560 explicit distances a step, about 6.5 ms on the card, so 500 steps,
+# not 1,000); schrodinger_follmer with n_steps=100 and n_inner_samples=200
+# (tests/vi/test_vi.py's settings) over 4,096 bridges on the same three keys
+VI_D, VI_SEED, VI_KEYS, VI_NUM_SAMPLES = 100, 24, 3, 100
+VI_GAUSSIAN = {"meanfield_vi": (0.05, 500), "fullrank_vi": (0.02, 500)}  # adam's rate, steps
+# keys 1 and 2 run 250 steps (cut from 500), gated against the JAX package's
+# 250-step bands (the "_cut" entries)
+VI_GAUSSIAN_CUT_STEPS = 250
+SVGD_PARTICLES, SVGD_RATE, SVGD_STEPS, SVGD_CUT_STEPS = 4096, 0.02, 500, 200  # rate over n
+SF_BRIDGES, SF_STEPS, SF_INNER = 4096, 100, 200
+# the sync count: a warm run of 5 steps (3 for the bridges' 100-step sample, cut),
+# in CUDA's sync debug mode; the busy share: 8 steps rerun under the profiler
+VI_SYNC_STEPS, VI_BUSY_STEPS = 5, 8
+# each run's statistics: (centre, half width), python tools/vi_reference.py (the
+# JAX package, f32, three keys; SVGD and the bridges at 1,024 particles, three
+# 1,024-row blocks of the start for SVGD: three times their spread, 5 % of the
+# mean, the drift from 256 particles or, about 0, 0.01, whichever is widest;
+# SVGD's centred at 4,096 particles by the drift, linear in log n)
+VI_REFERENCE = {
+    "meanfield_vi": {
+        "sd_ratio_min": (0.99999984513406, 0.049999992256703006),
+        "sd_ratio_max": (1.000000093396954, 0.0500000046698477),
+        "mean_abs_sd": (4.3095029048926644e-08, 0.01),
+        "elbo": (-91.89382934570312, 4.594691467285156),
+    },
+    "meanfield_vi_cut": {
+        "sd_ratio_min": (0.9999798528093226, 0.04999899264046613),
+        "sd_ratio_max": (1.000011563966005, 0.050000578198300255),
+        "mean_abs_sd": (2.4479379095321185e-05, 0.01),
+        "elbo": (-91.8938471476237, 4.594692357381185),
+    },
+    "fullrank_vi": {
+        "sd_ratio_min": (0.9999989807040084, 0.04999994903520042),
+        "sd_ratio_max": (1.0000005654593136, 0.05000002827296568),
+        "mean_abs_sd": (4.1983846268093165e-07, 0.01),
+        "elbo": (-91.89382934570312, 4.594691467285156),
+        "offdiag_mass": (1.205739113793399e-07, 0.01),
+    },
+    "fullrank_vi_cut": {
+        "sd_ratio_min": (0.9999760857065718, 0.049998804285328595),
+        "sd_ratio_max": (1.0047363814543295, 0.05023681907271648),
+        "mean_abs_sd": (0.0010085800076943307, 0.01),
+        "elbo": (-91.89406840006511, 4.594703420003255),
+        "offdiag_mass": (2.34897999997295e-05, 0.01),
+    },
+    "svgd": {
+        "var_ratio_min": (0.0, 0.01),
+        "var_ratio_max": (0.4339431176094523, 0.0715164566706516),
+        "mean_abs_sd": (0.0008054826060594315, 0.01),
+    },
+    "svgd_cut": {
+        "var_ratio_min": (1.444723137743163e-34, 0.01),
+        "var_ratio_max": (0.29516160915131057, 0.0490462650873528),
+        "mean_abs_sd": (0.004305114569851381, 0.010330023436910848),
+    },
+    "schrodinger_follmer": {
+        "var_ratio_min": (0.1496620421263444, 0.03707595632045632),
+        "var_ratio_max": (1.7880963913023116, 0.2188185345294078),
+        "mean_abs_sd": (0.09018508409423943, 0.13063121336204464),
+    },
+}
+# the f64 hold, the card against the CPU from the same key (key(25)): 20 steps
+# of each Gaussian family; SVGD at 256 particles (the start's first
+# rows) x 20 steps; 64 bridges x 20 steps of 32 (cut from 200: the CPU's float64
+# normals take about a microsecond each) inner draws
+VI_CMP_STEPS, VI_CMP_TOL, VI_CMP_SEED = 20, 1e-9, 25
+SVGD_CMP_PARTICLES, SF_CMP_BRIDGES, SF_CMP_INNER = 256, 64, 32
 # phase 17: the MCMC family beyond NUTS on the tracked static-HMC configuration
 # (benchmarks/tracked.py:112-163): ill_conditioned_gaussian(100), 128 chains from
 # 0.5 N(0, I) of numpy seed 7, step size 0.08, 10 integration steps, unit inverse
@@ -3505,6 +3613,321 @@ def pathfinder_path(torch, dev, smi):
     return launches22
 
 
+def vi_gaussian_run(torch, target, name, key, num_steps, dtype, keep=False):
+    """Phase 23's ``name`` (``meanfield_vi`` or ``fullrank_vi``) on
+    ``target`` from zeros of ``dtype`` on ``key``'s device: ``num_steps``
+    steps with the optax twin ``adam`` at phase 23's rate and
+    ``num_samples=100``, step ``i`` on ``fold_in(key, i)`` (the keys folded
+    in one call). Returns the final state, the last info and, with
+    ``keep``, every step's ``(state, info)``."""
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.optimizers import optax_twins
+
+    algo = getattr(blackjax_tpu_torch, name)(target.logdensity_fn,
+                                             optax_twins.adam(VI_GAUSSIAN[name][0]),
+                                             num_samples=VI_NUM_SAMPLES)
+    state = algo.init(torch.zeros(target.dim, dtype=dtype, device=key.device))
+    step_keys = prng.fold_in(key, torch.arange(num_steps, device=key.device))
+    history = []
+    for i in range(num_steps):
+        state, info = algo.step(step_keys[i], state)
+        if keep:
+            history.append((state, info))
+    return state, info, history
+
+
+def vi_svgd_run(torch, target, particles, num_steps, state=None, keep=False):
+    """Phase 23's SVGD from ``particles`` ``(n, d)`` (or on from ``state``):
+    ``svgd`` with the optax twin ``sgd(0.02 n)`` under the median heuristic,
+    the gradients by autograd of the target's log density. Returns the final
+    state and, with ``keep``, every step's."""
+    import blackjax_tpu_torch
+    from blackjax_tpu_torch.optimizers import optax_twins
+    from blackjax_tpu_torch.util import value_and_grad
+
+    algo = blackjax_tpu_torch.svgd(lambda x: value_and_grad(target.logdensity_fn, x)[1],
+                                   optax_twins.sgd(SVGD_RATE * particles.shape[0]))
+    state = algo.init(particles) if state is None else state
+    history = []
+    for _ in range(num_steps):
+        state = algo.step(state)
+        if keep:
+            history.append(state)
+    return state, history
+
+
+def vi_sf_run(torch, target, key, num_bridges, dtype, n_steps=SF_STEPS, n_inner=SF_INNER):
+    """Phase 23's bridges: ``schrodinger_follmer(logdensity, n_steps,
+    n_inner).sample`` of ``num_bridges`` bridges from zeros of ``dtype`` on
+    ``key``'s device."""
+    import blackjax_tpu_torch
+
+    algo = blackjax_tpu_torch.schrodinger_follmer(target.logdensity_fn, n_steps, n_inner)
+    state = algo.init(torch.zeros(target.dim, dtype=dtype, device=key.device))
+    return algo.sample(key, state, num_bridges)
+
+
+def vi_gaussian_summary(torch, name, state, info, std):
+    """A Gaussian fit's gated statistics, as ``tools/vi_reference.py`` reckons
+    them, in float64: the fitted standard deviations over the target's
+    ``std`` (smallest, largest), the means' largest ``|mu| / sd``, the
+    last step's ``info.elbo`` and, full-rank, the off-diagonal mass of ``L
+    L^T``."""
+    from blackjax_tpu_torch.vi.fullrank_vi import _unflatten_cholesky
+
+    std = std.to(state.mu.device)
+    if name == "meanfield_vi":
+        cov = torch.exp(2.0 * state.rho.double())
+        diag = cov
+    else:
+        L = _unflatten_cholesky(state.chol_params.double(), std.numel())
+        cov = L @ L.T
+        diag = torch.diagonal(cov)
+    ratio = diag.sqrt() / std
+    out = {"sd_ratio_min": float(ratio.min()), "sd_ratio_max": float(ratio.max()),
+           "mean_abs_sd": float((state.mu.double() / std).abs().max()),
+           "elbo": float(info.elbo)}
+    if name == "fullrank_vi":
+        out["offdiag_mass"] = float(torch.linalg.norm(cov - torch.diag(diag))
+                                    / torch.linalg.norm(cov))
+    return out
+
+
+def vi_particle_summary(torch, x, std):
+    """Particles' or bridges' ends' gated statistics, in float64: their
+    variances (``ddof = 1``) over the target's (smallest, largest) and their
+    means' largest ``|mean| / sd``."""
+    x = x.double()
+    std = std.to(x.device)
+    ratio = x.var(0) / std**2
+    return {"var_ratio_min": float(ratio.min()), "var_ratio_max": float(ratio.max()),
+            "mean_abs_sd": float((x.mean(0) / std).abs().max())}
+
+
+def _vi_gates(label, summary, bands):
+    for name, (mean, half) in bands.items():
+        _require(abs(summary[name] - mean) <= half,
+                 f"phase 23 {label}: {name} {summary[name]} outside {mean} +- {half}")
+
+
+# the frames of one step of each family, for the sync count
+VI_STEP_FRAMES = {
+    "meanfield_vi": ("meanfield_vi.py", "step"),
+    "fullrank_vi": ("fullrank_vi.py", "step"),
+    "svgd": ("svgd.py", "step_fn"),
+    "schrodinger_follmer": ("schrodinger_follmer.py", "step"),
+}
+
+
+def vi_holds(torch, dev):
+    """Phase 23's f64 hold: each family on the card and on the CPU from the
+    same keys, every step within ``VI_CMP_TOL`` relative to ``max(|x|, 1)``.
+    Returns the line's words."""
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+    from blackjax_tpu_torch.vi import schrodinger_follmer
+
+    target = ill_conditioned_gaussian(VI_D)
+    words = []
+    for name in VI_GAUSSIAN:
+        runs = {where: vi_gaussian_run(torch, target, name, prng.key(VI_CMP_SEED, where),
+                                       VI_CMP_STEPS, torch.float64, keep=True)[2]
+                for where in ("cpu", dev)}
+        worst = max(_relative(a, b) for (card, cpu) in zip(runs[dev], runs["cpu"])
+                    for a, b in zip(card[0][:2] + (card[1].elbo,), cpu[0][:2] + (cpu[1].elbo,)))
+        _require(worst <= VI_CMP_TOL, f"phase 23 f64 {name}: a step parts by {worst}")
+        words.append(f"{name} {VI_CMP_STEPS} steps within {worst:.3g}")
+    # the start's first rows (a draw's counters are its flat indices)
+    start = prng.normal(prng.key(19), (SVGD_CMP_PARTICLES, VI_D), torch.float64)
+    runs = {where: vi_svgd_run(torch, target, start.to(where), VI_CMP_STEPS, keep=True)[1]
+            for where in ("cpu", dev)}
+    worst = max(max(_relative(card.particles, cpu.particles),
+                    _relative(card.kernel_parameters["length_scale"],
+                              cpu.kernel_parameters["length_scale"]))
+                for card, cpu in zip(runs[dev], runs["cpu"]))
+    _require(worst <= VI_CMP_TOL, f"phase 23 f64 svgd: a step parts by {worst}")
+    words.append(f"svgd {SVGD_CMP_PARTICLES} particles x {VI_CMP_STEPS} steps (particles and "
+                 f"length scales) within {worst:.3g}")
+    # the bridges step by step, as ``sample`` steps them, and ``sample`` itself
+    runs = {}
+    for where in ("cpu", dev):
+        key = prng.key(VI_CMP_SEED, where)
+        step_keys = prng.fold_in(key, torch.arange(VI_CMP_STEPS, device=where))
+        states = schrodinger_follmer.SchrodingerFollmerState(
+            torch.zeros(SF_CMP_BRIDGES, VI_D, dtype=torch.float64, device=where),
+            torch.zeros(SF_CMP_BRIDGES, dtype=torch.float64, device=where))
+        history = []
+        for i in range(VI_CMP_STEPS):
+            states, info = schrodinger_follmer.step(
+                prng.split(step_keys[i], SF_CMP_BRIDGES), states, target.logdensity_fn,
+                1.0 / VI_CMP_STEPS, SF_CMP_INNER)
+            history.append((states, info))
+        sampled = vi_sf_run(torch, target, key, SF_CMP_BRIDGES, torch.float64,
+                            n_steps=VI_CMP_STEPS, n_inner=SF_CMP_INNER)
+        _require(bool(torch.equal(sampled.position, states.position)),
+                 f"phase 23 f64 schrodinger_follmer: sample is not its steps on {where}")
+        runs[where] = history
+    worst = max(_relative(a, b) for (card, cpu) in zip(runs[dev], runs["cpu"])
+                for a, b in zip(card[0] + card[1], cpu[0] + cpu[1]))
+    _require(worst <= VI_CMP_TOL, f"phase 23 f64 schrodinger_follmer: a step parts by {worst}")
+    words.append(f"schrodinger_follmer {SF_CMP_BRIDGES} bridges x {VI_CMP_STEPS} steps of "
+                 f"{SF_CMP_INNER} inner draws (positions, times, drifts; sample is its steps) "
+                 f"within {worst:.3g}")
+    return "; ".join(words) + f" (relative to max(|x|, 1), tolerance {VI_CMP_TOL})"
+
+
+def _timed_run(torch, fn):
+    """``fn()`` timed by the host clock (after a device sync) and CUDA
+    events: its result, seconds and milliseconds."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def vi_path(torch, dev, smi):
+    """Phase 23: the rest of ``vi/`` on config #5's target on the card, its
+    gates and the f64 hold (see the head of this file). Returns the
+    threefry and normal launches of the timed runs."""
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+    from blackjax_tpu_torch.ops import fused_nuts_dc as dc
+
+    target = ill_conditioned_gaussian(VI_D)
+    std = torch.tensor(target.std, dtype=torch.float64)
+    keys = prng.split(prng.key(VI_SEED, dev), VI_KEYS)
+    start = prng.normal(prng.key(19, dev), (SVGD_PARTICLES, VI_D), torch.float32)
+    f32 = torch.float32
+    runs = {
+        "meanfield_vi": lambda key, steps: vi_gaussian_run(torch, target, "meanfield_vi", key,
+                                                           steps, f32),
+        "fullrank_vi": lambda key, steps: vi_gaussian_run(torch, target, "fullrank_vi", key,
+                                                          steps, f32),
+        "svgd": lambda key, steps: vi_svgd_run(torch, target, start, steps),
+        "schrodinger_follmer": lambda key, steps: vi_sf_run(torch, target, key, SF_BRIDGES, f32,
+                                                            n_steps=steps),
+    }
+    parts, lines = {}, {}
+    # warm runs (kernels, the allocator, the target's constants), then the
+    # host syncs of a short run in CUDA's sync debug mode and the busy share
+    # of 8 steps rerun under the profiler
+    syncs, busy = {}, {}
+    for name, run in runs.items():
+        steps = 3 if name == "schrodinger_follmer" else VI_SYNC_STEPS
+        t_part = time.perf_counter()
+        run(keys[1], 2)
+        parts[f"{name} warm run"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        _, stacks = _host_syncs(torch, lambda: run(keys[1], steps))
+        frame = VI_STEP_FRAMES[name]
+        syncs[name] = (sum(frame in stack for stack in stacks), len(stacks), steps,
+                       sorted({stack[-1] for stack in stacks}))
+        _require(syncs[name][0] == 0,
+                 f"phase 23 {name}: {syncs[name][0]} host syncs in {steps} steps")
+        busy[name] = _device_busy(torch, lambda: run(keys[1], VI_BUSY_STEPS))
+        parts[f"{name} sync and busy runs"] = time.perf_counter() - t_part
+
+    launches23 = {k: 0 for k in PRNG_KERNELS}
+    for name in runs:
+        for i in range(VI_KEYS if name != "svgd" else 1):
+            for k in dc.LAUNCHES:
+                dc.LAUNCHES[k] = 0
+            if name in VI_GAUSSIAN:
+                steps = VI_GAUSSIAN[name][1] if i == 0 else VI_GAUSSIAN_CUT_STEPS
+                (state, info, _), secs, ms = _timed_run(torch, lambda: runs[name](keys[i], steps))
+                card, finite = _on_card(torch, (state, info))
+                summary = vi_gaussian_summary(torch, name, state, info, std)
+                checks = [(f"key {i}", summary, VI_REFERENCE[name if i == 0 else f"{name}_cut"])]
+                rate = VI_NUM_SAMPLES * steps / secs
+                rate_words = f"{rate:.6g} gradient evaluations/sec ({VI_NUM_SAMPLES} draws a step)"
+            elif name == "svgd":
+                steps = SVGD_STEPS
+                (cut, _), cut_secs, cut_ms = _timed_run(
+                    torch, lambda: runs[name](None, SVGD_CUT_STEPS))
+                cut_summary = vi_particle_summary(torch, cut.particles, std)
+                (state, _), rest_secs, rest_ms = _timed_run(torch, lambda: vi_svgd_run(
+                    torch, target, start, steps - SVGD_CUT_STEPS, state=cut))
+                secs, ms = cut_secs + rest_secs, cut_ms + rest_ms
+                card, finite = _on_card(torch, (state.particles,
+                                                state.kernel_parameters["length_scale"]))
+                summary = vi_particle_summary(torch, state.particles, std)
+                checks = [(f"at step {SVGD_CUT_STEPS}", cut_summary, VI_REFERENCE["svgd_cut"]),
+                          (f"at step {steps}", summary, VI_REFERENCE["svgd"])]
+                summary = {**{f"{k} at {SVGD_CUT_STEPS}": v for k, v in cut_summary.items()},
+                           **summary}
+                rate = SVGD_PARTICLES * steps / secs
+                rate_words = (f"{rate:.6g} particle-steps/sec, length scale "
+                              f"{float(state.kernel_parameters['length_scale']):.5f}")
+            else:
+                steps = SF_STEPS
+                state, secs, ms = _timed_run(torch, lambda: runs[name](keys[i], steps))
+                card, finite = _on_card(torch, state)
+                summary = vi_particle_summary(torch, state.position, std)
+                checks = [(f"key {i}", summary, VI_REFERENCE[name])]
+                rate = SF_BRIDGES * steps / secs
+                rate_words = (f"{rate:.6g} bridge-steps/sec ({SF_BRIDGES * SF_INNER * steps / secs:.6g}"
+                              f" inner log-density evaluations/sec)")
+            _require(card and finite, f"phase 23 {name} key {i}: a tensor off the card or not "
+                                      f"finite")
+            for label, values, bands in checks:
+                _vi_gates(f"{name} {label}", values, bands)
+            counts = {k: dc.LAUNCHES[k] for k in PRNG_KERNELS}
+            for k in PRNG_KERNELS:
+                launches23[k] += counts[k]
+            parts[f"{name} key {i}"] = secs
+            lines.setdefault(name, []).append(
+                ("the run" if name == "svgd" else f"key {i}") + f": {steps} steps {secs:.3f} s by host clock ({ms:.1f} ms by CUDA "
+                f"events), {secs / steps * 1e3:.3f} host ms a step, {steps / secs:.6g} steps/sec, "
+                f"{rate_words}; threefry launches {counts['threefry2x32']} "
+                f"({counts['threefry2x32'] / steps:.2f} a step), normal launches "
+                f"{counts['normal']} ({counts['normal'] / steps:.2f} a step); " + ", ".join(
+                    f"{k} {v:.6g}" for k, v in summary.items()))
+            del state
+    torch.cuda.empty_cache()
+    bands = {name: ", ".join(f"{k} {v[0]:.6g} +- {v[1]:.3g}" for k, v in reference.items())
+             for name, reference in VI_REFERENCE.items()}
+    settings = {
+        "meanfield_vi": f"adam({VI_GAUSSIAN['meanfield_vi'][0]}), num_samples={VI_NUM_SAMPLES}, "
+                        f"from zeros, on split(key({VI_SEED}), {VI_KEYS})",
+        "fullrank_vi": f"adam({VI_GAUSSIAN['fullrank_vi'][0]}), num_samples={VI_NUM_SAMPLES}, "
+                       f"from zeros ({VI_D * (VI_D + 1) // 2} Cholesky parameters), on "
+                       f"split(key({VI_SEED}), {VI_KEYS})",
+        "svgd": f"sgd({SVGD_RATE} x {SVGD_PARTICLES}), the median heuristic over "
+                f"{SVGD_PARTICLES * (SVGD_PARTICLES - 1) // 2} distances a step, "
+                f"{SVGD_PARTICLES} particles from config #5's start normal(key(19))",
+        "schrodinger_follmer": f"n_steps={SF_STEPS}, n_inner_samples={SF_INNER}, {SF_BRIDGES} "
+                               f"bridges ({SF_BRIDGES * SF_INNER * VI_D * 4 / 1e6:.0f} MB of "
+                               f"inner draws a step), on split(key({VI_SEED}), {VI_KEYS})",
+    }
+    for name in runs:
+        b = busy[name]
+        busy_words = "not measured (no device record)" if b is None else (
+            f"{b[0]:.3f} ms of device records ({b[1]}) in {b[2]:.3f} ms: busy {b[0] / b[2]:.4f}")
+        in_step, total, steps, where = syncs[name]
+        cut = {"svgd": f"; at step {SVGD_CUT_STEPS}: {bands.get('svgd_cut')}",
+               "meanfield_vi": f"; keys 1-2 at {VI_GAUSSIAN_CUT_STEPS} steps: "
+                               f"{bands.get('meanfield_vi_cut')}",
+               "fullrank_vi": f"; keys 1-2 at {VI_GAUSSIAN_CUT_STEPS} steps: "
+                              f"{bands.get('fullrank_vi_cut')}"}.get(name, "")
+        print(f"phase 23 {name} on ill_conditioned_gaussian({VI_D}) (benchmarks/tracked.py:"
+              f"744-788), f32, {settings[name]}: " + "; ".join(lines[name])
+              + f"; host syncs {in_step} in the steps of a {steps}-step warm run ({total} in the "
+              f"run, at {where}); device {busy_words} ({VI_BUSY_STEPS} steps rerun); the JAX "
+              f"package's bands (tools/vi_reference.py): {bands[name]}{cut} ({smi})")
+    t_part = time.perf_counter()
+    print(f"phase 23 f64 hold, the card against the port on the CPU at d = {VI_D}, "
+          f"key({VI_CMP_SEED}): " + vi_holds(torch, dev) + f" ({smi})")
+    parts["f64 hold"] = time.perf_counter() - t_part
+    print("phase 23 host seconds by part: "
+          + ", ".join(f"{name} {secs:.1f}" for name, secs in parts.items()))
+    return launches23
+
+
 def main() -> int:
     import torch
 
@@ -4703,13 +5126,17 @@ def main() -> int:
     marks.append((22, time.perf_counter()))
     path22 = pathfinder_path(torch, dev, smi)
 
+    # ---- phase 23: the rest of vi/ on config #5's target ----
+    marks.append((23, time.perf_counter()))
+    path23 = vi_path(torch, dev, smi)
+
     marks.append((None, time.perf_counter()))
     print("wall seconds per phase (host clock): " + ", ".join(
         f"{a}: {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
 
     # the threefry and normal kernels' launches on every path that draws
     path_launches = {k: sum(p[k] for p in (launches12, path16, path17, path18, path19, path20,
-                                           path21, path22))
+                                           path21, path22, path23))
                      for k in PRNG_KERNELS}
     lf_ops = C * ((HMC_STEPS + 1) * GRAD_OPS["hierarchical"] * D
                   + HMC_STEPS * LEAPFROG_STEP_OPS * D)

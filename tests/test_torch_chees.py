@@ -7,6 +7,13 @@ float64 on the same keys (``interop.prng_key``), and float32 where said.
   ``optax.adam(0.25)`` compiled in a ``scan``, as the warmup runs it:
   ``count``, ``mu``, ``nu``, the updates and the parameters, in float64
   (x64) and float32 (JAX without x64).
+- ``optax_twins.sgd(0.3)`` without momentum, with momentum 0.9 and with
+  Nesterov's, over 200 fixed gradients, bit for bit with ``optax.sgd``
+  compiled in a ``scan``: the updates, the trace and the parameters, in
+  float64 and float32. The reference applies the updates through a clip
+  that never binds (+-1e30): where the update and its application fuse,
+  XLA contracts ``p + (-lr) t`` into a fused multiply-add on some lanes of
+  a vector and not on others (SVGD's steps hold it to 1e-10 instead).
 - ``base``'s ``update`` on fixed inputs within 1e-12: divergent chains, NaN
   and +-inf initial positions, the identity and a diagonal metric, and a
   non-finite candidate that takes each fallback (the step size and
@@ -76,7 +83,8 @@ CONTROLLER = ("step_size", "log_step_size_moving_average", "trajectory_length",
 
 def jit(fn, **kwargs):
     """``jax.jit`` at XLA's optimization level 0."""
-    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0}, **kwargs)
+    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0,
+                                         "xla_cpu_use_fusion_emitters": False}, **kwargs)
 
 
 def _close(got, expected, rtol=TOL, atol=1e-12):
@@ -133,6 +141,78 @@ def test_adam_is_optax_bit_for_bit(dtype):
         assert int(adam.count) == int(ref_state.count[i])
         for got, expected in ((params, ref_params), (updates, ref_updates), (adam.mu, ref_state.mu),
                               (adam.nu, ref_state.nu)):
+            for g, e in zip(got, expected):
+                assert g.dtype == tdt
+                np.testing.assert_array_equal(g.numpy(), np.asarray(e[i]))
+
+
+SGD_LR = 0.3
+SGD_SETTINGS = [(None, False), (0.9, False), (0.9, True)]
+
+
+def _sgd_gradients(dtype):
+    rng = np.random.default_rng(1)
+    npdt = np.dtype(dtype)
+    scalar = (rng.standard_normal(200) * 10.0 ** rng.uniform(-3, 3, 200)).astype(npdt)
+    vector = (rng.standard_normal((200, 7)) * 10.0 ** rng.uniform(-3, 3, (200, 7))).astype(npdt)
+    return scalar, vector
+
+
+@pytest.fixture(scope="module")
+def sgd_reference():
+    """``optax.sgd`` in each setting over the same gradients, in a ``scan``:
+    one program a dtype."""
+
+    def reference(dtype):
+        npdt = np.dtype(dtype)
+
+        def settings(gs):
+            out = []
+            for momentum, nesterov in SGD_SETTINGS:
+                opt = optax.sgd(SGD_LR, momentum=momentum, nesterov=nesterov)
+                params = (jnp.asarray(0.3, npdt), jnp.zeros(7, npdt))
+
+                def step(carry, g, opt=opt):
+                    params, state = carry
+                    updates, state = opt.update(g, state, params)
+                    applied = jax.tree.map(lambda u: jnp.clip(u, -1e30, 1e30), updates)
+                    params = optax.apply_updates(params, applied)
+                    return (params, state), (params, updates, state[0])
+
+                out.append(jax.lax.scan(step, (params, opt.init(params)), gs)[1])
+            return out
+
+        scalar, vector = _sgd_gradients(dtype)
+        return jax.jit(settings)((jnp.asarray(scalar), jnp.asarray(vector)))
+
+    out = {"float64": reference("float64")}
+    with jax.enable_x64(False):
+        out["float32"] = reference("float32")
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("setting", range(len(SGD_SETTINGS)),
+                         ids=["plain", "momentum", "nesterov"])
+def test_sgd_is_optax_bit_for_bit(sgd_reference, dtype, setting):
+    momentum, nesterov = SGD_SETTINGS[setting]
+    ref_params, ref_updates, ref_state = sgd_reference[dtype][setting]
+    tdt = getattr(torch, dtype)
+    scalar, vector = _sgd_gradients(dtype)
+    opt = optax_twins.sgd(SGD_LR, momentum=momentum, nesterov=nesterov)
+    params = (torch.tensor(0.3, dtype=tdt), torch.zeros(7, dtype=tdt))
+    state = opt.init(params)
+    assert isinstance(state[1], optax_twins.EmptyState)
+    assert isinstance(state[0], optax_twins.EmptyState if momentum is None
+                      else optax_twins.TraceState)
+    for i in range(200):
+        updates, state = opt.update((torch.tensor(scalar[i]), torch.from_numpy(vector[i])),
+                                    state, params)
+        params = optax_twins.apply_updates(params, updates)
+        pairs = [(params, ref_params), (updates, ref_updates)]
+        if momentum is not None:
+            pairs.append((state[0].trace, ref_state.trace))
+        for got, expected in pairs:
             for g, e in zip(got, expected):
                 assert g.dtype == tdt
                 np.testing.assert_array_equal(g.numpy(), np.asarray(e[i]))

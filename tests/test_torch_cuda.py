@@ -1772,3 +1772,67 @@ def test_bfgs_sample_gives_nan_where_no_factor_exists_on_the_card(cuda):
     phi, logq = bfgs_sample(prng.key(0, cuda), 3, torch.zeros_like(alpha), torch.zeros_like(alpha),
                             alpha, beta, gamma)
     assert phi.is_cuda and bool(torch.isnan(phi).all()) and bool(torch.isnan(logq).all())
+
+
+def test_vi_f64_hold(cuda):
+    """Phase 23's hold: 20 steps of each Gaussian family, SVGD at 256
+    particles and 64 bridges, at d = 100, the card against the CPU."""
+    import chip_smoke
+
+    assert "within" in chip_smoke.vi_holds(torch, cuda)
+
+
+@pytest.mark.parametrize("name", ["meanfield_vi", "fullrank_vi", "svgd", "schrodinger_follmer"])
+def test_vi_steps_read_nothing_back_on_the_card(cuda, name):
+    """No host sync inside a step (torch's CUDA sync debug mode), at 256
+    particles and bridges."""
+    import chip_smoke
+    from blackjax_tpu_torch import prng
+    from blackjax_tpu_torch.models import ill_conditioned_gaussian
+
+    target = ill_conditioned_gaussian(100)
+    key = prng.key(3, cuda)
+    if name == "svgd":
+        start = prng.normal(prng.key(19, cuda), (256, 100), torch.float32)
+
+        def run(steps):
+            return chip_smoke.vi_svgd_run(torch, target, start, steps)
+    elif name == "schrodinger_follmer":
+        def run(steps):
+            return chip_smoke.vi_sf_run(torch, target, key, 256, torch.float32, n_steps=steps)
+    else:
+        def run(steps):
+            return chip_smoke.vi_gaussian_run(torch, target, name, key, steps, torch.float32)
+    run(2)  # warm: the target's constants
+    _, stacks = chip_smoke._host_syncs(torch, lambda: run(4))
+    assert sum(chip_smoke.VI_STEP_FRAMES[name] in stack for stack in stacks) == 0
+
+
+@pytest.mark.parametrize("momentum, nesterov", [(None, False), (0.9, False), (0.9, True)])
+def test_sgd_twin_on_the_card_is_the_cpu_s(cuda, momentum, nesterov):
+    from blackjax_tpu_torch.optimizers import optax_twins
+
+    rng = np.random.default_rng(1)
+    grads = torch.from_numpy(rng.standard_normal((50, 300)))
+    out = {}
+    for dev in ("cpu", cuda):
+        opt = optax_twins.sgd(0.3, momentum=momentum, nesterov=nesterov)
+        params = torch.zeros(300, dtype=torch.float64, device=dev)
+        state = opt.init(params)
+        for g in grads:
+            updates, state = opt.update(g.to(dev), state, params)
+            params = optax_twins.apply_updates(params, updates)
+        out[str(dev)] = params.cpu()
+    assert torch.equal(out["cpu"], out["cuda"])
+
+
+@pytest.mark.parametrize("n", [80, 301])
+def test_svgd_median_on_the_card_is_the_cpu_s(cuda, n):
+    """The median heuristic's explicit distances and midpoint median, f64."""
+    from blackjax_tpu_torch.vi import svgd
+
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((n, 100)))
+    cpu = svgd.median_heuristic({}, x)["length_scale"]
+    card = svgd.median_heuristic({}, x.to(cuda))["length_scale"]
+    assert card.is_cuda
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-13)

@@ -23,7 +23,8 @@ def _jit(fn, **static):
     """The reference function compiled once at the lowest optimisation
     level (quicker than its ops one by one, where it traces)."""
     return jax.jit(functools.partial(fn, **static),
-                   compiler_options={"xla_backend_optimization_level": 0})
+                   compiler_options={"xla_backend_optimization_level": 0,
+                                     "xla_cpu_use_fusion_emitters": False})
 
 
 def _chains(shape, seed):

@@ -41,7 +41,8 @@ TOL = 1e-12
 D, C, STEPS = 6, 16, 6
 VAR = np.array([0.25, 1.0, 4.0, 9.0, 0.5, 2.0])
 IMM = np.random.default_rng(1).uniform(0.5, 2.0, D)
-JIT = dict(compiler_options={"xla_backend_optimization_level": 0})
+JIT = dict(compiler_options={"xla_backend_optimization_level": 0,
+                             "xla_cpu_use_fusion_emitters": False})
 
 
 def _jld(x):

@@ -7,6 +7,8 @@ rtol 0.15 and the pooled variance within rtol 0.35 at 24 chains x 40
 transitions. What is deterministic is held exactly: ``init`` computes the
 same logdensity and gradient, to 1e-12 in f64.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -41,7 +43,10 @@ def reference_run():
         max_num_doublings=MAX_DOUBLINGS,
     )
 
-    @jax.jit  # one compile; run eagerly, the init and the scan compile apart
+    # one compile, at XLA's optimization level 0 with its older CPU fusion
+    # emitters; run eagerly, the init and the scan compile apart
+    @functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0,
+                                                  "xla_cpu_use_fusion_emitters": False})
     def run(x0, key):
         def one(states, key):
             states, infos = jax.vmap(algo.step)(jax.random.split(key, C), states)

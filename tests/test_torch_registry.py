@@ -22,9 +22,12 @@
   members in its order, every ``ns`` module's ``__all__`` its reference
   module's; with ``chees_adaptation`` and ``meads_adaptation``, and
   Pathfinder's five (``pathfinder``, ``multipathfinder``, ``lbfgs``,
-  ``pathfinder_adaptation``, ``VIAlgorithm``), 66 of its 78 names; the
-  ported ``vi``, ``optimizers.lbfgs`` and ``adaptation.pathfinder_adaptation``
-  modules export their reference modules' names.
+  ``pathfinder_adaptation``, ``VIAlgorithm``), and the rest of ``vi``'s four
+  (``meanfield_vi``, ``fullrank_vi`` and ``schrodinger_follmer`` as
+  ``GenerateVariationalAPI``s, ``svgd`` from its module), 70 of its 78
+  names; the ported ``vi`` modules, ``optimizers.lbfgs`` and
+  ``adaptation.pathfinder_adaptation`` export their reference modules'
+  names.
 - ``pyproject.toml``'s package data names every CUDA source under ``csrc/``,
   so that an installed copy can build its kernels.
 """
@@ -106,9 +109,9 @@ def test_smc_modules_are_reachable(module):
 
 
 def test_the_registry_holds_59_of_the_reference_s_names():
-    """66 of the 78 since Pathfinder's five names (the test keeps its
-    name)."""
-    assert len(set(blackjax_tpu_torch.__all__)) == 66 and len(set(blackjax_tpu.__all__)) == 78
+    """70 of the 78 since the rest of ``vi``'s four names (the test keeps
+    its name)."""
+    assert len(set(blackjax_tpu_torch.__all__)) == 70 and len(set(blackjax_tpu.__all__)) == 78
     assert set(blackjax_tpu_torch.__all__) <= set(blackjax_tpu.__all__)
 
 
@@ -319,3 +322,45 @@ def test_package_data_names_every_cuda_source():
     for path in sources:
         rel = path.relative_to(ROOT / "blackjax_tpu_torch").as_posix()
         assert any(fnmatch.fnmatch(rel, pattern) for pattern in patterns), rel
+
+
+@pytest.mark.parametrize("name", ["meanfield_vi", "fullrank_vi", "schrodinger_follmer"])
+def test_variational_names_are_built_as_the_reference_builds_them(name):
+    """``GenerateVariationalAPI`` over the module's ``as_top_level_api``,
+    ``init``, ``step`` and ``sample`` (``blackjax_tpu/__init__.py:119-127,
+    267-286``)."""
+    module = importlib.import_module(f"blackjax_tpu_torch.vi.{name}")
+    ref = importlib.import_module(f"blackjax_tpu.vi.{name}")
+    api, ref_api = getattr(blackjax_tpu_torch, name), getattr(blackjax_tpu, name)
+    assert type(api).__name__ == type(ref_api).__name__ == "GenerateVariationalAPI"
+    assert name in blackjax_tpu_torch.__all__
+    for field in ("differentiable", "init", "step", "sample"):
+        got, expected = getattr(api, field), getattr(ref_api, field)
+        assert got is getattr(module, expected.__name__)
+        assert expected is getattr(ref, expected.__name__)
+
+
+def test_svgd_is_built_from_its_module():
+    from blackjax_tpu_torch.vi import svgd
+
+    api = blackjax_tpu_torch.svgd
+    assert type(api).__name__ == type(blackjax_tpu.svgd).__name__ == "GenerateSamplingAPI"
+    assert api.differentiable is svgd.as_top_level_api
+    assert api.init is svgd.init and api.build_kernel is svgd.build_kernel
+    assert "svgd" in blackjax_tpu_torch.__all__
+
+
+@pytest.mark.parametrize("module", [
+    "_gaussian_vi", "meanfield_vi", "fullrank_vi", "svgd", "schrodinger_follmer"])
+def test_vi_modules_export_the_reference_s_names(module):
+    import blackjax_tpu.vi
+    import blackjax_tpu_torch.vi
+
+    mod = importlib.import_module(f"blackjax_tpu_torch.vi.{module}")
+    ref = importlib.import_module(f"blackjax_tpu.vi.{module}")
+    assert set(mod.__all__) == set(ref.__all__)
+    for name in mod.__all__:
+        assert hasattr(mod, name), name
+    assert blackjax_tpu_torch.vi.__all__ == blackjax_tpu.vi.__all__
+    if not module.startswith("_"):
+        assert getattr(blackjax_tpu_torch.vi, module) is mod
